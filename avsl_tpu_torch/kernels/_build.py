@@ -1,0 +1,78 @@
+"""Build the port's CUDA kernels with ``nvcc`` at first use and load them
+with ``ctypes``.
+
+Each ``csrc/<name>.cu`` has a plain C interface (no PyTorch headers), so
+one ``nvcc`` call per source takes seconds. The shared library goes to
+``build/avsl_tpu_torch/`` at the repository root (git-ignored), named by
+a hash of the source and flags, so an edited source rebuilds and an
+unchanged one loads from the previous build.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Tuple
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "avsl_tpu_torch"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+BUILD_LOGS: Dict[str, str] = {}
+
+
+def find_nvcc() -> str:
+    for root in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH")):
+        if root and os.path.exists(os.path.join(root, "bin", "nvcc")):
+            return os.path.join(root, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def _target(name: str) -> Tuple[Path, Path]:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return src, BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+
+
+def _compile(name: str) -> Path:
+    src, out = _target(name)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    proc = subprocess.run(
+        [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+        capture_output=True, text=True,
+    )
+    BUILD_LOGS[name] = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed for {src.name}:\n{proc.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load ``csrc/<name>.cu``; cached per process."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(_compile(name)))
+            _libs[name] = lib
+        return lib

@@ -1,0 +1,80 @@
+"""The port stands alone: it imports no JAX, flax or avsl_tpu module, calls
+no library attention, and chip_smoke.py refuses to run without a card."""
+
+import ast
+import os
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+import avsl_tpu_torch
+
+REPO = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((REPO / "avsl_tpu_torch").rglob("*.py"))
+FORBIDDEN_MODULES = ("jax", "flax", "avsl_tpu")
+ALL_SUBMODULES = sorted(
+    m.name for m in pkgutil.walk_packages(avsl_tpu_torch.__path__, "avsl_tpu_torch.")
+)
+
+
+def test_torch_port_imports_no_jax():
+    code = (
+        "import importlib, sys\n"
+        f"for name in {['avsl_tpu_torch', *ALL_SUBMODULES]!r}:\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax')\n"
+        "             or m == 'avsl_tpu' or m.startswith('avsl_tpu.'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert len(ALL_SUBMODULES) >= 20
+
+
+def _violations(path: Path, allow_sdpa: bool):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    found = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            names = []
+        for name in names:
+            if name.split(".")[0] in FORBIDDEN_MODULES:
+                found.append(f"import {name}")
+        if isinstance(node, ast.Attribute) and node.attr == "scaled_dot_product_attention":
+            if not allow_sdpa:
+                found.append("scaled_dot_product_attention")
+        if isinstance(node, ast.Name) and node.id in ("scaled_dot_product_attention", "jax"):
+            found.append(node.id)
+        if isinstance(node, ast.Attribute) and node.attr == "compile" and \
+                isinstance(node.value, ast.Name) and node.value.id == "torch":
+            found.append("torch.compile")
+    return found
+
+
+@pytest.mark.parametrize("path", PORT_FILES + [REPO / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_torch_port_source_names_no_jax_or_library_attention(path):
+    # chip_smoke.py times scaled_dot_product_attention as a yardstick only
+    assert _violations(path, allow_sdpa=path.name == "chip_smoke.py") == []
+
+
+def test_torch_chip_smoke_fails_without_cuda(tmp_path):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    for cwd in (REPO, tmp_path):
+        script = REPO / "chip_smoke.py"
+        if cwd == tmp_path:  # a directory that holds chip_smoke.py and nothing else
+            script = tmp_path / "chip_smoke.py"
+            script.write_text((REPO / "chip_smoke.py").read_text())
+        proc = subprocess.run([sys.executable, str(script)], cwd=cwd, env=env,
+                              capture_output=True, text=True, timeout=300)
+        assert proc.returncode != 0
+        assert '"ok": true' not in proc.stdout
