@@ -19,8 +19,8 @@ def build_target_model(cfg, tokenizer, smoke: bool, ckpt_dir: Optional[str],
 
     if ckpt_dir:
         raise NotImplementedError(
-            "--ckpt_dir: checkpoint restore is not ported yet "
-            "(ROADMAP.md queue 1, item 8: train/checkpoints.py)"
+            "--ckpt_dir: restoring trained weights into the transcriber is not "
+            "ported yet (ROADMAP.md queue 1, item 8: restore_params_only)"
         )
     vocab = tokenizer.add_tokens(["<laugh>"])
     return build_whisper_flamingo(

@@ -6,7 +6,7 @@ Usage: ``python -m avsl_tpu_torch.cli.transcribe --input <dir-or-csv>
 Port of ``avsl_tpu/cli/transcribe.py`` for the audio-only greedy path.
 Without ``--config`` the model is the audio-only Whisper
 (``add_gated_x_attn=0``); a config that asks for the gated video
-cross-attention raises until slice 2. Weights are seeded random until
+cross-attention raises until slice 3. Weights are seeded random until
 checkpoint restore is ported.
 """
 

@@ -21,6 +21,15 @@
 // so its ceiling is the fp32 FMA rate, not the 989 TFLOP/s bf16 peak.
 // Moving QK^T and PV onto wgmma is the next step.
 //
+// Row statistics for the backward (csrc/flash_attn_bwd.cu): when the
+// caller passes `m_out`/`l_out` (fp32 [B,H,Tq]), the kernel also writes
+// each row's final max m and sum l of exp(x - m). They are kept apart, not
+// folded into one log-sum-exp: on a row whose key length is 0 every logit
+// is the finite -1e30, so m = -1e30 and l = Tk, and in fp32
+// -1e30 + log(Tk) rounds back to -1e30, which would make the recomputed
+// weights 1 instead of 1/Tk. With null pointers (serving) nothing else
+// changes.
+//
 // Layout: Q [B,Tq,H,D], K/V [B,Tk,H,D] read through their batch/time/head
 // strides (last dim contiguous), so no transpose copies; O is a
 // contiguous [B,Tq,H,D] allocated by the caller. One block of 256 threads
@@ -64,7 +73,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const int* __restrict__ lengths, int H, int Tq, int Tk,
                  int64_t q_sb, int64_t q_st, int64_t q_sh, int64_t k_sb,
                  int64_t k_st, int64_t k_sh, int64_t v_sb, int64_t v_st,
-                 int64_t v_sh, float scale, int causal) {
+                 int64_t v_sh, float scale, int causal,
+                 float* __restrict__ m_out, float* __restrict__ l_out) {
   constexpr int DC = D / 16;  // output columns per thread
   constexpr int VS = D + PAD;
   extern __shared__ __align__(16) float smem[];
@@ -192,6 +202,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int qi = q0 + ty * 4 + i;
     if (qi >= Tq) continue;
+    if (m_out != nullptr && tx == 0) {  // all 16 lanes of a row agree
+      const int64_t row = (int64_t(b) * H + h) * Tq + qi;
+      m_out[row] = m[i];
+      l_out[row] = l[i];
+    }
     const float inv = 1.0f / l[i];
     T* orow = o + ((int64_t(b) * Tq + qi) * H + h) * D + tx * DC;
 #pragma unroll
@@ -204,7 +219,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    const int* lengths, int B, int H, int Tq, int Tk,
                    int64_t q_sb, int64_t q_st, int64_t q_sh, int64_t k_sb,
                    int64_t k_st, int64_t k_sh, int64_t v_sb, int64_t v_st,
-                   int64_t v_sh, float scale, int causal, cudaStream_t stream) {
+                   int64_t v_sh, float scale, int causal, float* m_out,
+                   float* l_out, cudaStream_t stream) {
   const size_t smem = sizeof(float) * smem_floats<D>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -214,28 +230,36 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   flash_fwd_kernel<T, D><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), lengths, H, Tq, Tk, q_sb,
-      q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, scale, causal);
+      q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, scale, causal, m_out,
+      l_out);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements. `lengths` is
-// a device int32 [B] or null. Returns the cudaError_t of the launch (0 on
-// success); an unsupported D or dtype returns cudaErrorInvalidValue.
+// a device int32 [B] or null. `m_out`/`l_out` are device fp32 [B,H,Tq]
+// for the row statistics, or both null. Returns the cudaError_t of the
+// launch (0 on success); an unsupported D or dtype returns
+// cudaErrorInvalidValue.
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
                               void* o, const void* lengths, int B, int H,
                               int Tq, int Tk, int D, int dtype, long long q_sb,
                               long long q_st, long long q_sh, long long k_sb,
                               long long k_st, long long k_sh, long long v_sb,
                               long long v_st, long long v_sh, float scale,
-                              int causal, void* stream) {
+                              int causal, void* m_out, void* l_out,
+                              void* stream) {
   const int* len = static_cast<const int*>(lengths);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* m = static_cast<float*>(m_out);
+  float* l = static_cast<float*>(l_out);
+  if ((m == nullptr) != (l == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
 #define AVSL_LAUNCH(T, DD)                                                  \
   return static_cast<int>(launch<T, DD>(q, k, v, o, len, B, H, Tq, Tk, q_sb, \
                                         q_st, q_sh, k_sb, k_st, k_sh, v_sb,  \
-                                        v_st, v_sh, scale, causal, s))
+                                        v_st, v_sh, scale, causal, m, l, s))
   if (dtype == 0 && D == 64) AVSL_LAUNCH(float, 64);
   if (dtype == 0 && D == 32) AVSL_LAUNCH(float, 32);
   if (dtype == 1 && D == 64) AVSL_LAUNCH(__nv_bfloat16, 64);

@@ -126,7 +126,7 @@ class StreamingTranscriber:
             if item.get(key) is not None:
                 raise NotImplementedError(
                     f"item {item.get('id')!r} carries {key!r}: video inputs are "
-                    "slice 2 of the port (ROADMAP.md queue 1, items 6-7)"
+                    "slice 3 of the port (ROADMAP.md queue 1, items 6-7)"
                 )
         audio = load_wav(item["audio"]) if isinstance(item["audio"], str) else item["audio"]
         n_samples = min(len(audio), self.audio_max_length)

@@ -27,6 +27,7 @@ NVCC_FLAGS = [
 ]
 
 _lock = threading.Lock()
+_name_locks: Dict[str, threading.Lock] = {}
 _libs: Dict[str, ctypes.CDLL] = {}
 BUILD_LOGS: Dict[str, str] = {}
 
@@ -69,8 +70,12 @@ def _compile(name: str) -> Path:
 
 
 def load_library(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu``; cached per process."""
+    """Build (if needed) and load ``csrc/<name>.cu``; cached per process.
+    Calls for different sources from different threads build at the same
+    time (one ``nvcc`` each)."""
     with _lock:
+        name_lock = _name_locks.setdefault(name, threading.Lock())
+    with name_lock:
         lib = _libs.get(name)
         if lib is None:
             lib = ctypes.CDLL(str(_compile(name)))

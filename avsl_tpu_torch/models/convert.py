@@ -6,6 +6,12 @@ kernels go from flax [in, out] to torch [out, in], Conv1d kernels from
 [k, in, out] to [out, in, k], LayerNorm ``scale`` becomes ``weight``, and
 the encoder's sinusoid position table, a buffer in the OpenAI model, is
 recomputed.
+
+The state dict is fp32, as the JAX train state holds its params.
+``load_state_dict`` copies each value into the module's own dtype: a
+model built with ``param_dtype="float32"`` (training) carries the fp32
+values exactly, and one whose weights are stored in bf16 (serving)
+rounds them, as flax rounds fp32 params to bf16 at each use.
 """
 
 from __future__ import annotations

@@ -2,14 +2,19 @@
 
 Port of the dense, pre-norm parts of ``avsl_tpu/models/layers.py``:
 ``LayerNormF32``, ``sinusoid_embedding``, ``dot_product_attention``,
-``MultiHeadAttention`` (full sequence through the flash-attention kernel,
+``MultiHeadAttention`` (full sequence through the flash-attention kernels,
 scalar-index self cache, precomputed cross cache), ``MLP`` (exact GELU)
-and ``TransformerBlock``. Module and parameter names follow the OpenAI
-Whisper state dict (``attn.query``, ``attn_ln``, ``mlp.0``, ...).
+and ``TransformerBlock`` with residual dropout. Module and parameter names
+follow the OpenAI Whisper state dict (``attn.query``, ``attn_ln``,
+``mlp.0``, ...).
 
-Numerics follow the JAX package: projections run in the model dtype;
+Numerics follow the JAX package: projections run in the compute dtype;
 attention logits, softmax and the weighted sum accumulate in fp32; layer
-norm runs in fp32. The decode caches differ from the JAX package's in
+norm runs in fp32. Weights are stored in ``param_dtype`` (the compute
+dtype when None). When the two differ, as in training (fp32 weights and
+Adam state, bf16 compute), each weight is cast to the compute dtype at
+use, so autograd returns fp32 gradients; when they agree (serving),
+nothing is cast. The decode caches differ from the JAX package's in
 two ways that change no value: they are written in place (the returned
 cache holds the same tensors with the index advanced), and they are held
 head-major, [B,H,T,D] in the model dtype, the layout the batched
@@ -57,6 +62,55 @@ class LayerNormF32(nn.LayerNorm):
         return F.layer_norm(
             x.float(), self.normalized_shape, self.weight, self.bias, self.eps
         ).to(x.dtype)
+
+
+def cast_param(p: Optional[torch.Tensor], dtype: torch.dtype) -> Optional[torch.Tensor]:
+    """``p`` in ``dtype``: the tensor itself when it already is (serving),
+    else a cast that autograd differentiates back to ``p``'s dtype."""
+    return p if p is None or p.dtype == dtype else p.to(dtype)
+
+
+class CastLinear(nn.Linear):
+    """``nn.Linear`` whose weight and bias are cast to ``compute_dtype`` at
+    use when they are stored in another dtype (flax ``Dense`` with
+    ``dtype`` and ``param_dtype``)."""
+
+    def __init__(self, in_features, out_features, bias=True, device=None,
+                 param_dtype=torch.bfloat16, compute_dtype=None):
+        super().__init__(in_features, out_features, bias=bias, device=device, dtype=param_dtype)
+        self.compute_dtype = compute_dtype or param_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, cast_param(self.weight, self.compute_dtype),
+                        cast_param(self.bias, self.compute_dtype))
+
+
+class CastConv1d(nn.Conv1d):
+    """``nn.Conv1d`` whose weight and bias are cast to ``compute_dtype`` at
+    use when they are stored in another dtype."""
+
+    def __init__(self, *args, param_dtype=torch.bfloat16, compute_dtype=None, **kw):
+        super().__init__(*args, dtype=param_dtype, **kw)
+        self.compute_dtype = compute_dtype or param_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x, cast_param(self.weight, self.compute_dtype),
+                                  cast_param(self.bias, self.compute_dtype))
+
+
+def residual_dropout(
+    x: torch.Tensor, rate: float, training: bool, generator: Optional[torch.Generator]
+) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep each element with probability ``1 - rate``
+    and scale it by ``1 / (1 - rate)``; the identity outside training. The
+    mask is drawn from ``generator`` (``F.dropout`` takes none)."""
+    if not training or rate <= 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in training needs an explicit torch.Generator")
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def _matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -125,14 +179,15 @@ class MultiHeadAttention(nn.Module):
     Returns ``(out, new_cache)``; ``new_cache`` is None without a cache.
     """
 
-    def __init__(self, d_model: int, n_heads: int, dtype=torch.bfloat16, device=None):
+    def __init__(self, d_model: int, n_heads: int, dtype=torch.bfloat16, device=None,
+                 param_dtype=None):
         super().__init__()
         self.d_model, self.n_heads = d_model, n_heads
-        kw = dict(device=device, dtype=dtype)
-        self.query = nn.Linear(d_model, d_model, **kw)
-        self.key = nn.Linear(d_model, d_model, bias=False, **kw)  # whisper: no key bias
-        self.value = nn.Linear(d_model, d_model, **kw)
-        self.out = nn.Linear(d_model, d_model, **kw)
+        kw = dict(device=device, param_dtype=param_dtype or dtype, compute_dtype=dtype)
+        self.query = CastLinear(d_model, d_model, **kw)
+        self.key = CastLinear(d_model, d_model, bias=False, **kw)  # whisper: no key bias
+        self.value = CastLinear(d_model, d_model, **kw)
+        self.out = CastLinear(d_model, d_model, **kw)
 
     def _split(self, x: torch.Tensor) -> torch.Tensor:
         b, t, _ = x.shape
@@ -184,15 +239,18 @@ class MultiHeadAttention(nn.Module):
 class MLP(nn.Sequential):
     """fc1 -> exact GELU -> fc2, named ``mlp.0`` / ``mlp.2`` as in Whisper."""
 
-    def __init__(self, d_model: int, d_ff: int, dtype=torch.bfloat16, device=None):
-        kw = dict(device=device, dtype=dtype)
+    def __init__(self, d_model: int, d_ff: int, dtype=torch.bfloat16, device=None,
+                 param_dtype=None):
+        kw = dict(device=device, param_dtype=param_dtype or dtype, compute_dtype=dtype)
         super().__init__(
-            nn.Linear(d_model, d_ff, **kw), nn.GELU(), nn.Linear(d_ff, d_model, **kw)
+            CastLinear(d_model, d_ff, **kw), nn.GELU(), CastLinear(d_ff, d_model, **kw)
         )
 
 
 class TransformerBlock(nn.Module):
-    """Dense pre-norm block: self-attention [+ cross-attention] + MLP."""
+    """Dense pre-norm block: self-attention [+ cross-attention] + MLP, with
+    dropout at ``dropout`` on each sublayer's output before the residual
+    add (in training only)."""
 
     def __init__(
         self,
@@ -203,23 +261,31 @@ class TransformerBlock(nn.Module):
         causal_self_attn: bool = False,
         dtype=torch.bfloat16,
         device=None,
+        param_dtype=None,
+        dropout: float = 0.0,
     ):
         super().__init__()
         self.causal_self_attn = causal_self_attn
-        self.attn = MultiHeadAttention(d_model, n_heads, dtype=dtype, device=device)
+        self.dropout = dropout
+        kw = dict(dtype=dtype, device=device, param_dtype=param_dtype)
+        self.attn = MultiHeadAttention(d_model, n_heads, **kw)
         self.attn_ln = LayerNormF32(d_model, device=device)
         self.has_cross_attn = has_cross_attn
         if has_cross_attn:
-            self.cross_attn = MultiHeadAttention(d_model, n_heads, dtype=dtype, device=device)
+            self.cross_attn = MultiHeadAttention(d_model, n_heads, **kw)
             self.cross_attn_ln = LayerNormF32(d_model, device=device)
-        self.mlp = MLP(d_model, d_ff, dtype=dtype, device=device)
+        self.mlp = MLP(d_model, d_ff, **kw)
         self.mlp_ln = LayerNormF32(d_model, device=device)
+
+    def _residual(self, x, delta, generator):
+        return x + residual_dropout(delta, self.dropout, self.training, generator)
 
     def forward(
         self,
         x: torch.Tensor,
         enc: Optional[torch.Tensor] = None,
         cache: Optional[Cache] = None,
+        generator: Optional[torch.Generator] = None,
     ) -> Tuple[torch.Tensor, Optional[Cache]]:
         new_cache: Optional[Cache] = {} if cache is not None else None
         h, c = self.attn(
@@ -227,7 +293,7 @@ class TransformerBlock(nn.Module):
             cache=None if cache is None else cache.get("self"),
             causal=self.causal_self_attn and cache is None,
         )
-        x = x + h
+        x = self._residual(x, h, generator)
         if new_cache is not None:
             new_cache["self"] = c
         if self.has_cross_attn and (enc is not None or (cache or {}).get("cross")):
@@ -235,8 +301,8 @@ class TransformerBlock(nn.Module):
                 self.cross_attn_ln(x), kv_src=enc,
                 cache=None if cache is None else cache.get("cross"),
             )
-            x = x + h
+            x = self._residual(x, h, generator)
             if new_cache is not None:
                 new_cache["cross"] = c
-        x = x + self.mlp(self.mlp_ln(x))
+        x = self._residual(x, self.mlp(self.mlp_ln(x)), generator)
         return x, new_cache

@@ -1,10 +1,14 @@
 """Whisper encoder/decoder in PyTorch (audio-only).
 
 Port of ``WhisperEncoder``, ``WhisperTextDecoder`` and the ``Whisper``
-methods ``encode``, ``encode_towers``, ``decode`` and
-``init_decode_cache`` from ``avsl_tpu/models/whisper.py``, with the
+methods ``encode``, ``encode_towers``, ``project_and_decode``, ``decode``
+and ``init_decode_cache`` from ``avsl_tpu/models/whisper.py``, with the
 OpenAI state-dict names. Linear, convolution and embedding weights live
-in the model dtype; layer norms in fp32. The gated video cross-attention
+in ``cfg.param_dtype`` and are cast to the compute dtype ``cfg.dtype`` at
+use when the two differ (training: fp32 weights, bf16 compute); layer
+norms are fp32. In training mode (``model.train()``) each block applies
+residual dropout at ``cfg.dropout_rate`` with masks drawn from the
+``generator`` the forward is given. The gated video cross-attention
 (``add_gated_x_attn``) and ``video_projection`` belong to the
 audio-visual slice and are not here yet.
 
@@ -26,8 +30,10 @@ from torch import nn
 from avsl_tpu_torch.core.config import WhisperConfig
 from avsl_tpu_torch.models.layers import (
     Cache,
+    CastConv1d,
     LayerNormF32,
     TransformerBlock,
+    cast_param,
     init_self_attn_cache,
     sinusoid_embedding,
 )
@@ -44,9 +50,14 @@ def torch_dtype(name: str) -> torch.dtype:
 def _video_not_ported():
     return NotImplementedError(
         "add_gated_x_attn=1 and video inputs need the gated video "
-        "cross-attention and the AV-HuBERT tower: slice 2 of the port "
+        "cross-attention and the AV-HuBERT tower: slice 3 of the port "
         "(ROADMAP.md queue 1, items 6-7)"
     )
+
+
+def _dtypes(cfg: WhisperConfig) -> Tuple[torch.dtype, torch.dtype]:
+    """(compute dtype, parameter dtype) of ``cfg``."""
+    return torch_dtype(cfg.dtype), torch_dtype(cfg.param_dtype)
 
 
 class WhisperEncoder(nn.Module):
@@ -54,16 +65,17 @@ class WhisperEncoder(nn.Module):
 
     def __init__(self, cfg: WhisperConfig, device=None):
         super().__init__()
-        dtype = torch_dtype(cfg.dtype)
+        dtype, pdtype = _dtypes(cfg)
         d = cfg.n_audio_state
-        kw = dict(device=device, dtype=dtype)
-        self.conv1 = nn.Conv1d(cfg.n_mels, d, 3, padding=1, **kw)
-        self.conv2 = nn.Conv1d(d, d, 3, stride=2, padding=1, **kw)
+        kw = dict(device=device, param_dtype=pdtype, compute_dtype=dtype)
+        self.conv1 = CastConv1d(cfg.n_mels, d, 3, padding=1, **kw)
+        self.conv2 = CastConv1d(d, d, 3, stride=2, padding=1, **kw)
         self.register_buffer(
-            "positional_embedding", torch.empty((cfg.n_audio_ctx, d), **kw)
+            "positional_embedding", torch.empty((cfg.n_audio_ctx, d), device=device, dtype=dtype)
         )
         self.blocks = nn.ModuleList(
-            TransformerBlock(d, cfg.n_audio_head, 4 * d, dtype=dtype, device=device)
+            TransformerBlock(d, cfg.n_audio_head, 4 * d, dtype=dtype, device=device,
+                             param_dtype=pdtype, dropout=cfg.dropout_rate)
             for _ in range(cfg.n_audio_layer)
         )
         self.ln_post = LayerNormF32(d, device=device)
@@ -73,12 +85,14 @@ class WhisperEncoder(nn.Module):
         with torch.no_grad():
             self.positional_embedding.copy_(torch.from_numpy(table))
 
-    def forward(self, mel: torch.Tensor) -> torch.Tensor:
-        x = F.gelu(self.conv1(mel.to(self.conv1.weight.dtype)))
+    def forward(
+        self, mel: torch.Tensor, generator: Optional[torch.Generator] = None
+    ) -> torch.Tensor:
+        x = F.gelu(self.conv1(mel.to(self.conv1.compute_dtype)))
         x = F.gelu(self.conv2(x)).transpose(1, 2)  # [B, T, d]
         x = x + self.positional_embedding[: x.shape[1]]
         for block in self.blocks:
-            x, _ = block(x)
+            x, _ = block(x, generator=generator)
         return self.ln_post(x)
 
 
@@ -89,16 +103,18 @@ class WhisperTextDecoder(nn.Module):
     def __init__(self, cfg: WhisperConfig, device=None):
         super().__init__()
         self.cfg = cfg
-        dtype = torch_dtype(cfg.dtype)
+        dtype, pdtype = _dtypes(cfg)
+        self.compute_dtype = dtype
         d = cfg.n_text_state
-        self.token_embedding = nn.Embedding(cfg.n_vocab, d, device=device, dtype=dtype)
+        self.token_embedding = nn.Embedding(cfg.n_vocab, d, device=device, dtype=pdtype)
         self.positional_embedding = nn.Parameter(
-            torch.empty((cfg.n_text_ctx, d), device=device, dtype=dtype)
+            torch.empty((cfg.n_text_ctx, d), device=device, dtype=pdtype)
         )
         self.blocks = nn.ModuleList(
             TransformerBlock(
                 d, cfg.n_text_head, 4 * d, has_cross_attn=True,
                 causal_self_attn=True, dtype=dtype, device=device,
+                param_dtype=pdtype, dropout=cfg.dropout_rate,
             )
             for _ in range(cfg.n_text_layer)
         )
@@ -109,9 +125,10 @@ class WhisperTextDecoder(nn.Module):
         tokens: torch.Tensor,
         audio_features: Optional[torch.Tensor] = None,
         cache: Optional[List[Cache]] = None,
+        generator: Optional[torch.Generator] = None,
     ) -> Tuple[torch.Tensor, Optional[List[Cache]]]:
         n_ctx, qlen = self.cfg.n_text_ctx, tokens.shape[1]
-        x = self.token_embedding(tokens)
+        x = self.token_embedding(tokens).to(self.compute_dtype)
         # dynamic_slice semantics: the start clamps so the slice fits
         start = 0
         if cache is not None:
@@ -120,13 +137,16 @@ class WhisperTextDecoder(nn.Module):
 
         new_cache: Optional[List[Cache]] = [] if cache is not None else None
         for i, block in enumerate(self.blocks):
-            x, c = block(x, enc=audio_features, cache=None if cache is None else cache[i])
+            x, c = block(x, enc=audio_features, cache=None if cache is None else cache[i],
+                         generator=generator)
             if new_cache is not None:
                 new_cache.append(c)
         x = self.ln(x)
-        # fp32 products of the model-dtype values, as the JAX einsum with
-        # preferred_element_type=float32
-        logits = F.linear(x.float(), self.token_embedding.weight.float())
+        # fp32 products of the compute-dtype values, as the JAX einsum with
+        # preferred_element_type=float32: the embedding is rounded to the
+        # compute dtype first (a no-op when it is stored in it)
+        emb = cast_param(self.token_embedding.weight, self.compute_dtype)
+        logits = F.linear(x.float(), emb.float())
         return logits, new_cache
 
 
@@ -226,8 +246,31 @@ class Whisper(nn.Module):
             for block in self.decoder.blocks
         ]
 
-    def forward(self, mel: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-        """Teacher-forced logits [B, T, n_vocab] (fp32)."""
-        features, _ = self.encode(mel)
-        logits, _ = self.decode(tokens, features)
+    def project_and_decode(
+        self,
+        tokens: torch.Tensor,
+        audio_features: torch.Tensor,
+        video_feats: Optional[torch.Tensor] = None,
+        video_feature_scale: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        """The trainable tail of the hoisted-tower split: teacher-forced
+        logits from precomputed audio features. ``project_and_decode(t,
+        *encode_towers(mel))`` computes ``decode(t, *encode(mel))``; on the
+        audio-only path there is no video projection."""
+        if video_feats is not None or video_feature_scale is not None:
+            raise _video_not_ported()
+        logits, _ = self.decoder(tokens, audio_features, generator=generator)
+        return logits
+
+    def forward(
+        self,
+        mel: torch.Tensor,
+        tokens: torch.Tensor,
+        generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        """Teacher-forced logits [B, T, n_vocab] (fp32). In training mode
+        dropout masks come from ``generator``."""
+        features = self.encoder(mel, generator=generator)
+        logits, _ = self.decoder(tokens, features, generator=generator)
         return logits

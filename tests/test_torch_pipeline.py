@@ -93,7 +93,7 @@ def test_torch_transcriber_refuses_later_slices(transcribers, option):
 def test_torch_transcriber_refuses_video_items(transcribers, key):
     _, ptr = transcribers
     item = dict(_items(1)[0], **{key: "clip.mp4"})
-    with pytest.raises(NotImplementedError, match="slice 2"):
+    with pytest.raises(NotImplementedError, match="slice 3"):
         ptr.transcribe_batch([item])
 
 

@@ -127,5 +127,5 @@ def test_torch_whisper_schema_matches_jax(size):
 
 
 def test_torch_factory_refuses_gated_x_attn():
-    with pytest.raises(NotImplementedError, match="slice 2"):
+    with pytest.raises(NotImplementedError, match="slice 3"):
         build_whisper_flamingo("test", add_gated_x_attn=1, device="cpu")
