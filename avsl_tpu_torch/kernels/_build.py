@@ -4,8 +4,9 @@ with ``ctypes``.
 Each ``csrc/<name>.cu`` has a plain C interface (no PyTorch headers), so
 one ``nvcc`` call per source takes seconds. The shared library goes to
 ``build/avsl_tpu_torch/`` at the repository root (git-ignored), named by
-a hash of the source and flags, so an edited source rebuilds and an
-unchanged one loads from the previous build.
+a hash of the source, the ``csrc/*.cuh`` headers it includes and the
+flags, so an edited source or header rebuilds and an unchanged one loads
+from the previous build.
 """
 
 from __future__ import annotations
@@ -13,11 +14,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "avsl_tpu_torch"
@@ -45,10 +47,28 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources(src: Path) -> List[Path]:
+    """``src`` and every header in ``CSRC`` that it includes, directly or
+    through another header."""
+    found, todo = [src], [src]
+    while todo:
+        for name in _INCLUDE.findall(todo.pop().read_text()):
+            dep = CSRC / name
+            if dep.exists() and dep not in found:
+                found.append(dep)
+                todo.append(dep)
+    return found
+
+
 def _target(name: str) -> Tuple[Path, Path]:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return src, BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources(src):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    return src, BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def _compile(name: str) -> Path:

@@ -1,6 +1,8 @@
 """Fused (flash-style) attention: the hand-written Hopper kernels
 ``csrc/flash_attn_fwd.cu`` (forward) and ``csrc/flash_attn_bwd.cu``
-(backward) and their plain PyTorch versions.
+(backward) and their plain PyTorch versions. Their bf16 bodies run on
+the tensor cores (``wgmma`` on TMA-fed tiles); their fp32 bodies stay on
+the FMA pipes.
 
 Port of ``avsl_tpu/kernels/attention.py``: ``reference_attention`` is the
 plain version of ``_reference_attention``, ``reference_attention_bwd``
@@ -144,6 +146,21 @@ def _check_operands(named, dtype, device) -> None:
         raise ValueError(f"flash attention takes float32 or bfloat16, got {dtype}")
 
 
+def _check_tma(named) -> None:
+    """The bf16 kernels read their operands by TMA, which takes only base
+    addresses and strides (of dimensions longer than 1) that are multiples
+    of 16 bytes. Raise on anything else: there is no other bf16 path."""
+    for name, t in named:
+        if t.dtype != torch.bfloat16:
+            continue
+        strides = [t.stride(i) * t.element_size() for i in range(3) if t.shape[i] > 1]
+        if t.data_ptr() % 16 or any(s % 16 for s in strides):
+            raise ValueError(
+                f"{name}: bf16 operands need a 16-byte aligned base and [B,T,H] strides "
+                f"of multiples of 16 bytes (TMA); got address {t.data_ptr()} and strides "
+                f"{tuple(t.stride())[:3]} elements")
+
+
 def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     b, _, h, d = q.shape
     if d not in _HEAD_DIMS:
@@ -181,6 +198,7 @@ def flash_attention_fwd_cuda(
     and the kernel writes none. Raises on anything the kernel does not take."""
     _check_operands((("q", q), ("k", k), ("v", v)), q.dtype, q.device)
     _check_shapes(q, k, v)
+    _check_tma((("q", q), ("k", k), ("v", v)))
     b, tq, h, d = q.shape
     tk = k.shape[1]
     lengths = _device_lengths(lengths, b, q.device)
@@ -224,6 +242,7 @@ def flash_attention_bwd_cuda(
     _check_shapes(q, k, v)
     if o.shape != q.shape or do.shape != q.shape:
         raise ValueError(f"o/do shapes {tuple(o.shape)}/{tuple(do.shape)} != q {tuple(q.shape)}")
+    _check_tma((("q", q), ("k", k), ("v", v), ("do", do)))
     b, tq, h, d = q.shape
     tk = k.shape[1]
     for name, t in (("m", m), ("l", l)):

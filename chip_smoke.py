@@ -7,12 +7,17 @@ raises on failure:
 1. header: the card's name and power limit; TF32 off for the comparisons;
 2. build: ``nvcc`` compiles the flash-attention forward and backward
    kernels from ``avsl_tpu_torch/csrc``, one process per source, together;
+   ``cuobjdump -sass`` then counts the tensor-core instructions in each
+   library (``HGMMA`` from wgmma, ``HMMA`` from mma.sync) and the phase
+   fails unless the forward has ``HGMMA`` and the backward either;
 3. kernels against plain: the forward kernel (K1) and its plain PyTorch
-   version at the shapes of the serving path; K1's row statistics against
-   the plain row max and sum; the backward kernel (K2) against its plain
-   version at the shapes of the training path (and the serving encoder's);
-   each with times (CUDA events, median of 20), the yardstick library call
-   and the least time the card could take;
+   version at the shapes of the serving and the training path; K1's row
+   statistics against the plain row max and sum; the backward kernel (K2)
+   against its plain version at the shapes of the training path (and the
+   serving encoder's); bf16 at D = 32 for both; each with times (CUDA
+   events around single calls, median of 20, host launch time included;
+   and device time from torch.profiler), the yardstick library call and
+   the least time the card could take;
 4. small references: the tiny test model's teacher-forced logits on the
    card (through K1) against the same weights on the CPU (plain); one
    bf16 cached cross-attention decode step against upcast fp32 operands;
@@ -43,6 +48,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -97,6 +103,38 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, reps: int = 10):
+    """Device time of ``fn`` in ms: the summed duration of the device work
+    it launched (torch.profiler, device activity only) over ``reps``
+    calls, after one warm-up call; "not measured" when the trace holds no
+    device activity. Unlike :func:`cuda_ms`, it leaves out the host time
+    between launches, which dominates small shapes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a trace now and then comes back empty; take another
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+                    if e.device_type() == torch.autograd.DeviceType.CUDA)
+        if total:
+            return total / reps / 1e6
+    return "not measured"
+
+
+def timings(kernel, plain, library) -> dict:
+    """Event times (median of single calls, host launch time included) and
+    device times of the kernel, its plain version and the library call."""
+    rec = {}
+    for key, fn in (("kernel", kernel), ("plain", plain), ("library", library)):
+        rec[f"{key}_ms"] = cuda_ms(fn)
+        rec[f"{key}_device_ms"] = device_ms(fn)
+    return rec
 
 
 def attention_bound(b, h, tq, tk, d, dtype, causal, lengths, backward=False):
@@ -179,16 +217,20 @@ def check_attention_case(name, b, h, tq, tk, d, dtype, causal=False, lengths=Non
         "case": name, "shape": {"B": b, "H": h, "Tq": tq, "Tk": tk, "D": d},
         "dtype": str(dtype).replace("torch.", ""), "causal": causal, "lengths": lengths,
         "max_abs_err": err.max().item(), "tolerance": tol,
-        "kernel_ms": cuda_ms(kernel), "plain_ms": cuda_ms(plain),
-        "library_ms": cuda_ms(library), "bound_ms": bound_ms, "bound_by": bound_by,
+        **timings(kernel, plain, library), "bound_ms": bound_ms, "bound_by": bound_by,
         "flops": flops, "bytes": nbytes,
     }
     rec["kernel_tflops"] = flops / rec["kernel_ms"] / 1e9
+    if isinstance(rec["kernel_device_ms"], float):
+        rec["kernel_device_tflops"] = flops / rec["kernel_device_ms"] / 1e9
     log(rec)
     return rec
 
 
-def phase_kernels():
+def phase_kernels(label_len: int):
+    """K1 against its plain version at the serving path's shapes, at the
+    training path's (``label_len`` is the longest decoder sequence of the
+    train path) and at the bf16 tensor-core body's second head dim."""
     f32, bf16 = torch.float32, torch.bfloat16
     return [
         check_attention_case("a_encoder_bf16", 8, 20, 1500, 1500, 64, bf16),
@@ -198,6 +240,11 @@ def phase_kernels():
         check_attention_case("d_ragged_lengths", 4, 20, 1003, 1003, 64, bf16,
                              lengths=[0, 1003, 517, 1]),
         check_attention_case("e_tiny_head_dim", 8, 2, 200, 200, 32, f32),
+        check_attention_case("f_train_encoder_bf16", 1, 20, 500, 500, 64, bf16),
+        check_attention_case("g_train_decoder_self_causal", 1, 20, label_len, label_len, 64, bf16,
+                             causal=True),
+        check_attention_case("h_train_cross", 1, 20, label_len, 500, 64, bf16),
+        check_attention_case("i_tiny_head_dim_bf16", 8, 2, 200, 200, 32, bf16),
     ]
 
 
@@ -286,10 +333,11 @@ def check_attention_bwd_case(name, b, h, tq, tk, d, dtype, causal=False, lengths
                                  f"{rec[f'{key}_max_abs_err']:.3e} over {tol}")
     bound_ms, bound_by, flops, nbytes = attention_bound(
         b, h, tq, tk, d, dtype, causal, lengths, backward=True)
-    rec.update({"max_abs_err": worst, "kernel_ms": cuda_ms(kernel), "plain_ms": cuda_ms(plain),
-                "library_ms": cuda_ms(library), "bound_ms": bound_ms, "bound_by": bound_by,
-                "flops": flops, "bytes": nbytes})
+    rec.update({"max_abs_err": worst, **timings(kernel, plain, library),
+                "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops, "bytes": nbytes})
     rec["kernel_tflops"] = flops / rec["kernel_ms"] / 1e9
+    if isinstance(rec["kernel_device_ms"], float):
+        rec["kernel_device_tflops"] = flops / rec["kernel_device_ms"] / 1e9
     log(rec)
     return rec
 
@@ -316,6 +364,7 @@ def phase_kernels_bwd(label_len: int):
                                  lengths=[0, 1003, 517, 1]),
         check_attention_bwd_case("e_tiny_head_dim", 8, 2, 200, 200, 32, f32),
         check_attention_bwd_case("f_serving_encoder_bf16", 8, 20, 1500, 1500, 64, bf16),
+        check_attention_bwd_case("g_tiny_head_dim_bf16", 8, 2, 200, 200, 32, bf16),
     ]
 
 
@@ -698,6 +747,27 @@ def phase_train_main_path(card: str, cfg, tokenizer, batches, out_dir: str):
     return {"k1": k1, "k2": k2}
 
 
+def sass_counts() -> dict:
+    """Tensor-core instructions in each built library, from the toolkit's
+    ``cuobjdump -sass``: ``HGMMA`` (wgmma) and ``HMMA`` (mma.sync)."""
+    from pathlib import Path
+
+    from avsl_tpu_torch.kernels import _build
+
+    cuobjdump = Path(_build.find_nvcc()).parent / "cuobjdump"
+    counts = {}
+    for name in SOURCES:
+        sass = subprocess.run([str(cuobjdump), "-sass", str(_build._target(name)[1])],
+                              capture_output=True, text=True, check=True).stdout
+        ops = re.findall(r"\b(HGMMA|HMMA)\.", sass)
+        counts[name] = {op: ops.count(op) for op in ("HGMMA", "HMMA")}
+    if not counts["flash_attn_fwd"]["HGMMA"]:
+        raise AssertionError(f"flash_attn_fwd has no HGMMA instruction: {counts}")
+    if not sum(counts["flash_attn_bwd"].values()):
+        raise AssertionError(f"flash_attn_bwd has no HGMMA or HMMA instruction: {counts}")
+    return counts
+
+
 def traced_run(fn) -> dict:
     """Wall time of ``fn`` under torch.profiler, the summed duration of the
     device activity it traced, the idle share, and the five device
@@ -759,11 +829,13 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"ptxas[{name}]: {line.strip()}", flush=True)
+    sass = sass_counts()
+    log({"phase": "sass", "tensor_core_instructions": sass})
 
     cfg, tokenizer, train_batches, label_len = prepare_train_path(TRAIN_STEPS)
-    fwd_case = phase_kernels()[0]
+    fwd_cases = phase_kernels(label_len)
     phase_kernel_stats()
-    bwd_case = phase_kernels_bwd(label_len)[0]
+    bwd_cases = phase_kernels_bwd(label_len)
     phase_small_reference()
     phase_cached_attention()
     phase_small_train_reference()
@@ -773,20 +845,25 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as out_dir:
         train_launches = phase_train_main_path(smi, cfg, tokenizer, train_batches, out_dir)
 
-    def entry(name, source, replaces, case, launches):
+    def entry(name, lib, source, replaces, cases, launches):
+        case = cases[0]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": sum(launches.values()), "launches_by_path": launches,
                 "max_abs_err": case["max_abs_err"], "ms": case["kernel_ms"],
                 "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
                 "bound_by": case["bound_by"], "library_ms": case["library_ms"],
-                "shape": case["shape"], "dtype": case["dtype"]}
+                "shape": case["shape"], "dtype": case["dtype"], "sass": sass[lib],
+                "device_ms": case["kernel_device_ms"],
+                "library_device_ms": case["library_device_ms"],
+                "ms_by_case": {c["case"]: c["kernel_ms"] for c in cases},
+                "device_ms_by_case": {c["case"]: c["kernel_device_ms"] for c in cases}}
 
     log({"kernels": [
-        entry("flash_attention_fwd", "avsl_tpu_torch/csrc/flash_attn_fwd.cu",
-              "avsl_tpu/kernels/attention.py:63", fwd_case,
+        entry("flash_attention_fwd", "flash_attn_fwd", "avsl_tpu_torch/csrc/flash_attn_fwd.cu",
+              "avsl_tpu/kernels/attention.py:63", fwd_cases,
               {"serving": serving_launches, "training": train_launches["k1"]}),
-        entry("flash_attention_bwd", "avsl_tpu_torch/csrc/flash_attn_bwd.cu",
-              "avsl_tpu/kernels/attention.py:159", bwd_case,
+        entry("flash_attention_bwd", "flash_attn_bwd", "avsl_tpu_torch/csrc/flash_attn_bwd.cu",
+              "avsl_tpu/kernels/attention.py:159", bwd_cases,
               {"serving": 0, "training": train_launches["k2"]}),
     ]})
     print(smi, flush=True)

@@ -15,6 +15,7 @@ import jax.numpy as jnp
 
 from avsl_tpu.kernels import attention as A
 from avsl_tpu_torch.kernels.attention import (
+    _check_tma,
     flash_attention_fwd_cuda,
     fused_attention,
     reference_attention,
@@ -83,6 +84,29 @@ def test_torch_attention_kernel_refuses_cpu_tensors():
     q, k, v = (torch.from_numpy(x) for x in _inputs(1, 4, 4, 1, 32))
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention_fwd_cuda(q, k, v)
+
+
+@pytest.mark.parametrize("view", ["contiguous", "head_slice", "fp32_odd_offset"])
+def test_torch_attention_tma_check_accepts_what_tma_reads(view):
+    """bf16 operands reach the kernels by TMA: 16-byte aligned bases and
+    strides pass the wrapper's check (an fp32 operand is not checked)."""
+    base = torch.zeros((2, 9, 4, 64), dtype=torch.bfloat16)
+    t = {"contiguous": base, "head_slice": base[:, :, 1:3],
+         "fp32_odd_offset": torch.zeros(2 * 9 * 4 * 64 + 1)[1:].view(2, 9, 4, 64)}[view]
+    _check_tma([("q", t)])
+
+
+@pytest.mark.parametrize("view", ["odd_base", "odd_time_stride"])
+def test_torch_attention_tma_check_refuses_what_tma_cannot_read(view):
+    n = 2 * 9 * 4 * 64
+    make = {  # a base 2 bytes past alignment; a time stride of 260 elements (520 bytes)
+        "odd_base": lambda: torch.zeros(n + 8, dtype=torch.bfloat16)[1:1 + n].view(2, 9, 4, 64),
+        "odd_time_stride": lambda: torch.zeros((2, 9, 260), dtype=torch.bfloat16)[..., :256]
+        .unflatten(-1, (4, 64)),
+    }
+    t = make[view]()
+    with pytest.raises(ValueError, match="TMA"):
+        _check_tma([("q", t)])
 
 
 @pytest.mark.parametrize("case", ["no_mask", "cache_prefix_mask", "cross_one_query"])
