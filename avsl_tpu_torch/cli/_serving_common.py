@@ -32,6 +32,12 @@ def build_target_model(cfg, tokenizer, smoke: bool, ckpt_dir: Optional[str],
     )
 
 
+def serving_video_frames(audio_max_length: int) -> int:
+    """Video frames a serving batch holds: the audio window at 25 fps,
+    at most 250 (10 s)."""
+    return min(int(round(audio_max_length / 16000 * 25)), 250)
+
+
 def build_transcriber(args, cfg):
     from avsl_tpu_torch.data.tokenizer import get_tokenizer
     from avsl_tpu_torch.infer.pipeline import StreamingTranscriber
@@ -44,6 +50,7 @@ def build_transcriber(args, cfg):
     return StreamingTranscriber(
         model, tokenizer,
         audio_max_length=int(cfg.audio_max_length),
+        video_frames=serving_video_frames(int(cfg.audio_max_length)),
         batch_size=args.batch_size,
         max_new_tokens=args.max_new_tokens,
         beam_size=args.beam,

@@ -1,13 +1,16 @@
-"""Batch transcription CLI of the port: directory of wavs -> transcripts JSON.
+"""Batch transcription CLI of the port: directory of segments -> transcripts JSON.
 
 Usage: ``python -m avsl_tpu_torch.cli.transcribe --input <dir-or-csv>
 [--config cfg.yaml] [--device cuda] [--output out.json] [--smoke]``
 
-Port of ``avsl_tpu/cli/transcribe.py`` for the audio-only greedy path.
-Without ``--config`` the model is the audio-only Whisper
-(``add_gated_x_attn=0``); a config that asks for the gated video
-cross-attention raises until slice 3. Weights are seeded random until
-checkpoint restore is ported.
+Port of ``avsl_tpu/cli/transcribe.py`` for greedy decoding: audio wavs
+with optional lip mp4s (``<stem>-lip.mp4``), missing-modality robust.
+Without ``--config`` the model is the JAX CLI's default,
+``FlamingoTrainConfig()``: Whisper large-v2 with the AV-HuBERT video tower
+and gated cross-attention (``--smoke``: the tiny test model). Raw closeups
+(``<stem>-video.mp4``) raise until the lip frontend is ported (ROADMAP.md
+queue 1, item 10). Weights are seeded random until checkpoint restore is
+ported.
 """
 
 from __future__ import annotations
@@ -70,10 +73,7 @@ def main(argv: Optional[List[str]] = None) -> List[Dict[str, Any]]:
     p.add_argument("--smoke", action="store_true")
     args = p.parse_args(argv)
 
-    if args.config:
-        cfg = FlamingoTrainConfig.from_yaml(args.config)
-    else:
-        cfg = FlamingoTrainConfig(add_gated_x_attn=0, use_av_hubert_encoder=False)
+    cfg = FlamingoTrainConfig.from_yaml(args.config) if args.config else FlamingoTrainConfig()
     if args.smoke:
         cfg.model_name = "test"
         cfg.audio_max_length = 16000

@@ -1,5 +1,5 @@
-"""Model and run configuration: Whisper presets, the Whisper-Flamingo
-training/serving config, and the YAML helpers.
+"""Model and run configuration: Whisper presets, the AV-HuBERT config,
+the Whisper-Flamingo training/serving config, and the YAML helpers.
 
 A copy of the matching parts of ``avsl_tpu/core/config.py`` with the same
 fields and defaults (the port may not import the JAX package). PyYAML is
@@ -80,6 +80,151 @@ def namespace_to_dict(ns: Any) -> Any:
     if isinstance(ns, (list, tuple)):
         return [namespace_to_dict(v) for v in ns]
     return ns
+
+
+# ---------------------------------------------------------------------------
+# AV-HuBERT model config
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class AVHuBERTConfig:
+    """AV-HuBERT model configuration (large-model defaults): hidden 1024,
+    24 layers, 16 heads, FFN 4096, 9 decoder layers, 104-dim
+    stacked-fbank audio features, vocab 10000, label smoothing 0.1."""
+
+    # Modalities / fusion
+    use_audio: bool = True
+    use_visual: bool = True
+    modality_fuse: str = "concat"  # "concat" | "add" | "weighted_sum"
+    modality_dropout: float = 0.0
+    audio_dropout: float = 0.0
+
+    # Encoder transformer
+    hidden_size: int = 1024
+    num_hidden_layers: int = 24
+    num_attention_heads: int = 16
+    intermediate_size: int = 4096
+    hidden_act: str = "gelu"
+    layer_norm_first: bool = True
+    layerdrop: float = 0.05
+    conv_pos: int = 128
+    conv_pos_groups: int = 16
+
+    # Visual frontend
+    visual_frontend_channels: int = 64
+    visual_backbone_channels: int = 512
+    resnet_relu_type: str = "prelu"
+
+    # Audio frontend (wav2vec2-style conv stack over 104-dim stacked fbank)
+    audio_feat_dim: int = 104
+    conv_dim: Tuple[int, ...] = (512, 512, 512, 512, 512, 512, 512)
+    conv_stride: Tuple[int, ...] = (5, 2, 2, 2, 2, 2, 2)
+    conv_kernel: Tuple[int, ...] = (10, 3, 3, 3, 3, 2, 2)
+    use_conv_audio_frontend: bool = False
+
+    # Masking (pretraining-style span masks)
+    mask_prob_image: float = 0.3
+    mask_length_image: int = 5
+    mask_prob_audio: float = 0.8
+    mask_length_audio: int = 10
+    mask_time_prob: float = 0.0
+    mask_time_length: int = 10
+    mask_feature_prob: float = 0.0
+    mask_feature_length: int = 10
+
+    # Dropouts
+    hidden_dropout: float = 0.1
+    activation_dropout: float = 0.1
+    attention_dropout: float = 0.1
+    dropout_input: float = 0.1
+    dropout_features: float = 0.1
+    feature_grad_mult: float = 0.1
+
+    # Decoder
+    decoder_hidden_size: int = 1024
+    decoder_ffn_dim: int = 4096
+    decoder_layers: int = 9
+    decoder_attention_heads: int = 8
+    decoder_layerdrop: float = 0.1
+    decoder_normalize_before: bool = True
+    decoder_dropout: float = 0.1
+    decoder_attention_dropout: float = 0.0
+    decoder_activation_dropout: float = 0.1
+    decoder_learned_pos: bool = False
+    max_target_positions: int = 2048
+
+    # Heads / vocab
+    final_dim: int = 256
+    untie_final_proj: bool = True
+    logit_temp: float = 0.1
+    sim_type: str = "cosine"  # "cosine" | "dot"
+    skip_masked: bool = False
+    skip_nomask: bool = False
+    tie_word_embeddings: bool = True
+    vocab_size: int = 10000
+    bos_token_id: int = 0
+    pad_token_id: int = 1
+    eos_token_id: int = 2
+    label_smoothing: float = 0.1
+
+    # Image pipeline
+    image_crop_size: int = 88
+    image_mean: float = 0.421
+    image_std: float = 0.165
+
+    # Execution knobs
+    dtype: str = "bfloat16"
+    param_dtype: str = "float32"
+    remat: bool = False
+    remat_policy: str = "block"
+
+    # Mixture-of-experts encoder FFN (0 = dense)
+    n_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
+
+    @property
+    def encoder_hidden_size(self) -> int:
+        """Post-fusion feature dim: concat doubles when both modalities exist."""
+        if self.modality_fuse == "concat" and self.use_audio and self.use_visual:
+            return 2 * self.hidden_size
+        return self.hidden_size
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "AVHuBERTConfig":
+        known = {f.name for f in fields(cls)}
+        kwargs = {k: v for k, v in d.items() if k in known}
+        for key in ("conv_dim", "conv_stride", "conv_kernel"):
+            if key in kwargs and isinstance(kwargs[key], list):
+                kwargs[key] = tuple(kwargs[key])
+        return cls(**kwargs)
+
+    @classmethod
+    def tiny_test(cls, **overrides: Any) -> "AVHuBERTConfig":
+        """Miniature config for unit tests (fast CPU runs)."""
+        base = dict(
+            hidden_size=32,
+            num_hidden_layers=2,
+            num_attention_heads=2,
+            intermediate_size=64,
+            conv_pos=8,
+            conv_pos_groups=2,
+            visual_frontend_channels=8,
+            visual_backbone_channels=64,
+            audio_feat_dim=104,
+            decoder_hidden_size=32,
+            decoder_ffn_dim=64,
+            decoder_layers=2,
+            decoder_attention_heads=2,
+            max_target_positions=64,
+            vocab_size=59,
+            final_dim=16,
+            layerdrop=0.0,
+            decoder_layerdrop=0.0,
+        )
+        base.update(overrides)
+        return cls(**base)
 
 
 # ---------------------------------------------------------------------------

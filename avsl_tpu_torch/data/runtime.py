@@ -69,8 +69,8 @@ class AmiVideoDataset:
     ):
         if load_video:
             raise NotImplementedError(
-                "load_video=True: lip video is slice 3 of the port "
-                "(ROADMAP.md queue 1, items 6-7); pass load_video=False"
+                "load_video=True: lip video in training datasets is not ported yet "
+                "(ROADMAP.md queue 1, item 8: Flamingo training); pass load_video=False"
             )
         self.ds = hf_dataset
         self.tokenizer = tokenizer
@@ -107,7 +107,8 @@ class WhisperVideoCollator:
     labels are padded with -100 (CE ignore), dec_input_ids with EOT;
     ``label_pad_len`` may pin the padded length and ``max_label_len`` caps
     it (text_max_length / n_text_ctx). Items with video, and the video
-    padding the JAX collator takes, are slice 3."""
+    padding the JAX collator takes, belong to Flamingo training (ROADMAP.md
+    queue 1, item 8)."""
 
     def __init__(self, eot_id: int, label_pad_len: Optional[int] = None,
                  max_label_len: Optional[int] = None):
@@ -118,7 +119,8 @@ class WhisperVideoCollator:
     def __call__(self, items: Sequence[Dict[str, Any]]) -> Dict[str, np.ndarray]:
         if "video" in items[0]:
             raise NotImplementedError(
-                "items with video: lip video is slice 3 of the port (ROADMAP.md queue 1, items 6-7)"
+                "items with video: lip video in training batches is not ported yet "
+                "(ROADMAP.md queue 1, item 8: Flamingo training)"
             )
         batch: Dict[str, np.ndarray] = {"input_ids": np.stack([it["input_ids"] for it in items])}
         lab_len = self.label_pad_len or max(len(it["labels"]) for it in items)

@@ -1,19 +1,25 @@
-"""Batch transcription with host/device overlap (audio-only, greedy).
+"""Batch transcription with host/device overlap (greedy, audio and lip video).
 
 Port of ``StreamingTranscriber`` and ``TranscribeResult`` from
 ``avsl_tpu/infer/pipeline.py``. Per batch: log-mel -> Whisper encoder
-(the flash-attention kernel in every block) -> decode cache with the
-cross-attention K/V precomputed -> KV-cached greedy decode with the
-mean token log-probability. ``transcribe`` prepares batch N+1 on a
-producer thread while the device runs batch N.
+(the flash-attention kernel in every block) and, for a Whisper-Flamingo
+model, the lip clips -> the AV-HuBERT video tower (the same kernel in
+every block) -> ``video_projection``; then the decode cache with the
+cross-attention and gated ``x_attn`` K/V precomputed -> KV-cached greedy
+decode with the mean token log-probability. ``transcribe`` prepares batch
+N+1 on a producer thread while the device runs batch N.
 
-Options of the JAX transcriber that belong to later slices raise
-``NotImplementedError`` naming their ``ROADMAP.md`` item, as do items
-that carry video.
+An item's video is its ``lip_feats`` array, else its ``lip_video`` clip
+(a corrupt clip falls through); items without video get a zeroed clip and
+``has_video=False``, so audio-only and audio-visual items share a batch.
+Raw ``video`` closeups need the lip frontend and raise, as do the options
+of the JAX transcriber that belong to later slices, each naming its
+``ROADMAP.md`` item.
 """
 
 from __future__ import annotations
 
+import os
 import threading
 from dataclasses import dataclass
 from queue import Queue
@@ -23,10 +29,9 @@ import numpy as np
 import torch
 
 from avsl_tpu_torch.data.audio_segments import load_wav
+from avsl_tpu_torch.data.video_io import load_video_feats
 from avsl_tpu_torch.decode.greedy import greedy_decode_scored
 from avsl_tpu_torch.kernels.logmel import log_mel_spectrogram, pad_or_trim
-
-_VIDEO_KEYS = ("lip_video", "video", "lip_feats")
 
 
 @dataclass
@@ -46,11 +51,12 @@ def _not_ported(option: str, item: str) -> NotImplementedError:
 
 
 class StreamingTranscriber:
-    """Greedy batch transcription of audio-only items.
+    """Greedy batch transcription with host/device overlap.
 
     ``model`` is a :class:`~avsl_tpu_torch.models.Whisper` already on its
     device; batches run there. Audio is padded or trimmed to
-    ``audio_max_length`` samples; a batch always holds ``batch_size`` rows.
+    ``audio_max_length`` samples and video to ``video_frames`` frames of
+    ``crop`` x ``crop``; a batch always holds ``batch_size`` rows.
     """
 
     def __init__(
@@ -58,6 +64,8 @@ class StreamingTranscriber:
         model,
         tokenizer,
         audio_max_length: int = 160000,
+        video_frames: int = 250,
+        crop: int = 88,
         batch_size: int = 8,
         max_new_tokens: int = 64,
         beam_size: int = 1,
@@ -92,6 +100,8 @@ class StreamingTranscriber:
         self.tokenizer = tokenizer
         self.device = model.device
         self.audio_max_length = audio_max_length
+        self.video_frames = video_frames
+        self.crop = crop
         self.batch_size = batch_size
         self.max_new_tokens = max_new_tokens
         self.beam_size = beam_size
@@ -101,13 +111,18 @@ class StreamingTranscriber:
         self._prompt = torch.as_tensor(np.tile(sot[None], (batch_size, 1)), device=self.device)
 
     @torch.inference_mode()
-    def _run(self, audio: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
-        """Device program for one padded batch: [B, samples] float32 ->
-        (tokens [B, max_new_tokens], avg_logprob [B])."""
+    def _run(self, audio: np.ndarray, video: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """Device program for one padded batch: audio [B, samples] and
+        video [B, frames, crop, crop, 1] float32 -> (tokens [B,
+        max_new_tokens], avg_logprob [B]). A model without gated
+        cross-attention ignores the video, so it is not uploaded."""
         model, cfg = self.model, self.model.cfg
         x = torch.from_numpy(audio).to(self.device, non_blocking=True)
+        v = None
+        if cfg.add_gated_x_attn:
+            v = torch.from_numpy(video).to(self.device, non_blocking=True)
         mel = log_mel_spectrogram(x, n_mels=cfg.n_mels)
-        feats, xv = model.encode(mel)
+        feats, xv = model.encode(mel, v)
         cache_len = self.max_new_tokens + self._prompt.shape[1] + 2
         cache = model.init_decode_cache(feats, xv, cache_len)
 
@@ -121,25 +136,54 @@ class StreamingTranscriber:
 
     # -- host side -----------------------------------------------------
 
-    def _load_item(self, item: Dict[str, Any]) -> Tuple[np.ndarray, int]:
-        for key in _VIDEO_KEYS:
-            if item.get(key) is not None:
-                raise NotImplementedError(
-                    f"item {item.get('id')!r} carries {key!r}: video inputs are "
-                    "slice 3 of the port (ROADMAP.md queue 1, items 6-7)"
-                )
+    def _load_item(self, item: Dict[str, Any]) -> Tuple[np.ndarray, Optional[np.ndarray], bool]:
+        """-> (audio, video [frames, crop, crop, 1] or None, has_video).
+
+        ``lip_feats``: precomputed normalised lip features [T, crop, crop,
+        1]. ``lip_video``: an already-extracted lip clip file, decoded and
+        normalised here; a clip that fails to load falls through. A raw
+        ``video`` closeup needs the lip frontend, which is not ported."""
         audio = load_wav(item["audio"]) if isinstance(item["audio"], str) else item["audio"]
-        n_samples = min(len(audio), self.audio_max_length)
         audio = pad_or_trim(np.asarray(audio, np.float32), self.audio_max_length)
-        return audio, n_samples
 
-    def _prepare_batch(self, items: Sequence[Dict[str, Any]]) -> np.ndarray:
+        feats = None
+        lf = item.get("lip_feats")
+        if lf is not None:
+            feats = np.asarray(lf, np.float32)[: self.video_frames]
+        lip = item.get("lip_video")
+        if feats is None and lip and isinstance(lip, str) and os.path.exists(lip):
+            try:
+                feats = load_video_feats(lip, image_crop_size=self.crop,
+                                         max_frames=self.video_frames)
+            except Exception:  # a corrupt lip clip falls through, as in the JAX transcriber
+                feats = None
+        if feats is not None:
+            video = np.zeros((self.video_frames, self.crop, self.crop, 1), np.float32)
+            video[: len(feats)] = feats
+            return audio, video, True
+        raw = item.get("video")
+        if raw and isinstance(raw, str) and os.path.exists(raw):
+            raise _not_ported(
+                f"item {item.get('id')!r}: lip-cropping a raw 'video' closeup",
+                "item 10 (the device-side lip frontend)",
+            )
+        return audio, None, False
+
+    def _prepare_batch(self, items: Sequence[Dict[str, Any]]):
+        """-> (audio [B, samples], video [B, frames, crop, crop, 1] with
+        zeros for items without video, has_video per item)."""
         audio = np.zeros((self.batch_size, self.audio_max_length), np.float32)
+        video = np.zeros((self.batch_size, self.video_frames, self.crop, self.crop, 1),
+                         np.float32)
+        flags: List[bool] = []
         for i, item in enumerate(items):
-            audio[i], _ = self._load_item(item)
-        return audio
+            audio[i], v, has_video = self._load_item(item)
+            if v is not None:
+                video[i] = v
+            flags.append(has_video)
+        return audio, video, flags
 
-    def _results(self, chunk, seqs, scores, first_index: int) -> List[TranscribeResult]:
+    def _results(self, chunk, flags, seqs, scores, first_index: int) -> List[TranscribeResult]:
         special = self.tokenizer.special_token_set
         results = []
         for i in range(len(chunk)):
@@ -150,7 +194,7 @@ class StreamingTranscriber:
                     id=str(chunk[i].get("id", first_index + i)),
                     text=self.tokenizer.decode(text_ids).strip(),
                     tokens=toks,
-                    has_video=False,
+                    has_video=flags[i],
                     avg_logprob=round(float(scores[i]), 4),
                 )
             )
@@ -165,13 +209,15 @@ class StreamingTranscriber:
         if len(items) > self.batch_size:
             raise ValueError(f"{len(items)} items > batch_size {self.batch_size}")
         chunk = list(items)
-        seqs, scores = self._run(self._prepare_batch(chunk))
-        return self._results(chunk, seqs, scores, 0)
+        audio, video, flags = self._prepare_batch(chunk)
+        seqs, scores = self._run(audio, video)
+        return self._results(chunk, flags, seqs, scores, 0)
 
     def transcribe(self, items: Sequence[Dict[str, Any]]) -> List[TranscribeResult]:
-        """Items: dicts with 'id' and 'audio' (path or array). Returns
-        per-item results in order; host loading of the next batch
-        overlaps the device work of the current one."""
+        """Items: dicts with 'id', 'audio' (path or array) and optionally
+        'lip_feats' (array) or 'lip_video' (path). Returns per-item results
+        in order; host loading of the next batch overlaps the device work
+        of the current one."""
         batches = [
             items[i : i + self.batch_size]
             for i in range(0, len(items), self.batch_size)
@@ -198,8 +244,8 @@ class StreamingTranscriber:
             if got[0] == "__producer_error__":
                 t.join()
                 raise got[1]
-            chunk, audio = got
-            seqs, scores = self._run(audio)
-            results.extend(self._results(chunk, seqs, scores, len(results)))
+            chunk, (audio, video, flags) = got
+            seqs, scores = self._run(audio, video)
+            results.extend(self._results(chunk, flags, seqs, scores, len(results)))
         t.join()
         return results

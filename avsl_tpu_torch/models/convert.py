@@ -1,51 +1,106 @@
-"""Weight carrier: flax Whisper params -> OpenAI-named torch state dict.
+"""Weight carrier: flax Whisper(-Flamingo) variables -> the port's state dict.
 
-The inverse of ``avsl_tpu/models/convert.py::convert_whisper_state_dict``
-(its ``_WHISPER_RULES`` renames and ``_to_flax_array`` transposes): Linear
-kernels go from flax [in, out] to torch [out, in], Conv1d kernels from
-[k, in, out] to [out, in, k], LayerNorm ``scale`` becomes ``weight``, and
-the encoder's sinusoid position table, a buffer in the OpenAI model, is
-recomputed.
+The inverse of ``avsl_tpu/models/convert.py``'s ``convert_whisper_state_dict``
+(its ``_WHISPER_RULES`` renames and ``_to_flax_array`` transposes) and, for
+the AV-HuBERT video tower under ``video_model/av_hubert/encoder/``, of its
+``convert_avhubert_state_dict`` (fairseq names). Linear kernels go from
+flax [in, out] to torch [out, in], Conv1d kernels from [k, in, out] to
+[out, in, k], Conv2d kernels from [kh, kw, in, out] to [out, in, kh, kw]
+and the Conv3d stem from [5, 7, 7, 1, C] to [C, 1, 5, 7, 7]; LayerNorm and
+BatchNorm ``scale`` become ``weight``, the ``batch_stats`` ``mean``/``var``
+become ``running_mean``/``running_var``, PReLU ``negative_slope`` becomes
+``weight``; the encoder's sinusoid position table, a buffer in the OpenAI
+model, is recomputed.
 
-The state dict is fp32, as the JAX train state holds its params.
+The weight-normed positional conv keeps flax ``nn.WeightNorm``'s
+parametrisation (a scale per output channel over the unit-norm kernel),
+so its kernel [k, in/groups, out] becomes ``weight_v`` [out, in/groups, k]
+and its ``scale`` [out] becomes ``weight_g`` [out, 1, 1], and the port
+computes the same effective kernel in fp32. (fairseq's checkpoints use
+another parametrisation, ``weight_norm(dim=2)``, a scale per tap: the JAX
+converter recombines those into the effective kernel first.)
+
+The state dict is fp32, as the JAX state holds its params.
 ``load_state_dict`` copies each value into the module's own dtype: a
-model built with ``param_dtype="float32"`` (training) carries the fp32
-values exactly, and one whose weights are stored in bf16 (serving)
-rounds them, as flax rounds fp32 params to bf16 at each use.
+model built with ``param_dtype="float32"`` carries the fp32 values
+exactly, and one whose weights are stored in bf16 (serving) rounds them,
+as flax rounds fp32 params to bf16 at each use; norms, BatchNorm, PReLU
+slopes, the weight-norm factors and the gates stay fp32 either way.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, List, Mapping, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
 from avsl_tpu_torch.models.layers import sinusoid_embedding
 
+_AV_PREFIX = "video_model/av_hubert/encoder/"
+
 # (regex, replacement) applied in order to each "/"-joined flax path
+# outside the video tower
 _FLAX_TO_TORCH_RULES: List[Tuple[str, str]] = [
-    (r"^params/", ""),
     (r"/LayerNorm_0/scale$", r"/weight"),
     (r"/LayerNorm_0/bias$", r"/bias"),
     (r"^decoder/token_embedding/embedding$", r"decoder/token_embedding/weight"),
     (r"/kernel$", r"/weight"),
     (r"/block_(\d+)/", r"/blocks/\1/"),
     (r"/self_attn_ln/", r"/attn_ln/"),
-    (r"/(self_attn|cross_attn)/q_proj/", r"/\1/query/"),
-    (r"/(self_attn|cross_attn)/k_proj/", r"/\1/key/"),
-    (r"/(self_attn|cross_attn)/v_proj/", r"/\1/value/"),
-    (r"/(self_attn|cross_attn)/out_proj/", r"/\1/out/"),
+    (r"/(self_attn|cross_attn|x_attn)/q_proj/", r"/\1/query/"),
+    (r"/(self_attn|cross_attn|x_attn)/k_proj/", r"/\1/key/"),
+    (r"/(self_attn|cross_attn|x_attn)/v_proj/", r"/\1/value/"),
+    (r"/(self_attn|cross_attn|x_attn)/out_proj/", r"/\1/out/"),
     (r"/self_attn/", r"/attn/"),
-    (r"/mlp/fc1/", r"/mlp/0/"),
-    (r"/mlp/fc2/", r"/mlp/2/"),
+    (r"/(x_mlp|mlp)/fc1/", r"/\1/0/"),
+    (r"/(x_mlp|mlp)/fc2/", r"/\1/2/"),
+    (r"/", r"."),
+]
+
+# the same for paths inside the video tower (after _AV_PREFIX), to
+# fairseq AV-HuBERT names under ``video_model.``
+_AV_FLAX_TO_TORCH_RULES: List[Tuple[str, str]] = [
+    (r"^visual_encoder/frontend/stem_conv/kernel$",
+     r"feature_extractor_video/resnet/frontend3D/0/weight"),
+    (r"^visual_encoder/frontend/stem_bn/", r"feature_extractor_video/resnet/frontend3D/1/"),
+    (r"^visual_encoder/frontend/stem_prelu/negative_slope$",
+     r"feature_extractor_video/resnet/frontend3D/2/weight"),
+    (r"^visual_encoder/frontend/trunk/layer(\d)_(\d+)/",
+     r"feature_extractor_video/resnet/trunk/layer\1/\2/"),
+    (r"^visual_encoder/proj/", r"feature_extractor_video/proj/"),
+    (r"/prelu(\d)/negative_slope$", r"/relu\1/weight"),
+    (r"/downsample_conv/", r"/downsample/0/"),
+    (r"/downsample_bn/", r"/downsample/1/"),
+    (r"/mean$", r"/running_mean"),
+    (r"/var$", r"/running_var"),
+    (r"/scale$", r"/weight"),
+    (r"^fuse_ln/LayerNorm_0/", r"layer_norm/"),
+    (r"^transformer/pos_conv/WeightNorm_0/conv/kernel/weight$", r"encoder/pos_conv/0/weight_g"),
+    (r"^transformer/pos_conv/conv/kernel$", r"encoder/pos_conv/0/weight_v"),
+    (r"^transformer/pos_conv/conv/bias$", r"encoder/pos_conv/0/bias"),
+    (r"^transformer/ln_post/LayerNorm_0/", r"encoder/layer_norm/"),
+    (r"^transformer/ln_pre/LayerNorm_0/", r"encoder/layer_norm/"),
+    (r"^transformer/layer_(\d+)/self_attn_ln/LayerNorm_0/",
+     r"encoder/layers/\1/self_attn_layer_norm/"),
+    (r"^transformer/layer_(\d+)/mlp_ln/LayerNorm_0/", r"encoder/layers/\1/final_layer_norm/"),
+    (r"^transformer/layer_(\d+)/mlp/", r"encoder/layers/\1/"),
+    (r"^transformer/layer_(\d+)/", r"encoder/layers/\1/"),
+    (r"/kernel$", r"/weight"),
+    (r"^", r"video_model/"),
     (r"/", r"."),
 ]
 
 
 def flax_path_to_torch_key(path: str) -> str:
-    for pat, rep in _FLAX_TO_TORCH_RULES:
+    """A flax variable path ("/"-joined, without the collection) -> the
+    port's state-dict key."""
+    if path.startswith(_AV_PREFIX):
+        path, rules = path[len(_AV_PREFIX):], _AV_FLAX_TO_TORCH_RULES
+    else:
+        rules = _FLAX_TO_TORCH_RULES
+    for pat, rep in rules:
         path = re.sub(pat, rep, path)
     return path
 
@@ -62,26 +117,50 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]
 
 
 def _to_torch_layout(path: str, value: np.ndarray) -> np.ndarray:
+    if path.endswith("pos_conv/WeightNorm_0/conv/kernel/scale"):  # [out] -> [out, 1, 1]
+        return value.reshape(-1, 1, 1)
     if path.endswith("/kernel"):
         if value.ndim == 2:  # Linear: flax [in, out] -> torch [out, in]
             return value.T
         if value.ndim == 3:  # Conv1d: flax [k, in, out] -> torch [out, in, k]
             return value.transpose(2, 1, 0)
+        if value.ndim == 4:  # Conv2d: [kh, kw, in, out] -> [out, in, kh, kw]
+            return value.transpose(3, 2, 0, 1)
+        if value.ndim == 5:  # Conv3d: [kt, kh, kw, in, out] -> [out, in, kt, kh, kw]
+            return value.transpose(4, 3, 0, 1, 2)
     return value
 
 
-def whisper_state_dict_from_flax(
-    params: Mapping[str, Any], n_audio_ctx: int = 1500
+def _strip_collection(flat: Dict[str, np.ndarray], collection: str) -> Dict[str, np.ndarray]:
+    return {re.sub(f"^{collection}/", "", k): v for k, v in flat.items()}
+
+
+def state_dict_from_flax(
+    params: Mapping[str, Any], batch_stats: Optional[Mapping[str, Any]] = None
 ) -> Dict[str, torch.Tensor]:
-    """Flax Whisper params (nested mapping or flat "/" paths, with or
-    without the ``params`` level) -> OpenAI-named fp32 torch state dict,
-    including the ``encoder.positional_embedding`` sinusoid buffer of
-    ``n_audio_ctx`` rows."""
-    flat = _flatten(params)
+    """Flax variables (nested mappings or flat "/" paths, with or without
+    the ``params``/``batch_stats`` level) -> fp32 torch tensors under the
+    port's state-dict keys, one per variable."""
+    flat = _strip_collection(_flatten(params), "params")
+    if batch_stats is not None:
+        flat.update(_strip_collection(_flatten(batch_stats), "batch_stats"))
     sd: Dict[str, torch.Tensor] = {}
     for path, value in flat.items():
         arr = np.ascontiguousarray(_to_torch_layout(path, value), dtype=np.float32)
         sd[flax_path_to_torch_key(path)] = torch.from_numpy(arr)
+    return sd
+
+
+def whisper_state_dict_from_flax(
+    params: Mapping[str, Any],
+    n_audio_ctx: int = 1500,
+    batch_stats: Optional[Mapping[str, Any]] = None,
+) -> Dict[str, torch.Tensor]:
+    """Flax Whisper(-Flamingo) params and, for a model with the AV-HuBERT
+    video tower, its ``batch_stats`` -> the port's fp32 torch state dict,
+    including the ``encoder.positional_embedding`` sinusoid buffer of
+    ``n_audio_ctx`` rows."""
+    sd = state_dict_from_flax(params, batch_stats)
     width = sd["encoder.conv1.weight"].shape[0]
     sd["encoder.positional_embedding"] = torch.from_numpy(
         sinusoid_embedding(n_audio_ctx, width)

@@ -1,9 +1,8 @@
-"""Model assembly: audio-only Whisper(-Flamingo), built on the device.
+"""Model assembly: Whisper(-Flamingo) with an AV-HuBERT video encoder,
+built on the device.
 
-Port of ``avsl_tpu/models/factory.py::build_whisper_flamingo`` for
-``add_gated_x_attn=0``, for serving and for training. The gated video
-cross-attention and its AV-HuBERT video tower belong to a later slice and
-raise here.
+Port of ``avsl_tpu/models/factory.py`` (``make_av_hubert_video_encoder``
+and ``build_whisper_flamingo``), for serving and for audio-only training.
 """
 
 from __future__ import annotations
@@ -13,9 +12,17 @@ from typing import Optional, Tuple, Union
 
 import torch
 
-from avsl_tpu_torch.core.config import WhisperConfig
+from avsl_tpu_torch.core.config import AVHuBERTConfig, WhisperConfig
 from avsl_tpu_torch.core.device import resolve_device
+from avsl_tpu_torch.models.avhubert import AVHuBERTModel
 from avsl_tpu_torch.models.whisper import Whisper
+
+
+def make_av_hubert_video_encoder(av_cfg: AVHuBERTConfig, device=None) -> AVHuBERTModel:
+    """The AV-HuBERT trunk run video-only as the Flamingo video encoder
+    (``use_audio=False``, ``modality_fuse="add"``); its config is ``.cfg``."""
+    cfg = dataclasses.replace(av_cfg, use_audio=False, modality_fuse="add")
+    return AVHuBERTModel(cfg, device=device)
 
 
 def build_whisper_flamingo(
@@ -23,30 +30,38 @@ def build_whisper_flamingo(
     vocab_size: Optional[int] = None,
     add_gated_x_attn: int = 1,
     use_av_hubert_encoder: bool = True,
+    av_hubert_cfg: Optional[AVHuBERTConfig] = None,
     dropout_rate: float = 0.0,
     dtype: str = "bfloat16",
     param_dtype: Optional[str] = None,
     device: Union[str, torch.device] = "cuda",
     seed: int = 0,
 ) -> Tuple[Whisper, WhisperConfig]:
-    """Build the Whisper model on ``device`` with random weights from a
-    ``torch.Generator`` seeded with ``seed``; returned in eval mode.
+    """Build the Whisper(+Flamingo) model on ``device`` with random weights
+    from a ``torch.Generator`` seeded with ``seed``; returned in eval mode.
 
-    ``model_name`` accepts the Whisper presets plus "test" (miniature);
-    ``vocab_size`` overrides the preset vocab. ``add_gated_x_attn=1``
-    raises until slice 3; ``use_av_hubert_encoder`` only matters with it.
-    ``dtype`` is the compute dtype and ``param_dtype`` the dtype the
-    weights are stored in (``dtype`` when None: serving casts nothing).
-    Training passes ``param_dtype="float32"`` for fp32 weights and Adam
-    state under bf16 compute, and ``dropout_rate`` for the residual
-    dropout that ``model.train()`` turns on. The JAX factory's ``remat``
-    options are not taken (no activation checkpointing in the port yet).
+    ``model_name`` accepts the Whisper presets plus "test" (miniature,
+    with ``AVHuBERTConfig.tiny_test`` as the video tower unless
+    ``av_hubert_cfg`` is given); ``vocab_size`` overrides the preset vocab.
+    ``add_gated_x_attn=1`` adds the gated video cross-attention and
+    ``video_projection``; with ``use_av_hubert_encoder`` the AV-HuBERT video
+    encoder feeds them (``video_state`` = its width), without it ``video``
+    inputs are already-extracted features. ``dtype`` is the compute dtype
+    and ``param_dtype`` the dtype the weights are stored in (``dtype`` when
+    None: serving casts nothing; norms, BatchNorm, PReLU slopes, the
+    weight-norm factors and the gates are fp32 whatever it is). Training
+    passes ``param_dtype="float32"`` for fp32 weights and Adam state under
+    bf16 compute, and ``dropout_rate`` for the residual dropout that
+    ``model.train()`` turns on. The JAX factory's ``remat`` options are not
+    taken (no activation checkpointing in the port yet).
     """
     dev = resolve_device(device)
     if model_name == "test":
         w_cfg = WhisperConfig.tiny_test(dtype=dtype)
+        av_hubert_cfg = av_hubert_cfg or AVHuBERTConfig.tiny_test(dtype=dtype)
     else:
         w_cfg = WhisperConfig.from_name(model_name, dtype=dtype)
+        av_hubert_cfg = av_hubert_cfg or AVHuBERTConfig(dtype=dtype)
     overrides: dict = {
         "add_gated_x_attn": int(add_gated_x_attn),
         "dropout_rate": float(dropout_rate),
@@ -54,6 +69,12 @@ def build_whisper_flamingo(
     }
     if vocab_size is not None:
         overrides["n_vocab"] = int(vocab_size)
+    if use_av_hubert_encoder:
+        overrides["video_state"] = av_hubert_cfg.hidden_size
     w_cfg = dataclasses.replace(w_cfg, **overrides)
-    model = Whisper(w_cfg, device="meta").materialize(dev, seed=seed)
+    video_model = None
+    if use_av_hubert_encoder and add_gated_x_attn:
+        av_hubert_cfg = dataclasses.replace(av_hubert_cfg, param_dtype=w_cfg.param_dtype)
+        video_model = make_av_hubert_video_encoder(av_hubert_cfg, device="meta")
+    model = Whisper(w_cfg, video_model=video_model, device="meta").materialize(dev, seed=seed)
     return model.eval(), w_cfg

@@ -1,12 +1,15 @@
 """Transformer building blocks in PyTorch, with OpenAI Whisper names.
 
-Port of the dense, pre-norm parts of ``avsl_tpu/models/layers.py``:
+Port of the dense parts of ``avsl_tpu/models/layers.py``:
 ``LayerNormF32``, ``sinusoid_embedding``, ``dot_product_attention``,
 ``MultiHeadAttention`` (full sequence through the flash-attention kernels,
-scalar-index self cache, precomputed cross cache), ``MLP`` (exact GELU)
-and ``TransformerBlock`` with residual dropout. Module and parameter names
-follow the OpenAI Whisper state dict (``attn.query``, ``attn_ln``,
-``mlp.0``, ...).
+with key lengths; scalar-index self cache, precomputed cross cache),
+``MLP`` (exact GELU) and ``TransformerBlock`` (pre- or post-norm, the
+tanh-gated ``x_attn``/``x_mlp`` sublayers of Whisper-Flamingo, residual
+dropout). Module and parameter names follow the OpenAI Whisper state dict
+(``attn.query``, ``attn_ln``, ``mlp.0``, ...) or, for the AV-HuBERT
+encoder, fairseq's (``self_attn.q_proj``, ``self_attn_layer_norm``,
+``fc1``, ...).
 
 Numerics follow the JAX package: projections run in the compute dtype;
 attention logits, softmax and the weighted sum accumulate in fp32; layer
@@ -34,6 +37,15 @@ from torch import nn
 from avsl_tpu_torch.kernels.attention import fused_attention
 
 Cache = Dict[str, Any]
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """The torch dtype of a config's dtype name."""
+    if name not in _DTYPES:
+        raise ValueError(f"dtype {name!r} not supported; known: {sorted(_DTYPES)}")
+    return _DTYPES[name]
 
 
 def sinusoid_embedding(
@@ -167,27 +179,42 @@ def init_self_attn_cache(
     }
 
 
+# projection names of one attention layer: OpenAI Whisper's, or fairseq's
+# (the AV-HuBERT encoder)
+_PROJ_NAMES = {
+    "whisper": ("query", "key", "value", "out"),
+    "fairseq": ("q_proj", "k_proj", "v_proj", "out_proj"),
+}
+
+
 class MultiHeadAttention(nn.Module):
     """Self- or cross-attention with an optional KV cache.
 
     * full sequence: ``mha(x)`` or ``mha(x, kv_src=enc)`` runs the
-      flash-attention kernel (causal when ``causal``);
+      flash-attention kernel (causal when ``causal``; keys past
+      ``kv_lengths[b]`` masked when given);
     * incremental self-attention: ``mha(x, cache=c)`` with
       ``c = {"k", "v", "index"}`` writes x's K/V at ``index`` and attends
       causally over the cached prefix;
     * cross-attention with ``cache={"k", "v"}`` from :meth:`precompute_kv`.
     Returns ``(out, new_cache)``; ``new_cache`` is None without a cache.
+    The key projection has a bias only with ``use_k_bias`` (AV-HuBERT's
+    has one, Whisper's not); ``names`` picks the projections' state-dict
+    names ("whisper": query/key/value/out, "fairseq": q/k/v/out_proj).
     """
 
     def __init__(self, d_model: int, n_heads: int, dtype=torch.bfloat16, device=None,
-                 param_dtype=None):
+                 param_dtype=None, use_k_bias: bool = False, names: str = "whisper"):
         super().__init__()
         self.d_model, self.n_heads = d_model, n_heads
         kw = dict(device=device, param_dtype=param_dtype or dtype, compute_dtype=dtype)
-        self.query = CastLinear(d_model, d_model, **kw)
-        self.key = CastLinear(d_model, d_model, bias=False, **kw)  # whisper: no key bias
-        self.value = CastLinear(d_model, d_model, **kw)
-        self.out = CastLinear(d_model, d_model, **kw)
+        self._proj_names = _PROJ_NAMES[names]
+        for name, bias in zip(self._proj_names, (True, use_k_bias, True, True)):
+            self.add_module(name, CastLinear(d_model, d_model, bias=bias, **kw))
+
+    def _proj(self, i: int) -> CastLinear:
+        """The i-th projection: 0 query, 1 key, 2 value, 3 output."""
+        return self._modules[self._proj_names[i]]
 
     def _split(self, x: torch.Tensor) -> torch.Tensor:
         b, t, _ = x.shape
@@ -197,8 +224,8 @@ class MultiHeadAttention(nn.Module):
         """Cross-attention K/V for the decode loop: the model-dtype
         projections, laid out head-major [B,H,T,D] once here."""
         return {
-            "k": self._split(self.key(kv_src)).transpose(1, 2).contiguous(),
-            "v": self._split(self.value(kv_src)).transpose(1, 2).contiguous(),
+            "k": self._split(self._proj(1)(kv_src)).transpose(1, 2).contiguous(),
+            "v": self._split(self._proj(2)(kv_src)).transpose(1, 2).contiguous(),
         }
 
     def forward(
@@ -207,8 +234,9 @@ class MultiHeadAttention(nn.Module):
         kv_src: Optional[torch.Tensor] = None,
         cache: Optional[Cache] = None,
         causal: bool = False,
+        kv_lengths: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, Optional[Cache]]:
-        q = self._split(self.query(x))
+        q = self._split(self._proj(0)(x))
         new_cache = None
         if cache is not None and "index" in cache:
             idx = int(cache["index"])
@@ -216,8 +244,8 @@ class MultiHeadAttention(nn.Module):
             # dynamic_update_slice semantics: the start clamps so the
             # update fits inside the buffer
             start = max(0, min(idx, max_len - qlen))
-            for name, proj in (("k", self.key), ("v", self.value)):
-                cache[name][:, :, start:start + qlen] = self._split(proj(x)).transpose(1, 2)
+            for name, i in (("k", 1), ("v", 2)):
+                cache[name][:, :, start:start + qlen] = self._split(self._proj(i)(x)).transpose(1, 2)
             pos_ids = torch.arange(max_len, device=x.device)[None, :]
             q_ids = torch.arange(qlen, device=x.device)[:, None]
             attn_mask = (pos_ids <= q_ids + idx)[None, None]
@@ -229,11 +257,11 @@ class MultiHeadAttention(nn.Module):
             new_cache = cache
         else:
             src = x if kv_src is None else kv_src
-            k = self._split(self.key(src))
-            v = self._split(self.value(src))
-            out = fused_attention(q, k, v, causal=causal)
+            k = self._split(self._proj(1)(src))
+            v = self._split(self._proj(2)(src))
+            out = fused_attention(q, k, v, lengths=kv_lengths, causal=causal)
         b, t = out.shape[:2]
-        return self.out(out.reshape(b, t, self.d_model)), new_cache
+        return self._proj(3)(out.reshape(b, t, self.d_model)), new_cache
 
 
 class MLP(nn.Sequential):
@@ -247,10 +275,34 @@ class MLP(nn.Sequential):
         )
 
 
+# state-dict names of a block's self-attention, its norm and the MLP norm:
+# OpenAI Whisper's, or fairseq's (the AV-HuBERT encoder, whose MLP is
+# ``fc1``/``fc2`` on the block itself instead of ``mlp.0``/``mlp.2``)
+_BLOCK_NAMES = {
+    "whisper": ("attn", "attn_ln", "mlp_ln"),
+    "fairseq": ("self_attn", "self_attn_layer_norm", "final_layer_norm"),
+}
+
+
+def tanh_gate(gate: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``tanh`` of an fp32 gate in fp32, cast to the activation dtype."""
+    return torch.tanh(gate.float()).to(dtype)
+
+
 class TransformerBlock(nn.Module):
-    """Dense pre-norm block: self-attention [+ cross-attention] + MLP, with
-    dropout at ``dropout`` on each sublayer's output before the residual
-    add (in training only)."""
+    """Pre-norm (or post-norm) block: self-attention [+ cross-attention] +
+    MLP, with dropout at ``dropout`` on each sublayer's output before the
+    residual add (in training only).
+
+    ``gated_x_attn`` adds the Whisper-Flamingo sublayers on a second
+    context stream ``xv`` (or the ``"xv"`` cache entry) *before* the
+    others: ``x_attn_ln`` -> ``x_attn`` -> ``x + tanh(x_attn_gate) * delta``,
+    then ``x_mlp_ln`` -> ``x_mlp`` -> ``x + tanh(x_mlp_gate) * delta``, with
+    fp32 gates of shape [1], zero at initialisation. ``kv_lengths`` masks
+    the self-attention's keys past each row's length. ``names`` picks the
+    state-dict names of the self-attention, its norm and the MLP (see
+    ``_BLOCK_NAMES``); the cross and gated sublayers keep Whisper's.
+    """
 
     def __init__(
         self,
@@ -263,22 +315,58 @@ class TransformerBlock(nn.Module):
         device=None,
         param_dtype=None,
         dropout: float = 0.0,
+        gated_x_attn: bool = False,
+        pre_norm: bool = True,
+        use_k_bias: bool = False,
+        names: str = "whisper",
     ):
         super().__init__()
         self.causal_self_attn = causal_self_attn
+        self.pre_norm = pre_norm
         self.dropout = dropout
+        self.names = names
         kw = dict(dtype=dtype, device=device, param_dtype=param_dtype)
-        self.attn = MultiHeadAttention(d_model, n_heads, **kw)
-        self.attn_ln = LayerNormF32(d_model, device=device)
+        attn, attn_ln, mlp_ln = _BLOCK_NAMES[names]
+        self._sub_names = {"attn": attn, "attn_ln": attn_ln, "mlp_ln": mlp_ln}
+        self.add_module(attn, MultiHeadAttention(d_model, n_heads, use_k_bias=use_k_bias,
+                                                 names=names, **kw))
+        self.add_module(attn_ln, LayerNormF32(d_model, device=device))
         self.has_cross_attn = has_cross_attn
         if has_cross_attn:
-            self.cross_attn = MultiHeadAttention(d_model, n_heads, **kw)
+            self.cross_attn = MultiHeadAttention(d_model, n_heads, use_k_bias=use_k_bias, **kw)
             self.cross_attn_ln = LayerNormF32(d_model, device=device)
-        self.mlp = MLP(d_model, d_ff, **kw)
-        self.mlp_ln = LayerNormF32(d_model, device=device)
+        self.gated_x_attn = gated_x_attn
+        if gated_x_attn:
+            self.x_attn = MultiHeadAttention(d_model, n_heads, use_k_bias=use_k_bias, **kw)
+            self.x_attn_ln = LayerNormF32(d_model, device=device)
+            self.x_attn_gate = nn.Parameter(torch.empty(1, device=device, dtype=torch.float32))
+            self.x_mlp = MLP(d_model, d_ff, **kw)
+            self.x_mlp_ln = LayerNormF32(d_model, device=device)
+            self.x_mlp_gate = nn.Parameter(torch.empty(1, device=device, dtype=torch.float32))
+        if names == "fairseq":
+            lin = dict(device=device, param_dtype=param_dtype or dtype, compute_dtype=dtype)
+            self.fc1 = CastLinear(d_model, d_ff, **lin)
+            self.fc2 = CastLinear(d_ff, d_model, **lin)
+        else:
+            self.mlp = MLP(d_model, d_ff, **kw)
+        self.add_module(mlp_ln, LayerNormF32(d_model, device=device))
+
+    def _sub(self, role: str) -> nn.Module:
+        return self._modules[self._sub_names[role]]
+
+    def _ffn(self, h: torch.Tensor) -> torch.Tensor:
+        if self.names == "fairseq":
+            return self.fc2(F.gelu(self.fc1(h)))
+        return self.mlp(h)
 
     def _residual(self, x, delta, generator):
         return x + residual_dropout(delta, self.dropout, self.training, generator)
+
+    def _sublayer(self, x, ln, fn, generator):
+        """``x + dropout(fn(ln(x)))`` pre-norm, ``ln(x + dropout(fn(x)))`` post-norm."""
+        if self.pre_norm:
+            return self._residual(x, fn(ln(x)), generator)
+        return ln(self._residual(x, fn(x), generator))
 
     def forward(
         self,
@@ -286,23 +374,37 @@ class TransformerBlock(nn.Module):
         enc: Optional[torch.Tensor] = None,
         cache: Optional[Cache] = None,
         generator: Optional[torch.Generator] = None,
+        xv: Optional[torch.Tensor] = None,
+        kv_lengths: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, Optional[Cache]]:
         new_cache: Optional[Cache] = {} if cache is not None else None
-        h, c = self.attn(
-            self.attn_ln(x),
-            cache=None if cache is None else cache.get("self"),
-            causal=self.causal_self_attn and cache is None,
-        )
-        x = self._residual(x, h, generator)
-        if new_cache is not None:
-            new_cache["self"] = c
-        if self.has_cross_attn and (enc is not None or (cache or {}).get("cross")):
-            h, c = self.cross_attn(
-                self.cross_attn_ln(x), kv_src=enc,
-                cache=None if cache is None else cache.get("cross"),
-            )
-            x = self._residual(x, h, generator)
+
+        xv_cache = None if cache is None else cache.get("xv")
+        if self.gated_x_attn and (xv is not None or xv_cache is not None):
+            delta, c = self.x_attn(self.x_attn_ln(x), kv_src=xv, cache=xv_cache)
+            x = x + tanh_gate(self.x_attn_gate, x.dtype) * delta
+            x = x + tanh_gate(self.x_mlp_gate, x.dtype) * self.x_mlp(self.x_mlp_ln(x))
             if new_cache is not None:
-                new_cache["cross"] = c
-        x = self._residual(x, self.mlp(self.mlp_ln(x)), generator)
+                new_cache["xv"] = c if c is not None else xv_cache
+
+        def self_attn(h):
+            out, c = self._sub("attn")(
+                h, cache=None if cache is None else cache.get("self"),
+                causal=self.causal_self_attn and cache is None, kv_lengths=kv_lengths,
+            )
+            if new_cache is not None:
+                new_cache["self"] = c
+            return out
+
+        x = self._sublayer(x, self._sub("attn_ln"), self_attn, generator)
+        if self.has_cross_attn and (enc is not None or (cache or {}).get("cross")):
+            def cross_attn(h):
+                out, c = self.cross_attn(
+                    h, kv_src=enc, cache=None if cache is None else cache.get("cross"))
+                if new_cache is not None:
+                    new_cache["cross"] = c
+                return out
+
+            x = self._sublayer(x, self.cross_attn_ln, cross_attn, generator)
+        x = self._sublayer(x, self._sub("mlp_ln"), self._ffn, generator)
         return x, new_cache

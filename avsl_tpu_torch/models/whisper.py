@@ -1,16 +1,19 @@
-"""Whisper encoder/decoder in PyTorch (audio-only).
+"""Whisper encoder/decoder in PyTorch, with Whisper-Flamingo video fusion.
 
 Port of ``WhisperEncoder``, ``WhisperTextDecoder`` and the ``Whisper``
-methods ``encode``, ``encode_towers``, ``project_and_decode``, ``decode``
-and ``init_decode_cache`` from ``avsl_tpu/models/whisper.py``, with the
-OpenAI state-dict names. Linear, convolution and embedding weights live
-in ``cfg.param_dtype`` and are cast to the compute dtype ``cfg.dtype`` at
-use when the two differ (training: fp32 weights, bf16 compute); layer
-norms are fp32. In training mode (``model.train()``) each block applies
-residual dropout at ``cfg.dropout_rate`` with masks drawn from the
-``generator`` the forward is given. The gated video cross-attention
-(``add_gated_x_attn``) and ``video_projection`` belong to the
-audio-visual slice and are not here yet.
+methods ``encode``, ``encode_towers``, ``project_and_decode``, ``decode``,
+``init_decode_cache`` and ``__call__`` from ``avsl_tpu/models/whisper.py``,
+with the OpenAI state-dict names. With ``cfg.add_gated_x_attn`` every
+decoder block carries the tanh-gated ``x_attn``/``x_mlp`` sublayers on the
+projected video stream ``xv`` (``video_projection`` of the ``video_model``
+features, the AV-HuBERT video tower in the flagship config). Linear,
+convolution and embedding weights live in ``cfg.param_dtype`` and are cast
+to the compute dtype ``cfg.dtype`` at use when the two differ (training:
+fp32 weights, bf16 compute); layer norms and the gates are fp32. In
+training mode (``model.train()``) each block applies residual dropout at
+``cfg.dropout_rate`` with masks drawn from the ``generator`` the forward
+is given; the video tower runs in inference mode only (its training
+belongs to ROADMAP.md queue 1, item 8).
 
 Models are built on the ``meta`` device and materialised with
 :meth:`Whisper.materialize`, which allocates on the target device and
@@ -31,28 +34,14 @@ from avsl_tpu_torch.core.config import WhisperConfig
 from avsl_tpu_torch.models.layers import (
     Cache,
     CastConv1d,
+    CastLinear,
     LayerNormF32,
     TransformerBlock,
     cast_param,
     init_self_attn_cache,
     sinusoid_embedding,
+    torch_dtype,
 )
-
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
-
-def torch_dtype(name: str) -> torch.dtype:
-    if name not in _DTYPES:
-        raise ValueError(f"dtype {name!r} not supported; known: {sorted(_DTYPES)}")
-    return _DTYPES[name]
-
-
-def _video_not_ported():
-    return NotImplementedError(
-        "add_gated_x_attn=1 and video inputs need the gated video "
-        "cross-attention and the AV-HuBERT tower: slice 3 of the port "
-        "(ROADMAP.md queue 1, items 6-7)"
-    )
 
 
 def _dtypes(cfg: WhisperConfig) -> Tuple[torch.dtype, torch.dtype]:
@@ -97,8 +86,9 @@ class WhisperEncoder(nn.Module):
 
 
 class WhisperTextDecoder(nn.Module):
-    """Text decoder with learned positions and logits tied to the token
-    embedding (fp32 logits)."""
+    """Text decoder with learned positions, logits tied to the token
+    embedding (fp32 logits) and, with ``cfg.add_gated_x_attn``, the gated
+    video cross-attention in every block."""
 
     def __init__(self, cfg: WhisperConfig, device=None):
         super().__init__()
@@ -115,6 +105,7 @@ class WhisperTextDecoder(nn.Module):
                 d, cfg.n_text_head, 4 * d, has_cross_attn=True,
                 causal_self_attn=True, dtype=dtype, device=device,
                 param_dtype=pdtype, dropout=cfg.dropout_rate,
+                gated_x_attn=bool(cfg.add_gated_x_attn),
             )
             for _ in range(cfg.n_text_layer)
         )
@@ -126,6 +117,7 @@ class WhisperTextDecoder(nn.Module):
         audio_features: Optional[torch.Tensor] = None,
         cache: Optional[List[Cache]] = None,
         generator: Optional[torch.Generator] = None,
+        xv: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, Optional[List[Cache]]]:
         n_ctx, qlen = self.cfg.n_text_ctx, tokens.shape[1]
         x = self.token_embedding(tokens).to(self.compute_dtype)
@@ -138,7 +130,7 @@ class WhisperTextDecoder(nn.Module):
         new_cache: Optional[List[Cache]] = [] if cache is not None else None
         for i, block in enumerate(self.blocks):
             x, c = block(x, enc=audio_features, cache=None if cache is None else cache[i],
-                         generator=generator)
+                         generator=generator, xv=xv)
             if new_cache is not None:
                 new_cache.append(c)
         x = self.ln(x)
@@ -151,15 +143,26 @@ class WhisperTextDecoder(nn.Module):
 
 
 class Whisper(nn.Module):
-    """Audio-only Whisper: ``encode`` -> ``init_decode_cache`` -> ``decode``."""
+    """Whisper [+ Flamingo video] model: ``encode`` -> ``init_decode_cache``
+    -> ``decode``.
 
-    def __init__(self, cfg: WhisperConfig, device=None):
+    ``video_model`` maps lip clips [B, T, H, W(, 1)] to features [B, T,
+    video_state] (the AV-HuBERT video encoder of
+    :func:`~avsl_tpu_torch.models.factory.make_av_hubert_video_encoder`);
+    without one, ``video`` is taken as already-extracted features.
+    ``video_projection`` maps video_state to the decoder width.
+    """
+
+    def __init__(self, cfg: WhisperConfig, video_model: Optional[nn.Module] = None, device=None):
         super().__init__()
-        if cfg.add_gated_x_attn:
-            raise _video_not_ported()
         self.cfg = cfg
         self.encoder = WhisperEncoder(cfg, device=device)
         self.decoder = WhisperTextDecoder(cfg, device=device)
+        self.video_model = video_model
+        if cfg.add_gated_x_attn:
+            dtype, pdtype = _dtypes(cfg)
+            self.video_projection = CastLinear(cfg.video_state, cfg.n_text_state, device=device,
+                                               param_dtype=pdtype, compute_dtype=dtype)
 
     @property
     def device(self) -> torch.device:
@@ -169,12 +172,14 @@ class Whisper(nn.Module):
     def init_weights(self, generator: torch.Generator) -> "Whisper":
         """Random weights drawn from ``generator`` on the model's device:
         fan-in-scaled normal weights, zero biases, unit layer-norm scales,
-        N(0, 0.01) decoder positions and the encoder's sinusoid table."""
+        N(0, 0.01) decoder positions, the encoder's sinusoid table, zero
+        gates, and each video-tower module's own initialisation
+        (``init_from``: BatchNorm identity statistics, PReLU slopes 0.25,
+        unit weight-norm scales, ``mask_emb`` from U[0, 1))."""
         for module in self.modules():
-            if isinstance(module, (nn.Linear, nn.Conv1d)):
+            if isinstance(module, (nn.Linear, nn.Conv1d, nn.Conv2d, nn.Conv3d)):
                 w = module.weight
-                fan_in = w.shape[1] * (w.shape[2] if w.ndim == 3 else 1)
-                w.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=generator)
+                w.normal_(0.0, 1.0 / math.sqrt(w[0].numel()), generator=generator)
                 if module.bias is not None:
                     module.bias.zero_()
             elif isinstance(module, nn.Embedding):
@@ -183,6 +188,11 @@ class Whisper(nn.Module):
             elif isinstance(module, nn.LayerNorm):
                 module.weight.fill_(1.0)
                 module.bias.zero_()
+            elif isinstance(module, TransformerBlock) and module.gated_x_attn:
+                module.x_attn_gate.zero_()
+                module.x_mlp_gate.zero_()
+            if hasattr(module, "init_from"):
+                module.init_from(generator)
         self.decoder.positional_embedding.normal_(0.0, 0.01, generator=generator)
         self.encoder.reset_positional_embedding()
         return self
@@ -197,17 +207,47 @@ class Whisper(nn.Module):
         return self.init_weights(gen)
 
     def encode_towers(
-        self, mel: torch.Tensor, video: Optional[torch.Tensor] = None
-    ) -> Tuple[torch.Tensor, None]:
-        if video is not None:
-            raise _video_not_ported()
-        return self.encoder(mel), None
+        self,
+        mel: torch.Tensor,
+        video: Optional[torch.Tensor] = None,
+        video_mask: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """The two feature towers only (the Whisper audio encoder and the
+        video model), without ``video_projection``: ``(audio_features,
+        raw video features or None)``. ``video_mask`` [B, T] (True = valid
+        frame) zeroes padded frames and masks them as attention keys in
+        the video tower."""
+        features = self.encoder(mel, generator=generator)
+        v = None
+        if video is not None and self.cfg.add_gated_x_attn:
+            if self.video_model is not None:
+                v = self.video_model(video=video, padding_mask=video_mask)
+            else:
+                v = video  # already-extracted video features [B, T, video_state]
+        return features, v
+
+    def _project(self, v: torch.Tensor, scale) -> torch.Tensor:
+        """``video_projection`` of raw video features, times ``scale``."""
+        xv = self.video_projection(v.to(self.video_projection.compute_dtype))
+        if scale is not None:
+            xv = xv * torch.as_tensor(scale, dtype=xv.dtype, device=xv.device)
+        return xv
 
     def encode(
-        self, mel: torch.Tensor, video: Optional[torch.Tensor] = None
-    ) -> Tuple[torch.Tensor, None]:
-        """``(audio_features, x_v)``; ``x_v`` is None on the audio-only path."""
-        return self.encode_towers(mel, video)
+        self,
+        mel: torch.Tensor,
+        video: Optional[torch.Tensor] = None,
+        video_mask: Optional[torch.Tensor] = None,
+        video_feature_scale=None,
+        generator: Optional[torch.Generator] = None,
+    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """``(audio_features, x_v)``: ``x_v`` is the projected video stream
+        (times ``video_feature_scale`` when given), None without video or
+        gated cross-attention."""
+        features, v = self.encode_towers(mel, video, video_mask, generator=generator)
+        x_v = None if v is None else self._project(v, video_feature_scale)
+        return features, x_v
 
     def decode(
         self,
@@ -216,10 +256,11 @@ class Whisper(nn.Module):
         xv: Optional[torch.Tensor] = None,
         cache: Optional[List[Cache]] = None,
     ) -> Tuple[torch.Tensor, Optional[List[Cache]]]:
-        if xv is not None:
-            raise _video_not_ported()
-        return self.decoder(tokens, audio_features, cache=cache)
+        return self.decoder(tokens, audio_features, cache=cache, xv=xv)
 
+    # Serve audio-only items of an AV model with a zeroed video tensor, as
+    # the transcriber does: decoding with no "xv" cache skips the gated
+    # sublayers, while training runs them on a zeroed stream.
     def init_decode_cache(
         self,
         audio_features: torch.Tensor,
@@ -227,50 +268,57 @@ class Whisper(nn.Module):
         max_len: int = 0,
     ) -> List[Cache]:
         """Zeroed self-attention buffers plus the cross-attention K/V
-        precomputed from the encoder output, one entry per decoder block."""
-        if xv is not None:
-            raise _video_not_ported()
+        precomputed from the encoder output (and the gated ``x_attn`` K/V
+        from ``xv`` under ``"xv"``), one entry per decoder block."""
         cfg = self.cfg
         if max_len <= 0:
             max_len = cfg.n_text_ctx
         b = audio_features.shape[0]
         head_dim = cfg.n_text_state // cfg.n_text_head
-        return [
-            {
+        caches: List[Cache] = []
+        for block in self.decoder.blocks:
+            entry: Cache = {
                 "self": init_self_attn_cache(
                     b, max_len, cfg.n_text_head, head_dim,
                     torch_dtype(cfg.dtype), audio_features.device,
                 ),
                 "cross": block.cross_attn.precompute_kv(audio_features),
             }
-            for block in self.decoder.blocks
-        ]
+            if cfg.add_gated_x_attn and xv is not None:
+                entry["xv"] = block.x_attn.precompute_kv(xv)
+            caches.append(entry)
+        return caches
 
     def project_and_decode(
         self,
         tokens: torch.Tensor,
         audio_features: torch.Tensor,
         video_feats: Optional[torch.Tensor] = None,
-        video_feature_scale: Optional[torch.Tensor] = None,
+        video_feature_scale=None,
         generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
-        """The trainable tail of the hoisted-tower split: teacher-forced
-        logits from precomputed audio features. ``project_and_decode(t,
-        *encode_towers(mel))`` computes ``decode(t, *encode(mel))``; on the
-        audio-only path there is no video projection."""
-        if video_feats is not None or video_feature_scale is not None:
-            raise _video_not_ported()
-        logits, _ = self.decoder(tokens, audio_features, generator=generator)
+        """The trainable tail of the hoisted-tower split: ``video_projection``
+        (and the feature scale) and the teacher-forced decoder.
+        ``project_and_decode(t, *encode_towers(mel, video))`` computes
+        ``decode(t, *encode(mel, video))``."""
+        xv = None
+        if video_feats is not None and self.cfg.add_gated_x_attn:
+            xv = self._project(video_feats, video_feature_scale)
+        logits, _ = self.decoder(tokens, audio_features, generator=generator, xv=xv)
         return logits
 
     def forward(
         self,
         mel: torch.Tensor,
         tokens: torch.Tensor,
+        video: Optional[torch.Tensor] = None,
+        video_mask: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
+        video_feature_scale=None,
     ) -> torch.Tensor:
         """Teacher-forced logits [B, T, n_vocab] (fp32). In training mode
         dropout masks come from ``generator``."""
-        features = self.encoder(mel, generator=generator)
-        logits, _ = self.decoder(tokens, features, generator=generator)
+        features, x_v = self.encode(mel, video, video_mask, video_feature_scale,
+                                    generator=generator)
+        logits, _ = self.decoder(tokens, features, generator=generator, xv=x_v)
         return logits

@@ -6,7 +6,8 @@ teacher-forced forward with dropout in training, and token-mean CE over
 the labels (-100 ignored). Batches follow the collator's layout:
 ``input_ids`` (mel [B, n_mels, T]), ``dec_input_ids``, ``labels`` and
 ``audio_frames``. Video inputs, the AV-mode mixing they feed, and the
-hoisted ``enc_features`` path need the video slice and raise.
+hoisted ``enc_features`` path belong to Flamingo training (ROADMAP.md
+queue 1, item 8) and raise.
 """
 
 from __future__ import annotations
@@ -21,8 +22,8 @@ from avsl_tpu_torch.models.avhubert import cross_entropy_loss
 
 def _video_not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} needs the video tower and gated cross-attention: slice 3 of "
-        "the port (ROADMAP.md queue 1, items 6-8)"
+        f"{what} in the loss is not ported yet (ROADMAP.md queue 1, item 8: "
+        "Flamingo training)"
     )
 
 
@@ -45,8 +46,8 @@ def flamingo_loss_fn(model, train: bool = True, freeze_video_bn_stats: bool = Fa
         model.train(train)
         if "enc_features" in batch:
             raise NotImplementedError(
-                "the hoisted enc_features path (flamingo_tower_precompute) needs "
-                "the video slice (ROADMAP.md queue 1, item 8)"
+                "the hoisted enc_features path (flamingo_tower_precompute) is not "
+                "ported yet (ROADMAP.md queue 1, item 8: Flamingo training)"
             )
         if batch.get("video") is not None:
             raise _video_not_ported("video inputs" + (" with AV-mode mixing" if mixing else ""))

@@ -11,7 +11,9 @@ raises on failure:
    library (``HGMMA`` from wgmma, ``HMMA`` from mma.sync) and the phase
    fails unless the forward has ``HGMMA`` and the backward either;
 3. kernels against plain: the forward kernel (K1) and its plain PyTorch
-   version at the shapes of the serving and the training path; K1's row
+   version at the shapes of the serving and the training path (the
+   AV-HuBERT encoder's too, with and without key lengths, and the gated
+   video cross-attention's); K1's row
    statistics against the plain row max and sum; the backward kernel (K2)
    against its plain version at the shapes of the training path (and the
    serving encoder's); bf16 at D = 32 for both; each with times (CUDA
@@ -19,18 +21,30 @@ raises on failure:
    and device time from torch.profiler), the yardstick library call and
    the least time the card could take;
 4. small references: the tiny test model's teacher-forced logits on the
-   card (through K1) against the same weights on the CPU (plain); one
-   bf16 cached cross-attention decode step against upcast fp32 operands;
-   and the tiny fp32 model trained 3 accumulated steps on the card
-   (K1 + K2) against the CPU (per-step loss and grad norm, step-1
-   gradients);
+   card (through K1) against the same weights on the CPU (plain); the
+   tiny Whisper-Flamingo model (its AV-HuBERT tower widened to 2 heads of
+   32, which K1 takes; gates 0.5) the same way, with video, and through
+   one cached decode step with the "xv" cache; one bf16 cached
+   cross-attention decode step against upcast fp32 operands; and the tiny
+   fp32 model trained 3 accumulated steps on the card (K1 + K2) against
+   the CPU (per-step loss and grad norm, step-1 gradients);
 5. serving path: Whisper large-v2 widths (bf16, seeded random weights,
    51865-token vocab) serving 16 synthetic 30 s windows through
    ``StreamingTranscriber`` at batch 8, with K1's launch count read around
    exactly that run (and no row statistics written), then a per-stage
    breakdown of one batch and a torch.profiler trace of its encoder and of
    16 decode steps (device busy time, idle share, top kernels);
-6. training path: Whisper large-v2 widths, audio-only, fp32 weights and
+6. audio-visual serving path (``av_main_path``): Whisper-Flamingo at full
+   width, large-v2 plus the AV-HuBERT large video tower and gated
+   cross-attention (bf16, seeded random weights, gates set to 0.5 as a
+   trained model would have them), built as the JAX CLI's default config
+   builds it, serving 16 synthetic 10 s windows (12 with 150-250 frames
+   of seeded lip features, 4 audio-only) at the JAX CLI's serving shape
+   (250 frames of 88 x 88, batch 8), with K1's launches read around
+   exactly that run ((32 + 24) a batch, no row statistics, no K2), a
+   check that zeroing a batch's video moves its first-step logits, a
+   per-stage breakdown and traces of the video tower and 16 decode steps;
+7. training path: Whisper large-v2 widths, audio-only, fp32 weights and
    Adam state under bf16 compute, 51866-token vocab, the training YAML's
    settings (batch 1 x accumulation 16, 10 s windows, dropout 0.1,
    SpecAugment ls-basic, lr 1e-5 with 1000 warmup steps) composed as the
@@ -39,7 +53,9 @@ raises on failure:
    steps, then one step broken into forward, backward and optimizer and
    one traced step.
 
-It prints the kernel list, the card's name and power limit and, last,
+The audio-only serving model is freed before the audio-visual one is
+built, and that before the training path. It prints the kernel list, the
+card's name and power limit and, last,
 ``{"ok": true, "device": ...}``.
 """
 
@@ -75,6 +91,13 @@ SMALL_TRAIN_TOL = dict(atol=1e-5, rtol=1e-4)
 TRAIN_CONFIG = "configs/ami_whisper_flamingo_large.yaml"
 LARGE_V2_VOCAB = 51865 + 1  # large-v2's vocab plus <laugh>
 TRAIN_STEPS = 3
+# key lengths of the AV-HuBERT encoder case: full, partial, 1 and 0 frames
+AV_LENGTHS = (250, 180, 1, 0, 250, 250, 97, 250)
+# tiny Whisper-Flamingo on the card: AVHuBERTConfig.tiny_test widened to 2
+# heads of 32 (K1 takes head dims 32 and 64; tiny_test's is 16)
+SMALL_AV_OVERRIDES = dict(hidden_size=64, intermediate_size=128)
+SMALL_AV_TOL = 1e-3
+GATE = 0.5
 
 
 T_START = time.perf_counter()
@@ -230,7 +253,11 @@ def check_attention_case(name, b, h, tq, tk, d, dtype, causal=False, lengths=Non
 def phase_kernels(label_len: int):
     """K1 against its plain version at the serving path's shapes, at the
     training path's (``label_len`` is the longest decoder sequence of the
-    train path) and at the bf16 tensor-core body's second head dim."""
+    train path), at the bf16 tensor-core body's second head dim, and at
+    the audio-visual path's: the AV-HuBERT encoder's self-attention (with
+    and without key lengths, a length-0 row included), the gated video
+    cross-attention of a teacher-forced 70-token decoder, and the Whisper
+    encoder at the AV path's 10 s windows."""
     f32, bf16 = torch.float32, torch.bfloat16
     return [
         check_attention_case("a_encoder_bf16", 8, 20, 1500, 1500, 64, bf16),
@@ -245,6 +272,11 @@ def phase_kernels(label_len: int):
                              causal=True),
         check_attention_case("h_train_cross", 1, 20, label_len, 500, 64, bf16),
         check_attention_case("i_tiny_head_dim_bf16", 8, 2, 200, 200, 32, bf16),
+        check_attention_case("j_avhubert_encoder_bf16", 8, 16, 250, 250, 64, bf16),
+        check_attention_case("k_avhubert_lengths", 8, 16, 250, 250, 64, bf16,
+                             lengths=list(AV_LENGTHS)),
+        check_attention_case("l_x_attn_cross", 8, 20, 70, 250, 64, bf16),
+        check_attention_case("m_av_whisper_encoder_bf16", 8, 20, 500, 500, 64, bf16),
     ]
 
 
@@ -393,6 +425,69 @@ def phase_small_reference():
         raise AssertionError(f"tiny model card-vs-cpu logits differ by {err:.3e}")
 
 
+def set_gates(model, value: float) -> None:
+    """Every gated block's x_attn and x_mlp gate to ``value``: zero (their
+    initial value) would hide the video from the logits."""
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(("x_attn_gate", "x_mlp_gate")):
+                p.fill_(value)
+
+
+def phase_small_av_reference():
+    """Tiny Whisper-Flamingo (fp32, the AV-HuBERT tower at 2 heads of 32,
+    gates 0.5): teacher-forced logits with video on the card (K1 in the
+    tower, the encoder, the decoder and the gated x_attn; cuDNN in the
+    ResNet) against the CPU (plain), then a prompt and one cached decode
+    step through the "xv" cache."""
+    from avsl_tpu_torch.core.config import AVHuBERTConfig
+    from avsl_tpu_torch.kernels.attention import fused_attention
+    from avsl_tpu_torch.models import build_whisper_flamingo
+
+    av_cfg = AVHuBERTConfig.tiny_test(dtype="float32", **SMALL_AV_OVERRIDES)
+    models = []
+    for device in ("cpu", "cuda"):
+        model, cfg = build_whisper_flamingo("test", vocab_size=300, add_gated_x_attn=1,
+                                            av_hubert_cfg=av_cfg, dtype="float32",
+                                            device=device, seed=3)
+        set_gates(model, GATE)
+        if models:
+            model.load_state_dict(models[0].state_dict())
+        models.append(model)
+    rng = np.random.default_rng(6)
+    mel = torch.from_numpy(rng.normal(size=(2, cfg.n_mels, 100)).astype(np.float32))
+    toks = torch.from_numpy(rng.integers(0, 300, size=(2, 7)))
+    video = torch.from_numpy(rng.normal(size=(2, 10, 88, 88, 1)).astype(np.float32))
+    outs = []
+    with torch.inference_mode():
+        for model in models:
+            dev = model.device
+            fused_attention.launches = 0
+            logits = model(mel.to(dev), toks.to(dev), video.to(dev))
+            k1_forward = fused_attention.launches
+            feats, xv = model.encode(mel.to(dev), video.to(dev))
+            cache = model.init_decode_cache(feats, xv, 12)
+            step0, cache = model.decode(toks[:, :6].to(dev), None, None, cache)
+            step1, _ = model.decode(toks[:, 6:7].to(dev), None, None, cache)
+            outs.append([t.float().cpu() for t in (logits, step0, step1)])
+    with torch.inference_mode():
+        zero_video = models[0](mel, toks, torch.zeros_like(video))
+    errs = [(g - w).abs().max().item() for g, w in zip(outs[1], outs[0])]
+    moved = (outs[0][0] - zero_video).abs().max().item()
+    log({"phase": "small_av_reference", "av_hidden": av_cfg.hidden_size,
+         "av_heads": av_cfg.num_attention_heads, "logits_max_abs_err": errs[0],
+         "cached_decode_max_abs_err": errs[1:], "video_moves_logits_by": moved,
+         "k1_launches_forward": k1_forward, "atol": SMALL_AV_TOL})
+    finite = all(bool(torch.isfinite(t).all()) for t in outs[1])
+    if not finite or max(errs) > SMALL_AV_TOL:
+        raise AssertionError(f"tiny AV model card-vs-cpu differs by {max(errs):.3e}")
+    if moved < 1e-3:
+        raise AssertionError(f"the video moved the tiny AV logits by only {moved:.3e}")
+    # teacher-forced card forward: tower 2, encoder 2, decoder self 2, x_attn 2, cross 2
+    if k1_forward != 10:
+        raise AssertionError(f"the tiny AV forward launched K1 {k1_forward} times, not 10")
+
+
 def phase_cached_attention():
     """One decode step of cross-attention at the main path's shape (B=8,
     H=20, Q=1, Tk=1500, D=64, bf16, head-major cache) as the decoder runs
@@ -421,11 +516,66 @@ def phase_cached_attention():
         raise AssertionError(f"cached attention differs from upcast by {err.max().item():.3e}")
 
 
+def run_counted(fn):
+    """``fn()`` with K1 and K2 launches counted from 0 around exactly that
+    call and the K1 launches that wrote row statistics counted: ``(result,
+    seconds, k1 launches, row-statistics writes, k2 launches)``."""
+    from avsl_tpu_torch.kernels import attention
+
+    stats_writes = []
+    unwrapped = attention.flash_attention_fwd_cuda
+
+    def counting(*args, **kw):  # records which K1 launches write row statistics
+        stats_writes.append(bool(kw.get("stats", False)))
+        return unwrapped(*args, **kw)
+
+    attention.flash_attention_fwd_cuda = counting
+    attention.fused_attention.launches = attention.fused_attention_bwd.launches = 0
+    try:
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        attention.flash_attention_fwd_cuda = unwrapped
+    return (result, seconds, attention.fused_attention.launches, sum(stats_writes),
+            attention.fused_attention_bwd.launches)
+
+
+def check_served(results, n_items: int, max_new: int) -> None:
+    if len(results) != n_items:
+        raise AssertionError(f"{len(results)} results for {n_items} items")
+    if not all(math.isfinite(r.avg_logprob) for r in results):
+        raise AssertionError("non-finite avg_logprob")
+    if any(len(r.tokens) != max_new for r in results):
+        raise AssertionError("token rows of the wrong length")
+
+
+def decoded_tokens(results, eot: int, max_new: int) -> int:
+    return sum(next((i + 1 for i, t in enumerate(r.tokens) if t == eot), max_new)
+               for r in results)
+
+
+def timed_stages():
+    """``(stages, timed)``: ``timed(name, fn)`` runs ``fn`` between two
+    synchronisations and records its host-clock seconds under ``name``."""
+    stages = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        stages[name] = time.perf_counter() - t
+        return out
+
+    return stages, timed
+
+
 def phase_main_path(card: str):
     from avsl_tpu_torch.data.tokenizer import ByteTokenizer
     from avsl_tpu_torch.decode.greedy import greedy_decode_scored
     from avsl_tpu_torch.infer.pipeline import StreamingTranscriber
-    from avsl_tpu_torch.kernels.attention import fused_attention
     from avsl_tpu_torch.kernels.logmel import log_mel_spectrogram
     from avsl_tpu_torch.models import build_whisper_flamingo
 
@@ -451,59 +601,26 @@ def phase_main_path(card: str):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    from avsl_tpu_torch.kernels import attention
-
-    stats_writes = []
-    unwrapped = attention.flash_attention_fwd_cuda
-
-    def counting(*args, **kw):  # records which K1 launches write row statistics
-        stats_writes.append(bool(kw.get("stats", False)))
-        return unwrapped(*args, **kw)
-
-    attention.flash_attention_fwd_cuda = counting
-    fused_attention.launches = attention.fused_attention_bwd.launches = 0
-    try:
-        t0 = time.perf_counter()
-        results = tr.transcribe(items)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-    finally:
-        attention.flash_attention_fwd_cuda = unwrapped
-    launches = fused_attention.launches
-    if any(stats_writes) or attention.fused_attention_bwd.launches:
+    results, seconds, launches, stats_writes, k2 = run_counted(lambda: tr.transcribe(items))
+    if stats_writes or k2:
         raise AssertionError("the serving path wrote row statistics or ran the backward kernel")
-
     n_batches = math.ceil(n_items / batch)
-    if len(results) != n_items:
-        raise AssertionError(f"{len(results)} results for {n_items} items")
-    if not all(math.isfinite(r.avg_logprob) for r in results):
-        raise AssertionError("non-finite avg_logprob")
-    if any(len(r.tokens) != max_new for r in results):
-        raise AssertionError("token rows of the wrong length")
+    check_served(results, n_items, max_new)
     if launches != cfg.n_audio_layer * n_batches:
         raise AssertionError(f"flash-attention launches {launches} != {cfg.n_audio_layer * n_batches}")
-    n_tokens = sum(next((i + 1 for i, t in enumerate(r.tokens) if t == tr.tokenizer.eot), max_new)
-                   for r in results)
+    n_tokens = decoded_tokens(results, tr.tokenizer.eot, max_new)
     log({"phase": "main_path", "card": card, "items": n_items, "batches": n_batches,
          "seconds": seconds, "seconds_per_batch": seconds / n_batches,
          "segments_per_s": n_items / seconds, "decode_tokens": n_tokens,
          "tokens_per_s_end_to_end": n_tokens / seconds,
          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
-         "flash_attention_launches": launches, "row_statistics_written": sum(stats_writes),
+         "flash_attention_launches": launches, "row_statistics_written": stats_writes,
          "avg_logprob_first": results[0].avg_logprob})
 
     # per-stage breakdown of one batch (host clock, synchronised per stage)
-    audio = tr._prepare_batch(items[:batch])
-    stages = {}
+    audio, _, _ = tr._prepare_batch(items[:batch])
+    stages, timed = timed_stages()
     with torch.inference_mode():
-        def timed(name, fn):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = fn()
-            torch.cuda.synchronize()
-            stages[name] = time.perf_counter() - t
-            return out
-
         x = timed("h2d", lambda: torch.from_numpy(audio).cuda())
         mel = timed("log_mel", lambda: log_mel_spectrogram(x, n_mels=cfg.n_mels))
         feats, _ = timed("encoder", lambda: model.encode(mel))
@@ -525,6 +642,141 @@ def phase_main_path(card: str):
     log({"phase": "stage_breakdown", "card": card, "batch": batch, "stage_seconds": stages,
          "decode_steps": max_new, "decode_tokens_per_s": batch * max_new / stages["decode"]})
     log({"phase": "traced_stages", "card": card, "batch": batch,
+         "decode_steps_traced": traced_steps, **traced})
+    return launches
+
+
+def av_items(n_items: int, seed: int = 1):
+    """Synthetic AV serving items: 7.5-10 s of 16 kHz noise each; three of
+    every four carry 150-250 frames of seeded lip features (normalised
+    noise, 88 x 88), the fourth is audio-only."""
+    rng = np.random.default_rng(seed)
+    items = []
+    for i in range(n_items):
+        item = {"id": f"av{i:02d}",
+                "audio": (0.1 * rng.standard_normal(int(rng.integers(120000, 160001)))).astype(np.float32)}
+        if i % 4 != 3:
+            n_frames = int(rng.integers(150, 251))
+            item["lip_feats"] = rng.standard_normal((n_frames, 88, 88, 1), dtype=np.float32)
+        items.append(item)
+    return items
+
+
+def phase_av_main_path(card: str):
+    """Whisper-Flamingo serving at full width (see the module docstring,
+    phase 6): the model the JAX CLI builds by default, served through the
+    port's StreamingTranscriber at the JAX CLI's serving shape."""
+    from avsl_tpu_torch.cli._serving_common import serving_video_frames
+    from avsl_tpu_torch.core.config import FlamingoTrainConfig
+    from avsl_tpu_torch.data.tokenizer import ByteTokenizer
+    from avsl_tpu_torch.decode.greedy import greedy_decode_scored
+    from avsl_tpu_torch.infer.pipeline import StreamingTranscriber
+    from avsl_tpu_torch.kernels.logmel import log_mel_spectrogram
+    from avsl_tpu_torch.models import build_whisper_flamingo
+
+    serve_cfg = FlamingoTrainConfig()  # the JAX CLI's default: the AV model, 10 s windows
+    t0 = time.perf_counter()
+    model, cfg = build_whisper_flamingo(
+        serve_cfg.model_name, add_gated_x_attn=serve_cfg.add_gated_x_attn,
+        use_av_hubert_encoder=serve_cfg.use_av_hubert_encoder,
+        dtype="bfloat16", device="cuda", seed=0,
+    )
+    set_gates(model, GATE)
+    av_cfg = model.video_model.cfg
+    torch.cuda.synchronize()
+    count = lambda m: sum(p.numel() for p in m.parameters())  # noqa: E731
+    log({"phase": "build_av_model", "model": cfg.name, "params": count(model),
+         "video_tower_params": count(model.video_model), "n_vocab": cfg.n_vocab,
+         "av_hubert": {"hidden": av_cfg.hidden_size, "layers": av_cfg.num_hidden_layers,
+                       "heads": av_cfg.num_attention_heads, "ffn": av_cfg.intermediate_size},
+         "gates": GATE, "seconds": time.perf_counter() - t0})
+    batch, n_items, max_new = 8, 16, 64
+    audio_max_length = int(serve_cfg.audio_max_length)
+    video_frames = serving_video_frames(audio_max_length)
+    tr = StreamingTranscriber(model, ByteTokenizer(), audio_max_length=audio_max_length,
+                              video_frames=video_frames, crop=88, batch_size=batch,
+                              max_new_tokens=max_new)
+    items = av_items(n_items)
+    tr.transcribe_batch(items[:batch])  # warm-up: cuBLAS/cuDNN handles, allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    results, seconds, launches, stats_writes, k2 = run_counted(lambda: tr.transcribe(items))
+    if stats_writes or k2:
+        raise AssertionError("the AV serving path wrote row statistics or ran the backward kernel")
+    n_batches = math.ceil(n_items / batch)
+    check_served(results, n_items, max_new)
+    per_batch = cfg.n_audio_layer + av_cfg.num_hidden_layers
+    if launches != per_batch * n_batches:
+        raise AssertionError(f"flash-attention launches {launches} != {per_batch * n_batches}")
+    with_video = [r.id for r in results if r.has_video]
+    if with_video != [it["id"] for it in items if "lip_feats" in it] or len(with_video) != 12:
+        raise AssertionError(f"has_video on {with_video}")
+    n_tokens = decoded_tokens(results, tr.tokenizer.eot, max_new)
+    log({"phase": "av_main_path", "card": card, "items": n_items, "batches": n_batches,
+         "items_with_video": len(with_video), "video_frames": video_frames,
+         "audio_max_length": audio_max_length,
+         "seconds": seconds, "seconds_per_batch": seconds / n_batches,
+         "segments_per_s": n_items / seconds, "decode_tokens": n_tokens,
+         "tokens_per_s_end_to_end": n_tokens / seconds,
+         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+         "flash_attention_launches": launches, "row_statistics_written": stats_writes,
+         "backward_launches": k2, "avg_logprob_first": results[0].avg_logprob})
+
+    # per-stage breakdown of one batch (host clock, synchronised per stage):
+    # the host's preparation, one whole device program, then its parts
+    stages, timed = timed_stages()
+    audio, video, flags = timed("host_prepare", lambda: tr._prepare_batch(items[:batch]))
+    timed("whole_batch_run", lambda: tr._run(audio, video))
+    prompt = tr._prompt
+
+    # the gates carry the video: a batch's first-step logits move when its
+    # video is zeroed (rows with video), and only there
+    with torch.inference_mode():
+        mel = log_mel_spectrogram(torch.from_numpy(audio).cuda(), n_mels=cfg.n_mels)
+        vid = torch.from_numpy(video).cuda()
+
+        def first_logits(v):
+            feats, xv = model.encode(mel, v)
+            logits, _ = model.decode(prompt, None, None,
+                                     model.init_decode_cache(feats, xv, prompt.shape[1] + 2))
+            return logits[:, -1].float()
+
+        moved = (first_logits(vid) - first_logits(torch.zeros_like(vid))).abs().amax(dim=-1)
+    moved = moved.cpu().tolist()
+    video_rows = [m for m, f in zip(moved, flags) if f]
+    log({"phase": "av_gate_check", "first_step_logit_change_by_row": moved,
+         "rows_with_video": flags})
+    if min(video_rows) < 1e-3:
+        raise AssertionError(f"zeroing the video left rows' first-step logits unchanged: {moved}")
+
+    cache_len = max_new + prompt.shape[1] + 2
+    with torch.inference_mode():
+        x, vid = timed("h2d", lambda: (torch.from_numpy(audio).cuda(),
+                                       torch.from_numpy(video).cuda()))
+        mel = timed("log_mel", lambda: log_mel_spectrogram(x, n_mels=cfg.n_mels))
+        feats = timed("whisper_encoder", lambda: model.encoder(mel))
+        v = timed("video_tower", lambda: model.video_model(video=vid))
+        cache = timed("projection_and_cache", lambda: model.init_decode_cache(
+            feats, model.video_projection(v), cache_len))
+
+        def step(tok, c):
+            return model.decode(tok, None, None, c)
+
+        timed("decode", lambda: greedy_decode_scored(step, cache, prompt, max_new,
+                                                     tr.tokenizer.eot))
+        traced_steps = max_new // 4
+        xv = model.video_projection(v)
+        traced = {
+            "video_tower": traced_run(lambda: model.video_model(video=vid)),
+            "whisper_encoder": traced_run(lambda: model.encoder(mel)),
+            "decode": traced_run(lambda: greedy_decode_scored(
+                step, model.init_decode_cache(feats, xv, traced_steps + prompt.shape[1] + 2),
+                prompt, traced_steps, tr.tokenizer.eot)),
+        }
+    log({"phase": "av_stage_breakdown", "card": card, "batch": batch, "stage_seconds": stages,
+         "decode_steps": max_new, "decode_tokens_per_s": batch * max_new / stages["decode"]})
+    log({"phase": "av_traced_stages", "card": card, "batch": batch,
          "decode_steps_traced": traced_steps, **traced})
     return launches
 
@@ -837,9 +1089,13 @@ def main() -> int:
     phase_kernel_stats()
     bwd_cases = phase_kernels_bwd(label_len)
     phase_small_reference()
+    phase_small_av_reference()
     phase_cached_attention()
     phase_small_train_reference()
     serving_launches = phase_main_path(smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    av_serving_launches = phase_av_main_path(smi)
     gc.collect()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as out_dir:
@@ -861,10 +1117,11 @@ def main() -> int:
     log({"kernels": [
         entry("flash_attention_fwd", "flash_attn_fwd", "avsl_tpu_torch/csrc/flash_attn_fwd.cu",
               "avsl_tpu/kernels/attention.py:63", fwd_cases,
-              {"serving": serving_launches, "training": train_launches["k1"]}),
+              {"serving": serving_launches, "av_serving": av_serving_launches,
+               "training": train_launches["k1"]}),
         entry("flash_attention_bwd", "flash_attn_bwd", "avsl_tpu_torch/csrc/flash_attn_bwd.cu",
               "avsl_tpu/kernels/attention.py:159", bwd_cases,
-              {"serving": 0, "training": train_launches["k2"]}),
+              {"serving": 0, "av_serving": 0, "training": train_launches["k2"]}),
     ]})
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
-"""The port stands alone: it imports no JAX, flax or avsl_tpu module, calls
-no library attention, and chip_smoke.py refuses to run without a card."""
+"""The port stands alone: it imports no JAX, flax or avsl_tpu module (nor
+OpenCV until a lip clip file is decoded), calls no library attention, and
+chip_smoke.py refuses to run without a card."""
 
 import ast
 import os
@@ -34,6 +35,22 @@ def test_torch_port_imports_no_jax():
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert len(ALL_SUBMODULES) >= 20
+
+
+def test_torch_port_imports_no_cv2():
+    """The card's machine has no OpenCV: importing the port, the video
+    tower and the lip-feature loader included, must not import it."""
+    assert {"avsl_tpu_torch.models.resnet3d", "avsl_tpu_torch.models.avhubert",
+            "avsl_tpu_torch.data.video_io"} <= set(ALL_SUBMODULES)
+    code = (
+        "import importlib, sys\n"
+        f"for name in {ALL_SUBMODULES!r}:\n"
+        "    importlib.import_module(name)\n"
+        "sys.exit(1 if 'cv2' in sys.modules else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
 def _violations(path: Path, allow_sdpa: bool):

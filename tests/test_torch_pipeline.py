@@ -3,12 +3,17 @@
 Both transcribers run the "test" model with the same carried weights and
 a vocab of ``ByteTokenizer().add_tokens(["<laugh>"])`` (the tiny preset's
 256 ids hold neither SOT 257 nor EOT 256). Tokens and text must be
-identical; avg_logprob agrees to 1e-4. The greedy loop and the EOT mask
-are also held against their JAX versions directly.
+identical; avg_logprob agrees to 1e-4. This holds for the audio-only
+model and for the Whisper-Flamingo one (the tiny AV-HuBERT tower, gated
+cross-attention with nonzero gates, BatchNorm statistics perturbed) on a
+batch that mixes lip features, a lip clip mp4, a short clip and an
+audio-only item. The greedy loop and the EOT mask are also held against
+their JAX versions directly.
 """
 
 import os
 
+import cv2
 import numpy as np
 import pytest
 import torch
@@ -26,6 +31,24 @@ from avsl_tpu_torch.data.tokenizer import ByteTokenizer
 from avsl_tpu_torch.decode import greedy
 from avsl_tpu_torch.infer import StreamingTranscriber
 from avsl_tpu_torch.models import build_whisper_flamingo, whisper_state_dict_from_flax
+
+
+def _write_lip_mp4(path, n_frames, seed=0, size=96):
+    """A grayscale lip clip of ``n_frames`` noise frames at 25 fps."""
+    writer = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"mp4v"), 25, (size, size),
+                             isColor=False)
+    assert writer.isOpened()
+    rng = np.random.default_rng(seed)
+    for _ in range(n_frames):
+        writer.write(rng.integers(0, 256, (size, size), dtype=np.uint8))
+    writer.release()
+    return str(path)
+
+
+def _lip_feats(n_frames, seed=0, crop=88):
+    """Normalised lip features [T, crop, crop, 1], as load_video_feats gives."""
+    rng = np.random.default_rng(seed)
+    return ((rng.uniform(size=(n_frames, crop, crop, 1)) - 0.421) / 0.165).astype(np.float32)
 
 
 def _items(n, seed=0):
@@ -90,11 +113,112 @@ def test_torch_transcriber_refuses_later_slices(transcribers, option):
 
 
 @pytest.mark.parametrize("key", ["lip_video", "video", "lip_feats"])
-def test_torch_transcriber_refuses_video_items(transcribers, key):
-    _, ptr = transcribers
-    item = dict(_items(1)[0], **{key: "clip.mp4"})
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        ptr.transcribe_batch([item])
+def test_torch_transcriber_refuses_video_items(transcribers, key, tmp_path):
+    """Video items. A raw 'video' closeup needs the lip frontend, which is
+    not ported: alone, or behind a lip clip that fails to load, it is
+    refused naming ROADMAP item 10. Lip clips and lip features are served
+    (here by the audio-only model, which ignores them) with has_video set,
+    exactly as the JAX transcriber serves them."""
+    jtr, ptr = transcribers
+    raw = _write_lip_mp4(tmp_path / "closeup.mp4", 10, size=120)
+    base = _items(1, seed=11)[0]
+    if key == "video":
+        with pytest.raises(NotImplementedError, match="item 10"):
+            ptr.transcribe_batch([dict(base, video=raw)])
+        return
+    if key == "lip_video":
+        broken = tmp_path / "broken-lip.mp4"
+        broken.write_bytes(b"not a video")
+        with pytest.raises(NotImplementedError, match="item 10"):
+            ptr.transcribe_batch([dict(base, lip_video=str(broken), video=raw)])
+        corrupt_only = dict(base, lip_video=str(broken))  # falls through to audio-only
+        assert ptr.transcribe_batch([corrupt_only])[0].has_video is False
+        assert jtr.transcribe_batch([corrupt_only])[0].has_video is False
+        item = dict(base, lip_video=_write_lip_mp4(tmp_path / "lip.mp4", 12))
+    else:
+        item = dict(base, lip_feats=_lip_feats(12))
+    want, got = jtr.transcribe_batch([item]), ptr.transcribe_batch([item])
+    assert got[0].has_video is want[0].has_video is True
+    assert got[0].tokens == want[0].tokens and got[0].text == want[0].text
+    assert abs(got[0].avg_logprob - want[0].avg_logprob) <= 1e-4
+
+
+def _noisy_av_variables(variables, rng):
+    """Noise on every param, BatchNorm means shifted and variances 1 +
+    |noise|, and every gate set to 0.7 (x_attn) or -0.5 (x_mlp)."""
+    def param(path, x):
+        name = str(path[-1].key)
+        if name in ("x_attn_gate", "x_mlp_gate"):
+            return np.full(np.shape(x), 0.7 if name == "x_attn_gate" else -0.5, np.float32)
+        return np.asarray(x) + 0.05 * rng.standard_normal(np.shape(x)).astype(np.float32)
+
+    def stat(path, x):
+        noise = rng.standard_normal(np.shape(x)).astype(np.float32)
+        return np.asarray(x) + (np.abs(0.5 * noise) if path[-1].key == "var" else 0.2 * noise)
+
+    return {"params": jax.tree_util.tree_map_with_path(param, variables["params"]),
+            "batch_stats": jax.tree_util.tree_map_with_path(stat, variables["batch_stats"])}
+
+
+@pytest.fixture(scope="module")
+def av_transcribers():
+    """JAX and port transcribers of the tiny Flamingo model on the same
+    weights, at the JAX CLI's smoke serving shape (1 s windows, 25 video
+    frames of 88 x 88, batch 2)."""
+    vocab = ByteTokenizer().add_tokens(["<laugh>"])
+    jmodel, jcfg = jax_build("test", vocab_size=vocab, add_gated_x_attn=1,
+                             use_av_hubert_encoder=True, dtype="float32")
+    variables = jax.jit(jmodel.init)(
+        jax.random.PRNGKey(0), np.zeros((2, jcfg.n_mels, 100), np.float32),
+        np.zeros((2, 4), np.int32), video=np.zeros((2, 5, 88, 88, 1), np.float32))
+    variables = _noisy_av_variables(variables, np.random.default_rng(2))
+    kw = dict(audio_max_length=16000, video_frames=25, batch_size=2, max_new_tokens=8)
+    jtr = JaxTranscriber(jmodel, variables, JaxByteTokenizer(), **kw)
+    port, _ = build_whisper_flamingo("test", vocab_size=vocab, add_gated_x_attn=1,
+                                     use_av_hubert_encoder=True, dtype="float32", device="cpu")
+    port.load_state_dict(whisper_state_dict_from_flax(
+        variables["params"], n_audio_ctx=jcfg.n_audio_ctx, batch_stats=variables["batch_stats"]))
+    return jtr, StreamingTranscriber(port, ByteTokenizer(), **kw)
+
+
+@pytest.fixture(scope="module")
+def av_items(tmp_path_factory):
+    """lip features (25 frames), a lip clip mp4 (20 frames), a short clip
+    (9 frames of features) and an audio-only item."""
+    items = _items(4, seed=7)
+    clip = _write_lip_mp4(tmp_path_factory.mktemp("av") / "seg1-lip.mp4", 20, seed=3)
+    items[0]["lip_feats"] = _lip_feats(25, seed=1)
+    items[1]["lip_video"] = clip
+    items[2]["lip_feats"] = _lip_feats(9, seed=2)
+    return items
+
+
+def test_torch_av_transcriber_matches_jax(av_transcribers, av_items):
+    jtr, ptr = av_transcribers
+    want, got = jtr.transcribe(av_items), ptr.transcribe(av_items)
+    assert [g.has_video for g in got] == [w.has_video for w in want] == [True, True, True, False]
+    assert any(t != ByteTokenizer().eot for w in want for t in w.tokens)  # not vacuous
+    for w, g in zip(want, got):
+        assert g.id == w.id
+        assert g.tokens == w.tokens
+        assert g.text == w.text
+        assert abs(g.avg_logprob - w.avg_logprob) <= 1e-4
+
+
+def test_torch_av_transcriber_video_moves_the_result(av_transcribers, av_items):
+    """Not vacuous: the same items with zeroed lip features score
+    differently."""
+    _, ptr = av_transcribers
+    zeroed = [dict(av_items[0], lip_feats=np.zeros_like(av_items[0]["lip_feats"])), av_items[3]]
+    got = ptr.transcribe_batch([av_items[0], av_items[3]])
+    other = ptr.transcribe_batch(zeroed)
+    assert got[1] == other[1]  # the audio-only row does not see the other row's video
+    assert got[0].avg_logprob != other[0].avg_logprob or got[0].tokens != other[0].tokens
+
+
+def test_torch_av_transcribe_batch_matches_transcribe(av_transcribers, av_items):
+    _, ptr = av_transcribers
+    assert ptr.transcribe_batch(av_items[:2]) == ptr.transcribe(av_items[:2])
 
 
 def _table_step(table, xp):
@@ -149,6 +273,32 @@ def test_torch_transcribe_cli_on_cpu(tmp_path):
                            "--batch_size", "2", "--max_new_tokens", "4"])
     assert [r["id"] for r in out] == ["a", "b"]
     assert all(np.isfinite(r["avg_logprob"]) and r["has_video"] is False for r in out)
+
+
+def test_torch_transcribe_cli_defaults_to_flamingo(tmp_path):
+    """Without --config the CLI serves the JAX CLI's default,
+    FlamingoTrainConfig(): the AV model, here its tiny --smoke version at
+    the 1 s window and its 25 video frames; a <stem>-lip.mp4 is its lip
+    clip, a <stem>-video.mp4 raw closeup is refused (item 10)."""
+    rng = np.random.default_rng(4)
+    for name in ("a", "b"):
+        write_wav(os.path.join(tmp_path, f"{name}.wav"),
+                  (0.2 * rng.standard_normal(16000)).astype(np.float32))
+    _write_lip_mp4(tmp_path / "b-lip.mp4", 30)
+    out = transcribe_main(["--input", str(tmp_path), "--smoke", "--device", "cpu",
+                           "--batch_size", "2", "--max_new_tokens", "4"])
+    assert [(r["id"], r["has_video"]) for r in out] == [("a", False), ("b", True)]
+    _write_lip_mp4(tmp_path / "a-video.mp4", 5, size=120)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        transcribe_main(["--input", str(tmp_path), "--smoke", "--device", "cpu",
+                         "--batch_size", "2", "--max_new_tokens", "4"])
+
+
+def test_torch_serving_video_frames():
+    """The audio window at 25 fps, at most 250 frames (the JAX CLI's rule)."""
+    from avsl_tpu_torch.cli._serving_common import serving_video_frames
+
+    assert [serving_video_frames(n) for n in (16000, 100000, 160000, 480000)] == [25, 156, 250, 250]
 
 
 def test_torch_transcribe_cli_needs_cuda_unless_cpu(tmp_path):
