@@ -1,7 +1,8 @@
 """Batch transcription CLI of the port: directory of segments -> transcripts JSON.
 
 Usage: ``python -m avsl_tpu_torch.cli.transcribe --input <dir-or-csv>
-[--config cfg.yaml] [--device cuda] [--output out.json] [--smoke]``
+[--config cfg.yaml] [--ckpt_dir dir] [--device cuda] [--output out.json]
+[--smoke]``
 
 Port of ``avsl_tpu/cli/transcribe.py`` for greedy decoding: audio wavs
 with optional lip mp4s (``<stem>-lip.mp4``), missing-modality robust.
@@ -9,8 +10,9 @@ Without ``--config`` the model is the JAX CLI's default,
 ``FlamingoTrainConfig()``: Whisper large-v2 with the AV-HuBERT video tower
 and gated cross-attention (``--smoke``: the tiny test model). Raw closeups
 (``<stem>-video.mp4``) raise until the lip frontend is ported (ROADMAP.md
-queue 1, item 10). Weights are seeded random until checkpoint restore is
-ported.
+queue 1, item 10). ``--ckpt_dir`` serves the latest checkpoint a trainer
+(``cli/finetune.py``) wrote there; without it the weights are seeded
+random.
 """
 
 from __future__ import annotations

@@ -8,20 +8,20 @@ vocab sized to the tokenizer, -100 label masking via the collator,
 teacher-forced WER validation, beam-search eval (beam 4, max length 448),
 last-checkpoint resume and ``results.json``, through the port's
 ``TrainerRunner``. The weights are fp32 and the compute bf16 (fp32 with
-``--smoke``). Differences from the JAX entry point:
+``--smoke``). The loss is ``flamingo_loss_fn(model, train=True)``: dropout
+on, no SpecAugment, as the JAX entry point passes none
+(``avsl_tpu/cli/whisper_ft.py:119``); ``--smoke`` trains batch 4 ×
+accumulation 1 as JAX's does. One difference from the JAX entry point:
 
 * a train batch holds ``batch_size × gradient_accumulation_steps`` items,
   reshaped to ``[accum, batch_size, ...]`` (the reference trainer's
   accumulate-grad-batches semantics, as ``avsl_tpu/cli/finetune.py``
   builds its batches). The JAX entry point yields batches of
   ``batch_size`` items, so with the config's batch 1 × accumulation 16
-  its runner drops every batch and never takes a step;
-* the loss applies ``cfg.spec_augment`` (the config's "ls-basic"); the JAX
-  entry point passes none;
-* ``--smoke`` trains with batch 1 × accumulation 2 (JAX: 4 × 1), so it
-  exercises the accumulation;
-* real datasets (``load_datasets``) wait for the host data layer
-  (ROADMAP.md queue 1, item 13) and raise: only ``--smoke`` has data.
+  its runner drops every batch and never takes a step.
+
+Real datasets (``load_datasets``) wait for the host data layer
+(ROADMAP.md queue 1, item 13) and raise: only ``--smoke`` has data.
 """
 
 from __future__ import annotations
@@ -76,7 +76,7 @@ def batches(ds, collator, bs: int, shuffle: bool, epoch: int = 0) -> Iterator[Di
 
 
 def make_runner(cfg, model, tokenizer, output_dir: str, seed: int = 0):
-    """``TrainerRunner`` over ``flamingo_loss_fn`` (dropout, the config's
+    """``TrainerRunner`` over ``flamingo_loss_fn`` (dropout, no
     SpecAugment) and ``whisper_optimizer`` (all parameters, AdamW)."""
     from avsl_tpu_torch.train.loop import TrainState, batch_to_device
     from avsl_tpu_torch.train.objectives import flamingo_loss_fn
@@ -93,7 +93,7 @@ def make_runner(cfg, model, tokenizer, output_dir: str, seed: int = 0):
         return state.model(b["input_ids"], b["dec_input_ids"])
 
     return TrainerRunner(
-        flamingo_loss_fn(model, train=True, spec_augment=cfg.spec_augment),
+        flamingo_loss_fn(model, train=True),
         eval_logits, tx, state, tokenizer, cfg,
         log_dir=os.path.join(output_dir, "logs"),
         ckpt_dir=os.path.join(output_dir, "ckpt"),
@@ -157,8 +157,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         cfg.model_name = "test"
         cfg.num_train_steps = 4
         cfg.validate_every_n_batches = 100
-        cfg.gradient_accumulation_steps = 2
-        cfg.batch_size = 1
+        cfg.gradient_accumulation_steps = 1
+        cfg.batch_size = 4
         cfg.audio_max_length = 16000
         cfg.warmup_steps = 1
 

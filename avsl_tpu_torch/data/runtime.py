@@ -1,13 +1,14 @@
 """Runtime dataset + collator: dataset rows -> model-ready batches.
 
-Port of ``AmiVideoDataset`` (audio only) and ``WhisperVideoCollator``
-from ``avsl_tpu/data/runtime.py``. Per item: 16 kHz float audio,
-``pad_or_trim`` to the configured length, log-mel on the host CPU,
-jiwer-style text normalisation, and the Whisper SOT sequence + tokens
-with shifted labels + EOT. SpecAugment runs on the device inside the train
-step (``kernels/specaugment.py``). Lip video (``load_video=True``) is slice
-3 of the port and raises; audio at another rate than 16 kHz raises until
-the resampler is ported (ROADMAP.md queue 1, item 7).
+Port of ``AmiVideoDataset`` and ``WhisperVideoCollator`` from
+``avsl_tpu/data/runtime.py``. Per item: 16 kHz float audio, ``pad_or_trim``
+to the configured length, log-mel on the host CPU, jiwer-style text
+normalisation, the Whisper SOT sequence + tokens with shifted labels +
+EOT, and with ``load_video`` the lip clip (88 crop, mean 0.421, std 0.165)
+trimmed to the padded audio's length at 25 fps, or one zero frame when the
+row has no clip file. SpecAugment runs on the device inside the train step
+(``kernels/specaugment.py``). Audio at another rate than 16 kHz raises
+until the resampler is ported (ROADMAP.md queue 1, item 7).
 """
 
 from __future__ import annotations
@@ -54,8 +55,27 @@ def _extract_audio(item: Dict[str, Any], target_sr: int = 16000) -> np.ndarray:
     return data.astype(np.float32)
 
 
+def _extract_video_path(item: Dict[str, Any], key: str = "lip_video") -> Optional[str]:
+    """The clip path of a row's ``lip_video`` cell: a path, a dict with a
+    "path", or an object holding one."""
+    v = item.get(key)
+    if v is None:
+        return None
+    if isinstance(v, str):
+        return v
+    if isinstance(v, dict):
+        return v.get("path")
+    for attr in ("_hf_encoded", "path", "filename"):
+        got = getattr(v, attr, None)
+        if isinstance(got, dict) and "path" in got:
+            return got["path"]
+        if isinstance(got, str):
+            return got
+    return None
+
+
 class AmiVideoDataset:
-    """Per-item example builder over a dataset / record list (audio only)."""
+    """Per-item AV examples from a dataset / record list."""
 
     def __init__(
         self,
@@ -65,19 +85,25 @@ class AmiVideoDataset:
         n_mels: int = 80,
         lang: str = "en",
         sample_rate: int = 16000,
+        image_crop_size: int = 88,
+        image_mean: float = 0.421,
+        image_std: float = 0.165,
+        fps: int = 25,
         load_video: bool = True,
+        train: bool = False,
     ):
-        if load_video:
-            raise NotImplementedError(
-                "load_video=True: lip video in training datasets is not ported yet "
-                "(ROADMAP.md queue 1, item 8: Flamingo training); pass load_video=False"
-            )
         self.ds = hf_dataset
         self.tokenizer = tokenizer
         self.audio_max_length = audio_max_length
         self.n_mels = n_mels
         self.lang = lang
         self.sample_rate = sample_rate
+        self.image_crop_size = image_crop_size
+        self.image_mean = image_mean
+        self.image_std = image_std
+        self.fps = fps
+        self.load_video = load_video
+        self.train = train
 
     def __len__(self) -> int:
         return len(self.ds)
@@ -93,35 +119,46 @@ class AmiVideoDataset:
 
         text = normalize_text(str(item.get("transcript", "")))
         toks = self.tokenizer.prepare_example(text, self.lang)
-        return {
+        out: Dict[str, Any] = {
             "input_ids": mel.astype(np.float32),  # [n_mels, T]
             "dec_input_ids": np.asarray(toks["dec_input_ids"], np.int64),
             "labels": np.asarray(toks["labels"], np.int64),
             "audio_frames": audio_frames,
         }
+        if self.load_video:
+            path = _extract_video_path(item)
+            if path and os.path.exists(path):
+                from avsl_tpu_torch.data.video_io import load_video_feats, trim_video_to_audio
+
+                feats = load_video_feats(path, train=self.train,
+                                         image_crop_size=self.image_crop_size,
+                                         image_mean=self.image_mean, image_std=self.image_std)
+                # trimmed to the padded audio, as the JAX dataset does
+                feats = trim_video_to_audio(feats, len(audio), self.sample_rate, self.fps)
+                out["video"] = feats.astype(np.float32)
+            else:
+                crop = self.image_crop_size
+                out["video"] = np.zeros((1, crop, crop, 1), np.float32)
+        return out
 
 
 class WhisperVideoCollator:
     """Pad a list of items to one batch.
 
-    labels are padded with -100 (CE ignore), dec_input_ids with EOT;
-    ``label_pad_len`` may pin the padded length and ``max_label_len`` caps
-    it (text_max_length / n_text_ctx). Items with video, and the video
-    padding the JAX collator takes, belong to Flamingo training (ROADMAP.md
-    queue 1, item 8)."""
+    labels are padded with -100 (CE ignore), dec_input_ids with EOT, video
+    on the time axis with zeros, with ``video_mask`` [B, T] (True = a real
+    frame); ``label_pad_len`` and ``video_pad_len`` may pin the padded
+    lengths and ``max_label_len`` caps the labels' (text_max_length /
+    n_text_ctx)."""
 
-    def __init__(self, eot_id: int, label_pad_len: Optional[int] = None,
-                 max_label_len: Optional[int] = None):
+    def __init__(self, eot_id: int, video_pad_len: Optional[int] = None,
+                 label_pad_len: Optional[int] = None, max_label_len: Optional[int] = None):
         self.eot_id = eot_id
+        self.video_pad_len = video_pad_len
         self.label_pad_len = label_pad_len
         self.max_label_len = max_label_len
 
     def __call__(self, items: Sequence[Dict[str, Any]]) -> Dict[str, np.ndarray]:
-        if "video" in items[0]:
-            raise NotImplementedError(
-                "items with video: lip video in training batches is not ported yet "
-                "(ROADMAP.md queue 1, item 8: Flamingo training)"
-            )
         batch: Dict[str, np.ndarray] = {"input_ids": np.stack([it["input_ids"] for it in items])}
         lab_len = self.label_pad_len or max(len(it["labels"]) for it in items)
         if self.max_label_len is not None:
@@ -135,4 +172,15 @@ class WhisperVideoCollator:
         batch["labels"] = labels
         batch["dec_input_ids"] = dec
         batch["audio_frames"] = np.asarray([it["audio_frames"] for it in items], np.int32)
+        if "video" in items[0]:
+            v_len = self.video_pad_len or max(len(it["video"]) for it in items)
+            h, w, c = items[0]["video"].shape[1:]
+            video = np.zeros((len(items), v_len, h, w, c), np.float32)
+            vmask = np.zeros((len(items), v_len), bool)
+            for i, it in enumerate(items):
+                n = min(len(it["video"]), v_len)
+                video[i, :n] = it["video"][:n]
+                vmask[i, :n] = True
+            batch["video"] = video
+            batch["video_mask"] = vmask
         return batch

@@ -1,7 +1,8 @@
 """Host video decoding and the runtime lip-feature loader.
 
-A copy of ``read_video_frames``, ``load_video_feats`` and the source
-resolver they use from ``avsl_tpu/data/video_io.py``: decode with OpenCV
+A copy of ``read_video_frames``, ``load_video_feats``,
+``trim_video_to_audio`` and the source resolver they use from
+``avsl_tpu/data/video_io.py``: decode with OpenCV
 -> ITU-R 601 grayscale -> [0, 1] -> centre crop (resized up when smaller)
 -> (x - 0.421) / 0.165 -> [T, crop, crop, 1] float32. ``cv2`` is imported
 inside the functions that decode, so importing this module (and serving
@@ -113,3 +114,10 @@ def load_video_feats(
     feats = frames.astype(np.float32) / 255.0
     feats = (feats - image_mean) / image_std
     return feats[..., None]
+
+
+def trim_video_to_audio(video: np.ndarray, audio_samples: int,
+                        sample_rate: int = 16000, fps: int = 25) -> np.ndarray:
+    """Trim video frames to ``round(audio_samples / sample_rate * fps)``."""
+    max_len = int(round(audio_samples / sample_rate * fps))
+    return video[:max_len] if len(video) > max_len else video

@@ -1,16 +1,27 @@
 """AV-HuBERT in PyTorch: the video-only encoder that Whisper-Flamingo uses
 as its video tower, and the token cross-entropy.
 
-Port of ``avsl_tpu/models/avhubert.py`` for inference on lip video:
-``AVHuBERTVisualEncoder`` (the ResNet frontend and its projection; the
-``feature_grad_mult`` gradient scale is the identity in a forward pass),
-``ConvPositionalEmbedding`` (the weight-normed grouped positional conv),
-``AVHuBERTTransformerEncoder`` (pre-norm blocks whose self-attention runs
-the flash-attention kernel with per-row key lengths), the video-only path
-of ``AVHuBERTEncoderWrapper`` (``use_audio=False``, ``modality_fuse="add"``:
-the fused features are the visual features, then ``fuse_ln`` and
-``post_extract_proj``) and ``AVHuBERTModel`` with ``extract_features``.
-Also ``cross_entropy_loss``, which the Whisper fine-tuning objective uses.
+Port of ``avsl_tpu/models/avhubert.py`` for lip video, in inference and in
+training: ``AVHuBERTVisualEncoder`` (the ResNet frontend, ``grad_multiply``
+by ``feature_grad_mult`` and the projection), ``ConvPositionalEmbedding``
+(the weight-normed grouped positional conv), ``AVHuBERTTransformerEncoder``
+(pre-norm blocks whose self-attention runs the flash-attention kernel with
+per-row key lengths; in training, dropout after ``pos_conv``, dropout,
+attention dropout and activation dropout in the blocks, and LayerDrop),
+the video-only path of ``AVHuBERTEncoderWrapper`` (``use_audio=False``,
+``modality_fuse="add"``: the fused features are the visual features, then
+``fuse_ln``, ``post_extract_proj`` and ``dropout_input``; modality dropout
+in training) and ``AVHuBERTModel`` with ``extract_features``. Also
+``cross_entropy_loss``, which the Whisper fine-tuning objective uses.
+
+Training follows the JAX modules' ``deterministic`` argument, here None
+by default and then the module's own mode (``model.train()``); random
+draws come from the ``generator`` the forward is given. BatchNorm uses the
+batch's statistics (and updates the running ones) when
+``use_running_average`` is False, which it is by default in training. In
+training the blocks' attention dropout sends their self-attention down
+the unfused path, which ignores the key lengths, as the JAX layer does
+(``avsl_tpu/models/layers.py:301-310``).
 
 State-dict names are fairseq AV-HuBERT's (``feature_extractor_video.*``,
 ``layer_norm``, ``post_extract_proj``, ``mask_emb``, ``encoder.pos_conv.0.*``,
@@ -21,9 +32,8 @@ modules sit on :class:`AVHuBERTModel` itself, as they do in fairseq.
 What this path does not take raises ``NotImplementedError`` naming its
 ``ROADMAP.md`` item: the audio frontend, presence flags, concat and
 weighted-sum fusion, external feature or channel masks and the heads
-(item 9), and every training-only draw (dropout, LayerDrop, span masks,
-modality dropout, batch-statistics BatchNorm: the Flamingo training item,
-item 8).
+(item 9), and span masking (``apply_time_mask``, item 12 with the
+pretraining model).
 """
 
 from __future__ import annotations
@@ -41,6 +51,8 @@ from avsl_tpu_torch.models.layers import (
     LayerNormF32,
     TransformerBlock,
     cast_param,
+    grad_multiply,
+    residual_dropout,
     torch_dtype,
 )
 from avsl_tpu_torch.models.resnet3d import ResNet3DFrontend
@@ -50,8 +62,16 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP.md queue 1, {item})")
 
 
-def _training_not_ported(what: str) -> NotImplementedError:
-    return _not_ported(what, "item 8: Flamingo training")
+def _resolve_deterministic(module: nn.Module, deterministic: Optional[bool]) -> bool:
+    """The JAX ``deterministic`` flag: the module's mode when None; an
+    explicit value must agree with it, since the mode switches the
+    dropouts of every submodule."""
+    if deterministic is None:
+        return not module.training
+    if bool(deterministic) == module.training:
+        raise ValueError(f"deterministic={deterministic} in {'train' if module.training else 'eval'}"
+                         " mode: call model.train() or model.eval() to switch the tower's mode")
+    return bool(deterministic)
 
 
 def _dtypes(cfg: AVHuBERTConfig):
@@ -61,11 +81,13 @@ def _dtypes(cfg: AVHuBERTConfig):
 
 class AVHuBERTVisualEncoder(nn.Module):
     """ResNet-3D lip frontend -> hidden_size features (1:1 with frames);
-    fairseq's ``feature_extractor_video`` (``resnet`` and ``proj``)."""
+    fairseq's ``feature_extractor_video`` (``resnet`` and ``proj``). The
+    frontend's gradient is scaled by ``feature_grad_mult``."""
 
     def __init__(self, cfg: AVHuBERTConfig, device=None):
         super().__init__()
         dtype, pdtype = _dtypes(cfg)
+        self.feature_grad_mult = cfg.feature_grad_mult
         self.resnet = ResNet3DFrontend(
             cfg.visual_frontend_channels, cfg.visual_backbone_channels, cfg.resnet_relu_type,
             dtype=dtype, param_dtype=pdtype, device=device,
@@ -73,8 +95,11 @@ class AVHuBERTVisualEncoder(nn.Module):
         self.proj = CastLinear(cfg.visual_backbone_channels, cfg.hidden_size, device=device,
                                param_dtype=pdtype, compute_dtype=dtype)
 
-    def forward(self, video: torch.Tensor) -> torch.Tensor:
-        return self.proj(self.resnet(video))
+    def forward(self, video: torch.Tensor, use_running_average: bool = True) -> torch.Tensor:
+        feats = self.resnet(video, use_running_average)
+        if self.feature_grad_mult != 1.0:
+            feats = grad_multiply(feats, self.feature_grad_mult)
+        return self.proj(feats)
 
 
 class WeightNormConv1d(nn.Module):
@@ -137,8 +162,11 @@ class AVHuBERTTransformerEncoder(nn.Module):
     zeroing, fairseq's ``encoder``: padded steps (``padding_mask`` False)
     are zeroed before ``pos_conv``, the self-attention masks keys past each
     row's valid length (the kernel's ``lengths``), and ``layer_norm`` runs
-    after the stack (before it when not ``layer_norm_first``). No LayerDrop
-    or dropout: inference only."""
+    after the stack (before it when not ``layer_norm_first``). In training
+    (``model.train()``): dropout at ``hidden_dropout`` after the positional
+    conv, the blocks' own dropouts, and LayerDrop: one draw a layer a
+    forward, shared by the batch, keeping the layer's output or its input
+    with ``torch.where`` on the device (no host sync)."""
 
     def __init__(self, cfg: AVHuBERTConfig, device=None):
         super().__init__()
@@ -146,12 +174,15 @@ class AVHuBERTTransformerEncoder(nn.Module):
             raise _not_ported("n_experts > 0 (the MoE encoder FFN)", "item 12: models/moe.py")
         dtype, pdtype = _dtypes(cfg)
         self.layer_norm_first = cfg.layer_norm_first
+        self.hidden_dropout, self.layerdrop = cfg.hidden_dropout, cfg.layerdrop
         self.pos_conv = ConvPositionalEmbedding(cfg, device=device)
         self.layers = nn.ModuleList(
             TransformerBlock(
                 cfg.hidden_size, cfg.num_attention_heads, cfg.intermediate_size,
                 pre_norm=cfg.layer_norm_first, use_k_bias=True, names="fairseq",
                 dtype=dtype, param_dtype=pdtype, device=device, dropout=cfg.hidden_dropout,
+                attention_dropout=cfg.attention_dropout,
+                activation_dropout=cfg.activation_dropout,
             )
             for _ in range(cfg.num_hidden_layers)
         )
@@ -162,9 +193,8 @@ class AVHuBERTTransformerEncoder(nn.Module):
         x: torch.Tensor,
         padding_mask: Optional[torch.Tensor] = None,  # [B, T] True = valid
         output_layer: Optional[int] = None,  # 1-indexed tap, skips the final norm
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
-        if self.training:
-            raise _training_not_ported("AV-HuBERT dropout and LayerDrop")
         kv_lengths = None
         if padding_mask is not None:
             x = x * padding_mask[..., None].to(x.dtype)
@@ -172,8 +202,14 @@ class AVHuBERTTransformerEncoder(nn.Module):
         x = x + self.pos_conv(x)
         if not self.layer_norm_first:
             x = self.layer_norm(x)
+        x = residual_dropout(x, self.hidden_dropout, self.training, generator)
         for i, layer in enumerate(self.layers):
-            x, _ = layer(x, kv_lengths=kv_lengths)
+            out, _ = layer(x, kv_lengths=kv_lengths, generator=generator)
+            if self.training and self.layerdrop > 0.0:
+                keep = torch.rand((), generator=generator, device=x.device) < 1.0 - self.layerdrop
+                x = torch.where(keep, out, x)
+            else:
+                x = out
             if output_layer is not None and i + 1 == output_layer:
                 return x
         if self.layer_norm_first:
@@ -182,12 +218,12 @@ class AVHuBERTTransformerEncoder(nn.Module):
 
 
 class AVHuBERTEncoderWrapper(nn.Module):
-    """Video-only fusion encoder: visual features -> ``layer_norm``
-    (``fuse_ln``) -> ``post_extract_proj`` -> transformer. With
-    ``use_audio=False`` and ``modality_fuse="add"`` the fused features are
-    the visual features themselves (the JAX wrapper adds a zero audio
-    stream). ``mask_emb`` is kept as a parameter; only span masking reads
-    it."""
+    """Video-only fusion encoder: visual features (times the video's
+    presence) -> ``layer_norm`` (``fuse_ln``) -> ``post_extract_proj`` ->
+    ``dropout_input`` -> transformer. With ``use_audio=False`` and
+    ``modality_fuse="add"`` the fused features are the visual features
+    themselves (the JAX wrapper adds a zero audio stream). ``mask_emb`` is
+    kept as a parameter; only span masking reads it."""
 
     def __init__(self, cfg: AVHuBERTConfig, device=None):
         super().__init__()
@@ -211,6 +247,21 @@ class AVHuBERTEncoderWrapper(nn.Module):
         """``mask_emb`` from U[0, 1), as flax's ``uniform(1.0)``."""
         self.mask_emb.uniform_(0.0, 1.0, generator=generator)
 
+    def _video_presence(self, batch: int, deterministic: bool,
+                        generator: Optional[torch.Generator], device) -> Optional[torch.Tensor]:
+        """The video half of ``_modality_presence`` (``avhubert.py:393-411``):
+        in training with ``modality_dropout``, one draw drops one modality
+        and a second picks the audio (``audio_dropout``) or the video, for
+        the whole batch; [B] fp32 with the video's presence, None when
+        nothing can be dropped."""
+        cfg = self.cfg
+        if deterministic or cfg.modality_dropout <= 0.0:
+            return None
+        drop_one = torch.rand((), generator=generator, device=device) < cfg.modality_dropout
+        drop_audio = torch.rand((), generator=generator, device=device) < cfg.audio_dropout
+        v = torch.where(drop_one & ~drop_audio, 0.0, 1.0).to(device)
+        return v.expand(batch)
+
     def forward(
         self,
         audio: Optional[torch.Tensor] = None,
@@ -220,45 +271,55 @@ class AVHuBERTEncoderWrapper(nn.Module):
         video_present: Optional[torch.Tensor] = None,
         feature_mask: Optional[torch.Tensor] = None,
         channel_mask: Optional[torch.Tensor] = None,
-        deterministic: bool = True,
+        deterministic: Optional[bool] = None,
         use_running_average: Optional[bool] = None,
         output_layer: Optional[int] = None,
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
+        """``deterministic`` (None: not ``self.training``) must agree with
+        the module's mode, which switches every dropout; BatchNorm uses the
+        batch's statistics when ``use_running_average`` is False (None:
+        ``deterministic``)."""
         if audio is not None:
             raise _not_ported("audio inputs to AV-HuBERT", "item 9")
         for name, value in (("audio_present", audio_present), ("video_present", video_present),
                             ("feature_mask", feature_mask), ("channel_mask", channel_mask)):
             if value is not None:
                 raise _not_ported(name, "item 9")
-        if not deterministic or self.training:
-            raise _training_not_ported("AV-HuBERT training draws")
-        if use_running_average is False:
-            raise _training_not_ported("batch-statistics BatchNorm")
+        deterministic = _resolve_deterministic(self, deterministic)
+        if use_running_average is None:
+            use_running_average = deterministic
         if video is None:
             raise ValueError("At least one modality input is required")
-        fused = self.feature_extractor_video(video)
+        fused = self.feature_extractor_video(video, use_running_average)
+        v_pres = self._video_presence(fused.shape[0], deterministic, generator, fused.device)
+        if v_pres is not None:
+            fused = fused * v_pres[:, None, None].to(fused.dtype)
         x = self.post_extract_proj(self.layer_norm(fused))
+        x = residual_dropout(x, self.cfg.dropout_input, not deterministic, generator)
         if padding_mask is not None:
             padding_mask = padding_mask[:, : x.shape[1]]
-        return self.encoder(x, padding_mask, output_layer=output_layer)
+        return self.encoder(x, padding_mask, output_layer=output_layer, generator=generator)
 
 
 class AVHuBERTModel(AVHuBERTEncoderWrapper):
-    """Encoder-only AV-HuBERT with ``extract_features``. fairseq keeps the wrapper's modules on the model, so this class is the
-    wrapper plus the JAX model's entry points; train-time span masking
-    raises."""
+    """Encoder-only AV-HuBERT with ``extract_features``. fairseq keeps the
+    wrapper's modules on the model, so this class is the wrapper plus the
+    JAX model's entry points; train-time span masking raises."""
 
     def forward(self, audio=None, video=None, padding_mask=None, audio_present=None,
-                video_present=None, apply_time_mask: bool = False, deterministic: bool = True,
-                use_running_average=None, feature_mask=None, channel_mask=None,
-                output_layer=None) -> torch.Tensor:
-        if apply_time_mask and not deterministic:
-            raise _training_not_ported("span masking")
+                video_present=None, apply_time_mask: bool = False,
+                deterministic: Optional[bool] = None, use_running_average=None,
+                feature_mask=None, channel_mask=None, output_layer=None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if apply_time_mask and not _resolve_deterministic(self, deterministic):
+            raise _not_ported("span masking (apply_time_mask)",
+                              "item 12: models/pretrain.py")
         return super().forward(
             audio=audio, video=video, padding_mask=padding_mask, audio_present=audio_present,
             video_present=video_present, feature_mask=feature_mask, channel_mask=channel_mask,
             deterministic=deterministic, use_running_average=use_running_average,
-            output_layer=output_layer,
+            output_layer=output_layer, generator=generator,
         )
 
     def extract_features(self, audio=None, video=None, padding_mask=None, **kw) -> torch.Tensor:

@@ -20,6 +20,10 @@ computes the same effective kernel in fp32. (fairseq's checkpoints use
 another parametrisation, ``weight_norm(dim=2)``, a scale per tap: the JAX
 converter recombines those into the effective kernel first.)
 
+``load_torch_checkpoint_into`` reads a PyTorch Whisper checkpoint (the
+``pt_ckpt`` of the training config) into the model through
+``partial_load``'s triage, as the JAX package's function of that name does.
+
 The state dict is fp32, as the JAX state holds its params.
 ``load_state_dict`` copies each value into the module's own dtype: a
 model built with ``param_dtype="float32"`` carries the fp32 values
@@ -166,3 +170,39 @@ def whisper_state_dict_from_flax(
         sinusoid_embedding(n_audio_ctx, width)
     )
     return sd
+
+
+# embedding and output tensors: losing one of them to a shape mismatch or a
+# renamed key would train from random weights while claiming to be loaded
+_CRITICAL = re.compile(
+    r"(token_embedding|embed_tokens|positional_embedding|embed_positions|output_proj|lm_head)")
+
+
+def load_torch_checkpoint_into(model: torch.nn.Module, path: str,
+                               allow_embedding_mismatch: bool = False) -> Dict[str, List[str]]:
+    """Read a PyTorch state dict (nested under ``model_state_dict``,
+    ``state_dict`` or ``model`` or not, keys optionally prefixed
+    ``model.``) into ``model`` in place through ``partial_load``; returns
+    its report. Read with ``weights_only=True``. Raises when an
+    embedding or output tensor is skipped (shape mismatch or unexpected
+    key), or missing while a sibling of its top-level module loaded,
+    unless ``allow_embedding_mismatch``."""
+    from avsl_tpu_torch.train.checkpoints import partial_load
+
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    for key in ("model_state_dict", "state_dict", "model"):
+        if isinstance(obj, dict) and isinstance(obj.get(key), dict):
+            obj = obj[key]
+    if not isinstance(obj, dict):
+        raise ValueError(f"Unrecognized checkpoint structure in {path}")
+    state = {re.sub(r"^model\.", "", k): v for k, v in obj.items() if torch.is_tensor(v)}
+    _, report = partial_load(model, state)
+    loaded_tops = {k.split(".")[0] for k in state}
+    critical = [k for bucket in ("shape_mismatch", "unexpected") for k in report[bucket]
+                if _CRITICAL.search(k)]
+    critical += [k for k in report["missing"]
+                 if _CRITICAL.search(k) and k.split(".")[0] in loaded_tops]
+    if critical and not allow_embedding_mismatch:
+        raise ValueError(f"checkpoint {path}: embedding/output tensors skipped (shape mismatch "
+                         f"or key drift): {critical}")
+    return report

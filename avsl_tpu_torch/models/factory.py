@@ -2,7 +2,7 @@
 built on the device.
 
 Port of ``avsl_tpu/models/factory.py`` (``make_av_hubert_video_encoder``
-and ``build_whisper_flamingo``), for serving and for audio-only training.
+and ``build_whisper_flamingo``), for serving and for training.
 """
 
 from __future__ import annotations
@@ -20,7 +20,11 @@ from avsl_tpu_torch.models.whisper import Whisper
 
 def make_av_hubert_video_encoder(av_cfg: AVHuBERTConfig, device=None) -> AVHuBERTModel:
     """The AV-HuBERT trunk run video-only as the Flamingo video encoder
-    (``use_audio=False``, ``modality_fuse="add"``); its config is ``.cfg``."""
+    (``use_audio=False``, ``modality_fuse="add"``); its config is ``.cfg``.
+    It is called as ``(video=, padding_mask=, deterministic=,
+    use_running_average=, generator=)``, the JAX encoder's ``(video, mask,
+    deterministic, use_running_average)`` plus the generator its training
+    draws come from."""
     cfg = dataclasses.replace(av_cfg, use_audio=False, modality_fuse="add")
     return AVHuBERTModel(cfg, device=device)
 
@@ -51,9 +55,11 @@ def build_whisper_flamingo(
     None: serving casts nothing; norms, BatchNorm, PReLU slopes, the
     weight-norm factors and the gates are fp32 whatever it is). Training
     passes ``param_dtype="float32"`` for fp32 weights and Adam state under
-    bf16 compute, and ``dropout_rate`` for the residual dropout that
-    ``model.train()`` turns on. The JAX factory's ``remat`` options are not
-    taken (no activation checkpointing in the port yet).
+    bf16 compute, and ``dropout_rate`` for Whisper's residual dropout that
+    ``model.train()`` turns on; the tower keeps its config's own dropouts
+    and LayerDrop (``AVHuBERTConfig()``'s defaults for the presets). The
+    JAX factory's ``remat`` options are not taken (no activation
+    checkpointing in the port yet).
     """
     dev = resolve_device(device)
     if model_name == "test":

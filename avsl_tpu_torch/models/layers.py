@@ -4,9 +4,10 @@ Port of the dense parts of ``avsl_tpu/models/layers.py``:
 ``LayerNormF32``, ``sinusoid_embedding``, ``dot_product_attention``,
 ``MultiHeadAttention`` (full sequence through the flash-attention kernels,
 with key lengths; scalar-index self cache, precomputed cross cache),
-``MLP`` (exact GELU) and ``TransformerBlock`` (pre- or post-norm, the
-tanh-gated ``x_attn``/``x_mlp`` sublayers of Whisper-Flamingo, residual
-dropout). Module and parameter names follow the OpenAI Whisper state dict
+``MLP`` (exact GELU, activation dropout) and ``TransformerBlock`` (pre- or
+post-norm, the tanh-gated ``x_attn``/``x_mlp`` sublayers of
+Whisper-Flamingo, residual, attention-weight and activation dropout), and
+``grad_multiply``. Module and parameter names follow the OpenAI Whisper state dict
 (``attn.query``, ``attn_ln``, ``mlp.0``, ...) or, for the AV-HuBERT
 encoder, fairseq's (``self_attn.q_proj``, ``self_attn_layer_norm``,
 ``fc1``, ...).
@@ -125,6 +126,23 @@ def residual_dropout(
     return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
+class _GradMultiply(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale):
+        ctx.scale = scale
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.scale, None
+
+
+def grad_multiply(x: torch.Tensor, scale: float) -> torch.Tensor:
+    """Identity forward, gradient scaled by ``scale`` (AV-HuBERT's
+    ``feature_grad_mult`` on the frontend features)."""
+    return _GradMultiply.apply(x, scale)
+
+
 def _matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` over [..., M, K] x [..., K, N] with fp32 products and an
     fp32 result, as the JAX einsum with ``preferred_element_type=float32``.
@@ -141,6 +159,8 @@ def head_major_attention(
     k: torch.Tensor,
     v: torch.Tensor,
     mask: Optional[torch.Tensor] = None,
+    dropout_rate: float = 0.0,
+    generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
     """[B,H,Q,D] x [B,H,K,D] -> [B,H,Q,D]; the body of
     :func:`dot_product_attention` over head-major operands."""
@@ -149,6 +169,7 @@ def head_major_attention(
     if mask is not None:
         logits = torch.where(mask, logits, torch.finfo(torch.float32).min)
     weights = torch.softmax(logits, dim=-1).to(q.dtype)
+    weights = residual_dropout(weights, dropout_rate, True, generator)
     return _matmul_f32(weights, v).to(q.dtype)
 
 
@@ -157,11 +178,16 @@ def dot_product_attention(
     k: torch.Tensor,
     v: torch.Tensor,
     mask: Optional[torch.Tensor] = None,
+    dropout_rate: float = 0.0,
+    generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
     """[B,Q,H,D] x [B,K,H,D] -> [B,Q,H,D]; fp32 logits and softmax; mask
     True = attend, masked logits take ``finfo(float32).min``. Weights are
-    cast to ``q.dtype`` before the fp32-accumulated weighted sum."""
-    out = head_major_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), mask)
+    cast to ``q.dtype``, then, with ``dropout_rate``, dropped with an
+    inverted-scaled keep mask drawn from ``generator`` (fairseq's
+    attention dropout), before the fp32-accumulated weighted sum."""
+    out = head_major_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), mask,
+                               dropout_rate, generator)
     return out.transpose(1, 2)
 
 
@@ -201,12 +227,18 @@ class MultiHeadAttention(nn.Module):
     The key projection has a bias only with ``use_k_bias`` (AV-HuBERT's
     has one, Whisper's not); ``names`` picks the projections' state-dict
     names ("whisper": query/key/value/out, "fairseq": q/k/v/out_proj).
+    In training with ``attn_dropout > 0`` the full-sequence path drops
+    attention weights and so runs unfused, with neither the causal mask
+    nor ``kv_lengths``: the JAX layer (``layers.py:301-310``) passes
+    neither to that path, so padded keys are attended in training there.
     """
 
     def __init__(self, d_model: int, n_heads: int, dtype=torch.bfloat16, device=None,
-                 param_dtype=None, use_k_bias: bool = False, names: str = "whisper"):
+                 param_dtype=None, use_k_bias: bool = False, names: str = "whisper",
+                 attn_dropout: float = 0.0):
         super().__init__()
         self.d_model, self.n_heads = d_model, n_heads
+        self.attn_dropout = attn_dropout
         kw = dict(device=device, param_dtype=param_dtype or dtype, compute_dtype=dtype)
         self._proj_names = _PROJ_NAMES[names]
         for name, bias in zip(self._proj_names, (True, use_k_bias, True, True)):
@@ -235,6 +267,7 @@ class MultiHeadAttention(nn.Module):
         cache: Optional[Cache] = None,
         causal: bool = False,
         kv_lengths: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
     ) -> Tuple[torch.Tensor, Optional[Cache]]:
         q = self._split(self._proj(0)(x))
         new_cache = None
@@ -259,20 +292,30 @@ class MultiHeadAttention(nn.Module):
             src = x if kv_src is None else kv_src
             k = self._split(self._proj(1)(src))
             v = self._split(self._proj(2)(src))
-            out = fused_attention(q, k, v, lengths=kv_lengths, causal=causal)
+            if self.training and self.attn_dropout > 0.0:
+                out = dot_product_attention(q, k, v, dropout_rate=self.attn_dropout,
+                                            generator=generator)
+            else:
+                out = fused_attention(q, k, v, lengths=kv_lengths, causal=causal)
         b, t = out.shape[:2]
         return self._proj(3)(out.reshape(b, t, self.d_model)), new_cache
 
 
 class MLP(nn.Sequential):
-    """fc1 -> exact GELU -> fc2, named ``mlp.0`` / ``mlp.2`` as in Whisper."""
+    """fc1 -> exact GELU -> dropout (training only) -> fc2, named ``mlp.0``
+    / ``mlp.2`` as in Whisper."""
 
     def __init__(self, d_model: int, d_ff: int, dtype=torch.bfloat16, device=None,
-                 param_dtype=None):
+                 param_dtype=None, dropout: float = 0.0):
         kw = dict(device=device, param_dtype=param_dtype or dtype, compute_dtype=dtype)
         super().__init__(
             CastLinear(d_model, d_ff, **kw), nn.GELU(), CastLinear(d_ff, d_model, **kw)
         )
+        self.dropout = dropout
+
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        h = residual_dropout(self[1](self[0](x)), self.dropout, self.training, generator)
+        return self[2](h)
 
 
 # state-dict names of a block's self-attention, its norm and the MLP norm:
@@ -292,13 +335,15 @@ def tanh_gate(gate: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 class TransformerBlock(nn.Module):
     """Pre-norm (or post-norm) block: self-attention [+ cross-attention] +
     MLP, with dropout at ``dropout`` on each sublayer's output before the
-    residual add (in training only).
+    residual add, ``attention_dropout`` on every attention's weights and
+    ``activation_dropout`` inside every MLP (in training only).
 
     ``gated_x_attn`` adds the Whisper-Flamingo sublayers on a second
     context stream ``xv`` (or the ``"xv"`` cache entry) *before* the
     others: ``x_attn_ln`` -> ``x_attn`` -> ``x + tanh(x_attn_gate) * delta``,
     then ``x_mlp_ln`` -> ``x_mlp`` -> ``x + tanh(x_mlp_gate) * delta``, with
-    fp32 gates of shape [1], zero at initialisation. ``kv_lengths`` masks
+    fp32 gates of shape [1], zero at initialisation; their deltas get no
+    residual dropout (``layers.py:431-437``). ``kv_lengths`` masks
     the self-attention's keys past each row's length. ``names`` picks the
     state-dict names of the self-attention, its norm and the MLP (see
     ``_BLOCK_NAMES``); the cross and gated sublayers keep Whisper's.
@@ -319,28 +364,31 @@ class TransformerBlock(nn.Module):
         pre_norm: bool = True,
         use_k_bias: bool = False,
         names: str = "whisper",
+        attention_dropout: float = 0.0,
+        activation_dropout: float = 0.0,
     ):
         super().__init__()
         self.causal_self_attn = causal_self_attn
         self.pre_norm = pre_norm
         self.dropout = dropout
+        self.activation_dropout = activation_dropout
         self.names = names
         kw = dict(dtype=dtype, device=device, param_dtype=param_dtype)
+        mha = dict(kw, use_k_bias=use_k_bias, attn_dropout=attention_dropout)
         attn, attn_ln, mlp_ln = _BLOCK_NAMES[names]
         self._sub_names = {"attn": attn, "attn_ln": attn_ln, "mlp_ln": mlp_ln}
-        self.add_module(attn, MultiHeadAttention(d_model, n_heads, use_k_bias=use_k_bias,
-                                                 names=names, **kw))
+        self.add_module(attn, MultiHeadAttention(d_model, n_heads, names=names, **mha))
         self.add_module(attn_ln, LayerNormF32(d_model, device=device))
         self.has_cross_attn = has_cross_attn
         if has_cross_attn:
-            self.cross_attn = MultiHeadAttention(d_model, n_heads, use_k_bias=use_k_bias, **kw)
+            self.cross_attn = MultiHeadAttention(d_model, n_heads, **mha)
             self.cross_attn_ln = LayerNormF32(d_model, device=device)
         self.gated_x_attn = gated_x_attn
         if gated_x_attn:
-            self.x_attn = MultiHeadAttention(d_model, n_heads, use_k_bias=use_k_bias, **kw)
+            self.x_attn = MultiHeadAttention(d_model, n_heads, **mha)
             self.x_attn_ln = LayerNormF32(d_model, device=device)
             self.x_attn_gate = nn.Parameter(torch.empty(1, device=device, dtype=torch.float32))
-            self.x_mlp = MLP(d_model, d_ff, **kw)
+            self.x_mlp = MLP(d_model, d_ff, dropout=activation_dropout, **kw)
             self.x_mlp_ln = LayerNormF32(d_model, device=device)
             self.x_mlp_gate = nn.Parameter(torch.empty(1, device=device, dtype=torch.float32))
         if names == "fairseq":
@@ -348,16 +396,17 @@ class TransformerBlock(nn.Module):
             self.fc1 = CastLinear(d_model, d_ff, **lin)
             self.fc2 = CastLinear(d_ff, d_model, **lin)
         else:
-            self.mlp = MLP(d_model, d_ff, **kw)
+            self.mlp = MLP(d_model, d_ff, dropout=activation_dropout, **kw)
         self.add_module(mlp_ln, LayerNormF32(d_model, device=device))
 
     def _sub(self, role: str) -> nn.Module:
         return self._modules[self._sub_names[role]]
 
-    def _ffn(self, h: torch.Tensor) -> torch.Tensor:
+    def _ffn(self, h: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
         if self.names == "fairseq":
-            return self.fc2(F.gelu(self.fc1(h)))
-        return self.mlp(h)
+            h = F.gelu(self.fc1(h))
+            return self.fc2(residual_dropout(h, self.activation_dropout, self.training, generator))
+        return self.mlp(h, generator)
 
     def _residual(self, x, delta, generator):
         return x + residual_dropout(delta, self.dropout, self.training, generator)
@@ -381,9 +430,11 @@ class TransformerBlock(nn.Module):
 
         xv_cache = None if cache is None else cache.get("xv")
         if self.gated_x_attn and (xv is not None or xv_cache is not None):
-            delta, c = self.x_attn(self.x_attn_ln(x), kv_src=xv, cache=xv_cache)
+            delta, c = self.x_attn(self.x_attn_ln(x), kv_src=xv, cache=xv_cache,
+                                   generator=generator)
             x = x + tanh_gate(self.x_attn_gate, x.dtype) * delta
-            x = x + tanh_gate(self.x_mlp_gate, x.dtype) * self.x_mlp(self.x_mlp_ln(x))
+            delta = self.x_mlp(self.x_mlp_ln(x), generator)
+            x = x + tanh_gate(self.x_mlp_gate, x.dtype) * delta
             if new_cache is not None:
                 new_cache["xv"] = c if c is not None else xv_cache
 
@@ -391,6 +442,7 @@ class TransformerBlock(nn.Module):
             out, c = self._sub("attn")(
                 h, cache=None if cache is None else cache.get("self"),
                 causal=self.causal_self_attn and cache is None, kv_lengths=kv_lengths,
+                generator=generator,
             )
             if new_cache is not None:
                 new_cache["self"] = c
@@ -400,11 +452,12 @@ class TransformerBlock(nn.Module):
         if self.has_cross_attn and (enc is not None or (cache or {}).get("cross")):
             def cross_attn(h):
                 out, c = self.cross_attn(
-                    h, kv_src=enc, cache=None if cache is None else cache.get("cross"))
+                    h, kv_src=enc, cache=None if cache is None else cache.get("cross"),
+                    generator=generator)
                 if new_cache is not None:
                     new_cache["cross"] = c
                 return out
 
             x = self._sublayer(x, self.cross_attn_ln, cross_attn, generator)
-        x = self._sublayer(x, self._sub("mlp_ln"), self._ffn, generator)
+        x = self._sublayer(x, self._sub("mlp_ln"), lambda h: self._ffn(h, generator), generator)
         return x, new_cache

@@ -1,8 +1,8 @@
 """Visual frontend of AV-HuBERT: a 3-D conv stem and a per-frame ResNet-18.
 
 Port of ``avsl_tpu/models/resnet3d.py`` (``TimeChannelStemConv``,
-``ChannelPReLU``, ``BasicBlock``, ``ResNetTrunk``, ``ResNet3DFrontend``) in
-inference mode, with the fairseq AV-HuBERT state-dict names:
+``ChannelPReLU``, ``BasicBlock``, ``ResNetTrunk``, ``ResNet3DFrontend``),
+with the fairseq AV-HuBERT state-dict names:
 ``frontend3D.0`` (the [C, 1, 5, 7, 7] stem kernel), ``frontend3D.1`` (its
 BatchNorm), ``frontend3D.2`` (its PReLU) and
 ``trunk.layerS.B.{conv1, bn1, relu1, conv2, bn2, relu2, downsample.{0,1}}``.
@@ -12,10 +12,12 @@ channel) runs as a 2-D convolution with the five temporal taps stacked on
 the channel axis, so every frame of a clip batch goes through the 2-D
 trunk as one batch with no transpose; the convolutions themselves are
 PyTorch's (cuDNN on the card), as XLA computes them in the JAX package.
-BatchNorm uses the running statistics and runs in fp32 on the compute-dtype
-activations, cast back, as flax's ``BatchNorm(dtype=float32)`` does; its
-weight, bias and statistics and the PReLU slopes are fp32, the convolution
-kernels live in ``param_dtype`` and are cast to the compute dtype at use.
+BatchNorm runs in fp32 on the compute-dtype activations, cast back, as
+flax's ``BatchNorm(momentum=0.9, dtype=float32)`` does: on the running
+statistics when ``use_running_average`` (the default, as in JAX), else on
+the batch's statistics, which then update the running ones. Its weight,
+bias and statistics and the PReLU slopes are fp32, the convolution kernels
+live in ``param_dtype`` and are cast to the compute dtype at use.
 """
 
 from __future__ import annotations
@@ -43,13 +45,21 @@ class CastConv2d(nn.Conv2d):
 
 
 class BatchNormF32(nn.Module):
-    """Inference BatchNorm over dim 1 with the running statistics: fp32
-    ``weight``, ``bias``, ``running_mean`` and ``running_var``, computed in
-    fp32 on the activations and cast back to their dtype."""
+    """BatchNorm over dim 1: fp32 ``weight``, ``bias``, ``running_mean`` and
+    ``running_var``, computed in fp32 on the activations and cast back to
+    their dtype.
 
-    def __init__(self, channels: int, eps: float = 1e-5, device=None):
+    With ``use_running_average=False`` it is flax's training BatchNorm
+    (``use_fast_variance=True``): the batch mean and the biased variance
+    ``max(0, E[x^2] - E[x]^2)`` over every non-channel position, in fp32,
+    normalise the batch (``(x - mean) * (rsqrt(var + eps) * weight) +
+    bias``), and the buffers become ``momentum * running + (1 - momentum)
+    * batch`` with the biased variance. ``F.batch_norm`` in training would
+    store the unbiased variance instead."""
+
+    def __init__(self, channels: int, eps: float = 1e-5, momentum: float = 0.9, device=None):
         super().__init__()
-        self.eps = eps
+        self.eps, self.momentum = eps, momentum
         f32 = dict(device=device, dtype=torch.float32)
         self.weight = nn.Parameter(torch.empty(channels, **f32))
         self.bias = nn.Parameter(torch.empty(channels, **f32))
@@ -64,9 +74,22 @@ class BatchNormF32(nn.Module):
         self.running_mean.zero_()
         self.running_var.fill_(1.0)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.batch_norm(x.float(), self.running_mean, self.running_var, self.weight,
-                            self.bias, False, 0.0, self.eps).to(x.dtype)
+    def forward(self, x: torch.Tensor, use_running_average: bool = True) -> torch.Tensor:
+        if use_running_average:
+            return F.batch_norm(x.float(), self.running_mean, self.running_var, self.weight,
+                                self.bias, False, 0.0, self.eps).to(x.dtype)
+        xf = x.float()
+        axes = [d for d in range(x.ndim) if d != 1]
+        mean = xf.mean(dim=axes)
+        var = torch.clamp_min(xf.square().mean(dim=axes) - mean.square(), 0.0)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+            self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        shape = [1, -1] + [1] * (x.ndim - 2)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+        return y.to(x.dtype)
 
 
 class ChannelPReLU(nn.Module):
@@ -113,10 +136,12 @@ class BasicBlock(nn.Module):
                 BatchNormF32(planes, device=device),
             )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = self.relu1(self.bn1(self.conv1(x)))
-        out = self.bn2(self.conv2(out))
-        residual = x if self.downsample is None else self.downsample(x)
+    def forward(self, x: torch.Tensor, use_running_average: bool = True) -> torch.Tensor:
+        out = self.relu1(self.bn1(self.conv1(x), use_running_average))
+        out = self.bn2(self.conv2(out), use_running_average)
+        residual = x
+        if self.downsample is not None:
+            residual = self.downsample[1](self.downsample[0](x), use_running_average)
         return self.relu2(out + residual)
 
 
@@ -136,9 +161,10 @@ class ResNetTrunk(nn.Module):
                 in_planes = width
             self.add_module(f"layer{stage + 1}", nn.Sequential(*blocks))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        for layer in self.children():
-            x = layer(x)
+    def forward(self, x: torch.Tensor, use_running_average: bool = True) -> torch.Tensor:
+        for stage in self.children():
+            for block in stage:
+                x = block(x, use_running_average)
         return x.mean(dim=(2, 3))
 
 
@@ -180,10 +206,10 @@ class ResNet3DFrontend(nn.Module):
         kernel = cast_param(self.frontend3D[0].weight, self.dtype)[:, 0]  # [C, 5, 7, 7]
         return F.conv2d(taps, kernel, stride=2, padding=3)
 
-    def forward(self, video: torch.Tensor) -> torch.Tensor:
+    def forward(self, video: torch.Tensor, use_running_average: bool = True) -> torch.Tensor:
         if video.ndim == 5:
             video = video[..., 0]
         b, t = video.shape[:2]
-        x = self.frontend3D[2](self.frontend3D[1](self.stem(video)))
+        x = self.frontend3D[2](self.frontend3D[1](self.stem(video), use_running_average))
         x = F.max_pool2d(x, kernel_size=3, stride=2, padding=1)
-        return self.trunk(x).view(b, t, self.backbone_channels)
+        return self.trunk(x, use_running_average).view(b, t, self.backbone_channels)

@@ -12,8 +12,9 @@ to the compute dtype ``cfg.dtype`` at use when the two differ (training:
 fp32 weights, bf16 compute); layer norms and the gates are fp32. In
 training mode (``model.train()``) each block applies residual dropout at
 ``cfg.dropout_rate`` with masks drawn from the ``generator`` the forward
-is given; the video tower runs in inference mode only (its training
-belongs to ROADMAP.md queue 1, item 8).
+is given, and the video tower trains too: its dropouts, LayerDrop and,
+unless ``freeze_video_bn_stats``, BatchNorm on the batch's statistics,
+which update the running ones.
 
 Models are built on the ``meta`` device and materialised with
 :meth:`Whisper.materialize`, which allocates on the target device and
@@ -212,17 +213,24 @@ class Whisper(nn.Module):
         video: Optional[torch.Tensor] = None,
         video_mask: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
+        freeze_video_bn_stats: bool = False,
     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """The two feature towers only (the Whisper audio encoder and the
         video model), without ``video_projection``: ``(audio_features,
         raw video features or None)``. ``video_mask`` [B, T] (True = valid
         frame) zeroes padded frames and masks them as attention keys in
-        the video tower."""
+        the video tower (in inference; see :mod:`.avhubert`). In training
+        the tower's BatchNorm uses the batch's statistics unless
+        ``freeze_video_bn_stats``."""
         features = self.encoder(mel, generator=generator)
         v = None
         if video is not None and self.cfg.add_gated_x_attn:
             if self.video_model is not None:
-                v = self.video_model(video=video, padding_mask=video_mask)
+                v = self.video_model(
+                    video=video, padding_mask=video_mask, deterministic=not self.training,
+                    use_running_average=True if freeze_video_bn_stats else None,
+                    generator=generator,
+                )
             else:
                 v = video  # already-extracted video features [B, T, video_state]
         return features, v
@@ -241,11 +249,13 @@ class Whisper(nn.Module):
         video_mask: Optional[torch.Tensor] = None,
         video_feature_scale=None,
         generator: Optional[torch.Generator] = None,
+        freeze_video_bn_stats: bool = False,
     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """``(audio_features, x_v)``: ``x_v`` is the projected video stream
         (times ``video_feature_scale`` when given), None without video or
         gated cross-attention."""
-        features, v = self.encode_towers(mel, video, video_mask, generator=generator)
+        features, v = self.encode_towers(mel, video, video_mask, generator=generator,
+                                         freeze_video_bn_stats=freeze_video_bn_stats)
         x_v = None if v is None else self._project(v, video_feature_scale)
         return features, x_v
 
@@ -315,10 +325,12 @@ class Whisper(nn.Module):
         video_mask: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
         video_feature_scale=None,
+        freeze_video_bn_stats: bool = False,
     ) -> torch.Tensor:
         """Teacher-forced logits [B, T, n_vocab] (fp32). In training mode
-        dropout masks come from ``generator``."""
+        every random draw comes from ``generator``."""
         features, x_v = self.encode(mel, video, video_mask, video_feature_scale,
-                                    generator=generator)
+                                    generator=generator,
+                                    freeze_video_bn_stats=freeze_video_bn_stats)
         logits, _ = self.decoder(tokens, features, generator=generator, xv=x_v)
         return logits

@@ -1,23 +1,24 @@
 """Step checkpoints of a train state: save with retention, find the
-latest, restore in place.
+latest, restore in place; weight triage and a params-only restore.
 
-Port of ``save_checkpoint``, ``latest_step``, ``all_steps`` and
-``restore_checkpoint`` from ``avsl_tpu/train/checkpoints.py``, with
-``torch.save`` files in place of Orbax directories: one
-``step_<N>.pt`` per step under ``directory``, holding the model's state
-dict, the optimizer state, the update count and the generator state.
-``partial_load`` (weight triage) and ``restore_sharded`` wait for the
-checkpoint-import and parallel items (ROADMAP.md queue 1, items 12-13).
-Only files this program wrote are loaded (``torch.load`` unpickles).
+Port of ``save_checkpoint``, ``latest_step``, ``all_steps``,
+``restore_checkpoint``, ``partial_load`` and ``restore_params_only`` from
+``avsl_tpu/train/checkpoints.py``, with ``torch.save`` files in place of
+Orbax directories: one ``step_<N>.pt`` per step under ``directory``,
+holding the model's state dict (BatchNorm statistics included), the
+optimizer state, the update count and the generator state.
+``restore_sharded`` waits for the parallel layer (ROADMAP.md queue 1,
+item 12). Files are read with ``weights_only=True``.
 """
 
 from __future__ import annotations
 
 import os
 import re
-from typing import List, Optional
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import torch
+from torch import nn
 
 _NAME = re.compile(r"^step_(\d+)\.pt$")
 
@@ -71,3 +72,47 @@ def restore_checkpoint(directory: str, target, step: Optional[int] = None):
         target.generator.set_state(saved["generator"])
     target.step = int(saved["step"])
     return target
+
+
+def partial_load(
+    model: nn.Module, loaded: Mapping[str, torch.Tensor], strict: bool = False
+) -> Tuple[nn.Module, Dict[str, List[str]]]:
+    """Copy the entries of ``loaded`` whose key and shape match the model's
+    state dict (parameters and buffers) into it, in place. Returns
+    ``(model, report)``: ``loaded`` (copied), ``missing`` (in the model,
+    not in ``loaded``), ``unexpected`` (in ``loaded`` only) and
+    ``shape_mismatch`` keys, the triage the reference logs on its
+    non-strict load (``checkpoints.py:138-171``). ``strict`` raises on any
+    of the last three."""
+    own = model.state_dict()
+    report: Dict[str, List[str]] = {
+        "missing": [k for k in own if k not in loaded],
+        "unexpected": [k for k in loaded if k not in own],
+        "shape_mismatch": [], "loaded": [],
+    }
+    with torch.no_grad():
+        for key, dst in own.items():
+            if key not in loaded:
+                continue
+            src = torch.as_tensor(loaded[key])
+            if tuple(src.shape) != tuple(dst.shape):
+                report["shape_mismatch"].append(key)
+                continue
+            dst.copy_(src)
+            report["loaded"].append(key)
+    if strict and (report["missing"] or report["unexpected"] or report["shape_mismatch"]):
+        raise ValueError(f"Strict load failed: {report}")
+    return model, report
+
+
+def restore_params_only(directory: str, step: Optional[int] = None
+                        ) -> Optional[Dict[str, torch.Tensor]]:
+    """The model's state dict (parameters and BatchNorm statistics) saved
+    at ``step`` (the latest when None) under ``directory``, without the
+    optimizer it was trained with; None when the directory holds no
+    checkpoint (``checkpoints.py:174-192``)."""
+    if latest_step(directory) is None:
+        return None
+    if step is None:
+        step = latest_step(directory)
+    return torch.load(_path(directory, step), map_location="cpu", weights_only=True)["model"]

@@ -14,8 +14,13 @@ forward/backward passes, which is what the scan computes:
   sets ``requires_grad=False`` on the frozen parameters, so no backward
   runs through frozen-only subgraphs (the JAX step differentiates only the
   trainable subtree);
-* random draws (dropout, SpecAugment) come from the state's
-  ``torch.Generator``, in order.
+* random draws (dropout, SpecAugment, the AV-mode draw) come from the
+  state's ``torch.Generator``, in order;
+* BatchNorm statistics live in the model's buffers, so a micro-step that
+  updates them hands them to the next, as the JAX scan carries them;
+* ``precompute_fn`` (the frozen-tower hoist) runs once a step, before the
+  micro-steps and without gradients, on the whole stacked batch, and its
+  context is merged into each micro-batch.
 
 ``mesh``, ZeRO and FSDP are the parallel layer (ROADMAP.md queue 1, item
 12) and raise here.
@@ -35,6 +40,9 @@ from avsl_tpu_torch.train.optim import TRAIN, ClippedAdamW, global_norm
 # loss_fn(batch, generator) -> (loss, metrics dict), over the state's model
 LossFn = Callable[[Dict[str, torch.Tensor], Optional[torch.Generator]],
                   Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
+# precompute_fn(batch, generator) -> context dict (leading [accum] axis)
+PrecomputeFn = Callable[[Dict[str, torch.Tensor], Optional[torch.Generator]],
+                        Dict[str, torch.Tensor]]
 
 
 def _parallel_not_ported(option: str) -> NotImplementedError:
@@ -77,7 +85,8 @@ def make_train_step(
     mesh: Any = None,
     grad_accum_steps: int = 1,
     param_labels: Optional[Dict[str, str]] = None,
-    precompute_fn: Any = None,
+    precompute_fn: Optional[PrecomputeFn] = None,
+    split_precompute: bool = False,
     zero1: bool = False,
     fsdp: bool = False,
 ):
@@ -86,25 +95,40 @@ def make_train_step(
     ``batch`` leaves are ``[micro, ...]``, or ``[accum, micro, ...]`` when
     ``grad_accum_steps > 1``. ``metrics`` holds device scalars (``loss``
     and whatever ``loss_fn`` reports, averaged over micro-steps, and
-    ``grad_norm``); reading one waits for the step."""
+    ``grad_norm``); reading one waits for the step.
+
+    ``precompute_fn(batch, generator) -> ctx`` (e.g.
+    :func:`~avsl_tpu_torch.train.objectives.flamingo_tower_precompute`)
+    runs under ``torch.no_grad()`` on the whole batch, drawing from the
+    state's generator before any micro-step; ``ctx[k][i]`` joins
+    micro-batch ``i`` (``ctx`` itself without accumulation). With
+    ``split_precompute=True`` the result is ``(step, pre)``: ``ctx =
+    pre(state, batch)`` then ``step(state, batch, ctx)``, which draws
+    the same numbers as the fused step."""
     if mesh is not None:
         raise _parallel_not_ported("mesh")
     if zero1 or fsdp:
         raise _parallel_not_ported("zero1/fsdp")
-    if precompute_fn is not None:
-        raise NotImplementedError(
-            "precompute_fn: the frozen-tower hoist needs the video slice "
-            "(ROADMAP.md queue 1, item 8)"
-        )
     accum = int(grad_accum_steps)
 
-    def step_fn(state: TrainState, batch: Dict[str, Any]) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+    def pre_fn(state: TrainState, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        batch = batch_to_device(batch, next(state.model.parameters()).device)
+        with torch.no_grad():
+            return precompute_fn(batch, state.generator)
+
+    def step_fn(state: TrainState, batch: Dict[str, Any],
+                ctx: Optional[Dict[str, torch.Tensor]] = None,
+                ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         model, opt = state.model, state.optimizer
         if param_labels is not None:
             for name, p in model.named_parameters():
                 p.requires_grad_(param_labels.get(name) == TRAIN)
         device = next(model.parameters()).device
         batch = batch_to_device(batch, device)
+        if precompute_fn is not None and ctx is None:
+            ctx = pre_fn(state, batch)
+        if ctx is not None:
+            batch = {**batch, **ctx}
         micros = [batch] if accum <= 1 else [{k: v[i] for k, v in batch.items()}
                                               for i in range(accum)]
         sums: Dict[str, torch.Tensor] = {}
@@ -133,6 +157,8 @@ def make_train_step(
         state.step += 1
         return state, out
 
+    if split_precompute and precompute_fn is not None:
+        return step_fn, pre_fn
     return step_fn
 
 

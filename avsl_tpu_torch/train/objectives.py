@@ -1,18 +1,21 @@
 """Loss closures binding the model to the train step.
 
-Port of the audio branch of ``avsl_tpu/train/objectives.py::
-flamingo_loss_fn``: SpecAugment on the mel (training only), the
-teacher-forced forward with dropout in training, and token-mean CE over
-the labels (-100 ignored). Batches follow the collator's layout:
-``input_ids`` (mel [B, n_mels, T]), ``dec_input_ids``, ``labels`` and
-``audio_frames``. Video inputs, the AV-mode mixing they feed, and the
-hoisted ``enc_features`` path belong to Flamingo training (ROADMAP.md
-queue 1, item 8) and raise.
+Port of ``flamingo_loss_fn`` and ``flamingo_tower_precompute`` from
+``avsl_tpu/train/objectives.py``: SpecAugment on the mel (training only),
+the train-time AV-mode draw, the teacher-forced forward with every
+training draw on, and token-mean CE over the labels (-100 ignored).
+Batches follow the collator's layout: ``input_ids`` (mel [B, n_mels, T]),
+``dec_input_ids``, ``labels``, ``audio_frames``, and with lip video
+``video`` [B, T, H, W, 1] and ``video_mask`` [B, T]. With the frozen-tower
+hoist the batch also carries the precomputed context (``enc_features``,
+``video_feats``, ``video_scale``) and the loss runs only the trainable
+tail. The JAX loss's MoE balance term has nothing to read here: the port
+has no MoE tower (ROADMAP.md queue 1, item 12).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -20,48 +23,129 @@ from avsl_tpu_torch.kernels.specaugment import spec_augment_batch
 from avsl_tpu_torch.models.avhubert import cross_entropy_loss
 
 
-def _video_not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} in the loss is not ported yet (ROADMAP.md queue 1, item 8: "
-        "Flamingo training)"
-    )
+def _spec_augment(mel: torch.Tensor, frames: Optional[torch.Tensor],
+                  generator: torch.Generator, policy: Optional[str]) -> torch.Tensor:
+    """``policy`` ("ls-basic": one frequency and one time mask per item;
+    "ls-double": two of each) on mel [B, n_mels, T]; other policies leave
+    it as it is."""
+    if policy not in ("ls-basic", "ls-double"):
+        return mel
+    n = 1 if policy == "ls-basic" else 2
+    if frames is None:
+        frames = torch.full((mel.shape[0],), mel.shape[-1], dtype=torch.int64, device=mel.device)
+    # SpecAugment works time-major
+    return spec_augment_batch(mel.transpose(1, 2), generator, frames,
+                              n_freq_mask=n, n_time_mask=n).transpose(1, 2)
+
+
+def _av_mode(generator: torch.Generator, shape: Tuple[int, ...], device,
+             prob_av: float, prob_a: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One AV-mode draw ``u`` per entry of ``shape``: AV with probability
+    ``prob_av``, audio-only with ``prob_a`` (the projected video scaled by
+    0), else video-only (the mel zeroed). Returns ``(video_scale,
+    keep_audio)``, fp32."""
+    u = torch.rand(shape, generator=generator, device=device)
+    audio_only = (u >= prob_av) & (u < prob_av + prob_a)
+    return (torch.where(audio_only, 0.0, 1.0).to(device),
+            (u < prob_av + prob_a).float())
 
 
 def flamingo_loss_fn(model, train: bool = True, freeze_video_bn_stats: bool = False,
                      spec_augment: Optional[str] = None,
                      prob_av: float = 1.0, prob_a: float = 0.0):
-    """CE loss for Whisper: encoder(mel) -> decoder(dec_input_ids).
+    """CE loss for Whisper(-Flamingo): encoder(mel, video) -> decoder.
 
-    ``train`` puts the model in training mode (dropout on) and applies
-    ``spec_augment`` ("ls-basic": one frequency and one time mask per
-    item; "ls-double": two of each) to the mel. The returned
-    ``loss_fn(batch, generator)`` gives ``(loss, metrics)`` and draws
-    every random number from ``generator``. ``freeze_video_bn_stats``,
-    ``prob_av`` and ``prob_a`` act on video inputs only, which raise
-    here."""
-    del freeze_video_bn_stats  # only read with video inputs
+    ``train`` puts the model in training mode (dropout, the tower's
+    LayerDrop, BatchNorm on the batch's statistics unless
+    ``freeze_video_bn_stats``) and applies ``spec_augment`` to the mel.
+    With video in training and ``prob_av < 1`` or ``prob_a > 0``, one
+    AV-mode draw a micro-step picks AV, audio-only (``video_feature_scale``
+    0: the tower still sees the real clip, so BatchNorm keeps a
+    real-statistics batch) or video-only (the mel multiplied by 0), as
+    ``objectives.py:118-126`` does. A batch holding ``enc_features`` comes
+    from :func:`flamingo_tower_precompute`: only ``project_and_decode``
+    runs. The returned ``loss_fn(batch, generator)`` gives ``(loss,
+    metrics)`` and draws every random number from ``generator``."""
     mixing = prob_av < 1.0 or prob_a > 0.0
 
     def loss_fn(batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator]):
         model.train(train)
+        gen = generator if train else None
         if "enc_features" in batch:
-            raise NotImplementedError(
-                "the hoisted enc_features path (flamingo_tower_precompute) is not "
-                "ported yet (ROADMAP.md queue 1, item 8: Flamingo training)"
-            )
-        if batch.get("video") is not None:
-            raise _video_not_ported("video inputs" + (" with AV-mode mixing" if mixing else ""))
+            logits = model.project_and_decode(
+                batch["dec_input_ids"], batch["enc_features"],
+                video_feats=batch.get("video_feats"),
+                video_feature_scale=batch.get("video_scale"), generator=gen)
+            return cross_entropy_loss(logits, batch["labels"], label_smoothing=0.0), {}
         mel = batch["input_ids"]
-        if train and spec_augment in ("ls-basic", "ls-double"):
-            n = 1 if spec_augment == "ls-basic" else 2
-            frames = batch.get("audio_frames")
-            if frames is None:
-                frames = torch.full((mel.shape[0],), mel.shape[-1], dtype=torch.int64,
-                                    device=mel.device)
-            # mel is [B, n_mels, T]; SpecAugment works time-major
-            mel = spec_augment_batch(mel.transpose(1, 2), generator, frames,
-                                     n_freq_mask=n, n_time_mask=n).transpose(1, 2)
-        logits = model(mel, batch["dec_input_ids"], generator=generator if train else None)
+        if train:
+            mel = _spec_augment(mel, batch.get("audio_frames"), generator, spec_augment)
+        video, video_scale = batch.get("video"), None
+        if train and video is not None and mixing:
+            video_scale, keep_audio = _av_mode(generator, (), mel.device, prob_av, prob_a)
+            mel = mel * keep_audio.to(mel.dtype)
+        logits = model(mel, batch["dec_input_ids"], video=video,
+                       video_mask=batch.get("video_mask"), generator=gen,
+                       video_feature_scale=video_scale,
+                       freeze_video_bn_stats=freeze_video_bn_stats)
         return cross_entropy_loss(logits, batch["labels"], label_smoothing=0.0), {}
 
     return loss_fn
+
+
+def flamingo_tower_precompute(model, train: bool = True, freeze_video_bn_stats: bool = True,
+                              spec_augment: Optional[str] = None,
+                              prob_av: float = 1.0, prob_a: float = 0.0):
+    """The frozen-tower forward for :func:`flamingo_loss_fn`, batched over
+    every micro-step of a step (``objectives.py:157-253``).
+
+    The returned ``pre_fn(batch, generator) -> ctx`` runs the Whisper
+    encoder and the video tower once, without gradients, over the stacked
+    ``[accum, micro, ...]`` batch flattened to ``[accum * micro, ...]``,
+    with SpecAugment and one AV-mode draw per micro-step made here, and
+    returns ``enc_features``, ``video_feats`` and ``video_scale`` with a
+    leading ``[accum]`` axis for the train step to merge into each
+    micro-batch. Valid only when everything the towers read is frozen and
+    the tower's BatchNorm uses its running statistics; the caller gates on
+    that (``cli/finetune.py``). The draws are made in another order than
+    in-scan, with the same distribution; a tower LayerDrop above 0 draws
+    once for all the micro-steps of a step."""
+
+    mixing = prob_av < 1.0 or prob_a > 0.0
+
+    @torch.no_grad()
+    def pre_fn(batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator]):
+        model.train(train)
+        mel, dec = batch["input_ids"], batch["dec_input_ids"]
+        stacked = dec.ndim == 3  # [accum, micro, L] vs [micro, L]
+        a = mel.shape[0] if stacked else 1
+
+        def flat(x):
+            return x.reshape((-1,) + tuple(x.shape[2:])) if stacked and x is not None else x
+
+        def unflat(x):
+            return x.reshape((a, -1) + tuple(x.shape[1:])) if stacked and x is not None else x
+
+        mel_f = flat(mel)
+        if train:
+            mel_f = _spec_augment(mel_f, flat(batch.get("audio_frames")), generator, spec_augment)
+        video, ctx = batch.get("video"), {}
+        if train and video is not None and mixing:
+            # one mode draw per micro-step, as the in-scan path makes
+            ctx["video_scale"], keep_audio = _av_mode(
+                generator, (a,) if stacked else (), mel_f.device, prob_av, prob_a)
+            keep_audio = keep_audio.to(mel_f.dtype).reshape(-1)
+            if stacked:
+                keep_audio = keep_audio.repeat_interleave(mel_f.shape[0] // a)
+            mel_f = mel_f * keep_audio[:, None, None]
+        features, v = model.encode_towers(
+            mel_f, video=flat(video), video_mask=flat(batch.get("video_mask")),
+            generator=generator if train else None,
+            freeze_video_bn_stats=freeze_video_bn_stats,
+        )
+        ctx["enc_features"] = unflat(features)
+        if v is not None:
+            ctx["video_feats"] = unflat(v)
+        return ctx
+
+    return pre_fn

@@ -2,12 +2,12 @@
 periodic teacher-forced validation with WER/CER, best-checkpoint tracking,
 early stopping, resume and SIGTERM-safe exit.
 
-Port of ``MetricLogger``, ``evaluate_wer`` and ``TrainerRunner`` from
-``avsl_tpu/train/runner.py``. Metrics go to a JSONL file (the JAX runner
-writes TensorBoard when TensorFlow is importable). Parameter EMA
-(``ema_decay > 0``), the mesh, ZeRO and FSDP are the later training items
-(ROADMAP.md queue 1, item 12) and raise; ``test_best`` (evaluating the
-best checkpoint on a test split) waits for a caller.
+Port of ``MetricLogger``, ``evaluate_wer`` and ``TrainerRunner`` (with
+the frozen-tower hoist and ``test_best``) from ``avsl_tpu/train/runner.py``.
+Metrics go to a JSONL file (the JAX runner writes TensorBoard when
+TensorFlow is importable). Parameter EMA (``ema_decay > 0``), the mesh,
+ZeRO and FSDP are the later training items (ROADMAP.md queue 1, item 12)
+and raise.
 """
 
 from __future__ import annotations
@@ -22,7 +22,12 @@ import torch
 
 from avsl_tpu_torch.decode.greedy import teacher_forced_predictions
 from avsl_tpu_torch.decode.text_norm import normalize_text, wer_cer
-from avsl_tpu_torch.train.checkpoints import latest_step, restore_checkpoint, save_checkpoint
+from avsl_tpu_torch.train.checkpoints import (
+    latest_step,
+    restore_checkpoint,
+    restore_params_only,
+    save_checkpoint,
+)
 from avsl_tpu_torch.train.loop import TrainState, make_train_step
 
 
@@ -96,7 +101,11 @@ class TrainerRunner:
     ``eval_logits_fn(state, batch)`` gives teacher-forced logits. Batches
     from ``fit``'s ``train_batches`` hold ``accum × micro`` items and are
     reshaped to ``[accum, micro, ...]``. ``tx`` (the JAX optimizer
-    argument) is unused: the optimizer lives in the state."""
+    argument) is unused: the optimizer lives in the state.
+    ``precompute_fn`` (the frozen-tower hoist, gated by the caller) runs
+    once a step before the micro-steps; the JAX runner compiles it as a
+    program of its own (``split_precompute``), which eager PyTorch has no
+    need of: both forms draw the same numbers."""
 
     def __init__(
         self,
@@ -264,3 +273,44 @@ class TrainerRunner:
             "history": history,
             "preempted": self._preempted,
         }
+
+    def test_best(
+        self,
+        test_batches: Callable[[], Iterator[Dict[str, np.ndarray]]],
+        prefix: str = "test",
+        max_batches: Optional[int] = None,
+    ) -> Dict[str, float]:
+        """Evaluate the best checkpoint (by ``val/wer_av``) on a held-out
+        split, the reference's ``trainer.test(ckpt_path='best')``: the
+        latest checkpoint when no validation picked a best step, the
+        in-memory state when there is no checkpoint. The model's own
+        weights are put back afterwards."""
+        step = self.best_step if self.best_step >= 0 else latest_step(self.ckpt_dir)
+        model, saved = self.state.model, None
+        if step is not None and step >= 0:
+            # the best step lives in its own pinned directory; the rolling
+            # one holds the plain latest step
+            for directory in (self._best_dir, self.ckpt_dir):
+                try:
+                    saved = restore_params_only(directory, step)
+                except (OSError, RuntimeError, KeyError):
+                    continue
+                if saved is not None:
+                    break
+            if saved is None:
+                print(f"warning: checkpoint for step {step} not restorable; "
+                      "evaluating the in-memory (final) state instead")
+                step = None
+        live = None
+        if saved is not None:
+            live = {k: v.detach().to("cpu", copy=True) for k, v in model.state_dict().items()}
+            model.load_state_dict(saved)
+        try:
+            m = evaluate_wer(lambda b: self.eval_logits_fn(self.state, b), test_batches(),
+                             self.tokenizer, max_batches=max_batches, prefix=prefix,
+                             predictions_fn=self.predictions_fn)
+        finally:
+            if live is not None:
+                model.load_state_dict(live)
+        self.logger.log(step or 0, m)
+        return m

@@ -12,11 +12,12 @@ raises on failure:
    fails unless the forward has ``HGMMA`` and the backward either;
 3. kernels against plain: the forward kernel (K1) and its plain PyTorch
    version at the shapes of the serving and the training path (the
-   AV-HuBERT encoder's too, with and without key lengths, and the gated
-   video cross-attention's); K1's row
-   statistics against the plain row max and sum; the backward kernel (K2)
-   against its plain version at the shapes of the training path (and the
-   serving encoder's); bf16 at D = 32 for both; each with times (CUDA
+   AV-HuBERT encoder's too, with and without key lengths, the gated video
+   cross-attention's, and the Flamingo training path's decoder and hoisted
+   encoder); K1's row statistics against the plain row max and sum; the
+   backward kernel (K2) against its plain version at the shapes of the
+   training paths (and the serving encoder's); bf16 at D = 32 for both;
+   each with times (CUDA
    events around single calls, median of 20, host launch time included;
    and device time from torch.profiler), the yardstick library call and
    the least time the card could take;
@@ -27,7 +28,11 @@ raises on failure:
    one cached decode step with the "xv" cache; one bf16 cached
    cross-attention decode step against upcast fp32 operands; and the tiny
    fp32 model trained 3 accumulated steps on the card (K1 + K2) against
-   the CPU (per-step loss and grad norm, step-1 gradients);
+   the CPU (per-step loss and grad norm, step-1 gradients); the tiny
+   Whisper-Flamingo model (every dropout 0) trained the same way under the
+   Flamingo regime with BatchNorm on batch statistics (also the running
+   statistics after step 3), then with BatchNorm frozen, hoisted against
+   in-scan;
 5. serving path: Whisper large-v2 widths (bf16, seeded random weights,
    51865-token vocab) serving 16 synthetic 30 s windows through
    ``StreamingTranscriber`` at batch 8, with K1's launch count read around
@@ -46,16 +51,24 @@ raises on failure:
    per-stage breakdown and traces of the video tower and 16 decode steps;
 7. training path: Whisper large-v2 widths, audio-only, fp32 weights and
    Adam state under bf16 compute, 51866-token vocab, the training YAML's
-   settings (batch 1 x accumulation 16, 10 s windows, dropout 0.1,
-   SpecAugment ls-basic, lr 1e-5 with 1000 warmup steps) composed as the
-   port's ``whisper_ft`` composes them: 3 optimizer steps over 48
-   synthetic items with K1 and K2 launches read around exactly those
-   steps, then one step broken into forward, backward and optimizer and
-   one traced step.
+   settings (batch 1 x accumulation 16, 10 s windows, dropout 0.1, lr
+   1e-5 with 1000 warmup steps; no SpecAugment, as ``whisper_ft``)
+   composed as the port's ``whisper_ft`` composes them: 3 optimizer steps
+   over 48 synthetic items with K1 and K2 launches read around exactly
+   those steps, then one step broken into forward, backward and optimizer
+   and one traced step;
+8. Flamingo training path (``flamingo_train``, then
+   ``flamingo_train_hoisted``): large-v2 plus AV-HuBERT large composed as
+   the port's ``cli/finetune`` composes the training YAML (the Flamingo
+   regime, SpecAugment, the tower's dropouts and LayerDrop, 250 seeded
+   lip frames an item), towers in the loop with BatchNorm on batch
+   statistics, then with BatchNorm frozen, which hoists the towers: 3
+   steps each with the kernels' launches and the tower's forwards counted,
+   frozen tensors unchanged, the same breakdown and trace; then each
+   kernel's launches × (device time − bound) a Flamingo step.
 
-The audio-only serving model is freed before the audio-visual one is
-built, and that before the training path. It prints the kernel list, the
-card's name and power limit and, last,
+Each model is freed before the next one is built. It prints the kernel
+list, the card's name and power limit and, last,
 ``{"ok": true, "device": ...}``.
 """
 
@@ -98,6 +111,14 @@ AV_LENGTHS = (250, 180, 1, 0, 250, 250, 97, 250)
 SMALL_AV_OVERRIDES = dict(hidden_size=64, intermediate_size=128)
 SMALL_AV_TOL = 1e-3
 GATE = 0.5
+# the tiny tower with every training draw off, for card-vs-CPU training
+ZERO_AV_RATES = dict(hidden_dropout=0.0, attention_dropout=0.0, activation_dropout=0.0,
+                     dropout_input=0.0, layerdrop=0.0, modality_dropout=0.0)
+# tiny Flamingo train steps, card vs CPU: the tiny train tolerance, for the
+# metrics, the step-1 gradients and the BatchNorm statistics after 3 steps
+SMALL_FLAMINGO_TOL = SMALL_TRAIN_TOL
+# lip frames of a 10 s window at 25 fps, as the dataset trims them
+VIDEO_FRAMES = 250
 
 
 T_START = time.perf_counter()
@@ -250,14 +271,17 @@ def check_attention_case(name, b, h, tq, tk, d, dtype, causal=False, lengths=Non
     return rec
 
 
-def phase_kernels(label_len: int):
+def phase_kernels(label_len: int, flamingo_len: int):
     """K1 against its plain version at the serving path's shapes, at the
     training path's (``label_len`` is the longest decoder sequence of the
-    train path), at the bf16 tensor-core body's second head dim, and at
-    the audio-visual path's: the AV-HuBERT encoder's self-attention (with
+    train path), at the bf16 tensor-core body's second head dim, at the
+    audio-visual path's: the AV-HuBERT encoder's self-attention (with
     and without key lengths, a length-0 row included), the gated video
     cross-attention of a teacher-forced 70-token decoder, and the Whisper
-    encoder at the AV path's 10 s windows."""
+    encoder at the AV path's 10 s windows; and at the Flamingo training
+    path's (``flamingo_len`` its pinned label length): the gated x_attn
+    onto 250 video frames, the decoder's self- and cross-attention, and
+    the hoisted Whisper encoder over a step's 16 items."""
     f32, bf16 = torch.float32, torch.bfloat16
     return [
         check_attention_case("a_encoder_bf16", 8, 20, 1500, 1500, 64, bf16),
@@ -277,6 +301,11 @@ def phase_kernels(label_len: int):
                              lengths=list(AV_LENGTHS)),
         check_attention_case("l_x_attn_cross", 8, 20, 70, 250, 64, bf16),
         check_attention_case("m_av_whisper_encoder_bf16", 8, 20, 500, 500, 64, bf16),
+        check_attention_case("n_flamingo_x_attn", 1, 20, flamingo_len, VIDEO_FRAMES, 64, bf16),
+        check_attention_case("o_flamingo_decoder_self_causal", 1, 20, flamingo_len, flamingo_len,
+                             64, bf16, causal=True),
+        check_attention_case("p_flamingo_cross", 1, 20, flamingo_len, 500, 64, bf16),
+        check_attention_case("q_hoisted_whisper_encoder", 16, 20, 500, 500, 64, bf16),
     ]
 
 
@@ -374,17 +403,21 @@ def check_attention_bwd_case(name, b, h, tq, tk, d, dtype, causal=False, lengths
     return rec
 
 
-def phase_kernel_stats():
+def phase_kernel_stats(flamingo_len: int):
     bf16 = torch.bfloat16
     check_attention_stats("train_encoder", 1, 20, 500, 500, 64, bf16)
     check_attention_stats("decoder_self_causal", 1, 20, 210, 210, 64, bf16, causal=True)
     check_attention_stats("ragged_lengths", 4, 20, 1003, 1003, 64, bf16, lengths=[0, 1003, 517, 1])
+    check_attention_stats("flamingo_x_attn", 1, 20, flamingo_len, VIDEO_FRAMES, 64, bf16)
 
 
-def phase_kernels_bwd(label_len: int):
+def phase_kernels_bwd(label_len: int, flamingo_len: int):
     """K2 against its plain version at the training path's shapes
-    (``label_len`` is the longest decoder sequence of the train path) and
-    at the serving encoder shape, beside K1's row."""
+    (``label_len`` is the longest decoder sequence of the train path), at
+    the serving encoder shape, and at the Flamingo training path's
+    (``flamingo_len`` its pinned label length: the gated x_attn, the
+    decoder's self- and cross-attention; and x_attn at the teacher-forced
+    serving shape), beside K1's row."""
     f32, bf16 = torch.float32, torch.bfloat16
     return [
         check_attention_bwd_case("a_train_encoder_bf16", 1, 20, 500, 500, 64, bf16),
@@ -397,6 +430,11 @@ def phase_kernels_bwd(label_len: int):
         check_attention_bwd_case("e_tiny_head_dim", 8, 2, 200, 200, 32, f32),
         check_attention_bwd_case("f_serving_encoder_bf16", 8, 20, 1500, 1500, 64, bf16),
         check_attention_bwd_case("g_tiny_head_dim_bf16", 8, 2, 200, 200, 32, bf16),
+        check_attention_bwd_case("h_x_attn_teacher_forced", 8, 20, 70, VIDEO_FRAMES, 64, bf16),
+        check_attention_bwd_case("i_flamingo_x_attn", 1, 20, flamingo_len, VIDEO_FRAMES, 64, bf16),
+        check_attention_bwd_case("j_flamingo_decoder_self_causal", 1, 20, flamingo_len,
+                                 flamingo_len, 64, bf16, causal=True),
+        check_attention_bwd_case("k_flamingo_cross", 1, 20, flamingo_len, 500, 64, bf16),
     ]
 
 
@@ -888,10 +926,68 @@ def prepare_train_path(steps: int):
     return cfg, tokenizer, batches, max(b["labels"].shape[1] for b in batches)
 
 
+def timed_train_steps(runner, reshaped, after_first):
+    """Each batch through the runner's train step, timed on the host clock
+    around a synchronised step: ``(records, after_first())``, the latter
+    called once step 1 has run."""
+    opt, records, first = runner.state.optimizer, [], None
+    for i, batch in enumerate(reshaped):
+        lr = opt.learning_rate()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        runner.state, metrics = runner.train_step(runner.state, batch)
+        loss, grad_norm = float(metrics["loss"]), float(metrics["grad_norm"])
+        torch.cuda.synchronize()
+        records.append({"step": i + 1, "seconds": time.perf_counter() - t, "lr": lr,
+                        "loss": loss, "grad_norm": grad_norm,
+                        "label_tokens": int((batch["labels"] >= 0).sum()),
+                        "label_len": int(batch["labels"].shape[-1])})
+        if i == 0:
+            first = after_first()
+    if not all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in records):
+        raise AssertionError(f"non-finite loss or grad_norm: {records}")
+    return records, first
+
+
+def step_rates(records, items_per_step: int) -> dict:
+    """Seconds a step (median of steps 2 on, step 1 carrying first-use
+    costs), segments and label tokens a second."""
+    timed = records[1:] if len(records) > 1 else records
+    sec = statistics.median(r["seconds"] for r in timed)
+    return {"seconds_per_step_median_2_3": sec, "segments_per_s": items_per_step / sec,
+            "label_tokens_per_s": statistics.median(r["label_tokens"] for r in timed) / sec}
+
+
+def staged_step(model, opt, loss_fn, batch, gen, accum: int, stages: dict, check_grads):
+    """One more train step stage by stage (host clock, synchronised per
+    stage): each micro-step's forward and backward, ``check_grads()`` on
+    the accumulated gradients, then the optimizer, added into ``stages``."""
+    stages.update(forward=0.0, backward=0.0)
+    for i in range(accum):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss, _ = loss_fn({k: v[i] for k, v in batch.items()}, gen)
+        torch.cuda.synchronize()
+        stages["forward"] += time.perf_counter() - t
+        t = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        stages["backward"] += time.perf_counter() - t
+    check_grads()
+    t = time.perf_counter()
+    grads = [p.grad for p in opt.params]
+    torch._foreach_div_(grads, float(accum))
+    opt.step(grads)
+    model.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    stages["optimizer"] = time.perf_counter() - t
+    return stages
+
+
 def phase_train_main_path(card: str, cfg, tokenizer, batches, out_dir: str):
     """Whisper large-v2 widths, audio-only, fp32 weights and Adam state
     under bf16 compute, trained as the port's whisper_ft composes it
-    (flamingo_loss_fn with dropout and SpecAugment, whisper_optimizer,
+    (flamingo_loss_fn with dropout and no SpecAugment, whisper_optimizer,
     TrainerRunner's step): 3 optimizer steps of batch 1 x accumulation
     16, with the kernels' launches read around exactly those steps; then
     one step broken into forward, backward and optimizer (and checked for
@@ -909,7 +1005,7 @@ def phase_train_main_path(card: str, cfg, tokenizer, batches, out_dir: str):
     log({"phase": "build_train_model", "model": w_cfg.name, "n_vocab": w_cfg.n_vocab,
          "params": sum(p.numel() for p in params), "dtype": w_cfg.dtype,
          "param_dtype": w_cfg.param_dtype, "dropout": w_cfg.dropout_rate,
-         "spec_augment": cfg.spec_augment, "learning_rate": cfg.learning_rate,
+         "spec_augment": None, "learning_rate": cfg.learning_rate,
          "warmup_steps": cfg.warmup_steps, "batch_size": cfg.batch_size,
          "accumulation": cfg.gradient_accumulation_steps,
          "seconds": time.perf_counter() - t0})
@@ -921,41 +1017,23 @@ def phase_train_main_path(card: str, cfg, tokenizer, batches, out_dir: str):
     torch.cuda.reset_peak_memory_stats()
 
     before = [p.detach().clone() for p in params]
-    records, unchanged_after_first = [], None
     fused_attention.launches = fused_attention_bwd.launches = 0
-    for i, batch in enumerate(reshaped):
-        lr = opt.learning_rate()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        runner.state, metrics = runner.train_step(runner.state, batch)
-        loss, grad_norm = float(metrics["loss"]), float(metrics["grad_norm"])
-        torch.cuda.synchronize()
-        records.append({"step": i + 1, "seconds": time.perf_counter() - t, "lr": lr,
-                        "loss": loss, "grad_norm": grad_norm,
-                        "label_tokens": int((batch["labels"] >= 0).sum()),
-                        "label_len": int(batch["labels"].shape[-1])})
-        if i == 0:
-            unchanged_after_first = all(torch.equal(a, p) for a, p in zip(before, params))
+    records, unchanged_after_first = timed_train_steps(
+        runner, reshaped, lambda: all(torch.equal(a, p) for a, p in zip(before, params)))
     k1, k2 = fused_attention.launches, fused_attention_bwd.launches
     peak = torch.cuda.max_memory_allocated()
     changed = sum(int((a != p).sum()) for a, p in zip(before, params))
     n_elems = sum(p.numel() for p in params)
     del before
 
-    timed = records[1:] if n_steps > 1 else records
-    sec = statistics.median(r["seconds"] for r in timed)
-    tokens = statistics.median(r["label_tokens"] for r in timed)
     micro_steps = n_steps * accum
     per_micro = 3 * w_cfg.n_audio_layer  # encoder self, decoder self, cross
     log({"phase": "train_main_path", "card": card, "steps": records,
-         "seconds_per_step_median_2_3": sec, "segments_per_s": accum * cfg.batch_size / sec,
-         "label_tokens_per_s": tokens / sec, "max_memory_allocated_bytes": peak,
+         **step_rates(records, accum * cfg.batch_size), "max_memory_allocated_bytes": peak,
          "k1_launches": k1, "k2_launches": k2, "micro_steps": micro_steps,
          "expected_launches": per_micro * micro_steps,
          "params_unchanged_after_step_1": unchanged_after_first,
          "param_elements_changed_share": changed / n_elems})
-    if not all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in records):
-        raise AssertionError("non-finite loss or grad_norm on the train path")
     if k1 != per_micro * micro_steps or k2 != per_micro * micro_steps:
         raise AssertionError(f"launches K1 {k1} / K2 {k2} != {per_micro * micro_steps}")
     if not unchanged_after_first:
@@ -964,30 +1042,16 @@ def phase_train_main_path(card: str, cfg, tokenizer, batches, out_dir: str):
         raise AssertionError(f"only {changed / n_elems:.3f} of the parameters changed in 3 steps")
 
     # one more step, stage by stage (host clock, synchronised per stage)
-    loss_fn = flamingo_loss_fn(model, train=True, spec_augment=cfg.spec_augment)
-    gen = runner.state.generator
+    loss_fn = flamingo_loss_fn(model, train=True)  # as whisper_ft: no SpecAugment
     batch = batch_to_device(reshaped[-1], model.device)
-    stages = {"forward": 0.0, "backward": 0.0}
-    for i in range(accum):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        loss, _ = loss_fn({k: v[i] for k, v in batch.items()}, gen)
-        torch.cuda.synchronize()
-        stages["forward"] += time.perf_counter() - t
-        t = time.perf_counter()
-        loss.backward()
-        torch.cuda.synchronize()
-        stages["backward"] += time.perf_counter() - t
-    zero = [n for n, p in model.named_parameters() if p.grad is None or not bool(p.grad.any())]
-    if zero:
-        raise AssertionError(f"{len(zero)} trained tensors got no gradient, e.g. {zero[:4]}")
-    t = time.perf_counter()
-    grads = [p.grad for p in opt.params]
-    torch._foreach_div_(grads, float(accum))
-    opt.step(grads)
-    model.zero_grad(set_to_none=True)
-    torch.cuda.synchronize()
-    stages["optimizer"] = time.perf_counter() - t
+
+    def check_grads():
+        zero = [n for n, p in model.named_parameters() if p.grad is None or not bool(p.grad.any())]
+        if zero:
+            raise AssertionError(f"{len(zero)} trained tensors got no gradient, e.g. {zero[:4]}")
+
+    stages = staged_step(model, opt, loss_fn, batch, runner.state.generator, accum, {},
+                         check_grads)
     log({"phase": "train_stage_breakdown", "card": card, "micro_steps": accum,
          "stage_seconds": stages, "trained_tensors_with_gradient": len(opt.params)})
 
@@ -997,6 +1061,325 @@ def phase_train_main_path(card: str, cfg, tokenizer, batches, out_dir: str):
 
     log({"phase": "train_traced_step", "card": card, **traced_run(one_step)})
     return {"k1": k1, "k2": k2}
+
+
+def _tiny_flamingo_step(model, freeze_bn: bool, hoist: bool):
+    """The Flamingo regime's optimizer, loss and train step (accumulation
+    2) over ``model``; the towers hoisted when ``hoist``."""
+    from avsl_tpu_torch.core.config import FlamingoTrainConfig
+    from avsl_tpu_torch.train import TrainState, flamingo_loss_fn, make_train_step, select_optimizer
+    from avsl_tpu_torch.train.objectives import flamingo_tower_precompute
+
+    tcfg = FlamingoTrainConfig(learning_rate=1e-3, warmup_steps=1, num_train_steps=10)
+    opt, labels = select_optimizer(model, tcfg, 10)
+    mixing = dict(prob_av=1.0, prob_a=0.5)  # the config's: a draw each micro-step, always AV
+    loss_fn = flamingo_loss_fn(model, train=True, freeze_video_bn_stats=freeze_bn, **mixing)
+    pre = flamingo_tower_precompute(model, train=True, **mixing) if hoist else None
+    step = make_train_step(loss_fn, grad_accum_steps=2, param_labels=labels, precompute_fn=pre)
+    return loss_fn, TrainState.create(model, opt), step, labels
+
+
+def _tiny_flamingo(device, seed: int = 3):
+    from avsl_tpu_torch.core.config import AVHuBERTConfig
+    from avsl_tpu_torch.models import build_whisper_flamingo
+
+    av_cfg = AVHuBERTConfig.tiny_test(dtype="float32", **SMALL_AV_OVERRIDES, **ZERO_AV_RATES)
+    model, cfg = build_whisper_flamingo("test", vocab_size=300, add_gated_x_attn=1,
+                                        av_hubert_cfg=av_cfg, dtype="float32",
+                                        param_dtype="float32", device=device, seed=seed)
+    set_gates(model, GATE)
+    return model, cfg
+
+
+def _tiny_flamingo_batches(cfg, n_steps: int = 3):
+    rng = np.random.default_rng(8)
+    batches = []
+    for _ in range(n_steps):
+        labels = rng.integers(0, 300, size=(2, 2, 9))
+        labels[:, :, 6:] = -100
+        batches.append({
+            "input_ids": rng.normal(size=(2, 2, cfg.n_mels, 100)).astype(np.float32),
+            "dec_input_ids": rng.integers(0, 300, size=(2, 2, 9)), "labels": labels,
+            "video": rng.normal(size=(2, 2, 10, 88, 88, 1)).astype(np.float32),
+            "video_mask": np.arange(10) < rng.integers(4, 11, size=(2, 2, 1)),
+        })
+    return batches
+
+
+def _bn_stats(model) -> dict:
+    return {n: b.detach().float().cpu().clone() for n, b in model.named_buffers()
+            if "running_" in n}
+
+
+def phase_small_flamingo_train_reference():
+    """The tiny Whisper-Flamingo model (tower at 2 heads of 32, gates 0.5,
+    fp32, every dropout and LayerDrop 0) trained under the Flamingo regime
+    with BatchNorm on batch statistics: 3 accumulated steps of 2
+    micro-batches of 2 on the card (K1 + K2) against the CPU (plain), from
+    the same weights: per-step loss and grad_norm, the step-1 gradients of
+    the trained tensors, and the BatchNorm running statistics after step
+    3. Then, with BatchNorm frozen, the hoisted step against the in-scan
+    step on the card."""
+    from avsl_tpu_torch.train.loop import batch_to_device
+    from avsl_tpu_torch.train.optim import TRAIN
+
+    tol = SMALL_FLAMINGO_TOL
+    card, cfg = _tiny_flamingo("cuda")
+    cpu, _ = _tiny_flamingo("cpu")
+    cpu.load_state_dict(card.state_dict())
+    batches = _tiny_flamingo_batches(cfg)
+    runs = [(m, *_tiny_flamingo_step(m, freeze_bn=False, hoist=False)) for m in (card, cpu)]
+    grads = []
+    for model, loss_fn, state, _, labels in runs:
+        for name, p in model.named_parameters():
+            p.requires_grad_(labels[name] == TRAIN)
+        batch = batch_to_device(batches[0], model.device)
+        for i in range(2):
+            loss, _ = loss_fn({k: v[i] for k, v in batch.items()}, None)
+            loss.backward()
+        grads.append({n: p.grad.detach().cpu() / 2 for n, p in model.named_parameters()
+                      if p.grad is not None})
+        model.zero_grad(set_to_none=True)
+    if sorted(grads[0]) != sorted(grads[1]) or not grads[0]:
+        raise AssertionError("the card and the CPU trained different tensors")
+    grad_err = max((grads[0][n] - g).abs().max().item() for n, g in grads[1].items())
+    grad_ok = all(bool(((grads[0][n] - g).abs() <= tol["atol"] + tol["rtol"] * g.abs()).all())
+                  for n, g in grads[1].items())
+    steps = []
+    for batch in batches:
+        got = []
+        for _, _, state, step, _ in runs:
+            _, metrics = step(state, batch)
+            got.append({k: float(v) for k, v in metrics.items()})
+        steps.append({"card": got[0], "cpu": got[1]})
+    rel = max(abs(st["card"][k] - st["cpu"][k]) / abs(st["cpu"][k])
+              for st in steps for k in ("loss", "grad_norm"))
+    stats = [_bn_stats(m) for m in (card, cpu)]
+    stats_err = max((stats[0][n] - v).abs().max().item() for n, v in stats[1].items())
+    stats_ok = all(bool(((stats[0][n] - v).abs() <= tol["atol"] + tol["rtol"] * v.abs()).all())
+                   for n, v in stats[1].items())
+    stats_moved = max((v - 1.0 if n.endswith("var") else v).abs().max().item()
+                      for n, v in stats[1].items())
+
+    # BatchNorm frozen: the hoisted step against the in-scan step, both on the card
+    base = {k: v.clone() for k, v in card.state_dict().items()}
+    hoist_steps, frozen_stats = [], []
+    for hoist in (False, True):
+        model, _ = _tiny_flamingo("cuda")
+        model.load_state_dict(base)
+        _, state, step, _ = _tiny_flamingo_step(model, freeze_bn=True, hoist=hoist)
+        before = _bn_stats(model)
+        hoist_steps.append([{k: float(v) for k, v in step(state, b)[1].items()} for b in batches])
+        frozen_stats.append(all(torch.equal(before[n], v) for n, v in _bn_stats(model).items()))
+    hoist_rel = max(abs(h[k] - i[k]) / abs(i[k]) for i, h in zip(*hoist_steps)
+                    for k in ("loss", "grad_norm"))
+    log({"phase": "small_flamingo_train_reference", "steps": steps,
+         "step1_trained_grad_max_abs_err": grad_err, "trained_tensors": len(grads[0]),
+         "metric_max_rel_err": rel, "batch_stats_max_abs_err": stats_err,
+         "batch_stats_moved_by": stats_moved, "hoisted_vs_in_scan_max_rel_err": hoist_rel,
+         "frozen_batch_stats_unchanged": frozen_stats, "tolerance": tol})
+    finite = all(math.isfinite(v) for st in steps for d in st.values() for v in d.values())
+    if not finite or not grad_ok or rel > tol["rtol"]:
+        raise AssertionError(f"tiny Flamingo train card-vs-cpu: grads {grad_err:.3e}, "
+                             f"metrics {rel:.3e}")
+    if not stats_ok or stats_moved < 1e-3:
+        raise AssertionError(f"tiny Flamingo BatchNorm statistics: card-vs-cpu {stats_err:.3e}, "
+                             f"moved {stats_moved:.3e}")
+    if hoist_rel > tol["rtol"] or not all(frozen_stats):
+        raise AssertionError(f"tiny Flamingo hoisted vs in-scan {hoist_rel:.3e}, "
+                             f"frozen statistics unchanged {frozen_stats}")
+
+
+def prepare_flamingo_path(steps: int):
+    """The full-width Whisper-Flamingo training inputs as the port's
+    cli/finetune composes them from the training YAML: (cfg, tokenizer,
+    collated batches of batch_size x accumulation items, label length).
+    Each item gets 250 frames of seeded lip features [T, 88, 88, 1] in
+    place of the clip the dataset would decode (the card's machine has no
+    OpenCV); the labels are pinned to the YAML's text_max_length."""
+    from avsl_tpu_torch.cli import finetune, whisper_ft
+    from avsl_tpu_torch.core.config import FlamingoTrainConfig, WhisperConfig
+    from avsl_tpu_torch.data.tokenizer import get_tokenizer
+
+    cfg = FlamingoTrainConfig.from_yaml(TRAIN_CONFIG)
+    tokenizer = get_tokenizer(cfg.download_root or None, cfg.lang)
+    tokenizer.add_tokens(["<laugh>"])
+    w_cfg = WhisperConfig.from_name(cfg.model_name)
+    per_step = int(cfg.batch_size) * int(cfg.gradient_accumulation_steps)
+    ds = finetune.make_dataset(train_rows(per_step * steps, seed=1), tokenizer, cfg, w_cfg,
+                               train=True)
+    rng = np.random.default_rng(2)
+    items = []
+    for i in range(len(ds)):
+        item = ds[i]
+        item["video"] = rng.standard_normal((VIDEO_FRAMES, 88, 88, 1), dtype=np.float32)
+        items.append(item)
+    collator = finetune.make_collator(tokenizer, cfg, w_cfg)
+    batches = list(whisper_ft.batches(items, collator, per_step, True, 0))
+    return cfg, tokenizer, batches, batches[0]["labels"].shape[1]
+
+
+def phase_flamingo_train_main_path(card: str, cfg, tokenizer, batches, out_dir: str,
+                                   hoisted: bool):
+    """Whisper-Flamingo fine-tuning at full width (large-v2 + AV-HuBERT
+    large), composed as the port's cli/finetune composes the training
+    YAML: fp32 weights with Adam for the trained tensors only (the
+    Flamingo regime: gated x_attn/x_mlp, their gates, video_projection),
+    bf16 compute, vocab 51866, batch 1 x accumulation 16, 10 s windows and
+    250 lip frames, SpecAugment ls-basic, Whisper dropout 0.1, the tower's
+    dropouts and LayerDrop 0.05, gates 0.5. With ``hoisted`` the YAML's
+    BatchNorm freeze is turned on, which engages the frozen-tower hoist;
+    else BatchNorm trains on batch statistics, towers in the loop. 3
+    optimizer steps with the kernels' launches and the tower's forwards
+    counted around exactly those steps; then one step broken into
+    (precompute,) forward, backward and optimizer, and one traced step."""
+    import copy
+    import os
+
+    from avsl_tpu_torch.cli import finetune
+    from avsl_tpu_torch.kernels.attention import fused_attention, fused_attention_bwd
+    from avsl_tpu_torch.train.loop import batch_to_device
+    from avsl_tpu_torch.train.objectives import flamingo_loss_fn, flamingo_tower_precompute
+
+    name = "flamingo_train_hoisted" if hoisted else "flamingo_train"
+    cfg = copy.copy(cfg)
+    cfg.freeze_video_batch_norm_stats = hoisted
+    t0 = time.perf_counter()
+    model, w_cfg = finetune.build_model(cfg, tokenizer, "cuda", vocab_size=LARGE_V2_VOCAB)
+    set_gates(model, GATE)
+    runner = finetune.make_runner(cfg, model, tokenizer, log_dir=os.path.join(out_dir, name),
+                                  ckpt_dir=os.path.join(out_dir, name, "ckpt"))
+    torch.cuda.synchronize()
+    if runner.hoisted != hoisted:
+        raise AssertionError(f"the hoist gate said {runner.hoisted}, expected {hoisted}")
+    opt, accum = runner.state.optimizer, runner.accum
+    named = dict(model.named_parameters())
+    trained = set(opt.names)
+    av_cfg = model.video_model.cfg
+    count = lambda ps: sum(p.numel() for p in ps)  # noqa: E731
+    log({"phase": f"build_{name}", "model": w_cfg.name, "n_vocab": w_cfg.n_vocab,
+         "params": count(named.values()), "trained_params": count(named[n] for n in trained),
+         "trained_tensors": len(trained), "video_tower_params": count(model.video_model.parameters()),
+         "dtype": w_cfg.dtype, "param_dtype": w_cfg.param_dtype,
+         "whisper_dropout": w_cfg.dropout_rate,
+         "tower_dropouts": {k: getattr(av_cfg, k) for k in (
+             "hidden_dropout", "attention_dropout", "activation_dropout", "dropout_input",
+             "layerdrop", "feature_grad_mult")},
+         "freeze_video_batch_norm_stats": hoisted, "hoisted": runner.hoisted,
+         "spec_augment": cfg.spec_augment, "prob_use_av": cfg.prob_use_av,
+         "prob_use_a": cfg.prob_use_a, "learning_rate": cfg.learning_rate,
+         "warmup_steps": cfg.warmup_steps, "batch_size": cfg.batch_size, "accumulation": accum,
+         "video_frames": VIDEO_FRAMES, "gates": GATE, "seconds": time.perf_counter() - t0})
+    if not all(("x_attn" in n or "x_mlp" in n or "video_projection" in n) for n in trained):
+        raise AssertionError(f"the Flamingo regime trains {sorted(trained)[:4]}...")
+    reshaped = [runner.reshape_accum(b) for b in batches]
+    n_steps = len(reshaped)
+    before = {n: p.detach().to("cpu", copy=True) for n, p in named.items()}
+    stats0 = _bn_stats(model)
+    tower_calls = []
+    hook = model.video_model.register_forward_hook(lambda *args: tower_calls.append(1))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    fused_attention.launches = fused_attention_bwd.launches = 0
+    records, unchanged_after_first = timed_train_steps(
+        runner, reshaped,
+        lambda: all(torch.equal(named[n].detach().cpu(), before[n]) for n in trained))
+    k1, k2, n_tower = fused_attention.launches, fused_attention_bwd.launches, len(tower_calls)
+    hook.remove()
+    peak = torch.cuda.max_memory_allocated()
+    frozen_same = [n for n, p in named.items()
+                   if n not in trained and not torch.equal(p.detach().cpu(), before[n])]
+    changed = sum(int((named[n].detach().cpu() != before[n]).sum()) for n in trained)
+    n_trained = sum(named[n].numel() for n in trained)
+    del before
+    stats = _bn_stats(model)
+    stats_moved = max((stats[n] - v).abs().max().item() for n, v in stats0.items())
+
+    micro_steps = n_steps * accum
+    enc, dec = w_cfg.n_audio_layer, 3 * w_cfg.n_text_layer  # decoder: self, cross, x_attn
+    # K1: the frozen Whisper encoder (no row statistics) once a micro-step,
+    # or once a step over all 16 items when hoisted, and the decoder's 96
+    # with row statistics a micro-step; the tower's attention in training
+    # runs unfused (attention dropout 0.1), so no K1 there. K2: the
+    # decoder's 96 a micro-step (frozen towers have no backward).
+    want_k1 = enc * (n_steps if hoisted else micro_steps) + dec * micro_steps
+    want_k2 = dec * micro_steps
+    want_tower = n_steps if hoisted else micro_steps
+    log({"phase": name, "card": card, "steps": records,
+         **step_rates(records, accum * cfg.batch_size), "max_memory_allocated_bytes": peak, "k1_launches": k1, "k2_launches": k2,
+         "expected_k1": want_k1, "expected_k2": want_k2, "micro_steps": micro_steps,
+         "tower_forwards": n_tower, "expected_tower_forwards": want_tower,
+         "params_unchanged_after_step_1": unchanged_after_first,
+         "trained_elements_changed_share": changed / n_trained,
+         "frozen_tensors_changed": len(frozen_same), "batch_stats_moved_by": stats_moved})
+    if (k1, k2) != (want_k1, want_k2):
+        raise AssertionError(f"{name}: launches K1 {k1} / K2 {k2} != {want_k1} / {want_k2}")
+    if n_tower != want_tower:
+        raise AssertionError(f"{name}: {n_tower} tower forwards, expected {want_tower}")
+    if not unchanged_after_first:
+        raise AssertionError(f"{name}: step 1 (learning rate 0) changed the parameters")
+    if frozen_same:
+        raise AssertionError(f"{name}: {len(frozen_same)} frozen tensors changed, "
+                             f"e.g. {frozen_same[:4]}")
+    if changed / n_trained < 0.5:
+        raise AssertionError(f"{name}: only {changed / n_trained:.3f} of the trained elements "
+                             "changed in 3 steps")
+    if hoisted and stats_moved != 0.0:
+        raise AssertionError(f"{name}: frozen BatchNorm statistics moved by {stats_moved:.3e}")
+    if not hoisted and stats_moved < 1e-6:
+        raise AssertionError(f"{name}: BatchNorm statistics did not move")
+
+    # one more step, stage by stage (host clock, synchronised per stage)
+    mixing = dict(spec_augment=cfg.spec_augment, prob_av=float(cfg.prob_use_av),
+                  prob_a=float(cfg.prob_use_a))
+    loss_fn = flamingo_loss_fn(model, train=True, freeze_video_bn_stats=hoisted, **mixing)
+    gen = runner.state.generator
+    batch = batch_to_device(reshaped[-1], model.device)
+    stages = {}
+    if hoisted:
+        pre = flamingo_tower_precompute(model, train=True, **mixing)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        batch = {**batch, **pre(batch, gen)}
+        torch.cuda.synchronize()
+        stages["precompute"] = time.perf_counter() - t
+
+    def check_grads():
+        zero = [n for n in opt.names if named[n].grad is None or not bool(named[n].grad.any())]
+        with_grad = [n for n, p in named.items() if n not in trained and p.grad is not None]
+        if zero or with_grad:
+            raise AssertionError(f"{name}: {len(zero)} trained tensors got no gradient "
+                                 f"({zero[:4]}), {len(with_grad)} frozen ones got one")
+
+    staged_step(model, opt, loss_fn, batch, gen, accum, stages, check_grads)
+    log({"phase": f"{name}_stage_breakdown", "card": card, "micro_steps": accum,
+         "stage_seconds": stages, "trained_tensors_with_gradient": len(opt.names)})
+
+    def one_step():
+        runner.state, metrics = runner.train_step(runner.state, reshaped[0])
+        float(metrics["loss"])
+
+    log({"phase": f"{name}_traced_step", "card": card, **traced_run(one_step)})
+    return {"k1": k1, "k2": k2}
+
+
+def flamingo_kernel_excess(fwd_cases, bwd_cases, accum: int, layers: int = 32) -> dict:
+    """launches × (device time − bound) a Flamingo training step, in ms,
+    from the kernel cases at its shapes: K1 in the Whisper encoder once a
+    micro-step (case f) or once a step over every item (hoisted, case q),
+    and in the decoder's self, cross and x_attn (cases o, p, n) a
+    micro-step; K2 in the same three (cases j, k, i)."""
+    fwd = {c["case"]: c["kernel_device_ms"] - c["bound_ms"] for c in fwd_cases}
+    bwd = {c["case"]: c["kernel_device_ms"] - c["bound_ms"] for c in bwd_cases}
+    dec_fwd = (fwd["n_flamingo_x_attn"] + fwd["o_flamingo_decoder_self_causal"]
+               + fwd["p_flamingo_cross"])
+    dec_bwd = (bwd["i_flamingo_x_attn"] + bwd["j_flamingo_decoder_self_causal"]
+               + bwd["k_flamingo_cross"])
+    per_step = layers * accum
+    return {"k1_in_scan_ms": per_step * (fwd["f_train_encoder_bf16"] + dec_fwd),
+            "k1_hoisted_ms": layers * fwd["q_hoisted_whisper_encoder"] + per_step * dec_fwd,
+            "k2_ms": per_step * dec_bwd}
 
 
 def sass_counts() -> dict:
@@ -1085,21 +1468,35 @@ def main() -> int:
     log({"phase": "sass", "tensor_core_instructions": sass})
 
     cfg, tokenizer, train_batches, label_len = prepare_train_path(TRAIN_STEPS)
-    fwd_cases = phase_kernels(label_len)
-    phase_kernel_stats()
-    bwd_cases = phase_kernels_bwd(label_len)
+    fl_cfg, fl_tokenizer, fl_batches, fl_len = prepare_flamingo_path(TRAIN_STEPS)
+    log({"phase": "prepare_train_paths", "label_len": label_len, "flamingo_label_len": fl_len})
+    fwd_cases = phase_kernels(label_len, fl_len)
+    phase_kernel_stats(fl_len)
+    bwd_cases = phase_kernels_bwd(label_len, fl_len)
     phase_small_reference()
     phase_small_av_reference()
     phase_cached_attention()
     phase_small_train_reference()
+    phase_small_flamingo_train_reference()
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
     serving_launches = phase_main_path(smi)
-    gc.collect()
-    torch.cuda.empty_cache()
+    free()
     av_serving_launches = phase_av_main_path(smi)
-    gc.collect()
-    torch.cuda.empty_cache()
+    free()
     with tempfile.TemporaryDirectory() as out_dir:
         train_launches = phase_train_main_path(smi, cfg, tokenizer, train_batches, out_dir)
+        free()
+        flamingo = {}
+        for hoisted in (False, True):
+            flamingo[hoisted] = phase_flamingo_train_main_path(
+                smi, fl_cfg, fl_tokenizer, fl_batches, out_dir, hoisted)
+            free()
+    log({"phase": "flamingo_kernel_excess", "card": smi,
+         **flamingo_kernel_excess(fwd_cases, bwd_cases, int(fl_cfg.gradient_accumulation_steps))})
 
     def entry(name, lib, source, replaces, cases, launches):
         case = cases[0]
@@ -1118,10 +1515,13 @@ def main() -> int:
         entry("flash_attention_fwd", "flash_attn_fwd", "avsl_tpu_torch/csrc/flash_attn_fwd.cu",
               "avsl_tpu/kernels/attention.py:63", fwd_cases,
               {"serving": serving_launches, "av_serving": av_serving_launches,
-               "training": train_launches["k1"]}),
+               "training": train_launches["k1"], "flamingo_training": flamingo[False]["k1"],
+               "flamingo_training_hoisted": flamingo[True]["k1"]}),
         entry("flash_attention_bwd", "flash_attn_bwd", "avsl_tpu_torch/csrc/flash_attn_bwd.cu",
               "avsl_tpu/kernels/attention.py:159", bwd_cases,
-              {"serving": 0, "av_serving": 0, "training": train_launches["k2"]}),
+              {"serving": 0, "av_serving": 0, "training": train_launches["k2"],
+               "flamingo_training": flamingo[False]["k2"],
+               "flamingo_training_hoisted": flamingo[True]["k2"]}),
     ]})
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -218,11 +218,12 @@ def test_torch_avhubert_refuses_what_is_not_ported(video_encoder):
         port(audio=torch.zeros(3, 7, 104), video=clip)
     with pytest.raises(NotImplementedError, match="item 9"):
         AVHuBERTEncoderWrapper(AVHuBERTConfig.tiny_test())  # use_audio=True
-    with pytest.raises(NotImplementedError, match="item 8: Flamingo training"):
+    # the training draws follow the module's mode; an explicit flag must agree
+    with pytest.raises(ValueError, match="deterministic=False in eval mode"):
         port(video=clip, deterministic=False)
     port.train()
     try:
-        with pytest.raises(NotImplementedError, match="item 8: Flamingo training"):
-            port(video=clip)
+        with pytest.raises(NotImplementedError, match="item 12"):
+            port(video=clip, apply_time_mask=True, generator=torch.Generator().manual_seed(0))
     finally:
         port.eval()

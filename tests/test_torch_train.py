@@ -250,8 +250,11 @@ def test_torch_dataset_and_collator_match_jax():
         for key in ("dec_input_ids", "labels", "audio_frames"):
             np.testing.assert_array_equal(got[key], want[key], err_msg=key)
         np.testing.assert_allclose(got["input_ids"], want["input_ids"], atol=5e-5, rtol=1e-5)
-    with pytest.raises(NotImplementedError, match="item 8: Flamingo training"):
-        AmiVideoDataset(rows, ptok, load_video=True)
+    # a row without a lip clip gives one zero frame, as in JAX
+    want = JaxDataset(rows, jtok, audio_max_length=16000, load_video=True)[0]["video"]
+    got = AmiVideoDataset(rows, ptok, audio_max_length=16000, load_video=True)[0]["video"]
+    assert got.shape == (1, 88, 88, 1)
+    np.testing.assert_array_equal(got, want)
 
 
 @pytest.fixture(scope="module")

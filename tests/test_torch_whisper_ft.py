@@ -2,7 +2,8 @@
 beam search (CPU).
 
 ``whisper_ft.main(["--smoke", "--device", "cpu"])`` trains the tiny model
-with batch 1 x accumulation 2 and runs the beam-search eval; a train
+with batch 4 x accumulation 1 (the JAX entry point's smoke settings) and
+runs the beam-search eval; a train
 state survives a save/restore round trip; and the port's beam search
 matches ``avsl_tpu.decode.beam_search`` on carried weights (tokens exact,
 scores atol 1e-4: fp32 log-probabilities summed over up to 8 steps in
@@ -39,7 +40,7 @@ def test_torch_whisper_ft_smoke_trains_with_accumulation_and_beam_evals(tmp_path
     out = tmp_path / "wft"
     results = whisper_ft.main(["--smoke", "--device", "cpu", "--num_beams", "2",
                                "--output_dir", str(out)])
-    # batch 1 x accumulation 2: every train batch holds 2 items and steps
+    # batch 4 x accumulation 1: two batches an epoch over the 8 items, 4 steps
     assert results["train"]["final_step"] == 4
     assert results["eval"]["n"] == 4 and 0.0 <= results["eval"]["cer"]
     assert json.loads((out / "results.json").read_text()) == results
