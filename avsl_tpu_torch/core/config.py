@@ -1,5 +1,6 @@
-"""Model and run configuration: Whisper presets, the AV-HuBERT config,
-the Whisper-Flamingo training/serving config, and the YAML helpers.
+"""Model and run configuration: Whisper presets, the AV-HuBERT config with
+its fairseq-style YAML card loader, the Whisper-Flamingo training/serving
+config, and the YAML helpers.
 
 A copy of the matching parts of ``avsl_tpu/core/config.py`` with the same
 fields and defaults (the port may not import the JAX package). PyYAML is
@@ -85,6 +86,54 @@ def namespace_to_dict(ns: Any) -> Any:
 # ---------------------------------------------------------------------------
 # AV-HuBERT model config
 # ---------------------------------------------------------------------------
+
+# fairseq-style `model.*` YAML key -> AVHuBERTConfig attribute (the key layout
+# of configs/avhubert_large.yaml)
+_AVHUBERT_YAML_KEY_MAP: Dict[str, str] = {
+    "use_audio": "use_audio",
+    "use_visual": "use_visual",
+    "modality_fuse": "modality_fuse",
+    "modality_dropout": "modality_dropout",
+    "audio_dropout": "audio_dropout",
+    "encoder_embed_dim": "hidden_size",
+    "encoder_layers": "num_hidden_layers",
+    "encoder_attention_heads": "num_attention_heads",
+    "encoder_ffn_embed_dim": "intermediate_size",
+    "visual_frontend_channels": "visual_frontend_channels",
+    "visual_backbone_channels": "visual_backbone_channels",
+    "audio_feat_dim": "audio_feat_dim",
+    "conv_dim": "conv_dim",
+    "conv_stride": "conv_stride",
+    "conv_kernel": "conv_kernel",
+    "mask_prob_image": "mask_prob_image",
+    "mask_length_image": "mask_length_image",
+    "mask_prob_audio": "mask_prob_audio",
+    "mask_length_audio": "mask_length_audio",
+    "mask_time_prob": "mask_time_prob",
+    "mask_time_length": "mask_time_length",
+    "mask_feature_prob": "mask_feature_prob",
+    "mask_feature_length": "mask_feature_length",
+    "dropout": "hidden_dropout",
+    "activation_dropout": "activation_dropout",
+    "attention_dropout": "attention_dropout",
+    "encoder_layerdrop": "layerdrop",
+    "dropout_input": "dropout_input",
+    "dropout_features": "dropout_features",
+    "feature_grad_mult": "feature_grad_mult",
+    "decoder_embed_dim": "decoder_hidden_size",
+    "decoder_ffn_embed_dim": "decoder_ffn_dim",
+    "decoder_layers": "decoder_layers",
+    "decoder_attention_heads": "decoder_attention_heads",
+    "decoder_layerdrop": "decoder_layerdrop",
+    "decoder_normalize_before": "decoder_normalize_before",
+    "decoder_dropout": "decoder_dropout",
+    "decoder_attention_dropout": "decoder_attention_dropout",
+    "decoder_activation_dropout": "decoder_activation_dropout",
+    "layer_norm_first": "layer_norm_first",
+    "final_dim": "final_dim",
+    "untie_final_proj": "untie_final_proj",
+    "share_decoder_input_output_embed": "tie_word_embeddings",
+}
 
 
 @dataclass
@@ -225,6 +274,32 @@ class AVHuBERTConfig:
         )
         base.update(overrides)
         return cls(**base)
+
+    @classmethod
+    def from_yaml(cls, path: str) -> "AVHuBERTConfig":
+        """Build from a fairseq-style YAML card: the ``model:`` keys of
+        ``_AVHUBERT_YAML_KEY_MAP``, the token ids of ``tokenizer:``,
+        ``criterion: label_smoothing``, and flat top-level keys."""
+        raw = load_yaml_config(path)
+        flat: Dict[str, Any] = {}
+        model = raw.get("model", {})
+        for yaml_key, attr in _AVHUBERT_YAML_KEY_MAP.items():
+            if yaml_key in model:
+                flat[attr] = model[yaml_key]
+        tok = raw.get("tokenizer", {})
+        for key in ("vocab_size", "bos_token_id", "pad_token_id", "eos_token_id"):
+            if key in tok:
+                flat[key] = tok[key]
+        crit = raw.get("criterion", {})
+        if "label_smoothing" in crit:
+            flat["label_smoothing"] = crit["label_smoothing"]
+        for k, v in raw.items():  # already-flat keys at the top level
+            if not isinstance(v, dict):
+                flat.setdefault(k, v)
+        return cls.from_dict(flat)
+
+    def to_dict(self) -> Dict[str, Any]:
+        return namespace_to_dict(self)
 
 
 # ---------------------------------------------------------------------------

@@ -40,8 +40,8 @@
 // contiguous), so the wrapper makes no transpose copies; dQ/dK/dV are
 // contiguous [B,T,H,D].
 //
-// bf16 design (the training path's type), D in {32, 64}: (b) and (c) are
-// one launch whose blocks are one warpgroup (128 threads) each, the first
+// bf16 design (the training path's type), D in {32, 64, 128}: (b) and (c)
+// are one launch whose blocks are one warpgroup (128 threads) each, the first
 // ceil(Tk / 64) along x doing (b) and the rest (c), so at the training
 // path's batch of 1 both halves fill the card together (1,20,500,500
 // gives 160 + 160 blocks); every product runs on wgmma
@@ -61,6 +61,15 @@
 // forward's m arrives in natural-log units and is taken to log2 units
 // here, the masked -1e30 exactly to its log2 image, so a length-0 row
 // still gets weights 1/Tk.
+// At D = 128 (the AV-HuBERT decoder's 8 heads of 1024) a block is two
+// warpgroups: both compute the tile pair's S and dP over the full D
+// (every tile is two [64][64] sub-tiles, csrc/hopper_tiles.cuh), and each
+// accumulates dK, dV (or dQ) for one 64-column half, on that half of the
+// dO / Q (or K) tile. So a thread keeps D = 64's registers: dK and dV of
+// 64 x 128 in one warpgroup would be 128 fp32 accumulators a thread
+// beside S and dP, past the 255 a thread can have. The S and dP
+// products are computed twice, which the tensor cores can spare at these
+// sequence lengths.
 // fp32 operands keep the first version's bodies on the FMA pipes (4x4
 // register tiles from shared memory, 256 threads a block): the bf16 tensor
 // cores would change their result. They run only in the small fp32
@@ -462,6 +471,13 @@ __device__ __forceinline__ float m_log2(float m) { return m == MASKED ? MASKED2 
 // a ring of STAGES (Q, dO) tile pairs, a ring of STAGES per-row vectors
 // (m in log2 units, 1 / l, delta) for the pair's 64 q rows, the mbarriers
 // (K/V, then one per stage).
+// warpgroups a block of the bf16 bodies, and the accumulator columns of each
+template <int D>
+struct BwdWarps {
+  static constexpr int NWG = D > 64 ? 2 : 1;
+  static constexpr int DA = D / NWG;
+};
+
 template <int D>
 struct DkdvSmem {
   static constexpr int TILE = BT * D * 2;
@@ -470,12 +486,14 @@ struct DkdvSmem {
   static constexpr int BAR = STAT + STAGES * 3 * BT * 4;
   static constexpr int TOTAL = BAR + 8 * (1 + STAGES) + 1024;
   static_assert(TILE % 1024 == 0, "tiles stay 1024-aligned");
+  static_assert(TOTAL <= 232448, "fits the 227 KB a block can use");
 };
 
-// (b) one 128-thread block (a warpgroup) per (64-key tile, head, batch),
-// in the transposed frame: for each q tile, S^T = K Q^T and dP^T = V dO^T
-// (both operands K-major), P^T and dS^T in registers, then dV += P^T dO
-// and dK += dS^T Q with A from registers and B = the dO / Q tile MN-major.
+// (b) one block (a warpgroup, two at D = 128) per (64-key tile, head,
+// batch), in the transposed frame: for each q tile, S^T = K Q^T and dP^T
+// = V dO^T (both operands K-major), P^T and dS^T in registers, then dV +=
+// P^T dO and dK += dS^T Q with A from registers and B = the dO / Q tile
+// (warpgroup w: its columns w DA ..) MN-major.
 template <int D>
 __device__ __forceinline__ void dkdv_tile(
     int tile, const CUtensorMap& tm_q, const CUtensorMap& tm_k, const CUtensorMap& tm_v,
@@ -484,12 +502,15 @@ __device__ __forceinline__ void dkdv_tile(
     __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int H, int Tq, int Tk,
     float scale, float scale_log2, int causal) {
   using L = DkdvSmem<D>;
+  constexpr int DA = BwdWarps<D>::DA;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::BAR);
   float* stats = reinterpret_cast<float*>(smem + L::STAT);
 
-  const int t = threadIdx.x;
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;  // the accumulator columns wg * DA ..
+  const int t = tid % 128;
   const int c = t % 4;
   const int k0 = tile * BT;
   const int h = blockIdx.y;
@@ -511,33 +532,33 @@ __device__ __forceinline__ void dkdv_tile(
     uint64_t* bar = &bars[1 + stage];
     uint8_t* dst = smem + L::RING + stage * 2 * L::TILE;
     hopper::mbar_expect_tx(bar, 2 * L::TILE);
-    hopper::tma_load_4d(dst, &tm_q, bar, 0, h, q_begin + tile * BT, b);
-    hopper::tma_load_4d(dst + L::TILE, &tm_g, bar, 0, h, q_begin + tile * BT, b);
+    hopper::tma_load_tile<D>(dst, &tm_q, bar, h, q_begin + tile * BT, b, BT);
+    hopper::tma_load_tile<D>(dst + L::TILE, &tm_g, bar, h, q_begin + tile * BT, b, BT);
   };
   auto load_stats = [&](int tile, int stage) {  // threads 0..63, one q row each
-    const int qi = q_begin + tile * BT + t;
+    const int qi = q_begin + tile * BT + tid;
     float* st = stats + stage * 3 * BT;
     const bool in = qi < Tq;  // rows past Tq get weight 0
-    st[t] = in ? m_log2(m_in[stat0 + qi]) : pos_inf();
-    st[BT + t] = in ? 1.0f / l_in[stat0 + qi] : 0.0f;
-    st[2 * BT + t] = in ? delta[stat0 + qi] : 0.0f;
+    st[tid] = in ? m_log2(m_in[stat0 + qi]) : pos_inf();
+    st[BT + tid] = in ? 1.0f / l_in[stat0 + qi] : 0.0f;
+    st[2 * BT + tid] = in ? delta[stat0 + qi] : 0.0f;
   };
-  if (t == 0) {
+  if (tid == 0) {
     for (int i = 0; i <= STAGES; ++i) hopper::mbar_init(&bars[i], 1);
     hopper::fence_barrier_init();
     hopper::mbar_expect_tx(&bars[0], 2 * L::TILE);
-    hopper::tma_load_4d(smem, &tm_k, &bars[0], 0, h, k0, b);
-    hopper::tma_load_4d(smem + L::TILE, &tm_v, &bars[0], 0, h, k0, b);
+    hopper::tma_load_tile<D>(smem, &tm_k, &bars[0], h, k0, b, BT);
+    hopper::tma_load_tile<D>(smem + L::TILE, &tm_v, &bars[0], h, k0, b, BT);
     for (int s = 0; s < STAGES && s < n_tiles; ++s) load_qg(s, s);
   }
-  if (t < BT)
+  if (tid < BT)
     for (int s = 0; s < STAGES && s < n_tiles; ++s) load_stats(s, s);
   __syncthreads();
 
   const int key0 = k0 + 16 * (t / 32) + (t % 32) / 4;  // this thread's keys: key0, key0 + 8
-  float acc_v[D / 2], acc_k[D / 2];
+  float acc_v[DA / 2], acc_k[DA / 2];
 #pragma unroll
-  for (int e = 0; e < D / 2; ++e) acc_v[e] = acc_k[e] = 0.0f;
+  for (int e = 0; e < DA / 2; ++e) acc_v[e] = acc_k[e] = 0.0f;
 
   hopper::mbar_wait(&bars[0], 0);
   for (int j = 0; j < n_tiles; ++j) {
@@ -590,8 +611,8 @@ __device__ __forceinline__ void dkdv_tile(
     hopper::fence_regs(acc_v);
     hopper::fence_regs(acc_k);
     hopper::wgmma_fence();
-    hopper::gemm_pv<D>(acc_v, pa, g_tile);
-    hopper::gemm_pv<D>(acc_k, dsa, q_tile);
+    hopper::gemm_pv<DA>(acc_v, pa, g_tile + wg * (BT * DA * 2));
+    hopper::gemm_pv<DA>(acc_k, dsa, q_tile + wg * (BT * DA * 2));
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
     hopper::fence_regs(acc_v);
@@ -599,21 +620,21 @@ __device__ __forceinline__ void dkdv_tile(
 
     __syncthreads();  // the whole block is done with stage s
     if (j + STAGES < n_tiles) {
-      if (t == 0) load_qg(j + STAGES, s);
-      if (t < BT) load_stats(j + STAGES, s);
+      if (tid == 0) load_qg(j + STAGES, s);
+      if (tid < BT) load_stats(j + STAGES, s);
     }
   }
 
   // written once, cast to bf16; keys past Tk are not stored
 #pragma unroll
-  for (int e = 0; e < D / 2; ++e) acc_k[e] *= scale;
+  for (int e = 0; e < DA / 2; ++e) acc_k[e] *= scale;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int ki = key0 + 8 * i;
     if (ki >= Tk) continue;
-    const int64_t off = ((int64_t(b) * Tk + ki) * H + h) * D + 2 * c;
+    const int64_t off = ((int64_t(b) * Tk + ki) * H + h) * D + wg * DA + 2 * c;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
+    for (int n = 0; n < DA / 8; ++n) {
       *reinterpret_cast<__nv_bfloat162*>(dk + off + 8 * n) =
           __floats2bfloat162_rn(acc_k[4 * n + 2 * i], acc_k[4 * n + 2 * i + 1]);
       *reinterpret_cast<__nv_bfloat162*>(dv + off + 8 * n) =
@@ -632,9 +653,10 @@ struct DqSmem {
   static constexpr int TOTAL = BAR + 8 * (1 + STAGES) + 1024;
 };
 
-// (c) one 128-thread block per (64-row q tile, head, batch): S = Q K^T and
-// dP = dO V^T for each key tile, dS in registers, dQ += dS K with B = the
-// K tile MN-major.
+// (c) one block (a warpgroup, two at D = 128) per (64-row q tile, head,
+// batch): S = Q K^T and dP = dO V^T for each key tile, dS in registers,
+// dQ += dS K with B = the K tile (warpgroup w: its columns w DA ..)
+// MN-major.
 template <int D>
 __device__ __forceinline__ void dq_tile(
     int tile, const CUtensorMap& tm_q, const CUtensorMap& tm_k, const CUtensorMap& tm_v,
@@ -643,11 +665,14 @@ __device__ __forceinline__ void dq_tile(
     __nv_bfloat16* __restrict__ dq, int H, int Tq, int Tk, float scale, float scale_log2,
     int causal) {
   using L = DqSmem<D>;
+  constexpr int DA = BwdWarps<D>::DA;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::BAR);
 
-  const int t = threadIdx.x;
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;  // the accumulator columns wg * DA ..
+  const int t = tid % 128;
   const int c = t % 4;
   const int q0 = tile * BT;
   const int h = blockIdx.y;
@@ -668,15 +693,15 @@ __device__ __forceinline__ void dq_tile(
     uint64_t* bar = &bars[1 + stage];
     uint8_t* dst = smem + L::RING + stage * 2 * L::TILE;
     hopper::mbar_expect_tx(bar, 2 * L::TILE);
-    hopper::tma_load_4d(dst, &tm_k, bar, 0, h, tile * BT, b);
-    hopper::tma_load_4d(dst + L::TILE, &tm_v, bar, 0, h, tile * BT, b);
+    hopper::tma_load_tile<D>(dst, &tm_k, bar, h, tile * BT, b, BT);
+    hopper::tma_load_tile<D>(dst + L::TILE, &tm_v, bar, h, tile * BT, b, BT);
   };
-  if (t == 0) {
+  if (tid == 0) {
     for (int i = 0; i <= STAGES; ++i) hopper::mbar_init(&bars[i], 1);
     hopper::fence_barrier_init();
     hopper::mbar_expect_tx(&bars[0], 2 * L::TILE);
-    hopper::tma_load_4d(smem, &tm_q, &bars[0], 0, h, q0, b);
-    hopper::tma_load_4d(smem + L::TILE, &tm_g, &bars[0], 0, h, q0, b);
+    hopper::tma_load_tile<D>(smem, &tm_q, &bars[0], h, q0, b, BT);
+    hopper::tma_load_tile<D>(smem + L::TILE, &tm_g, &bars[0], h, q0, b, BT);
     for (int s = 0; s < STAGES && s < n_tiles; ++s) load_kv(s, s);
   }
 
@@ -694,9 +719,9 @@ __device__ __forceinline__ void dq_tile(
   }
   __syncthreads();
 
-  float acc[D / 2];
+  float acc[DA / 2];
 #pragma unroll
-  for (int e = 0; e < D / 2; ++e) acc[e] = 0.0f;
+  for (int e = 0; e < DA / 2; ++e) acc[e] = 0.0f;
 
   hopper::mbar_wait(&bars[0], 0);
   for (int j = 0; j < n_tiles; ++j) {
@@ -739,24 +764,24 @@ __device__ __forceinline__ void dq_tile(
     hopper::pack_a(ds, dsa);
     hopper::fence_regs(acc);
     hopper::wgmma_fence();
-    hopper::gemm_pv<D>(acc, dsa, k_tile);
+    hopper::gemm_pv<DA>(acc, dsa, k_tile + wg * (BT * DA * 2));
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
     hopper::fence_regs(acc);
 
     __syncthreads();  // the whole block is done with stage s
-    if (t == 0 && j + STAGES < n_tiles) load_kv(j + STAGES, s);
+    if (tid == 0 && j + STAGES < n_tiles) load_kv(j + STAGES, s);
   }
 
 #pragma unroll
-  for (int e = 0; e < D / 2; ++e) acc[e] *= scale;
+  for (int e = 0; e < DA / 2; ++e) acc[e] *= scale;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int qi = row0 + 8 * i;
     if (qi >= Tq) continue;
-    __nv_bfloat16* row = dq + ((int64_t(b) * Tq + qi) * H + h) * D + 2 * c;
+    __nv_bfloat16* row = dq + ((int64_t(b) * Tq + qi) * H + h) * D + wg * DA + 2 * c;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n)
+    for (int n = 0; n < DA / 8; ++n)
       *reinterpret_cast<__nv_bfloat162*>(row + 8 * n) =
           __floats2bfloat162_rn(acc[4 * n + 2 * i], acc[4 * n + 2 * i + 1]);
   }
@@ -765,7 +790,7 @@ __device__ __forceinline__ void dq_tile(
 // (b) and (c) in one launch: blocks x < ceil(Tk / 64) take a key tile, the
 // rest a q tile, so at small batch both halves fill the card together.
 template <int D>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(BwdWarps<D>::NWG * 128)
 bwd_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
           const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_g,
           const float* __restrict__ m_in, const float* __restrict__ l_in,
@@ -853,7 +878,7 @@ cudaError_t launch_wgmma(const Args& a, cudaStream_t stream) {
   if (err != cudaSuccess) return err;
 
   dim3 grid((a.Tk + BT - 1) / BT + (a.Tq + BT - 1) / BT, a.H, a.B);
-  bwd_wgmma<D><<<grid, 128, smem, stream>>>(
+  bwd_wgmma<D><<<grid, BwdWarps<D>::NWG * 128, smem, stream>>>(
       tq, tk, tv, tg, a.m, a.l, a.delta, a.lengths, static_cast<__nv_bfloat16*>(a.dq),
       static_cast<__nv_bfloat16*>(a.dk), static_cast<__nv_bfloat16*>(a.dv), a.H, a.Tq, a.Tk,
       a.scale, a.scale * LOG2E, a.causal);
@@ -867,8 +892,9 @@ cudaError_t launch_wgmma(const Args& a, cudaStream_t stream) {
 // statistics, `delta` an fp32 [B,H,Tq] scratch, `lengths` a device int32
 // [B] or null; dQ/dK/dV are contiguous [B,T,H,D]. Launches the three
 // kernels on `stream` and returns the first cudaError_t (0 on success); an
-// unsupported D or dtype, or bf16 operands that TMA cannot read (base or
-// strides not multiples of 16 bytes), return cudaErrorInvalidValue.
+// unsupported D or dtype (fp32 takes D 32 and 64, bf16 32, 64 and 128), or
+// bf16 operands that TMA cannot read (base or strides not multiples of 16
+// bytes), return cudaErrorInvalidValue.
 extern "C" int flash_attn_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* g, const void* m, const void* l, void* delta,
@@ -887,6 +913,7 @@ extern "C" int flash_attn_bwd(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && D == 64) return static_cast<int>(launch_fma<64>(a, s));
   if (dtype == 0 && D == 32) return static_cast<int>(launch_fma<32>(a, s));
+  if (dtype == 1 && D == 128) return static_cast<int>(launch_wgmma<128>(a, s));
   if (dtype == 1 && D == 64) return static_cast<int>(launch_wgmma<64>(a, s));
   if (dtype == 1 && D == 32) return static_cast<int>(launch_wgmma<32>(a, s));
   return static_cast<int>(cudaErrorInvalidValue);

@@ -18,17 +18,22 @@
 // tile, online softmax in registers, one division by the row sum at the
 // end, so device memory traffic stays near the 123 MB floor.
 //
-// bf16 design (the main paths' type), D in {32, 64}:
+// bf16 design (the main paths' type), D in {32, 64, 128}:
 //   - one consumer warpgroup (128 threads) per 64 q rows; a block holds 2
 //     warpgroups (128 rows) when the 128-row grid still has a block for
 //     every SM, else 1 (the training shapes at B = 1: 1,20,500,500 gives
-//     160 blocks of 64 rows against 80 of 128);
+//     160 blocks of 64 rows against 80 of 128); always 1 at D = 128, where
+//     one warpgroup's O accumulator alone is 64 fp32 registers a thread
+//     and the Q, K and V tiles are twice as large;
 //   - S = Q K^T on wgmma m64n64k16, A = the Q tile and B = the K tile in
 //     shared memory, both K-major (D contiguous);
 //   - O += P V on wgmma m64nDk16 with A = P from registers: the fp32
 //     accumulator of S, after the online softmax, packs pairwise to bf16
 //     in exactly the A-fragment layout; B = the V tile [keys][D], MN-major
-//     (transpose bit set);
+//     (transpose bit set). At D = 128 a 256-byte row is twice a swizzle
+//     span, so every tile is two [64][64] sub-tiles (two TMA boxes): S
+//     takes 8 k steps over both, and O is two m64n64 chains, one per V
+//     sub-tile (csrc/hopper_tiles.cuh);
 //   - Q, K and V tiles come by TMA (4-D tensor maps over the [B,T,H,D]
 //     strides, encoded in the C entry; swizzle of one 2D-byte row) into a
 //     ring of STAGES K/V stages that complete on mbarriers. Thread 0
@@ -266,6 +271,8 @@ struct FwdSmem {
   static constexpr int BAR = V + STAGES * KV_BYTES;
   static constexpr int TOTAL = BAR + 8 * (1 + STAGES) + 1024;  // + alignment slack
   static_assert(Q_BYTES % 1024 == 0 && KV_BYTES % 1024 == 0, "tiles stay 1024-aligned");
+  static_assert(D <= 64 || NWG == 1, "a tile of two sub-tiles has 64 rows");
+  static_assert(TOTAL <= 232448, "fits the 227 KB a block can use");
 };
 
 template <int D, int NWG>
@@ -300,14 +307,14 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
   auto load_kv = [&](int tile, int stage) {
     uint64_t* bar = &bars[1 + stage];
     hopper::mbar_expect_tx(bar, 2 * L::KV_BYTES);
-    hopper::tma_load_4d(smem + L::K + stage * L::KV_BYTES, &tm_k, bar, 0, h, tile * BN, b);
-    hopper::tma_load_4d(smem + L::V + stage * L::KV_BYTES, &tm_v, bar, 0, h, tile * BN, b);
+    hopper::tma_load_tile<D>(smem + L::K + stage * L::KV_BYTES, &tm_k, bar, h, tile * BN, b, BN);
+    hopper::tma_load_tile<D>(smem + L::V + stage * L::KV_BYTES, &tm_v, bar, h, tile * BN, b, BN);
   };
   if (tid == 0) {
     for (int i = 0; i <= STAGES; ++i) hopper::mbar_init(&bars[i], 1);
     hopper::fence_barrier_init();
     hopper::mbar_expect_tx(&bars[0], L::Q_BYTES);
-    hopper::tma_load_4d(smem, &tm_q, &bars[0], 0, h, q0, b);
+    hopper::tma_load_tile<D>(smem, &tm_q, &bars[0], h, q0, b, L::BM);
     for (int s = 0; s < STAGES && s < n_tiles; ++s) load_kv(s, s);
   }
   __syncthreads();
@@ -462,14 +469,17 @@ cudaError_t launch_wgmma(const Args& a, cudaStream_t stream) {
 }
 
 // 128 q rows a block when that grid still gives every SM a block, else 64
+// (always 64 at D = 128)
 template <int D>
 cudaError_t launch_bf16(const Args& a, cudaStream_t stream) {
+  if (D > 64) return launch_wgmma<D, 1>(a, stream);
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
   const int64_t blocks128 = int64_t((a.Tq + 127) / 128) * a.H * a.B;
-  return blocks128 >= sms ? launch_wgmma<D, 2>(a, stream) : launch_wgmma<D, 1>(a, stream);
+  return blocks128 >= sms ? launch_wgmma<D, (D > 64 ? 1 : 2)>(a, stream)
+                          : launch_wgmma<D, 1>(a, stream);
 }
 
 }  // namespace
@@ -477,9 +487,9 @@ cudaError_t launch_bf16(const Args& a, cudaStream_t stream) {
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements. `lengths` is
 // a device int32 [B] or null. `m_out`/`l_out` are device fp32 [B,H,Tq]
 // for the row statistics, or both null. Returns the cudaError_t of the
-// launch (0 on success); an unsupported D or dtype, or bf16 operands that
-// TMA cannot read (base or strides not multiples of 16 bytes), return
-// cudaErrorInvalidValue.
+// launch (0 on success); an unsupported D or dtype (fp32 takes D 32 and
+// 64, bf16 32, 64 and 128), or bf16 operands that TMA cannot read (base or
+// strides not multiples of 16 bytes), return cudaErrorInvalidValue.
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
                               void* o, const void* lengths, int B, int H,
                               int Tq, int Tk, int D, int dtype, long long q_sb,
@@ -495,6 +505,7 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
   if ((a.m == nullptr) != (a.l == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0 && D == 64) return static_cast<int>(launch_fma<64>(a, s));
   if (dtype == 0 && D == 32) return static_cast<int>(launch_fma<32>(a, s));
+  if (dtype == 1 && D == 128) return static_cast<int>(launch_bf16<128>(a, s));
   if (dtype == 1 && D == 64) return static_cast<int>(launch_bf16<64>(a, s));
   if (dtype == 1 && D == 32) return static_cast<int>(launch_bf16<32>(a, s));
   return static_cast<int>(cudaErrorInvalidValue);

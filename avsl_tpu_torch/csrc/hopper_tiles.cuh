@@ -4,22 +4,30 @@
 //
 // Tiles. Every bf16 operand tile is [rows][D] with D contiguous, loaded by
 // TMA with the swizzle whose span is one row: 128 bytes for D = 64, 64
-// bytes for D = 32. So a tile is 8-row groups of 8 * 2D bytes, the
-// canonical wgmma layout for that swizzle, and the same tile serves two
-// ways:
+// bytes for D = 32. A row of D = 128 (256 bytes) is twice what a swizzle
+// spans, so such a tile is two sub-tiles of [64][64], the columns 0-63
+// and then 64-127, each its own TMA box (SUB below is a sub-tile's
+// width, D for D <= 64). So a (sub-)tile is 8-row groups of 8 * 2 SUB
+// bytes, the canonical wgmma layout for that swizzle, and the same tile
+// serves two ways:
 //   - K-major (the reduction runs along D): Q or K in S = Q K^T, dO or V in
-//     dP = dO V^T. Descriptor: stride between 8-row groups 8 * 2D bytes; a
-//     16-wide k step advances the start address by 32 bytes.
+//     dP = dO V^T. Descriptor: stride between 8-row groups 8 * 2 SUB bytes;
+//     a 16-wide k step advances the start address by 32 bytes, and at
+//     D = 128 the fifth to eighth k steps run on the second sub-tile.
 //   - MN-major (the reduction runs along the rows, N = D contiguous): V in
 //     O += P V, dO and Q in dV += P^T dO and dK += dS^T Q, K in dQ += dS K.
 //     The transpose bit of B is set; the 8-row groups are the k groups,
-//     and a 16-wide k step advances the start address by 16 rows.
-// Tiles start on a multiple of 1024 bytes, so the swizzle phase of every
-// row is its row index mod 8 and the descriptors' base offset is 0.
+//     and a 16-wide k step advances the start address by 16 rows. At
+//     D = 128 each sub-tile is the B of its own m64n64 product, into
+//     the accumulator's columns 0-63 and 64-127.
+// Tiles and sub-tiles start on a multiple of 1024 bytes, so the swizzle
+// phase of every row is its row index mod 8 and the descriptors' base
+// offset is 0. A tile with two sub-tiles always has 64 rows.
 //
 // Fragments (per thread t of a 128-thread warpgroup, warp w = t / 32,
 // lane l, g = l / 4, c = l % 4): the fp32 accumulator of an m64nN product
-// holds d[4n + 2i + j] = C[16w + g + 8i][8n + 2c + j]; the bf16 A operand
+// holds d[4n + 2i + j] = C[16w + g + 8i][8n + 2c + j] (at N = 128 the two
+// m64n64 halves side by side keep that layout); the bf16 A operand
 // of an m64n*k16 product taken from registers holds four 32-bit words
 // {A[16w+g][2c..], A[16w+g+8][2c..], A[16w+g][2c+8..], A[16w+g+8][2c+8..]}.
 // So the accumulator of S packs pairwise into the A operand of the next
@@ -33,6 +41,9 @@
 #include <stdint.h>
 
 namespace hopper {
+
+// columns of a sub-tile: one swizzle span of at most 64 bf16
+__host__ __device__ constexpr int sub_cols(int d) { return d > 64 ? 64 : d; }
 
 // ---------------------------------------------------------------- device
 
@@ -84,8 +95,22 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
-// Shared-memory matrix descriptor of a swizzled [rows][D] bf16 tile whose
-// rows are ROW_BYTES = 2D long (128 -> 128-byte swizzle, 64 -> 64-byte).
+// The [rows][D] box at time step `row` of head h, batch b, as D / SUB
+// sub-tiles of [rows][SUB] one after the other at `dst`, completing on
+// `bar` (rows is 64 whenever there are two sub-tiles)
+template <int D>
+__device__ __forceinline__ void tma_load_tile(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                              int h, int row, int b, int rows) {
+  constexpr int SUB = sub_cols(D);
+#pragma unroll
+  for (int part = 0; part < D / SUB; ++part)
+    tma_load_4d(static_cast<uint8_t*>(dst) + part * rows * SUB * 2, map, bar, part * SUB, h,
+                row, b);
+}
+
+// Shared-memory matrix descriptor of a swizzled [rows][SUB] bf16 (sub-)tile
+// whose rows are ROW_BYTES = 2 SUB long (128 -> 128-byte swizzle, 64 ->
+// 64-byte).
 template <int ROW_BYTES>
 __device__ __forceinline__ uint64_t tile_desc(const void* tile) {
   static_assert(ROW_BYTES == 128 || ROW_BYTES == 64, "rows of 64 or 32 bf16");
@@ -192,20 +217,32 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t* a, uint
 template <int D>
 __device__ __forceinline__ void gemm_nt(float (&s)[32], const void* a_tile,
                                         const void* b_tile) {
-  const uint64_t da = tile_desc<2 * D>(a_tile), db = tile_desc<2 * D>(b_tile);
+  constexpr int SUB = sub_cols(D), SUB_BYTES = 64 * SUB * 2;
+  const uint8_t* a = static_cast<const uint8_t*>(a_tile);
+  const uint8_t* b = static_cast<const uint8_t*>(b_tile);
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    wgmma_ss_n64(s, da + kmajor_step(kk), db + kmajor_step(kk), kk > 0 ? 1 : 0);
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int part = kk / (SUB / 16), k = kk % (SUB / 16);
+    const uint64_t da = tile_desc<2 * SUB>(a + part * SUB_BYTES);
+    const uint64_t db = tile_desc<2 * SUB>(b + part * SUB_BYTES);
+    wgmma_ss_n64(s, da + kmajor_step(k), db + kmajor_step(k), kk > 0 ? 1 : 0);
+  }
 }
 
 // acc += P B over 64 k rows: P packed by pack_a, B a [64][D] tile in
-// shared memory, MN-major.
+// shared memory, MN-major; one m64n{SUB}k16 chain per sub-tile, into the
+// accumulator's matching columns.
 template <int D>
 __device__ __forceinline__ void gemm_pv(float (&acc)[D / 2], const uint32_t (&p)[16],
                                         const void* b_tile) {
-  const uint64_t db = tile_desc<2 * D>(b_tile);
+  constexpr int SUB = sub_cols(D), SUB_BYTES = 64 * SUB * 2;
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) wgmma_rs(acc, p + 4 * kk, db + mnmajor_step<2 * D>(kk));
+  for (int part = 0; part < D / SUB; ++part) {
+    float(&cols)[SUB / 2] = *reinterpret_cast<float(*)[SUB / 2]>(&acc[part * (SUB / 2)]);
+    const uint64_t db = tile_desc<2 * SUB>(static_cast<const uint8_t*>(b_tile) + part * SUB_BYTES);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs(cols, p + 4 * kk, db + mnmajor_step<2 * SUB>(kk));
+  }
 }
 
 // ------------------------------------------------------------------ host
@@ -235,10 +272,11 @@ inline EncodeTiledFn encode_tiled() {
 }
 
 // Tensor map of a bf16 [B,T,H,D] operand read through its element strides
-// (D contiguous), with a box of `rows` time steps of one head: the box
-// lands in shared memory as a swizzled [rows][D] tile. Rows past T come
-// in as zeros. Base and strides must be multiples of 16 bytes; the wrapper
-// checks that and cuTensorMapEncodeTiled refuses anything else.
+// (D contiguous), with a box of `rows` time steps of one head and SUB
+// columns: the box lands in shared memory as a swizzled [rows][SUB]
+// (sub-)tile (tma_load_tile issues one box per sub-tile). Rows past T
+// come in as zeros. Base and strides must be multiples of 16 bytes; the
+// wrapper checks that and cuTensorMapEncodeTiled refuses anything else.
 inline cudaError_t encode_bthd(CUtensorMap* map, const void* base, int B, int T, int H, int D,
                                int64_t sb, int64_t st, int64_t sh, int rows) {
   const EncodeTiledFn fn = encode_tiled();
@@ -246,11 +284,12 @@ inline cudaError_t encode_bthd(CUtensorMap* map, const void* base, int B, int T,
   if (B == 1) sb = st * T;  // a stride of a size-1 dimension is never used
   const cuuint64_t dims[4] = {cuuint64_t(D), cuuint64_t(H), cuuint64_t(T), cuuint64_t(B)};
   const cuuint64_t strides[3] = {cuuint64_t(sh) * 2, cuuint64_t(st) * 2, cuuint64_t(sb) * 2};
-  const cuuint32_t box[4] = {cuuint32_t(D), 1, cuuint32_t(rows), 1};
+  const int sub = sub_cols(D);
+  const cuuint32_t box[4] = {cuuint32_t(sub), 1, cuuint32_t(rows), 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
                         strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        D == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                        sub == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }

@@ -1,7 +1,8 @@
-"""WAV ingest: integer PCM to float32 and 16 kHz wav loading.
+"""WAV ingest: integer PCM to float32, 16 kHz wav loading, and noise
+mixing at a set SNR.
 
-Port of ``pcm_to_float``, ``load_wav`` and ``write_wav`` from
-``avsl_tpu/data/audio_segments.py``. Resampling waits for the port of
+Port of ``pcm_to_float``, ``load_wav``, ``write_wav`` and ``add_noise``
+from ``avsl_tpu/data/audio_segments.py``. Resampling waits for the port of
 ``kernels/resample.py``: a wav at another rate raises.
 """
 
@@ -46,3 +47,23 @@ def write_wav(path: str, audio: np.ndarray, sr: int = 16000) -> str:
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     wavfile.write(path, sr, (np.clip(audio, -1, 1) * 32767).astype(np.int16))
     return path
+
+
+def add_noise(clean: np.ndarray, noise: np.ndarray, snr_db: float, rng=None) -> np.ndarray:
+    """Mix ``noise`` into ``clean`` at ``snr_db`` dB: a random window of the
+    (tiled) noise scaled to the target RMS, in float64, the mix divided by
+    its peak when that exceeds 1. ``rng`` is a numpy Generator."""
+    rng = np.random.default_rng() if rng is None else rng
+    if len(noise) < len(clean):
+        noise = np.tile(noise, int(np.ceil(len(clean) / len(noise))))
+    start = rng.integers(0, len(noise) - len(clean) + 1)
+    noise = noise[start : start + len(clean)].astype(np.float64)
+    clean64 = clean.astype(np.float64)
+    clean_rms = np.sqrt(np.mean(clean64**2)) + 1e-12
+    noise_rms = np.sqrt(np.mean(noise**2)) + 1e-12
+    target_noise_rms = clean_rms / (10.0 ** (snr_db / 20.0))
+    mixed = clean64 + noise * (target_noise_rms / noise_rms)
+    peak = np.max(np.abs(mixed))
+    if peak > 1.0:
+        mixed = mixed / peak
+    return mixed.astype(np.float32)

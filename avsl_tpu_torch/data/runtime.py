@@ -1,14 +1,17 @@
-"""Runtime dataset + collator: dataset rows -> model-ready batches.
+"""Runtime datasets + collator: dataset rows -> model-ready batches.
 
-Port of ``AmiVideoDataset`` and ``WhisperVideoCollator`` from
-``avsl_tpu/data/runtime.py``. Per item: 16 kHz float audio, ``pad_or_trim``
+Port of ``AmiVideoDataset``, ``WhisperVideoCollator`` and
+``AVHubertDataset`` from ``avsl_tpu/data/runtime.py``. Per item: 16 kHz float audio, ``pad_or_trim``
 to the configured length, log-mel on the host CPU, jiwer-style text
 normalisation, the Whisper SOT sequence + tokens with shifted labels +
 EOT, and with ``load_video`` the lip clip (88 crop, mean 0.421, std 0.165)
 trimmed to the padded audio's length at 25 fps, or one zero frame when the
 row has no clip file. SpecAugment runs on the device inside the train step
-(``kernels/specaugment.py``). Audio at another rate than 16 kHz raises
-until the resampler is ported (ROADMAP.md queue 1, item 7).
+(``kernels/specaugment.py``). ``AVHubertDataset`` gives each item the
+104-dim stacked log-fbank features (computed on the host CPU) and the
+88-crop lip clip, truncated to the shorter, with per-item modality drops.
+Audio at another rate than 16 kHz raises until the resampler is ported
+(ROADMAP.md queue 1, item 7).
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 
-from avsl_tpu_torch.data.audio_segments import load_wav, pcm_to_float
+from avsl_tpu_torch.data.audio_segments import add_noise, load_wav, pcm_to_float
 from avsl_tpu_torch.data.tokenizer import Tokenizer
 from avsl_tpu_torch.decode.text_norm import normalize_text
 
@@ -184,3 +187,88 @@ class WhisperVideoCollator:
             batch["video"] = video
             batch["video_mask"] = vmask
         return batch
+
+
+class AVHubertDataset:
+    """Per-item AV-HuBERT features with dataset-level modality dropout.
+
+    In training each item drops its audio with ``audio_drop_prob`` and its
+    video with ``video_drop_prob`` (draws from ``default_rng((seed, epoch,
+    idx))``, so they change every epoch), keeping at least one stream; a
+    row without a lip clip counts as video dropped (and then keeps its
+    audio). With ``noise_audio`` the audio is mixed with noise at
+    ``noise_snr_db`` with probability ``add_noise_prob`` (same rng). Audio
+    is the 104-dim stacked log-fbank path, video the normalised 88-crop lip
+    clip; both are truncated to the shorter, and a dropped stream comes
+    out as zeros with presence flag 0, so every batch has one shape."""
+
+    def __init__(
+        self,
+        rows,
+        audio_drop_prob: float = 0.0,
+        video_drop_prob: float = 0.0,
+        train: bool = False,
+        sample_rate: int = 16000,
+        stack_order: int = 4,
+        image_crop_size: int = 88,
+        seed: int = 0,
+        add_noise_prob: float = 0.0,
+        noise_audio: Optional[np.ndarray] = None,
+        noise_snr_db: float = 0.0,
+    ):
+        self.rows = rows
+        self.audio_drop_prob = audio_drop_prob
+        self.video_drop_prob = video_drop_prob
+        self.train = train
+        self.sample_rate = sample_rate
+        self.stack_order = stack_order
+        self.image_crop_size = image_crop_size
+        self.seed = seed
+        self.add_noise_prob = add_noise_prob
+        self.noise_audio = noise_audio
+        self.noise_snr_db = noise_snr_db
+        self.epoch = 0
+
+    def set_epoch(self, epoch: int) -> None:
+        self.epoch = int(epoch)
+
+    def __len__(self) -> int:
+        return len(self.rows)
+
+    def __getitem__(self, idx: int) -> Dict[str, Any]:
+        from avsl_tpu_torch.kernels.fbank import avhubert_audio_features
+
+        item = self.rows[idx]
+        rng = np.random.default_rng((self.seed, self.epoch, idx))
+        drop_audio = self.train and rng.random() < self.audio_drop_prob
+        drop_video = self.train and rng.random() < self.video_drop_prob
+        if drop_audio and drop_video:  # at-least-one-modality fallback
+            if rng.random() < 0.5:
+                drop_audio = False
+            else:
+                drop_video = False
+        audio = _extract_audio(item, self.sample_rate)
+        if self.train and self.noise_audio is not None and rng.random() < self.add_noise_prob:
+            audio = add_noise(audio, self.noise_audio, self.noise_snr_db, rng)
+        feats_a = avhubert_audio_features(audio, self.sample_rate, self.stack_order,
+                                          device="cpu").numpy()
+        path = _extract_video_path(item)
+        if path and os.path.exists(path):
+            from avsl_tpu_torch.data.video_io import load_video_feats
+
+            feats_v = load_video_feats(path, image_crop_size=self.image_crop_size)
+        else:
+            crop = self.image_crop_size
+            feats_v = np.zeros((len(feats_a), crop, crop, 1), np.float32)
+            drop_video = True
+            drop_audio = False  # the at-least-one guarantee
+        t = min(len(feats_a), len(feats_v))  # truncate-to-min alignment
+        out = {
+            "audio_feats": np.zeros_like(feats_a[:t]) if drop_audio else feats_a[:t],
+            "video_feats": np.zeros_like(feats_v[:t]) if drop_video else feats_v[:t],
+            "audio_present": 0.0 if drop_audio else 1.0,
+            "video_present": 0.0 if drop_video else 1.0,
+        }
+        if "transcript" in item:
+            out["transcript"] = item["transcript"]
+        return out

@@ -1,4 +1,5 @@
-"""Batch transcription with host/device overlap (greedy, audio and lip video).
+"""Batch transcription with host/device overlap (greedy or beam search,
+audio and lip video).
 
 Port of ``StreamingTranscriber`` and ``TranscribeResult`` from
 ``avsl_tpu/infer/pipeline.py``. Per batch: log-mel -> Whisper encoder
@@ -6,8 +7,12 @@ Port of ``StreamingTranscriber`` and ``TranscribeResult`` from
 model, the lip clips -> the AV-HuBERT video tower (the same kernel in
 every block) -> ``video_projection``; then the decode cache with the
 cross-attention and gated ``x_attn`` K/V precomputed -> KV-cached greedy
-decode with the mean token log-probability. ``transcribe`` prepares batch
-N+1 on a producer thread while the device runs batch N.
+decode with the mean token log-probability, or with ``beam_size > 1`` the
+batched beam search with its length-normalised score. The model runs in
+eval mode whatever mode the caller left it in (the JAX transcriber always
+serves deterministically), and gets its mode back afterwards.
+``transcribe`` prepares batch N+1 on a producer thread while the device
+runs batch N.
 
 An item's video is its ``lip_feats`` array, else its ``lip_video`` clip
 (a corrupt clip falls through); items without video get a zeroed clip and
@@ -30,6 +35,7 @@ import torch
 
 from avsl_tpu_torch.data.audio_segments import load_wav
 from avsl_tpu_torch.data.video_io import load_video_feats
+from avsl_tpu_torch.decode.beam import beam_search
 from avsl_tpu_torch.decode.greedy import greedy_decode_scored
 from avsl_tpu_torch.kernels.logmel import log_mel_spectrogram, pad_or_trim
 
@@ -40,7 +46,8 @@ class TranscribeResult:
     text: str
     tokens: List[int]
     has_video: bool
-    # mean token log-probability of the generated sequence (greedy)
+    # mean token log-probability of the generated sequence (greedy), or
+    # the length-normalised log-probability of the best beam
     avg_logprob: float = 0.0
 
 
@@ -51,7 +58,7 @@ def _not_ported(option: str, item: str) -> NotImplementedError:
 
 
 class StreamingTranscriber:
-    """Greedy batch transcription with host/device overlap.
+    """Greedy or beam-search batch transcription with host/device overlap.
 
     ``model`` is a :class:`~avsl_tpu_torch.models.Whisper` already on its
     device; batches run there. Audio is padded or trimmed to
@@ -81,7 +88,6 @@ class StreamingTranscriber:
         boost_phrases: Optional[Sequence[str]] = None,
     ):
         refused = [
-            (beam_size > 1, "beam_size>1", "item 9 (decode/beam.py)"),
             (quantize is not None, "quantize", "item 11 (models/quant.py)"),
             (bool(kv_int8), "kv_int8", "item 11 (models/quant.py)"),
             (mesh is not None, "mesh", "item 12 (the parallel layer)"),
@@ -114,24 +120,34 @@ class StreamingTranscriber:
     def _run(self, audio: np.ndarray, video: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
         """Device program for one padded batch: audio [B, samples] and
         video [B, frames, crop, crop, 1] float32 -> (tokens [B,
-        max_new_tokens], avg_logprob [B]). A model without gated
-        cross-attention ignores the video, so it is not uploaded."""
+        max_new_tokens], scores [B]), in eval mode (the caller's mode is
+        restored after). A model without gated cross-attention ignores the
+        video, so it is not uploaded."""
         model, cfg = self.model, self.model.cfg
-        x = torch.from_numpy(audio).to(self.device, non_blocking=True)
-        v = None
-        if cfg.add_gated_x_attn:
-            v = torch.from_numpy(video).to(self.device, non_blocking=True)
-        mel = log_mel_spectrogram(x, n_mels=cfg.n_mels)
-        feats, xv = model.encode(mel, v)
-        cache_len = self.max_new_tokens + self._prompt.shape[1] + 2
-        cache = model.init_decode_cache(feats, xv, cache_len)
+        was_training = model.training
+        model.eval()
+        try:
+            x = torch.from_numpy(audio).to(self.device, non_blocking=True)
+            v = None
+            if cfg.add_gated_x_attn:
+                v = torch.from_numpy(video).to(self.device, non_blocking=True)
+            mel = log_mel_spectrogram(x, n_mels=cfg.n_mels)
+            feats, xv = model.encode(mel, v)
+            cache_len = self.max_new_tokens + self._prompt.shape[1] + 2
+            cache = model.init_decode_cache(feats, xv, cache_len)
 
-        def step(tok, c):
-            return model.decode(tok, None, None, c)
+            def step(tok, c):
+                return model.decode(tok, None, None, c)
 
-        seqs, scores = greedy_decode_scored(
-            step, cache, self._prompt, self.max_new_tokens, self.tokenizer.eot
-        )
+            if self.beam_size > 1:
+                seqs, scores = beam_search(step, cache, self._prompt, self.beam_size,
+                                           self.max_new_tokens, self.tokenizer.eot, biasing=None)
+            else:
+                seqs, scores = greedy_decode_scored(
+                    step, cache, self._prompt, self.max_new_tokens, self.tokenizer.eot
+                )
+        finally:
+            model.train(was_training)
         return seqs.cpu().numpy(), scores.cpu().numpy()
 
     # -- host side -----------------------------------------------------

@@ -28,7 +28,9 @@ import torch
 NEG_INF = -1.0e30
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64)
+# head dims each body takes: the bf16 tensor-core bodies 32, 64 and 128 (the
+# AV-HuBERT decoder's), the fp32 FMA bodies 32 and 64 (ROADMAP.md queue 2)
+_HEAD_DIMS = {torch.float32: (32, 64), torch.bfloat16: (32, 64, 128)}
 
 Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -163,8 +165,10 @@ def _check_tma(named) -> None:
 
 def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     b, _, h, d = q.shape
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"flash attention takes head dim {_HEAD_DIMS}, got {d}")
+    dims = _HEAD_DIMS[q.dtype]
+    if d not in dims:
+        raise ValueError(f"flash attention in {q.dtype} takes head dims {dims}, got {d} "
+                         "(ROADMAP.md queue 2)")
     if k.shape != v.shape or k.shape[0] != b or k.shape[2:] != (h, d):
         raise ValueError(f"k/v shapes {tuple(k.shape)}/{tuple(v.shape)} do not match q {tuple(q.shape)}")
     if k.shape[1] < 1:

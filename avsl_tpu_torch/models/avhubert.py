@@ -1,57 +1,73 @@
-"""AV-HuBERT in PyTorch: the video-only encoder that Whisper-Flamingo uses
-as its video tower, and the token cross-entropy.
+"""AV-HuBERT in PyTorch: the fusion encoder over 104-dim audio features and
+lip video, the seq2seq decoder and the CTC head, with their losses.
 
-Port of ``avsl_tpu/models/avhubert.py`` for lip video, in inference and in
-training: ``AVHuBERTVisualEncoder`` (the ResNet frontend, ``grad_multiply``
-by ``feature_grad_mult`` and the projection), ``ConvPositionalEmbedding``
-(the weight-normed grouped positional conv), ``AVHuBERTTransformerEncoder``
-(pre-norm blocks whose self-attention runs the flash-attention kernel with
-per-row key lengths; in training, dropout after ``pos_conv``, dropout,
-attention dropout and activation dropout in the blocks, and LayerDrop),
-the video-only path of ``AVHuBERTEncoderWrapper`` (``use_audio=False``,
-``modality_fuse="add"``: the fused features are the visual features, then
-``fuse_ln``, ``post_extract_proj`` and ``dropout_input``; modality dropout
-in training) and ``AVHuBERTModel`` with ``extract_features``. Also
-``cross_entropy_loss``, which the Whisper fine-tuning objective uses.
+Port of ``avsl_tpu/models/avhubert.py`` in inference and in training:
+``Wav2Vec2FeatureEncoder`` (the optional raw-waveform conv stack, GroupNorm
+in fp32 on its first layer) and ``AVHuBERTAudioEncoder`` (the projection
+of stacked log-fbank features); ``AVHuBERTVisualEncoder`` (the ResNet
+frontend and the projection), each frontend's gradient scaled by
+``feature_grad_mult``; ``ConvPositionalEmbedding`` (the weight-normed
+grouped positional conv); ``AVHuBERTTransformerEncoder`` (pre-norm blocks
+whose self-attention runs the flash-attention kernel with per-row key
+lengths; in training, dropout after ``pos_conv``, the blocks' dropouts and
+LayerDrop); ``AVHuBERTEncoderWrapper`` with ``AVHuBERTModel`` (presence
+flags, modality dropout, ``concat``/``add``/``weighted_sum`` fusion of the
+two streams truncated to the shorter, ``fuse_ln`` over the fused width,
+``post_extract_proj``, external feature and channel masks, input dropout);
+``AVHuBERTForCTC`` with ``ctc_loss``; ``AVHuBERTDecoder`` (√d-scaled
+embeddings, fairseq sinusoid or learned positions, the self-attention
+through the flash-attention kernels as causal with key lengths, the
+cross-attention onto a padded encoder output unfused and masked, decoder
+LayerDrop, a final norm only when pre-norm, a tied or separate output
+projection, fp32 logits) with ``AVHuBERTForSpeech2Text``; and
+``cross_entropy_loss``.
 
-Training follows the JAX modules' ``deterministic`` argument, here None
-by default and then the module's own mode (``model.train()``); random
-draws come from the ``generator`` the forward is given. BatchNorm uses the
-batch's statistics (and updates the running ones) when
-``use_running_average`` is False, which it is by default in training. In
-training the blocks' attention dropout sends their self-attention down
-the unfused path, which ignores the key lengths, as the JAX layer does
-(``avsl_tpu/models/layers.py:301-310``).
+Training follows the JAX modules' ``deterministic`` argument, here the
+module's own mode (``model.train()``); random draws come from the
+``generator`` the forward is given. BatchNorm uses the batch's statistics
+(and updates the running ones) when ``use_running_average`` is False,
+which it is by default in training. In training the attention dropout of
+a block sends its self-attention down the unfused path, which ignores the
+causal mask and the key lengths, as the JAX layer does
+(``avsl_tpu/models/layers.py:301-310``). As in JAX, the decoder embeds in
+the compute dtype and then, multiplied by the fp32 √d, carries an fp32
+residual stream; each projection casts its input to the compute dtype.
 
-State-dict names are fairseq AV-HuBERT's (``feature_extractor_video.*``,
-``layer_norm``, ``post_extract_proj``, ``mask_emb``, ``encoder.pos_conv.0.*``,
-``encoder.layers.N.{self_attn.{q,k,v,out}_proj, self_attn_layer_norm, fc1,
-fc2, final_layer_norm}``, ``encoder.layer_norm``), so the wrapper's
-modules sit on :class:`AVHuBERTModel` itself, as they do in fairseq.
+State-dict names are fairseq AV-HuBERT's: the encoder's modules sit on
+:class:`AVHuBERTModel` itself (``feature_extractor_{audio,video}``,
+``layer_norm``, ``post_extract_proj``, ``mask_emb``, ``encoder.pos_conv.0``,
+``encoder.layers.N.{self_attn, self_attn_layer_norm, fc1, fc2,
+final_layer_norm}``, ``encoder.layer_norm``); the heads nest it under
+``encoder.w2v_model.`` as fairseq's seq2seq checkpoints do, beside
+``decoder.{embed_tokens, embed_positions, layers.N.{self_attn,
+encoder_attn, ...}, layer_norm, output_projection}`` or ``ctc_head``. The
+fixed sinusoid table is a buffer left out of the state dict.
 
-What this path does not take raises ``NotImplementedError`` naming its
-``ROADMAP.md`` item: the audio frontend, presence flags, concat and
-weighted-sum fusion, external feature or channel masks and the heads
-(item 9), and span masking (``apply_time_mask``, item 12 with the
-pretraining model).
+Span masking (``apply_time_mask``) and the MoE FFN raise
+``NotImplementedError`` naming ``ROADMAP.md`` item 12.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from avsl_tpu_torch.core.config import AVHuBERTConfig
 from avsl_tpu_torch.models.layers import (
+    Cache,
+    CastConv1d,
     CastLinear,
     LayerNormF32,
     TransformerBlock,
     cast_param,
+    fairseq_sinusoid_embedding,
     grad_multiply,
+    init_self_attn_cache,
     residual_dropout,
     torch_dtype,
 )
@@ -97,6 +113,63 @@ class AVHuBERTVisualEncoder(nn.Module):
 
     def forward(self, video: torch.Tensor, use_running_average: bool = True) -> torch.Tensor:
         feats = self.resnet(video, use_running_average)
+        if self.feature_grad_mult != 1.0:
+            feats = grad_multiply(feats, self.feature_grad_mult)
+        return self.proj(feats)
+
+
+class Wav2Vec2FeatureEncoder(nn.Module):
+    """Temporal conv stack over the raw waveform (wav2vec2's): [B, n] ->
+    [B, T', conv_dim[-1]]. Valid convolutions without bias (``conv_i``),
+    a GroupNorm with a group per channel in fp32 after the first
+    (``group_norm``, eps 1e-6 as flax's), exact GELU after each."""
+
+    def __init__(self, cfg: AVHuBERTConfig, device=None):
+        super().__init__()
+        dtype, pdtype = _dtypes(cfg)
+        self.dtype, self.n_layers = dtype, len(cfg.conv_dim)
+        in_ch = 1
+        for i, (dim, kernel, stride) in enumerate(zip(cfg.conv_dim, cfg.conv_kernel,
+                                                      cfg.conv_stride)):
+            self.add_module(f"conv_{i}", CastConv1d(in_ch, dim, kernel, stride=stride, bias=False,
+                                                    device=device, param_dtype=pdtype,
+                                                    compute_dtype=dtype))
+            in_ch = dim
+        self.group_norm = nn.GroupNorm(cfg.conv_dim[0], cfg.conv_dim[0], eps=1e-6, device=device,
+                                       dtype=torch.float32)
+
+    def forward(self, audio: torch.Tensor) -> torch.Tensor:
+        x = audio.to(self.dtype)[:, None, :]
+        for i in range(self.n_layers):
+            x = self._modules[f"conv_{i}"](x)
+            if i == 0:
+                x = self.group_norm(x.float()).to(self.dtype)
+            x = F.gelu(x)
+        return x.transpose(1, 2)
+
+
+class AVHuBERTAudioEncoder(nn.Module):
+    """Audio frontend -> hidden_size features, fairseq's
+    ``feature_extractor_audio``: the 104-dim stacked log-fbank frames (25 Hz,
+    aligned with 25 fps video) through ``proj``, or with
+    ``use_conv_audio_frontend`` the raw waveform through
+    :class:`Wav2Vec2FeatureEncoder` first; the features' gradient is scaled
+    by ``feature_grad_mult``."""
+
+    def __init__(self, cfg: AVHuBERTConfig, device=None):
+        super().__init__()
+        dtype, pdtype = _dtypes(cfg)
+        self.dtype, self.feature_grad_mult = dtype, cfg.feature_grad_mult
+        in_dim = cfg.audio_feat_dim
+        if cfg.use_conv_audio_frontend:
+            self.conv_frontend = Wav2Vec2FeatureEncoder(cfg, device=device)
+            in_dim = cfg.conv_dim[-1]
+        self.proj = CastLinear(in_dim, cfg.hidden_size, device=device, param_dtype=pdtype,
+                               compute_dtype=dtype)
+
+    def forward(self, audio: torch.Tensor) -> torch.Tensor:
+        frontend = self._modules.get("conv_frontend")
+        feats = frontend(audio) if frontend is not None else audio.to(self.dtype)
         if self.feature_grad_mult != 1.0:
             feats = grad_multiply(feats, self.feature_grad_mult)
         return self.proj(feats)
@@ -157,6 +230,14 @@ class ConvPositionalEmbedding(nn.Sequential):
         return F.gelu(pos).transpose(1, 2)
 
 
+def _layerdrop(out: torch.Tensor, x: torch.Tensor, rate: float,
+               generator: Optional[torch.Generator]) -> torch.Tensor:
+    """LayerDrop: one draw for the whole batch keeps the layer's output or
+    its input, chosen by ``torch.where`` on the device (no host sync)."""
+    keep = torch.rand((), generator=generator, device=x.device) < 1.0 - rate
+    return torch.where(keep, out, x)
+
+
 class AVHuBERTTransformerEncoder(nn.Module):
     """Pre-norm (``layer_norm_first``) transformer encoder with padding
     zeroing, fairseq's ``encoder``: padded steps (``padding_mask`` False)
@@ -206,8 +287,7 @@ class AVHuBERTTransformerEncoder(nn.Module):
         for i, layer in enumerate(self.layers):
             out, _ = layer(x, kv_lengths=kv_lengths, generator=generator)
             if self.training and self.layerdrop > 0.0:
-                keep = torch.rand((), generator=generator, device=x.device) < 1.0 - self.layerdrop
-                x = torch.where(keep, out, x)
+                x = _layerdrop(out, x, self.layerdrop, generator)
             else:
                 x = out
             if output_layer is not None and i + 1 == output_layer:
@@ -217,50 +297,91 @@ class AVHuBERTTransformerEncoder(nn.Module):
         return x
 
 
+def _scaled(feats: torch.Tensor, presence: Optional[torch.Tensor]) -> torch.Tensor:
+    """``feats`` [B, T, C] times a [B] presence (None: all present)."""
+    if presence is None:
+        return feats
+    return feats * presence[:, None, None].to(feats.dtype)
+
+
 class AVHuBERTEncoderWrapper(nn.Module):
-    """Video-only fusion encoder: visual features (times the video's
-    presence) -> ``layer_norm`` (``fuse_ln``) -> ``post_extract_proj`` ->
-    ``dropout_input`` -> transformer. With ``use_audio=False`` and
-    ``modality_fuse="add"`` the fused features are the visual features
-    themselves (the JAX wrapper adds a zero audio stream). ``mask_emb`` is
-    kept as a parameter; only span masking reads it."""
+    """Fusion encoder over the audio and visual streams: each frontend's
+    features times the stream's presence, fused (``concat``, ``add`` or a
+    learned ``weighted_sum``) over the frames both streams have, then
+    ``layer_norm`` (``fuse_ln``, over ``encoder_hidden_size``) ->
+    ``post_extract_proj`` -> feature and channel masks -> ``dropout_input``
+    -> transformer. A missing stream is zeros, as in JAX (with ``add`` the
+    present stream's features pass as they are)."""
 
     def __init__(self, cfg: AVHuBERTConfig, device=None):
         super().__init__()
-        if cfg.use_audio:
-            raise _not_ported("the AV-HuBERT audio frontend (use_audio=True)", "item 9")
-        if not cfg.use_visual:
-            raise ValueError("a video-only AV-HuBERT needs use_visual=True")
-        if cfg.modality_fuse != "add":
-            raise _not_ported(f"modality_fuse={cfg.modality_fuse!r}", "item 9")
+        if not (cfg.use_audio or cfg.use_visual):
+            raise ValueError("AV-HuBERT needs use_audio or use_visual")
+        if cfg.modality_fuse not in ("concat", "add", "weighted_sum"):
+            raise ValueError(f"Unknown modality_fuse {cfg.modality_fuse!r}")
         self.cfg = cfg
         dtype, pdtype = _dtypes(cfg)
-        self.feature_extractor_video = AVHuBERTVisualEncoder(cfg, device=device)
-        self.layer_norm = LayerNormF32(cfg.hidden_size, device=device)
-        self.post_extract_proj = CastLinear(cfg.hidden_size, cfg.hidden_size, device=device,
-                                            param_dtype=pdtype, compute_dtype=dtype)
+        if cfg.use_audio:
+            self.feature_extractor_audio = AVHuBERTAudioEncoder(cfg, device=device)
+        if cfg.use_visual:
+            self.feature_extractor_video = AVHuBERTVisualEncoder(cfg, device=device)
+        if cfg.modality_fuse == "weighted_sum":
+            self.fusion_logits = nn.Parameter(torch.empty(2, device=device, dtype=pdtype))
+        self.layer_norm = LayerNormF32(cfg.encoder_hidden_size, device=device)
+        self.post_extract_proj = CastLinear(cfg.encoder_hidden_size, cfg.hidden_size,
+                                            device=device, param_dtype=pdtype, compute_dtype=dtype)
         self.mask_emb = nn.Parameter(torch.empty(cfg.hidden_size, device=device, dtype=pdtype))
         self.encoder = AVHuBERTTransformerEncoder(cfg, device=device)
 
     @torch.no_grad()
     def init_from(self, generator: torch.Generator) -> None:
-        """``mask_emb`` from U[0, 1), as flax's ``uniform(1.0)``."""
+        """``mask_emb`` from U[0, 1), as flax's ``uniform(1.0)``; zero
+        ``fusion_logits`` (equal weights)."""
         self.mask_emb.uniform_(0.0, 1.0, generator=generator)
+        if self.cfg.modality_fuse == "weighted_sum":
+            self.fusion_logits.zero_()
 
-    def _video_presence(self, batch: int, deterministic: bool,
-                        generator: Optional[torch.Generator], device) -> Optional[torch.Tensor]:
-        """The video half of ``_modality_presence`` (``avhubert.py:393-411``):
-        in training with ``modality_dropout``, one draw drops one modality
-        and a second picks the audio (``audio_dropout``) or the video, for
-        the whole batch; [B] fp32 with the video's presence, None when
-        nothing can be dropped."""
+    def _modality_presence(
+        self, batch: int, audio_present: Optional[torch.Tensor],
+        video_present: Optional[torch.Tensor], deterministic: bool,
+        generator: Optional[torch.Generator], device,
+    ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+        """``_modality_presence`` (``avhubert.py:393-411``): the [B] fp32
+        presence of each stream (None: present everywhere). In training
+        with ``modality_dropout``, one draw drops one stream and a second
+        picks the audio (``audio_dropout``) or the video, for the whole
+        batch."""
         cfg = self.cfg
+        a = None if audio_present is None else audio_present.to(device, torch.float32)
+        v = None if video_present is None else video_present.to(device, torch.float32)
         if deterministic or cfg.modality_dropout <= 0.0:
-            return None
+            return a, v
         drop_one = torch.rand((), generator=generator, device=device) < cfg.modality_dropout
         drop_audio = torch.rand((), generator=generator, device=device) < cfg.audio_dropout
-        v = torch.where(drop_one & ~drop_audio, 0.0, 1.0).to(device)
-        return v.expand(batch)
+        keep_a = torch.where(drop_one & drop_audio, 0.0, 1.0).to(device)
+        keep_v = torch.where(drop_one & ~drop_audio, 0.0, 1.0).to(device)
+        a = keep_a.expand(batch) if a is None else a * keep_a
+        v = keep_v.expand(batch) if v is None else v * keep_v
+        return a, v
+
+    def _fuse(self, feat_a: Optional[torch.Tensor], feat_v: Optional[torch.Tensor]) -> torch.Tensor:
+        """The streams truncated to the shorter one (the reference's
+        audio/video alignment) and fused; a missing one is zeros."""
+        fuse = self.cfg.modality_fuse
+        if feat_a is None or feat_v is None:
+            present = feat_a if feat_a is not None else feat_v
+            if fuse == "add":
+                return present
+            zeros = torch.zeros_like(present)
+            feat_a, feat_v = (present, zeros) if feat_a is not None else (zeros, present)
+        t = min(feat_a.shape[1], feat_v.shape[1])
+        feat_a, feat_v = feat_a[:, :t], feat_v[:, :t]
+        if fuse == "concat":
+            return torch.cat([feat_a, feat_v], dim=-1)
+        if fuse == "add":
+            return feat_a + feat_v
+        w = torch.softmax(self.fusion_logits.float(), dim=0)
+        return (w[0] * feat_a.float() + w[1] * feat_v.float()).to(feat_a.dtype)
 
     def forward(
         self,
@@ -269,8 +390,8 @@ class AVHuBERTEncoderWrapper(nn.Module):
         padding_mask: Optional[torch.Tensor] = None,
         audio_present: Optional[torch.Tensor] = None,
         video_present: Optional[torch.Tensor] = None,
-        feature_mask: Optional[torch.Tensor] = None,
-        channel_mask: Optional[torch.Tensor] = None,
+        feature_mask: Optional[torch.Tensor] = None,  # [B, T] True = replace with mask_emb
+        channel_mask: Optional[torch.Tensor] = None,  # [B, C] True = zero the channel
         deterministic: Optional[bool] = None,
         use_running_average: Optional[bool] = None,
         output_layer: Optional[int] = None,
@@ -279,26 +400,35 @@ class AVHuBERTEncoderWrapper(nn.Module):
         """``deterministic`` (None: not ``self.training``) must agree with
         the module's mode, which switches every dropout; BatchNorm uses the
         batch's statistics when ``use_running_average`` is False (None:
-        ``deterministic``)."""
-        if audio is not None:
-            raise _not_ported("audio inputs to AV-HuBERT", "item 9")
-        for name, value in (("audio_present", audio_present), ("video_present", video_present),
-                            ("feature_mask", feature_mask), ("channel_mask", channel_mask)):
-            if value is not None:
-                raise _not_ported(name, "item 9")
+        ``deterministic``). ``audio``: [B, T, audio_feat_dim] features (the
+        raw wave [B, n] with ``use_conv_audio_frontend``); ``video``: [B, T,
+        H, W, 1] lip clips; ``*_present``: [B] flags."""
+        cfg = self.cfg
         deterministic = _resolve_deterministic(self, deterministic)
         if use_running_average is None:
             use_running_average = deterministic
-        if video is None:
+        src = audio if audio is not None else video
+        if src is None:
             raise ValueError("At least one modality input is required")
-        fused = self.feature_extractor_video(video, use_running_average)
-        v_pres = self._video_presence(fused.shape[0], deterministic, generator, fused.device)
-        if v_pres is not None:
-            fused = fused * v_pres[:, None, None].to(fused.dtype)
-        x = self.post_extract_proj(self.layer_norm(fused))
-        x = residual_dropout(x, self.cfg.dropout_input, not deterministic, generator)
+        a_pres, v_pres = self._modality_presence(src.shape[0], audio_present, video_present,
+                                                 deterministic, generator, src.device)
+        feat_a = feat_v = None
+        if cfg.use_audio and audio is not None:
+            feat_a = _scaled(self.feature_extractor_audio(audio), a_pres)
+        if cfg.use_visual and video is not None:
+            feat_v = _scaled(self.feature_extractor_video(video, use_running_average), v_pres)
+        if feat_a is None and feat_v is None:
+            raise ValueError("At least one modality input is required")
+        x = self.post_extract_proj(self.layer_norm(self._fuse(feat_a, feat_v)))
+        t = x.shape[1]
+        if feature_mask is not None:
+            x = torch.where(feature_mask[:, :t, None].to(x.device), self.mask_emb.to(x.dtype), x)
+        if channel_mask is not None:
+            x = torch.where(channel_mask[:, None, :].to(x.device), torch.zeros((), dtype=x.dtype,
+                                                                               device=x.device), x)
+        x = residual_dropout(x, cfg.dropout_input, not deterministic, generator)
         if padding_mask is not None:
-            padding_mask = padding_mask[:, : x.shape[1]]
+            padding_mask = padding_mask[:, :t]
         return self.encoder(x, padding_mask, output_layer=output_layer, generator=generator)
 
 
@@ -312,7 +442,8 @@ class AVHuBERTModel(AVHuBERTEncoderWrapper):
                 deterministic: Optional[bool] = None, use_running_average=None,
                 feature_mask=None, channel_mask=None, output_layer=None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        if apply_time_mask and not _resolve_deterministic(self, deterministic):
+        if (apply_time_mask and feature_mask is None and channel_mask is None
+                and not _resolve_deterministic(self, deterministic)):
             raise _not_ported("span masking (apply_time_mask)",
                               "item 12: models/pretrain.py")
         return super().forward(
@@ -324,6 +455,301 @@ class AVHuBERTModel(AVHuBERTEncoderWrapper):
 
     def extract_features(self, audio=None, video=None, padding_mask=None, **kw) -> torch.Tensor:
         return self(audio=audio, video=video, padding_mask=padding_mask, deterministic=True, **kw)
+
+
+def _nested_encoder(cfg: AVHuBERTConfig, device) -> nn.ModuleDict:
+    """The encoder under fairseq's seq2seq nesting ``encoder.w2v_model.``."""
+    return nn.ModuleDict({"w2v_model": AVHuBERTModel(cfg, device=device)})
+
+
+class AVHuBERTForCTC(nn.Module):
+    """Encoder + dropout (``hidden_dropout``) + linear CTC head (``ctc_head``);
+    fp32 logits [B, T, vocab]. The CTC loss is :func:`ctc_loss` (blank =
+    pad id)."""
+
+    def __init__(self, cfg: AVHuBERTConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        dtype, pdtype = _dtypes(cfg)
+        self.encoder = _nested_encoder(cfg, device)
+        self.ctc_head = CastLinear(cfg.hidden_size, cfg.vocab_size, device=device,
+                                   param_dtype=pdtype, compute_dtype=dtype)
+
+    @property
+    def avhubert(self) -> AVHuBERTModel:
+        return self.encoder["w2v_model"]
+
+    def forward(self, audio=None, video=None, padding_mask=None,
+                deterministic: Optional[bool] = None,
+                generator: Optional[torch.Generator] = None, **kw) -> torch.Tensor:
+        h = self.avhubert(audio=audio, video=video, padding_mask=padding_mask,
+                          deterministic=deterministic, generator=generator, **kw)
+        h = residual_dropout(h, self.cfg.hidden_dropout, self.training, generator)
+        return self.ctc_head(h).float()
+
+
+def optax_ctc_loss(
+    logits: torch.Tensor,
+    logit_padding: torch.Tensor,
+    labels: torch.Tensor,
+    label_padding: torch.Tensor,
+    blank_id: int = 0,
+    log_epsilon: float = -1e5,
+) -> torch.Tensor:
+    """Per-sequence CTC loss [B], the recursion of ``optax.ctc_loss`` in
+    fp32 torch ops: a loop over frames on the blank-state scores [B, N+1]
+    and the label-state scores [B, N], ``log_epsilon`` standing for
+    log(0). Padding arguments are 1.0 at PAD (labels right-padded); a
+    padded frame carries the scores over. A row whose labels cannot fit
+    in its frames gets a large finite loss (about -log_epsilon), not inf
+    (``torch.nn.functional.ctc_loss`` returns inf there)."""
+    b, n = labels.shape
+    logprobs = torch.log_softmax(logits.float(), dim=-1)
+    label_padding = label_padding.float()
+    labellens = n - label_padding.sum(dim=1).to(torch.int64)
+    repeat = F.pad((labels[:, :-1] == labels[:, 1:]).float(), (0, 1))  # [B, N]
+    lp_phi = logprobs[:, :, blank_id]  # [B, T]
+    # a padded label (e.g. -100) reads class 0: no state before labellens
+    # depends on a padded label's emission score
+    gather_ids = labels.long().clamp(min=0)[:, None, :].expand(-1, logprobs.shape[1], -1)
+    lp_emit = torch.gather(logprobs, 2, gather_ids)  # [B, T, N]
+    pads = logit_padding.float()
+
+    def update_phi(phi, added):
+        return torch.cat([phi[:, :1], torch.logaddexp(phi[:, 1:], added)], dim=-1)
+
+    phi = torch.full((b, n + 1), log_epsilon, device=logits.device)
+    phi[:, 0] = 0.0
+    emit = torch.full((b, n), log_epsilon, device=logits.device)
+    for t in range(logits.shape[1]):
+        prev_phi = phi
+        phi_eps = update_phi(phi, emit + log_epsilon * repeat)
+        next_emit = torch.logaddexp(phi_eps[:, :-1] + lp_emit[:, t], emit + lp_emit[:, t])
+        next_phi = phi_eps + lp_phi[:, t:t + 1]
+        next_phi = update_phi(next_phi, emit + lp_phi[:, t:t + 1] + log_epsilon * (1.0 - repeat))
+        pad = pads[:, t:t + 1]
+        emit = pad * emit + (1.0 - pad) * next_emit
+        phi = pad * prev_phi + (1.0 - pad) * next_phi
+    phi_last = update_phi(phi, emit)
+    return -torch.gather(phi_last, 1, labellens[:, None])[:, 0]
+
+
+def ctc_loss(
+    logits: torch.Tensor,
+    logit_padding: torch.Tensor,
+    labels: torch.Tensor,
+    label_padding: torch.Tensor,
+    blank_id: int = 1,
+) -> torch.Tensor:
+    """Mean CTC loss; padding arguments are 1 at PAD (optax's convention).
+    Rows with no labels, or a non-finite loss, contribute 0 (the zero-length
+    guard); the mean is over every row."""
+    per_seq = optax_ctc_loss(logits, logit_padding, labels, label_padding, blank_id=blank_id)
+    has_labels = (1.0 - label_padding.float()).sum(dim=-1) > 0
+    per_seq = torch.where(has_labels & torch.isfinite(per_seq), per_seq,
+                          torch.zeros((), device=per_seq.device))
+    return per_seq.mean()
+
+
+class AVHuBERTDecoder(nn.Module):
+    """Transformer decoder with √d-scaled embeddings, fairseq sinusoid or
+    learned positions, a KV cache, and a tied or separate output
+    projection; fairseq's ``decoder``.
+
+    In full mode the self-attention runs causal with the key lengths of the
+    tokens that are not pad (the flash-attention kernels; the collators pad
+    at the end), and the cross-attention takes ``encoder_padding`` as a
+    mask (unfused). In training: dropout on the scaled, positioned
+    embeddings, the blocks' dropouts and decoder LayerDrop (full mode only),
+    one device draw a layer a forward, computed in every layer."""
+
+    def __init__(self, cfg: AVHuBERTConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        dtype, pdtype = _dtypes(cfg)
+        self.compute_dtype = dtype
+        d = cfg.decoder_hidden_size
+        self.embed_tokens = nn.Embedding(cfg.vocab_size, d, device=device, dtype=pdtype)
+        if cfg.decoder_learned_pos:
+            self.embed_positions = nn.Embedding(cfg.max_target_positions, d, device=device,
+                                                dtype=pdtype)
+        else:  # fixed table, recomputed, not in the state dict
+            self.register_buffer("sinusoid_positions", torch.empty(
+                (cfg.max_target_positions, d), device=device, dtype=torch.float32),
+                persistent=False)
+        self.layers = nn.ModuleList(
+            TransformerBlock(
+                d, cfg.decoder_attention_heads, cfg.decoder_ffn_dim, has_cross_attn=True,
+                causal_self_attn=True, pre_norm=cfg.decoder_normalize_before,
+                dropout=cfg.decoder_dropout, attention_dropout=cfg.decoder_attention_dropout,
+                activation_dropout=cfg.decoder_activation_dropout, use_k_bias=True,
+                names="fairseq", dtype=dtype, param_dtype=pdtype, device=device,
+                cross_kv_dim=cfg.hidden_size,
+            )
+            for _ in range(cfg.decoder_layers)
+        )
+        if cfg.decoder_normalize_before:
+            self.layer_norm = LayerNormF32(d, device=device)
+        if not cfg.tie_word_embeddings:
+            self.output_projection = CastLinear(d, cfg.vocab_size, bias=False, device=device,
+                                                param_dtype=pdtype, compute_dtype=dtype)
+
+    @torch.no_grad()
+    def init_from(self, generator: torch.Generator) -> None:
+        """Learned positions from N(0, 0.02) (flax's), or the sinusoid table."""
+        if self.cfg.decoder_learned_pos:
+            self.embed_positions.weight.normal_(0.0, 0.02, generator=generator)
+        else:
+            self.reset_sinusoid_positions()
+
+    def reset_sinusoid_positions(self) -> None:
+        table = fairseq_sinusoid_embedding(*self.sinusoid_positions.shape, self.cfg.pad_token_id)
+        with torch.no_grad():
+            self.sinusoid_positions.copy_(torch.from_numpy(table))
+
+    def _positions(self) -> torch.Tensor:
+        if self.cfg.decoder_learned_pos:
+            return self.embed_positions.weight
+        return self.sinusoid_positions
+
+    def forward(
+        self,
+        tokens: torch.Tensor,
+        encoder_out: Optional[torch.Tensor] = None,
+        encoder_padding: Optional[torch.Tensor] = None,  # [B, S] True = valid
+        cache: Optional[List[Cache]] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> Tuple[torch.Tensor, Optional[List[Cache]]]:
+        cfg = self.cfg
+        qlen = tokens.shape[1]
+        emb = self.embed_tokens(tokens).to(self.compute_dtype)
+        # the compute-dtype embedding times the fp32 sqrt(d): an fp32 stream
+        x = emb.float() * np.float32(math.sqrt(cfg.decoder_hidden_size))
+        table = self._positions()
+        start = 0  # dynamic_slice semantics: the start clamps so the slice fits
+        if cache is not None:
+            start = max(0, min(int(cache[0]["self"]["index"]), table.shape[0] - qlen))
+        x = x + table[start:start + qlen].to(x.dtype)
+        x = residual_dropout(x, cfg.decoder_dropout, self.training, generator)
+
+        dec_lengths = None
+        if cache is None:
+            dec_lengths = (tokens != cfg.pad_token_id).sum(dim=-1, dtype=torch.int32)
+        enc_mask = None
+        if encoder_padding is not None:
+            enc_mask = encoder_padding[:, None, None, :].to(x.device)
+
+        new_cache: Optional[List[Cache]] = [] if cache is not None else None
+        for i, layer in enumerate(self.layers):
+            out, c = layer(x, enc=encoder_out, cache=None if cache is None else cache[i],
+                           generator=generator, kv_lengths=dec_lengths, enc_mask=enc_mask)
+            if cfg.decoder_layerdrop > 0.0 and self.training and cache is None:
+                x = _layerdrop(out, x, cfg.decoder_layerdrop, generator)
+            else:
+                x = out
+            if new_cache is not None:
+                new_cache.append(c)
+        if cfg.decoder_normalize_before:
+            x = self.layer_norm(x)
+        if cfg.tie_word_embeddings:
+            # fp32 products of x and the stored embedding, as the JAX einsum
+            logits = F.linear(x.float(), self.embed_tokens.weight.float())
+        else:
+            logits = self.output_projection(x)
+        return logits.float(), new_cache
+
+
+class AVHuBERTForSpeech2Text(nn.Module):
+    """Encoder + decoder seq2seq model: ``shift_right`` teacher forcing,
+    ``encode``, ``decode``, ``init_decode_cache`` and a forward that returns
+    ``{"logits", "encoder_out"}`` (and ``"loss"``, the label-smoothed
+    cross-entropy, with ``labels``)."""
+
+    def __init__(self, cfg: AVHuBERTConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.encoder = _nested_encoder(cfg, device)
+        self.decoder = AVHuBERTDecoder(cfg, device=device)
+
+    @property
+    def avhubert(self) -> AVHuBERTModel:
+        return self.encoder["w2v_model"]
+
+    def shift_right(self, labels: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        shifted = torch.roll(labels, 1, dims=-1)
+        shifted[:, 0] = cfg.bos_token_id if cfg.bos_token_id is not None else cfg.eos_token_id
+        return torch.where(shifted == -100, torch.full_like(shifted, cfg.pad_token_id), shifted)
+
+    def encode(self, audio=None, video=None, padding_mask=None,
+               deterministic: Optional[bool] = None,
+               generator: Optional[torch.Generator] = None, **kw) -> torch.Tensor:
+        return self.avhubert(audio=audio, video=video, padding_mask=padding_mask,
+                             deterministic=deterministic, generator=generator, **kw)
+
+    def decode(self, tokens: torch.Tensor, encoder_out: Optional[torch.Tensor],
+               encoder_padding: Optional[torch.Tensor] = None,
+               cache: Optional[List[Cache]] = None,
+               generator: Optional[torch.Generator] = None,
+               ) -> Tuple[torch.Tensor, Optional[List[Cache]]]:
+        return self.decoder(tokens, encoder_out, encoder_padding, cache, generator)
+
+    def init_decode_cache(self, encoder_out: torch.Tensor, max_len: int) -> List[Cache]:
+        """Zeroed self-attention buffers and the cross-attention K/V of
+        ``encoder_out``, one entry per decoder layer."""
+        cfg = self.cfg
+        head_dim = cfg.decoder_hidden_size // cfg.decoder_attention_heads
+        return [{"self": init_self_attn_cache(encoder_out.shape[0], max_len,
+                                              cfg.decoder_attention_heads, head_dim,
+                                              torch_dtype(cfg.dtype), encoder_out.device),
+                 "cross": layer.cross.precompute_kv(encoder_out)}
+                for layer in self.decoder.layers]
+
+    def forward(self, audio=None, video=None, labels=None, decoder_input_ids=None,
+                padding_mask=None, deterministic: Optional[bool] = None,
+                generator: Optional[torch.Generator] = None, **kw) -> Dict[str, Any]:
+        encoder_out = self.encode(audio=audio, video=video, padding_mask=padding_mask,
+                                  deterministic=deterministic, generator=generator, **kw)
+        if decoder_input_ids is None:
+            if labels is None:
+                raise ValueError("Need labels or decoder_input_ids")
+            decoder_input_ids = self.shift_right(labels)
+        encoder_padding = None
+        if padding_mask is not None:
+            encoder_padding = padding_mask[:, : encoder_out.shape[1]]
+        logits, _ = self.decode(decoder_input_ids, encoder_out, encoder_padding,
+                                generator=generator)
+        out = {"logits": logits, "encoder_out": encoder_out}
+        if labels is not None:
+            out["loss"] = cross_entropy_loss(logits, labels,
+                                             label_smoothing=self.cfg.label_smoothing)
+        return out
+
+
+@torch.no_grad()
+def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Random weights drawn from ``generator`` on the model's device:
+    fan-in-scaled normal weights, zero biases, unit norm scales,
+    1/sqrt(d)-scaled normal embeddings, and each module's own
+    initialisation (``init_from``: BatchNorm identity statistics, PReLU
+    slopes 0.25, unit weight-norm scales, ``mask_emb`` from U[0, 1), zero
+    fusion logits, the decoder's positions), which runs after the generic
+    pass, so a module's own rule wins over its children's."""
+    for module in model.modules():
+        if isinstance(module, (nn.Linear, nn.Conv1d, nn.Conv2d, nn.Conv3d)):
+            w = module.weight
+            w.normal_(0.0, 1.0 / math.sqrt(w[0].numel()), generator=generator)
+            if module.bias is not None:
+                module.bias.zero_()
+        elif isinstance(module, nn.Embedding):
+            module.weight.normal_(0.0, 1.0 / math.sqrt(module.weight.shape[1]), generator=generator)
+        elif isinstance(module, (nn.LayerNorm, nn.GroupNorm)):
+            module.weight.fill_(1.0)
+            module.bias.zero_()
+    for module in model.modules():
+        if hasattr(module, "init_from"):
+            module.init_from(generator)
+    return model
 
 
 def cross_entropy_loss(

@@ -1,9 +1,14 @@
-"""Weight carrier: flax Whisper(-Flamingo) variables -> the port's state dict.
+"""Weight carrier: flax Whisper(-Flamingo) and AV-HuBERT variables -> the
+port's state dict.
 
 The inverse of ``avsl_tpu/models/convert.py``'s ``convert_whisper_state_dict``
 (its ``_WHISPER_RULES`` renames and ``_to_flax_array`` transposes) and, for
-the AV-HuBERT video tower under ``video_model/av_hubert/encoder/``, of its
-``convert_avhubert_state_dict`` (fairseq names). Linear kernels go from
+the AV-HuBERT video tower under ``video_model/av_hubert/encoder/`` and for
+the ``AVHuBERTForSpeech2Text`` / ``AVHuBERTForCTC`` trees
+(``avhubert/encoder/...``, ``decoder/...``, ``ctc_head``), of its
+``convert_avhubert_state_dict`` (fairseq names; the heads' encoder under
+``encoder.w2v_model.``, which that converter strips). The decoder's
+sinusoid table is recomputed, not carried. Linear kernels go from
 flax [in, out] to torch [out, in], Conv1d kernels from [k, in, out] to
 [out, in, k], Conv2d kernels from [kh, kw, in, out] to [out, in, kh, kw]
 and the Conv3d stem from [5, 7, 7, 1, C] to [C, 1, 5, 7, 7]; LayerNorm and
@@ -63,9 +68,11 @@ _FLAX_TO_TORCH_RULES: List[Tuple[str, str]] = [
     (r"/", r"."),
 ]
 
-# the same for paths inside the video tower (after _AV_PREFIX), to
-# fairseq AV-HuBERT names under ``video_model.``
-_AV_FLAX_TO_TORCH_RULES: List[Tuple[str, str]] = [
+# the same for paths inside an AV-HuBERT encoder (after _AV_PREFIX or
+# "avhubert/encoder/"), to fairseq AV-HuBERT names ("/"-joined)
+_AV_ENCODER_RULES: List[Tuple[str, str]] = [
+    (r"^audio_encoder/conv_frontend/", r"feature_extractor_audio/conv_frontend/"),
+    (r"^audio_encoder/proj/", r"feature_extractor_audio/proj/"),
     (r"^visual_encoder/frontend/stem_conv/kernel$",
      r"feature_extractor_video/resnet/frontend3D/0/weight"),
     (r"^visual_encoder/frontend/stem_bn/", r"feature_extractor_video/resnet/frontend3D/1/"),
@@ -92,8 +99,24 @@ _AV_FLAX_TO_TORCH_RULES: List[Tuple[str, str]] = [
     (r"^transformer/layer_(\d+)/mlp/", r"encoder/layers/\1/"),
     (r"^transformer/layer_(\d+)/", r"encoder/layers/\1/"),
     (r"/kernel$", r"/weight"),
-    (r"^", r"video_model/"),
-    (r"/", r"."),
+]
+_AV_FLAX_TO_TORCH_RULES = _AV_ENCODER_RULES + [(r"^", r"video_model/"), (r"/", r".")]
+
+# the AV-HuBERT decoder (after "decoder/") to fairseq names
+_AV_DECODER_RULES: List[Tuple[str, str]] = [
+    (r"^embed_tokens/embedding$", r"embed_tokens/weight"),
+    (r"^embed_positions$", r"embed_positions/weight"),
+    (r"^layer_(\d+)/self_attn_ln/LayerNorm_0/", r"layers/\1/self_attn_layer_norm/"),
+    (r"^layer_(\d+)/cross_attn_ln/LayerNorm_0/", r"layers/\1/encoder_attn_layer_norm/"),
+    (r"^layer_(\d+)/mlp_ln/LayerNorm_0/", r"layers/\1/final_layer_norm/"),
+    (r"^layer_(\d+)/cross_attn/", r"layers/\1/encoder_attn/"),
+    (r"^layer_(\d+)/mlp/", r"layers/\1/"),
+    (r"^layer_(\d+)/", r"layers/\1/"),
+    (r"^ln/LayerNorm_0/scale$", r"layer_norm/weight"),
+    (r"^ln/LayerNorm_0/", r"layer_norm/"),
+    (r"^output_proj/", r"output_projection/"),
+    (r"/scale$", r"/weight"),
+    (r"/kernel$", r"/weight"),
 ]
 
 
@@ -107,6 +130,20 @@ def flax_path_to_torch_key(path: str) -> str:
     for pat, rep in rules:
         path = re.sub(pat, rep, path)
     return path
+
+
+def avhubert_flax_path_to_torch_key(path: str) -> str:
+    """A flax path of ``AVHuBERTForSpeech2Text`` or ``AVHuBERTForCTC``
+    (without the collection) -> the port's fairseq state-dict key."""
+    for prefix, rules, out in (("avhubert/encoder/", _AV_ENCODER_RULES, "encoder/w2v_model/"),
+                               ("decoder/", _AV_DECODER_RULES, "decoder/"),
+                               ("ctc_head/", [(r"kernel$", r"weight")], "ctc_head/")):
+        if path.startswith(prefix):
+            path = path[len(prefix):]
+            for pat, rep in rules:
+                path = re.sub(pat, rep, path)
+            return (out + path).replace("/", ".")
+    raise KeyError(f"{path}: not a path of the AV-HuBERT seq2seq or CTC model")
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
@@ -140,19 +177,28 @@ def _strip_collection(flat: Dict[str, np.ndarray], collection: str) -> Dict[str,
 
 
 def state_dict_from_flax(
-    params: Mapping[str, Any], batch_stats: Optional[Mapping[str, Any]] = None
+    params: Mapping[str, Any], batch_stats: Optional[Mapping[str, Any]] = None,
+    key_fn=flax_path_to_torch_key,
 ) -> Dict[str, torch.Tensor]:
     """Flax variables (nested mappings or flat "/" paths, with or without
     the ``params``/``batch_stats`` level) -> fp32 torch tensors under the
-    port's state-dict keys, one per variable."""
+    port's state-dict keys (``key_fn`` of each path), one per variable."""
     flat = _strip_collection(_flatten(params), "params")
     if batch_stats is not None:
         flat.update(_strip_collection(_flatten(batch_stats), "batch_stats"))
     sd: Dict[str, torch.Tensor] = {}
     for path, value in flat.items():
         arr = np.ascontiguousarray(_to_torch_layout(path, value), dtype=np.float32)
-        sd[flax_path_to_torch_key(path)] = torch.from_numpy(arr)
+        sd[key_fn(path)] = torch.from_numpy(arr)
     return sd
+
+
+def avhubert_state_dict_from_flax(
+    params: Mapping[str, Any], batch_stats: Optional[Mapping[str, Any]] = None
+) -> Dict[str, torch.Tensor]:
+    """Flax ``AVHuBERTForSpeech2Text`` or ``AVHuBERTForCTC`` variables ->
+    the port's fp32 state dict (fairseq names)."""
+    return state_dict_from_flax(params, batch_stats, key_fn=avhubert_flax_path_to_torch_key)
 
 
 def whisper_state_dict_from_flax(

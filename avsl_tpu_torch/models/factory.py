@@ -1,8 +1,11 @@
-"""Model assembly: Whisper(-Flamingo) with an AV-HuBERT video encoder,
-built on the device.
+"""Model assembly, built on the device: Whisper(-Flamingo) with an
+AV-HuBERT video encoder, and AV-HuBERT with its seq2seq or CTC head.
 
 Port of ``avsl_tpu/models/factory.py`` (``make_av_hubert_video_encoder``
-and ``build_whisper_flamingo``), for serving and for training.
+and ``build_whisper_flamingo``), for serving and for training, plus the
+builders of the two AV-HuBERT heads that ``cli/avhubert_ft.py`` trains
+(the JAX CLI constructs ``AVHuBERTForSpeech2Text`` / ``AVHuBERTForCTC``
+itself).
 """
 
 from __future__ import annotations
@@ -14,7 +17,12 @@ import torch
 
 from avsl_tpu_torch.core.config import AVHuBERTConfig, WhisperConfig
 from avsl_tpu_torch.core.device import resolve_device
-from avsl_tpu_torch.models.avhubert import AVHuBERTModel
+from avsl_tpu_torch.models.avhubert import (
+    AVHuBERTForCTC,
+    AVHuBERTForSpeech2Text,
+    AVHuBERTModel,
+    init_weights,
+)
 from avsl_tpu_torch.models.whisper import Whisper
 
 
@@ -84,3 +92,25 @@ def build_whisper_flamingo(
         video_model = make_av_hubert_video_encoder(av_hubert_cfg, device="meta")
     model = Whisper(w_cfg, video_model=video_model, device="meta").materialize(dev, seed=seed)
     return model.eval(), w_cfg
+
+
+def build_avhubert(
+    cfg: AVHuBERTConfig,
+    head: str = "seq2seq",
+    device: Union[str, torch.device] = "cuda",
+    seed: int = 0,
+) -> Union[AVHuBERTForSpeech2Text, AVHuBERTForCTC]:
+    """AV-HuBERT with its ``head`` ("seq2seq": :class:`AVHuBERTForSpeech2Text`,
+    "ctc": :class:`AVHuBERTForCTC`) on ``device``, random weights from a
+    ``torch.Generator`` there seeded with ``seed`` (see
+    :func:`~avsl_tpu_torch.models.avhubert.init_weights`); returned in eval
+    mode. Weights live in ``cfg.param_dtype`` and compute runs in
+    ``cfg.dtype``."""
+    classes = {"seq2seq": AVHuBERTForSpeech2Text, "ctc": AVHuBERTForCTC}
+    if head not in classes:
+        raise ValueError(f"head {head!r}: expected one of {sorted(classes)}")
+    dev = resolve_device(device)
+    model = classes[head](cfg, device="meta").to_empty(device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return init_weights(model, gen).eval()

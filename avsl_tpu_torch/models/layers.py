@@ -1,16 +1,18 @@
 """Transformer building blocks in PyTorch, with OpenAI Whisper names.
 
 Port of the dense parts of ``avsl_tpu/models/layers.py``:
-``LayerNormF32``, ``sinusoid_embedding``, ``dot_product_attention``,
-``MultiHeadAttention`` (full sequence through the flash-attention kernels,
-with key lengths; scalar-index self cache, precomputed cross cache),
+``LayerNormF32``, ``sinusoid_embedding``, ``fairseq_sinusoid_embedding``,
+``dot_product_attention``, ``MultiHeadAttention`` (full sequence through
+the flash-attention kernels, with key lengths; an explicit ``mask`` sends
+it down the unfused masked path; scalar-index self cache, precomputed
+cross cache),
 ``MLP`` (exact GELU, activation dropout) and ``TransformerBlock`` (pre- or
 post-norm, the tanh-gated ``x_attn``/``x_mlp`` sublayers of
 Whisper-Flamingo, residual, attention-weight and activation dropout), and
 ``grad_multiply``. Module and parameter names follow the OpenAI Whisper state dict
 (``attn.query``, ``attn_ln``, ``mlp.0``, ...) or, for the AV-HuBERT
 encoder, fairseq's (``self_attn.q_proj``, ``self_attn_layer_norm``,
-``fc1``, ...).
+``fc1``, ``encoder_attn``, ...).
 
 Numerics follow the JAX package: projections run in the compute dtype;
 attention logits, softmax and the weighted sum accumulate in fp32; layer
@@ -18,7 +20,10 @@ norm runs in fp32. Weights are stored in ``param_dtype`` (the compute
 dtype when None). When the two differ, as in training (fp32 weights and
 Adam state, bf16 compute), each weight is cast to the compute dtype at
 use, so autograd returns fp32 gradients; when they agree (serving),
-nothing is cast. The decode caches differ from the JAX package's in
+nothing is cast. An input in another dtype than the compute dtype (the
+AV-HuBERT decoder's fp32 residual stream) is cast to it at each
+projection, as a flax ``Dense`` promotes its input. The decode caches
+differ from the JAX package's in
 two ways that change no value: they are written in place (the returned
 cache holds the same tensors with the index advanced), and they are held
 head-major, [B,H,T,D] in the model dtype, the layout the batched
@@ -64,6 +69,20 @@ def sinusoid_embedding(
     )
 
 
+def fairseq_sinusoid_embedding(length: int, channels: int, padding_idx: int = 1) -> np.ndarray:
+    """fairseq-layout sinusoidal positions (the AV-HuBERT decoder's):
+    ``[length, channels]`` ``[sin | cos]`` halves, position ids offset by
+    ``padding_idx + 1``; an odd channel count zero-pads the last column."""
+    half = channels // 2
+    emb_scale = np.log(10000.0) / (half - 1)
+    inv = np.exp(np.arange(half) * -emb_scale)
+    pos = np.arange(padding_idx + 1, length + padding_idx + 1)[:, None] * inv[None, :]
+    out = np.concatenate([np.sin(pos), np.cos(pos)], axis=1)
+    if channels % 2 == 1:
+        out = np.concatenate([out, np.zeros((length, 1))], axis=1)
+    return out.astype(np.float32)
+
+
 class LayerNormF32(nn.LayerNorm):
     """LayerNorm computed in fp32 (fp32 parameters) whatever the
     activation dtype; the output comes back in the input dtype."""
@@ -86,7 +105,7 @@ def cast_param(p: Optional[torch.Tensor], dtype: torch.dtype) -> Optional[torch.
 class CastLinear(nn.Linear):
     """``nn.Linear`` whose weight and bias are cast to ``compute_dtype`` at
     use when they are stored in another dtype (flax ``Dense`` with
-    ``dtype`` and ``param_dtype``)."""
+    ``dtype`` and ``param_dtype``), as is an input in another dtype."""
 
     def __init__(self, in_features, out_features, bias=True, device=None,
                  param_dtype=torch.bfloat16, compute_dtype=None):
@@ -94,7 +113,7 @@ class CastLinear(nn.Linear):
         self.compute_dtype = compute_dtype or param_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, cast_param(self.weight, self.compute_dtype),
+        return F.linear(cast_param(x, self.compute_dtype), cast_param(self.weight, self.compute_dtype),
                         cast_param(self.bias, self.compute_dtype))
 
 
@@ -147,8 +166,11 @@ def _matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` over [..., M, K] x [..., K, N] with fp32 products and an
     fp32 result, as the JAX einsum with ``preferred_element_type=float32``.
     Half-precision CUDA operands go to the GEMM as they are, with an fp32
-    output; other operands are upcast first (bf16 to fp32 is exact)."""
-    if a.is_cuda and a.dtype in (torch.bfloat16, torch.float16):
+    output, when no gradient is wanted (that GEMM has no derivative);
+    other operands are upcast first (bf16 to fp32 is exact), which
+    computes the same products."""
+    wants_grad = torch.is_grad_enabled() and (a.requires_grad or b.requires_grad)
+    if a.is_cuda and a.dtype in (torch.bfloat16, torch.float16) and not wants_grad:
         out = torch.bmm(a.flatten(0, -3), b.flatten(0, -3), out_dtype=torch.float32)
         return out.view(*a.shape[:-1], b.shape[-1])
     return torch.matmul(a.float(), b.float())
@@ -223,6 +245,11 @@ class MultiHeadAttention(nn.Module):
       ``c = {"k", "v", "index"}`` writes x's K/V at ``index`` and attends
       causally over the cached prefix;
     * cross-attention with ``cache={"k", "v"}`` from :meth:`precompute_kv`.
+    ``mask`` (broadcast to [B, H, Q, K], True = attend) joins the causal
+    mask of the incremental path, masks the cached cross-attention, and
+    sends the full-sequence path down the unfused masked attention, as in
+    JAX (``layers.py:311-323``): the AV-HuBERT decoder's cross-attention
+    onto a padded encoder output takes that path.
     Returns ``(out, new_cache)``; ``new_cache`` is None without a cache.
     The key projection has a bias only with ``use_k_bias`` (AV-HuBERT's
     has one, Whisper's not); ``names`` picks the projections' state-dict
@@ -231,18 +258,23 @@ class MultiHeadAttention(nn.Module):
     attention weights and so runs unfused, with neither the causal mask
     nor ``kv_lengths``: the JAX layer (``layers.py:301-310``) passes
     neither to that path, so padded keys are attended in training there.
+    ``kv_dim`` is the width of what the keys and values are projected from
+    (``d_model`` when None), which a flax ``Dense`` infers from its input:
+    a decoder's cross-attention onto a narrower encoder.
     """
 
     def __init__(self, d_model: int, n_heads: int, dtype=torch.bfloat16, device=None,
                  param_dtype=None, use_k_bias: bool = False, names: str = "whisper",
-                 attn_dropout: float = 0.0):
+                 attn_dropout: float = 0.0, kv_dim: Optional[int] = None):
         super().__init__()
         self.d_model, self.n_heads = d_model, n_heads
         self.attn_dropout = attn_dropout
         kw = dict(device=device, param_dtype=param_dtype or dtype, compute_dtype=dtype)
         self._proj_names = _PROJ_NAMES[names]
-        for name, bias in zip(self._proj_names, (True, use_k_bias, True, True)):
-            self.add_module(name, CastLinear(d_model, d_model, bias=bias, **kw))
+        kv_dim = kv_dim or d_model
+        for name, bias, d_in in zip(self._proj_names, (True, use_k_bias, True, True),
+                                    (d_model, kv_dim, kv_dim, d_model)):
+            self.add_module(name, CastLinear(d_in, d_model, bias=bias, **kw))
 
     def _proj(self, i: int) -> CastLinear:
         """The i-th projection: 0 query, 1 key, 2 value, 3 output."""
@@ -268,6 +300,7 @@ class MultiHeadAttention(nn.Module):
         causal: bool = False,
         kv_lengths: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
+        mask: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, Optional[Cache]]:
         q = self._split(self._proj(0)(x))
         new_cache = None
@@ -282,21 +315,26 @@ class MultiHeadAttention(nn.Module):
             pos_ids = torch.arange(max_len, device=x.device)[None, :]
             q_ids = torch.arange(qlen, device=x.device)[:, None]
             attn_mask = (pos_ids <= q_ids + idx)[None, None]
+            if mask is not None:
+                attn_mask = attn_mask & mask
             new_cache = {"k": cache["k"], "v": cache["v"], "index": idx + qlen}
             out = head_major_attention(q.transpose(1, 2), cache["k"], cache["v"], attn_mask)
             out = out.transpose(1, 2)
         elif cache is not None:
-            out = head_major_attention(q.transpose(1, 2), cache["k"], cache["v"]).transpose(1, 2)
+            out = head_major_attention(q.transpose(1, 2), cache["k"], cache["v"], mask)
+            out = out.transpose(1, 2)
             new_cache = cache
         else:
             src = x if kv_src is None else kv_src
             k = self._split(self._proj(1)(src))
             v = self._split(self._proj(2)(src))
             if self.training and self.attn_dropout > 0.0:
-                out = dot_product_attention(q, k, v, dropout_rate=self.attn_dropout,
+                out = dot_product_attention(q, k, v, mask, dropout_rate=self.attn_dropout,
                                             generator=generator)
-            else:
+            elif mask is None:
                 out = fused_attention(q, k, v, lengths=kv_lengths, causal=causal)
+            else:
+                out = dot_product_attention(q, k, v, mask)
         b, t = out.shape[:2]
         return self._proj(3)(out.reshape(b, t, self.d_model)), new_cache
 
@@ -318,12 +356,14 @@ class MLP(nn.Sequential):
         return self[2](h)
 
 
-# state-dict names of a block's self-attention, its norm and the MLP norm:
-# OpenAI Whisper's, or fairseq's (the AV-HuBERT encoder, whose MLP is
-# ``fc1``/``fc2`` on the block itself instead of ``mlp.0``/``mlp.2``)
+# state-dict names of a block's self-attention, its norm, the MLP norm, the
+# cross-attention and its norm: OpenAI Whisper's, or fairseq's (AV-HuBERT,
+# whose MLP is ``fc1``/``fc2`` on the block itself instead of
+# ``mlp.0``/``mlp.2``)
 _BLOCK_NAMES = {
-    "whisper": ("attn", "attn_ln", "mlp_ln"),
-    "fairseq": ("self_attn", "self_attn_layer_norm", "final_layer_norm"),
+    "whisper": ("attn", "attn_ln", "mlp_ln", "cross_attn", "cross_attn_ln"),
+    "fairseq": ("self_attn", "self_attn_layer_norm", "final_layer_norm", "encoder_attn",
+                "encoder_attn_layer_norm"),
 }
 
 
@@ -337,6 +377,8 @@ class TransformerBlock(nn.Module):
     MLP, with dropout at ``dropout`` on each sublayer's output before the
     residual add, ``attention_dropout`` on every attention's weights and
     ``activation_dropout`` inside every MLP (in training only).
+    ``self_mask`` and ``enc_mask`` (True = attend) are the self- and
+    cross-attention's ``mask``.
 
     ``gated_x_attn`` adds the Whisper-Flamingo sublayers on a second
     context stream ``xv`` (or the ``"xv"`` cache entry) *before* the
@@ -345,8 +387,10 @@ class TransformerBlock(nn.Module):
     fp32 gates of shape [1], zero at initialisation; their deltas get no
     residual dropout (``layers.py:431-437``). ``kv_lengths`` masks
     the self-attention's keys past each row's length. ``names`` picks the
-    state-dict names of the self-attention, its norm and the MLP (see
-    ``_BLOCK_NAMES``); the cross and gated sublayers keep Whisper's.
+    state-dict names of the self- and cross-attention, their norms and the
+    MLP (see ``_BLOCK_NAMES``); the gated sublayers keep Whisper's.
+    ``cross_kv_dim`` is the width of the cross-attention's context
+    (``d_model`` when None).
     """
 
     def __init__(
@@ -366,6 +410,7 @@ class TransformerBlock(nn.Module):
         names: str = "whisper",
         attention_dropout: float = 0.0,
         activation_dropout: float = 0.0,
+        cross_kv_dim: Optional[int] = None,
     ):
         super().__init__()
         self.causal_self_attn = causal_self_attn
@@ -375,14 +420,16 @@ class TransformerBlock(nn.Module):
         self.names = names
         kw = dict(dtype=dtype, device=device, param_dtype=param_dtype)
         mha = dict(kw, use_k_bias=use_k_bias, attn_dropout=attention_dropout)
-        attn, attn_ln, mlp_ln = _BLOCK_NAMES[names]
-        self._sub_names = {"attn": attn, "attn_ln": attn_ln, "mlp_ln": mlp_ln}
+        attn, attn_ln, mlp_ln, cross, cross_ln = _BLOCK_NAMES[names]
+        self._sub_names = {"attn": attn, "attn_ln": attn_ln, "mlp_ln": mlp_ln,
+                           "cross": cross, "cross_ln": cross_ln}
         self.add_module(attn, MultiHeadAttention(d_model, n_heads, names=names, **mha))
         self.add_module(attn_ln, LayerNormF32(d_model, device=device))
         self.has_cross_attn = has_cross_attn
         if has_cross_attn:
-            self.cross_attn = MultiHeadAttention(d_model, n_heads, **mha)
-            self.cross_attn_ln = LayerNormF32(d_model, device=device)
+            self.add_module(cross, MultiHeadAttention(d_model, n_heads, names=names,
+                                                      kv_dim=cross_kv_dim, **mha))
+            self.add_module(cross_ln, LayerNormF32(d_model, device=device))
         self.gated_x_attn = gated_x_attn
         if gated_x_attn:
             self.x_attn = MultiHeadAttention(d_model, n_heads, **mha)
@@ -401,6 +448,11 @@ class TransformerBlock(nn.Module):
 
     def _sub(self, role: str) -> nn.Module:
         return self._modules[self._sub_names[role]]
+
+    @property
+    def cross(self) -> MultiHeadAttention:
+        """The cross-attention, under either naming."""
+        return self._sub("cross")
 
     def _ffn(self, h: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
         if self.names == "fairseq":
@@ -425,6 +477,8 @@ class TransformerBlock(nn.Module):
         generator: Optional[torch.Generator] = None,
         xv: Optional[torch.Tensor] = None,
         kv_lengths: Optional[torch.Tensor] = None,
+        self_mask: Optional[torch.Tensor] = None,
+        enc_mask: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, Optional[Cache]]:
         new_cache: Optional[Cache] = {} if cache is not None else None
 
@@ -442,7 +496,7 @@ class TransformerBlock(nn.Module):
             out, c = self._sub("attn")(
                 h, cache=None if cache is None else cache.get("self"),
                 causal=self.causal_self_attn and cache is None, kv_lengths=kv_lengths,
-                generator=generator,
+                generator=generator, mask=self_mask,
             )
             if new_cache is not None:
                 new_cache["self"] = c
@@ -451,13 +505,13 @@ class TransformerBlock(nn.Module):
         x = self._sublayer(x, self._sub("attn_ln"), self_attn, generator)
         if self.has_cross_attn and (enc is not None or (cache or {}).get("cross")):
             def cross_attn(h):
-                out, c = self.cross_attn(
+                out, c = self.cross(
                     h, kv_src=enc, cache=None if cache is None else cache.get("cross"),
-                    generator=generator)
+                    generator=generator, mask=enc_mask)
                 if new_cache is not None:
                     new_cache["cross"] = c
                 return out
 
-            x = self._sublayer(x, self.cross_attn_ln, cross_attn, generator)
+            x = self._sublayer(x, self._sub("cross_ln"), cross_attn, generator)
         x = self._sublayer(x, self._sub("mlp_ln"), lambda h: self._ffn(h, generator), generator)
         return x, new_cache

@@ -1,7 +1,8 @@
 """Loss closures binding the model to the train step.
 
-Port of ``flamingo_loss_fn`` and ``flamingo_tower_precompute`` from
-``avsl_tpu/train/objectives.py``: SpecAugment on the mel (training only),
+Port of ``flamingo_loss_fn``, ``flamingo_tower_precompute``,
+``avhubert_seq2seq_loss_fn`` and ``avhubert_ctc_loss_fn`` from
+``avsl_tpu/train/objectives.py``. Whisper(-Flamingo): SpecAugment on the mel (training only),
 the train-time AV-mode draw, the teacher-forced forward with every
 training draw on, and token-mean CE over the labels (-100 ignored).
 Batches follow the collator's layout: ``input_ids`` (mel [B, n_mels, T]),
@@ -9,8 +10,11 @@ Batches follow the collator's layout: ``input_ids`` (mel [B, n_mels, T]),
 ``video`` [B, T, H, W, 1] and ``video_mask`` [B, T]. With the frozen-tower
 hoist the batch also carries the precomputed context (``enc_features``,
 ``video_feats``, ``video_scale``) and the loss runs only the trainable
-tail. The JAX loss's MoE balance term has nothing to read here: the port
-has no MoE tower (ROADMAP.md queue 1, item 12).
+tail. AV-HuBERT: the label-smoothed CE of the seq2seq head on
+teacher-forced ``dec_input_ids``, or the CTC loss of the CTC head, with
+every training draw on and BatchNorm on the batch's statistics. The JAX
+losses' MoE balance term has nothing to read here: the port has no MoE
+tower (ROADMAP.md queue 1, item 12).
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from avsl_tpu_torch.kernels.specaugment import spec_augment_batch
-from avsl_tpu_torch.models.avhubert import cross_entropy_loss
+from avsl_tpu_torch.models.avhubert import cross_entropy_loss, ctc_loss
 
 
 def _spec_augment(mel: torch.Tensor, frames: Optional[torch.Tensor],
@@ -149,3 +153,57 @@ def flamingo_tower_precompute(model, train: bool = True, freeze_video_bn_stats: 
         return ctx
 
     return pre_fn
+
+
+def _refuse_moe(model) -> None:
+    if getattr(model.cfg, "n_experts", 0) > 0:
+        raise NotImplementedError("the MoE balance loss is not ported yet "
+                                  "(ROADMAP.md queue 1, item 12: models/moe.py)")
+
+
+def avhubert_seq2seq_loss_fn(model, train: bool = True, label_smoothing: Optional[float] = None):
+    """Label-smoothed CE (``cfg.label_smoothing`` unless given) of an
+    ``AVHuBERTForSpeech2Text`` on a batch with ``dec_input_ids`` and
+    ``labels`` (-100 ignored), ``audio`` and/or ``video``, and optionally
+    ``padding_mask``, ``audio_present`` and ``video_present``. ``train``
+    puts the model in training mode (dropouts, LayerDrop, modality dropout,
+    BatchNorm on the batch's statistics). Returns ``loss_fn(batch,
+    generator) -> (loss, metrics)``."""
+    _refuse_moe(model)
+    smoothing = model.cfg.label_smoothing if label_smoothing is None else label_smoothing
+
+    def loss_fn(batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator]):
+        model.train(train)
+        out = model(audio=batch.get("audio"), video=batch.get("video"),
+                    decoder_input_ids=batch["dec_input_ids"],
+                    padding_mask=batch.get("padding_mask"),
+                    audio_present=batch.get("audio_present"),
+                    video_present=batch.get("video_present"),
+                    generator=generator if train else None)
+        return cross_entropy_loss(out["logits"], batch["labels"], label_smoothing=smoothing), {}
+
+    return loss_fn
+
+
+def avhubert_ctc_loss_fn(model, train: bool = True):
+    """CTC loss (blank = pad id, the zero-length guard) of an
+    ``AVHuBERTForCTC`` on a batch with ``labels`` [B, L] token ids,
+    ``label_padding`` [B, L] (1 = PAD), ``audio`` and/or ``video``,
+    optionally ``padding_mask`` and ``logit_padding`` [B, T'] (1 = padded
+    frame; no padding when absent). Returns ``loss_fn(batch, generator)
+    -> (loss, metrics)``."""
+    _refuse_moe(model)
+
+    def loss_fn(batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator]):
+        model.train(train)
+        logits = model(audio=batch.get("audio"), video=batch.get("video"),
+                       padding_mask=batch.get("padding_mask"),
+                       generator=generator if train else None)
+        logit_padding = batch.get("logit_padding")
+        if logit_padding is None:
+            logit_padding = torch.zeros(logits.shape[:2], device=logits.device)
+        loss = ctc_loss(logits, logit_padding, batch["labels"], batch["label_padding"],
+                        blank_id=model.cfg.pad_token_id)
+        return loss, {}
+
+    return loss_fn

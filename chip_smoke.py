@@ -13,11 +13,13 @@ raises on failure:
 3. kernels against plain: the forward kernel (K1) and its plain PyTorch
    version at the shapes of the serving and the training path (the
    AV-HuBERT encoder's too, with and without key lengths, the gated video
-   cross-attention's, and the Flamingo training path's decoder and hoisted
-   encoder); K1's row statistics against the plain row max and sum; the
-   backward kernel (K2) against its plain version at the shapes of the
-   training paths (and the serving encoder's); bf16 at D = 32 for both;
-   each with times (CUDA
+   cross-attention's, the Flamingo training path's decoder and hoisted
+   encoder, and the AV-HuBERT decoder's self-attention at D = 128, causal
+   with key lengths, at the CLI's and an AMI batch's shapes); K1's row
+   statistics against the plain row max and sum; the backward kernel (K2)
+   against its plain version at the shapes of the training paths (and the
+   serving encoder's); bf16 at D = 32 and 128 for both, and causal with
+   key lengths at D = 64; each with times (CUDA
    events around single calls, median of 20, host launch time included;
    and device time from torch.profiler), the yardstick library call and
    the least time the card could take;
@@ -32,7 +34,9 @@ raises on failure:
    Whisper-Flamingo model (every dropout 0) trained the same way under the
    Flamingo regime with BatchNorm on batch statistics (also the running
    statistics after step 3), then with BatchNorm frozen, hoisted against
-   in-scan;
+   in-scan; the tiny AV-HuBERT seq2seq and CTC models (encoder 2 heads of
+   32, decoder 2 heads of 128, bf16 compute) the same way: logits with
+   padded frames and both modalities, 3 train steps;
 5. serving path: Whisper large-v2 widths (bf16, seeded random weights,
    51865-token vocab) serving 16 synthetic 30 s windows through
    ``StreamingTranscriber`` at batch 8, with K1's launch count read around
@@ -65,7 +69,17 @@ raises on failure:
    statistics, then with BatchNorm frozen, which hoists the towers: 3
    steps each with the kernels' launches and the tower's forwards counted,
    frozen tensors unchanged, the same breakdown and trace; then each
-   kernel's launches × (device time − bound) a Flamingo step.
+   kernel's launches × (device time − bound) a Flamingo step;
+9. AV-HuBERT fine-tuning (``avhubert_cli``, ``avhubert_train``): the
+   port's ``cli.avhubert_ft`` at full width (``configs/avhubert_large.yaml``:
+   0.48 B parameters, concat fusion of 104-dim audio features and 88 x 88
+   lip frames, 9 decoder layers of 8 heads of 128) for both heads, 3
+   steps each, printing the CLI's JSON; then the seq2seq head timed on an
+   AMI segment batch (8 items of 10 s: 250 frames of features made on the
+   card by the port's ``avhubert_audio_features``, 250 lip frames, labels
+   of 20-63 tokens): 3 steps with exactly 9 K1 and 9 K2 launches a step,
+   a broken-down and a traced step, the eval forward (24 + 9 K1), and the
+   CTC head's train step (no kernel) and eval forward (24 K1).
 
 Each model is freed before the next one is built. It prints the kernel
 list, the card's name and power limit and, last,
@@ -119,6 +133,37 @@ ZERO_AV_RATES = dict(hidden_dropout=0.0, attention_dropout=0.0, activation_dropo
 SMALL_FLAMINGO_TOL = SMALL_TRAIN_TOL
 # lip frames of a 10 s window at 25 fps, as the dataset trims them
 VIDEO_FRAMES = 250
+AVHUBERT_CONFIG = "configs/avhubert_large.yaml"
+# decoder key lengths (non-pad tokens) of AV-HuBERT batches: the CLI's
+# batch of 4 (labels cut to 16), an AMI batch of 8 (labels of 20-63 tokens
+# cut to 64, and two rows of 1 and 2), and a D = 64 case of 100 tokens
+CLI_DEC_LENGTHS = [16, 9, 1, 12]
+AMI_DEC_LENGTHS = [64, 1, 40, 17, 63, 2, 33, 64]
+D64_CAUSAL_LENGTHS = [100, 1, 37, 64, 65, 99, 2, 100]
+# K2's bf16 bodies round P and dS to bf16 (relative error at most 2^-9
+# each) before their fp32-accumulated products, so an element of dV = P^T dO
+# can be off by 2^-9 sum_q |P||dO| (dQ and dK likewise over |dS|), which
+# passes BF16_TOL's atol where many query rows attend to few keys (a key
+# length of 2 under a causal mask over 100 rows). The causal-with-lengths
+# and D = 128 cases add 2^-8 times that magnitude sum to the limit.
+BF16_MAGNITUDE = 2.0 ** -8
+# tiny AV-HuBERT on the card: tiny_test widened to an encoder of 2 heads of
+# 32 and a decoder of 2 heads of 128 (the bf16 tensor-core bodies' head
+# dims), every rate 0, bf16 compute over fp32 weights on both sides
+SMALL_AVH_OVERRIDES = dict(hidden_size=64, intermediate_size=128, decoder_hidden_size=256,
+                           decoder_ffn_dim=512, decoder_attention_heads=2)
+ZERO_AVH_RATES = dict(ZERO_AV_RATES, decoder_dropout=0.0, decoder_activation_dropout=0.0,
+                      decoder_layerdrop=0.0)
+# card (kernels) vs CPU (plain), both in bf16: elementwise on the logits;
+# on the losses a relative bound; on the step-1 gradients the relative norm
+# of the difference (all tensors together, and each decoder self-attention
+# projection, where K1 and K2 run at D = 128); on the BatchNorm statistics
+# an atol. bf16 against fp32 on the CPU differs by at most 0.025 on
+# logits up to 9.7, 4e-4 on the losses and 3.4e-3 on the statistics.
+SMALL_AVH_LOGITS_TOL = dict(atol=5e-2, rtol=2e-2)
+SMALL_AVH_TRAIN_TOL = dict(loss_rtol=5e-3, grad_rel_norm=5e-2, stats_atol=1e-2)
+# the timed AV-HuBERT run: an AMI segment batch
+AVH_BATCH, AVH_SAMPLES, AVH_LABELS, AVH_MAX_LABEL = 8, 160000, (20, 63), 64
 
 
 T_START = time.perf_counter()
@@ -306,6 +351,13 @@ def phase_kernels(label_len: int, flamingo_len: int):
                              64, bf16, causal=True),
         check_attention_case("p_flamingo_cross", 1, 20, flamingo_len, 500, 64, bf16),
         check_attention_case("q_hoisted_whisper_encoder", 16, 20, 500, 500, 64, bf16),
+        check_attention_case("r_avhubert_decoder_self_cli", 4, 8, 16, 16, 128, bf16, causal=True,
+                             lengths=CLI_DEC_LENGTHS),
+        check_attention_case("s_avhubert_decoder_self_ami", 8, 8, 64, 64, 128, bf16, causal=True,
+                             lengths=AMI_DEC_LENGTHS),
+        check_attention_case("t_head_dim_128", 8, 8, 250, 250, 128, bf16),
+        check_attention_case("u_causal_lengths_d64", 8, 16, 100, 100, 64, bf16, causal=True,
+                             lengths=D64_CAUSAL_LENGTHS),
     ]
 
 
@@ -340,10 +392,28 @@ def check_attention_stats(name, b, h, tq, tk, d, dtype, causal=False, lengths=No
     log(rec)
 
 
-def check_attention_bwd_case(name, b, h, tq, tk, d, dtype, causal=False, lengths=None, seed=0):
+def bwd_magnitudes(q, k, v, o, g, lens, causal):
+    """[B,T,H,D] fp32 sums of magnitudes behind each gradient element:
+    |dS| |K| / sqrt(D) (dQ), |dS|^T |Q| / sqrt(D) (dK) and |P|^T |dO|
+    (dV), with P and dS as the plain backward forms them."""
+    from avsl_tpu_torch.kernels.attention import _masked_logits
+
+    qh, kh, vh, oh, gh = (t.transpose(1, 2).float() for t in (q, k, v, o, g))
+    p = torch.softmax(_masked_logits(qh, kh, lens, causal), dim=-1)
+    delta = (gh * oh).sum(dim=-1, keepdim=True)
+    ds = (p * (torch.matmul(gh, vh.transpose(-1, -2)) - delta)).abs() / math.sqrt(q.shape[-1])
+    mags = (torch.matmul(ds, kh.abs()), torch.matmul(ds.transpose(-1, -2), qh.abs()),
+            torch.matmul(p.transpose(-1, -2), gh.abs()))
+    return [m.transpose(1, 2) for m in mags]
+
+
+def check_attention_bwd_case(name, b, h, tq, tk, d, dtype, causal=False, lengths=None, seed=0,
+                             magnitude=False):
     """The backward kernel against its plain version on the same tensors
     (dQ, dK, dV), with times (CUDA events, median of 20), the backward of
-    scaled_dot_product_attention as the yardstick, and the bound."""
+    scaled_dot_product_attention as the yardstick, and the bound. With
+    ``magnitude`` the bf16 limit adds ``BF16_MAGNITUDE`` times each
+    element's magnitude sum (:func:`bwd_magnitudes`)."""
     from avsl_tpu_torch.kernels.attention import (
         flash_attention_bwd_cuda,
         flash_attention_fwd_cuda,
@@ -378,20 +448,25 @@ def check_attention_bwd_case(name, b, h, tq, tk, d, dtype, causal=False, lengths
     want = plain()
     torch.cuda.synchronize()
     tol = BF16_TOL if dtype == torch.bfloat16 else BWD_FP32_TOL
+    magnitude = magnitude and dtype == torch.bfloat16
+    mags = bwd_magnitudes(q, k, v, o, g, lens, causal) if magnitude else [0.0] * 3
     rec = {"phase": "k2_against_plain", "case": name,
            "shape": {"B": b, "H": h, "Tq": tq, "Tk": tk, "D": d},
            "dtype": str(dtype).replace("torch.", ""), "causal": causal, "lengths": lengths,
-           "tolerance": tol}
+           "tolerance": dict(tol, magnitude=BF16_MAGNITUDE if magnitude else 0.0)}
     worst = 0.0
-    for key, x, w in zip(("dq", "dk", "dv"), got, want):
+    for key, x, w, mag in zip(("dq", "dk", "dv"), got, want, mags):
         if not torch.isfinite(x.float()).all():
             raise AssertionError(f"{name}: kernel {key} is not finite")
         err = (x.float() - w.float()).abs()
         rec[f"{key}_max_abs_err"] = err.max().item()
         worst = max(worst, rec[f"{key}_max_abs_err"])
-        if not bool((err <= tol["atol"] + tol["rtol"] * w.float().abs()).all()):
+        limit = tol["atol"] + tol["rtol"] * w.float().abs() + BF16_MAGNITUDE * mag
+        if magnitude:  # the share of the limit the worst element uses
+            rec[f"{key}_max_err_over_limit"] = (err / limit).max().item()
+        if not bool((err <= limit).all()):
             raise AssertionError(f"{name}: kernel {key} vs plain max_abs_err "
-                                 f"{rec[f'{key}_max_abs_err']:.3e} over {tol}")
+                                 f"{rec[f'{key}_max_abs_err']:.3e} over {rec['tolerance']}")
     bound_ms, bound_by, flops, nbytes = attention_bound(
         b, h, tq, tk, d, dtype, causal, lengths, backward=True)
     rec.update({"max_abs_err": worst, **timings(kernel, plain, library),
@@ -409,6 +484,8 @@ def phase_kernel_stats(flamingo_len: int):
     check_attention_stats("decoder_self_causal", 1, 20, 210, 210, 64, bf16, causal=True)
     check_attention_stats("ragged_lengths", 4, 20, 1003, 1003, 64, bf16, lengths=[0, 1003, 517, 1])
     check_attention_stats("flamingo_x_attn", 1, 20, flamingo_len, VIDEO_FRAMES, 64, bf16)
+    check_attention_stats("avhubert_decoder_self_ami", 8, 8, 64, 64, 128, bf16, causal=True,
+                          lengths=AMI_DEC_LENGTHS)
 
 
 def phase_kernels_bwd(label_len: int, flamingo_len: int):
@@ -435,6 +512,13 @@ def phase_kernels_bwd(label_len: int, flamingo_len: int):
         check_attention_bwd_case("j_flamingo_decoder_self_causal", 1, 20, flamingo_len,
                                  flamingo_len, 64, bf16, causal=True),
         check_attention_bwd_case("k_flamingo_cross", 1, 20, flamingo_len, 500, 64, bf16),
+        check_attention_bwd_case("l_avhubert_decoder_self_cli", 4, 8, 16, 16, 128, bf16,
+                                 causal=True, lengths=CLI_DEC_LENGTHS, magnitude=True),
+        check_attention_bwd_case("m_avhubert_decoder_self_ami", 8, 8, 64, 64, 128, bf16,
+                                 causal=True, lengths=AMI_DEC_LENGTHS, magnitude=True),
+        check_attention_bwd_case("n_head_dim_128", 8, 8, 250, 250, 128, bf16, magnitude=True),
+        check_attention_bwd_case("o_causal_lengths_d64", 8, 16, 100, 100, 64, bf16, causal=True,
+                                 lengths=D64_CAUSAL_LENGTHS, magnitude=True),
     ]
 
 
@@ -1382,6 +1466,311 @@ def flamingo_kernel_excess(fwd_cases, bwd_cases, accum: int, layers: int = 32) -
             "k2_ms": per_step * dec_bwd}
 
 
+def _tiny_avhubert(head: str, device):
+    from avsl_tpu_torch.core.config import AVHuBERTConfig
+    from avsl_tpu_torch.models import build_avhubert
+
+    cfg = AVHuBERTConfig.tiny_test(dtype="bfloat16", **ZERO_AVH_RATES, **SMALL_AVH_OVERRIDES)
+    return build_avhubert(cfg, head, device=device, seed=3), cfg
+
+
+def _tiny_avhubert_batches(head: str, pad_id: int, n_steps: int = 3):
+    """The CLI's synthetic rows (12 frames of 48 x 48), cut to 12, 9, 10 or
+    11 frames and collated 4 at a time: padded frames, and decoder tokens
+    padded at the end (causal self-attention with key lengths)."""
+    from avsl_tpu_torch.cli import avhubert_ft
+
+    rows = avhubert_ft.make_synthetic_av_batchset(4 * n_steps, t=12, image=48, vocab=59, seed=3)
+    for i, row in enumerate(rows):
+        n = (12, 9, 10, 11)[i % 4]
+        row["audio_feats"], row["video_feats"] = row["audio_feats"][:n], row["video_feats"][:n]
+    batches = [avhubert_ft.collate_av(rows[4 * i:4 * i + 4], pad_id) for i in range(n_steps)]
+    return [avhubert_ft.ctc_batch(b, pad_id) if head == "ctc" else b for b in batches]
+
+
+def _rel_norm(got, want) -> float:
+    return ((got - want).norm() / want.norm().clamp_min(1e-30)).item()
+
+
+def _tiny_avhubert_train(model, head: str, batches):
+    """3 train steps with the CLI's optimizer: (losses, step-1 gradients
+    from Adam's first moments after that step at learning rate 0, the
+    BatchNorm statistics after step 3, K1 and K2 launches)."""
+    from avsl_tpu_torch.cli import avhubert_ft
+    from avsl_tpu_torch.train import TrainState, make_train_step
+    from avsl_tpu_torch.train.objectives import avhubert_ctc_loss_fn, avhubert_seq2seq_loss_fn
+
+    loss_fn = (avhubert_seq2seq_loss_fn if head == "seq2seq" else avhubert_ctc_loss_fn)(
+        model, train=True)
+    opt = avhubert_ft.make_optimizer(model, 1e-3, 20)
+    state, step = TrainState.create(model, opt), make_train_step(loss_fn)
+    losses, grads = [], {}
+
+    def run():
+        for i, batch in enumerate(batches):
+            losses.append(float(step(state, batch)[1]["loss"]))
+            if i == 0:
+                grads.update({n: mu.detach().float().cpu() / (1.0 - opt.b1)
+                              for n, mu in zip(opt.names, opt.mu)})
+
+    _, _, k1, _, k2 = run_counted(run)
+    return losses, grads, _bn_stats(model), (k1, k2)
+
+
+def phase_small_avhubert_reference(device: str = "cuda"):
+    """Tiny AV-HuBERT (encoder 2 heads of 32, decoder 2 heads of 128, every
+    rate 0, bf16 compute over fp32 weights), seq2seq and CTC, on the card
+    (K1 and K2, the decoder's self-attention causal with key lengths at
+    D = 128) against the CPU (plain): eval logits with padded frames and
+    both modalities, then 3 train steps with the CLI's optimizer and
+    BatchNorm on batch statistics: per-step losses, the step-1 gradients
+    and the running statistics after step 3, with the kernels' launches
+    counted on the card."""
+    from avsl_tpu_torch.train.loop import batch_to_device
+
+    tol = SMALL_AVH_TRAIN_TOL
+    for head in ("seq2seq", "ctc"):
+        card, cfg = _tiny_avhubert(head, device)
+        cpu, _ = _tiny_avhubert(head, "cpu")
+        cpu.load_state_dict(card.state_dict())
+        batches = _tiny_avhubert_batches(head, cfg.pad_token_id)
+        logits, k1_eval = [], []
+        for model in (card, cpu):
+            b = batch_to_device(batches[0], next(model.parameters()).device)
+            kw = dict(audio=b["audio"], video=b["video"], padding_mask=b["padding_mask"])
+            if head == "seq2seq":
+                kw["decoder_input_ids"] = b["dec_input_ids"]
+            with torch.inference_mode():
+                out, _, k1, _, _ = run_counted(lambda: model.eval()(**kw))
+            logits.append((out["logits"] if head == "seq2seq" else out).float().cpu())
+            k1_eval.append(k1)
+        err = (logits[0] - logits[1]).abs()
+        logits_ok = bool((err <= SMALL_AVH_LOGITS_TOL["atol"]
+                          + SMALL_AVH_LOGITS_TOL["rtol"] * logits[1].abs()).all())
+        (l_card, g_card, s_card, launches), (l_cpu, g_cpu, s_cpu, _) = (
+            _tiny_avhubert_train(m, head, batches) for m in (card, cpu))
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(l_card, l_cpu))
+        names = sorted(g_cpu)
+        grad_err = _rel_norm(torch.cat([g_card[n].flatten() for n in names]),
+                             torch.cat([g_cpu[n].flatten() for n in names]))
+        dec_self = {n: _rel_norm(g_card[n], g_cpu[n]) for n in names
+                    if n.startswith("decoder.") and ".self_attn." in n and n.endswith("weight")}
+        stats_err = max((s_card[n] - v).abs().max().item() for n, v in s_cpu.items())
+        want_eval = cfg.num_hidden_layers + (cfg.decoder_layers if head == "seq2seq" else 0)
+        want_train = (3 * want_eval, 3 * want_eval)  # every rate 0: the encoder's is fused too
+        log({"phase": "small_avhubert_reference", "head": head,
+             "encoder_heads": [cfg.num_attention_heads, cfg.hidden_size // cfg.num_attention_heads],
+             "decoder_heads": [cfg.decoder_attention_heads,
+                               cfg.decoder_hidden_size // cfg.decoder_attention_heads],
+             "logits_max_abs_err": err.max().item(), "logits_tolerance": SMALL_AVH_LOGITS_TOL,
+             "losses": {"card": l_card, "cpu": l_cpu}, "loss_max_rel_err": loss_err,
+             "step1_grad_rel_norm_err": grad_err, "decoder_self_attn_grad_rel_norm_err": dec_self,
+             "batch_stats_max_abs_err": stats_err, "tolerance": tol,
+             "k1_eval_launches": k1_eval[0], "train_launches_k1_k2": list(launches)})
+        if not logits_ok or not all(math.isfinite(x) for x in l_card):
+            raise AssertionError(f"tiny AV-HuBERT {head} card-vs-cpu logits differ by "
+                                 f"{err.max().item():.3e}")
+        if (loss_err > tol["loss_rtol"] or grad_err > tol["grad_rel_norm"]
+                or max(dec_self.values(), default=0.0) > tol["grad_rel_norm"]
+                or stats_err > tol["stats_atol"]):
+            raise AssertionError(f"tiny AV-HuBERT {head} train card-vs-cpu: loss {loss_err:.3e}, "
+                                 f"grads {grad_err:.3e} / {dec_self}, statistics {stats_err:.3e}")
+        if k1_eval[0] != want_eval or launches != want_train or k1_eval[1] != 0:
+            raise AssertionError(f"tiny AV-HuBERT {head}: K1 eval {k1_eval} != {want_eval}, "
+                                 f"train K1/K2 {launches} != {want_train}")
+
+
+def phase_avhubert_cli(card: str, device: str = "cuda") -> dict:
+    """The port's entry point at full width, as a user calls it:
+    ``cli.avhubert_ft.main(["--config", configs/avhubert_large.yaml,
+    "--steps", "3", "--head", head])`` for both heads (the CLI's synthetic
+    batch of 4 items of 24 frames, 3 steps, then the eval forward), each
+    printing the CLI's JSON, with the kernels' launches read around the
+    call: per step the decoder's 9 self-attentions (the encoder's train
+    with attention dropout 0.1, unfused), and in the eval forward the
+    encoder's 24 and the decoder's 9."""
+    from avsl_tpu_torch.cli import avhubert_ft
+    from avsl_tpu_torch.core.config import AVHuBERTConfig
+
+    cfg = AVHuBERTConfig.from_yaml(AVHUBERT_CONFIG)
+    out = {}
+    for head in ("seq2seq", "ctc"):
+        result, seconds, k1, stats_writes, k2 = run_counted(lambda: avhubert_ft.main(
+            ["--config", AVHUBERT_CONFIG, "--steps", "3", "--head", head, "--device", device]))
+        dec = cfg.decoder_layers if head == "seq2seq" else 0
+        want = (3 * dec + cfg.num_hidden_layers + dec, 3 * dec)
+        log({"phase": "avhubert_cli", "head": head, "card": card, "seconds": seconds,
+             "cli_json": result, "k1_launches": k1, "k2_launches": k2,
+             "row_statistics_written": stats_writes, "expected_k1_k2": list(want)})
+        losses = [result[k] for k in ("first_loss", "last_loss", "eval_loss")]
+        if not all(math.isfinite(x) for x in losses) or result["steps"] != 3:
+            raise AssertionError(f"cli.avhubert_ft {head}: {result}")
+        if (k1, k2) != want or stats_writes != 3 * dec:
+            raise AssertionError(f"cli.avhubert_ft {head}: K1 {k1} / K2 {k2} / row statistics "
+                                 f"{stats_writes}, expected {want} / {3 * dec}")
+        out[head] = (k1, k2)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def prepare_avhubert_batch(cfg, timed, device):
+    """An AMI segment batch as the AV-HuBERT path composes it: 8 items of
+    10 s of seeded 16 kHz PCM turned into 250 frames of 104-dim features by
+    the port's ``avhubert_audio_features`` on the card (``timed`` as
+    "audio_features"), 250 seeded 88 x 88 lip frames, and labels of 20-63
+    tokens drawn as ``make_synthetic_av_batchset`` draws them, collated by
+    ``collate_av`` with labels cut to 64."""
+    from avsl_tpu_torch.cli.avhubert_ft import collate_av
+    from avsl_tpu_torch.kernels.fbank import avhubert_audio_features
+
+    rng = np.random.default_rng(11)
+    pcm = torch.from_numpy((0.1 * rng.standard_normal((AVH_BATCH, AVH_SAMPLES))).astype(np.float32))
+    pcm = pcm.to(device)
+    feats = timed("audio_features", lambda: avhubert_audio_features(pcm)).cpu().numpy()
+    rows = []
+    for i in range(AVH_BATCH):
+        n_labels = int(rng.integers(AVH_LABELS[0], AVH_LABELS[1] + 1))
+        rows.append({"audio_feats": feats[i],
+                     "video_feats": rng.standard_normal((feats.shape[1], 88, 88, 1),
+                                                        dtype=np.float32),
+                     "labels": rng.integers(4, cfg.vocab_size - 1, n_labels).tolist()})
+    return collate_av(rows, cfg.pad_token_id, max_label_len=AVH_MAX_LABEL)
+
+
+def phase_avhubert_train_main_path(card: str, device: str = "cuda") -> dict:
+    """AV-HuBERT large seq2seq fine-tuning at full width (the model card's
+    rates: dropout, attention dropout 0.1, LayerDrop 0.05 and 0.1, modality
+    dropout 0.5; fp32 weights and AdamW state under bf16 compute, the CLI's
+    optimizer) on an AMI segment batch (:func:`prepare_avhubert_batch`): 3
+    steps with the kernels' launches read around exactly those steps (9 K1
+    and 9 K2 a step: the decoder's self-attention, D = 128, causal with key
+    lengths), one step broken into forward, backward and optimizer, one
+    traced step; the eval forward (24 K1 in the encoder at D = 64 with key
+    lengths, 9 in the decoder); then the CTC head: a train step (no
+    kernel) and its eval forward (24 K1)."""
+    from avsl_tpu_torch.cli.avhubert_ft import ctc_batch, make_optimizer
+    from avsl_tpu_torch.core.config import AVHuBERTConfig
+    from avsl_tpu_torch.models import build_avhubert
+    from avsl_tpu_torch.train import TrainState, make_train_step
+    from avsl_tpu_torch.train.loop import batch_to_device
+    from avsl_tpu_torch.train.objectives import avhubert_ctc_loss_fn, avhubert_seq2seq_loss_fn
+
+    cfg = AVHuBERTConfig.from_yaml(AVHUBERT_CONFIG)
+    prep, timed = timed_stages()
+    batch = prepare_avhubert_batch(cfg, timed, device)
+    t0 = time.perf_counter()
+    model = build_avhubert(cfg, "seq2seq", device=device, seed=0)
+    torch.cuda.synchronize()
+    count = lambda ps: sum(p.numel() for p in ps)  # noqa: E731
+    log({"phase": "build_avhubert_model", "params": count(model.parameters()),
+         "decoder_params": count(model.decoder.parameters()), "dtype": cfg.dtype,
+         "param_dtype": cfg.param_dtype, "encoder": [cfg.num_hidden_layers, cfg.hidden_size,
+                                                     cfg.num_attention_heads],
+         "decoder": [cfg.decoder_layers, cfg.decoder_hidden_size, cfg.decoder_attention_heads],
+         "fusion": cfg.modality_fuse, "fused_width": cfg.encoder_hidden_size,
+         "batch": {k: list(v.shape) for k, v in batch.items()},
+         "decoder_lengths": (batch["dec_input_ids"] != cfg.pad_token_id).sum(1).tolist(),
+         "prepare_seconds": prep, "seconds": time.perf_counter() - t0})
+    loss_fn = avhubert_seq2seq_loss_fn(model, train=True)
+    opt = make_optimizer(model, 1e-3, 100)
+    state, step = TrainState.create(model, opt, seed=0), make_train_step(loss_fn)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    records = []
+
+    def steps():
+        for i in range(TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            _, metrics = step(state, batch)
+            loss, grad_norm = float(metrics["loss"]), float(metrics["grad_norm"])
+            records.append({"step": i + 1, "seconds": time.perf_counter() - t, "loss": loss,
+                            "grad_norm": grad_norm,
+                            "label_tokens": int((batch["labels"] >= 0).sum()),
+                            "label_len": int(batch["labels"].shape[-1])})
+
+    _, seconds, k1, stats_writes, k2 = run_counted(steps)
+    peak = torch.cuda.max_memory_allocated()
+    want = TRAIN_STEPS * cfg.decoder_layers
+    rates = step_rates(records, AVH_BATCH)
+    log({"phase": "avhubert_train", "card": card, "steps": records, **rates,
+         "max_memory_allocated_bytes": peak, "k1_launches": k1, "k2_launches": k2,
+         "row_statistics_written": stats_writes, "expected_launches": want})
+    if not all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in records):
+        raise AssertionError(f"avhubert_train: non-finite loss or grad_norm {records}")
+    if (k1, k2, stats_writes) != (want, want, want):
+        raise AssertionError(f"avhubert_train: K1 {k1} / K2 {k2} / row statistics "
+                             f"{stats_writes} != {want}")
+
+    # one more step, stage by stage (host clock, synchronised per stage)
+    stages, timed = timed_stages()
+    dev_batch = timed("h2d", lambda: batch_to_device(batch, torch.device(device)))
+    loss, _ = timed("forward", lambda: loss_fn(dev_batch, state.generator))
+    timed("backward", loss.backward)
+    # every tensor but mask_emb (no feature mask in fine-tuning) gets a
+    # gradient, zero only across a whole layer that LayerDrop dropped or
+    # the whole frontend of a stream that modality dropout dropped
+    named = {n: p for n, p in model.named_parameters() if not n.endswith("mask_emb")}
+    missing = [n for n, p in named.items() if p.grad is None]
+    groups: dict = {}
+    for n, p in named.items():
+        parts = n.split(".")
+        cut = parts.index("layers") + 2 if "layers" in parts else (
+            3 if parts[2].startswith("feature_extractor_") else len(parts))
+        groups.setdefault(".".join(parts[:cut]), []).append(p.grad is not None and bool(p.grad.any()))
+    zero = sorted(g for g, nonzero in groups.items() if not any(nonzero))
+    partial = sorted(g for g, nonzero in groups.items() if any(nonzero) and not all(nonzero))
+    if missing or partial or any(".layers." not in g and "feature_extractor_" not in g
+                                 for g in zero):
+        raise AssertionError(f"avhubert_train: {len(missing)} tensors got no gradient "
+                             f"({missing[:4]}); zero gradients in {zero}, in part of {partial}")
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in opt.params]
+    timed("optimizer", lambda: opt.step(grads))
+    model.zero_grad(set_to_none=True)
+    log({"phase": "avhubert_train_stage_breakdown", "card": card, "stage_seconds": stages,
+         "dropped_this_step": zero})
+    log({"phase": "avhubert_train_traced_step", "card": card,
+         **traced_run(lambda: float(step(state, batch)[1]["loss"]))})
+
+    eval_batch = batch_to_device(batch, torch.device(device))
+    model.eval()
+    with torch.inference_mode():
+        out, seconds, e1, e_stats, e2 = run_counted(lambda: model(
+            audio=eval_batch["audio"], video=eval_batch["video"],
+            decoder_input_ids=eval_batch["dec_input_ids"],
+            padding_mask=eval_batch["padding_mask"]))
+    want_eval = cfg.num_hidden_layers + cfg.decoder_layers
+    log({"phase": "avhubert_eval_forward", "card": card, "seconds": seconds, "k1_launches": e1,
+         "k2_launches": e2, "row_statistics_written": e_stats, "expected_k1": want_eval,
+         "logits_shape": list(out["logits"].shape)})
+    if (e1, e2, e_stats) != (want_eval, 0, 0) or not bool(torch.isfinite(out["logits"]).all()):
+        raise AssertionError(f"avhubert eval: K1 {e1} / K2 {e2} / statistics {e_stats}, "
+                             f"expected {want_eval} / 0 / 0, or non-finite logits")
+    del model, state, opt, loss, grads, out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ctc = build_avhubert(cfg, "ctc", device=device, seed=0)
+    cbatch = ctc_batch(batch, cfg.pad_token_id)
+    cstate = TrainState.create(ctc, make_optimizer(ctc, 1e-3, 100), seed=0)
+    cstep = make_train_step(avhubert_ctc_loss_fn(ctc, train=True))
+    cstep(cstate, cbatch)  # first use: cuBLAS handles, allocator
+    (_, metrics), ctc_seconds, c1, _, c2 = run_counted(lambda: cstep(cstate, cbatch))
+    ctc.eval()
+    with torch.inference_mode():
+        clogits, ctc_eval_seconds, ce1, _, ce2 = run_counted(lambda: ctc(
+            audio=eval_batch["audio"], video=eval_batch["video"],
+            padding_mask=eval_batch["padding_mask"]))
+    log({"phase": "avhubert_ctc", "card": card, "train_step_seconds": ctc_seconds,
+         "loss": float(metrics["loss"]), "train_k1_k2": [c1, c2], "eval_seconds": ctc_eval_seconds,
+         "eval_k1_k2": [ce1, ce2], "expected_eval_k1": cfg.num_hidden_layers})
+    if (c1, c2, ce1, ce2) != (0, 0, cfg.num_hidden_layers, 0) or not math.isfinite(
+            float(metrics["loss"])) or not bool(torch.isfinite(clogits).all()):
+        raise AssertionError(f"avhubert_ctc: train K1/K2 {c1}/{c2}, eval {ce1}/{ce2}")
+    return {"train": (k1, k2), "eval": (e1, e2), "ctc_eval": (ce1, ce2)}
+
+
 def sass_counts() -> dict:
     """Tensor-core instructions in each built library, from the toolkit's
     ``cuobjdump -sass``: ``HGMMA`` (wgmma) and ``HMMA`` (mma.sync)."""
@@ -1478,6 +1867,7 @@ def main() -> int:
     phase_cached_attention()
     phase_small_train_reference()
     phase_small_flamingo_train_reference()
+    phase_small_avhubert_reference()
 
     def free():
         gc.collect()
@@ -1497,6 +1887,9 @@ def main() -> int:
             free()
     log({"phase": "flamingo_kernel_excess", "card": smi,
          **flamingo_kernel_excess(fwd_cases, bwd_cases, int(fl_cfg.gradient_accumulation_steps))})
+    avh_cli = phase_avhubert_cli(smi)
+    avh = phase_avhubert_train_main_path(smi)
+    free()
 
     def entry(name, lib, source, replaces, cases, launches):
         case = cases[0]
@@ -1516,12 +1909,18 @@ def main() -> int:
               "avsl_tpu/kernels/attention.py:63", fwd_cases,
               {"serving": serving_launches, "av_serving": av_serving_launches,
                "training": train_launches["k1"], "flamingo_training": flamingo[False]["k1"],
-               "flamingo_training_hoisted": flamingo[True]["k1"]}),
+               "flamingo_training_hoisted": flamingo[True]["k1"],
+               "avhubert_cli_seq2seq": avh_cli["seq2seq"][0], "avhubert_cli_ctc": avh_cli["ctc"][0],
+               "avhubert_training": avh["train"][0], "avhubert_eval": avh["eval"][0],
+               "avhubert_ctc_eval": avh["ctc_eval"][0]}),
         entry("flash_attention_bwd", "flash_attn_bwd", "avsl_tpu_torch/csrc/flash_attn_bwd.cu",
               "avsl_tpu/kernels/attention.py:159", bwd_cases,
               {"serving": 0, "av_serving": 0, "training": train_launches["k2"],
                "flamingo_training": flamingo[False]["k2"],
-               "flamingo_training_hoisted": flamingo[True]["k2"]}),
+               "flamingo_training_hoisted": flamingo[True]["k2"],
+               "avhubert_cli_seq2seq": avh_cli["seq2seq"][1], "avhubert_cli_ctc": avh_cli["ctc"][1],
+               "avhubert_training": avh["train"][1], "avhubert_eval": avh["eval"][1],
+               "avhubert_ctc_eval": avh["ctc_eval"][1]}),
     ]})
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -102,7 +102,7 @@ def test_torch_transcribe_batch_matches_transcribe(transcribers):
 
 
 @pytest.mark.parametrize("option", [
-    {"beam_size": 2}, {"quantize": "int8"}, {"kv_int8": True}, {"mesh": object()},
+    {"draft_variables": object()}, {"quantize": "int8"}, {"kv_int8": True}, {"mesh": object()},
     {"temperature_fallback": (0.2,)}, {"word_timestamps": True},
     {"draft_model": object()}, {"boost_phrases": ["hello"]},
 ])
