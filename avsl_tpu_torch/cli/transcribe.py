@@ -5,14 +5,14 @@ Usage: ``python -m avsl_tpu_torch.cli.transcribe --input <dir-or-csv>
 [--smoke]``
 
 Port of ``avsl_tpu/cli/transcribe.py`` for greedy decoding: audio wavs
-with optional lip mp4s (``<stem>-lip.mp4``), missing-modality robust.
+with optional lip mp4s (``<stem>-lip.mp4``) or, without one, raw closeups
+(``<stem>-video.mp4``, lip-cropped by the transcriber's default
+``host_refined`` mode, which needs OpenCV), missing-modality robust.
 Without ``--config`` the model is the JAX CLI's default,
 ``FlamingoTrainConfig()``: Whisper large-v2 with the AV-HuBERT video tower
-and gated cross-attention (``--smoke``: the tiny test model). Raw closeups
-(``<stem>-video.mp4``) raise until the lip frontend is ported (ROADMAP.md
-queue 1, item 10). ``--ckpt_dir`` serves the latest checkpoint a trainer
-(``cli/finetune.py``) wrote there; without it the weights are seeded
-random.
+and gated cross-attention (``--smoke``: the tiny test model).
+``--ckpt_dir`` serves the latest checkpoint a trainer (``cli/finetune.py``)
+wrote there; without it the weights are seeded random.
 """
 
 from __future__ import annotations

@@ -1,8 +1,8 @@
 """Host video decoding and the runtime lip-feature loader.
 
-A copy of ``read_video_frames``, ``load_video_feats``,
-``trim_video_to_audio`` and the source resolver they use from
-``avsl_tpu/data/video_io.py``: decode with OpenCV
+A copy of ``read_video_frames``, ``write_video_frames``,
+``load_video_feats``, ``trim_video_to_audio`` and the source resolver they
+use from ``avsl_tpu/data/video_io.py``: decode with OpenCV
 -> ITU-R 601 grayscale -> [0, 1] -> centre crop (resized up when smaller)
 -> (x - 0.421) / 0.165 -> [T, crop, crop, 1] float32. ``cv2`` is imported
 inside the functions that decode, so importing this module (and serving
@@ -87,6 +87,23 @@ def read_video_frames(
     if not frames:
         raise IOError(f"No frames decoded from {path}")
     return np.stack(frames)
+
+
+def write_video_frames(path: str, frames: np.ndarray, fps: int = 25) -> str:
+    """Write [T, H, W] (gray) or [T, H, W, 3] uint8 frames to an mp4
+    (``mp4v``) at ``fps``."""
+    import cv2
+
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    t, h, w = frames.shape[:3]
+    is_color = frames.ndim == 4
+    writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), fps, (w, h), isColor=is_color)
+    if not writer.isOpened():
+        raise IOError(f"Cannot open video writer for {path}")
+    for f in frames:
+        writer.write(f if is_color else f.astype(np.uint8))
+    writer.release()
+    return path
 
 
 def load_video_feats(

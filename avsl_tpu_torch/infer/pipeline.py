@@ -15,11 +15,17 @@ serves deterministically), and gets its mode back afterwards.
 runs batch N.
 
 An item's video is its ``lip_feats`` array, else its ``lip_video`` clip
-(a corrupt clip falls through); items without video get a zeroed clip and
+(a corrupt clip falls through), else its raw ``video`` closeup, decoded to
+grayscale at ``raw_video_hw`` and lip-cropped: with
+``raw_lip_mode="host_refined"`` (default) on the producer thread by the
+preprocessing's own ``RefinedMouthTracker`` and ``extract_lip_clip`` (the
+warp on the model's device), with ``"device"`` (or when the refined
+tracker finds nothing) by the staged lip frontend on the device
+(``kernels/lip_pipeline.py``). Decoding a clip and the refined tracker
+need OpenCV on the host. Items without video get a zeroed clip and
 ``has_video=False``, so audio-only and audio-visual items share a batch.
-Raw ``video`` closeups need the lip frontend and raise, as do the options
-of the JAX transcriber that belong to later slices, each naming its
-``ROADMAP.md`` item.
+The options of the JAX transcriber that belong to later slices raise,
+each naming its ``ROADMAP.md`` item.
 """
 
 from __future__ import annotations
@@ -28,15 +34,16 @@ import os
 import threading
 from dataclasses import dataclass
 from queue import Queue
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from avsl_tpu_torch.data.audio_segments import load_wav
-from avsl_tpu_torch.data.video_io import load_video_feats
+from avsl_tpu_torch.data.video_io import load_video_feats, read_video_frames
 from avsl_tpu_torch.decode.beam import beam_search
 from avsl_tpu_torch.decode.greedy import greedy_decode_scored
+from avsl_tpu_torch.kernels.lip_pipeline import make_staged_lip_frontend
 from avsl_tpu_torch.kernels.logmel import log_mel_spectrogram, pad_or_trim
 
 
@@ -49,6 +56,21 @@ class TranscribeResult:
     # mean token log-probability of the generated sequence (greedy), or
     # the length-normalised log-probability of the best beam
     avg_logprob: float = 0.0
+
+
+class PreparedBatch(NamedTuple):
+    """One host-prepared batch: audio [B, samples] float32, video [B,
+    frames, crop, crop, 1] float32 (zeros where an item has none or a raw
+    closeup), raw [B, frames, H, W] uint8 closeups to lip-crop on the
+    device (None when the batch has none), raw_mask [B] bool, raw_frames
+    [B] int32 decoded frames a closeup, and has_video per item."""
+
+    audio: np.ndarray
+    video: np.ndarray
+    raw: Optional[np.ndarray]
+    raw_mask: np.ndarray
+    raw_frames: np.ndarray
+    flags: List[bool]
 
 
 def _not_ported(option: str, item: str) -> NotImplementedError:
@@ -78,6 +100,8 @@ class StreamingTranscriber:
         beam_size: int = 1,
         lang: str = "en",
         prefetch: int = 2,
+        raw_video_hw: Tuple[int, int] = (288, 352),
+        raw_lip_mode: str = "host_refined",
         quantize: Optional[str] = None,
         kv_int8: bool = False,
         mesh: Optional[Any] = None,
@@ -102,6 +126,8 @@ class StreamingTranscriber:
         for bad, option, item in refused:
             if bad:
                 raise _not_ported(option, item)
+        if raw_lip_mode not in ("host_refined", "device"):
+            raise ValueError(f"raw_lip_mode {raw_lip_mode!r}")
         self.model = model
         self.tokenizer = tokenizer
         self.device = model.device
@@ -113,16 +139,48 @@ class StreamingTranscriber:
         self.beam_size = beam_size
         self.lang = lang
         self.prefetch = prefetch
+        self.raw_video_hw = raw_video_hw
+        self.raw_lip_mode = raw_lip_mode
+        self._lip_stages = make_staged_lip_frontend(video_frames)
         sot = np.asarray(tokenizer.sot_sequence(lang), np.int64)
         self._prompt = torch.as_tensor(np.tile(sot[None], (batch_size, 1)), device=self.device)
 
+    def _lip_from_raw(self, clips_u8: torch.Tensor, n_frames: torch.Tensor) -> torch.Tensor:
+        """Raw closeups [B, frames, H, W] uint8 on the device -> normalised
+        lip frames [B, frames, crop, crop, 1]: the staged frontend (detection
+        stream, trajectory, closed-form coordinates, separable sampling),
+        the centre ``crop`` of the 96 x 96 crops, ``(x / 255 - 0.421) /
+        0.165``, and zeros past each clip's ``n_frames`` (as the lip-clip
+        path pads)."""
+        st = self._lip_stages
+        traj, face_w, _ok = st["traj"](st["subsample"](clips_u8))
+        lip96 = st["sample"](clips_u8, *st["coords_from_traj"](traj, face_w))
+        off = (96 - self.crop) // 2
+        lip = lip96[:, :, off: off + self.crop, off: off + self.crop, None]
+        lip = (lip / 255.0 - 0.421) / 0.165
+        t_idx = torch.arange(lip.shape[1], device=lip.device)[None, :, None, None, None]
+        return torch.where(t_idx < n_frames[:, None, None, None, None], lip, 0.0)
+
     @torch.inference_mode()
-    def _run(self, audio: np.ndarray, video: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    def run_batch(self, batch: PreparedBatch) -> Tuple[np.ndarray, np.ndarray]:
+        """The device half of one prepared batch: its raw closeups
+        lip-cropped on the device and merged into its video, then
+        :meth:`_run`. -> (tokens [B, max_new_tokens], scores [B])."""
+        video = batch.video
+        if batch.raw is not None and self.model.cfg.add_gated_x_attn:
+            lip = self._lip_from_raw(torch.from_numpy(batch.raw).to(self.device),
+                                     torch.from_numpy(batch.raw_frames).to(self.device))
+            mask = torch.from_numpy(batch.raw_mask).to(self.device)[:, None, None, None, None]
+            video = torch.where(mask, lip, torch.from_numpy(video).to(self.device))
+        return self._run(batch.audio, video)
+
+    @torch.inference_mode()
+    def _run(self, audio: np.ndarray, video) -> Tuple[np.ndarray, np.ndarray]:
         """Device program for one padded batch: audio [B, samples] and
-        video [B, frames, crop, crop, 1] float32 -> (tokens [B,
-        max_new_tokens], scores [B]), in eval mode (the caller's mode is
-        restored after). A model without gated cross-attention ignores the
-        video, so it is not uploaded."""
+        video [B, frames, crop, crop, 1] float32 (an array or a tensor on
+        the device) -> (tokens [B, max_new_tokens], scores [B]), in eval
+        mode (the caller's mode is restored after). A model without gated
+        cross-attention ignores the video, so it is not uploaded."""
         model, cfg = self.model, self.model.cfg
         was_training = model.training
         model.eval()
@@ -130,7 +188,7 @@ class StreamingTranscriber:
             x = torch.from_numpy(audio).to(self.device, non_blocking=True)
             v = None
             if cfg.add_gated_x_attn:
-                v = torch.from_numpy(video).to(self.device, non_blocking=True)
+                v = torch.as_tensor(video).to(self.device, non_blocking=True)
             mel = log_mel_spectrogram(x, n_mels=cfg.n_mels)
             feats, xv = model.encode(mel, v)
             cache_len = self.max_new_tokens + self._prompt.shape[1] + 2
@@ -152,13 +210,17 @@ class StreamingTranscriber:
 
     # -- host side -----------------------------------------------------
 
-    def _load_item(self, item: Dict[str, Any]) -> Tuple[np.ndarray, Optional[np.ndarray], bool]:
-        """-> (audio, video [frames, crop, crop, 1] or None, has_video).
+    def _load_item(self, item: Dict[str, Any]):
+        """-> (audio, video [frames, crop, crop, 1] or None, raw closeup
+        [frames, H, W] uint8 or None, decoded raw frames, has_video).
 
         ``lip_feats``: precomputed normalised lip features [T, crop, crop,
         1]. ``lip_video``: an already-extracted lip clip file, decoded and
-        normalised here; a clip that fails to load falls through. A raw
-        ``video`` closeup needs the lip frontend, which is not ported."""
+        normalised here; a clip that fails to load falls through. ``video``:
+        a raw closeup, decoded to grayscale; ``host_refined`` lip-crops it
+        here, ``device`` (and a closeup the refined tracker finds nothing
+        in) resizes it to ``raw_video_hw`` for the device frontend. A
+        closeup that fails to decode leaves the item audio-only."""
         audio = load_wav(item["audio"]) if isinstance(item["audio"], str) else item["audio"]
         audio = pad_or_trim(np.asarray(audio, np.float32), self.audio_max_length)
 
@@ -173,31 +235,70 @@ class StreamingTranscriber:
                                          max_frames=self.video_frames)
             except Exception:  # a corrupt lip clip falls through, as in the JAX transcriber
                 feats = None
+        raw = item.get("video")
+        if feats is None and raw and isinstance(raw, str) and os.path.exists(raw):
+            try:
+                frames = read_video_frames(raw, grayscale=True, max_frames=self.video_frames)
+                if self.raw_lip_mode == "host_refined":
+                    feats = self._host_refined_lip(frames)
+                if feats is None:
+                    h, w = self.raw_video_hw
+                    if frames.shape[1:] != (h, w):
+                        import cv2
+
+                        frames = np.stack([cv2.resize(f, (w, h)) for f in frames])
+                    clip = np.zeros((self.video_frames, h, w), np.uint8)
+                    clip[: len(frames)] = frames.astype(np.uint8)
+                    return audio, None, clip, len(frames), True
+            except Exception:  # an undecodable closeup leaves the item audio-only, as in JAX
+                feats = None
         if feats is not None:
             video = np.zeros((self.video_frames, self.crop, self.crop, 1), np.float32)
             video[: len(feats)] = feats
-            return audio, video, True
-        raw = item.get("video")
-        if raw and isinstance(raw, str) and os.path.exists(raw):
-            raise _not_ported(
-                f"item {item.get('id')!r}: lip-cropping a raw 'video' closeup",
-                "item 10 (the device-side lip frontend)",
-            )
-        return audio, None, False
+            return audio, video, None, 0, True
+        return audio, None, None, 0, False
 
-    def _prepare_batch(self, items: Sequence[Dict[str, Any]]):
-        """-> (audio [B, samples], video [B, frames, crop, crop, 1] with
-        zeros for items without video, has_video per item)."""
+    def _host_refined_lip(self, frames: np.ndarray) -> Optional[np.ndarray]:
+        """The offline preprocessing's lip crop at serving time
+        (``RefinedMouthTracker`` then ``extract_lip_clip``, the warp on the
+        model's device), then the lip-clip loader's centre crop and
+        normalisation; None when the tracker finds no landmarks."""
+        from avsl_tpu_torch.data.lip_refine import RefinedMouthTracker
+        from avsl_tpu_torch.data.lip_roi import extract_lip_clip
+
+        if not hasattr(self, "_host_detector"):
+            self._host_detector = RefinedMouthTracker()
+        clip = extract_lip_clip(frames, self._host_detector(frames), device=self.device)
+        if clip is None:
+            return None
+        clip = clip[: self.video_frames]
+        off = (96 - self.crop) // 2
+        lip = clip[:, off: off + self.crop, off: off + self.crop, None]
+        return (lip.astype(np.float32) / 255.0 - 0.421) / 0.165
+
+    def _prepare_batch(self, items: Sequence[Dict[str, Any]]) -> PreparedBatch:
+        """Load a batch's items on the host into a :class:`PreparedBatch`
+        of ``batch_size`` rows."""
         audio = np.zeros((self.batch_size, self.audio_max_length), np.float32)
         video = np.zeros((self.batch_size, self.video_frames, self.crop, self.crop, 1),
                          np.float32)
+        h, w = self.raw_video_hw
+        raw = None
+        raw_mask = np.zeros((self.batch_size,), bool)
+        raw_frames = np.zeros((self.batch_size,), np.int32)
         flags: List[bool] = []
         for i, item in enumerate(items):
-            audio[i], v, has_video = self._load_item(item)
+            audio[i], v, clip, n_frames, has_video = self._load_item(item)
             if v is not None:
                 video[i] = v
+            if clip is not None:
+                if raw is None:
+                    raw = np.zeros((self.batch_size, self.video_frames, h, w), np.uint8)
+                raw[i] = clip
+                raw_mask[i] = True
+                raw_frames[i] = n_frames
             flags.append(has_video)
-        return audio, video, flags
+        return PreparedBatch(audio, video, raw, raw_mask, raw_frames, flags)
 
     def _results(self, chunk, flags, seqs, scores, first_index: int) -> List[TranscribeResult]:
         special = self.tokenizer.special_token_set
@@ -225,15 +326,15 @@ class StreamingTranscriber:
         if len(items) > self.batch_size:
             raise ValueError(f"{len(items)} items > batch_size {self.batch_size}")
         chunk = list(items)
-        audio, video, flags = self._prepare_batch(chunk)
-        seqs, scores = self._run(audio, video)
-        return self._results(chunk, flags, seqs, scores, 0)
+        batch = self._prepare_batch(chunk)
+        seqs, scores = self.run_batch(batch)
+        return self._results(chunk, batch.flags, seqs, scores, 0)
 
     def transcribe(self, items: Sequence[Dict[str, Any]]) -> List[TranscribeResult]:
         """Items: dicts with 'id', 'audio' (path or array) and optionally
-        'lip_feats' (array) or 'lip_video' (path). Returns per-item results
-        in order; host loading of the next batch overlaps the device work
-        of the current one."""
+        'lip_feats' (array), 'lip_video' (path) or 'video' (a raw closeup's
+        path). Returns per-item results in order; host loading of the next
+        batch overlaps the device work of the current one."""
         batches = [
             items[i : i + self.batch_size]
             for i in range(0, len(items), self.batch_size)
@@ -260,8 +361,8 @@ class StreamingTranscriber:
             if got[0] == "__producer_error__":
                 t.join()
                 raise got[1]
-            chunk, (audio, video, flags) = got
-            seqs, scores = self._run(audio, video)
-            results.extend(self._results(chunk, flags, seqs, scores, len(results)))
+            chunk, batch = got
+            seqs, scores = self.run_batch(batch)
+            results.extend(self._results(chunk, batch.flags, seqs, scores, len(results)))
         t.join()
         return results

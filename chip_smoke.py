@@ -36,7 +36,11 @@ raises on failure:
    statistics after step 3), then with BatchNorm frozen, hoisted against
    in-scan; the tiny AV-HuBERT seq2seq and CTC models (encoder 2 heads of
    32, decoder 2 heads of 128, bf16 compute) the same way: logits with
-   padded frames and both modalities, 3 train steps;
+   padded frames and both modalities, 3 train steps; then the staged lip
+   frontend (``lip_frontend``) at the JAX transcriber's shape, 8 closeups
+   x 250 frames x 288 x 352: its stages timed by CUDA events, then run on
+   the CPU (ok flags and mouth-window offsets equal, trajectories and
+   crops within stated bounds), and ``extract_lip_clip`` card against CPU;
 5. serving path: Whisper large-v2 widths (bf16, seeded random weights,
    51865-token vocab) serving 16 synthetic 30 s windows through
    ``StreamingTranscriber`` at batch 8, with K1's launch count read around
@@ -164,6 +168,23 @@ SMALL_AVH_LOGITS_TOL = dict(atol=5e-2, rtol=2e-2)
 SMALL_AVH_TRAIN_TOL = dict(loss_rtol=5e-3, grad_rel_norm=5e-2, stats_atol=1e-2)
 # the timed AV-HuBERT run: an AMI segment batch
 AVH_BATCH, AVH_SAMPLES, AVH_LABELS, AVH_MAX_LABEL = 8, 160000, (20, 63), 64
+# the lip frontend at the JAX transcriber's shape: 8 closeups of 250 frames
+# at raw_video_hw 288 x 352; card against CPU: trajectories (float32 sums of
+# up to 250 mouth positions near 200 px in another order, where an ulp is
+# 4e-3) within LIP_TRAJ_TOL px; the tracked ones within LIP_TRACK_TOL (an
+# NCC argmax near-tie moves one frame by detect_ds = 2 px before the
+# 12-frame smoothing); the sampler on equal coordinates within
+# LIP_SAMPLE_TOL grey levels (fp32 products of exact bilinear weights); the
+# sampling coordinates within LIP_COORD_TOL px, and so the whole chain's
+# crops within LIP_CROP_TOL grey levels (a tap moves at most 255 a pixel on
+# each of the two axes)
+LIP_SHAPE = (8, 250, 288, 352)
+LIP_ROI = 144
+LIP_TRAJ_TOL = 0.05
+LIP_TRACK_TOL = 0.5
+LIP_SAMPLE_TOL = 1e-2
+LIP_COORD_TOL = 1e-2
+LIP_CROP_TOL = 2 * 255 * LIP_COORD_TOL + LIP_SAMPLE_TOL
 
 
 T_START = time.perf_counter()
@@ -740,7 +761,7 @@ def phase_main_path(card: str):
          "avg_logprob_first": results[0].avg_logprob})
 
     # per-stage breakdown of one batch (host clock, synchronised per stage)
-    audio, _, _ = tr._prepare_batch(items[:batch])
+    audio = tr._prepare_batch(items[:batch]).audio
     stages, timed = timed_stages()
     with torch.inference_mode():
         x = timed("h2d", lambda: torch.from_numpy(audio).cuda())
@@ -787,7 +808,9 @@ def av_items(n_items: int, seed: int = 1):
 def phase_av_main_path(card: str):
     """Whisper-Flamingo serving at full width (see the module docstring,
     phase 6): the model the JAX CLI builds by default, served through the
-    port's StreamingTranscriber at the JAX CLI's serving shape."""
+    port's StreamingTranscriber at the JAX CLI's serving shape. Returns the
+    K1 launches, (model, config) for the raw-closeup phase and the
+    phase's record."""
     from avsl_tpu_torch.cli._serving_common import serving_video_frames
     from avsl_tpu_torch.core.config import FlamingoTrainConfig
     from avsl_tpu_torch.data.tokenizer import ByteTokenizer
@@ -835,20 +858,22 @@ def phase_av_main_path(card: str):
     if with_video != [it["id"] for it in items if "lip_feats" in it] or len(with_video) != 12:
         raise AssertionError(f"has_video on {with_video}")
     n_tokens = decoded_tokens(results, tr.tokenizer.eot, max_new)
-    log({"phase": "av_main_path", "card": card, "items": n_items, "batches": n_batches,
-         "items_with_video": len(with_video), "video_frames": video_frames,
-         "audio_max_length": audio_max_length,
-         "seconds": seconds, "seconds_per_batch": seconds / n_batches,
-         "segments_per_s": n_items / seconds, "decode_tokens": n_tokens,
-         "tokens_per_s_end_to_end": n_tokens / seconds,
-         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
-         "flash_attention_launches": launches, "row_statistics_written": stats_writes,
-         "backward_launches": k2, "avg_logprob_first": results[0].avg_logprob})
+    record = {"phase": "av_main_path", "card": card, "items": n_items, "batches": n_batches,
+              "items_with_video": len(with_video), "video_frames": video_frames,
+              "audio_max_length": audio_max_length,
+              "seconds": seconds, "seconds_per_batch": seconds / n_batches,
+              "segments_per_s": n_items / seconds, "decode_tokens": n_tokens,
+              "tokens_per_s_end_to_end": n_tokens / seconds,
+              "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+              "flash_attention_launches": launches, "row_statistics_written": stats_writes,
+              "backward_launches": k2, "avg_logprob_first": results[0].avg_logprob}
+    log(record)
 
     # per-stage breakdown of one batch (host clock, synchronised per stage):
     # the host's preparation, one whole device program, then its parts
     stages, timed = timed_stages()
-    audio, video, flags = timed("host_prepare", lambda: tr._prepare_batch(items[:batch]))
+    prep = timed("host_prepare", lambda: tr._prepare_batch(items[:batch]))
+    audio, video, flags = prep.audio, prep.video, prep.flags
     timed("whole_batch_run", lambda: tr._run(audio, video))
     prompt = tr._prompt
 
@@ -900,6 +925,302 @@ def phase_av_main_path(card: str):
          "decode_steps": max_new, "decode_tokens_per_s": batch * max_new / stages["decode"]})
     log({"phase": "av_traced_stages", "card": card, "batch": batch,
          "decode_steps_traced": traced_steps, **traced})
+    return launches, (model, serve_cfg), record
+
+
+def closeup_clips(b: int, t: int, h: int, w: int, seed: int, device) -> torch.Tensor:
+    """Synthetic raw closeups, uint8 [b, t, h, w] made on ``device``: the
+    moving-blob closeups with a flickering mouth of
+    tests/test_lip_pipeline.py:36-54, as tests/torch_lip_fixtures.py
+    builds them for the detector to find (a textured head moving over a
+    static background, sideways by 5 % of the width and up and down by 2 %
+    of the height, its mouth 0.14 h below the centre darkening every other
+    frame), sizes scaled to the frame."""
+    rng = np.random.default_rng(seed)
+    base = torch.from_numpy(rng.integers(40, 200, (h, w)).astype(np.float32)).to(device)
+    tex = torch.from_numpy(rng.integers(0, 90, (h, w)).astype(np.float32)).to(device)
+    yy = torch.arange(h, dtype=torch.float32, device=device)[None, :, None]
+    xx = torch.arange(w, dtype=torch.float32, device=device)[None, None, :]
+    ti = torch.arange(t, dtype=torch.float32, device=device)
+    out = torch.empty((b, t, h, w), dtype=torch.uint8, device=device)
+    for bi in range(b):
+        cx, cy = w / 2 + 0.03 * w * (bi % 3 - 1), h / 2
+        jx = 0.05 * w * torch.sin(ti / 7 + bi)
+        jy = 0.02 * h * torch.sin(ti / 11 + bi)
+        ex, ey = (xx - cx - jx[:, None, None]), (yy - cy - jy[:, None, None])
+        env = torch.exp(-(((ex / (0.17 * w)) ** 2 + (ey / (0.28 * h)) ** 2) ** 2))
+        rows = (torch.arange(h, device=device)[None] - jy.round().long()[:, None]) % h
+        cols = (torch.arange(w, device=device)[None] - jx.round().long()[:, None]) % w
+        head = 90 + tex[rows[:, :, None], cols[:, None, :]]  # the texture rolled with the head
+        flicker = (torch.arange(t, device=device) % 2).float()[:, None, None]
+        mouth = 70 * flicker * torch.exp(-((ex / (0.05 * w)) ** 2 + ((ey - 0.14 * h) / (0.035 * h)) ** 2))
+        out[bi] = (base * (1 - env) + head * env - mouth).clamp(0, 255).to(torch.uint8)
+    return out
+
+
+def phase_lip_frontend(card: str, device: str = "cuda", shape=LIP_SHAPE):
+    """The staged lip frontend at the JAX transcriber's shape (``shape``: 8
+    clips x 250 frames of 288 x 352, ``detect_ds`` 2, window 25) on the card,
+    each stage timed by CUDA events, then the same functions on the CPU:
+    ok flags and int32 mouth-window offsets equal, trajectories within
+    ``LIP_TRAJ_TOL`` px (tracked: ``LIP_TRACK_TOL``), the sampler on the
+    same coordinates within ``LIP_SAMPLE_TOL`` grey levels, the sampling
+    coordinates within ``LIP_COORD_TOL`` px and the whole chain's crops
+    within ``LIP_CROP_TOL`` grey levels; every closeup detected; then
+    ``extract_lip_clip`` on one clip with MotionEnergyDetector landmarks,
+    card against CPU: crop-window centres equal, uint8 crops within 1 grey
+    level."""
+    from avsl_tpu_torch.data.landmarks import MotionEnergyDetector
+    from avsl_tpu_torch.data.lip_roi import (
+        canonical_mean_face,
+        extract_lip_clip,
+        landmarks_interpolate,
+        smooth_landmarks,
+    )
+    from avsl_tpu_torch.kernels.lip_pipeline import make_staged_lip_frontend
+    from avsl_tpu_torch.kernels.warp import _crop_window_coeffs, STABLE_IDX
+
+    b, t, h, w = shape
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    clips = closeup_clips(b, t, h, w, seed=11, device=device)
+    torch.cuda.synchronize()
+    make_s = time.perf_counter() - t0
+    st = make_staged_lip_frontend(t, window=25, detect_ds=2)
+
+    def chain(x):
+        small = st["subsample"](x)
+        traj = st["traj"](small)
+        tracked = st["track_refine_parallel"](small, *traj)
+        coords = st["coords_from_traj"](traj[0], traj[1])
+        return {"traj": traj, "tracked": tracked, "coords": coords,
+                "crops": st["sample"](x, *coords),
+                "window": st["traj_window"](traj[0], h, w, LIP_ROI)}
+
+    dev = chain(clips)
+    small = st["subsample"](clips)
+    traj = st["traj"](small)
+    coords = st["coords_from_traj"](traj[0], traj[1])
+    stage_ms = {
+        "subsample": cuda_ms(lambda: st["subsample"](clips), reps=5, warmup=1),
+        "traj": cuda_ms(lambda: st["traj"](small), reps=5, warmup=1),
+        "track_refine_parallel": cuda_ms(lambda: st["track_refine_parallel"](small, *traj),
+                                         reps=3, warmup=1),
+        "coords_from_traj": cuda_ms(lambda: st["coords_from_traj"](traj[0], traj[1]),
+                                    reps=5, warmup=1),
+        "sample": cuda_ms(lambda: st["sample"](clips, *coords), reps=5, warmup=1),
+    }
+    peak = torch.cuda.max_memory_allocated()
+
+    t0 = time.perf_counter()
+    ref = chain(clips.cpu())
+    cpu_s = time.perf_counter() - t0
+    same_coords = st["sample"](clips.cpu(), *[c.cpu() for c in dev["coords"]])
+    np_ = lambda x: x.detach().cpu().numpy()  # noqa: E731
+    ok_d, ok_c = np_(dev["traj"][2]), np_(ref["traj"][2])
+    win_d, win_c = [np_(x) for x in dev["window"]], [np_(x) for x in ref["window"]]
+    traj_err = float(np.abs(np_(dev["traj"][0]) - np_(ref["traj"][0])).max())
+    face_err = float(np.abs(np_(dev["traj"][1]) - np_(ref["traj"][1])).max())
+    track_err = float(np.abs(np_(dev["tracked"][0]) - np_(ref["tracked"][0])).max())
+    coord_err = max(float(np.abs(np_(g) - np_(c)).max()) for g, c in zip(dev["coords"], ref["coords"]))
+    sample_err = float(np.abs(np_(dev["crops"]) - np_(same_coords)).max())
+    crop_err = float(np.abs(np_(dev["crops"]) - np_(ref["crops"])).max())
+
+    # extract_lip_clip: MotionEnergyDetector landmarks of clip 0 (host, at
+    # detection scale, scaled up as HostLipCropper's interp mode does)
+    frames = np_(clips[0])
+    sparse = MotionEnergyDetector()(frames[:, ::2, ::2], window=25)
+    sparse = [None if l is None else l * 2 for l in sparse]
+    lms = smooth_landmarks(landmarks_interpolate(sparse), 12)
+    t0 = time.perf_counter()
+    lip_dev = extract_lip_clip(frames, sparse, device=device)
+    torch.cuda.synchronize()
+    extract_s = time.perf_counter() - t0
+    lip_cpu = extract_lip_clip(frames, sparse, device="cpu")
+    mf = torch.from_numpy(canonical_mean_face(300))
+    win = [_crop_window_coeffs(torch.from_numpy(lms).to(d), mf.to(d), 300, 96, STABLE_IDX)[1:]
+           for d in (device, "cpu")]
+    win_equal = all(bool((a.cpu() == b_.cpu()).all()) for a, b_ in zip(*win))
+    extract_err = int(np.abs(lip_dev.astype(int) - lip_cpu.astype(int)).max())
+
+    log({"phase": "lip_frontend", "card": card, "shape": {"B": b, "T": t, "H": h, "W": w},
+         "detect_ds": 2, "window": 25, "make_clips_s": make_s, "stage_ms": stage_ms,
+         "frontend_ms": sum(stage_ms[k] for k in ("subsample", "traj", "coords_from_traj", "sample")),
+         "max_memory_allocated_bytes": peak, "cpu_chain_s": cpu_s,
+         "ok": ok_d.tolist(), "ok_equal": bool((ok_d == ok_c).all()),
+         "window_offsets": [x.tolist() for x in win_d],
+         "window_offsets_equal": all(bool((a == c).all()) for a, c in zip(win_d, win_c)),
+         "traj_max_abs_err_px": traj_err, "face_w_max_abs_err_px": face_err,
+         "tracked_max_abs_err_px": track_err, "coords_max_abs_err_px": coord_err,
+         "sample_max_abs_err": sample_err, "crops_max_abs_err": crop_err,
+         "tolerance": {"traj_px": LIP_TRAJ_TOL, "tracked_px": LIP_TRACK_TOL,
+                       "sample": LIP_SAMPLE_TOL, "coords_px": LIP_COORD_TOL,
+                       "crops": LIP_CROP_TOL},
+         "extract_lip_clip": {"seconds": extract_s, "windows_equal": win_equal,
+                              "max_abs_err_grey": extract_err,
+                              "frames_with_landmarks": sum(l is not None for l in sparse)}})
+    if not ok_d.all():
+        raise AssertionError(f"the lip frontend missed a face in the closeups: ok {ok_d}")
+    if not (ok_d == ok_c).all() or not all((a == c).all() for a, c in zip(win_d, win_c)):
+        raise AssertionError(f"card-vs-cpu decisions differ: ok {ok_d} / {ok_c}, windows {win_d} / {win_c}")
+    if traj_err > LIP_TRAJ_TOL or face_err > LIP_TRAJ_TOL or track_err > LIP_TRACK_TOL:
+        raise AssertionError(f"card-vs-cpu trajectories differ: {traj_err}, {face_err}, {track_err} px")
+    if coord_err > LIP_COORD_TOL:
+        raise AssertionError(f"card-vs-cpu sampling coordinates differ by {coord_err} px")
+    if sample_err > LIP_SAMPLE_TOL or crop_err > LIP_CROP_TOL:
+        raise AssertionError(f"card-vs-cpu crops differ: sampler {sample_err}, chain {crop_err}")
+    if lip_dev is None or not win_equal or extract_err > 1:
+        raise AssertionError(f"extract_lip_clip card-vs-cpu: windows equal {win_equal}, "
+                             f"max err {extract_err}")
+
+
+def raw_batches(items, batch: int, audio_max_length: int, video_frames: int, hw, crop: int,
+                seed: int, device):
+    """(items, PreparedBatch) pairs for ``items`` (dicts with "audio" and,
+    for a raw closeup, "raw_frames"), as ``StreamingTranscriber._prepare_batch``
+    builds them from decoded closeups: uint8 clips zero past their frame
+    count, zero video rows. The clips are made on ``device`` and brought to
+    the host, where a decoder would leave them."""
+    from avsl_tpu_torch.infer.pipeline import PreparedBatch
+
+    out = []
+    for s in range(0, len(items), batch):
+        chunk = items[s:s + batch]
+        clips = closeup_clips(batch, video_frames, hw[0], hw[1], seed=seed + s, device=device)
+        clips = clips.cpu().numpy()
+        audio = np.zeros((batch, audio_max_length), np.float32)
+        raw = np.zeros((batch, video_frames) + tuple(hw), np.uint8)
+        mask = np.zeros(batch, bool)
+        n_frames = np.zeros(batch, np.int32)
+        for i, item in enumerate(chunk):
+            a = item["audio"][:audio_max_length]
+            audio[i, : len(a)] = a
+            if "raw_frames" in item:
+                n = item["raw_frames"]
+                raw[i, :n] = clips[i, :n]
+                mask[i], n_frames[i] = True, n
+        video = np.zeros((batch, video_frames, crop, crop, 1), np.float32)
+        out.append((chunk, PreparedBatch(audio, video, raw, mask, n_frames,
+                                         [bool(m) for m in mask[: len(chunk)]])))
+    return out
+
+
+def phase_av_raw_main_path(card: str, model, serve_cfg, av_record: dict) -> int:
+    """Whisper-Flamingo serving raw closeups at full width (phase 7): the
+    model of ``av_main_path`` through a StreamingTranscriber in
+    ``raw_lip_mode="device"`` at the JAX CLI's shape (raw_video_hw 288 x 352,
+    250 frames, batch 8): 16 items of 7.5-10 s, 12 with raw closeups of
+    150-250 frames, 4 audio-only, driven through the transcriber's device
+    method ``run_batch`` (the card's machine has no video decoder). K1's
+    launches are read around exactly that run; then the same items with
+    lip features and with closeups are served in turns; the lip frontend's
+    share of a batch is timed; zeroing a batch's raw clips must move its
+    rows' first-step logits."""
+    from avsl_tpu_torch.cli._serving_common import serving_video_frames
+    from avsl_tpu_torch.data.tokenizer import ByteTokenizer
+    from avsl_tpu_torch.infer.pipeline import StreamingTranscriber
+    from avsl_tpu_torch.kernels.logmel import log_mel_spectrogram
+
+    cfg, av_cfg = model.cfg, model.video_model.cfg
+    batch, n_items, max_new = 8, 16, 64
+    audio_max_length = int(serve_cfg.audio_max_length)
+    video_frames = serving_video_frames(audio_max_length)
+    tr = StreamingTranscriber(model, ByteTokenizer(), audio_max_length=audio_max_length,
+                              video_frames=video_frames, crop=88, batch_size=batch,
+                              max_new_tokens=max_new, raw_lip_mode="device")
+    items = av_items(n_items, seed=2)
+    for item in items:  # the lip features' frame counts become raw closeups'
+        if "lip_feats" in item:
+            item["raw_frames"] = len(item.pop("lip_feats"))
+    t0 = time.perf_counter()
+    prepared = raw_batches(items, batch, audio_max_length, video_frames, tr.raw_video_hw, tr.crop,
+                           seed=21, device="cuda")
+    make_s = time.perf_counter() - t0
+    tr.run_batch(prepared[0][1])  # warm-up: cuBLAS/cuDNN handles, allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def serve(batches=prepared):
+        out = []
+        for chunk, prep in batches:
+            out += tr._results(chunk, prep.flags, *tr.run_batch(prep), len(out))
+        return out
+
+    results, seconds, launches, stats_writes, k2 = run_counted(serve)
+    peak = torch.cuda.max_memory_allocated()
+    # the same 16 items with their lip features instead of closeups, served
+    # in turns with the closeups (features, closeups, closeups, features):
+    # the decode loop is host-bound, and its time drifts within a call
+    lip_items = av_items(n_items, seed=2)
+    lip_prepared = [(lip_items[i:i + batch], tr._prepare_batch(lip_items[i:i + batch]))
+                    for i in range(0, n_items, batch)]
+    turns = {"lip_features": [], "raw_closeups": []}
+    for name in ("lip_features", "raw_closeups", "raw_closeups", "lip_features"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        serve(lip_prepared if name == "lip_features" else prepared)
+        torch.cuda.synchronize()
+        turns[name].append(time.perf_counter() - t0)
+    if stats_writes or k2:
+        raise AssertionError("the raw AV serving path wrote row statistics or ran the backward kernel")
+    n_batches = math.ceil(n_items / batch)
+    check_served(results, n_items, max_new)
+    per_batch = cfg.n_audio_layer + av_cfg.num_hidden_layers
+    if launches != per_batch * n_batches:
+        raise AssertionError(f"flash-attention launches {launches} != {per_batch * n_batches}")
+    with_video = [r.id for r in results if r.has_video]
+    if with_video != [it["id"] for it in items if "raw_frames" in it] or len(with_video) != 12:
+        raise AssertionError(f"has_video on {with_video}")
+
+    # one batch broken down: the raw clips' upload, the lip frontend, the
+    # whole device half; its detections; the lip rows it feeds the model
+    _, prep = prepared[0]
+    stages, timed = timed_stages()
+    st = tr._lip_stages
+    with torch.inference_mode():
+        raw = timed("h2d_raw", lambda: torch.from_numpy(prep.raw).cuda())
+        n_frames = torch.from_numpy(prep.raw_frames).cuda()
+        lip = timed("lip_frontend", lambda: tr._lip_from_raw(raw, n_frames))
+        timed("whole_batch_run", lambda: tr.run_batch(prep))
+        ok = st["traj"](st["subsample"](raw))[2].cpu().tolist()
+        rows_with_frames = (lip.flatten(1).abs().amax(dim=1) > 0).cpu().tolist()
+        mask = torch.from_numpy(prep.raw_mask).cuda()[:, None, None, None, None]
+        mel = log_mel_spectrogram(torch.from_numpy(prep.audio).cuda(), n_mels=cfg.n_mels)
+        prompt = tr._prompt
+
+        def first_logits(clips):
+            video = torch.where(mask, tr._lip_from_raw(clips, n_frames), 0.0)
+            feats, xv = model.encode(mel, video)
+            logits, _ = model.decode(prompt, None, None,
+                                     model.init_decode_cache(feats, xv, prompt.shape[1] + 2))
+            return logits[:, -1].float()
+
+        moved = (first_logits(raw) - first_logits(torch.zeros_like(raw))).abs().amax(dim=-1)
+    moved = moved.cpu().tolist()
+    n_tokens = decoded_tokens(results, tr.tokenizer.eot, max_new)
+    log({"phase": "av_raw_main_path", "card": card, "items": n_items, "batches": n_batches,
+         "items_with_video": len(with_video), "raw_video_hw": list(tr.raw_video_hw),
+         "video_frames": video_frames, "raw_lip_mode": tr.raw_lip_mode, "make_clips_s": make_s,
+         "seconds": seconds, "seconds_per_batch": seconds / n_batches,
+         "segments_per_s": n_items / seconds, "decode_tokens": n_tokens,
+         "tokens_per_s_end_to_end": n_tokens / seconds,
+         "max_memory_allocated_bytes": peak, "flash_attention_launches": launches,
+         "row_statistics_written": stats_writes, "backward_launches": k2,
+         "stage_seconds": stages,
+         "lip_frontend_share_of_batch": stages["lip_frontend"] / (seconds / n_batches),
+         "detections_ok_batch0": ok, "lip_rows_with_frames_batch0": rows_with_frames,
+         "first_step_logit_change_by_row": moved, "rows_with_video": prep.flags,
+         "beside_lip_features": {k: av_record[k] for k in (
+             "segments_per_s", "seconds_per_batch", "max_memory_allocated_bytes")},
+         "turns_seconds": turns,
+         "turns_segments_per_s": {k: n_items / statistics.median(v) for k, v in turns.items()}})
+    if not all(o for o, m in zip(ok, prep.raw_mask) if m):
+        raise AssertionError(f"the lip frontend missed a served closeup: ok {ok}, "
+                             f"closeups {prep.raw_mask}")
+    if rows_with_frames != [bool(m) for m in prep.raw_mask]:
+        raise AssertionError(f"lip rows with frames {rows_with_frames}, closeups {prep.raw_mask}")
+    if min(m for m, f in zip(moved, prep.flags) if f) < 1e-3:
+        raise AssertionError(f"zeroing the raw clips left rows' first-step logits unchanged: {moved}")
     return launches
 
 
@@ -1873,9 +2194,13 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
+    phase_lip_frontend(smi)
+    free()
     serving_launches = phase_main_path(smi)
     free()
-    av_serving_launches = phase_av_main_path(smi)
+    av_serving_launches, av_model, av_record = phase_av_main_path(smi)
+    av_raw_launches = phase_av_raw_main_path(smi, *av_model, av_record)
+    del av_model
     free()
     with tempfile.TemporaryDirectory() as out_dir:
         train_launches = phase_train_main_path(smi, cfg, tokenizer, train_batches, out_dir)
@@ -1908,14 +2233,16 @@ def main() -> int:
         entry("flash_attention_fwd", "flash_attn_fwd", "avsl_tpu_torch/csrc/flash_attn_fwd.cu",
               "avsl_tpu/kernels/attention.py:63", fwd_cases,
               {"serving": serving_launches, "av_serving": av_serving_launches,
-               "training": train_launches["k1"], "flamingo_training": flamingo[False]["k1"],
+               "av_raw_serving": av_raw_launches, "training": train_launches["k1"],
+               "flamingo_training": flamingo[False]["k1"],
                "flamingo_training_hoisted": flamingo[True]["k1"],
                "avhubert_cli_seq2seq": avh_cli["seq2seq"][0], "avhubert_cli_ctc": avh_cli["ctc"][0],
                "avhubert_training": avh["train"][0], "avhubert_eval": avh["eval"][0],
                "avhubert_ctc_eval": avh["ctc_eval"][0]}),
         entry("flash_attention_bwd", "flash_attn_bwd", "avsl_tpu_torch/csrc/flash_attn_bwd.cu",
               "avsl_tpu/kernels/attention.py:159", bwd_cases,
-              {"serving": 0, "av_serving": 0, "training": train_launches["k2"],
+              {"serving": 0, "av_serving": 0, "av_raw_serving": 0,
+               "training": train_launches["k2"],
                "flamingo_training": flamingo[False]["k2"],
                "flamingo_training_hoisted": flamingo[True]["k2"],
                "avhubert_cli_seq2seq": avh_cli["seq2seq"][1], "avhubert_cli_ctc": avh_cli["ctc"][1],

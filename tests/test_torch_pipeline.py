@@ -7,10 +7,12 @@ identical; avg_logprob agrees to 1e-4. This holds for the audio-only
 model and for the Whisper-Flamingo one (the tiny AV-HuBERT tower, gated
 cross-attention with nonzero gates, BatchNorm statistics perturbed) on a
 batch that mixes lip features, a lip clip mp4, a short clip and an
-audio-only item. The greedy loop and the EOT mask are also held against
+audio-only item, and on raw closeup mp4s lip-cropped in both
+``raw_lip_mode``s. The greedy loop and the EOT mask are also held against
 their JAX versions directly.
 """
 
+import copy
 import os
 
 import cv2
@@ -28,9 +30,22 @@ from avsl_tpu.models.factory import build_whisper_flamingo as jax_build
 from avsl_tpu_torch.cli.transcribe import main as transcribe_main
 from avsl_tpu_torch.data.audio_segments import write_wav
 from avsl_tpu_torch.data.tokenizer import ByteTokenizer
+from avsl_tpu_torch.data.video_io import read_video_frames, write_video_frames
 from avsl_tpu_torch.decode import greedy
 from avsl_tpu_torch.infer import StreamingTranscriber
 from avsl_tpu_torch.models import build_whisper_flamingo, whisper_state_dict_from_flax
+from torch_lip_fixtures import assert_crops_match, closeup_clips, face_clip
+
+# the lip frames the two transcribers feed their models from a raw closeup:
+# the device frontend's crops within 0.5 grey levels (tests/
+# test_torch_lip_pipeline.py), normalised by 255 * 0.165; the host-refined
+# crops within 1 grey level (uint8 truncation), a frame a pixel over only
+# on the reference's crop-window knife edge
+DEVICE_LIP_ATOL = 0.5 / (255 * 0.165)
+REFINED_LIP_ATOL = 1.0
+# the mean token log-probability then differs by what those lip-frame
+# differences move the tiny model (measured up to 2.8e-3 on the closeups)
+RAW_LOGPROB_ATOL = 1e-2
 
 
 def _write_lip_mp4(path, n_frames, seed=0, size=96):
@@ -112,35 +127,108 @@ def test_torch_transcriber_refuses_later_slices(transcribers, option):
         StreamingTranscriber(ptr.model, ptr.tokenizer, **option)
 
 
+def _capture_video(monkeypatch, obj, name):
+    """Record the video batch ``obj.name(audio, video)`` feeds the model."""
+    seen = []
+    inner = getattr(obj, name)
+
+    def wrapped(audio, video, *args, **kw):
+        v = video.detach().cpu().numpy() if isinstance(video, torch.Tensor) else np.asarray(video)
+        seen.append(v)
+        return inner(audio, video, *args, **kw)
+
+    monkeypatch.setattr(obj, name, wrapped)
+    return seen
+
+
+def _raw_closeups(tmp_path):
+    """Two raw closeup mp4s: a rendered talking face at the transcribers'
+    raw size (144 x 176) and a moving textured head at 160 x 200 (resized
+    on load)."""
+    face = write_video_frames(str(tmp_path / "face-video.mp4"), face_clip(t=30)[0])
+    head = write_video_frames(str(tmp_path / "head-video.mp4"),
+                              closeup_clips(b=1, t=30, h=160, w=200, seed=3)[0])
+    return face, head
+
+
+def _refined_lms(path, frames_max):
+    """The JAX host_refined landmarks of a closeup (to place the knife edge)."""
+    from avsl_tpu.data.lip_refine import RefinedMouthTracker
+    from avsl_tpu.data.lip_roi import landmarks_interpolate, smooth_landmarks
+
+    frames = read_video_frames(path, grayscale=True, max_frames=frames_max)
+    return smooth_landmarks(landmarks_interpolate(RefinedMouthTracker()(frames)), 12)
+
+
+def _assert_same_results(want, got, logprob_atol=1e-4):
+    """Served with has_video set, the same tokens and text as the JAX
+    transcriber, avg_logprob within ``logprob_atol``."""
+    assert [g.has_video for g in got] == [w.has_video for w in want] == [True] * len(want)
+    for w, g in zip(want, got):
+        assert g.tokens == w.tokens and g.text == w.text
+        assert abs(g.avg_logprob - w.avg_logprob) <= logprob_atol
+
+
 @pytest.mark.parametrize("key", ["lip_video", "video", "lip_feats"])
-def test_torch_transcriber_refuses_video_items(transcribers, key, tmp_path):
-    """Video items. A raw 'video' closeup needs the lip frontend, which is
-    not ported: alone, or behind a lip clip that fails to load, it is
-    refused naming ROADMAP item 10. Lip clips and lip features are served
-    (here by the audio-only model, which ignores them) with has_video set,
-    exactly as the JAX transcriber serves them."""
-    jtr, ptr = transcribers
-    raw = _write_lip_mp4(tmp_path / "closeup.mp4", 10, size=120)
+def test_torch_transcriber_refuses_video_items(transcribers, av_transcribers, key, tmp_path,
+                                               monkeypatch):
+    """Video items. Lip features, a lip clip and raw 'video' closeups
+    (alone or behind a lip clip that fails to load) are served with
+    has_video set, exactly as the JAX transcriber serves them: by the
+    audio-only model, which ignores the video, with equal tokens, text and
+    avg_logprob within 1e-4; lip features and the lip clip by the tiny AV
+    model within 1e-4 too. The AV model lip-crops the raw closeups in both
+    raw_lip_modes: the tokens equal the JAX transcriber's, the lip frames
+    fed to the model agree (DEVICE_LIP_ATOL, REFINED_LIP_ATOL) and so do
+    the scores (RAW_LOGPROB_ATOL)."""
+    ajtr, aptr = transcribers
+    jtr, ptr = av_transcribers
     base = _items(1, seed=11)[0]
-    if key == "video":
-        with pytest.raises(NotImplementedError, match="item 10"):
-            ptr.transcribe_batch([dict(base, video=raw)])
-        return
-    if key == "lip_video":
-        broken = tmp_path / "broken-lip.mp4"
-        broken.write_bytes(b"not a video")
-        with pytest.raises(NotImplementedError, match="item 10"):
-            ptr.transcribe_batch([dict(base, lip_video=str(broken), video=raw)])
+    broken = tmp_path / "broken-lip.mp4"
+    broken.write_bytes(b"not a video")
+    lip_items = []
+    if key == "lip_feats":
+        lip_items = [dict(base, lip_feats=_lip_feats(12))]
+    elif key == "lip_video":
         corrupt_only = dict(base, lip_video=str(broken))  # falls through to audio-only
-        assert ptr.transcribe_batch([corrupt_only])[0].has_video is False
-        assert jtr.transcribe_batch([corrupt_only])[0].has_video is False
-        item = dict(base, lip_video=_write_lip_mp4(tmp_path / "lip.mp4", 12))
-    else:
-        item = dict(base, lip_feats=_lip_feats(12))
-    want, got = jtr.transcribe_batch([item]), ptr.transcribe_batch([item])
-    assert got[0].has_video is want[0].has_video is True
-    assert got[0].tokens == want[0].tokens and got[0].text == want[0].text
-    assert abs(got[0].avg_logprob - want[0].avg_logprob) <= 1e-4
+        for tr in (aptr, ajtr, ptr, jtr):
+            assert tr.transcribe_batch([corrupt_only])[0].has_video is False
+        lip_items = [dict(base, lip_video=_write_lip_mp4(tmp_path / "lip.mp4", 12))]
+    for item in lip_items:
+        _assert_same_results(ajtr.transcribe_batch([item]), aptr.transcribe_batch([item]))
+        _assert_same_results(jtr.transcribe_batch([item]), ptr.transcribe_batch([item]))
+    if key == "lip_feats":
+        return
+    face, head = _raw_closeups(tmp_path)
+    extra = {"lip_video": str(broken)} if key == "lip_video" else {}
+    items = [dict(base, id="face", video=face, **extra), dict(_items(2, seed=12)[1], id="head",
+                                                             video=head, **extra)]
+    _assert_same_results(ajtr.transcribe_batch(items), aptr.transcribe_batch(items))
+    for mode in ("host_refined", "device"):
+        jt = copy.copy(jtr)
+        jt.raw_lip_mode = mode
+        pt = StreamingTranscriber(ptr.model, ptr.tokenizer, raw_lip_mode=mode, **ptr_kw(ptr))
+        seen_j = _capture_video(monkeypatch, jt, "_dispatch")
+        seen_p = _capture_video(monkeypatch, pt, "_run")
+        _assert_same_results(jt.transcribe_batch(items), pt.transcribe_batch(items),
+                             RAW_LOGPROB_ATOL)
+        vj, vp = seen_j[-1], seen_p[-1]
+        assert vp.shape == vj.shape == (2, 25, 88, 88, 1)
+        assert np.abs(vj).max() > 0.5  # the closeups reached the model
+        if mode == "device":
+            np.testing.assert_allclose(vp, vj, rtol=0, atol=DEVICE_LIP_ATOL)
+        else:  # back to grey levels, compared frame by frame
+            for row, path in enumerate((face, head)):
+                lms = _refined_lms(path, 25)
+                to_grey = lambda v: (v[row, ..., 0] * 0.165 + 0.421) * 255.0  # noqa: E731
+                assert_crops_match(to_grey(vp), to_grey(vj), lms, REFINED_LIP_ATOL)
+
+
+def ptr_kw(ptr):
+    """The serving shape a port transcriber was built with."""
+    return dict(audio_max_length=ptr.audio_max_length, video_frames=ptr.video_frames,
+                batch_size=ptr.batch_size, max_new_tokens=ptr.max_new_tokens,
+                raw_video_hw=ptr.raw_video_hw)
 
 
 def _noisy_av_variables(variables, rng):
@@ -172,7 +260,8 @@ def av_transcribers():
         jax.random.PRNGKey(0), np.zeros((2, jcfg.n_mels, 100), np.float32),
         np.zeros((2, 4), np.int32), video=np.zeros((2, 5, 88, 88, 1), np.float32))
     variables = _noisy_av_variables(variables, np.random.default_rng(2))
-    kw = dict(audio_max_length=16000, video_frames=25, batch_size=2, max_new_tokens=8)
+    kw = dict(audio_max_length=16000, video_frames=25, batch_size=2, max_new_tokens=8,
+              raw_video_hw=(144, 176))
     jtr = JaxTranscriber(jmodel, variables, JaxByteTokenizer(), **kw)
     port, _ = build_whisper_flamingo("test", vocab_size=vocab, add_gated_x_attn=1,
                                      use_av_hubert_encoder=True, dtype="float32", device="cpu")
@@ -279,7 +368,7 @@ def test_torch_transcribe_cli_defaults_to_flamingo(tmp_path):
     """Without --config the CLI serves the JAX CLI's default,
     FlamingoTrainConfig(): the AV model, here its tiny --smoke version at
     the 1 s window and its 25 video frames; a <stem>-lip.mp4 is its lip
-    clip, a <stem>-video.mp4 raw closeup is refused (item 10)."""
+    clip, a <stem>-video.mp4 a raw closeup, lip-cropped on the host."""
     rng = np.random.default_rng(4)
     for name in ("a", "b"):
         write_wav(os.path.join(tmp_path, f"{name}.wav"),
@@ -288,10 +377,11 @@ def test_torch_transcribe_cli_defaults_to_flamingo(tmp_path):
     out = transcribe_main(["--input", str(tmp_path), "--smoke", "--device", "cpu",
                            "--batch_size", "2", "--max_new_tokens", "4"])
     assert [(r["id"], r["has_video"]) for r in out] == [("a", False), ("b", True)]
-    _write_lip_mp4(tmp_path / "a-video.mp4", 5, size=120)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        transcribe_main(["--input", str(tmp_path), "--smoke", "--device", "cpu",
-                         "--batch_size", "2", "--max_new_tokens", "4"])
+    write_video_frames(str(tmp_path / "a-video.mp4"), face_clip(t=30)[0])
+    out = transcribe_main(["--input", str(tmp_path), "--smoke", "--device", "cpu",
+                           "--batch_size", "2", "--max_new_tokens", "4"])
+    assert [(r["id"], r["has_video"]) for r in out] == [("a", True), ("b", True)]
+    assert all(np.isfinite(r["avg_logprob"]) for r in out)
 
 
 def test_torch_serving_video_frames():
