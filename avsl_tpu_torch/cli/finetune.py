@@ -18,24 +18,73 @@ compute bf16 (fp32 with ``--smoke``); the YAML's
 ``enable_gradient_checkpointing`` is not taken (no activation
 checkpointing in the port yet), which changes memory, not values.
 
-``--smoke`` trains the tiny test model on a synthetic dataset with the
-JAX CLI's settings (6 steps, batch 4 × accumulation min(YAML, 2),
-validation every 3 steps). Without it the datasets must be loaded, which
-waits for ``load_datasets`` and length bucketing (ROADMAP.md queue 1,
-item 13) and raises, as do LoRA, a mesh and double-buffered prefetch
-(items 12 and 13). Runs on ``cuda`` unless ``--device cpu``.
+Without ``--smoke`` it trains on the datasets that :func:`load_datasets`
+finds on disk (``save_to_disk`` directories), as the JAX CLI does on real
+data: batches by a token budget of ``(audio_max_length // 160) ×
+batch_size`` 100 Hz frames (``data/batching.py``), so they vary in size;
+accumulation across successive batches through :class:`MultiSteps` with
+a runner accumulation of 1, so ``num_train_steps × accumulation``
+micro-batches and no frozen-tower hoist; ``prefetch_batches > 0`` uploads
+the next batch while a step runs; ``test_best`` on the test split when
+there is one. ``--smoke`` trains the tiny test model on a synthetic
+dataset with the JAX CLI's settings (6 steps, batch 4 × accumulation
+min(YAML, 2) in one ``[accum, micro]`` batch, validation every 3 steps).
+LoRA and a mesh raise (item 12). Runs on ``cuda`` unless ``--device
+cpu``. :func:`make_job` composes a run from rows already loaded and
+:func:`run` trains it; ``main`` loads the rows and calls both.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
-from typing import Any, Dict, List, Optional
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
 
 from avsl_tpu_torch.train.optim import TRAIN
+
+
+def load_datasets(cfg):
+    """``(train, val, test)`` datasets from disk (``datasets.load_from_disk``;
+    None for a split not found), with the reference's fallback chain: the
+    explicit split paths, else the siblings ``train``/``val``/``test`` of
+    the train path's directory; then ``dataset_fraction`` (0 < f < 1 keeps
+    the first fraction of each split) and the ``duration`` filter at
+    ``max_duration_filter_seconds``. Port of
+    ``avsl_tpu/cli/finetune.py::load_datasets``."""
+    import datasets
+
+    def load_one(path):
+        if path and os.path.isdir(path):
+            return datasets.load_from_disk(path)
+        return None
+
+    train = load_one(cfg.train_data_path)
+    val = load_one(cfg.val_data_path)
+    test = load_one(cfg.test_data_path)
+    if train is None and cfg.train_data_path:
+        root = os.path.dirname(cfg.train_data_path.rstrip("/"))
+        train = load_one(os.path.join(root, "train"))
+        val = val if val is not None else load_one(os.path.join(root, "val"))
+        test = test if test is not None else load_one(os.path.join(root, "test"))
+    frac = float(getattr(cfg, "dataset_fraction", 0) or 0)
+    if 0 < frac < 1:
+        def take(ds):
+            return ds.select(range(int(len(ds) * frac))) if ds is not None else ds
+
+        train, val, test = take(train), take(val), take(test)
+    max_dur = float(getattr(cfg, "max_duration_filter_seconds", 0) or 0)
+    if max_dur > 0:
+        def filt(ds):
+            if ds is None or "duration" not in ds.column_names:
+                return ds
+            return ds.filter(lambda d: float(d) <= max_dur, input_columns="duration")
+
+        train, val, test = filt(train), filt(val), filt(test)
+    return train, val, test
 
 
 def make_synthetic_dataset(n: int = 8, seconds: float = 1.0) -> List[Dict[str, Any]]:
@@ -118,18 +167,26 @@ def make_collator(tokenizer, cfg, w_cfg):
                                 max_label_len=label_len)
 
 
-def make_runner(cfg, model, tokenizer, log_dir: str, ckpt_dir: str, seed: int = 0):
+def make_runner(cfg, model, tokenizer, log_dir: str, ckpt_dir: str, seed: int = 0,
+                cross_batch: bool = False):
     """``TrainerRunner`` over the regime ``select_optimizer`` picks,
     ``flamingo_loss_fn`` with the config's SpecAugment, AV-mode mixing and
     BatchNorm freeze, and the frozen-tower hoist when
-    :func:`hoist_enabled`; the runner's ``hoisted`` says which."""
+    :func:`hoist_enabled`; the runner's ``hoisted`` says which. With
+    ``cross_batch`` (bucketed batches, whose sizes vary) an accumulation
+    above 1 goes through :class:`MultiSteps` and the runner steps every
+    batch (accumulation 1), which keeps the hoist off; else each batch is
+    reshaped to ``[accum, micro]``."""
     from avsl_tpu_torch.train.loop import TrainState, batch_to_device
     from avsl_tpu_torch.train.objectives import flamingo_loss_fn, flamingo_tower_precompute
-    from avsl_tpu_torch.train.optim import select_optimizer
+    from avsl_tpu_torch.train.optim import MultiSteps, select_optimizer
     from avsl_tpu_torch.train.runner import TrainerRunner
 
     tx, labels = select_optimizer(model, cfg, int(cfg.num_train_steps))
     accum = max(int(cfg.gradient_accumulation_steps), 1)
+    runner_accum = accum
+    if cross_batch and accum > 1:
+        tx, runner_accum = MultiSteps(tx, accum), 1
     mixing = dict(spec_augment=getattr(cfg, "spec_augment", None),
                   prob_av=float(cfg.prob_use_av), prob_a=float(cfg.prob_use_a))
     loss_fn = flamingo_loss_fn(
@@ -137,7 +194,7 @@ def make_runner(cfg, model, tokenizer, log_dir: str, ckpt_dir: str, seed: int = 
         freeze_video_bn_stats=bool(getattr(cfg, "freeze_video_batch_norm_stats", False)),
         **mixing)
     precompute = None
-    if hoist_enabled(labels, cfg, int(getattr(cfg, "lora_rank", 0) or 0), accum):
+    if hoist_enabled(labels, cfg, int(getattr(cfg, "lora_rank", 0) or 0), runner_accum):
         precompute = flamingo_tower_precompute(model, train=True, freeze_video_bn_stats=True,
                                                **mixing)
 
@@ -149,19 +206,117 @@ def make_runner(cfg, model, tokenizer, log_dir: str, ckpt_dir: str, seed: int = 
 
     runner = TrainerRunner(
         loss_fn, eval_logits, tx, TrainState.create(model, tx, seed=seed), tokenizer, cfg,
-        log_dir=log_dir, ckpt_dir=ckpt_dir, grad_accum_steps=accum, param_labels=labels,
+        log_dir=log_dir, ckpt_dir=ckpt_dir, grad_accum_steps=runner_accum, param_labels=labels,
         precompute_fn=precompute,
     )
     runner.hoisted = precompute is not None
     return runner
 
 
-def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
-    from avsl_tpu_torch.cli.whisper_ft import batches
-    from avsl_tpu_torch.core.config import FlamingoTrainConfig
-    from avsl_tpu_torch.core.device import resolve_device
+@dataclass
+class FinetuneJob:
+    """A composed run: the model, its runner, the datasets (``test_ds``
+    None without a test split) and ``batches(ds, batch_size, shuffle,
+    epoch)``, bucketed unless ``smoke``."""
+
+    cfg: Any
+    device: torch.device
+    model: Any
+    runner: Any
+    train_ds: Any
+    val_ds: Any
+    test_ds: Any
+    batches: Callable[..., Iterator[Dict[str, np.ndarray]]]
+
+
+def make_job(cfg, train_rows, val_rows, test_rows, device, smoke: bool = False,
+             vocab_size: Optional[int] = None, seed: int = 0) -> FinetuneJob:
+    """Compose a run from rows already loaded (datasets on disk, or lists
+    of row dicts): the model (``pt_ckpt`` loaded when the file exists), the
+    datasets, the collator and the runner. Without ``smoke`` batches are
+    bucketed by the token budget and accumulation crosses batches."""
+    from avsl_tpu_torch.cli.whisper_ft import batches as fixed_batches
+    from avsl_tpu_torch.data.runtime import make_bucketed_loader
     from avsl_tpu_torch.data.tokenizer import get_tokenizer
     from avsl_tpu_torch.models.convert import load_torch_checkpoint_into
+
+    if int(getattr(cfg, "lora_rank", 0) or 0) > 0:
+        raise _not_ported("lora_rank > 0 (models/lora.py)", "item 12")
+    if int(getattr(cfg, "model_parallel", 1) or 1) > 1 or int(cfg.num_devices or 1) > 1:
+        raise _not_ported("a device mesh (model_parallel or num_devices > 1)", "item 12")
+    tokenizer = get_tokenizer(getattr(cfg, "download_root", None), cfg.lang)
+    model, w_cfg = build_model(cfg, tokenizer, device, smoke=smoke, vocab_size=vocab_size,
+                               seed=seed)
+    if getattr(cfg, "pt_ckpt", "") and os.path.exists(cfg.pt_ckpt):
+        report = load_torch_checkpoint_into(model, cfg.pt_ckpt)
+        print(f"pt_ckpt: loaded {len(report['loaded'])} tensors, "
+              f"missing {len(report['missing'])}, unexpected {len(report['unexpected'])}")
+    collator = make_collator(tokenizer, cfg, w_cfg)
+
+    def batches(ds, batch_size: int, shuffle: bool, epoch: int = 0):
+        if smoke:
+            return fixed_batches(ds, collator, batch_size, shuffle, epoch)
+        # the token budget: audio_max_length x batch_size, in 100 Hz frames
+        batch_bins = (int(cfg.audio_max_length) // 160) * max(batch_size, 1)
+        return make_bucketed_loader(ds, collator, batch_bins=batch_bins, shuffle=shuffle,
+                                    epoch=epoch)
+
+    def dataset(rows, train):
+        return None if rows is None else make_dataset(rows, tokenizer, cfg, w_cfg, train=train)
+
+    runner = make_runner(cfg, model, tokenizer,
+                         log_dir=os.path.join(cfg.log_output_dir, cfg.train_id),
+                         ckpt_dir=os.path.join(cfg.check_output_dir, cfg.train_id), seed=seed,
+                         cross_batch=not smoke)
+    return FinetuneJob(cfg, torch.device(device), model, runner, dataset(train_rows, True),
+                       dataset(val_rows, False), dataset(test_rows, False), batches)
+
+
+def train_batches(job: FinetuneJob, epoch: int) -> Iterator[Dict[str, Any]]:
+    """Epoch ``epoch``'s train batches of ``batch_size ×`` the runner's
+    accumulation items (bucketed unless smoke); with ``prefetch_batches >
+    0`` they are uploaded to the job's device ahead of the step that takes
+    them (``data/prefetch.py``)."""
+    from avsl_tpu_torch.data.prefetch import prefetch_to_device
+
+    cfg = job.cfg
+    it = job.batches(job.train_ds, int(cfg.batch_size) * job.runner.accum, True, epoch)
+    n_prefetch = int(getattr(cfg, "prefetch_batches", 0) or 0)
+    return prefetch_to_device(it, job.device, size=n_prefetch) if n_prefetch > 0 else it
+
+
+def run(job: FinetuneJob) -> Dict[str, Any]:
+    """Train ``job`` for ``num_train_steps`` optimizer steps (``× accum``
+    micro-batches when the runner steps every batch) over
+    :func:`train_batches`, validating every ``validate_every_n_batches``
+    of them; then ``test_best`` on the test split when there is one."""
+    cfg, runner = job.cfg, job.runner
+    accum = max(int(cfg.gradient_accumulation_steps), 1)
+    eval_bs = int(cfg.eval_batch_size)
+    result = runner.fit(
+        train_batches=lambda epoch: train_batches(job, epoch),
+        val_batches=None if job.val_ds is None else (
+            lambda: job.batches(job.val_ds, eval_bs, False)),
+        # num_train_steps counts optimizer steps; under MultiSteps each
+        # takes `accum` micro-batches
+        num_steps=int(cfg.num_train_steps) * accum // runner.accum,
+        validate_every=int(cfg.validate_every_n_batches),
+        sanity_val_steps=int(getattr(cfg, "num_sanity_val_steps", 0)),
+    )
+    result["hoisted"] = runner.hoisted
+    print(f"done: step={result['final_step']} best_wer={result['best_wer']:.4f} "
+          f"(step {result['best_step']})")
+    if job.test_ds is not None:
+        tm = runner.test_best(lambda: job.batches(job.test_ds, eval_bs, False))
+        print(f"test (best ckpt step {result['best_step']}): "
+              f"wer={tm.get('test/wer_av'):.4f} cer={tm.get('test/cer_av'):.4f}")
+        result["test"] = tm
+    return result
+
+
+def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
+    from avsl_tpu_torch.core.config import FlamingoTrainConfig
+    from avsl_tpu_torch.core.device import resolve_device
 
     p = argparse.ArgumentParser()
     p.add_argument("config", nargs="?", default=None)
@@ -171,50 +326,23 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     args = p.parse_args(argv)
     device = resolve_device(args.device)
     cfg = FlamingoTrainConfig.from_yaml(args.config) if args.config else FlamingoTrainConfig()
-    if not args.smoke:
-        raise _not_ported("load_datasets and length bucketing (real datasets; run with --smoke)",
-                          "item 13")
-    cfg.model_name = "test"
-    cfg.num_train_steps = 6
-    cfg.validate_every_n_batches = 3
-    # a YAML's accumulation (capped at 2) goes through, so the accumulation
-    # and the hoist can be driven under --smoke
-    cfg.gradient_accumulation_steps = min(
-        int(getattr(cfg, "gradient_accumulation_steps", 1) or 1), 2)
-    cfg.batch_size = 4
-    cfg.audio_max_length = 16000
-    cfg.warmup_steps = 1
-    if int(getattr(cfg, "lora_rank", 0) or 0) > 0:
-        raise _not_ported("lora_rank > 0 (models/lora.py)", "item 12")
-    if int(getattr(cfg, "model_parallel", 1) or 1) > 1 or int(cfg.num_devices or 1) > 1:
-        raise _not_ported("a device mesh (model_parallel or num_devices > 1)", "item 12")
-    if int(getattr(cfg, "prefetch_batches", 0) or 0) > 0:
-        raise _not_ported("prefetch_batches > 0 (data/prefetch.py)", "item 13")
-
-    tokenizer = get_tokenizer(getattr(cfg, "download_root", None), cfg.lang)
-    model, w_cfg = build_model(cfg, tokenizer, device, smoke=True)
-    train_ds = make_dataset(make_synthetic_dataset(8), tokenizer, cfg, w_cfg, train=True)
-    val_ds = make_dataset(make_synthetic_dataset(4), tokenizer, cfg, w_cfg, train=False)
-    collator = make_collator(tokenizer, cfg, w_cfg)
-    if getattr(cfg, "pt_ckpt", "") and os.path.exists(cfg.pt_ckpt):
-        report = load_torch_checkpoint_into(model, cfg.pt_ckpt)
-        print(f"pt_ckpt: loaded {len(report['loaded'])} tensors, "
-              f"missing {len(report['missing'])}, unexpected {len(report['unexpected'])}")
-    runner = make_runner(cfg, model, tokenizer,
-                         log_dir=os.path.join(cfg.log_output_dir, cfg.train_id),
-                         ckpt_dir=os.path.join(cfg.check_output_dir, cfg.train_id))
-    result = runner.fit(
-        train_batches=lambda epoch: batches(train_ds, collator, int(cfg.batch_size) * runner.accum,
-                                            True, epoch),
-        val_batches=lambda: batches(val_ds, collator, int(cfg.eval_batch_size), False),
-        num_steps=int(cfg.num_train_steps),
-        validate_every=int(cfg.validate_every_n_batches),
-        sanity_val_steps=int(getattr(cfg, "num_sanity_val_steps", 0)),
-    )
-    result["hoisted"] = runner.hoisted
-    print(f"done: step={result['final_step']} best_wer={result['best_wer']:.4f} "
-          f"(step {result['best_step']})")
-    return result
+    if args.smoke:
+        cfg.model_name = "test"
+        cfg.num_train_steps = 6
+        cfg.validate_every_n_batches = 3
+        # a YAML's accumulation (capped at 2) goes through, so the
+        # accumulation and the hoist can be driven under --smoke
+        cfg.gradient_accumulation_steps = min(
+            int(getattr(cfg, "gradient_accumulation_steps", 1) or 1), 2)
+        cfg.batch_size = 4
+        cfg.audio_max_length = 16000
+        cfg.warmup_steps = 1
+        rows = make_synthetic_dataset(8), make_synthetic_dataset(4), None
+    else:
+        rows = load_datasets(cfg)
+        if rows[0] is None:
+            raise FileNotFoundError(f"train dataset not found at {cfg.train_data_path!r}")
+    return run(make_job(cfg, *rows, device, smoke=args.smoke))
 
 
 if __name__ == "__main__":

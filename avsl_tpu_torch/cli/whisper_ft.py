@@ -20,8 +20,10 @@ accumulation 1 as JAX's does. One difference from the JAX entry point:
   ``batch_size`` items, so with the config's batch 1 × accumulation 16
   its runner drops every batch and never takes a step.
 
-Real datasets (``load_datasets``) wait for the host data layer
-(ROADMAP.md queue 1, item 13) and raise: only ``--smoke`` has data.
+Without ``--smoke`` the train and eval rows are the train and val splits
+that ``cli/finetune.py::load_datasets`` finds on disk (``save_to_disk``
+directories named by the config's data paths); ``--smoke`` trains on a
+synthetic dataset.
 """
 
 from __future__ import annotations
@@ -162,18 +164,23 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         cfg.audio_max_length = 16000
         cfg.warmup_steps = 1
 
-    if not args.smoke:
-        raise NotImplementedError(
-            "load_datasets: real datasets wait for the host data layer "
-            "(ROADMAP.md queue 1, item 13); run with --smoke"
-        )
-    from avsl_tpu_torch.cli.finetune import make_synthetic_dataset
+    if args.smoke:
+        from avsl_tpu_torch.cli.finetune import make_synthetic_dataset
+
+        train_rows, eval_rows = make_synthetic_dataset(8), make_synthetic_dataset(4)
+    else:
+        from avsl_tpu_torch.cli.finetune import load_datasets
+
+        train_rows, eval_rows, _ = load_datasets(cfg)
+        if train_rows is None or eval_rows is None:
+            raise FileNotFoundError(f"train or val dataset not found at "
+                                    f"{cfg.train_data_path!r} / {cfg.val_data_path!r}")
 
     tokenizer = get_tokenizer(getattr(cfg, "download_root", None), cfg.lang)
     model, w_cfg = build_model(cfg, tokenizer, device, smoke=args.smoke)
 
-    train_ds = make_dataset(make_synthetic_dataset(8), tokenizer, cfg, w_cfg)
-    eval_ds = make_dataset(make_synthetic_dataset(4), tokenizer, cfg, w_cfg)
+    train_ds = make_dataset(train_rows, tokenizer, cfg, w_cfg)
+    eval_ds = make_dataset(eval_rows, tokenizer, cfg, w_cfg)
     collator = WhisperVideoCollator(
         eot_id=tokenizer.eot, max_label_len=min(args.max_eval_tokens, w_cfg.n_text_ctx),
     )

@@ -1,9 +1,9 @@
-"""WAV ingest: integer PCM to float32, 16 kHz wav loading, and noise
-mixing at a set SNR.
+"""WAV ingest: integer PCM to float32, wav loading at a target rate, and
+noise mixing at a set SNR.
 
 Port of ``pcm_to_float``, ``load_wav``, ``write_wav`` and ``add_noise``
-from ``avsl_tpu/data/audio_segments.py``. Resampling waits for the port of
-``kernels/resample.py``: a wav at another rate raises.
+from ``avsl_tpu/data/audio_segments.py``. A wav at another rate is
+resampled on the host CPU (``kernels/resample.py``).
 """
 
 from __future__ import annotations
@@ -29,16 +29,16 @@ def pcm_to_float(data: np.ndarray) -> np.ndarray:
 
 
 def load_wav(path: str, target_sr: int = 16000) -> np.ndarray:
-    """Read a wav to mono float32 in [-1, 1]; its rate must be ``target_sr``."""
+    """Read a wav to mono float32 in [-1, 1] at ``target_sr``."""
     import scipy.io.wavfile as wavfile
 
     sr, data = wavfile.read(path)
+    data = pcm_to_float(data)
     if sr != target_sr:
-        raise NotImplementedError(
-            f"{path}: sample rate {sr} != {target_sr}; resampling waits for the "
-            "port of kernels/resample.py (ROADMAP.md queue 1, item 7)"
-        )
-    return pcm_to_float(data)
+        from avsl_tpu_torch.kernels.resample import resample_poly
+
+        data = resample_poly(data, sr, target_sr).numpy()
+    return data
 
 
 def write_wav(path: str, audio: np.ndarray, sr: int = 16000) -> str:

@@ -1,0 +1,107 @@
+"""Host-to-device prefetching iterator (double buffering).
+
+Port of ``avsl_tpu/data/prefetch.py``: a producer thread uploads batch N+1
+while the train step consumes batch N. On a CUDA device each batch is
+copied from pinned host memory on a stream of its own with
+``non_blocking=True``; the consumer's stream waits on the copy's event
+before it reads the batch, and the tensors are recorded on that stream so
+the caching allocator does not hand their memory back to the copy stream
+while the step still reads it. A mesh-sharded upload is the parallel layer
+(ROADMAP.md queue 1, item 12) and raises.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from typing import Any, Dict, Iterator, Optional, Union
+
+import numpy as np
+import torch
+
+
+class _End:
+    pass
+
+
+class _Err:
+    def __init__(self, exc: BaseException):
+        self.exc = exc
+
+
+def prefetch_to_device(
+    iterator: Iterator[Dict[str, Any]],
+    device: Union[str, torch.device],
+    size: int = 2,
+    mesh: Optional[Any] = None,
+) -> Iterator[Dict[str, torch.Tensor]]:
+    """Wrap a host-batch iterator (dicts of numpy arrays or tensors) so its
+    batches arrive as tensors on ``device``.
+
+    ``size`` bounds the batches in flight (2 = double buffering).
+    Exceptions raised by the source iterator or by an upload re-raise at the
+    consumer's ``next()``; the producer is a daemon thread that stops once
+    the consumer is closed or dropped, so an abandoned consumer cannot keep
+    it parked on a full queue."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "prefetch_to_device(mesh=...): the parallel layer is not ported yet "
+            "(ROADMAP.md queue 1, item 12)"
+        )
+    device = torch.device(device)
+    cuda = device.type == "cuda"
+    copy_stream = torch.cuda.Stream(device) if cuda else None
+    q: "queue.Queue" = queue.Queue(maxsize=max(1, size))
+    stop = threading.Event()
+
+    def host(value) -> torch.Tensor:
+        return value if isinstance(value, torch.Tensor) else torch.as_tensor(np.asarray(value))
+
+    def put(batch):
+        if not cuda:
+            return {k: host(v).to(device) for k, v in batch.items()}, None
+        with torch.cuda.stream(copy_stream):
+            out = {k: host(v).pin_memory().to(device, non_blocking=True)
+                   for k, v in batch.items()}
+            done = torch.cuda.Event()
+            done.record(copy_stream)
+        return out, done
+
+    def enqueue(item) -> bool:
+        # a bounded put that notices an abandoned consumer instead of
+        # parking forever on a full queue
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.2)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def producer():
+        try:
+            for batch in iterator:
+                if not enqueue(put(batch)):
+                    return
+        except BaseException as e:  # noqa: BLE001 (relayed to the consumer)
+            enqueue(_Err(e))
+            return
+        enqueue(_End())
+
+    threading.Thread(target=producer, daemon=True).start()
+    try:
+        while True:
+            item = q.get()
+            if isinstance(item, _End):
+                return
+            if isinstance(item, _Err):
+                raise item.exc
+            batch, done = item
+            if done is not None:
+                stream = torch.cuda.current_stream(device)
+                stream.wait_event(done)
+                for t in batch.values():
+                    t.record_stream(stream)
+            yield batch
+    finally:
+        stop.set()  # consumer done or closed: release the producer

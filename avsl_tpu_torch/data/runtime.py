@@ -1,8 +1,9 @@
 """Runtime datasets + collator: dataset rows -> model-ready batches.
 
-Port of ``AmiVideoDataset``, ``WhisperVideoCollator`` and
-``AVHubertDataset`` from ``avsl_tpu/data/runtime.py``. Per item: 16 kHz float audio, ``pad_or_trim``
-to the configured length, log-mel on the host CPU, jiwer-style text
+Port of ``AmiVideoDataset``, ``WhisperVideoCollator``, ``AVHubertDataset``
+and ``make_bucketed_loader`` from ``avsl_tpu/data/runtime.py``. Per item:
+the audio resampled to 16 kHz on the host CPU (``kernels/resample.py``),
+``pad_or_trim`` to the configured length, log-mel on the host CPU, jiwer-style text
 normalisation, the Whisper SOT sequence + tokens with shifted labels +
 EOT, and with ``load_video`` the lip clip (88 crop, mean 0.421, std 0.165)
 trimmed to the padded audio's length at 25 fps, or one zero frame when the
@@ -10,27 +11,21 @@ row has no clip file. SpecAugment runs on the device inside the train step
 (``kernels/specaugment.py``). ``AVHubertDataset`` gives each item the
 104-dim stacked log-fbank features (computed on the host CPU) and the
 88-crop lip clip, truncated to the shorter, with per-item modality drops.
-Audio at another rate than 16 kHz raises until the resampler is ported
-(ROADMAP.md queue 1, item 7).
+``make_bucketed_loader`` batches by a token budget
+(``data/batching.py``), each batch's video padded to its bucket's frames.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, Iterator, Optional, Sequence
 
 import numpy as np
 
 from avsl_tpu_torch.data.audio_segments import add_noise, load_wav, pcm_to_float
+from avsl_tpu_torch.data.batching import LengthBucketBatcher
 from avsl_tpu_torch.data.tokenizer import Tokenizer
 from avsl_tpu_torch.decode.text_norm import normalize_text
-
-
-def _resample_not_ported(sr: int, target_sr: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"sample rate {sr} != {target_sr}: resampling waits for the port of "
-        "kernels/resample.py (ROADMAP.md queue 1, item 7)"
-    )
 
 
 def _extract_audio(item: Dict[str, Any], target_sr: int = 16000) -> np.ndarray:
@@ -54,7 +49,9 @@ def _extract_audio(item: Dict[str, Any], target_sr: int = 16000) -> np.ndarray:
         path = audio.get("path") if isinstance(audio, dict) else audio
         return load_wav(path, target_sr)
     if sr != target_sr:
-        raise _resample_not_ported(sr, target_sr)
+        from avsl_tpu_torch.kernels.resample import resample_poly
+
+        data = resample_poly(data, sr, target_sr).numpy()
     return data.astype(np.float32)
 
 
@@ -111,6 +108,26 @@ class AmiVideoDataset:
     def __len__(self) -> int:
         return len(self.ds)
 
+    def audio_length(self, idx: int) -> int:
+        """An item's length in samples from its ``duration`` (for
+        bucketing), ``audio_max_length`` when it has none. The duration
+        column is read once and cached: reading a row of a dataset on disk
+        decodes the whole row (its audio and video bytes). A plain list of
+        rows, which has no columns, is read row by row."""
+        if not hasattr(self, "_durations"):
+            try:
+                col = self.ds["duration"]
+                self._durations = [None if d is None else float(d) for d in col]
+            except (KeyError, TypeError, ValueError):
+                self._durations = None
+        if self._durations is not None:
+            dur = self._durations[idx]
+        else:
+            dur = self.ds[idx].get("duration")
+        if dur is not None:
+            return int(float(dur) * self.sample_rate)
+        return self.audio_max_length
+
     def __getitem__(self, idx: int) -> Dict[str, Any]:
         from avsl_tpu_torch.kernels.logmel import log_mel_spectrogram, pad_or_trim
 
@@ -152,7 +169,8 @@ class WhisperVideoCollator:
     on the time axis with zeros, with ``video_mask`` [B, T] (True = a real
     frame); ``label_pad_len`` and ``video_pad_len`` may pin the padded
     lengths and ``max_label_len`` caps the labels' (text_max_length /
-    n_text_ctx)."""
+    n_text_ctx). A ``video_pad_len`` given to a call pins that batch's
+    alone, so loaders on several threads may share one collator."""
 
     def __init__(self, eot_id: int, video_pad_len: Optional[int] = None,
                  label_pad_len: Optional[int] = None, max_label_len: Optional[int] = None):
@@ -161,7 +179,8 @@ class WhisperVideoCollator:
         self.label_pad_len = label_pad_len
         self.max_label_len = max_label_len
 
-    def __call__(self, items: Sequence[Dict[str, Any]]) -> Dict[str, np.ndarray]:
+    def __call__(self, items: Sequence[Dict[str, Any]],
+                 video_pad_len: Optional[int] = None) -> Dict[str, np.ndarray]:
         batch: Dict[str, np.ndarray] = {"input_ids": np.stack([it["input_ids"] for it in items])}
         lab_len = self.label_pad_len or max(len(it["labels"]) for it in items)
         if self.max_label_len is not None:
@@ -176,7 +195,8 @@ class WhisperVideoCollator:
         batch["dec_input_ids"] = dec
         batch["audio_frames"] = np.asarray([it["audio_frames"] for it in items], np.int32)
         if "video" in items[0]:
-            v_len = self.video_pad_len or max(len(it["video"]) for it in items)
+            v_len = (video_pad_len or self.video_pad_len
+                     or max(len(it["video"]) for it in items))
             h, w, c = items[0]["video"].shape[1:]
             video = np.zeros((len(items), v_len, h, w, c), np.float32)
             vmask = np.zeros((len(items), v_len), bool)
@@ -272,3 +292,27 @@ class AVHubertDataset:
         if "transcript" in item:
             out["transcript"] = item["transcript"]
         return out
+
+
+def make_bucketed_loader(
+    dataset: AmiVideoDataset,
+    collator: WhisperVideoCollator,
+    batch_bins: int,
+    num_shards: int = 1,
+    shuffle: bool = True,
+    epoch: int = 0,
+    fps: int = 25,
+) -> Iterator[Dict[str, np.ndarray]]:
+    """Collated batches by token budget: item lengths in 100 Hz audio
+    frames (``max(audio_length // 160, 1)``) drive ``LengthBucketBatcher``,
+    and each batch's video is padded to its bucket's frame count,
+    ``ceil(padded * fps / 100)``, given to ``collator`` with the batch (it
+    writes nothing on the shared collator, which a validation on another
+    thread may be using)."""
+    if hasattr(dataset, "set_epoch"):
+        dataset.set_epoch(epoch)  # re-draw per-epoch augmentation
+    lengths = [max(dataset.audio_length(i) // 160, 1) for i in range(len(dataset))]
+    batcher = LengthBucketBatcher(lengths, batch_bins, num_shards=num_shards)
+    for idx, padded_frames in batcher.batches(shuffle=shuffle, epoch=epoch):
+        items = [dataset[int(i)] for i in idx]
+        yield collator(items, video_pad_len=max(int(np.ceil(padded_frames * fps / 100.0)), 1))

@@ -1,7 +1,7 @@
-"""Device kernels of the port: the log-mel front end, SpecAugment and the
-lip-ROI frontend (warp, NCC tracking, the staged frontend; plain PyTorch
-ops) and the flash-attention forward and backward (hand-written CUDA
-kernels)."""
+"""Device kernels of the port: the log-mel front end, SpecAugment, the
+polyphase resampler and the lip-ROI frontend (warp, NCC tracking, the
+staged frontend; plain PyTorch ops) and the flash-attention forward and
+backward (hand-written CUDA kernels)."""
 
 from avsl_tpu_torch.kernels.attention import (
     fused_attention,
@@ -12,6 +12,7 @@ from avsl_tpu_torch.kernels.attention import (
 from avsl_tpu_torch.kernels.lip_pipeline import make_lip_frontend, make_staged_lip_frontend
 from avsl_tpu_torch.kernels.logmel import log_mel_spectrogram, pad_or_trim
 from avsl_tpu_torch.kernels.mel import mel_filterbank_slaney
+from avsl_tpu_torch.kernels.resample import resample_poly
 from avsl_tpu_torch.kernels.specaugment import spec_augment_batch
 from avsl_tpu_torch.kernels.track import (
     ncc_track_batch,
@@ -42,6 +43,7 @@ __all__ = [
     "pad_or_trim",
     "reference_attention",
     "reference_attention_bwd",
+    "resample_poly",
     "sample_separable",
     "separable_crop_coords",
     "separable_crop_coords_np",

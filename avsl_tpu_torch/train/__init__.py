@@ -8,11 +8,17 @@ from avsl_tpu_torch.train.objectives import (
     avhubert_seq2seq_loss_fn,
     flamingo_loss_fn,
 )
-from avsl_tpu_torch.train.optim import ClippedAdamW, select_optimizer, whisper_optimizer
+from avsl_tpu_torch.train.optim import (
+    ClippedAdamW,
+    MultiSteps,
+    select_optimizer,
+    whisper_optimizer,
+)
 from avsl_tpu_torch.train.runner import TrainerRunner
 
 __all__ = [
     "ClippedAdamW",
+    "MultiSteps",
     "TrainState",
     "TrainerRunner",
     "avhubert_ctc_loss_fn",

@@ -6,7 +6,8 @@ Port of ``save_checkpoint``, ``latest_step``, ``all_steps``,
 ``avsl_tpu/train/checkpoints.py``, with ``torch.save`` files in place of
 Orbax directories: one ``step_<N>.pt`` per step under ``directory``,
 holding the model's state dict (BatchNorm statistics included), the
-optimizer state, the update count and the generator state.
+optimizer state, the update count and the generator state;
+:func:`pin_checkpoint` links a saved step into another directory.
 ``restore_sharded`` waits for the parallel layer (ROADMAP.md queue 1,
 item 12). Files are read with ``weights_only=True``.
 """
@@ -15,6 +16,7 @@ from __future__ import annotations
 
 import os
 import re
+import shutil
 from typing import Dict, List, Mapping, Optional, Tuple
 
 import torch
@@ -55,6 +57,25 @@ def save_checkpoint(directory: str, state, step: int, max_to_keep: int = 3) -> s
     for old in all_steps(directory)[:-max_to_keep]:
         os.remove(_path(directory, old))
     return path
+
+
+def pin_checkpoint(src_dir: str, dst_dir: str, step: int, max_to_keep: int = 3) -> str:
+    """Put step ``step`` of ``src_dir`` into ``dst_dir`` as a hard link to
+    the same file (a copy where the two cannot share it), keeping the
+    newest ``max_to_keep`` steps there. The rolling directory replaces and
+    removes its files by name, so the pinned step outlives them; a state
+    of billions of parameters is not written twice."""
+    os.makedirs(dst_dir, exist_ok=True)
+    src, dst = _path(src_dir, step), _path(dst_dir, step)
+    tmp = f"{dst}.{os.getpid()}.tmp"
+    try:
+        os.link(src, tmp)
+    except OSError:
+        shutil.copyfile(src, tmp)
+    os.replace(tmp, dst)
+    for old in all_steps(dst_dir)[:-max_to_keep]:
+        os.remove(_path(dst_dir, old))
+    return dst
 
 
 def restore_checkpoint(directory: str, target, step: Optional[int] = None):

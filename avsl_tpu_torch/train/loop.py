@@ -9,7 +9,8 @@ forward/backward passes, which is what the scan computes:
   are summed in the parameters' dtype, then divided by ``accum``, and the
   reported metrics are the means over the micro-steps;
 * the ``grad_norm`` metric is the global norm of those gradients before
-  clipping (the optimizer clips);
+  clipping (the optimizer clips); under :class:`MultiSteps` it stays the
+  micro-batch's, while the clip takes the norm of the accumulated mean;
 * ``param_labels`` (from :func:`avsl_tpu_torch.train.optim.select_optimizer`)
   sets ``requires_grad=False`` on the frozen parameters, so no backward
   runs through frozen-only subgraphs (the JAX step differentiates only the
@@ -29,13 +30,13 @@ forward/backward passes, which is what the scan computes:
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 from torch import nn
 
-from avsl_tpu_torch.train.optim import TRAIN, ClippedAdamW, global_norm
+from avsl_tpu_torch.train.optim import TRAIN, ClippedAdamW, MultiSteps, global_norm
 
 # loss_fn(batch, generator) -> (loss, metrics dict), over the state's model
 LossFn = Callable[[Dict[str, torch.Tensor], Optional[torch.Generator]],
@@ -57,12 +58,12 @@ class TrainState:
     and the generator every random draw of a step comes from."""
 
     model: nn.Module
-    optimizer: Optional[ClippedAdamW]
+    optimizer: Optional[Union[ClippedAdamW, MultiSteps]]
     step: int = 0
     generator: Optional[torch.Generator] = None
 
     @classmethod
-    def create(cls, model: nn.Module, optimizer: Optional[ClippedAdamW],
+    def create(cls, model: nn.Module, optimizer: Optional[Union[ClippedAdamW, MultiSteps]],
                seed: int = 0) -> "TrainState":
         device = next(model.parameters()).device
         gen = torch.Generator(device=device)
@@ -150,6 +151,7 @@ def make_train_step(
                          for p in opt.params]
             # the clip's norm is over the trained tensors only; reuse the
             # metric's norm when those are all the tensors with a gradient
+            # (MultiSteps drops it and clips on the norm of the mean)
             same = len(opt_grads) == len(grads) and all(id(p) in by_param for p in opt.params)
             opt.step(opt_grads, out["grad_norm"] if same else None)
         for p in params:

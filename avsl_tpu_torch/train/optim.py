@@ -18,6 +18,9 @@ state for, and updates, only the TRAIN ones. It mirrors the optax chain
   wd p)``;
 * the schedule is read at the update count before the increment, so the
   first update has learning rate ``schedule(0) = 0``.
+
+:class:`MultiSteps` is ``optax.MultiSteps(tx, every_k_schedule=k)`` around
+it, the JAX CLI's accumulation across bucketed batches of varying size.
 """
 
 from __future__ import annotations
@@ -178,6 +181,77 @@ class ClippedAdamW:
             for dst, src in zip(self.mu + self.nu, list(state["mu"]) + list(state["nu"])):
                 dst.copy_(src)
         self.count = int(state["count"])
+
+
+class MultiSteps:
+    """``optax.MultiSteps(inner, every_k_schedule=every_k)`` over a
+    :class:`ClippedAdamW`: accumulate ``every_k`` successive gradients and
+    update once with their mean.
+
+    The mean is optax's running one, ``acc += (g - acc) / (mini_step + 1)``
+    in fp32 (one in-place lerp), so each micro-batch weighs the same
+    whatever its size. The
+    inner optimizer steps only on the ``every_k``-th call, with the mean:
+    its clip takes the norm of the mean, and its schedule and bias
+    correction advance once per update. The parameters do not move on the
+    other calls. The accumulators are buffers of this object, one per
+    trained tensor (frozen tensors, whose updates are zero, get none), and
+    carry across epochs; :meth:`state_dict` holds them with the mini-step,
+    so a run saved mid-accumulation resumes to the same parameters."""
+
+    def __init__(self, inner: ClippedAdamW, every_k: int):
+        if int(every_k) < 1:
+            raise ValueError(f"every_k must be >= 1, got {every_k}")
+        self.inner = inner
+        self.every_k = int(every_k)
+        self.names, self.params = inner.names, inner.params
+        self.acc = [torch.zeros_like(p) for p in self.params]
+        self.mini_step = 0
+
+    @property
+    def count(self) -> int:
+        """Updates of the inner optimizer so far."""
+        return self.inner.count
+
+    def learning_rate(self) -> float:
+        """The learning rate of the next update."""
+        return self.inner.learning_rate()
+
+    @torch.no_grad()
+    def step(self, grads: Sequence[torch.Tensor], grad_norm: Optional[torch.Tensor] = None) -> bool:
+        """Fold one micro-batch's ``grads`` (aligned with :attr:`params`,
+        left untouched) into the mean; on the ``every_k``-th call update
+        the parameters with it and reset. Returns whether it updated.
+        ``grad_norm``, the micro-batch's norm, is taken as
+        :meth:`ClippedAdamW.step` takes it and dropped: the clip uses the
+        norm of the mean."""
+        del grad_norm
+        grads = list(grads)
+        if len(grads) != len(self.params):
+            raise ValueError(f"{len(grads)} gradients for {len(self.params)} parameters")
+        if self.acc:
+            torch._foreach_lerp_(self.acc, grads, 1.0 / (self.mini_step + 1))
+        self.mini_step += 1
+        if self.mini_step < self.every_k:
+            return False
+        self.inner.step(self.acc)  # clips (in place) on the norm of the mean
+        torch._foreach_zero_(self.acc)
+        self.mini_step = 0
+        return True
+
+    def state_dict(self) -> dict:
+        return {"inner": self.inner.state_dict(), "every_k": self.every_k,
+                "mini_step": self.mini_step, "acc": list(self.acc)}
+
+    def load_state_dict(self, state: dict) -> None:
+        if int(state["every_k"]) != self.every_k:
+            raise ValueError(f"state accumulates every {state['every_k']} steps, "
+                             f"not {self.every_k}")
+        self.inner.load_state_dict(state["inner"])
+        with torch.no_grad():
+            for dst, src in zip(self.acc, state["acc"]):
+                dst.copy_(src)
+        self.mini_step = int(state["mini_step"])
 
 
 def _adamw(model: nn.Module, labels: Dict[str, str], cfg, t_total: int) -> ClippedAdamW:

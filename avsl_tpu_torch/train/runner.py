@@ -24,6 +24,7 @@ from avsl_tpu_torch.decode.greedy import teacher_forced_predictions
 from avsl_tpu_torch.decode.text_norm import normalize_text, wer_cer
 from avsl_tpu_torch.train.checkpoints import (
     latest_step,
+    pin_checkpoint,
     restore_checkpoint,
     restore_params_only,
     save_checkpoint,
@@ -100,8 +101,15 @@ class TrainerRunner:
     :func:`~avsl_tpu_torch.train.loop.make_train_step`;
     ``eval_logits_fn(state, batch)`` gives teacher-forced logits. Batches
     from ``fit``'s ``train_batches`` hold ``accum × micro`` items and are
-    reshaped to ``[accum, micro, ...]``. ``tx`` (the JAX optimizer
-    argument) is unused: the optimizer lives in the state.
+    reshaped to ``[accum, micro, ...]``; with ``grad_accum_steps=1`` and a
+    :class:`~avsl_tpu_torch.train.optim.MultiSteps` optimizer in the state
+    each batch is one micro-batch of any size and the optimizer
+    accumulates across batches (and across epochs). Steps, validation and
+    checkpoints count train-step calls, i.e. micro-batches. A validation
+    saves the state once: the best step is a hard link to that file
+    (:func:`~avsl_tpu_torch.train.checkpoints.pin_checkpoint`), and the end
+    of ``fit`` writes no second copy of a step just saved. ``tx`` (the JAX
+    optimizer argument) is unused: the optimizer lives in the state.
     ``precompute_fn`` (the frozen-tower hoist, gated by the caller) runs
     once a step before the micro-steps; the JAX runner compiles it as a
     program of its own (``split_precompute``), which eager PyTorch has no
@@ -227,9 +235,11 @@ class TrainerRunner:
     def _fit_loop(self, train_batches, val_batches, step, num_steps, validate_every):
         epoch, it = 0, train_batches(0)
         t0, last_logged_step, history = time.time(), step, []
+        saved = None  # the step last written to ckpt_dir by this loop
         while step < num_steps:
             if self._preempted:
                 save_checkpoint(self.ckpt_dir, self.state, step)
+                saved = step
                 self.logger.log(step, {"train/preempted": 1.0})
                 break
             try:
@@ -255,17 +265,19 @@ class TrainerRunner:
                 self.logger.log(step, m)
                 wer = m.get("val/wer_av", 1.0)
                 save_checkpoint(self.ckpt_dir, self.state, step)
+                saved = step
                 if wer < self.best_wer:
                     self.best_wer, self.best_step = wer, step
                     # the rolling directory keeps only a few steps, so the
                     # best one is pinned in its own
-                    save_checkpoint(self._best_dir, self.state, step)
+                    pin_checkpoint(self.ckpt_dir, self._best_dir, step)
                     self._evals_since_best = 0
                 else:
                     self._evals_since_best += 1
                     if self.early_stop_patience and self._evals_since_best >= self.early_stop_patience:
                         break
-        save_checkpoint(self.ckpt_dir, self.state, step)
+        if saved != step:  # the state has not moved since a save at this step
+            save_checkpoint(self.ckpt_dir, self.state, step)
         return {
             "final_step": step,
             "best_wer": self.best_wer,

@@ -83,7 +83,23 @@ raises on failure:
    card by the port's ``avhubert_audio_features``, 250 lip frames, labels
    of 20-63 tokens): 3 steps with exactly 9 K1 and 9 K2 launches a step,
    a broken-down and a traced step, the eval forward (24 + 9 K1), and the
-   CTC head's train step (no kernel) and eval forward (24 K1).
+   CTC head's train step (no kernel) and eval forward (24 K1);
+10. the dataset path: ``resample`` (8 x 10 s at 44.1, 48 and 8 kHz to 16
+   kHz on the card, against the CPU and float64 ``scipy.signal.upfirdn``
+   with the same taps, within RESAMPLE_TOL; one 10 s item's host time),
+   ``multisteps_small`` (the tiny Whisper-Flamingo model under
+   ``MultiSteps``, accumulation 2 over micro-batches of 1-4 items, card
+   against CPU after every micro-step), ``flamingo_dataset_train`` (the
+   training YAML through ``cli.finetune.make_job`` and ``run``, what the
+   CLI's ``main`` runs once ``load_datasets`` has read the splits, here on
+   128 seeded rows held in memory, a quarter at 44.1 or 48 kHz, 8 val and
+   8 test: 3 optimizer steps of 16 bucketed micro-batches, validation and
+   ``test_best``, with exact K1/K2 launches a micro-step and an eval batch,
+   frozen tensors bit-identical, trained tensors still between updates,
+   every distinct K1 and K2 launch shape of the run against the plain
+   version, then one traced optimizer step) and ``prefetch`` (bucketed batches
+   through ``prefetch_to_device`` equal on the card; 2 optimizer steps
+   with ``prefetch_batches`` 0 and 2).
 
 Each model is freed before the next one is built. It prints the kernel
 list, the card's name and power limit and, last,
@@ -92,6 +108,7 @@ list, the card's name and power limit and, last,
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -277,7 +294,11 @@ def attention_bound(b, h, tq, tk, d, dtype, causal, lengths, backward=False):
     return max(t_ops, t_mem) * 1e3, ("operations" if t_ops >= t_mem else "bytes"), flops, nbytes
 
 
-def check_attention_case(name, b, h, tq, tk, d, dtype, causal=False, lengths=None, seed=0):
+def check_attention_case(name, b, h, tq, tk, d, dtype, causal=False, lengths=None, seed=0,
+                         timed=True):
+    """The forward kernel against its plain version on the same tensors;
+    with ``timed``, also its times beside the plain version's, the
+    library's and the bound, logged. Returns the record."""
     from avsl_tpu_torch.kernels.attention import flash_attention_fwd_cuda, reference_attention
 
     gen = torch.Generator(device="cuda")
@@ -322,14 +343,16 @@ def check_attention_case(name, b, h, tq, tk, d, dtype, causal=False, lengths=Non
                 row_err = (got[bi].float() - mean_v[None]).abs().max().item()
                 if row_err > tol["atol"]:
                     raise AssertionError(f"{name}: length-0 row differs from mean(V) by {row_err:.3e}")
-    bound_ms, bound_by, flops, nbytes = attention_bound(b, h, tq, tk, d, dtype, causal, lengths)
     rec = {
         "case": name, "shape": {"B": b, "H": h, "Tq": tq, "Tk": tk, "D": d},
         "dtype": str(dtype).replace("torch.", ""), "causal": causal, "lengths": lengths,
         "max_abs_err": err.max().item(), "tolerance": tol,
-        **timings(kernel, plain, library), "bound_ms": bound_ms, "bound_by": bound_by,
-        "flops": flops, "bytes": nbytes,
     }
+    if not timed:
+        return rec
+    bound_ms, bound_by, flops, nbytes = attention_bound(b, h, tq, tk, d, dtype, causal, lengths)
+    rec.update(**timings(kernel, plain, library), bound_ms=bound_ms, bound_by=bound_by,
+               flops=flops, bytes=nbytes)
     rec["kernel_tflops"] = flops / rec["kernel_ms"] / 1e9
     if isinstance(rec["kernel_device_ms"], float):
         rec["kernel_device_tflops"] = flops / rec["kernel_device_ms"] / 1e9
@@ -429,12 +452,13 @@ def bwd_magnitudes(q, k, v, o, g, lens, causal):
 
 
 def check_attention_bwd_case(name, b, h, tq, tk, d, dtype, causal=False, lengths=None, seed=0,
-                             magnitude=False):
+                             magnitude=False, timed=True):
     """The backward kernel against its plain version on the same tensors
-    (dQ, dK, dV), with times (CUDA events, median of 20), the backward of
-    scaled_dot_product_attention as the yardstick, and the bound. With
-    ``magnitude`` the bf16 limit adds ``BF16_MAGNITUDE`` times each
-    element's magnitude sum (:func:`bwd_magnitudes`)."""
+    (dQ, dK, dV); with ``timed``, also times (CUDA events, median of 20),
+    the backward of scaled_dot_product_attention as the yardstick, and the
+    bound, logged. With ``magnitude`` the bf16 limit adds
+    ``BF16_MAGNITUDE`` times each element's magnitude sum
+    (:func:`bwd_magnitudes`). Returns the record."""
     from avsl_tpu_torch.kernels.attention import (
         flash_attention_bwd_cuda,
         flash_attention_fwd_cuda,
@@ -452,14 +476,6 @@ def check_attention_bwd_case(name, b, h, tq, tk, d, dtype, causal=False, lengths
     def plain():
         heads = (t.transpose(1, 2) for t in (q, k, v, o, g))
         return [t.transpose(1, 2) for t in reference_attention_bwd(*heads, lens, causal)]
-
-    qh, kh, vh = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
-    mask = None
-    if lens is not None:
-        mask = (torch.arange(tk, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
-    lib_out = torch.nn.functional.scaled_dot_product_attention(
-        qh, kh, vh, attn_mask=mask, is_causal=causal)
-    gh = g.transpose(1, 2)
 
     def library():
         return torch.autograd.grad(lib_out, (qh, kh, vh), gh, retain_graph=True)
@@ -488,9 +504,19 @@ def check_attention_bwd_case(name, b, h, tq, tk, d, dtype, causal=False, lengths
         if not bool((err <= limit).all()):
             raise AssertionError(f"{name}: kernel {key} vs plain max_abs_err "
                                  f"{rec[f'{key}_max_abs_err']:.3e} over {rec['tolerance']}")
+    rec["max_abs_err"] = worst
+    if not timed:
+        return rec
+    qh, kh, vh = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+    mask = None
+    if lens is not None:
+        mask = (torch.arange(tk, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
+    lib_out = torch.nn.functional.scaled_dot_product_attention(
+        qh, kh, vh, attn_mask=mask, is_causal=causal)
+    gh = g.transpose(1, 2)
     bound_ms, bound_by, flops, nbytes = attention_bound(
         b, h, tq, tk, d, dtype, causal, lengths, backward=True)
-    rec.update({"max_abs_err": worst, **timings(kernel, plain, library),
+    rec.update({**timings(kernel, plain, library),
                 "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops, "bytes": nbytes})
     rec["kernel_tflops"] = flops / rec["kernel_ms"] / 1e9
     if isinstance(rec["kernel_device_ms"], float):
@@ -683,6 +709,66 @@ def run_counted(fn):
         attention.flash_attention_fwd_cuda = unwrapped
     return (result, seconds, attention.fused_attention.launches, sum(stats_writes),
             attention.fused_attention_bwd.launches)
+
+
+@contextlib.contextmanager
+def launch_shapes(seen: dict):
+    """Within the block, record each distinct K1 (``"fwd"``) and K2
+    (``"bwd"``) launch signature ``(kind, B, H, Tq, Tk, D, dtype, causal,
+    has lengths)`` in ``seen``, mapped to the key lengths of its first
+    launch (cloned on the device and read afterwards, so the hooks add no
+    host sync). The launches themselves and their counts are unchanged."""
+    from avsl_tpu_torch.kernels import attention
+
+    fwd, bwd = attention.flash_attention_fwd_cuda, attention.flash_attention_bwd_cuda
+
+    def note(kind, q, k, lengths, causal):
+        b, tq, h, d = q.shape
+        key = (kind, b, h, tq, k.shape[1], d, q.dtype, bool(causal), lengths is not None)
+        if key not in seen:
+            seen[key] = None if lengths is None else torch.as_tensor(lengths).clone()
+
+    def fwd_hook(q, k, v, lengths=None, causal=False, stats=False):
+        note("fwd", q, k, lengths, causal)
+        return fwd(q, k, v, lengths, causal, stats=stats)
+
+    def bwd_hook(q, k, v, o, do, m, l, lengths=None, causal=False):
+        note("bwd", q, k, lengths, causal)
+        return bwd(q, k, v, o, do, m, l, lengths, causal)
+
+    attention.flash_attention_fwd_cuda, attention.flash_attention_bwd_cuda = fwd_hook, bwd_hook
+    try:
+        yield seen
+    finally:
+        attention.flash_attention_fwd_cuda, attention.flash_attention_bwd_cuda = fwd, bwd
+
+
+def check_launch_shapes(seen: dict) -> dict:
+    """Hold K1 and K2 against their plain versions at every distinct
+    launch signature in ``seen`` (:func:`launch_shapes`), on seeded inputs
+    of that shape and with the launch's key lengths, within the timed
+    cases' tolerances (the magnitude term where those use it: causal with
+    key lengths, or D = 128). The shapes are the ones a run gave the
+    kernels, every bucket and micro-batch size included. Returns, per
+    kernel, the count of shapes, the worst error, and the batch sizes and
+    query and key lengths they span."""
+    out = {}
+    for kind, check in (("fwd", check_attention_case), ("bwd", check_attention_bwd_case)):
+        keys = sorted((k for k in seen if k[0] == kind), key=str)
+        worst, shapes = 0.0, []
+        for key in keys:
+            _, b, h, tq, tk, d, dtype, causal, has_len = key
+            lengths = None if seen[key] is None else seen[key].tolist()
+            extra = {"magnitude": (causal and has_len) or d == 128} if kind == "bwd" else {}
+            rec = check(f"path_{kind}_{b}x{h}x{tq}x{tk}x{d}", b, h, tq, tk, d, dtype,
+                        causal=causal, lengths=lengths, timed=False, **extra)
+            worst = max(worst, rec["max_abs_err"])
+            shapes.append([b, h, tq, tk, d, str(dtype).replace("torch.", ""), causal, has_len])
+        out[kind] = {"shapes": len(keys), "max_abs_err": worst,
+                     "batch_sizes": sorted({s[0] for s in shapes}),
+                     "query_lengths": sorted({s[2] for s in shapes}),
+                     "key_lengths": sorted({s[3] for s in shapes}), "all": shapes}
+    return out
 
 
 def check_served(results, n_items: int, max_new: int) -> None:
@@ -1774,17 +1860,428 @@ def flamingo_kernel_excess(fwd_cases, bwd_cases, accum: int, layers: int = 32) -
     from the kernel cases at its shapes: K1 in the Whisper encoder once a
     micro-step (case f) or once a step over every item (hoisted, case q),
     and in the decoder's self, cross and x_attn (cases o, p, n) a
-    micro-step; K2 in the same three (cases j, k, i)."""
-    fwd = {c["case"]: c["kernel_device_ms"] - c["bound_ms"] for c in fwd_cases}
-    bwd = {c["case"]: c["kernel_device_ms"] - c["bound_ms"] for c in bwd_cases}
-    dec_fwd = (fwd["n_flamingo_x_attn"] + fwd["o_flamingo_decoder_self_causal"]
-               + fwd["p_flamingo_cross"])
-    dec_bwd = (bwd["i_flamingo_x_attn"] + bwd["j_flamingo_decoder_self_causal"]
-               + bwd["k_flamingo_cross"])
+    micro-step; K2 in the same three (cases j, k, i). A sum over a case
+    whose device time the trace missed is "not measured"."""
+    by_name = {("k1", c["case"]): c for c in fwd_cases}
+    by_name.update({("k2", c["case"]): c for c in bwd_cases})
+
+    def excess(kernel, *terms):
+        total = 0.0
+        for weight, name in terms:
+            c = by_name[(kernel, name)]
+            if not isinstance(c["kernel_device_ms"], float):
+                return "not measured"
+            total += weight * (c["kernel_device_ms"] - c["bound_ms"])
+        return total
+
     per_step = layers * accum
-    return {"k1_in_scan_ms": per_step * (fwd["f_train_encoder_bf16"] + dec_fwd),
-            "k1_hoisted_ms": layers * fwd["q_hoisted_whisper_encoder"] + per_step * dec_fwd,
-            "k2_ms": per_step * dec_bwd}
+    k1_dec = [(per_step, n) for n in ("n_flamingo_x_attn", "o_flamingo_decoder_self_causal",
+                                      "p_flamingo_cross")]
+    k2_dec = [(per_step, n) for n in ("i_flamingo_x_attn", "j_flamingo_decoder_self_causal",
+                                      "k_flamingo_cross")]
+    return {"k1_in_scan_ms": excess("k1", (per_step, "f_train_encoder_bf16"), *k1_dec),
+            "k1_hoisted_ms": excess("k1", (layers, "q_hoisted_whisper_encoder"), *k1_dec),
+            "k2_ms": excess("k2", *k2_dec)}
+
+
+# the dataset path: 8 x 10 s clips at each native rate resampled to 16 kHz,
+# card against CPU and against float64 scipy upfirdn with the same taps
+RESAMPLE_RATES = (44100, 48000, 8000)
+RESAMPLE_ITEMS, RESAMPLE_SECONDS = 8, 10
+RESAMPLE_TOL = 1e-5
+# rows as cli/finetune's load_datasets gives them (train, val, test), fed in
+# memory: the card's machine has no `datasets` package and no OpenCV
+DATASET_ROWS = (128, 8, 8)
+DATASET_STEPS = 3
+# tiny Flamingo under MultiSteps: bucketed micro-batches of these sizes
+MULTISTEPS_SIZES = (3, 1, 2, 4, 2, 3)
+
+
+def resample_golden(x, up: int, down: int, taps):
+    """The resampler's function in float64 from scipy's ``upfirdn`` with the
+    same taps: zero-stuff, convolve, decimate; the taps are shifted so the
+    decimation lands on the centred FIR's outputs."""
+    from scipy.signal import upfirdn
+
+    half = (len(taps) - 1) // 2
+    shift = (-half) % down
+    h = np.concatenate([np.zeros(shift), np.asarray(taps, np.float64)])
+    start = (half + shift) // down
+    out_len = -(-x.shape[-1] * up // down)
+    return upfirdn(h, x.astype(np.float64), up, down, axis=-1)[..., start:start + out_len]
+
+
+def host_ms(fn, reps: int = 5) -> float:
+    """Median host time of ``fn`` in ms."""
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times)
+
+
+def phase_resample(card: str):
+    """``resample_poly`` on 8 x 10 s at 44.1, 48 and 8 kHz to 16 kHz: the
+    card against the CPU and against :func:`resample_golden`, each within
+    RESAMPLE_TOL, with the card's time (CUDA events) and the CPU's (host
+    clock) for the batch; then one 10 s item at 44.1 kHz on the CPU, the
+    cost the dataset pays per item."""
+    from avsl_tpu_torch.kernels.resample import _design_filter, resample_poly
+
+    rng = np.random.default_rng(12)
+    cases = []
+    for sr in RESAMPLE_RATES:
+        g = math.gcd(sr, 16000)
+        up, down = 16000 // g, sr // g
+        x = (0.3 * rng.standard_normal((RESAMPLE_ITEMS, RESAMPLE_SECONDS * sr))).astype(np.float32)
+        xc = torch.from_numpy(x).cuda()
+        got = resample_poly(xc, sr, 16000)
+        cpu = resample_poly(x, sr, 16000)
+        gold = resample_golden(x, up, down, _design_filter(up, down))
+        cases.append({"rate": sr, "up": up, "down": down, "shape": list(got.shape),
+                      "card_vs_cpu_max_abs_err": (got.cpu() - cpu).abs().max().item(),
+                      "card_vs_golden_max_abs_err": float(np.abs(got.cpu().numpy() - gold).max()),
+                      "card_ms": cuda_ms(lambda: resample_poly(xc, sr, 16000), reps=10),
+                      "cpu_ms": host_ms(lambda: resample_poly(x, sr, 16000), reps=3)})
+    item = (0.3 * rng.standard_normal(RESAMPLE_SECONDS * 44100)).astype(np.float32)
+    log({"phase": "resample", "card": card, "cases": cases, "tolerance": RESAMPLE_TOL,
+         "cpu_threads": torch.get_num_threads(),
+         "cpu_ms_one_10s_item_44k1": host_ms(lambda: resample_poly(item, 44100, 16000))})
+    bad = [c for c in cases if max(c["card_vs_cpu_max_abs_err"],
+                                   c["card_vs_golden_max_abs_err"]) > RESAMPLE_TOL]
+    if bad:
+        raise AssertionError(f"resample_poly off by more than {RESAMPLE_TOL}: {bad}")
+
+
+def _tiny_bucketed_batches(cfg, sizes=MULTISTEPS_SIZES):
+    """Collated tiny Flamingo micro-batches of ``sizes`` items: labels of 6
+    tokens in 9, 10 lip frames with 4-10 real."""
+    rng = np.random.default_rng(9)
+    batches = []
+    for b in sizes:
+        labels = rng.integers(0, 300, size=(b, 9))
+        labels[:, 6:] = -100
+        batches.append({
+            "input_ids": rng.normal(size=(b, cfg.n_mels, 100)).astype(np.float32),
+            "dec_input_ids": rng.integers(0, 300, size=(b, 9)), "labels": labels,
+            "video": rng.normal(size=(b, 10, 88, 88, 1)).astype(np.float32),
+            "video_mask": np.arange(10) < rng.integers(4, 11, size=(b, 1)),
+        })
+    return batches
+
+
+def phase_multisteps_small(out_dir: str):
+    """The tiny Whisper-Flamingo model (every rate 0, fp32, BatchNorm on
+    batch statistics) trained through ``cli.finetune.make_runner`` with
+    ``cross_batch``: MultiSteps with accumulation 2 over micro-batches of
+    3, 1, 2, 4, 2 and 3 items, on the card (K1 + K2) and on the CPU from
+    the same weights. After every micro-step: loss and grad_norm within
+    the tiny train tolerance, the trained tensors within it too, and
+    unchanged after the odd micro-steps on both."""
+    import os
+
+    from avsl_tpu_torch.cli import finetune
+    from avsl_tpu_torch.core.config import FlamingoTrainConfig
+    from avsl_tpu_torch.data.tokenizer import get_tokenizer
+
+    tol = SMALL_FLAMINGO_TOL
+    tcfg = FlamingoTrainConfig(learning_rate=1e-3, warmup_steps=1, num_train_steps=10,
+                               gradient_accumulation_steps=2, add_gated_x_attn=1,
+                               prob_use_av=1.0, prob_use_a=0.5, spec_augment=None,
+                               freeze_video_batch_norm_stats=False)
+    card, cfg = _tiny_flamingo("cuda")
+    cpu, _ = _tiny_flamingo("cpu")
+    cpu.load_state_dict(card.state_dict())
+    runners = [finetune.make_runner(tcfg, m, get_tokenizer(None, "en"),
+                                    log_dir=os.path.join(out_dir, f"ms_{i}"),
+                                    ckpt_dir=os.path.join(out_dir, f"ms_{i}", "ckpt"),
+                                    cross_batch=True)
+               for i, m in enumerate((card, cpu))]
+    if any(r.accum != 1 or r.hoisted for r in runners):
+        raise AssertionError("cross-batch accumulation took the in-batch path")
+    steps, moved, param_err, ok = [], [], 0.0, True
+    for batch in _tiny_bucketed_batches(cfg):
+        got, moves = [], []
+        for r in runners:
+            opt = r.state.optimizer
+            before = [p.detach().clone() for p in opt.params]
+            r.state, metrics = r.train_step(r.state, batch)
+            got.append({k: float(v) for k, v in metrics.items()})
+            moves.append(any(not torch.equal(a, p) for a, p in zip(before, opt.params)))
+        steps.append({"items": int(batch["labels"].shape[0]), "card": got[0], "cpu": got[1]})
+        moved.append(moves)
+        for a, b in zip(*(r.state.optimizer.params for r in runners)):
+            a, b = a.detach().cpu(), b.detach()
+            param_err = max(param_err, (a - b).abs().max().item())
+            ok = ok and bool(((a - b).abs() <= tol["atol"] + tol["rtol"] * b.abs()).all())
+    rel = max(abs(st["card"][k] - st["cpu"][k]) / abs(st["cpu"][k])
+              for st in steps for k in ("loss", "grad_norm"))
+    counts = [r.state.optimizer.count for r in runners]
+    log({"phase": "multisteps_small", "steps": steps, "moved": moved,
+         "metric_max_rel_err": rel, "trained_max_abs_err": param_err, "updates": counts,
+         "tolerance": tol})
+    # updates on micro-steps 2, 4 and 6; the first has learning rate 0
+    want_moved = [[i in (3, 5)] * 2 for i in range(len(steps))]
+    if moved != want_moved or counts != [3, 3]:
+        raise AssertionError(f"MultiSteps moved the parameters at {moved}, updates {counts}")
+    if rel > tol["rtol"] or not ok:
+        raise AssertionError(f"tiny MultiSteps card-vs-cpu: metrics {rel:.3e}, "
+                             f"parameters {param_err:.3e}")
+
+
+def dataset_rows(n: int, seed: int):
+    """Rows as a dataset on disk holds them: 0.5-10 s of noise as int16 PCM,
+    about a quarter at 44.1 or 48 kHz (resampled inside the dataset) and
+    the rest at 16 kHz, a transcript of 20-200 characters of meeting
+    vocabulary, the duration, and no lip clip (one zero frame an item)."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for _ in range(n):
+        dur = float(rng.uniform(0.5, 10.0))
+        sr = int(rng.choice([44100, 48000])) if rng.random() < 0.25 else 16000
+        pcm = (0.1 * 32767 * rng.standard_normal(int(dur * sr))).astype(np.int16)
+        rows.append({"audio": {"array": pcm, "sampling_rate": sr},
+                     "transcript": _word_transcript(rng, int(rng.integers(20, 201))),
+                     "duration": dur, "lip_video": None})
+    return rows
+
+
+def observe_steps(runner, records: list):
+    """Wrap ``runner.train_step``: each micro-step synchronised and timed
+    on the host clock, its peak device memory, the batch's items, padded
+    video frames and label tokens, the loss, whether the optimizer
+    updated, and on the other micro-steps whether the trained tensors
+    stayed bit-identical (against a device copy taken at each update).
+    Returns the unwrapped step."""
+    opt, plain = runner.state.optimizer, runner.train_step
+    snapshot = [p.detach().clone() for p in opt.params]
+
+    def step(state, batch):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        state, metrics = plain(state, batch)
+        loss = float(metrics["loss"])
+        end = time.perf_counter()
+        updated = opt.mini_step == 0
+        if updated:
+            torch._foreach_copy_(snapshot, [p.detach() for p in opt.params])
+        labels = batch["labels"]
+        records.append({
+            "items": int(labels.shape[0]), "video_frames": int(batch["video"].shape[1]),
+            "label_tokens": int((torch.as_tensor(labels) >= 0).sum()), "loss": loss,
+            "grad_norm": float(metrics["grad_norm"]), "updated": updated,
+            "unchanged": None if updated else all(
+                torch.equal(a, p) for a, p in zip(snapshot, opt.params)),
+            "seconds": end - t, "end": end, "peak_bytes": torch.cuda.max_memory_allocated()})
+        return state, metrics
+
+    runner.train_step = step
+    return plain
+
+
+def optimizer_steps(records: list, t_start: float) -> list:
+    """Per optimizer update: wall seconds since the previous update ended
+    (data preparation included), the micro-steps' own seconds, items,
+    label tokens and the mean micro-batch loss."""
+    out, prev, cur = [], t_start, []
+    for r in records:
+        cur.append(r)
+        if r["updated"]:
+            wall = r["end"] - prev
+            items = sum(c["items"] for c in cur)
+            tokens = sum(c["label_tokens"] for c in cur)
+            out.append({"seconds": wall, "step_seconds": sum(c["seconds"] for c in cur),
+                        "micro_batches": len(cur), "items": items, "label_tokens": tokens,
+                        "segments_per_s": items / wall, "label_tokens_per_s": tokens / wall,
+                        "loss": statistics.mean(c["loss"] for c in cur)})
+            prev, cur = r["end"], []
+    return out
+
+
+def phase_flamingo_dataset_train(card: str, out_dir: str):
+    """Whisper-Flamingo fine-tuning on a dataset, at full width, through the
+    port's ``cli.finetune.make_job`` and ``run`` (what ``main`` calls once
+    ``load_datasets`` has run) on the training YAML: large-v2 + AV-HuBERT
+    large, bf16 compute, batch 1 under a token budget of 1000 frames, so
+    micro-batches of 1 to 10 items, accumulation 16 through MultiSteps.
+    128 seeded train rows (a quarter at 44.1 or 48 kHz), 8 val and 8 test;
+    3 optimizer steps (48 micro-batches), validation once at the end,
+    ``test_best`` on the test rows. Gates: K1 and K2 launches equal to the
+    count per micro-step and per eval batch, frozen tensors bit-identical,
+    trained tensors unchanged on the micro-steps that do not update,
+    exactly 3 updates, and K1 and K2 against their plain versions at every
+    distinct shape the run launched them at. Then one more optimizer step
+    traced. Returns the job (for the prefetch phase) and the launches."""
+    import collections
+    import itertools
+    import os
+    import shutil
+
+    from avsl_tpu_torch.cli import finetune
+    from avsl_tpu_torch.core.config import FlamingoTrainConfig
+    from avsl_tpu_torch.kernels.attention import fused_attention, fused_attention_bwd
+    from avsl_tpu_torch.train.optim import MultiSteps
+
+    cfg = FlamingoTrainConfig.from_yaml(TRAIN_CONFIG)
+    accum = int(cfg.gradient_accumulation_steps)
+    cfg.num_train_steps = DATASET_STEPS
+    cfg.validate_every_n_batches = DATASET_STEPS * accum  # once, at the end
+    cfg.num_sanity_val_steps = 0
+    cfg.log_output_dir = os.path.join(out_dir, "dataset_logs")
+    cfg.check_output_dir = os.path.join(out_dir, "dataset_ckpt")  # emptied after each run
+    n_train, n_val, n_test = DATASET_ROWS
+    rows = [dataset_rows(n, seed) for n, seed in zip(DATASET_ROWS, (20, 21, 22))]
+    t0 = time.perf_counter()
+    job = finetune.make_job(cfg, *rows, "cuda", vocab_size=LARGE_V2_VOCAB)
+    set_gates(job.model, GATE)
+    torch.cuda.synchronize()
+    runner, model = job.runner, job.model
+    opt = runner.state.optimizer
+    if not isinstance(opt, MultiSteps) or runner.accum != 1 or runner.hoisted:
+        raise AssertionError(f"the dataset path composed {type(opt).__name__}, runner "
+                             f"accumulation {runner.accum}, hoisted {runner.hoisted}")
+    named = dict(model.named_parameters())
+    trained = set(opt.names)
+    rates = collections.Counter(r["audio"]["sampling_rate"] for r in rows[0])
+    log({"phase": "build_flamingo_dataset_train", "params": sum(p.numel() for p in named.values()),
+         "trained_params": sum(named[n].numel() for n in trained),
+         "rows": list(DATASET_ROWS), "native_rates": dict(rates),
+         "batch_bins": (int(cfg.audio_max_length) // 160) * int(cfg.batch_size),
+         "accumulation": accum, "optimizer_steps": DATASET_STEPS,
+         "seconds": time.perf_counter() - t0})
+    frozen_before = {n: p.detach().to("cpu", copy=True) for n, p in named.items()
+                     if n not in trained}
+    records, eval_calls = [], []
+    plain_step = observe_steps(runner, records)
+    plain_eval = runner.eval_logits_fn
+
+    def counted_eval(state, batch):
+        eval_calls.append(int(np.asarray(batch["labels"]).shape[0]))
+        return plain_eval(state, batch)
+
+    runner.eval_logits_fn = counted_eval
+    seen: dict = {}
+    with launch_shapes(seen):
+        fused_attention.launches = fused_attention_bwd.launches = 0
+        t_run = time.perf_counter()
+        result = finetune.run(job)
+        run_seconds = time.perf_counter() - t_run
+        k1, k2 = fused_attention.launches, fused_attention_bwd.launches
+    steps = optimizer_steps(records, t_run)
+    frozen_changed = [n for n, v in frozen_before.items() if not torch.equal(named[n].cpu(), v)]
+    del frozen_before
+    moved_early = [i for i, r in enumerate(records) if not r["updated"] and not r["unchanged"]]
+    by_size: dict = {}
+    for r in records:
+        by_size[r["items"]] = max(by_size.get(r["items"], 0), r["peak_bytes"])
+
+    # K1: the frozen Whisper encoder and the decoder's self, cross and
+    # x_attn in every micro-step (the tower trains with attention dropout,
+    # unfused); every eval batch also runs the tower's 24 layers on K1.
+    # K2: the decoder's three a micro-step.
+    enc, dec = model.cfg.n_audio_layer, 3 * model.cfg.n_text_layer
+    tower = model.video_model.cfg.num_hidden_layers
+    micro = len(records)
+    want_k1 = (enc + dec) * micro + (enc + tower + dec) * len(eval_calls)
+    want_k2 = dec * micro
+    log({"phase": "flamingo_dataset_train", "card": card, "optimizer_steps": steps,
+         "seconds_per_optimizer_step_median_2_3": statistics.median(
+             s["seconds"] for s in steps[1:]),
+         "segments_per_s_median_2_3": statistics.median(s["segments_per_s"] for s in steps[1:]),
+         "label_tokens_per_s_median_2_3": statistics.median(
+             s["label_tokens_per_s"] for s in steps[1:]),
+         "loss_per_optimizer_step": [s["loss"] for s in steps],
+         "micro_batch_items": dict(sorted(collections.Counter(r["items"] for r in records).items())),
+         "micro_batch_padded_frames": dict(sorted(collections.Counter(
+             4 * r["video_frames"] for r in records).items())),
+         "peak_bytes_by_items": dict(sorted(by_size.items())),
+         "max_memory_allocated_bytes": max(r["peak_bytes"] for r in records),
+         "trained_snapshot_bytes": sum(p.numel() * p.element_size() for p in opt.params),
+         "run_seconds": run_seconds, "micro_steps": micro, "eval_batches": eval_calls,
+         "k1_launches": k1, "k2_launches": k2, "expected_k1": want_k1, "expected_k2": want_k2,
+         "k1_per_micro_step": enc + dec, "k2_per_micro_step": dec,
+         "k1_per_eval_batch": enc + tower + dec, "updates": opt.count,
+         "final_step": result["final_step"], "test": result.get("test"),
+         "frozen_tensors_changed": len(frozen_changed),
+         "trained_moved_before_update": moved_early})
+    if (k1, k2) != (want_k1, want_k2):
+        raise AssertionError(f"dataset path: launches K1 {k1} / K2 {k2} != {want_k1} / {want_k2}")
+    if frozen_changed or moved_early:
+        raise AssertionError(f"dataset path: {len(frozen_changed)} frozen tensors changed, "
+                             f"trained tensors moved on micro-steps {moved_early}")
+    if opt.count != DATASET_STEPS or sum(r["updated"] for r in records) != DATASET_STEPS \
+            or result["final_step"] != DATASET_STEPS * accum or "test" not in result:
+        raise AssertionError(f"dataset path: {opt.count} updates, final step "
+                             f"{result['final_step']}, test {'test' in result}")
+    if not all(math.isfinite(s["loss"]) for s in steps):
+        raise AssertionError(f"dataset path: non-finite loss {steps}")
+    shutil.rmtree(cfg.check_output_dir, ignore_errors=True)
+    log({"phase": "flamingo_dataset_launch_shapes", "card": card,
+         "tolerance": {"bf16": BF16_TOL, "fp32": FP32_TOL, "bwd_fp32": BWD_FP32_TOL},
+         **check_launch_shapes(seen)})
+
+    # one more optimizer step (16 micro-batches prepared first), traced
+    micro_batches = list(itertools.islice(
+        job.batches(job.train_ds, int(cfg.batch_size), True, 1), accum))
+
+    def one_step():
+        for b in micro_batches:
+            runner.state, metrics = plain_step(runner.state, b)
+        float(metrics["loss"])
+
+    log({"phase": "flamingo_dataset_traced_step", "card": card,
+         "items": sum(int(b["labels"].shape[0]) for b in micro_batches), **traced_run(one_step)})
+    runner.train_step, runner.eval_logits_fn = plain_step, plain_eval
+    return job, {"k1": k1, "k2": k2}
+
+
+def phase_prefetch(card: str, job):
+    """Bucketed batches through ``prefetch_to_device`` arrive on the card
+    equal to the host batches; then 2 optimizer steps (32 micro-batches)
+    of the dataset path through the runner's train step, fed by
+    ``cli.finetune.train_batches`` (what ``run`` feeds ``fit``) with
+    ``prefetch_batches`` 0 and then 2, each timed per optimizer step (no
+    gate on speed). ``fit`` itself is not called here: it closes with a
+    17.5 GB checkpoint of the state, which the dataset phase has already
+    written once, and the script keeps its disk writes small."""
+    import itertools
+
+    from avsl_tpu_torch.cli import finetune
+    from avsl_tpu_torch.data.prefetch import prefetch_to_device
+
+    cfg, runner = job.cfg, job.runner
+    host = list(itertools.islice(job.batches(job.train_ds, int(cfg.batch_size), True, 2), 6))
+    arrived = list(prefetch_to_device(iter(host), "cuda", size=2))
+    equal = len(arrived) == len(host) and all(
+        sorted(a) == sorted(h) and all(
+            a[k].device.type == "cuda" and torch.equal(a[k].cpu(), torch.as_tensor(h[k]))
+            for k in h)
+        for a, h in zip(arrived, host))
+    del arrived
+    n_micro = 2 * int(cfg.gradient_accumulation_steps)
+    runs = {}
+    for n_prefetch in (0, 2):
+        cfg.prefetch_batches = n_prefetch
+        records = []
+        plain = observe_steps(runner, records)
+        it = finetune.train_batches(job, 3)
+        t = time.perf_counter()
+        for batch in itertools.islice(it, n_micro):
+            runner.state, _ = runner.train_step(runner.state, batch)
+        it.close()
+        runner.train_step = plain
+        steps = optimizer_steps(records, t)
+        runs[n_prefetch] = {"optimizer_steps": steps,
+                            "seconds_per_optimizer_step": [s["seconds"] for s in steps],
+                            "segments_per_s": sum(s["items"] for s in steps)
+                            / sum(s["seconds"] for s in steps)}
+    cfg.prefetch_batches = 0
+    log({"phase": "prefetch", "card": card, "batches_equal_on_card": equal,
+         "batches_checked": len(host), "runs": runs})
+    if not equal:
+        raise AssertionError("prefetch_to_device changed or misplaced a batch")
 
 
 def _tiny_avhubert(head: str, device):
@@ -2189,6 +2686,7 @@ def main() -> int:
     phase_small_train_reference()
     phase_small_flamingo_train_reference()
     phase_small_avhubert_reference()
+    phase_resample(smi)
 
     def free():
         gc.collect()
@@ -2210,6 +2708,11 @@ def main() -> int:
             flamingo[hoisted] = phase_flamingo_train_main_path(
                 smi, fl_cfg, fl_tokenizer, fl_batches, out_dir, hoisted)
             free()
+        phase_multisteps_small(out_dir)
+        job, dataset_launches = phase_flamingo_dataset_train(smi, out_dir)
+        phase_prefetch(smi, job)
+        del job
+        free()
     log({"phase": "flamingo_kernel_excess", "card": smi,
          **flamingo_kernel_excess(fwd_cases, bwd_cases, int(fl_cfg.gradient_accumulation_steps))})
     avh_cli = phase_avhubert_cli(smi)
@@ -2236,6 +2739,7 @@ def main() -> int:
                "av_raw_serving": av_raw_launches, "training": train_launches["k1"],
                "flamingo_training": flamingo[False]["k1"],
                "flamingo_training_hoisted": flamingo[True]["k1"],
+               "flamingo_dataset_training": dataset_launches["k1"],
                "avhubert_cli_seq2seq": avh_cli["seq2seq"][0], "avhubert_cli_ctc": avh_cli["ctc"][0],
                "avhubert_training": avh["train"][0], "avhubert_eval": avh["eval"][0],
                "avhubert_ctc_eval": avh["ctc_eval"][0]}),
@@ -2245,6 +2749,7 @@ def main() -> int:
                "training": train_launches["k2"],
                "flamingo_training": flamingo[False]["k2"],
                "flamingo_training_hoisted": flamingo[True]["k2"],
+               "flamingo_dataset_training": dataset_launches["k2"],
                "avhubert_cli_seq2seq": avh_cli["seq2seq"][1], "avhubert_cli_ctc": avh_cli["ctc"][1],
                "avhubert_training": avh["train"][1], "avhubert_eval": avh["eval"][1],
                "avhubert_ctc_eval": avh["ctc_eval"][1]}),

@@ -5,7 +5,8 @@ audio-only entry point's loss (CPU).
   6 steps of batch 4 x accumulation min(YAML, 2), towers in the loop by
   default; with ``freeze_video_batch_norm_stats: true`` and accumulation 2
   it takes the frozen-tower hoist; what is not ported raises naming its
-  ROADMAP item, and the default device is the card;
+  ROADMAP item, a missing dataset raises, and the default device is the
+  card;
 * ``--ckpt_dir`` round trip: the transcriber restored from the trained
   run's checkpoints gives the trained model's logits exactly (the same
   fp32 weights and BatchNorm statistics through the same operations), and
@@ -90,8 +91,10 @@ def test_torch_finetune_smoke_hoists_with_frozen_batchnorm(tmp_path, recording):
 
 
 def test_torch_finetune_refuses_what_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 13"):
-        finetune.main([_yaml(tmp_path), "--device", "cpu"])
+    # without --smoke the datasets are read from disk: none there
+    with pytest.raises(FileNotFoundError, match="train dataset not found"):
+        finetune.main([_yaml(tmp_path, train_data_path=str(tmp_path / "none" / "train")),
+                       "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="item 12"):
         finetune.main([_yaml(tmp_path, lora_rank=4), "--smoke", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="item 12"):

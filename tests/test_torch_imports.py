@@ -35,6 +35,9 @@ def test_torch_port_imports_no_jax():
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert len(ALL_SUBMODULES) >= 20
+    # the dataset path's modules are among those imported
+    assert {"avsl_tpu_torch.kernels.resample", "avsl_tpu_torch.data.batching",
+            "avsl_tpu_torch.data.prefetch"} <= set(ALL_SUBMODULES)
 
 
 def test_torch_port_imports_no_cv2():

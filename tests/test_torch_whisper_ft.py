@@ -12,6 +12,7 @@ another order).
 
 import json
 import math
+import os
 
 import numpy as np
 import pytest
@@ -31,7 +32,9 @@ from avsl_tpu_torch.train import TrainState, flamingo_loss_fn, make_train_step, 
 from avsl_tpu_torch.train.checkpoints import (
     all_steps,
     latest_step,
+    pin_checkpoint,
     restore_checkpoint,
+    restore_params_only,
     save_checkpoint,
 )
 
@@ -49,8 +52,10 @@ def test_torch_whisper_ft_smoke_trains_with_accumulation_and_beam_evals(tmp_path
     assert latest_step(str(out / "ckpt")) == 4
 
 
-def test_torch_whisper_ft_refuses_real_datasets_and_missing_cuda(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 13"):
+def test_torch_whisper_ft_refuses_real_datasets_and_missing_cuda(tmp_path, monkeypatch):
+    # without --smoke the datasets are read from disk: none under tmp_path
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(FileNotFoundError, match="dataset not found"):
         whisper_ft.main(["--device", "cpu", "--do_train", "--output_dir", str(tmp_path)])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
@@ -165,3 +170,22 @@ def test_torch_eval_step_is_the_deterministic_loss():
                                     torch.from_numpy(batch["dec_input_ids"]))
     want = cross_entropy_loss(logits, torch.from_numpy(batch["labels"]))
     assert float(first) == float(want)
+
+
+def test_torch_pin_checkpoint_outlives_the_rolling_directory(tmp_path):
+    """The best step is linked, not written again: the same file, which
+    keeps its contents after the rolling directory replaces and drops it."""
+    state, _ = _tiny_state()
+    rolling, best = str(tmp_path / "rolling"), str(tmp_path / "best")
+    save_checkpoint(rolling, state, 1, max_to_keep=1)
+    pinned = pin_checkpoint(rolling, best, 1)
+    assert os.path.samefile(pinned, os.path.join(rolling, "step_1.pt"))
+    want = {k: v.clone() for k, v in state.model.state_dict().items()}
+    with torch.no_grad():
+        for p in state.model.parameters():
+            p.add_(1.0)
+    save_checkpoint(rolling, state, 1, max_to_keep=1)  # replaces step 1 by name
+    save_checkpoint(rolling, state, 2, max_to_keep=1)  # and drops it
+    assert all_steps(rolling) == [2] and all_steps(best) == [1]
+    got = restore_params_only(best, 1)
+    assert all(torch.equal(got[k], v) for k, v in want.items())
