@@ -1,10 +1,11 @@
 """Transcriber construction for the port's serving CLI: tokenizer, model
 build on the device, checkpoint restore, and the StreamingTranscriber.
 
-Port of the parts of ``avsl_tpu/cli/_serving_common.py`` that
-``cli/transcribe.py`` needs. Without ``--ckpt_dir`` the model has seeded
-random weights; with it, the latest checkpoint a trainer wrote there
-(an empty directory exits rather than serve random weights).
+Port of ``avsl_tpu/cli/_serving_common.py`` for ``cli/transcribe.py`` and
+``cli/serve.py``. Without ``--ckpt_dir`` the model has seeded random
+weights; with it, the latest checkpoint a trainer wrote there (an empty
+directory exits rather than serve random weights). The serving options of
+later work raise before any model is built, naming their item.
 """
 
 from __future__ import annotations
@@ -48,10 +49,37 @@ def serving_video_frames(audio_max_length: int) -> int:
     return min(int(round(audio_max_length / 16000 * 25)), 250)
 
 
+def refuse_unported(args) -> None:
+    """Raise for the serving flags whose modules are not ported yet, each
+    mapped onto its transcriber option in ``infer.pipeline.UNPORTED``,
+    before any model is built."""
+    from avsl_tpu_torch.infer.pipeline import not_ported
+
+    asked = [
+        ("quantize", "--quantize", getattr(args, "quantize", None) is not None),
+        ("kv_int8", "--kv_int8", bool(getattr(args, "kv_int8", False))),
+        ("draft_model", "--draft_model/--draft_ckpt/--spec_k",
+         bool(getattr(args, "draft_model", None) or getattr(args, "draft_ckpt", None))
+         or getattr(args, "spec_k", None) is not None),
+        ("mesh", "--model_parallel/--data_parallel",
+         (getattr(args, "model_parallel", 1) or 1) > 1
+         or (getattr(args, "data_parallel", 1) or 1) > 1),
+    ]
+    for option, flags, bad in asked:
+        if bad:
+            raise not_ported(option, flags)
+
+
+def parse_temperatures(text: str):
+    """``"0.2,0.4"`` -> (0.2, 0.4); empty -> ()."""
+    return tuple(float(t) for t in (text or "").split(",") if t.strip())
+
+
 def build_transcriber(args, cfg):
     from avsl_tpu_torch.data.tokenizer import get_tokenizer
     from avsl_tpu_torch.infer.pipeline import StreamingTranscriber
 
+    refuse_unported(args)
     smoke = bool(getattr(args, "smoke", False))
     tokenizer = get_tokenizer(getattr(cfg, "download_root", None), cfg.lang)
     model, _ = build_target_model(
@@ -65,6 +93,9 @@ def build_transcriber(args, cfg):
         max_new_tokens=args.max_new_tokens,
         beam_size=args.beam,
         lang=cfg.lang,
+        temperature_fallback=parse_temperatures(getattr(args, "temperature_fallback", "")),
+        logprob_threshold=getattr(args, "logprob_threshold", -1.0),
+        word_timestamps=bool(getattr(args, "word_timestamps", False)),
     )
 
 

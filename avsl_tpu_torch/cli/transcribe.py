@@ -4,7 +4,7 @@ Usage: ``python -m avsl_tpu_torch.cli.transcribe --input <dir-or-csv>
 [--config cfg.yaml] [--ckpt_dir dir] [--device cuda] [--output out.json]
 [--smoke]``
 
-Port of ``avsl_tpu/cli/transcribe.py`` for greedy decoding: audio wavs
+Port of ``avsl_tpu/cli/transcribe.py``: audio wavs
 with optional lip mp4s (``<stem>-lip.mp4``) or, without one, raw closeups
 (``<stem>-video.mp4``, lip-cropped by the transcriber's default
 ``host_refined`` mode, which needs OpenCV), missing-modality robust.
@@ -13,6 +13,9 @@ Without ``--config`` the model is the JAX CLI's default,
 and gated cross-attention (``--smoke``: the tiny test model).
 ``--ckpt_dir`` serves the latest checkpoint a trainer (``cli/finetune.py``)
 wrote there; without it the weights are seeded random.
+``--temperature_fallback 0.2,0.4`` re-decodes low-confidence items by
+sampling, ``--word_timestamps`` adds each row's ``words``, and
+``--detect_language`` its ``language`` and ``language_prob``.
 """
 
 from __future__ import annotations
@@ -59,6 +62,31 @@ def collect_items(input_path: str) -> List[Dict[str, Any]]:
     return items
 
 
+def add_languages(out: List[Dict[str, Any]], items, transcriber, audio_max_length: int,
+                  batch: int) -> None:
+    """Each row's most likely language and its probability, a batch of
+    ``batch`` clips at a time (the last padded with the first clip)."""
+    import numpy as np
+
+    from avsl_tpu_torch.data.audio_segments import load_wav
+    from avsl_tpu_torch.decode.language import detect_language
+    from avsl_tpu_torch.kernels.logmel import pad_or_trim
+
+    clips = np.stack([
+        pad_or_trim(np.asarray(load_wav(it["audio"]) if isinstance(it["audio"], str)
+                               else it["audio"], np.float32), audio_max_length)
+        for it in items
+    ])
+    for start in range(0, len(items), batch):
+        idx = np.arange(start, min(start + batch, len(items)))
+        pad = np.concatenate([idx, np.zeros(batch - len(idx), np.int64)])
+        dets = detect_language(transcriber.model, transcriber.tokenizer, clips[pad])
+        for j, i in enumerate(idx):
+            best, table = dets[j]
+            out[i]["language"] = best
+            out[i]["language_prob"] = round(table[best], 4)
+
+
 def main(argv: Optional[List[str]] = None) -> List[Dict[str, Any]]:
     from avsl_tpu_torch.core.config import FlamingoTrainConfig
 
@@ -70,6 +98,11 @@ def main(argv: Optional[List[str]] = None) -> List[Dict[str, Any]]:
     p.add_argument("--batch_size", type=int, default=8)
     p.add_argument("--max_new_tokens", type=int, default=64)
     p.add_argument("--output", default=None)
+    p.add_argument("--temperature_fallback", default="", help="comma list, e.g. 0.2,0.4")
+    p.add_argument("--logprob_threshold", type=float, default=-1.0)
+    p.add_argument("--word_timestamps", action="store_true")
+    p.add_argument("--detect_language", action="store_true",
+                   help="attach a per-item spoken-language posterior (decode/language.py)")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the plain PyTorch path")
     p.add_argument("--smoke", action="store_true")
@@ -90,9 +123,12 @@ def main(argv: Optional[List[str]] = None) -> List[Dict[str, Any]]:
     results = transcriber.transcribe(items)
     out = [
         {"id": r.id, "text": r.text, "has_video": r.has_video,
-         "avg_logprob": r.avg_logprob}
+         "avg_logprob": r.avg_logprob,
+         **({"words": r.words} if r.words is not None else {})}
         for r in results
     ]
+    if args.detect_language:
+        add_languages(out, items, transcriber, int(cfg.audio_max_length), args.batch_size)
     if args.output:
         with open(args.output, "w") as f:
             json.dump(out, f, indent=2)

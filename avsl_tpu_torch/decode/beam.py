@@ -13,8 +13,10 @@ beams therefore gathers every cache tensor into a new tensor (never a
 view of the old one) and carries the integers through unchanged.
 
 Generic over models: ``step_fn(tokens [N, L], cache) -> (logits [N, L, V],
-cache)``. Contextual biasing (``biasing``) waits for
-``decode/biasing.py`` (ROADMAP.md queue 1, item 11).
+cache)``. With ``biasing`` (a :class:`~.biasing.BiasingTrie`) each beam
+carries a trie state, reordered with the beams, and the boost joins the
+scores before every top-k; it drives the ranking only, and the returned
+score is the model's own length-normalised log-probability.
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ from __future__ import annotations
 from typing import Any, Callable, Tuple
 
 import torch
+
+from avsl_tpu_torch.decode.biasing import bias_adjust, bias_advance
 
 NEG_INF = -1.0e9
 
@@ -64,12 +68,8 @@ def beam_search(
     hypotheses best-first ([B, K, max_new_tokens], [B, K]).
 
     ``cache`` has batch dim B (it is tiled to B*K here); ``init_tokens``
-    [B, L0] is the prompt fed once to warm the cache."""
-    if biasing is not None:
-        raise NotImplementedError(
-            "biasing: contextual phrase boosting is not ported yet "
-            "(ROADMAP.md queue 1, item 11: decode/biasing.py)"
-        )
+    [B, L0] is the prompt fed once to warm the cache. With ``biasing`` the
+    boost ranks the beams and the scores stay unbiased."""
     b = init_tokens.shape[0]
     k = beam_size
 
@@ -77,12 +77,21 @@ def beam_search(
     log_probs = torch.log_softmax(logits[:, -1].float(), dim=-1)
     vocab = log_probs.shape[-1]
     device = log_probs.device
+    raw_log_probs = log_probs
+    root = torch.zeros((b,), dtype=torch.int64, device=device)
+    if biasing is not None:
+        log_probs = log_probs + bias_adjust(biasing, root)
     scores, first_tokens = torch.topk(log_probs, k, dim=-1)  # [B, K]
+    # the unbiased cumulative log-prob of each beam: the reported score
+    true_scores = torch.gather(raw_log_probs, 1, first_tokens)
     cache = _tile_beams(cache, k)
 
     seqs = torch.full((b, k, max_new_tokens), eot_id, dtype=torch.int64, device=device)
     seqs[:, :, 0] = first_tokens
     finished = first_tokens == eot_id
+    nodes = None
+    if biasing is not None:
+        nodes = bias_advance(biasing, root[:, None].expand(b, k), first_tokens)
     eot_only = torch.full((vocab,), NEG_INF, device=device)
     eot_only[eot_id] = 0.0
     batch_offset = (torch.arange(b, device=device) * k)[:, None]
@@ -92,24 +101,35 @@ def beam_search(
         lp = torch.log_softmax(logits[:, -1].float(), dim=-1).reshape(b, k, vocab)
         # finished beams may only extend with EOT at zero added score
         lp = torch.where(finished[:, :, None], eot_only, lp)
+        lp_raw = lp
+        if biasing is not None:
+            # finished beams sit at the root, where the boost of EOT is 0
+            lp = lp + bias_adjust(biasing, nodes)
         total = scores[:, :, None] + lp  # [B, K, V]
         scores, flat_idx = torch.topk(total.reshape(b, k * vocab), k, dim=-1)
         beam_src = flat_idx // vocab  # [B, K] source beam
         new_tok = flat_idx % vocab
+        true_scores = (torch.gather(true_scores, 1, beam_src)
+                       + torch.gather(lp_raw.reshape(b, k * vocab), 1, flat_idx))
         seqs = torch.gather(seqs, 1, beam_src[:, :, None].expand(-1, -1, max_new_tokens))
         seqs[:, :, i] = new_tok
         cache = _gather_beams(cache, (batch_offset + beam_src).reshape(-1))
         finished = torch.gather(finished, 1, beam_src) | (new_tok == eot_id)
+        if biasing is not None:
+            nodes = bias_advance(biasing, torch.gather(nodes, 1, beam_src), new_tok)
         last, i = new_tok, i + 1
 
     # length-normalised selection, counting tokens up to and including EOT;
     # a beam that never emitted EOT counts max_new_tokens
     lengths = ((seqs == eot_id).cumsum(-1) == 0).sum(-1) + 1
     lengths = lengths.clamp(max=max_new_tokens)
-    norm = scores / lengths.float().pow(length_penalty)
+    denom = lengths.float().pow(length_penalty)
+    norm = scores / denom  # biased: ranks only
+    norm_true = true_scores / denom  # unbiased: the reported score
     if return_nbest:
         order = torch.argsort(-norm, dim=1, stable=True)
         nbest = torch.gather(seqs, 1, order[:, :, None].expand(-1, -1, max_new_tokens))
-        return nbest, torch.gather(norm, 1, order)
+        return nbest, torch.gather(norm_true, 1, order)
     best = torch.argmax(norm, dim=1)
-    return seqs[torch.arange(b, device=device), best], norm[torch.arange(b, device=device), best]
+    rows = torch.arange(b, device=device)
+    return seqs[rows, best], norm_true[rows, best]

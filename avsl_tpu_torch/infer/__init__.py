@@ -1,5 +1,15 @@
 """Serving path of the port."""
 
+from avsl_tpu_torch.infer.longform import LongFormResult, LongSegment
 from avsl_tpu_torch.infer.pipeline import StreamingTranscriber, TranscribeResult
+from avsl_tpu_torch.infer.server import TranscriptionServer
+from avsl_tpu_torch.infer.streaming import StreamingSession
 
-__all__ = ["StreamingTranscriber", "TranscribeResult"]
+__all__ = [
+    "LongFormResult",
+    "LongSegment",
+    "StreamingSession",
+    "StreamingTranscriber",
+    "TranscribeResult",
+    "TranscriptionServer",
+]

@@ -12,7 +12,22 @@ batched beam search with its length-normalised score. The model runs in
 eval mode whatever mode the caller left it in (the JAX transcriber always
 serves deterministically), and gets its mode back afterwards.
 ``transcribe`` prepares batch N+1 on a producer thread while the device
-runs batch N.
+runs batch N; ``transcribe_long`` splits items of any length into windows
+(``infer/longform.py``).
+
+The serving options of the JAX transcriber: ``boost_phrases`` (a biasing
+trie in every decode, ``decode/biasing.py``); ``temperature_fallback``,
+which re-decodes the whole batch by temperature sampling while an item's
+mean log-probability is below ``logprob_threshold`` or its text
+compresses above ``compression_ratio_threshold``, adopting a retry per
+item when it passes (at the last temperature also when it scores
+better); and ``word_timestamps``, one teacher-forced alignment forward a
+batch (``decode/word_timestamps.py``). The retries and the alignment pass
+reuse the batch's encoder outputs (the JAX program re-encodes; the
+encoder is deterministic, so the features are the same). The k-th retry
+of the n-th fallback batch seeds its generator with ``1234 + 31 n + k``
+where JAX folds ``31 n + k`` into ``PRNGKey(1234)``: the draws differ
+from JAX's bits, not in law.
 
 An item's video is its ``lip_feats`` array, else its ``lip_video`` clip
 (a corrupt clip falls through), else its raw ``video`` closeup, decoded to
@@ -24,8 +39,8 @@ tracker finds nothing) by the staged lip frontend on the device
 (``kernels/lip_pipeline.py``). Decoding a clip and the refined tracker
 need OpenCV on the host. Items without video get a zeroed clip and
 ``has_video=False``, so audio-only and audio-visual items share a batch.
-The options of the JAX transcriber that belong to later slices raise,
-each naming its ``ROADMAP.md`` item.
+The options that belong to later work (``quantize``, ``kv_int8``,
+``draft_model``, ``mesh``) raise, each naming its ``ROADMAP.md`` item.
 """
 
 from __future__ import annotations
@@ -42,7 +57,11 @@ import torch
 from avsl_tpu_torch.data.audio_segments import load_wav
 from avsl_tpu_torch.data.video_io import load_video_feats, read_video_frames
 from avsl_tpu_torch.decode.beam import beam_search
-from avsl_tpu_torch.decode.greedy import greedy_decode_scored
+from avsl_tpu_torch.decode.biasing import build_biasing_trie, encode_phrases
+from avsl_tpu_torch.decode.greedy import greedy_decode_scored, sampled_decode_scored
+from avsl_tpu_torch.decode.text_norm import compression_ratio
+from avsl_tpu_torch.decode.word_timestamps import align_words
+from avsl_tpu_torch.infer.longform import LongFormResult, split_item, stitch
 from avsl_tpu_torch.kernels.lip_pipeline import make_staged_lip_frontend
 from avsl_tpu_torch.kernels.logmel import log_mel_spectrogram, pad_or_trim
 
@@ -56,6 +75,9 @@ class TranscribeResult:
     # mean token log-probability of the generated sequence (greedy), or
     # the length-normalised log-probability of the best beam
     avg_logprob: float = 0.0
+    # word timestamps (cross-attention DTW) with word_timestamps=True:
+    # [{"word", "start_s", "end_s"}]
+    words: Optional[List[dict]] = None
 
 
 class PreparedBatch(NamedTuple):
@@ -63,7 +85,8 @@ class PreparedBatch(NamedTuple):
     frames, crop, crop, 1] float32 (zeros where an item has none or a raw
     closeup), raw [B, frames, H, W] uint8 closeups to lip-crop on the
     device (None when the batch has none), raw_mask [B] bool, raw_frames
-    [B] int32 decoded frames a closeup, and has_video per item."""
+    [B] int32 decoded frames a closeup, has_video per item, and each row's
+    audio samples before padding (for the word timestamps' frames)."""
 
     audio: np.ndarray
     video: np.ndarray
@@ -71,11 +94,33 @@ class PreparedBatch(NamedTuple):
     raw_mask: np.ndarray
     raw_frames: np.ndarray
     flags: List[bool]
+    n_samples: Optional[np.ndarray] = None
 
 
-def _not_ported(option: str, item: str) -> NotImplementedError:
+class BatchOutput(NamedTuple):
+    """The device half's result for one batch: tokens [B, max_new_tokens],
+    scores [B], and per row its words (None without word timestamps)."""
+
+    tokens: np.ndarray
+    scores: np.ndarray
+    words: Optional[List[List[dict]]] = None
+
+
+# serving options of later work, each with the ROADMAP.md item that ports
+# it; the transcriber and the serving CLIs refuse them from this table
+UNPORTED = {
+    "quantize": "item 11, slice 10 (models/quant.py)",
+    "kv_int8": "item 11, slice 10 (models/quant.py)",
+    "draft_model": "item 11, slice 10 (decode/speculative.py)",
+    "mesh": "item 12 (the parallel layer)",
+}
+
+
+def not_ported(option: str, name: Optional[str] = None) -> NotImplementedError:
+    """The refusal of ``UNPORTED[option]``, naming it as ``name`` (a CLI
+    flag) when given."""
     return NotImplementedError(
-        f"{option} is not ported yet (ROADMAP.md queue 1, {item})"
+        f"{name or option} is not ported yet (ROADMAP.md queue 1, {UNPORTED[option]})"
     )
 
 
@@ -85,7 +130,8 @@ class StreamingTranscriber:
     ``model`` is a :class:`~avsl_tpu_torch.models.Whisper` already on its
     device; batches run there. Audio is padded or trimmed to
     ``audio_max_length`` samples and video to ``video_frames`` frames of
-    ``crop`` x ``crop``; a batch always holds ``batch_size`` rows.
+    ``crop`` x ``crop``; a batch always holds ``batch_size`` rows. The
+    serving options are described in the module docstring.
     """
 
     def __init__(
@@ -106,28 +152,31 @@ class StreamingTranscriber:
         kv_int8: bool = False,
         mesh: Optional[Any] = None,
         temperature_fallback: Sequence[float] = (),
+        logprob_threshold: float = -1.0,
+        compression_ratio_threshold: float = 2.4,
         word_timestamps: bool = False,
         draft_model: Optional[Any] = None,
         draft_variables: Optional[Any] = None,
         boost_phrases: Optional[Sequence[str]] = None,
+        boost_weight: float = 4.0,
     ):
-        refused = [
-            (quantize is not None, "quantize", "item 11 (models/quant.py)"),
-            (bool(kv_int8), "kv_int8", "item 11 (models/quant.py)"),
-            (mesh is not None, "mesh", "item 12 (the parallel layer)"),
-            (bool(tuple(temperature_fallback)), "temperature_fallback",
-             "item 11 (sampled fallback decode)"),
-            (bool(word_timestamps), "word_timestamps",
-             "item 11 (decode/word_timestamps.py)"),
-            (draft_model is not None or draft_variables is not None, "draft_model",
-             "item 11 (decode/speculative.py)"),
-            (bool(boost_phrases), "boost_phrases", "item 11 (decode/biasing.py)"),
-        ]
-        for bad, option, item in refused:
+        asked = {"quantize": quantize is not None, "kv_int8": bool(kv_int8),
+                 "draft_model": draft_model is not None or draft_variables is not None,
+                 "mesh": mesh is not None}
+        for option, bad in asked.items():
             if bad:
-                raise _not_ported(option, item)
+                raise not_ported(option)
         if raw_lip_mode not in ("host_refined", "device"):
             raise ValueError(f"raw_lip_mode {raw_lip_mode!r}")
+        self.temperature_fallback = tuple(float(t) for t in temperature_fallback)
+        self.logprob_threshold = float(logprob_threshold)
+        self.compression_ratio_threshold = float(compression_ratio_threshold)
+        if self.temperature_fallback and beam_size > 1:
+            raise ValueError("temperature_fallback composes with greedy decode only "
+                             "(the beam already explores alternatives)")
+        self._fallback_calls = 0  # batches the fallback has examined
+        self.fallback_decodes = 0  # sampled re-decodes run
+        self.word_timestamps = bool(word_timestamps)
         self.model = model
         self.tokenizer = tokenizer
         self.device = model.device
@@ -143,7 +192,14 @@ class StreamingTranscriber:
         self.raw_lip_mode = raw_lip_mode
         self._lip_stages = make_staged_lip_frontend(video_frames)
         sot = np.asarray(tokenizer.sot_sequence(lang), np.int64)
-        self._prompt = torch.as_tensor(np.tile(sot[None], (batch_size, 1)), device=self.device)
+        self._prompt_np = np.tile(sot[None], (batch_size, 1))
+        self._prompt = torch.as_tensor(self._prompt_np, device=self.device)
+        self.boost_phrases = tuple(boost_phrases or ())
+        self._biasing = None
+        if self.boost_phrases:
+            self._biasing = build_biasing_trie(
+                encode_phrases(tokenizer, self.boost_phrases), model.cfg.n_vocab,
+                weight=float(boost_weight), device=self.device)
 
     def _lip_from_raw(self, clips_u8: torch.Tensor, n_frames: torch.Tensor) -> torch.Tensor:
         """Raw closeups [B, frames, H, W] uint8 on the device -> normalised
@@ -162,25 +218,28 @@ class StreamingTranscriber:
         return torch.where(t_idx < n_frames[:, None, None, None, None], lip, 0.0)
 
     @torch.inference_mode()
-    def run_batch(self, batch: PreparedBatch) -> Tuple[np.ndarray, np.ndarray]:
+    def run_batch(self, batch: PreparedBatch) -> BatchOutput:
         """The device half of one prepared batch: its raw closeups
         lip-cropped on the device and merged into its video, then
-        :meth:`_run`. -> (tokens [B, max_new_tokens], scores [B])."""
+        :meth:`_run`."""
         video = batch.video
         if batch.raw is not None and self.model.cfg.add_gated_x_attn:
             lip = self._lip_from_raw(torch.from_numpy(batch.raw).to(self.device),
                                      torch.from_numpy(batch.raw_frames).to(self.device))
             mask = torch.from_numpy(batch.raw_mask).to(self.device)[:, None, None, None, None]
             video = torch.where(mask, lip, torch.from_numpy(video).to(self.device))
-        return self._run(batch.audio, video)
+        return self._run(batch.audio, video, batch.n_samples)
 
     @torch.inference_mode()
-    def _run(self, audio: np.ndarray, video) -> Tuple[np.ndarray, np.ndarray]:
+    def _run(self, audio: np.ndarray, video, n_samples: Optional[np.ndarray] = None
+             ) -> BatchOutput:
         """Device program for one padded batch: audio [B, samples] and
         video [B, frames, crop, crop, 1] float32 (an array or a tensor on
-        the device) -> (tokens [B, max_new_tokens], scores [B]), in eval
-        mode (the caller's mode is restored after). A model without gated
-        cross-attention ignores the video, so it is not uploaded."""
+        the device) -> tokens, scores and, with word timestamps, the words
+        of each row (``n_samples`` [B] its audio before padding; the whole
+        window when None), in eval mode (the caller's mode is restored
+        after). A model without gated cross-attention ignores the video, so
+        it is not uploaded."""
         model, cfg = self.model, self.model.cfg
         was_training = model.training
         model.eval()
@@ -191,28 +250,82 @@ class StreamingTranscriber:
                 v = torch.as_tensor(video).to(self.device, non_blocking=True)
             mel = log_mel_spectrogram(x, n_mels=cfg.n_mels)
             feats, xv = model.encode(mel, v)
-            cache_len = self.max_new_tokens + self._prompt.shape[1] + 2
-            cache = model.init_decode_cache(feats, xv, cache_len)
-
-            def step(tok, c):
-                return model.decode(tok, None, None, c)
-
-            if self.beam_size > 1:
-                seqs, scores = beam_search(step, cache, self._prompt, self.beam_size,
-                                           self.max_new_tokens, self.tokenizer.eot, biasing=None)
-            else:
-                seqs, scores = greedy_decode_scored(
-                    step, cache, self._prompt, self.max_new_tokens, self.tokenizer.eot
-                )
+            seqs, scores = (t.cpu().numpy() for t in self._decode(feats, xv))
+            if self.temperature_fallback:
+                seqs, scores = self._fallback(feats, xv, seqs, scores)
+            words = None
+            if self.word_timestamps:
+                if n_samples is None:
+                    n_samples = np.full((audio.shape[0],), audio.shape[1])
+                tokens = np.concatenate([self._prompt_np, seqs.astype(np.int64)], axis=1)
+                frames = [max(int(np.ceil(n / 320.0)), 1) for n in n_samples]
+                words = align_words(model, feats, xv, tokens, self.tokenizer, frames, 50.0)
         finally:
             model.train(was_training)
-        return seqs.cpu().numpy(), scores.cpu().numpy()
+        return BatchOutput(seqs, scores, words)
+
+    def _decode(self, feats, xv, temperature: Optional[float] = None,
+                generator: Optional[torch.Generator] = None):
+        """One decode of a batch's encoder outputs on a fresh cache: beam
+        search, greedy, or with ``temperature`` sampled from ``generator``.
+        -> (tokens [B, max_new_tokens], scores [B]) on the device."""
+        model = self.model
+        cache = model.init_decode_cache(feats, xv, self.max_new_tokens + self._prompt.shape[1] + 2)
+
+        def step(tok, c):
+            return model.decode(tok, None, None, c)
+
+        args = (step, cache, self._prompt)
+        eot = self.tokenizer.eot
+        if self.beam_size > 1:
+            return beam_search(*args, self.beam_size, self.max_new_tokens, eot,
+                               biasing=self._biasing)
+        if temperature is None:
+            return greedy_decode_scored(*args, self.max_new_tokens, eot, biasing=self._biasing)
+        return sampled_decode_scored(*args, self.max_new_tokens, eot, temperature, generator,
+                                     biasing=self._biasing)
+
+    def _retry_mask(self, seqs: np.ndarray, scores: np.ndarray) -> np.ndarray:
+        """Per row: confidence below ``logprob_threshold``, or text that
+        compresses above ``compression_ratio_threshold`` (repetition)."""
+        special = self.tokenizer.special_token_set
+        need = scores < self.logprob_threshold
+        for i in range(seqs.shape[0]):
+            if need[i]:
+                continue
+            text = self.tokenizer.decode([int(x) for x in seqs[i] if int(x) not in special])
+            if compression_ratio(text) > self.compression_ratio_threshold:
+                need[i] = True
+        return need
+
+    def _fallback(self, feats, xv, seqs: np.ndarray, scores: np.ndarray):
+        """The temperature fallback over a batch's greedy result: re-decode
+        the whole batch at each temperature while a row fails the gate,
+        adopting a retry per row when it passes, or, at the last
+        temperature, when it scores better than what the row has."""
+        need = self._retry_mask(seqs, scores)
+        self._fallback_calls += 1
+        last = len(self.temperature_fallback) - 1
+        for k, temp in enumerate(self.temperature_fallback):
+            if not need.any():
+                break
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(1234 + self._fallback_calls * 31 + k)
+            s2, sc2 = (t.cpu().numpy() for t in self._decode(feats, xv, temp, gen))
+            self.fallback_decodes += 1
+            passes = ~self._retry_mask(s2, sc2)
+            adopt = need & (passes | ((k == last) & (sc2 > scores)))
+            seqs = np.where(adopt[:, None], s2, seqs)
+            scores = np.where(adopt, sc2, scores)
+            need = need & ~(adopt & passes)
+        return seqs, scores
 
     # -- host side -----------------------------------------------------
 
     def _load_item(self, item: Dict[str, Any]):
         """-> (audio, video [frames, crop, crop, 1] or None, raw closeup
-        [frames, H, W] uint8 or None, decoded raw frames, has_video).
+        [frames, H, W] uint8 or None, decoded raw frames, has_video, audio
+        samples before padding).
 
         ``lip_feats``: precomputed normalised lip features [T, crop, crop,
         1]. ``lip_video``: an already-extracted lip clip file, decoded and
@@ -222,6 +335,7 @@ class StreamingTranscriber:
         in) resizes it to ``raw_video_hw`` for the device frontend. A
         closeup that fails to decode leaves the item audio-only."""
         audio = load_wav(item["audio"]) if isinstance(item["audio"], str) else item["audio"]
+        n_samples = min(len(audio), self.audio_max_length)
         audio = pad_or_trim(np.asarray(audio, np.float32), self.audio_max_length)
 
         feats = None
@@ -249,14 +363,14 @@ class StreamingTranscriber:
                         frames = np.stack([cv2.resize(f, (w, h)) for f in frames])
                     clip = np.zeros((self.video_frames, h, w), np.uint8)
                     clip[: len(frames)] = frames.astype(np.uint8)
-                    return audio, None, clip, len(frames), True
+                    return audio, None, clip, len(frames), True, n_samples
             except Exception:  # an undecodable closeup leaves the item audio-only, as in JAX
                 feats = None
         if feats is not None:
             video = np.zeros((self.video_frames, self.crop, self.crop, 1), np.float32)
             video[: len(feats)] = feats
-            return audio, video, None, 0, True
-        return audio, None, None, 0, False
+            return audio, video, None, 0, True, n_samples
+        return audio, None, None, 0, False, n_samples
 
     def _host_refined_lip(self, frames: np.ndarray) -> Optional[np.ndarray]:
         """The offline preprocessing's lip crop at serving time
@@ -286,9 +400,10 @@ class StreamingTranscriber:
         raw = None
         raw_mask = np.zeros((self.batch_size,), bool)
         raw_frames = np.zeros((self.batch_size,), np.int32)
+        n_samples = np.zeros((self.batch_size,), np.int64)
         flags: List[bool] = []
         for i, item in enumerate(items):
-            audio[i], v, clip, n_frames, has_video = self._load_item(item)
+            audio[i], v, clip, n_frames, has_video, n_samples[i] = self._load_item(item)
             if v is not None:
                 video[i] = v
             if clip is not None:
@@ -298,13 +413,13 @@ class StreamingTranscriber:
                 raw_mask[i] = True
                 raw_frames[i] = n_frames
             flags.append(has_video)
-        return PreparedBatch(audio, video, raw, raw_mask, raw_frames, flags)
+        return PreparedBatch(audio, video, raw, raw_mask, raw_frames, flags, n_samples)
 
-    def _results(self, chunk, flags, seqs, scores, first_index: int) -> List[TranscribeResult]:
+    def _results(self, chunk, flags, out: BatchOutput, first_index: int) -> List[TranscribeResult]:
         special = self.tokenizer.special_token_set
         results = []
         for i in range(len(chunk)):
-            toks = [int(x) for x in seqs[i]]
+            toks = [int(x) for x in out.tokens[i]]
             text_ids = [x for x in toks if x not in special]
             results.append(
                 TranscribeResult(
@@ -312,7 +427,8 @@ class StreamingTranscriber:
                     text=self.tokenizer.decode(text_ids).strip(),
                     tokens=toks,
                     has_video=flags[i],
-                    avg_logprob=round(float(scores[i]), 4),
+                    avg_logprob=round(float(out.scores[i]), 4),
+                    words=None if out.words is None else out.words[i],
                 )
             )
         return results
@@ -327,8 +443,25 @@ class StreamingTranscriber:
             raise ValueError(f"{len(items)} items > batch_size {self.batch_size}")
         chunk = list(items)
         batch = self._prepare_batch(chunk)
-        seqs, scores = self.run_batch(batch)
-        return self._results(chunk, batch.flags, seqs, scores, 0)
+        return self._results(chunk, batch.flags, self.run_batch(batch), 0)
+
+    def transcribe_long(self, items: Sequence[Dict[str, Any]]) -> List[LongFormResult]:
+        """Items of any duration (audio path or array, optionally a
+        ``lip_video`` clip): each split at minimum-energy points into
+        windows of at most ``audio_max_length`` samples
+        (``infer/longform.py``), every item's windows served together
+        through :meth:`transcribe`, then stitched back per item."""
+        window_items: List[Dict[str, Any]] = []
+        bounds: List[int] = [0]
+        spans: List[List] = []
+        for item in items:
+            w, sp = split_item(item, self.audio_max_length, self.video_frames, crop=self.crop)
+            window_items.extend(w)
+            bounds.append(len(window_items))
+            spans.append(sp)
+        flat = self.transcribe(window_items)
+        return [stitch(str(item.get("id", j)), flat[bounds[j]: bounds[j + 1]], spans[j])
+                for j, item in enumerate(items)]
 
     def transcribe(self, items: Sequence[Dict[str, Any]]) -> List[TranscribeResult]:
         """Items: dicts with 'id', 'audio' (path or array) and optionally
@@ -362,7 +495,6 @@ class StreamingTranscriber:
                 t.join()
                 raise got[1]
             chunk, batch = got
-            seqs, scores = self.run_batch(batch)
-            results.extend(self._results(chunk, batch.flags, seqs, scores, len(results)))
+            results.extend(self._results(chunk, batch.flags, self.run_batch(batch), len(results)))
         t.join()
         return results

@@ -183,16 +183,19 @@ def head_major_attention(
     mask: Optional[torch.Tensor] = None,
     dropout_rate: float = 0.0,
     generator: Optional[torch.Generator] = None,
-) -> torch.Tensor:
+    return_weights: bool = False,
+):
     """[B,H,Q,D] x [B,H,K,D] -> [B,H,Q,D]; the body of
-    :func:`dot_product_attention` over head-major operands."""
+    :func:`dot_product_attention` over head-major operands (with
+    ``return_weights`` also the fp32 [B,H,Q,K] softmax weights)."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     logits = _matmul_f32(q, k.transpose(-1, -2)) * scale
     if mask is not None:
         logits = torch.where(mask, logits, torch.finfo(torch.float32).min)
-    weights = torch.softmax(logits, dim=-1).to(q.dtype)
-    weights = residual_dropout(weights, dropout_rate, True, generator)
-    return _matmul_f32(weights, v).to(q.dtype)
+    probs = torch.softmax(logits, dim=-1)
+    weights = residual_dropout(probs.to(q.dtype), dropout_rate, True, generator)
+    out = _matmul_f32(weights, v).to(q.dtype)
+    return (out, probs) if return_weights else out
 
 
 def dot_product_attention(
@@ -202,14 +205,19 @@ def dot_product_attention(
     mask: Optional[torch.Tensor] = None,
     dropout_rate: float = 0.0,
     generator: Optional[torch.Generator] = None,
-) -> torch.Tensor:
+    return_weights: bool = False,
+):
     """[B,Q,H,D] x [B,K,H,D] -> [B,Q,H,D]; fp32 logits and softmax; mask
     True = attend, masked logits take ``finfo(float32).min``. Weights are
     cast to ``q.dtype``, then, with ``dropout_rate``, dropped with an
     inverted-scaled keep mask drawn from ``generator`` (fairseq's
-    attention dropout), before the fp32-accumulated weighted sum."""
+    attention dropout), before the fp32-accumulated weighted sum. With
+    ``return_weights`` also returns the fp32 [B,H,Q,K] softmax weights (the
+    alignment capture, ``decode/word_timestamps.py``)."""
     out = head_major_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), mask,
-                               dropout_rate, generator)
+                               dropout_rate, generator, return_weights)
+    if return_weights:
+        return out[0].transpose(1, 2), out[1]
     return out.transpose(1, 2)
 
 
@@ -261,6 +269,9 @@ class MultiHeadAttention(nn.Module):
     ``kv_dim`` is the width of what the keys and values are projected from
     (``d_model`` when None), which a flax ``Dense`` infers from its input:
     a decoder's cross-attention onto a narrower encoder.
+    ``capture``: None, or a list to which the full-sequence cross-attention
+    path appends its fp32 [B,H,Q,K] weights, computed unfused for that
+    (``decode/word_timestamps.py`` sets it around an alignment forward).
     """
 
     def __init__(self, d_model: int, n_heads: int, dtype=torch.bfloat16, device=None,
@@ -271,6 +282,7 @@ class MultiHeadAttention(nn.Module):
         self.attn_dropout = attn_dropout
         kw = dict(device=device, param_dtype=param_dtype or dtype, compute_dtype=dtype)
         self._proj_names = _PROJ_NAMES[names]
+        self.capture: Optional[list] = None
         kv_dim = kv_dim or d_model
         for name, bias, d_in in zip(self._proj_names, (True, use_k_bias, True, True),
                                     (d_model, kv_dim, kv_dim, d_model)):
@@ -331,6 +343,9 @@ class MultiHeadAttention(nn.Module):
             if self.training and self.attn_dropout > 0.0:
                 out = dot_product_attention(q, k, v, mask, dropout_rate=self.attn_dropout,
                                             generator=generator)
+            elif self.capture is not None and kv_src is not None:
+                out, weights = dot_product_attention(q, k, v, mask, return_weights=True)
+                self.capture.append(weights)
             elif mask is None:
                 out = fused_attention(q, k, v, lengths=kv_lengths, causal=causal)
             else:

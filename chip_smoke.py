@@ -41,6 +41,10 @@ raises on failure:
    x 250 frames x 288 x 352: its stages timed by CUDA events, then run on
    the CPU (ok flags and mouth-window offsets equal, trajectories and
    crops within stated bounds), and ``extract_lip_clip`` card against CPU;
+   and the serving options on the tiny Whisper-Flamingo model
+   (``small_serving_reference``): the temperature fallback on the same
+   injected noise, biased greedy and beam search, and the alignment
+   pass's captured cross-attention weights and words, card against CPU;
 5. serving path: Whisper large-v2 widths (bf16, seeded random weights,
    51865-token vocab) serving 16 synthetic 30 s windows through
    ``StreamingTranscriber`` at batch 8, with K1's launch count read around
@@ -99,7 +103,17 @@ raises on failure:
    every distinct K1 and K2 launch shape of the run against the plain
    version, then one traced optimizer step) and ``prefetch`` (bucketed batches
    through ``prefetch_to_device`` equal on the card; 2 optimizer steps
-   with ``prefetch_batches`` 0 and 2).
+   with ``prefetch_batches`` 0 and 2);
+11. the serving daemon (``serving_daemon``, on the model of phase 6,
+   before it is freed): ``TranscriptionServer`` on 127.0.0.1 at batch 8,
+   16 concurrent 10 s requests (8 over HTTP as base64 PCM, 8 with lip
+   features through ``submit``) against the transcriber's ``transcribe``
+   on the same items, a 60 s ``long`` request, a 30 s streaming session
+   through the daemon, and the temperature fallback, word timestamps,
+   phrase boosting and language ID on a batch each, with K1's launches
+   gated around each, every reply held to 200 with no error or rejection,
+   its request's id and the direct run's text, and every distinct K1
+   launch shape of the phase against the plain version.
 
 Each model is freed before the next one is built. It prints the kernel
 list, the card's name and power limit and, last,
@@ -108,6 +122,7 @@ list, the card's name and power limit and, last,
 
 from __future__ import annotations
 
+import base64
 import contextlib
 import gc
 import json
@@ -1229,7 +1244,7 @@ def phase_av_raw_main_path(card: str, model, serve_cfg, av_record: dict) -> int:
     def serve(batches=prepared):
         out = []
         for chunk, prep in batches:
-            out += tr._results(chunk, prep.flags, *tr.run_batch(prep), len(out))
+            out += tr._results(chunk, prep.flags, tr.run_batch(prep), len(out))
         return out
 
     results, seconds, launches, stats_writes, k2 = run_counted(serve)
@@ -2589,6 +2604,443 @@ def phase_avhubert_train_main_path(card: str, device: str = "cuda") -> dict:
     return {"train": (k1, k2), "eval": (e1, e2), "ctc_eval": (ce1, ce2)}
 
 
+# the serving daemon (phase 11): the tiny models card against CPU on the
+# serving options, then the full-width AV model behind the HTTP daemon
+SERVE_BATCH, SERVE_MAX_NEW, SERVE_WAIT_MS = 8, 64, 30.0
+# tiny models, card (K1) against CPU (plain), fp32: scores and the captured
+# cross-attention weights within this
+SMALL_SERVING_TOL = 1e-4
+# the daemon's replies against the transcriber's own on the same items: the
+# rows of a batch are computed independently at the fixed batch shape, so
+# only a row's place in a bf16 product may move its score
+SERVE_LOGPROB_TOL = 1e-3
+BOOST_PHRASES = ("meeting", "budget", "quarterly review", "action item", "deadline", "project",
+                 "whiteboard", "marketing", "engineering", "schedule", "minutes", "agenda",
+                 "remote control", "prototype", "interface", "battery", "design", "customer",
+                 "evaluation", "conference")
+
+
+@contextlib.contextmanager
+def seeded_cpu_noise():
+    """Within the block, the sampled decode draws its Gumbel noise on the
+    CPU from a generator seeded as the one it was given, then moves it to
+    the device: the card and the CPU see the same noise."""
+    from avsl_tpu_torch.decode import greedy
+
+    original, streams = greedy.gumbel_noise, {}
+
+    def fake(generator, shape, device):
+        seed = generator.initial_seed()
+        if seed not in streams:
+            streams[seed] = torch.Generator().manual_seed(seed)
+        return original(streams[seed], shape, "cpu").to(device)
+
+    greedy.gumbel_noise = fake
+    try:
+        yield
+    finally:
+        greedy.gumbel_noise = original
+
+
+def phase_small_serving_reference():
+    """The serving options on the tiny Whisper-Flamingo model (fp32, the
+    tower at 2 heads of 32, gates 0.5), card against CPU: the temperature
+    fallback with the same injected noise (every row retried at both
+    temperatures), biased greedy and biased beam search (tokens equal,
+    scores within SMALL_SERVING_TOL), the alignment pass's captured
+    cross-attention weights (within SMALL_SERVING_TOL) and word boundaries."""
+    from avsl_tpu_torch.core.config import AVHuBERTConfig
+    from avsl_tpu_torch.data.tokenizer import ByteTokenizer
+    from avsl_tpu_torch.decode.word_timestamps import capture_cross_attention, collect_cross_attention
+    from avsl_tpu_torch.infer import StreamingTranscriber
+    from avsl_tpu_torch.kernels.logmel import log_mel_spectrogram
+    from avsl_tpu_torch.models import build_whisper_flamingo
+
+    vocab = ByteTokenizer().add_tokens(["<laugh>"])
+    av_cfg = AVHuBERTConfig.tiny_test(dtype="float32", **SMALL_AV_OVERRIDES)
+    models = []
+    for device in ("cpu", "cuda"):
+        model, _ = build_whisper_flamingo("test", vocab_size=vocab, add_gated_x_attn=1,
+                                          av_hubert_cfg=av_cfg, dtype="float32", device=device,
+                                          seed=5)
+        set_gates(model, GATE)
+        if models:
+            model.load_state_dict(models[0].state_dict())
+        models.append(model)
+    rng = np.random.default_rng(8)
+    items = [{"id": f"s{i}", "audio": (0.2 * rng.standard_normal(int(rng.integers(8000, 16001))))
+              .astype(np.float32)} for i in range(4)]
+    for i in (0, 2):
+        items[i]["lip_feats"] = rng.standard_normal((int(rng.integers(10, 26)), 88, 88, 1),
+                                                    dtype=np.float32)
+    kw = dict(audio_max_length=16000, video_frames=25, batch_size=4, max_new_tokens=10)
+    variants = {
+        "fallback": dict(temperature_fallback=(0.5, 1.0), logprob_threshold=0.0),
+        "boost_greedy": dict(boost_phrases=["ab", "the", "xyz"]),
+        "boost_beam": dict(boost_phrases=["ab", "the", "xyz"], beam_size=3),
+        # boosted, so that random weights decode byte tokens that make words
+        "word_timestamps": dict(word_timestamps=True, boost_phrases=list(BOOST_PHRASES)),
+    }
+    rec, worst = {"phase": "small_serving_reference", "tol": SMALL_SERVING_TOL}, 0.0
+    for name, opts in variants.items():
+        outs = []
+        for model in models:
+            tr = StreamingTranscriber(model, ByteTokenizer(), **kw, **opts)
+            with seeded_cpu_noise():
+                outs.append(tr.transcribe(items))
+            if name == "fallback" and tr.fallback_decodes != 2:
+                raise AssertionError(f"the tiny fallback re-decoded {tr.fallback_decodes} times")
+        for want, got in zip(*outs):
+            if (got.tokens, got.words) != (want.tokens, want.words):
+                raise AssertionError(f"{name}: card tokens or words differ from the CPU's")
+            worst = max(worst, abs(got.avg_logprob - want.avg_logprob))
+        rec[f"{name}_tokens_equal"] = True
+    rec["score_max_abs_err"] = worst
+    tok = ByteTokenizer()
+    tokens = torch.tensor([tok.sot_sequence("en") + tok.encode(" hello world") + [tok.eot]] * 2)
+    audio = torch.from_numpy((0.2 * rng.standard_normal((2, 16000))).astype(np.float32))
+    video = torch.from_numpy(rng.standard_normal((2, 25, 88, 88, 1), dtype=np.float32))
+    weights = []
+    with torch.inference_mode():
+        for model in models:
+            dev = model.device
+            mel = log_mel_spectrogram(audio.to(dev), n_mels=model.cfg.n_mels)
+            with capture_cross_attention(model) as captured:
+                model(mel, tokens.to(dev), video.to(dev))
+            weights.append(collect_cross_attention(captured).float().cpu())
+    weight_err = (weights[1] - weights[0]).abs().max().item()
+    rec["alignment_weights_shape"] = list(weights[0].shape)
+    rec["alignment_weights_max_abs_err"] = weight_err
+    log(rec)
+    if worst > SMALL_SERVING_TOL or weight_err > SMALL_SERVING_TOL:
+        raise AssertionError(f"tiny serving card-vs-cpu: scores {worst:.3e}, "
+                             f"weights {weight_err:.3e}")
+
+
+@contextlib.contextmanager
+def timed_calls(owner, *names):
+    """Within the block, each call of ``owner.<name>`` is bracketed by two
+    CUDA events on the current stream, with no host synchronisation, so
+    the decode loop keeps its asynchrony. On leaving the block, the
+    yielded list gets each call's seconds on the device's timeline: the
+    work the call enqueued, and the time the card waited for the host to
+    enqueue it."""
+    spans, spent = [], []
+    originals = {name: getattr(owner, name) for name in names}
+
+    def wrap(fn):
+        def timed(*args, **kw):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            spans.append((start, end))
+            return out
+        return timed
+
+    for name, fn in originals.items():
+        setattr(owner, name, wrap(fn))
+    try:
+        yield spent
+    finally:
+        for name, fn in originals.items():
+            setattr(owner, name, fn)
+        torch.cuda.synchronize()
+        spent.extend(start.elapsed_time(end) / 1e3 for start, end in spans)
+
+
+def daemon_items(n: int, n_video: int, seed: int):
+    """``n`` requests of exactly 10 s of seeded noise PCM; the first
+    ``n_video`` carry 150-250 frames of seeded lip features."""
+    rng = np.random.default_rng(seed)
+    items = []
+    for i in range(n):
+        item = {"id": f"d{i:02d}", "audio": (0.1 * rng.standard_normal(160000)).astype(np.float32)}
+        if i < n_video:
+            item["lip_feats"] = rng.standard_normal((int(rng.integers(150, 251)), 88, 88, 1),
+                                                    dtype=np.float32)
+        items.append(item)
+    return items
+
+
+def bursts_with_pauses(seconds: float, burst_s, pause_s: float, seed: int):
+    """Seeded noise bursts of ``burst_s`` (lo, hi) seconds separated by
+    ``pause_s`` of silence, ``seconds`` long: (pcm, [(pause start, end)]
+    in samples)."""
+    rng = np.random.default_rng(seed)
+    total = int(seconds * 16000)
+    pcm = np.zeros(total, np.float32)
+    pauses, pos = [], 0
+    while pos < total:
+        n = int(rng.uniform(*burst_s) * 16000)
+        pcm[pos:pos + n] = 0.1 * rng.standard_normal(min(n, total - pos))
+        pos += n
+        if pos < total:
+            pauses.append((pos, min(pos + int(pause_s * 16000), total)))
+        pos += int(pause_s * 16000)
+    return pcm, pauses
+
+
+def post_json(address, payload: dict, timeout: float = 600.0):
+    """POST ``payload`` to the daemon's /v1/transcribe: (status, reply)."""
+    import urllib.error
+    import urllib.request
+
+    host, port = address
+    req = urllib.request.Request(f"http://{host}:{port}/v1/transcribe",
+                                 data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, {"error": e.read().decode()}
+
+
+def phase_serving_daemon(card: str, model, serve_cfg):
+    """The daemon's parts (:func:`serving_daemon_parts`) with every
+    distinct K1 launch signature they gave recorded, then K1 held against
+    its plain version at each of them (the encoder and the tower at every
+    batch size the scheduler formed, the alignment pass's causal decoder
+    self-attention and gated x_attn, language ID). Returns the parts' K1
+    launches."""
+    seen = {}
+    with launch_shapes(seen):
+        launches = serving_daemon_parts(card, model, serve_cfg)
+    log({"phase": "serving_daemon_launch_shapes", "card": card,
+         "tolerance": {"bf16": BF16_TOL, "fp32": FP32_TOL}, **check_launch_shapes(seen)})
+    return launches
+
+
+def serving_daemon_parts(card: str, model, serve_cfg):
+    """The full-width Whisper-Flamingo model behind the port's HTTP daemon
+    (phase 11): ``TranscriptionServer`` on 127.0.0.1, batch 8, 30 ms wait,
+    at the JAX CLI's serving shape. (a) 16 concurrent 10 s requests, 8
+    audio-only over HTTP with base64 PCM and 8 with lip features through
+    ``submit``, against the transcriber's own ``transcribe`` on the same
+    items; (b) one ``long`` request of 60 s with 0.5 s pauses; (c) a
+    ``StreamingSession`` routed through the daemon, 30 s in 0.32 s chunks;
+    (d) the temperature fallback at (0.2, 0.4), (e) word timestamps (with
+    the boost, so that random weights decode words), (f) 20 boosted
+    phrases, each on 8 of the items, and (g) language ID on 8 clips. K1's launches are gated around (a), (b), (d), (e), (f) and (g)
+    to the count the code implies: (32 + 24) a batch, the fallback's
+    retries and the alignment pass reusing the batch's encoder outputs,
+    the alignment pass's decoder self-attention and gated x_attn 2 x 32, and
+    32 for language ID. Every reply must be 200, with no error and no
+    rejection, carry its request's id, and give the direct run's text with
+    its avg_logprob within SERVE_LOGPROB_TOL. Returns the K1 launches."""
+    import threading
+
+    from avsl_tpu_torch.cli._serving_common import serving_video_frames
+    from avsl_tpu_torch.data.tokenizer import ByteTokenizer
+    from avsl_tpu_torch.decode.language import detect_language
+    from avsl_tpu_torch.infer import StreamingSession, StreamingTranscriber, TranscriptionServer
+
+    cfg, av_cfg = model.cfg, model.video_model.cfg
+    per_batch = cfg.n_audio_layer + av_cfg.num_hidden_layers
+    audio_max_length = int(serve_cfg.audio_max_length)
+    kw = dict(audio_max_length=audio_max_length,
+              video_frames=serving_video_frames(audio_max_length), crop=88,
+              batch_size=SERVE_BATCH, max_new_tokens=SERVE_MAX_NEW)
+    tr = StreamingTranscriber(model, ByteTokenizer(), **kw)
+    items = daemon_items(16, 8, seed=3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    server = TranscriptionServer(tr, host="127.0.0.1", port=0, max_wait_ms=SERVE_WAIT_MS).start()
+    k1 = {}
+    rec = {"phase": "serving_daemon", "card": card, "batch": SERVE_BATCH,
+           "max_wait_ms": SERVE_WAIT_MS, "max_new_tokens": SERVE_MAX_NEW}
+
+    def gate(name, launches, batches, extra=0):
+        want = per_batch * batches + extra
+        k1[name] = launches
+        if launches != want:
+            raise AssertionError(f"serving_daemon {name}: K1 launches {launches} != {want}")
+
+    try:
+        # (a) 16 concurrent requests
+        replies, pendings = {}, {}
+
+        def http(item):
+            replies[item["id"]] = post_json(server.address, {
+                "id": item["id"],
+                "audio_pcm_b64": base64.b64encode(item["audio"].tobytes()).decode()})
+
+        def fire_all():
+            threads = []
+            for item in items:
+                if "lip_feats" in item:
+                    pendings[item["id"]] = server.submit(dict(item))
+                else:
+                    threads.append(threading.Thread(target=http, args=(item,)))
+                    threads[-1].start()
+            for t in threads:
+                t.join()
+            for p in pendings.values():
+                p.done.wait(600)
+
+        before = server.stats.snapshot()
+        _, seconds, launches, _, _ = run_counted(fire_all)
+        snap = server.stats.snapshot()
+        batches = snap["n_batches"] - before["n_batches"]
+        gate("concurrent", launches, batches)
+        bad = [i for i, (s, _) in replies.items() if s != 200]
+        bad += [i for i, p in pendings.items() if p.error is not None or p.result is None]
+        if bad or len(replies) + len(pendings) != 16:
+            raise AssertionError(f"serving_daemon: failed requests {bad}")
+        wrong_id = [i for i, (_, r) in replies.items() if r.get("id") != i]
+        wrong_id += [i for i, p in pendings.items() if p.result.id != i]
+        if wrong_id:
+            raise AssertionError(f"serving_daemon: replies carry other requests' ids {wrong_id}")
+        served = {i: (r["text"], r["avg_logprob"]) for i, (_, r) in replies.items()}
+        served.update({i: (p.result.text, p.result.avg_logprob) for i, p in pendings.items()})
+        direct, direct_s, direct_launches, _, _ = run_counted(lambda: tr.transcribe(items))
+        gate("direct", direct_launches, 2)
+        same_text = sum(served[r.id][0] == r.text for r in direct)
+        logprob_err = max(abs(served[r.id][1] - r.avg_logprob) for r in direct)
+        rec["concurrent"] = {
+            "requests": 16, "with_video": 8, "seconds": seconds, "segments_per_s": 16 / seconds,
+            "batches": batches, "latency_ms": snap.get("latency_ms"),
+            "batch_occupancy": snap.get("batch_occupancy"),
+            "direct_seconds": direct_s, "direct_segments_per_s": 16 / direct_s,
+            "same_text_as_direct": same_text, "avg_logprob_max_abs_err": logprob_err,
+            "has_video": sum(p.result.has_video for p in pendings.values())}
+        if same_text != len(items) or logprob_err > SERVE_LOGPROB_TOL:
+            raise AssertionError(f"serving_daemon: {same_text} of {len(items)} texts as the "
+                                 f"direct run's, avg_logprob off by {logprob_err:.3e}")
+
+        # (b) one long request: 60 s with 0.5 s pauses
+        # bursts of 1-1.5 s: every 2 s search region of the splitter holds a pause
+        long_pcm, pauses = bursts_with_pauses(60.0, (1.0, 1.5), 0.5, seed=4)
+        before = server.stats.snapshot()
+        (status, out), seconds, launches, _, _ = run_counted(lambda: post_json(
+            server.address, {"id": "long", "long": True,
+                             "audio_pcm_b64": base64.b64encode(long_pcm.tobytes()).decode()}))
+        if status != 200:
+            raise AssertionError(f"serving_daemon long request: {status} {out}")
+        segs = out["segments"]
+        gate("long", launches, server.stats.snapshot()["n_batches"] - before["n_batches"])
+        ends = [s["end_s"] for s in segs]
+        tiled = (segs[0]["start_s"] == 0.0 and abs(ends[-1] - len(long_pcm) / 16000) < 1e-3
+                 and all(abs(e - s["start_s"]) < 1e-6 for e, s in zip(ends, segs[1:])))
+        at_pauses = all(any(p0 / 16000 - 2e-3 <= e <= p1 / 16000 + 2e-3 for p0, p1 in pauses)
+                        for e in ends[:-1])
+        longest = max(s["end_s"] - s["start_s"] for s in segs)
+        rec["long"] = {"seconds_of_audio": len(long_pcm) / 16000, "windows": len(segs),
+                       "seconds": seconds, "tiled": tiled, "cuts_in_pauses": at_pauses,
+                       "longest_window_s": longest, "latency_ms": out["latency_ms"]}
+        if not (tiled and at_pauses and longest <= audio_max_length / 16000 + 1e-3):
+            raise AssertionError(f"serving_daemon long segments: {rec['long']}")
+
+        # (c) a live stream routed through the daemon
+        def via_server(its):
+            ps = [server.submit(it) for it in its]
+            for p in ps:
+                p.done.wait(600)
+            if any(p is None or p.error is not None for p in ps):
+                raise AssertionError("serving_daemon: a streamed utterance failed")
+            return [p.result for p in ps]
+
+        stream_pcm, _ = bursts_with_pauses(30.0, (5.0, 7.0), 0.6, seed=5)
+        sess = StreamingSession(tr, stream_id="live", transcribe_fn=via_server)
+        t0 = time.perf_counter()
+        stream_segs, chunk = [], 5120  # 0.32 s
+        for i in range(0, len(stream_pcm), chunk):
+            stream_segs += sess.feed(stream_pcm[i:i + chunk])
+        stream_segs += sess.flush()
+        stream_s = time.perf_counter() - t0
+        ordered = all(a.end_s <= b.start_s + 1e-6 for a, b in zip(stream_segs, stream_segs[1:]))
+        rec["streaming"] = {"seconds_of_audio": 30.0, "chunk_s": 0.32,
+                            "utterances": len(stream_segs), "seconds": stream_s,
+                            "ordered": ordered,
+                            "spans": [[s.start_s, s.end_s] for s in stream_segs]}
+        if not stream_segs or not ordered:
+            raise AssertionError(f"serving_daemon streaming: {rec['streaming']}")
+        final = server.stats.snapshot()
+        rec["stats"] = final
+    finally:
+        server.stop()
+    if final["n_errors"] or final["n_rejected"]:
+        raise AssertionError(f"serving_daemon: {final['n_errors']} errors, "
+                             f"{final['n_rejected']} rejected")
+
+    # (d)-(f): the serving options on one batch each, beside the plain
+    # batch, each with its own work timed inside the batch on the device's
+    # timeline (the sampled re-decodes, the alignment pass, the boost's
+    # gathers) and the batch's seconds over the plain batch's
+    from avsl_tpu_torch.decode import greedy
+    from avsl_tpu_torch.infer import pipeline
+
+    batch_items = items[:SERVE_BATCH]
+    _, plain_s, launches, _, _ = run_counted(lambda: tr.transcribe_batch(batch_items))
+    gate("plain_batch", launches, 1)
+    plain = tr.transcribe_batch(batch_items)
+    eot = ByteTokenizer().eot
+    rec["plain_batch_decoded_tokens"] = decoded_tokens(plain, eot, SERVE_MAX_NEW)
+    options = {
+        "fallback": dict(temperature_fallback=(0.2, 0.4)),
+        # boosted, so that random weights decode byte tokens that make words
+        "word_timestamps": dict(word_timestamps=True, boost_phrases=list(BOOST_PHRASES)),
+        "boost": dict(boost_phrases=list(BOOST_PHRASES)),
+    }
+    # (the module each is called through)
+    timed_parts = {"fallback": (pipeline, "sampled_decode_scored"),
+                   "word_timestamps": (pipeline, "align_words"),
+                   "boost": (greedy, "bias_adjust", "bias_advance")}
+    for name, opts in options.items():
+        otr = StreamingTranscriber(model, ByteTokenizer(), **kw, **opts)
+        with timed_calls(*timed_parts[name]) as spent:
+            results, seconds, launches, _, _ = run_counted(
+                lambda: otr.transcribe_batch(batch_items))
+        check_served(results, SERVE_BATCH, SERVE_MAX_NEW)
+        sub = {"seconds": seconds, "plain_batch_seconds": plain_s,
+               "seconds_over_plain": seconds - plain_s,
+               "decoded_tokens": decoded_tokens(results, eot, SERVE_MAX_NEW),
+               "own_seconds": sum(spent), "own_calls": len(spent),
+               "own_share_of_batch": sum(spent) / seconds,
+               "tokens_differ_from_plain": sum(r.tokens != p.tokens for r, p in zip(results, plain))}
+        if name == "fallback":
+            gate(name, launches, 1)
+            sub["sampled_decodes"] = otr.fallback_decodes
+            if otr.fallback_decodes != 2:  # random weights: every row retries at both
+                raise AssertionError(f"the fallback re-decoded {otr.fallback_decodes} times, not 2")
+        elif name == "word_timestamps":
+            gate(name, launches, 1, extra=2 * cfg.n_text_layer)
+            sub["words"] = sum(len(r.words) for r in results)
+            if not sub["words"]:
+                raise AssertionError("serving_daemon: the alignment pass gave no words")
+            for r, it in zip(results, batch_items):
+                window = min(len(it["audio"]), audio_max_length) / 16000
+                starts = [w["start_s"] for w in r.words]
+                if starts != sorted(starts) or any(
+                        not 0.0 <= w["start_s"] <= w["end_s"] <= window + 0.02 for w in r.words):
+                    raise AssertionError(f"serving_daemon words of {r.id} outside its window "
+                                         f"or out of order")
+        else:
+            gate(name, launches, 1)
+            trie = otr._biasing
+            if trie.next_node.device != model.device:
+                raise AssertionError("the biasing trie is not on the model's card")
+            sub.update(phrases=len(BOOST_PHRASES), trie_nodes=trie.n_nodes, vocab=cfg.n_vocab,
+                       trie_table_bytes=trie.n_nodes * cfg.n_vocab * 4, trie_bytes=trie.nbytes)
+        rec[name] = sub
+
+    # (g) language ID on 8 clips
+    clips = np.stack([it["audio"][:audio_max_length] for it in batch_items])
+    dets, seconds, launches, _, _ = run_counted(
+        lambda: detect_language(model, ByteTokenizer(), clips))
+    gate("language", launches, 0, extra=cfg.n_audio_layer)
+    sums = [sum(table.values()) for _, table in dets]
+    rec["language"] = {"clips": len(dets), "seconds": seconds, "best": [b for b, _ in dets],
+                       "max_sum_err": max(abs(s - 1.0) for s in sums)}
+    if rec["language"]["max_sum_err"] > 1e-4:
+        raise AssertionError(f"language posteriors do not sum to 1: {sums}")
+    rec["k1_launches"] = k1
+    rec["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    log(rec)
+    return sum(v for k, v in k1.items() if k != "direct")
+
+
 def sass_counts() -> dict:
     """Tensor-core instructions in each built library, from the toolkit's
     ``cuobjdump -sass``: ``HGMMA`` (wgmma) and ``HMMA`` (mma.sync)."""
@@ -2686,6 +3138,7 @@ def main() -> int:
     phase_small_train_reference()
     phase_small_flamingo_train_reference()
     phase_small_avhubert_reference()
+    phase_small_serving_reference()
     phase_resample(smi)
 
     def free():
@@ -2698,6 +3151,7 @@ def main() -> int:
     free()
     av_serving_launches, av_model, av_record = phase_av_main_path(smi)
     av_raw_launches = phase_av_raw_main_path(smi, *av_model, av_record)
+    daemon_launches = phase_serving_daemon(smi, *av_model)
     del av_model
     free()
     with tempfile.TemporaryDirectory() as out_dir:
@@ -2736,7 +3190,8 @@ def main() -> int:
         entry("flash_attention_fwd", "flash_attn_fwd", "avsl_tpu_torch/csrc/flash_attn_fwd.cu",
               "avsl_tpu/kernels/attention.py:63", fwd_cases,
               {"serving": serving_launches, "av_serving": av_serving_launches,
-               "av_raw_serving": av_raw_launches, "training": train_launches["k1"],
+               "av_raw_serving": av_raw_launches, "serving_daemon": daemon_launches,
+               "training": train_launches["k1"],
                "flamingo_training": flamingo[False]["k1"],
                "flamingo_training_hoisted": flamingo[True]["k1"],
                "flamingo_dataset_training": dataset_launches["k1"],
@@ -2745,7 +3200,7 @@ def main() -> int:
                "avhubert_ctc_eval": avh["ctc_eval"][0]}),
         entry("flash_attention_bwd", "flash_attn_bwd", "avsl_tpu_torch/csrc/flash_attn_bwd.cu",
               "avsl_tpu/kernels/attention.py:159", bwd_cases,
-              {"serving": 0, "av_serving": 0, "av_raw_serving": 0,
+              {"serving": 0, "av_serving": 0, "av_raw_serving": 0, "serving_daemon": 0,
                "training": train_launches["k2"],
                "flamingo_training": flamingo[False]["k2"],
                "flamingo_training_hoisted": flamingo[True]["k2"],

@@ -118,8 +118,7 @@ def test_torch_transcribe_batch_matches_transcribe(transcribers):
 
 @pytest.mark.parametrize("option", [
     {"draft_variables": object()}, {"quantize": "int8"}, {"kv_int8": True}, {"mesh": object()},
-    {"temperature_fallback": (0.2,)}, {"word_timestamps": True},
-    {"draft_model": object()}, {"boost_phrases": ["hello"]},
+    {"draft_model": object()},
 ])
 def test_torch_transcriber_refuses_later_slices(transcribers, option):
     _, ptr = transcribers
