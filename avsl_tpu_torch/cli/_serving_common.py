@@ -1,11 +1,16 @@
-"""Transcriber construction for the port's serving CLI: tokenizer, model
-build on the device, checkpoint restore, and the StreamingTranscriber.
+"""Transcriber construction for the port's serving CLIs: tokenizer, model
+build on the device, checkpoint restore, the speculative draft, and the
+StreamingTranscriber.
 
-Port of ``avsl_tpu/cli/_serving_common.py`` for ``cli/transcribe.py`` and
-``cli/serve.py``. Without ``--ckpt_dir`` the model has seeded random
-weights; with it, the latest checkpoint a trainer wrote there (an empty
-directory exits rather than serve random weights). The serving options of
-later work raise before any model is built, naming their item.
+Port of ``avsl_tpu/cli/_serving_common.py`` for ``cli/transcribe.py``,
+``cli/serve.py`` and ``cli/export_program.py``. Without ``--ckpt_dir`` the
+model has seeded random weights; with it, the latest checkpoint a trainer
+wrote there (an empty directory exits rather than serve random weights),
+whose fp32 weights ``--quantize int8`` quantizes. ``--draft_model <preset>``
+builds that Whisper preset audio-only as the speculative draft, with
+``--draft_ckpt``'s weights (a random draft is refused outside
+``--smoke``). ``--model_parallel``/``--data_parallel`` above 1 raise
+before any model is built, naming their item.
 """
 
 from __future__ import annotations
@@ -15,16 +20,22 @@ from typing import Optional
 
 def build_target_model(cfg, tokenizer, smoke: bool, ckpt_dir: Optional[str],
                        device: str = "cuda", seed: int = 0):
+    """``(model, w_cfg)`` of :func:`build_target_with_weights`."""
+    return build_target_with_weights(cfg, tokenizer, smoke, ckpt_dir, device, seed)[:2]
+
+
+def build_target_with_weights(cfg, tokenizer, smoke: bool, ckpt_dir: Optional[str],
+                              device: str = "cuda", seed: int = 0):
     """Build the config's Whisper model on ``device`` (``<laugh>`` added to
     the tokenizer, vocab sized to match) and, with ``ckpt_dir``, restore
-    its latest checkpoint through the config's optimizer, as
-    ``avsl_tpu/cli/_serving_common.py:63-76`` does (the weights, BatchNorm
-    statistics included, cast to the serving dtype). Returns ``(model,
-    w_cfg)``, the model in eval mode."""
+    its latest checkpoint as ``avsl_tpu/cli/_serving_common.py:63-76``
+    does (:func:`restore_weights`: the weights, BatchNorm statistics
+    included, cast to the serving dtype; the port's checkpoint holds the
+    state dict apart from the optimizer, so none is built). Returns ``(model,
+    w_cfg, weights)``: the model in eval mode, and the checkpoint's fp32
+    state dict (None without ``ckpt_dir``), which ``--quantize``
+    quantizes."""
     from avsl_tpu_torch.models.factory import build_whisper_flamingo
-    from avsl_tpu_torch.train.checkpoints import latest_step, restore_checkpoint
-    from avsl_tpu_torch.train.loop import TrainState
-    from avsl_tpu_torch.train.optim import select_optimizer
 
     vocab = tokenizer.add_tokens(["<laugh>"])
     model, w_cfg = build_whisper_flamingo(
@@ -34,13 +45,22 @@ def build_target_model(cfg, tokenizer, smoke: bool, ckpt_dir: Optional[str],
         dtype="float32" if smoke else "bfloat16",
         device=device, seed=seed,
     )
-    if ckpt_dir:
-        if latest_step(ckpt_dir) is None:
-            # never serve random weights from a mistyped or empty directory
-            raise SystemExit(f"no checkpoint under {ckpt_dir!r}")
-        tx, _ = select_optimizer(model, cfg, 1)
-        restore_checkpoint(ckpt_dir, TrainState.create(model, tx))
-    return model.eval(), w_cfg
+    weights = restore_weights(model, ckpt_dir) if ckpt_dir else None
+    return model.eval(), w_cfg, weights
+
+
+def restore_weights(model, ckpt_dir: str):
+    """Load the latest checkpoint under ``ckpt_dir`` into ``model`` (cast
+    to its dtypes) and return the checkpoint's state dict, its fp32
+    weights; an empty or mistyped directory exits rather than serve
+    random weights."""
+    from avsl_tpu_torch.train.checkpoints import restore_params_only
+
+    weights = restore_params_only(ckpt_dir)
+    if weights is None:
+        raise SystemExit(f"no checkpoint under {ckpt_dir!r}")
+    model.load_state_dict(weights)
+    return weights
 
 
 def serving_video_frames(audio_max_length: int) -> int:
@@ -50,24 +70,62 @@ def serving_video_frames(audio_max_length: int) -> int:
 
 
 def refuse_unported(args) -> None:
-    """Raise for the serving flags whose modules are not ported yet, each
-    mapped onto its transcriber option in ``infer.pipeline.UNPORTED``,
-    before any model is built."""
+    """Raise for the serving flags whose modules are not ported yet (the
+    mesh, ``infer.pipeline.UNPORTED``) before any model is built."""
     from avsl_tpu_torch.infer.pipeline import not_ported
 
-    asked = [
-        ("quantize", "--quantize", getattr(args, "quantize", None) is not None),
-        ("kv_int8", "--kv_int8", bool(getattr(args, "kv_int8", False))),
-        ("draft_model", "--draft_model/--draft_ckpt/--spec_k",
-         bool(getattr(args, "draft_model", None) or getattr(args, "draft_ckpt", None))
-         or getattr(args, "spec_k", None) is not None),
-        ("mesh", "--model_parallel/--data_parallel",
-         (getattr(args, "model_parallel", 1) or 1) > 1
-         or (getattr(args, "data_parallel", 1) or 1) > 1),
-    ]
-    for option, flags, bad in asked:
-        if bad:
-            raise not_ported(option, flags)
+    if max(getattr(args, "model_parallel", 1) or 1, getattr(args, "data_parallel", 1) or 1) > 1:
+        raise not_ported("mesh", "--model_parallel/--data_parallel")
+
+
+def shapes_match(restored, probe) -> bool:
+    """Same keys and tensor shapes (dtype-agnostic: checkpoints may hold
+    another precision than the model)."""
+    return (set(restored) == set(probe)
+            and all(tuple(restored[k].shape) == tuple(probe[k].shape) for k in probe))
+
+
+def refuse_draft_args(args, smoke: bool) -> None:
+    """The draft flags' refusals, before any model is built: a draft with
+    a beam, ``--spec_k`` under 1, and a random draft outside ``--smoke``
+    (it decodes exactly, the verify pass rejecting it, but wastes every
+    draft forward)."""
+    if not getattr(args, "draft_model", None):
+        return
+    if args.beam > 1:
+        raise SystemExit("--draft_model composes with greedy only (--beam 1)")
+    spec_k = int(getattr(args, "spec_k", 4))
+    if spec_k < 1:
+        raise SystemExit(f"--spec_k must be >= 1, got {spec_k}")
+    if not getattr(args, "draft_ckpt", None) and not smoke:
+        raise SystemExit("--draft_model needs --draft_ckpt (or --smoke)")
+
+
+def build_draft(args, vocab: int, smoke: bool):
+    """``(draft model, its state dict or None)`` for ``--draft_model``:
+    the preset built audio-only on ``args.device``, with ``--draft_ckpt``'s
+    weights (checked against the preset's keys and shapes before any
+    decode); ``(None, None)`` without a draft."""
+    from avsl_tpu_torch.models.factory import build_whisper_flamingo
+    from avsl_tpu_torch.train.checkpoints import restore_params_only
+
+    name = getattr(args, "draft_model", None)
+    if not name:
+        return None, None
+    draft, _ = build_whisper_flamingo(name, vocab_size=vocab, add_gated_x_attn=False,
+                                      dtype="float32" if smoke else "bfloat16",
+                                      device=args.device)
+    ckpt = getattr(args, "draft_ckpt", None)
+    if not ckpt:
+        return draft, None
+    restored = restore_params_only(ckpt)
+    if restored is None:
+        raise SystemExit(f"no checkpoint under {ckpt!r}")
+    if not shapes_match(restored, draft.state_dict()):
+        raise SystemExit(
+            f"--draft_ckpt {ckpt!r} does not match --draft_model {name!r} (param tree/shape "
+            "mismatch — was it distilled with a different --draft_model?)")
+    return draft, restored
 
 
 def parse_temperatures(text: str):
@@ -81,10 +139,11 @@ def build_transcriber(args, cfg):
 
     refuse_unported(args)
     smoke = bool(getattr(args, "smoke", False))
+    refuse_draft_args(args, smoke)
     tokenizer = get_tokenizer(getattr(cfg, "download_root", None), cfg.lang)
-    model, _ = build_target_model(
-        cfg, tokenizer, smoke, args.ckpt_dir, device=args.device
-    )
+    model, w_cfg, weights = build_target_with_weights(cfg, tokenizer, smoke, args.ckpt_dir,
+                                                      device=args.device)
+    draft, draft_weights = build_draft(args, w_cfg.n_vocab, smoke)
     return StreamingTranscriber(
         model, tokenizer,
         audio_max_length=int(cfg.audio_max_length),
@@ -96,6 +155,12 @@ def build_transcriber(args, cfg):
         temperature_fallback=parse_temperatures(getattr(args, "temperature_fallback", "")),
         logprob_threshold=getattr(args, "logprob_threshold", -1.0),
         word_timestamps=bool(getattr(args, "word_timestamps", False)),
+        quantize=getattr(args, "quantize", None),
+        kv_int8=bool(getattr(args, "kv_int8", False)),
+        weights=weights,
+        draft_model=draft,
+        draft_variables=draft_weights,
+        spec_k=int(getattr(args, "spec_k", 4)),
     )
 
 

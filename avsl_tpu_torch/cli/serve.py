@@ -7,11 +7,12 @@ transcription server (:class:`avsl_tpu_torch.infer.TranscriptionServer`)
 on the JAX CLI's default model, ``FlamingoTrainConfig()`` (Whisper
 large-v2 with the AV-HuBERT video tower and gated cross-attention; with
 ``--smoke`` the tiny test model at 1 s windows), on ``--device`` (the card
-unless ``cpu`` is asked for). It takes the JAX CLI's flags; ``--quantize``,
-``--kv_int8``, ``--draft_model``/``--draft_ckpt``/``--spec_k`` and
-``--model_parallel``/``--data_parallel`` above 1 raise, naming their
-``ROADMAP.md`` item. ``--smoke`` binds, prints ``{"ok": true, "address":
-...}`` and stops.
+unless ``cpu`` is asked for). It takes the JAX CLI's flags: ``--quantize
+int8``, ``--kv_int8`` and ``--draft_model``/``--draft_ckpt``/``--spec_k``
+as ``cli/transcribe.py`` does; ``--model_parallel``/``--data_parallel``
+above 1 raise, naming their ``ROADMAP.md`` item. ``/healthz`` reports
+``quantize``, ``/stats`` the draft's acceptance. ``--smoke`` binds, prints
+``{"ok": true, "address": ...}`` and stops.
 """
 
 from __future__ import annotations
@@ -36,17 +37,17 @@ def main(argv: Optional[List[str]] = None):
     p.add_argument("--beam", type=int, default=1)
     p.add_argument("--max_wait_ms", type=float, default=30.0)
     p.add_argument("--quantize", default=None, choices=["int8"],
-                   help="not ported yet (ROADMAP.md item 11, slice 10)")
+                   help="weight-only int8 serving (models/quant.py)")
     p.add_argument("--kv_int8", action="store_true",
-                   help="not ported yet (ROADMAP.md item 11, slice 10)")
+                   help="int8-compress the cross-attn/xv K/V the decode loop re-reads")
     p.add_argument("--temperature_fallback", default="", help="comma list, e.g. 0.2,0.4")
     p.add_argument("--logprob_threshold", type=float, default=-1.0)
     p.add_argument("--word_timestamps", action="store_true",
                    help="attach cross-attention DTW word times to replies")
     p.add_argument("--draft_model", default=None,
-                   help="not ported yet (ROADMAP.md item 11, slice 10)")
+                   help="draft Whisper preset for speculative decoding, e.g. tiny")
     p.add_argument("--draft_ckpt", default=None)
-    p.add_argument("--spec_k", type=int, default=None)
+    p.add_argument("--spec_k", type=int, default=4, help="draft tokens per verify pass")
     p.add_argument("--model_parallel", type=int, default=1)
     p.add_argument("--data_parallel", type=int, default=1)
     p.add_argument("--device", default="cuda",

@@ -15,7 +15,11 @@ and gated cross-attention (``--smoke``: the tiny test model).
 wrote there; without it the weights are seeded random.
 ``--temperature_fallback 0.2,0.4`` re-decodes low-confidence items by
 sampling, ``--word_timestamps`` adds each row's ``words``, and
-``--detect_language`` its ``language`` and ``language_prob``.
+``--detect_language`` its ``language`` and ``language_prob`` (it needs
+float weights: with ``--quantize`` it exits). ``--quantize int8`` serves
+int8 weights, ``--kv_int8`` an int8 cross-attention cache, and
+``--draft_model tiny --draft_ckpt <dir> [--spec_k 4]`` decodes
+speculatively against that draft (``cli/_serving_common.py``).
 """
 
 from __future__ import annotations
@@ -102,7 +106,18 @@ def main(argv: Optional[List[str]] = None) -> List[Dict[str, Any]]:
     p.add_argument("--logprob_threshold", type=float, default=-1.0)
     p.add_argument("--word_timestamps", action="store_true")
     p.add_argument("--detect_language", action="store_true",
-                   help="attach a per-item spoken-language posterior (decode/language.py)")
+                   help="attach a per-item spoken-language posterior (decode/language.py); "
+                   "needs float weights (no --quantize)")
+    p.add_argument("--quantize", default=None, choices=["int8"],
+                   help="weight-only int8 serving (models/quant.py)")
+    p.add_argument("--kv_int8", action="store_true",
+                   help="int8-compress the cross-attn/xv K/V the decode loop re-reads")
+    p.add_argument("--draft_model", default=None,
+                   help="draft Whisper preset for speculative decoding, e.g. tiny")
+    p.add_argument("--draft_ckpt", default=None)
+    p.add_argument("--spec_k", type=int, default=4, help="draft tokens per verify pass")
+    p.add_argument("--model_parallel", type=int, default=1)
+    p.add_argument("--data_parallel", type=int, default=1)
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the plain PyTorch path")
     p.add_argument("--smoke", action="store_true")
@@ -119,6 +134,8 @@ def main(argv: Optional[List[str]] = None) -> List[Dict[str, Any]]:
     if not items:
         print("no items found")
         return []
+    if args.detect_language and args.quantize:
+        raise SystemExit("--detect_language needs float weights (no --quantize)")
     transcriber = build_transcriber(args, cfg)
     results = transcriber.transcribe(items)
     out = [

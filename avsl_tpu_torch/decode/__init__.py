@@ -25,6 +25,7 @@ from avsl_tpu_torch.decode.greedy import (
     teacher_forced_predictions,
 )
 from avsl_tpu_torch.decode.language import detect_language, detect_language_logits
+from avsl_tpu_torch.decode.speculative import SpecDecodeResult, speculative_greedy_decode
 from avsl_tpu_torch.decode.text_norm import compression_ratio, normalize_text, wer_cer
 from avsl_tpu_torch.decode.word_timestamps import (
     attention_token_spans,
@@ -36,6 +37,7 @@ from avsl_tpu_torch.decode.word_timestamps import (
 
 __all__ = [
     "BiasingTrie",
+    "SpecDecodeResult",
     "attention_token_spans",
     "beam_search",
     "bias_adjust",
@@ -59,6 +61,7 @@ __all__ = [
     "mask_after_eot",
     "normalize_text",
     "sampled_decode_scored",
+    "speculative_greedy_decode",
     "teacher_forced_predictions",
     "wer_cer",
     "whisper_word_timestamps",

@@ -8,9 +8,11 @@ may only extend with EOT at zero added score, beams reorder by their
 source beam each step, and the final pick is length-normalised.
 
 The port's decode caches are written in place and carry their write
-position as a host integer ``index`` (``models/layers.py``). Reordering
-beams therefore gathers every cache tensor into a new tensor (never a
-view of the old one) and carries the integers through unchanged.
+position as a host integer ``index`` (``models/layers.py``), or as a [B]
+tensor (the exported step program's). Reordering beams therefore gathers
+every cache tensor, a [B] index and the int8 cross cache's ``q`` and
+``scale`` included, into a new tensor (never a view of the old one) and
+carries host integers through unchanged.
 
 Generic over models: ``step_fn(tokens [N, L], cache) -> (logits [N, L, V],
 cache)``. With ``biasing`` (a :class:`~.biasing.BiasingTrie`) each beam
@@ -31,10 +33,13 @@ NEG_INF = -1.0e9
 
 
 def _map_cache(tree: Any, fn: Callable[[torch.Tensor], torch.Tensor]) -> Any:
-    """Apply ``fn`` to every batched tensor of a cache tree (lists and
-    dicts); scalars and host integers pass through."""
+    """Apply ``fn`` to every batched tensor of a cache tree (lists, dicts
+    and the int8 ``QTensor`` pairs); scalars and host integers pass
+    through."""
     if isinstance(tree, dict):
         return {k: _map_cache(v, fn) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):  # an int8 QTensor
+        return type(tree)(*(_map_cache(v, fn) for v in tree))
     if isinstance(tree, (list, tuple)):
         return type(tree)(_map_cache(v, fn) for v in tree)
     if isinstance(tree, torch.Tensor) and tree.ndim > 0:

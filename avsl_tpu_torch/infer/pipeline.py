@@ -39,17 +39,28 @@ tracker finds nothing) by the staged lip frontend on the device
 (``kernels/lip_pipeline.py``). Decoding a clip and the refined tracker
 need OpenCV on the host. Items without video get a zeroed clip and
 ``has_video=False``, so audio-only and audio-visual items share a batch.
-The options that belong to later work (``quantize``, ``kv_int8``,
-``draft_model``, ``mesh``) raise, each naming its ``ROADMAP.md`` item.
+
+The options that change the decode's cost: ``quantize="int8"`` serves a
+copy of the model whose weights are int8 with per-channel scales,
+dequantized to bf16 at each use (``models/quant.py``; from ``weights``,
+the fp32 state dict the model was loaded from, when given; the caller's
+model is left as it was); ``kv_int8`` compresses the decode cache's
+cross-attention and "xv" K/V to int8 rows; ``draft_model`` (an audio-only
+Whisper with its weights, or ``draft_variables``, a state dict loaded into
+it) proposes ``spec_k`` tokens a round of speculative greedy decoding
+(``decode/speculative.py``), token-exact against greedy, on its own
+log-mel at its own ``n_mels``; ``spec_stats()`` reports its acceptance.
+``mesh`` belongs to later work and raises, naming its ``ROADMAP.md`` item.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import threading
 from dataclasses import dataclass
 from queue import Queue
-from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Mapping, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -59,11 +70,13 @@ from avsl_tpu_torch.data.video_io import load_video_feats, read_video_frames
 from avsl_tpu_torch.decode.beam import beam_search
 from avsl_tpu_torch.decode.biasing import build_biasing_trie, encode_phrases
 from avsl_tpu_torch.decode.greedy import greedy_decode_scored, sampled_decode_scored
+from avsl_tpu_torch.decode.speculative import speculative_greedy_decode
 from avsl_tpu_torch.decode.text_norm import compression_ratio
 from avsl_tpu_torch.decode.word_timestamps import align_words
 from avsl_tpu_torch.infer.longform import LongFormResult, split_item, stitch
 from avsl_tpu_torch.kernels.lip_pipeline import make_staged_lip_frontend
 from avsl_tpu_torch.kernels.logmel import log_mel_spectrogram, pad_or_trim
+from avsl_tpu_torch.models.quant import quantize_kv_cache, quantize_model
 
 
 @dataclass
@@ -109,9 +122,6 @@ class BatchOutput(NamedTuple):
 # serving options of later work, each with the ROADMAP.md item that ports
 # it; the transcriber and the serving CLIs refuse them from this table
 UNPORTED = {
-    "quantize": "item 11, slice 10 (models/quant.py)",
-    "kv_int8": "item 11, slice 10 (models/quant.py)",
-    "draft_model": "item 11, slice 10 (decode/speculative.py)",
     "mesh": "item 12 (the parallel layer)",
 }
 
@@ -156,16 +166,14 @@ class StreamingTranscriber:
         compression_ratio_threshold: float = 2.4,
         word_timestamps: bool = False,
         draft_model: Optional[Any] = None,
-        draft_variables: Optional[Any] = None,
+        draft_variables: Optional[Mapping[str, torch.Tensor]] = None,
+        spec_k: int = 4,
         boost_phrases: Optional[Sequence[str]] = None,
         boost_weight: float = 4.0,
+        weights: Optional[Mapping[str, torch.Tensor]] = None,
     ):
-        asked = {"quantize": quantize is not None, "kv_int8": bool(kv_int8),
-                 "draft_model": draft_model is not None or draft_variables is not None,
-                 "mesh": mesh is not None}
-        for option, bad in asked.items():
-            if bad:
-                raise not_ported(option)
+        if mesh is not None:
+            raise not_ported("mesh")
         if raw_lip_mode not in ("host_refined", "device"):
             raise ValueError(f"raw_lip_mode {raw_lip_mode!r}")
         self.temperature_fallback = tuple(float(t) for t in temperature_fallback)
@@ -176,6 +184,27 @@ class StreamingTranscriber:
                              "(the beam already explores alternatives)")
         self._fallback_calls = 0  # batches the fallback has examined
         self.fallback_decodes = 0  # sampled re-decodes run
+        # speculative telemetry, filled when a draft runs
+        self._spec_batches = 0
+        self._spec_accept_sum = 0.0
+        self._spec_rounds_sum = 0
+        if draft_model is None and draft_variables is not None or (
+                draft_model is not None and draft_model.device.type == "meta"):
+            raise ValueError("draft_model and draft_variables go together")
+        if draft_model is not None and beam_size > 1:
+            raise ValueError("speculative decoding composes with greedy only")
+        self.spec_k = int(spec_k)
+        if draft_model is not None and self.spec_k < 1:
+            raise ValueError(f"spec_k must be >= 1, got {spec_k}")
+        if draft_variables is not None:
+            draft_model.load_state_dict(draft_variables)
+        self.draft_model = draft_model
+        if quantize not in (None, "int8"):
+            raise ValueError(f"quantize {quantize!r} (expected None or 'int8')")
+        self.quantize = quantize
+        if quantize == "int8":
+            model = quantize_model(model, weights)
+        self.kv_int8 = bool(kv_int8)
         self.word_timestamps = bool(word_timestamps)
         self.model = model
         self.tokenizer = tokenizer
@@ -197,6 +226,11 @@ class StreamingTranscriber:
         self.boost_phrases = tuple(boost_phrases or ())
         self._biasing = None
         if self.boost_phrases:
+            if draft_model is not None:
+                raise ValueError(
+                    "boost_phrases does not compose with speculative decoding (the "
+                    "draft-verify loop is token-exact vs unbiased greedy) — drop "
+                    "draft_model or the boost")
             self._biasing = build_biasing_trie(
                 encode_phrases(tokenizer, self.boost_phrases), model.cfg.n_vocab,
                 weight=float(boost_weight), device=self.device)
@@ -240,17 +274,16 @@ class StreamingTranscriber:
         window when None), in eval mode (the caller's mode is restored
         after). A model without gated cross-attention ignores the video, so
         it is not uploaded."""
-        model, cfg = self.model, self.model.cfg
-        was_training = model.training
-        model.eval()
-        try:
+        with self.serving_mode():
             x = torch.from_numpy(audio).to(self.device, non_blocking=True)
-            v = None
-            if cfg.add_gated_x_attn:
-                v = torch.as_tensor(video).to(self.device, non_blocking=True)
-            mel = log_mel_spectrogram(x, n_mels=cfg.n_mels)
-            feats, xv = model.encode(mel, v)
-            seqs, scores = (t.cpu().numpy() for t in self._decode(feats, xv))
+            feats, xv = self.encode(x, video)
+            dfeats = None if self.draft_model is None else self.encode_draft(x)
+            out = self._decode(feats, xv, dfeats=dfeats)
+            if dfeats is not None:
+                self._spec_batches += 1
+                self._spec_accept_sum += float(out.accept_rate)
+                self._spec_rounds_sum += int(out.rounds)
+            seqs, scores = out[0].cpu().numpy(), out[1].cpu().numpy()
             if self.temperature_fallback:
                 seqs, scores = self._fallback(feats, xv, seqs, scores)
             words = None
@@ -259,24 +292,73 @@ class StreamingTranscriber:
                     n_samples = np.full((audio.shape[0],), audio.shape[1])
                 tokens = np.concatenate([self._prompt_np, seqs.astype(np.int64)], axis=1)
                 frames = [max(int(np.ceil(n / 320.0)), 1) for n in n_samples]
-                words = align_words(model, feats, xv, tokens, self.tokenizer, frames, 50.0)
-        finally:
-            model.train(was_training)
+                words = align_words(self.model, feats, xv, tokens, self.tokenizer, frames, 50.0)
         return BatchOutput(seqs, scores, words)
 
+    @contextlib.contextmanager
+    def serving_mode(self):
+        """The model and the draft in eval mode within the block, each in
+        the mode the caller left it in afterwards."""
+        models = [m for m in (self.model, self.draft_model) if m is not None]
+        modes = [m.training for m in models]
+        for m in models:
+            m.eval()
+        try:
+            yield
+        finally:
+            for m, mode in zip(models, modes):
+                m.train(mode)
+
+    def encode(self, audio: torch.Tensor, video) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """Log-mel and the model's encoders for a batch of audio [B,
+        samples] on the device (and video, which only a model with gated
+        cross-attention reads): ``(audio features, projected video or
+        None)``."""
+        cfg = self.model.cfg
+        v = None
+        if cfg.add_gated_x_attn:
+            v = torch.as_tensor(video).to(self.device, non_blocking=True)
+        return self.model.encode(log_mel_spectrogram(audio, n_mels=cfg.n_mels), v)
+
+    def encode_draft(self, audio: torch.Tensor) -> torch.Tensor:
+        """The draft model's audio features: its own log-mel at its own
+        ``n_mels`` through its encoder (a draft is audio-only)."""
+        draft = self.draft_model
+        return draft.encode(log_mel_spectrogram(audio, n_mels=draft.cfg.n_mels))[0]
+
+    def cache_len(self, sampled: bool = False) -> int:
+        """Positions of a decode cache: the prompt and the new tokens, plus
+        ``spec_k + 1`` for speculative decoding's verify pass, else 2."""
+        extra = self.spec_k + 1 if self.draft_model is not None and not sampled else 2
+        return self.max_new_tokens + self._prompt.shape[1] + extra
+
+    def decode_cache(self, feats, xv, max_len: int):
+        """The model's decode cache, int8-compressed with ``kv_int8``."""
+        cache = self.model.init_decode_cache(feats, xv, max_len)
+        return quantize_kv_cache(cache) if self.kv_int8 else cache
+
     def _decode(self, feats, xv, temperature: Optional[float] = None,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None, dfeats=None):
         """One decode of a batch's encoder outputs on a fresh cache: beam
-        search, greedy, or with ``temperature`` sampled from ``generator``.
-        -> (tokens [B, max_new_tokens], scores [B]) on the device."""
+        search, greedy, speculative greedy against the draft's features
+        ``dfeats`` (a :class:`SpecDecodeResult`), or with ``temperature``
+        sampled from ``generator``. -> (tokens [B, max_new_tokens], scores
+        [B], ...) on the device."""
         model = self.model
-        cache = model.init_decode_cache(feats, xv, self.max_new_tokens + self._prompt.shape[1] + 2)
+        sampled = temperature is not None
+        cache = self.decode_cache(feats, xv, self.cache_len(sampled))
 
         def step(tok, c):
             return model.decode(tok, None, None, c)
 
         args = (step, cache, self._prompt)
         eot = self.tokenizer.eot
+        if dfeats is not None and not sampled:
+            draft = self.draft_model
+            return speculative_greedy_decode(
+                step, lambda tok, c: draft.decode(tok, None, None, c), cache,
+                draft.init_decode_cache(dfeats, None, self.cache_len()), self._prompt,
+                self.max_new_tokens, eot, k=self.spec_k)
         if self.beam_size > 1:
             return beam_search(*args, self.beam_size, self.max_new_tokens, eot,
                                biasing=self._biasing)
@@ -284,6 +366,15 @@ class StreamingTranscriber:
             return greedy_decode_scored(*args, self.max_new_tokens, eot, biasing=self._biasing)
         return sampled_decode_scored(*args, self.max_new_tokens, eot, temperature, generator,
                                      biasing=self._biasing)
+
+    def spec_stats(self) -> Optional[Dict[str, float]]:
+        """Draft-quality telemetry: mean acceptance rate and verify rounds
+        a batch since start; None before any speculative batch."""
+        if not self._spec_batches:
+            return None
+        return {"batches": self._spec_batches,
+                "mean_accept_rate": self._spec_accept_sum / self._spec_batches,
+                "mean_verify_rounds": self._spec_rounds_sum / self._spec_batches}
 
     def _retry_mask(self, seqs: np.ndarray, scores: np.ndarray) -> np.ndarray:
         """Per row: confidence below ``logprob_threshold``, or text that
@@ -311,7 +402,7 @@ class StreamingTranscriber:
                 break
             gen = torch.Generator(device=self.device)
             gen.manual_seed(1234 + self._fallback_calls * 31 + k)
-            s2, sc2 = (t.cpu().numpy() for t in self._decode(feats, xv, temp, gen))
+            s2, sc2 = (t.cpu().numpy() for t in self._decode(feats, xv, temp, gen)[:2])
             self.fallback_decodes += 1
             passes = ~self._retry_mask(s2, sc2)
             adopt = need & (passes | ((k == last) & (sc2 > scores)))

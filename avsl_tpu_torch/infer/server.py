@@ -19,8 +19,10 @@ Protocol (JSON over HTTP, standard library only):
          (+ "words" with word timestamps; with long=true "segments":
           [{start_s, end_s, text, avg_logprob}], windows cut at pauses and
           batched like other requests, infer/longform.py)
-    GET  /healthz         -> {"ok": true, ...}
-    GET  /stats           -> latency percentiles and batch occupancy
+    GET  /healthz         -> {"ok": true, "batch_size", "quantize", "device"}
+    GET  /stats           -> latency percentiles and batch occupancy (and
+                             "speculative", the draft's acceptance, once a
+                             speculative batch has run)
 
 A full queue answers 429, a request that waits too long 504, a malformed
 one 400. Use :class:`TranscriptionServer` directly or through
@@ -137,10 +139,14 @@ class TranscriptionServer:
             def do_GET(self):
                 if self.path == "/healthz":
                     self._reply(200, {"ok": True, "batch_size": server.transcriber.batch_size,
-                                      "quantize": None,
+                                      "quantize": server.transcriber.quantize,
                                       "device": str(server.transcriber.device)})
                 elif self.path == "/stats":
-                    self._reply(200, server.stats.snapshot())
+                    snap = server.stats.snapshot()
+                    spec = server.transcriber.spec_stats()
+                    if spec is not None:
+                        snap["speculative"] = spec
+                    self._reply(200, snap)
                 else:
                     self._reply(404, {"error": "not found"})
 

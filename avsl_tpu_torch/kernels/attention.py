@@ -15,6 +15,13 @@ backward kernel; on CPU tensors the same Function runs the plain forward
 and the plain backward. On a CUDA tensor each wrapper launches its kernel
 or raises, with no fallback. ``fused_attention.launches`` and
 ``fused_attention_bwd.launches`` count kernel launches.
+
+Without a gradient, ``fused_attention`` calls the forward through the
+custom op ``torch.ops.avsl_tpu_torch.flash_attn_fwd`` (with a fake
+implementation for tracing), so ``torch.export`` captures the
+hand-written kernel as one node of a serving program instead of failing
+on its ctypes call; the op launches the kernel on CUDA tensors and runs
+:func:`reference_attention` on CPU tensors.
 """
 
 from __future__ import annotations
@@ -327,6 +334,27 @@ class _FusedAttention(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
+@torch.library.custom_op("avsl_tpu_torch::flash_attn_fwd", mutates_args=())
+def flash_attn_fwd_op(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    lengths: Optional[torch.Tensor],
+    causal: bool,
+) -> torch.Tensor:
+    """The forward without row statistics, layout [B, Tq, H, D], as a
+    custom op: the kernel on CUDA tensors, the plain version (contiguous,
+    as the kernel writes it) on CPU tensors."""
+    if q.device.type == "cuda":
+        return flash_attention_fwd_cuda(q, k, v, lengths, causal)
+    return _head_major(reference_attention(*_head_major(q, k, v), lengths, causal))[0].contiguous()
+
+
+@flash_attn_fwd_op.register_fake
+def _(q, k, v, lengths, causal):
+    return torch.empty(q.shape, dtype=q.dtype, device=q.device)
+
+
 def fused_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -341,9 +369,7 @@ def fused_attention(
         raise ValueError(f"fused_attention runs on cuda or cpu, got {q.device}")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return _FusedAttention.apply(q, k, v, lengths, causal)
-    if q.device.type == "cuda":
-        return flash_attention_fwd_cuda(q, k, v, lengths, causal)
-    return _head_major(reference_attention(*_head_major(q, k, v), lengths, causal))[0]
+    return flash_attn_fwd_op(q, k, v, lengths, causal)
 
 
 fused_attention.launches = 0

@@ -12,10 +12,12 @@ from avsl_tpu_torch.models.factory import (
     build_whisper_flamingo,
     make_av_hubert_video_encoder,
 )
+from avsl_tpu_torch.models.quant import QTensor, quantization_report, quantize_model
 from avsl_tpu_torch.models.resnet3d import ResNet3DFrontend
 from avsl_tpu_torch.models.whisper import Whisper, WhisperEncoder, WhisperTextDecoder
 
 __all__ = [
+    "QTensor",
     "AVHuBERTForCTC",
     "AVHuBERTForSpeech2Text",
     "AVHuBERTModel",
@@ -27,6 +29,8 @@ __all__ = [
     "build_avhubert",
     "build_whisper_flamingo",
     "make_av_hubert_video_encoder",
+    "quantization_report",
+    "quantize_model",
     "state_dict_from_flax",
     "whisper_state_dict_from_flax",
 ]

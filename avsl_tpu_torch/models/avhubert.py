@@ -68,6 +68,7 @@ from avsl_tpu_torch.models.layers import (
     fairseq_sinusoid_embedding,
     grad_multiply,
     init_self_attn_cache,
+    positions,
     residual_dropout,
     torch_dtype,
 )
@@ -625,11 +626,7 @@ class AVHuBERTDecoder(nn.Module):
         emb = self.embed_tokens(tokens).to(self.compute_dtype)
         # the compute-dtype embedding times the fp32 sqrt(d): an fp32 stream
         x = emb.float() * np.float32(math.sqrt(cfg.decoder_hidden_size))
-        table = self._positions()
-        start = 0  # dynamic_slice semantics: the start clamps so the slice fits
-        if cache is not None:
-            start = max(0, min(int(cache[0]["self"]["index"]), table.shape[0] - qlen))
-        x = x + table[start:start + qlen].to(x.dtype)
+        x = x + positions(self._positions(), cache, qlen).to(x.dtype)
         x = residual_dropout(x, cfg.decoder_dropout, self.training, generator)
 
         dec_lengths = None

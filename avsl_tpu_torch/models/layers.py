@@ -4,8 +4,8 @@ Port of the dense parts of ``avsl_tpu/models/layers.py``:
 ``LayerNormF32``, ``sinusoid_embedding``, ``fairseq_sinusoid_embedding``,
 ``dot_product_attention``, ``MultiHeadAttention`` (full sequence through
 the flash-attention kernels, with key lengths; an explicit ``mask`` sends
-it down the unfused masked path; scalar-index self cache, precomputed
-cross cache),
+it down the unfused masked path; the self cache with a scalar index or a
+per-sequence [B] index tensor, the precomputed cross cache, int8 or not),
 ``MLP`` (exact GELU, activation dropout) and ``TransformerBlock`` (pre- or
 post-norm, the tanh-gated ``x_attn``/``x_mlp`` sublayers of
 Whisper-Flamingo, residual, attention-weight and activation dropout), and
@@ -41,6 +41,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from avsl_tpu_torch.kernels.attention import fused_attention
+from avsl_tpu_torch.models.quant import QTensor
 
 Cache = Dict[str, Any]
 
@@ -235,6 +236,33 @@ def init_self_attn_cache(
     }
 
 
+def _read_kv(x, dtype: torch.dtype) -> torch.Tensor:
+    """A cached cross-attention K or V in ``dtype``: an int8 ``QTensor``
+    (``models/quant.quantize_kv_cache``) is dequantized on read, as the
+    JAX layer does; a tensor in the model dtype is read as it is."""
+    return x.dequantize(dtype) if isinstance(x, QTensor) else x
+
+
+def is_vector_index(index) -> bool:
+    """Whether a self cache's ``index`` is a per-sequence [B] tensor."""
+    return isinstance(index, torch.Tensor) and index.ndim == 1
+
+
+def positions(table: torch.Tensor, cache: Optional[list], qlen: int) -> torch.Tensor:
+    """A decoder's positional rows for ``qlen`` tokens: from 0 without a
+    cache; from the self cache's index, clamped so the slice fits
+    (``dynamic_slice``), for a scalar index; and for a [B] index each
+    sequence's own rows, clipped to the table ([B, Q, D])."""
+    if cache is None:
+        return table[:qlen]
+    idx = cache[0]["self"]["index"]
+    if is_vector_index(idx):
+        pos_ids = idx[:, None] + torch.arange(qlen, device=idx.device)[None, :]
+        return table[pos_ids.clamp(0, table.shape[0] - 1)]
+    start = max(0, min(int(idx), table.shape[0] - qlen))
+    return table[start:start + qlen]
+
+
 # projection names of one attention layer: OpenAI Whisper's, or fairseq's
 # (the AV-HuBERT encoder)
 _PROJ_NAMES = {
@@ -251,8 +279,10 @@ class MultiHeadAttention(nn.Module):
       ``kv_lengths[b]`` masked when given);
     * incremental self-attention: ``mha(x, cache=c)`` with
       ``c = {"k", "v", "index"}`` writes x's K/V at ``index`` and attends
-      causally over the cached prefix;
-    * cross-attention with ``cache={"k", "v"}`` from :meth:`precompute_kv`.
+      causally over the cached prefix; ``index`` is a host integer, or a
+      [B] tensor that puts each sequence at its own offset;
+    * cross-attention with ``cache={"k", "v"}`` from :meth:`precompute_kv`
+      (or its int8 ``QTensor`` form, dequantized on read).
     ``mask`` (broadcast to [B, H, Q, K], True = attend) joins the causal
     mask of the incremental path, masks the cached cross-attention, and
     sends the full-sequence path down the unfused masked attention, as in
@@ -304,6 +334,38 @@ class MultiHeadAttention(nn.Module):
             "v": self._split(self._proj(2)(kv_src)).transpose(1, 2).contiguous(),
         }
 
+    def _vector_index_step(self, x, q, cache: Cache, mask):
+        """The incremental self-attention with a [B] ``index`` tensor (each
+        sequence at its own offset, as speculative decoding leaves them):
+        query ``t`` of sequence ``b`` writes row ``index[b] + t``, and
+        positions at or beyond the buffer are dropped (JAX's
+        ``mode="drop"`` scatter), and each sequence attends causally up to
+        its own offset. Only the Q new rows are scattered: a dropped query
+        is sent to the last row with the value that row ends up holding,
+        so every duplicate index writes the same value. Rows past a
+        sequence's index hold stale K/V of rejected drafts; they are never
+        attended and are overwritten later."""
+        idx = cache["index"]
+        b, qlen = x.shape[:2]
+        max_len, head_dim = cache["k"].shape[2], cache["k"].shape[3]
+        pos_ids = torch.arange(max_len, device=x.device)
+        q_ids = torch.arange(qlen, device=x.device)
+        row = (idx[:, None] + q_ids[None, :]).clamp(max=max_len - 1)  # [B, Q] row written
+        src = row - idx[:, None]  # the query whose K/V lands in that row; < 0: none, keep it
+        fresh = (src >= 0)[:, None, :, None]
+        shape = (b, self.n_heads, qlen, head_dim)
+        row = row[:, None, :, None].expand(shape)
+        src = src.clamp(min=0)[:, None, :, None].expand(shape)
+        for name, i in (("k", 1), ("v", 2)):
+            new = self._split(self._proj(i)(x)).transpose(1, 2).to(cache[name].dtype)
+            value = torch.where(fresh, new.gather(2, src), cache[name].gather(2, row))
+            cache[name].scatter_(2, row, value)
+        attn_mask = (pos_ids[None, None, :] <= q_ids[None, :, None] + idx[:, None, None])[:, None]
+        if mask is not None:
+            attn_mask = attn_mask & mask
+        out = head_major_attention(q.transpose(1, 2), cache["k"], cache["v"], attn_mask)
+        return out.transpose(1, 2), {"k": cache["k"], "v": cache["v"], "index": idx + qlen}
+
     def forward(
         self,
         x: torch.Tensor,
@@ -316,7 +378,9 @@ class MultiHeadAttention(nn.Module):
     ) -> Tuple[torch.Tensor, Optional[Cache]]:
         q = self._split(self._proj(0)(x))
         new_cache = None
-        if cache is not None and "index" in cache:
+        if cache is not None and is_vector_index(cache.get("index")):
+            out, new_cache = self._vector_index_step(x, q, cache, mask)
+        elif cache is not None and "index" in cache:
             idx = int(cache["index"])
             qlen, max_len = x.shape[1], cache["k"].shape[2]
             # dynamic_update_slice semantics: the start clamps so the
@@ -333,7 +397,8 @@ class MultiHeadAttention(nn.Module):
             out = head_major_attention(q.transpose(1, 2), cache["k"], cache["v"], attn_mask)
             out = out.transpose(1, 2)
         elif cache is not None:
-            out = head_major_attention(q.transpose(1, 2), cache["k"], cache["v"], mask)
+            out = head_major_attention(q.transpose(1, 2), _read_kv(cache["k"], q.dtype),
+                                       _read_kv(cache["v"], q.dtype), mask)
             out = out.transpose(1, 2)
             new_cache = cache
         else:

@@ -40,6 +40,7 @@ from avsl_tpu_torch.models.layers import (
     TransformerBlock,
     cast_param,
     init_self_attn_cache,
+    positions,
     sinusoid_embedding,
     torch_dtype,
 )
@@ -120,13 +121,9 @@ class WhisperTextDecoder(nn.Module):
         generator: Optional[torch.Generator] = None,
         xv: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, Optional[List[Cache]]]:
-        n_ctx, qlen = self.cfg.n_text_ctx, tokens.shape[1]
+        qlen = tokens.shape[1]
         x = self.token_embedding(tokens).to(self.compute_dtype)
-        # dynamic_slice semantics: the start clamps so the slice fits
-        start = 0
-        if cache is not None:
-            start = max(0, min(int(cache[0]["self"]["index"]), n_ctx - qlen))
-        x = x + self.positional_embedding[start:start + qlen].to(x.dtype)
+        x = x + positions(self.positional_embedding, cache, qlen).to(x.dtype)
 
         new_cache: Optional[List[Cache]] = [] if cache is not None else None
         for i, block in enumerate(self.blocks):

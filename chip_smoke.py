@@ -113,7 +113,22 @@ raises on failure:
    phrase boosting and language ID on a batch each, with K1's launches
    gated around each, every reply held to 200 with no error or rejection,
    its request's id and the direct run's text, and every distinct K1
-   launch shape of the phase against the plain version.
+   launch shape of the phase against the plain version;
+12. the serving extras (``serving_extras_*``): on the audio-only model
+   of phase 5, speculative decoding (spec_k 4) with a random ``tiny``
+   draft written by ``save_checkpoint`` and read back through the serving
+   CLIs' ``--draft_ckpt`` path, and with the target as its own draft,
+   against plain greedy on the same batch (K1 exactly 32 + 4 and 32 + 32
+   a batch; greedy's tokens but at near-ties; the self draft accepting
+   every token in 13 rounds but at near-tie rejections); then the
+   audio-only large-v2 transcriber exported through ``cli/export_program
+   --platforms cuda`` from a checkpoint and replayed with
+   ``load_exported`` against the live transcriber (tokens equal, 32 K1 a
+   batch counted and traced); and on the AV model of phase 6, after the
+   daemon, bf16, ``kv_int8``, int8 weights (bit-equal to the CPU's
+   quantization of the same weights; the float model then freed) and
+   both, each exactly 56 K1 a batch, with the tiny int8 model card
+   against CPU.
 
 Each model is freed before the next one is built. It prints the kernel
 list, the card's name and power limit and, last,
@@ -385,7 +400,8 @@ def phase_kernels(label_len: int, flamingo_len: int):
     encoder at the AV path's 10 s windows; and at the Flamingo training
     path's (``flamingo_len`` its pinned label length): the gated x_attn
     onto 250 video frames, the decoder's self- and cross-attention, and
-    the hoisted Whisper encoder over a step's 16 items."""
+    the hoisted Whisper encoder over a step's 16 items; and the
+    speculative draft's (the tiny preset's encoder, 6 heads)."""
     f32, bf16 = torch.float32, torch.bfloat16
     return [
         check_attention_case("a_encoder_bf16", 8, 20, 1500, 1500, 64, bf16),
@@ -417,6 +433,7 @@ def phase_kernels(label_len: int, flamingo_len: int):
         check_attention_case("t_head_dim_128", 8, 8, 250, 250, 128, bf16),
         check_attention_case("u_causal_lengths_d64", 8, 16, 100, 100, 64, bf16, causal=True,
                              lengths=D64_CAUSAL_LENGTHS),
+        check_attention_case("v_tiny_draft_encoder", 8, 6, 1500, 1500, 64, bf16),
     ]
 
 
@@ -887,7 +904,7 @@ def phase_main_path(card: str):
          "decode_steps": max_new, "decode_tokens_per_s": batch * max_new / stages["decode"]})
     log({"phase": "traced_stages", "card": card, "batch": batch,
          "decode_steps_traced": traced_steps, **traced})
-    return launches
+    return launches, model
 
 
 def av_items(n_items: int, seed: int = 1):
@@ -3041,6 +3058,481 @@ def serving_daemon_parts(card: str, model, serve_cfg):
     return sum(v for k, v in k1.items() if k != "direct")
 
 
+# serving_extras (item 11's second half): int8 weights and cache on the AV
+# model, speculative decoding and the exported programs on the audio-only
+# large-v2 target
+EXTRAS_BATCH, EXTRAS_MAX_NEW = 8, 64
+SPEC_K = 4
+# a row may leave plain greedy only where the target's top two logits are
+# nearer than the bf16 tolerance: the verify pass runs (k+1)-row products,
+# greedy 1-row ones, and bf16 products of other shapes round differently
+NEAR_TIE = BF16_TOL["atol"]
+EXPORT_LOGPROB_TOL = 1e-3
+
+
+def static_cache_bytes(cache) -> int:
+    """Bytes of a decode cache's static entries (cross-attention and "xv"
+    K/V, int8 rows counted with their scales)."""
+    total = 0
+    for entry in cache:
+        for name, sub in entry.items():
+            if name != "self":
+                for x in (sub["k"], sub["v"]):
+                    for t in (x if isinstance(x, tuple) else (x,)):
+                        total += t.numel() * t.element_size()
+    return total
+
+
+def extras_breakdown(tr, prep, batch_seconds: float, traced_steps: int = 16) -> dict:
+    """The upload, encoders and cache build of one batch of ``tr`` (host
+    clock, synchronised per stage), the decode loop's share of a batch
+    that took ``batch_seconds`` (what those stages leave), the static
+    cache's bytes, and a traced decode of ``traced_steps`` steps on a
+    cache built before the trace: device launches a step and the idle
+    share."""
+    from avsl_tpu_torch.decode.greedy import greedy_decode_scored
+
+    stages, timed = timed_stages()
+    model, prompt, eot = tr.model, tr._prompt, tr.tokenizer.eot
+
+    def step(tok, c):
+        return model.decode(tok, None, None, c)
+
+    with torch.inference_mode(), tr.serving_mode():
+        x = timed("h2d", lambda: torch.from_numpy(prep.audio).cuda())
+        feats, xv = timed("encode", lambda: tr.encode(x, prep.video))
+        cache = timed("cache_build", lambda: tr.decode_cache(feats, xv, tr.cache_len()))
+        short = tr.decode_cache(feats, xv, traced_steps + prompt.shape[1] + 2)
+        traced = traced_run(lambda: greedy_decode_scored(step, short, prompt, traced_steps, eot))
+    launches = traced.get("device_launches")
+    return {"stage_seconds": stages, "decode_share": 1 - sum(stages.values()) / batch_seconds,
+            "static_cache_bytes": static_cache_bytes(cache),
+            "decode_launches_per_step": None if launches is None else launches / traced_steps,
+            "traced_decode": traced}
+
+
+def timed_in_turns(runs: dict, k1: dict) -> dict:
+    """Each of ``runs`` (name -> a function that runs one batch) timed
+    twice, in the order given and then reversed (A B C C B A), so that a
+    drift of the host is shared; each run's K1 launches gated to ``k1``'s
+    count for its name, with no row statistics and no K2. Returns per name
+    the two seconds, their mean, the K1 launches of each run and of the
+    last, the peak device memory of its runs and the last run's output."""
+    order = list(runs) + list(reversed(runs))
+    out = {name: {"seconds": [], "k1_per_run": [], "peak_bytes": 0} for name in runs}
+    for name in order:
+        torch.cuda.reset_peak_memory_stats()
+        result, seconds, launches, stats_writes, k2 = run_counted(runs[name])
+        out[name]["peak_bytes"] = max(out[name]["peak_bytes"], torch.cuda.max_memory_allocated())
+        if stats_writes or k2 or launches != k1[name]:
+            raise AssertionError(f"{name}: {launches} K1 launches ({stats_writes} with "
+                                 f"statistics, {k2} K2) != {k1[name]}")
+        out[name]["seconds"].append(seconds)
+        out[name]["k1_per_run"].append(launches)
+        out[name].update(k1=launches, result=result)
+    for rec in out.values():
+        rec["seconds_per_batch"] = statistics.mean(rec["seconds"])
+    return out
+
+
+def check_int8_against_cpu(model, qmodel) -> dict:
+    """Every int8 weight of ``qmodel`` (quantized on the card from
+    ``model``'s weights) bit-equal to the CPU's quantization of the same
+    values."""
+    from avsl_tpu_torch.models.quant import channel_axis, quantize_array, quantized_weights
+
+    params = dict(model.named_parameters())
+    n = elems = 0
+    for name, qt in quantized_weights(qmodel).items():
+        want = quantize_array(params[name].detach().float().cpu(), channel_axis(name))
+        if not (torch.equal(qt.q.cpu(), want.q) and torch.equal(qt.scale.cpu(), want.scale)):
+            raise AssertionError(f"{name}: the card's int8 weight differs from the CPU's")
+        n, elems = n + 1, elems + qt.q.numel()
+    return {"tensors_bit_equal": n, "elements": elems}
+
+
+def small_int8_reference() -> dict:
+    """The tiny Whisper-Flamingo model (fp32, the tower at 2 heads of 32,
+    gates 0.5) served with int8 weights and the int8 cache, card against
+    CPU: the same int8 weights, equal tokens, scores within
+    SMALL_SERVING_TOL."""
+    from avsl_tpu_torch.core.config import AVHuBERTConfig
+    from avsl_tpu_torch.data.tokenizer import ByteTokenizer
+    from avsl_tpu_torch.infer import StreamingTranscriber
+    from avsl_tpu_torch.models import build_whisper_flamingo
+    from avsl_tpu_torch.models.quant import quantized_weights
+
+    vocab = ByteTokenizer().add_tokens(["<laugh>"])
+    av_cfg = AVHuBERTConfig.tiny_test(dtype="float32", **SMALL_AV_OVERRIDES)
+    rng = np.random.default_rng(12)
+    items = [{"id": f"q{i}", "audio": (0.2 * rng.standard_normal(int(rng.integers(8000, 16001))))
+              .astype(np.float32)} for i in range(4)]
+    items[1]["lip_feats"] = rng.standard_normal((20, 88, 88, 1), dtype=np.float32)
+    outs, weights = [], []
+    # the batch output's scores, unrounded (a result's avg_logprob is
+    # rounded to 4 decimals, which can put 1e-6 apart a rounding step apart)
+    for device in ("cpu", "cuda"):
+        model, _ = build_whisper_flamingo("test", vocab_size=vocab, add_gated_x_attn=1,
+                                          av_hubert_cfg=av_cfg, dtype="float32", device="cpu",
+                                          seed=6)
+        set_gates(model, GATE)
+        tr = StreamingTranscriber(model.to(device), ByteTokenizer(), audio_max_length=16000,
+                                  video_frames=25, batch_size=4, max_new_tokens=10,
+                                  quantize="int8", kv_int8=True)
+        weights.append({k: (v.q.cpu(), v.scale.cpu())
+                        for k, v in quantized_weights(tr.model).items()})
+        outs.append(tr.run_batch(tr._prepare_batch(items)))
+    if any(not (torch.equal(weights[0][k][0], weights[1][k][0])
+                and torch.equal(weights[0][k][1], weights[1][k][1])) for k in weights[0]):
+        raise AssertionError("the tiny model's int8 weights differ card against CPU")
+    if not (outs[0].tokens == outs[1].tokens).all():
+        raise AssertionError("the tiny int8 model's card tokens differ from the CPU's")
+    worst = float(np.abs(outs[0].scores - outs[1].scores).max())
+    if worst > SMALL_SERVING_TOL:
+        raise AssertionError(f"the tiny int8 model's scores differ by {worst:.3e}")
+    return {"int8_tensors": len(weights[0]), "tokens_equal": True, "score_max_abs_err": worst}
+
+
+def phase_serving_extras_int8(card: str, holder: list) -> dict:
+    """int8 weights and the int8 cache on the JAX CLI's default AV model
+    (``holder`` = [model, serve config], emptied here): the int8 copy,
+    gated bit-equal to the CPU's quantization of the same weights; then
+    one batch of 8 items of 10 s (6 with lip features), 64 new tokens,
+    greedy, in bf16, ``kv_int8``, ``quantize="int8"`` and both, each run
+    twice in turns, exactly 56 K1 a batch, with the breakdown of each
+    (decode share, launches a decode step, static cache bytes); then the
+    float model freed, the resident bytes read, and the int8 model's peak
+    over one more batch without it. Returns K1 launches by variant."""
+    from avsl_tpu_torch.cli._serving_common import serving_video_frames
+    from avsl_tpu_torch.data.tokenizer import ByteTokenizer
+    from avsl_tpu_torch.infer.pipeline import StreamingTranscriber
+    from avsl_tpu_torch.models.quant import quantization_report, tree_bytes
+
+    model, serve_cfg = holder
+    holder.clear()
+    rec = {"phase": "serving_extras_int8", "card": card, "small": small_int8_reference()}
+    audio_max_length = int(serve_cfg.audio_max_length)
+    kw = dict(audio_max_length=audio_max_length,
+              video_frames=serving_video_frames(audio_max_length), crop=88,
+              batch_size=EXTRAS_BATCH, max_new_tokens=EXTRAS_MAX_NEW)
+    per_batch = model.cfg.n_audio_layer + model.video_model.cfg.num_hidden_layers
+    t0 = time.perf_counter()
+    int8 = StreamingTranscriber(model, ByteTokenizer(), quantize="int8", **kw)
+    torch.cuda.synchronize()
+    rec["quantize_seconds"] = time.perf_counter() - t0
+    rec["quantization_report"] = quantization_report(model, int8.model)
+    rec["bit_equal_to_cpu"] = check_int8_against_cpu(model, int8.model)
+    rec["float_model_bytes"] = tree_bytes(model)
+    rec["int8_model_bytes"] = tree_bytes(int8.model)
+    int8_kv = StreamingTranscriber(int8.model, ByteTokenizer(), kv_int8=True, **kw)
+    trs = {"bf16": StreamingTranscriber(model, ByteTokenizer(), **kw),
+           "kv_int8": StreamingTranscriber(model, ByteTokenizer(), kv_int8=True, **kw),
+           "int8": int8, "int8_kv_int8": int8_kv}
+    prep = trs["bf16"]._prepare_batch(av_items(EXTRAS_BATCH, seed=3))
+    for name in ("bf16", "int8"):  # warm-up: cuBLAS handles, allocator
+        trs[name].run_batch(prep)
+    runs = timed_in_turns({name: (lambda tr=tr: tr.run_batch(prep)) for name, tr in trs.items()},
+                          dict.fromkeys(trs, per_batch))
+    base = runs["bf16"]["result"].tokens
+    variants = {}
+    for name, tr in trs.items():
+        r = runs[name]
+        variants[name] = {"seconds": r["seconds"], "seconds_per_batch": r["seconds_per_batch"],
+                          "segments_per_s": EXTRAS_BATCH / r["seconds_per_batch"],
+                          "k1_per_batch": r["k1"],
+                          "tokens_equal_to_bf16": float((r["result"].tokens == base).mean()),
+                          **extras_breakdown(tr, prep, r["seconds_per_batch"])}
+    runs_k1 = {name: r["k1_per_run"] for name, r in runs.items()}
+    # the float model and the int8 copy are both resident through the runs
+    rec["peak_bytes_both_models"] = max(r["peak_bytes"] for r in runs.values())
+    del trs, runs, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["resident_bytes_float_freed"] = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    int8_kv.run_batch(prep)
+    rec["peak_bytes_int8_kv_int8_float_freed"] = torch.cuda.max_memory_allocated()
+    rec["variants"] = variants
+    log(rec)
+    return {name: sum(runs_k1[name]) for name in variants}
+
+
+@contextlib.contextmanager
+def spec_probe(k: int):
+    """Within the block, count the transcriber's draft and target forwards
+    in speculative decoding and record, for every verify pass and row, the
+    first draft token the target rejects with the target's gap there
+    (its top logit less the draft token's, fp32). Adds host reads: for
+    counts, not for timing."""
+    from avsl_tpu_torch.infer import pipeline
+
+    original = pipeline.speculative_greedy_decode
+    probe = {"draft_forwards": 0, "target_forwards": 0, "rejection_gaps": []}
+
+    def wrapped(target_step, draft_step, tc, dc, prompt, max_new, eot, k=k):
+        def t_step(tok, c):
+            logits, c = target_step(tok, c)
+            probe["target_forwards"] += 1
+            if tok.shape[1] == k + 1:  # a verify pass over [y, d_1..d_k]
+                lp = logits.float()
+                top = lp.argmax(-1)[:, :k]
+                drafted = tok[:, 1:]
+                miss = (drafted != top).cpu().numpy()
+                gaps = (lp[:, :k].gather(-1, top[..., None]) - lp[:, :k].gather(
+                    -1, drafted[..., None]))[..., 0].cpu().numpy()
+                for row in range(miss.shape[0]):
+                    if miss[row].any():
+                        probe["rejection_gaps"].append(float(gaps[row, miss[row].argmax()]))
+            return logits, c
+
+        def d_step(tok, c):
+            probe["draft_forwards"] += 1
+            return draft_step(tok, c)
+
+        return original(t_step, d_step, tc, dc, prompt, max_new, eot, k=k)
+
+    pipeline.speculative_greedy_decode = wrapped
+    try:
+        yield probe
+    finally:
+        pipeline.speculative_greedy_decode = original
+
+
+def greedy_with_gaps(tr, prep):
+    """Plain greedy tokens of one prepared batch with the target's top-2
+    logit gap (fp32) at every step, [B, max_new]."""
+    from avsl_tpu_torch.decode.greedy import greedy_decode
+
+    gaps = []
+    model = tr.model
+
+    def step(tok, c):
+        logits, c = model.decode(tok, None, None, c)
+        top2 = logits[:, -1].float().topk(2, dim=-1).values
+        gaps.append(top2[:, 0] - top2[:, 1])
+        return logits, c
+
+    with torch.inference_mode(), tr.serving_mode():
+        x = torch.from_numpy(prep.audio).cuda()
+        feats, xv = tr.encode(x, prep.video)
+        tokens = greedy_decode(step, tr.decode_cache(feats, xv, tr.cache_len()), tr._prompt,
+                               tr.max_new_tokens, tr.tokenizer.eot)
+    return tokens.cpu().numpy(), torch.stack(gaps, dim=1).cpu().numpy()
+
+
+def near_tie_rows(tokens, ref_tokens, ref_gaps) -> list:
+    """Rows of ``tokens`` that differ from plain greedy's, each with its
+    first differing step and greedy's top-2 gap there; raises for a row
+    whose gap is not a near-tie."""
+    rows = []
+    for r in np.nonzero((tokens != ref_tokens).any(axis=1))[0]:
+        i = int(np.argmax(tokens[r] != ref_tokens[r]))
+        gap = float(ref_gaps[r, i])
+        if gap >= NEAR_TIE:
+            raise AssertionError(f"row {r} leaves greedy at step {i} where the top-2 gap is "
+                                 f"{gap:.4f} >= {NEAR_TIE}")
+        rows.append({"row": int(r), "step": i, "gap": gap})
+    return rows
+
+
+def phase_serving_extras_spec(card: str, model) -> dict:
+    """Speculative decoding on the audio-only large-v2 target of the main
+    path (30 s windows, batch 8, 64 new tokens, spec_k 4), with (a) a
+    random ``tiny`` draft at its published widths (384 wide, 6 heads, 4
+    layers), written by ``save_checkpoint`` and read back through the
+    serving CLIs' ``--draft_ckpt`` path, and (b) the target as its own
+    draft; against plain greedy on the same batch. Gates: K1 exactly 32 +
+    4 and 32 + 32 a batch; both give greedy's tokens but at near-ties;
+    (b) accepts every draft token in ceil(64 / 5) = 13 rounds, but at
+    near-tie rejections. Every K1 launch shape is held against the plain
+    version. Returns K1 launches by draft."""
+    import argparse
+
+    from avsl_tpu_torch.cli._serving_common import build_draft
+    from avsl_tpu_torch.data.tokenizer import ByteTokenizer
+    from avsl_tpu_torch.infer.pipeline import StreamingTranscriber
+    from avsl_tpu_torch.models import build_whisper_flamingo
+    from avsl_tpu_torch.train.checkpoints import save_checkpoint
+    from avsl_tpu_torch.train.loop import TrainState
+
+    vocab = model.cfg.n_vocab
+    with tempfile.TemporaryDirectory() as ckpt:
+        saved, _ = build_whisper_flamingo("tiny", vocab_size=vocab, add_gated_x_attn=0,
+                                          use_av_hubert_encoder=False, dtype="bfloat16",
+                                          device="cuda", seed=11)
+        save_checkpoint(ckpt, TrainState.create(saved, None), 1)
+        del saved
+        args = argparse.Namespace(draft_model="tiny", draft_ckpt=ckpt, spec_k=SPEC_K, beam=1,
+                                  device="cuda")
+        tiny, tiny_weights = build_draft(args, vocab, smoke=False)
+    rng = np.random.default_rng(14)
+    items = [{"id": f"sp{i}", "audio": (0.1 * rng.standard_normal(int(rng.integers(
+        320000, 480001)))).astype(np.float32)} for i in range(EXTRAS_BATCH)]
+    kw = dict(audio_max_length=480000, batch_size=EXTRAS_BATCH, max_new_tokens=EXTRAS_MAX_NEW)
+    n_layer = model.cfg.n_audio_layer
+    trs = {"plain": StreamingTranscriber(model, ByteTokenizer(), **kw),
+           "tiny_draft": StreamingTranscriber(model, ByteTokenizer(), draft_model=tiny,
+                                              draft_variables=tiny_weights, spec_k=SPEC_K, **kw),
+           "self_draft": StreamingTranscriber(model, ByteTokenizer(), draft_model=model,
+                                              spec_k=SPEC_K, **kw)}
+    k1 = {"plain": n_layer, "tiny_draft": n_layer + tiny.cfg.n_audio_layer,
+          "self_draft": 2 * n_layer}
+    prep = trs["plain"]._prepare_batch(items)
+    ref_tokens, ref_gaps = greedy_with_gaps(trs["plain"], prep)  # also plain's warm-up
+    for name in ("tiny_draft", "self_draft"):
+        trs[name]._run(prep.audio, prep.video)  # warm-up
+    seen = {}
+    with launch_shapes(seen):
+        runs = timed_in_turns({name: (lambda tr=tr: tr._run(prep.audio, prep.video))
+                               for name, tr in trs.items()}, k1)
+    if not (runs["plain"]["result"].tokens == ref_tokens).all():
+        raise AssertionError("plain greedy's tokens are off the reference decode")
+    plain_s = runs["plain"]["seconds_per_batch"]
+    rec = {"phase": "serving_extras_speculative", "card": card, "spec_k": SPEC_K,
+           "near_tie": NEAR_TIE, "plain_seconds": runs["plain"]["seconds"],
+           "plain_seconds_per_batch": plain_s, "plain_min_top2_gap": float(ref_gaps.min()),
+           "draft_tiny": {"widths": [tiny.cfg.n_audio_state, tiny.cfg.n_audio_head,
+                                     tiny.cfg.n_audio_layer],
+                          "params": sum(p.numel() for p in tiny.parameters())}}
+    for name in ("tiny_draft", "self_draft"):
+        tr, r = trs[name], runs[name]
+        stats = tr.spec_stats()  # the warm-up and the two timed batches, the same inputs
+        with spec_probe(SPEC_K) as probe:
+            probed = tr._run(prep.audio, prep.video)
+        tokens = r["result"].tokens
+        if not (probed.tokens == tokens).all():
+            raise AssertionError(f"{name}: the probed run's tokens differ from the timed run's")
+        v = {"seconds": r["seconds"], "seconds_per_batch": r["seconds_per_batch"],
+             "over_plain": r["seconds_per_batch"] / plain_s, "k1_per_batch": r["k1"],
+             "spec_stats": stats, "rounds": stats["mean_verify_rounds"],
+             "accept_rate": stats["mean_accept_rate"],
+             "draft_forwards": probe["draft_forwards"],
+             "target_forwards": probe["target_forwards"],
+             "rejections": len(probe["rejection_gaps"]),
+             "near_tie_rows": near_tie_rows(tokens, ref_tokens, ref_gaps)}
+        if name == "self_draft":
+            ties = [g for g in probe["rejection_gaps"] if g < NEAR_TIE]
+            v["near_tie_rejections"] = len(ties)
+            if len(ties) != len(probe["rejection_gaps"]):
+                raise AssertionError(f"self draft rejected tokens at gaps "
+                                     f"{sorted(probe['rejection_gaps'])[-3:]} >= {NEAR_TIE}")
+            if not ties and (v["accept_rate"] != 1.0 or v["rounds"] != math.ceil(
+                    EXTRAS_MAX_NEW / (SPEC_K + 1))):
+                raise AssertionError(f"self draft: accept {v['accept_rate']}, rounds "
+                                     f"{v['rounds']} without a near-tie rejection")
+        rec[name] = v
+    launches = {name: sum(runs[name]["k1_per_run"]) for name in ("tiny_draft", "self_draft")}
+    rec["launch_shapes"] = check_launch_shapes(seen)
+    log(rec)
+    return launches
+
+
+def write_published_size_vocab(path: str) -> None:
+    """A byte-level BPE vocabulary (``vocab.json`` + ``merges.txt``) whose
+    tokenizer has large-v2's 51,865 ids, specials included: the 256 byte
+    symbols and merges of symbol pairs up to that size. Served through a
+    config's ``download_root``, it sizes the model's embedding and logits
+    as the published vocabulary does (the special ids sit above the merges,
+    not at the published values)."""
+    from avsl_tpu_torch.data.tokenizer import BPETokenizer, bytes_to_unicode
+
+    symbols = sorted(bytes_to_unicode().values())
+    n_merges = LARGE_V2_VOCAB - 1 - BPETokenizer({}, []).vocab_size - len(symbols)
+    merges = [(a, b) for a in symbols for b in symbols][:n_merges]
+    vocab = {ch: i for i, ch in enumerate(symbols)}
+    vocab.update({a + b: len(symbols) + i for i, (a, b) in enumerate(merges)})
+    BPETokenizer(vocab, merges).save(path)
+
+
+def phase_serving_extras_export(card: str) -> int:
+    """The audio-only large-v2 transcriber (30 s windows, batch 8, 64 new
+    tokens, the published vocabulary's size through
+    :func:`write_published_size_vocab`) exported through
+    ``cli/export_program --platforms cuda`` from
+    a checkpoint of seeded random weights, into a temporary directory that
+    is deleted afterwards; its programs loaded with ``load_exported`` and
+    replayed against the live transcriber on the same weights. Gates: the
+    replay's tokens equal the live run's, avg_logprob within
+    EXPORT_LOGPROB_TOL, 32 K1 launches a replayed batch by the wrapper's
+    count and by the profiler's kernels. Returns the replay's K1
+    launches."""
+    import yaml
+
+    from avsl_tpu_torch.cli import export_program
+    from avsl_tpu_torch.cli._serving_common import build_target_model
+    from avsl_tpu_torch.core.config import FlamingoTrainConfig
+    from avsl_tpu_torch.data.tokenizer import get_tokenizer
+    from avsl_tpu_torch.infer import StreamingTranscriber, load_exported
+    from avsl_tpu_torch.train.checkpoints import save_checkpoint
+    from avsl_tpu_torch.train.loop import TrainState
+    from torch.profiler import ProfilerActivity, profile
+
+    vocab = tempfile.TemporaryDirectory()
+    vocab_dir = vocab.name
+    write_published_size_vocab(vocab_dir)
+    fields = dict(model_name="large-v2", add_gated_x_attn=0, use_av_hubert_encoder=False,
+                  audio_max_length=480000, download_root=vocab_dir)
+    cfg = FlamingoTrainConfig(**fields)
+    tokenizer = get_tokenizer(vocab_dir, cfg.lang)
+    model, w_cfg = build_target_model(cfg, tokenizer, False, None, device="cuda", seed=7)
+    if w_cfg.n_vocab != LARGE_V2_VOCAB:
+        raise AssertionError(f"export: n_vocab {w_cfg.n_vocab} != {LARGE_V2_VOCAB}")
+    live = StreamingTranscriber(model, tokenizer, audio_max_length=480000,
+                                batch_size=EXTRAS_BATCH, max_new_tokens=EXTRAS_MAX_NEW)
+    rng = np.random.default_rng(15)
+    prep = live._prepare_batch([{"id": f"ex{i}", "audio": (0.1 * rng.standard_normal(
+        int(rng.integers(320000, 480001)))).astype(np.float32)} for i in range(EXTRAS_BATCH)])
+    rec = {"phase": "serving_extras_export", "card": card, "model": w_cfg.name,
+           "n_vocab": w_cfg.n_vocab}
+    with tempfile.TemporaryDirectory() as d:
+        with open(f"{d}/serve.yaml", "w") as f:
+            yaml.safe_dump(fields, f)
+        save_checkpoint(f"{d}/ckpt", TrainState.create(model, None), 1)
+        t0 = time.perf_counter()
+        manifest = export_program.main(["--config", f"{d}/serve.yaml", "--ckpt_dir", f"{d}/ckpt",
+                                        "--output", f"{d}/program", "--platforms", "cuda",
+                                        "--batch_size", str(EXTRAS_BATCH),
+                                        "--max_new_tokens", str(EXTRAS_MAX_NEW)])
+        rec["export_seconds"] = time.perf_counter() - t0
+        rec["artifact_bytes"] = manifest["bytes"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        call, _ = load_exported(f"{d}/program")
+        rec["load_seconds"] = time.perf_counter() - t0
+    vocab.cleanup()
+    audio = torch.from_numpy(prep.audio).cuda()
+    video = torch.from_numpy(prep.video).cuda()
+    live._run(prep.audio, prep.video)  # warm-up; the replay's is its traced call
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call(audio, video, live._prompt)
+        torch.cuda.synchronize()
+    layers = w_cfg.n_audio_layer
+    runs = timed_in_turns({"live": lambda: live._run(prep.audio, prep.video),
+                           "replay": lambda: call(audio, video, live._prompt)},
+                          {"live": layers, "replay": layers})
+    want, got = runs["live"]["result"], runs["replay"]["result"]
+    live_s, replay_s = runs["live"]["seconds_per_batch"], runs["replay"]["seconds_per_batch"]
+    traced_k1 = sum(1 for e in prof.profiler.kineto_results.events()
+                    if e.device_type() == torch.autograd.DeviceType.CUDA
+                    and "flash_fwd" in e.name())
+    tokens, scores = got[0].cpu().numpy(), got[1].cpu().numpy()
+    err = float(np.abs(scores - want.scores).max())
+    rec.update(live_seconds=runs["live"]["seconds"], replay_seconds=runs["replay"]["seconds"],
+               live_seconds_per_batch=live_s, replay_seconds_per_batch=replay_s,
+               replay_over_live=replay_s / live_s, replay_k1=runs["replay"]["k1"],
+               replay_k1_per_run=runs["replay"]["k1_per_run"],
+               profiler_k1=traced_k1, tokens_equal=bool((tokens == want.tokens).all()),
+               avg_logprob_max_abs_err=err, manifest={k: manifest[k] for k in (
+                   "format", "platforms", "inputs", "quantize", "kv_int8", "speculative")})
+    log(rec)
+    if traced_k1 != layers:
+        raise AssertionError(f"replay: {traced_k1} K1 kernels traced != {layers}")
+    if not rec["tokens_equal"] or err > EXPORT_LOGPROB_TOL:
+        raise AssertionError(f"replay differs from the live run: avg_logprob by {err:.3e}")
+    return sum(runs["replay"]["k1_per_run"])
+
+
 def sass_counts() -> dict:
     """Tensor-core instructions in each built library, from the toolkit's
     ``cuobjdump -sass``: ``HGMMA`` (wgmma) and ``HMMA`` (mma.sync)."""
@@ -3147,12 +3639,17 @@ def main() -> int:
 
     phase_lip_frontend(smi)
     free()
-    serving_launches = phase_main_path(smi)
+    serving_launches, main_model = phase_main_path(smi)
+    spec_launches = phase_serving_extras_spec(smi, main_model)
+    del main_model
+    free()
+    export_launches = phase_serving_extras_export(smi)
     free()
     av_serving_launches, av_model, av_record = phase_av_main_path(smi)
     av_raw_launches = phase_av_raw_main_path(smi, *av_model, av_record)
     daemon_launches = phase_serving_daemon(smi, *av_model)
-    del av_model
+    av_model = list(av_model)
+    int8_launches = phase_serving_extras_int8(smi, av_model)
     free()
     with tempfile.TemporaryDirectory() as out_dir:
         train_launches = phase_train_main_path(smi, cfg, tokenizer, train_batches, out_dir)
@@ -3191,6 +3688,11 @@ def main() -> int:
               "avsl_tpu/kernels/attention.py:63", fwd_cases,
               {"serving": serving_launches, "av_serving": av_serving_launches,
                "av_raw_serving": av_raw_launches, "serving_daemon": daemon_launches,
+               "serving_int8": int8_launches["int8"] + int8_launches["int8_kv_int8"],
+               "serving_kv_int8": int8_launches["kv_int8"],
+               "speculative_tiny_draft": spec_launches["tiny_draft"],
+               "speculative_self_draft": spec_launches["self_draft"],
+               "exported_replay": export_launches,
                "training": train_launches["k1"],
                "flamingo_training": flamingo[False]["k1"],
                "flamingo_training_hoisted": flamingo[True]["k1"],
@@ -3201,6 +3703,8 @@ def main() -> int:
         entry("flash_attention_bwd", "flash_attn_bwd", "avsl_tpu_torch/csrc/flash_attn_bwd.cu",
               "avsl_tpu/kernels/attention.py:159", bwd_cases,
               {"serving": 0, "av_serving": 0, "av_raw_serving": 0, "serving_daemon": 0,
+               "serving_int8": 0, "serving_kv_int8": 0, "speculative_tiny_draft": 0,
+               "speculative_self_draft": 0, "exported_replay": 0,
                "training": train_launches["k2"],
                "flamingo_training": flamingo[False]["k2"],
                "flamingo_training_hoisted": flamingo[True]["k2"],

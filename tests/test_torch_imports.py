@@ -32,6 +32,15 @@ SERVING_MODULES = {
 }
 
 
+# int8 weights and cache, speculative decoding and the exported programs:
+# their own copies of avsl_tpu/models/quant.py, decode/speculative.py and
+# infer/export.py
+SERVING_EXTRAS = {
+    "avsl_tpu_torch.models.quant", "avsl_tpu_torch.decode.speculative",
+    "avsl_tpu_torch.infer.export", "avsl_tpu_torch.cli.export_program",
+}
+
+
 def test_torch_port_imports_no_jax():
     code = (
         "import importlib, sys\n"
@@ -50,6 +59,7 @@ def test_torch_port_imports_no_jax():
     assert {"avsl_tpu_torch.kernels.resample", "avsl_tpu_torch.data.batching",
             "avsl_tpu_torch.data.prefetch"} <= set(ALL_SUBMODULES)
     assert SERVING_MODULES <= set(ALL_SUBMODULES)
+    assert SERVING_EXTRAS <= set(ALL_SUBMODULES)
 
 
 def test_torch_port_imports_no_cv2():

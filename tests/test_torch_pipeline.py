@@ -116,14 +116,31 @@ def test_torch_transcribe_batch_matches_transcribe(transcribers):
     assert ptr.transcribe_batch(items) == ptr.transcribe(items)
 
 
-@pytest.mark.parametrize("option", [
-    {"draft_variables": object()}, {"quantize": "int8"}, {"kv_int8": True}, {"mesh": object()},
-    {"draft_model": object()},
-])
+# what the transcriber refuses: the mesh (later work, naming its ROADMAP
+# item), and the JAX transcriber's refusals of the serving options, with
+# its messages (a draft on the meta device is a draft without weights)
+REFUSALS = [
+    ({"draft_variables": {}}, ValueError, "go together"),
+    ({"quantize": "int4"}, ValueError, "expected None or 'int8'"),
+    ({"kv_int8": True, "mesh": object()}, NotImplementedError, "ROADMAP.md queue 1, item 12"),
+    ({"mesh": object()}, NotImplementedError, "ROADMAP.md queue 1, item 12"),
+    ({"draft_model": "meta"}, ValueError, "go together"),
+    ({"draft_model": "cpu", "beam_size": 2}, ValueError, "greedy only"),
+    ({"draft_model": "cpu", "spec_k": 0}, ValueError, "spec_k must be >= 1"),
+    ({"draft_model": "cpu", "boost_phrases": ["ab"]}, ValueError, "does not compose"),
+]
+
+
+@pytest.mark.parametrize("option", [r[0] for r in REFUSALS])
 def test_torch_transcriber_refuses_later_slices(transcribers, option):
     _, ptr = transcribers
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        StreamingTranscriber(ptr.model, ptr.tokenizer, **option)
+    _, error, match = next(r for r in REFUSALS if r[0] is option)
+    kw = dict(option)
+    if "draft_model" in kw:
+        kw["draft_model"] = ptr.model if kw["draft_model"] == "cpu" else copy.deepcopy(
+            ptr.model).to("meta")
+    with pytest.raises(error, match=match):
+        StreamingTranscriber(ptr.model, ptr.tokenizer, **kw)
 
 
 def _capture_video(monkeypatch, obj, name):

@@ -1,7 +1,8 @@
 """``python -m avsl_tpu_torch.cli.serve``: ``--smoke --device cpu`` binds,
-prints its address and stops; the flags of later work raise, naming their
-ROADMAP item, before a model is built; without ``--device cpu`` it needs
-CUDA; and the serving options reach the transcriber."""
+prints its address and stops; the flags of later work (the mesh) raise,
+naming their ROADMAP item, before a model is built; without ``--device
+cpu`` it needs CUDA; and the serving options reach the transcriber, int8
+weights, the int8 cache and a speculative draft included."""
 
 import json
 import subprocess
@@ -45,11 +46,6 @@ def test_torch_serve_cli_passes_serving_options():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--quantize", "int8"], "item 11, slice 10"),
-    (["--kv_int8"], "item 11, slice 10"),
-    (["--draft_model", "tiny"], "item 11, slice 10"),
-    (["--draft_ckpt", "ckpt"], "item 11, slice 10"),
-    (["--spec_k", "3"], "item 11, slice 10"),
     (["--model_parallel", "2"], "item 12"),
     (["--data_parallel", "2"], "item 12"),
 ])
@@ -63,3 +59,17 @@ def test_torch_serve_cli_needs_cuda_unless_cpu():
         pytest.skip("this host has a CUDA device")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.main(["--smoke", "--port", "0"])
+
+
+def test_torch_serve_cli_takes_int8_and_a_draft():
+    srv = serve.main(["--smoke", "--device", "cpu", "--port", "0", "--batch_size", "2",
+                      "--quantize", "int8", "--kv_int8", "--draft_model", "test",
+                      "--spec_k", "3"])
+    tr = srv.transcriber
+    assert (tr.quantize, tr.kv_int8, tr.spec_k) == ("int8", True, 3)
+    assert tr.draft_model is not None and not tr.draft_model.cfg.add_gated_x_attn
+    assert tr.model.decoder.blocks[0].attn.query.parametrizations.weight.original0.dtype == (
+        torch.int8)
+    with pytest.raises(SystemExit, match="needs --draft_ckpt"):
+        serve.main(["--device", "cpu", "--port", "0", "--draft_model", "tiny"])
+

@@ -138,3 +138,19 @@ def assert_same_results(want, got, logprob_atol=1e-4, words=False):
         assert abs(g.avg_logprob - w.avg_logprob) <= logprob_atol
         if words:
             assert g.words == w.words
+
+
+def strict_bf16(jtr):
+    """Compile the JAX transcriber's program without XLA's excess
+    precision, so that it rounds where it says it does. Inside a jitted
+    program XLA may keep a value it was told to round to bf16 in fp32 (it
+    does so on the CPU for the int8 weights' ``dequantize`` to bf16, and
+    its avg_logprob then differs from the eager port's by up to 1.3e-3);
+    with this flag off the two agree exactly."""
+    args = (np.zeros((jtr.batch_size, jtr.audio_max_length), np.float32),
+            np.zeros((jtr.batch_size, jtr.video_frames, jtr.crop, jtr.crop, 1), np.float32),
+            jtr._prompt)
+    jtr._run = jtr._run.lower(*args).compile(
+        compiler_options={"xla_allow_excess_precision": False})
+    return jtr
+
