@@ -14,9 +14,15 @@ sublayers, their gates and ``video_projection``; everything else frozen),
 CLI's own gate (:func:`hoist_enabled`), labels pinned to
 ``text_max_length``, teacher-forced WER validation, best checkpoint and
 ``pt_ckpt`` triage through ``partial_load``. Weights are fp32 and the
-compute bf16 (fp32 with ``--smoke``); the YAML's
-``enable_gradient_checkpointing`` is not taken (no activation
-checkpointing in the port yet), which changes memory, not values.
+compute bf16 (fp32 with ``--smoke``). The YAML's
+``enable_gradient_checkpointing`` rematerialises the Whisper encoder's
+and the video tower's blocks (``models/layers.py::remat_block``);
+``lora_rank > 0`` trains low-rank adapters (``lora_alpha``,
+``lora_targets``, ``models/lora.py``) over the frozen model instead of the
+regime's tensors, with an adapter-sized state and checkpoints and no
+hoist, and composes with accumulation across batches; ``ema_decay > 0``
+validates and pins ``best/`` with an EMA of the trained tensors
+(``train/runner.py``).
 
 Without ``--smoke`` it trains on the datasets that :func:`load_datasets`
 finds on disk (``save_to_disk`` directories), as the JAX CLI does on real
@@ -29,7 +35,7 @@ the next batch while a step runs; ``test_best`` on the test split when
 there is one. ``--smoke`` trains the tiny test model on a synthetic
 dataset with the JAX CLI's settings (6 steps, batch 4 × accumulation
 min(YAML, 2) in one ``[accum, micro]`` batch, validation every 3 steps).
-LoRA and a mesh raise (item 12). Runs on ``cuda`` unless ``--device
+A mesh raises (ROADMAP.md item 12c). Runs on ``cuda`` unless ``--device
 cpu``. :func:`make_job` composes a run from rows already loaded and
 :func:`run` trains it; ``main`` loads the rows and calls both.
 """
@@ -145,6 +151,7 @@ def build_model(cfg, tokenizer, device, smoke: bool = False,
         use_av_hubert_encoder=cfg.use_av_hubert_encoder, dropout_rate=cfg.dropout_rate,
         dtype="float32" if smoke or not bf16 else "bfloat16", param_dtype="float32",
         device=device, seed=seed,
+        remat=bool(getattr(cfg, "enable_gradient_checkpointing", False)),
     )
 
 
@@ -167,9 +174,33 @@ def make_collator(tokenizer, cfg, w_cfg):
                                 max_label_len=label_len)
 
 
+def make_lora(cfg, model, seed: int = 0):
+    """The config's adapters over ``model`` (``lora_rank``, ``lora_alpha``
+    (16 when unset) and ``lora_targets`` (the attention query and value
+    projections when unset)), drawn from a generator seeded ``seed + 1``
+    (JAX draws them from ``PRNGKey(1)``), as a
+    :class:`~avsl_tpu_torch.models.lora.LoraModel`; prints JAX's summary
+    line."""
+    from avsl_tpu_torch.models import lora as lora_mod
+
+    rank = int(cfg.lora_rank)
+    alpha = float(getattr(cfg, "lora_alpha", 16.0) or 16.0)
+    targets = (tuple(cfg.lora_targets) if getattr(cfg, "lora_targets", None)
+               else lora_mod.DEFAULT_TARGETS)
+    gen = torch.Generator(device=model.device)
+    gen.manual_seed(seed + 1)
+    adapters = lora_mod.init_lora(gen, model, rank, targets)
+    s = lora_mod.lora_summary(model, adapters)
+    print(f"lora: rank={rank} alpha={alpha} adapters={s['n_adapters']} "
+          f"trainable={s['lora_params']:,} ({100 * s['trainable_fraction']:.3f}% of base)")
+    return lora_mod.LoraModel(model, adapters, alpha, rank)
+
+
 def make_runner(cfg, model, tokenizer, log_dir: str, ckpt_dir: str, seed: int = 0,
                 cross_batch: bool = False):
-    """``TrainerRunner`` over the regime ``select_optimizer`` picks,
+    """``TrainerRunner`` over the regime ``select_optimizer`` picks (or,
+    with ``lora_rank > 0``, the adapters of :func:`make_lora` under
+    ``lora_optimizer``, the state's model then the ``LoraModel``),
     ``flamingo_loss_fn`` with the config's SpecAugment, AV-mode mixing and
     BatchNorm freeze, and the frozen-tower hoist when
     :func:`hoist_enabled`; the runner's ``hoisted`` says which. With
@@ -177,12 +208,18 @@ def make_runner(cfg, model, tokenizer, log_dir: str, ckpt_dir: str, seed: int = 
     above 1 goes through :class:`MultiSteps` and the runner steps every
     batch (accumulation 1), which keeps the hoist off; else each batch is
     reshaped to ``[accum, micro]``."""
+    from avsl_tpu_torch.models.lora import lora_loss_fn
     from avsl_tpu_torch.train.loop import TrainState, batch_to_device
     from avsl_tpu_torch.train.objectives import flamingo_loss_fn, flamingo_tower_precompute
-    from avsl_tpu_torch.train.optim import MultiSteps, select_optimizer
+    from avsl_tpu_torch.train.optim import MultiSteps, lora_optimizer, select_optimizer
     from avsl_tpu_torch.train.runner import TrainerRunner
 
-    tx, labels = select_optimizer(model, cfg, int(cfg.num_train_steps))
+    lora_rank = int(getattr(cfg, "lora_rank", 0) or 0)
+    state_model = make_lora(cfg, model, seed) if lora_rank > 0 else model
+    if lora_rank > 0:
+        tx, labels = lora_optimizer(state_model, cfg, int(cfg.num_train_steps))
+    else:
+        tx, labels = select_optimizer(model, cfg, int(cfg.num_train_steps))
     accum = max(int(cfg.gradient_accumulation_steps), 1)
     runner_accum = accum
     if cross_batch and accum > 1:
@@ -193,8 +230,10 @@ def make_runner(cfg, model, tokenizer, log_dir: str, ckpt_dir: str, seed: int = 
         model, train=True,
         freeze_video_bn_stats=bool(getattr(cfg, "freeze_video_batch_norm_stats", False)),
         **mixing)
+    if lora_rank > 0:
+        loss_fn = lora_loss_fn(loss_fn, state_model)
     precompute = None
-    if hoist_enabled(labels, cfg, int(getattr(cfg, "lora_rank", 0) or 0), runner_accum):
+    if hoist_enabled(labels, cfg, lora_rank, runner_accum):
         precompute = flamingo_tower_precompute(model, train=True, freeze_video_bn_stats=True,
                                                **mixing)
 
@@ -205,7 +244,7 @@ def make_runner(cfg, model, tokenizer, log_dir: str, ckpt_dir: str, seed: int = 
         return state.model(b["input_ids"], b["dec_input_ids"], video=b.get("video"))
 
     runner = TrainerRunner(
-        loss_fn, eval_logits, tx, TrainState.create(model, tx, seed=seed), tokenizer, cfg,
+        loss_fn, eval_logits, tx, TrainState.create(state_model, tx, seed=seed), tokenizer, cfg,
         log_dir=log_dir, ckpt_dir=ckpt_dir, grad_accum_steps=runner_accum, param_labels=labels,
         precompute_fn=precompute,
     )
@@ -215,9 +254,10 @@ def make_runner(cfg, model, tokenizer, log_dir: str, ckpt_dir: str, seed: int = 
 
 @dataclass
 class FinetuneJob:
-    """A composed run: the model, its runner, the datasets (``test_ds``
-    None without a test split) and ``batches(ds, batch_size, shuffle,
-    epoch)``, bucketed unless ``smoke``."""
+    """A composed run: the model (under LoRA the frozen base, whose
+    ``LoraModel`` is ``runner.state.model``), its runner, the datasets
+    (``test_ds`` None without a test split) and ``batches(ds, batch_size,
+    shuffle, epoch)``, bucketed unless ``smoke``."""
 
     cfg: Any
     device: torch.device
@@ -240,10 +280,8 @@ def make_job(cfg, train_rows, val_rows, test_rows, device, smoke: bool = False,
     from avsl_tpu_torch.data.tokenizer import get_tokenizer
     from avsl_tpu_torch.models.convert import load_torch_checkpoint_into
 
-    if int(getattr(cfg, "lora_rank", 0) or 0) > 0:
-        raise _not_ported("lora_rank > 0 (models/lora.py)", "item 12")
     if int(getattr(cfg, "model_parallel", 1) or 1) > 1 or int(cfg.num_devices or 1) > 1:
-        raise _not_ported("a device mesh (model_parallel or num_devices > 1)", "item 12")
+        raise _not_ported("a device mesh (model_parallel or num_devices > 1)", "item 12c")
     tokenizer = get_tokenizer(getattr(cfg, "download_root", None), cfg.lang)
     model, w_cfg = build_model(cfg, tokenizer, device, smoke=smoke, vocab_size=vocab_size,
                                seed=seed)

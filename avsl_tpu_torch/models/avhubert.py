@@ -43,8 +43,12 @@ final_layer_norm}``, ``encoder.layer_norm``); the heads nest it under
 encoder_attn, ...}, layer_norm, output_projection}`` or ``ctc_head``. The
 fixed sinusoid table is a buffer left out of the state dict.
 
-Span masking (``apply_time_mask``) and the MoE FFN raise
-``NotImplementedError`` naming ``ROADMAP.md`` item 12.
+With ``cfg.remat`` the ResNet frontend, each encoder block and each
+decoder block of a full-sequence forward run under
+:func:`~avsl_tpu_torch.models.layers.remat_block` with
+``cfg.remat_policy``, where JAX remats them (``avhubert.py:197-203``,
+``:298-305``, ``:678-683``). Span masking (``apply_time_mask``) and the
+MoE FFN raise ``NotImplementedError`` naming ``ROADMAP.md`` item 12.
 """
 
 from __future__ import annotations
@@ -65,10 +69,12 @@ from avsl_tpu_torch.models.layers import (
     LayerNormF32,
     TransformerBlock,
     cast_param,
+    check_remat_policy,
     fairseq_sinusoid_embedding,
     grad_multiply,
     init_self_attn_cache,
     positions,
+    remat_block,
     residual_dropout,
     torch_dtype,
 )
@@ -105,6 +111,7 @@ class AVHuBERTVisualEncoder(nn.Module):
         super().__init__()
         dtype, pdtype = _dtypes(cfg)
         self.feature_grad_mult = cfg.feature_grad_mult
+        self.remat, self.remat_policy = bool(cfg.remat), check_remat_policy(cfg.remat_policy)
         self.resnet = ResNet3DFrontend(
             cfg.visual_frontend_channels, cfg.visual_backbone_channels, cfg.resnet_relu_type,
             dtype=dtype, param_dtype=pdtype, device=device,
@@ -113,7 +120,10 @@ class AVHuBERTVisualEncoder(nn.Module):
                                param_dtype=pdtype, compute_dtype=dtype)
 
     def forward(self, video: torch.Tensor, use_running_average: bool = True) -> torch.Tensor:
-        feats = self.resnet(video, use_running_average)
+        if self.remat:
+            feats = remat_block(self.resnet, self.remat_policy, (), video, use_running_average)
+        else:
+            feats = self.resnet(video, use_running_average)
         if self.feature_grad_mult != 1.0:
             feats = grad_multiply(feats, self.feature_grad_mult)
         return self.proj(feats)
@@ -257,6 +267,7 @@ class AVHuBERTTransformerEncoder(nn.Module):
         dtype, pdtype = _dtypes(cfg)
         self.layer_norm_first = cfg.layer_norm_first
         self.hidden_dropout, self.layerdrop = cfg.hidden_dropout, cfg.layerdrop
+        self.remat, self.remat_policy = bool(cfg.remat), check_remat_policy(cfg.remat_policy)
         self.pos_conv = ConvPositionalEmbedding(cfg, device=device)
         self.layers = nn.ModuleList(
             TransformerBlock(
@@ -286,7 +297,11 @@ class AVHuBERTTransformerEncoder(nn.Module):
             x = self.layer_norm(x)
         x = residual_dropout(x, self.hidden_dropout, self.training, generator)
         for i, layer in enumerate(self.layers):
-            out, _ = layer(x, kv_lengths=kv_lengths, generator=generator)
+            if self.remat:
+                out, _ = remat_block(layer, self.remat_policy, (generator,), x,
+                                     kv_lengths=kv_lengths, generator=generator)
+            else:
+                out, _ = layer(x, kv_lengths=kv_lengths, generator=generator)
             if self.training and self.layerdrop > 0.0:
                 x = _layerdrop(out, x, self.layerdrop, generator)
             else:
@@ -569,6 +584,7 @@ class AVHuBERTDecoder(nn.Module):
         self.cfg = cfg
         dtype, pdtype = _dtypes(cfg)
         self.compute_dtype = dtype
+        self.remat_policy = check_remat_policy(cfg.remat_policy)
         d = cfg.decoder_hidden_size
         self.embed_tokens = nn.Embedding(cfg.vocab_size, d, device=device, dtype=pdtype)
         if cfg.decoder_learned_pos:
@@ -638,8 +654,13 @@ class AVHuBERTDecoder(nn.Module):
 
         new_cache: Optional[List[Cache]] = [] if cache is not None else None
         for i, layer in enumerate(self.layers):
-            out, c = layer(x, enc=encoder_out, cache=None if cache is None else cache[i],
-                           generator=generator, kv_lengths=dec_lengths, enc_mask=enc_mask)
+            if cfg.remat and cache is None:
+                out, c = remat_block(layer, self.remat_policy, (generator,), x, enc=encoder_out,
+                                     generator=generator, kv_lengths=dec_lengths,
+                                     enc_mask=enc_mask)
+            else:
+                out, c = layer(x, enc=encoder_out, cache=None if cache is None else cache[i],
+                               generator=generator, kv_lengths=dec_lengths, enc_mask=enc_mask)
             if cfg.decoder_layerdrop > 0.0 and self.training and cache is None:
                 x = _layerdrop(out, x, cfg.decoder_layerdrop, generator)
             else:

@@ -48,6 +48,8 @@ def build_whisper_flamingo(
     param_dtype: Optional[str] = None,
     device: Union[str, torch.device] = "cuda",
     seed: int = 0,
+    remat: bool = False,
+    remat_policy: str = "block",
 ) -> Tuple[Whisper, WhisperConfig]:
     """Build the Whisper(+Flamingo) model on ``device`` with random weights
     from a ``torch.Generator`` seeded with ``seed``; returned in eval mode.
@@ -65,9 +67,11 @@ def build_whisper_flamingo(
     passes ``param_dtype="float32"`` for fp32 weights and Adam state under
     bf16 compute, and ``dropout_rate`` for Whisper's residual dropout that
     ``model.train()`` turns on; the tower keeps its config's own dropouts
-    and LayerDrop (``AVHuBERTConfig()``'s defaults for the presets). The
-    JAX factory's ``remat`` options are not taken (no activation
-    checkpointing in the port yet).
+    and LayerDrop (``AVHuBERTConfig()``'s defaults for the presets).
+    ``remat`` with ``remat_policy`` ("block" or "dots") checkpoints the
+    activations of the Whisper encoder's blocks and of the video tower
+    (its ResNet frontend and its blocks), as the JAX factory sets both
+    configs' ``remat`` (:func:`~avsl_tpu_torch.models.layers.remat_block`).
     """
     dev = resolve_device(device)
     if model_name == "test":
@@ -80,6 +84,8 @@ def build_whisper_flamingo(
         "add_gated_x_attn": int(add_gated_x_attn),
         "dropout_rate": float(dropout_rate),
         "param_dtype": param_dtype or dtype,
+        "remat": bool(remat),
+        "remat_policy": remat_policy,
     }
     if vocab_size is not None:
         overrides["n_vocab"] = int(vocab_size)
@@ -88,7 +94,8 @@ def build_whisper_flamingo(
     w_cfg = dataclasses.replace(w_cfg, **overrides)
     video_model = None
     if use_av_hubert_encoder and add_gated_x_attn:
-        av_hubert_cfg = dataclasses.replace(av_hubert_cfg, param_dtype=w_cfg.param_dtype)
+        av_hubert_cfg = dataclasses.replace(av_hubert_cfg, param_dtype=w_cfg.param_dtype,
+                                            remat=bool(remat), remat_policy=remat_policy)
         video_model = make_av_hubert_video_encoder(av_hubert_cfg, device="meta")
     model = Whisper(w_cfg, video_model=video_model, device="meta").materialize(dev, seed=seed)
     return model.eval(), w_cfg

@@ -8,11 +8,13 @@ it down the unfused masked path; the self cache with a scalar index or a
 per-sequence [B] index tensor, the precomputed cross cache, int8 or not),
 ``MLP`` (exact GELU, activation dropout) and ``TransformerBlock`` (pre- or
 post-norm, the tanh-gated ``x_attn``/``x_mlp`` sublayers of
-Whisper-Flamingo, residual, attention-weight and activation dropout), and
-``grad_multiply``. Module and parameter names follow the OpenAI Whisper state dict
-(``attn.query``, ``attn_ln``, ``mlp.0``, ...) or, for the AV-HuBERT
-encoder, fairseq's (``self_attn.q_proj``, ``self_attn_layer_norm``,
-``fc1``, ``encoder_attn``, ...).
+Whisper-Flamingo, residual, attention-weight and activation dropout),
+``grad_multiply`` and :func:`remat_block` (activation checkpointing of
+one block with the policies ``block`` and ``dots``). Module and
+parameter names follow the OpenAI Whisper state dict (``attn.query``,
+``attn_ln``, ``mlp.0``, ...) or, for the AV-HuBERT encoder, fairseq's
+(``self_attn.q_proj``, ``self_attn_layer_norm``, ``fc1``,
+``encoder_attn``, ...).
 
 Numerics follow the JAX package: projections run in the compute dtype;
 attention logits, softmax and the weighted sum accumulate in fp32; layer
@@ -32,8 +34,9 @@ products read, so a decode step copies none of them.
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -161,6 +164,93 @@ def grad_multiply(x: torch.Tensor, scale: float) -> torch.Tensor:
     """Identity forward, gradient scaled by ``scale`` (AV-HuBERT's
     ``feature_grad_mult`` on the frontend features)."""
     return _GradMultiply.apply(x, scale)
+
+
+REMAT_POLICIES = ("block", "dots")
+# the number of remat recomputes running (BatchNorm leaves its running
+# statistics alone in one)
+_RECOMPUTING = [0]
+
+
+def check_remat_policy(policy: str) -> str:
+    """``policy`` when it is one of :data:`REMAT_POLICIES`, else the JAX
+    ``remat_block``'s ValueError."""
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat policy {policy!r}; known: {sorted(REMAT_POLICIES)}")
+    return policy
+
+
+def recomputing() -> bool:
+    """Whether a :func:`remat_block` recompute is running."""
+    return _RECOMPUTING[0] > 0
+
+
+def _dots_saveable(ctx, op, *args, **kwargs):
+    """``dots_with_no_batch_dims_saveable``: keep the outputs of the
+    unbatched projection GEMMs, recompute everything else (attention
+    internals, the flash-attention kernel, elementwise ops)."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_block(module: nn.Module, policy: str, generators: Sequence[Optional[torch.Generator]],
+               *args, **kwargs):
+    """``module(*args, **kwargs)`` under activation checkpointing, the JAX
+    ``remat_block`` (``nn.remat``): ``torch.utils.checkpoint`` without
+    reentrancy, saving nothing inside the block (``"block"``) or the
+    outputs of its projection GEMMs (``"dots"``), and recomputing the rest
+    in the backward. Without a gradient it is a plain call.
+
+    The recompute draws what the forward drew: each of ``generators``
+    (the explicit ones the block's dropouts draw from; ``checkpoint``
+    saves only the global RNGs) is set back to its state before the
+    forward, and after the recompute to the state it had when the
+    recompute began. Tensors that shadowed the block's parameters during
+    the forward (the LoRA merge, ``models/lora.py``) shadow them again
+    during the recompute, and BatchNorm does not update its running
+    statistics a second time (:func:`recomputing`)."""
+    check_remat_policy(policy)
+    if not torch.is_grad_enabled():
+        return module(*args, **kwargs)
+    from torch.utils.checkpoint import (
+        checkpoint,
+        create_selective_checkpoint_contexts,
+        noop_context_fn,
+    )
+
+    gens = [g for g in generators if g is not None]
+    before = [g.get_state() for g in gens]
+    shadows = [(m, n, m.__dict__[n]) for m in module.modules() for n in m._parameters
+               if n in m.__dict__]
+    calls = [0]
+
+    def run(*a, **kw):
+        calls[0] += 1
+        if calls[0] == 1:
+            return module(*a, **kw)
+        now = [g.get_state() for g in gens]
+        for g, state in zip(gens, before):
+            g.set_state(state)
+        installed = [(m, n) for m, n, _ in shadows if n not in m.__dict__]
+        for m, n, t in shadows:
+            m.__dict__[n] = t
+        _RECOMPUTING[0] += 1
+        try:
+            return module(*a, **kw)
+        finally:
+            _RECOMPUTING[0] -= 1
+            for m, n in installed:
+                del m.__dict__[n]
+            for g, state in zip(gens, now):
+                g.set_state(state)
+
+    context_fn = (functools.partial(create_selective_checkpoint_contexts, _dots_saveable)
+                  if policy == "dots" else noop_context_fn)
+    return checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False,
+                      context_fn=context_fn, **kwargs)
 
 
 def _matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

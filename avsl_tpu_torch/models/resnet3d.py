@@ -28,7 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from avsl_tpu_torch.models.layers import cast_param
+from avsl_tpu_torch.models.layers import cast_param, recomputing
 
 
 class CastConv2d(nn.Conv2d):
@@ -55,7 +55,9 @@ class BatchNormF32(nn.Module):
     normalise the batch (``(x - mean) * (rsqrt(var + eps) * weight) +
     bias``), and the buffers become ``momentum * running + (1 - momentum)
     * batch`` with the biased variance. ``F.batch_norm`` in training would
-    store the unbiased variance instead."""
+    store the unbiased variance instead. A remat recompute
+    (:func:`~avsl_tpu_torch.models.layers.recomputing`) normalises the same
+    way and leaves the buffers alone: flax updates ``batch_stats`` once."""
 
     def __init__(self, channels: int, eps: float = 1e-5, momentum: float = 0.9, device=None):
         super().__init__()
@@ -82,10 +84,11 @@ class BatchNormF32(nn.Module):
         axes = [d for d in range(x.ndim) if d != 1]
         mean = xf.mean(dim=axes)
         var = torch.clamp_min(xf.square().mean(dim=axes) - mean.square(), 0.0)
-        with torch.no_grad():
-            m = self.momentum
-            self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
-            self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        if not recomputing():
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
         shape = [1, -1] + [1] * (x.ndim - 2)
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)

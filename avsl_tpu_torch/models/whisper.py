@@ -39,8 +39,10 @@ from avsl_tpu_torch.models.layers import (
     LayerNormF32,
     TransformerBlock,
     cast_param,
+    check_remat_policy,
     init_self_attn_cache,
     positions,
+    remat_block,
     sinusoid_embedding,
     torch_dtype,
 )
@@ -52,10 +54,15 @@ def _dtypes(cfg: WhisperConfig) -> Tuple[torch.dtype, torch.dtype]:
 
 
 class WhisperEncoder(nn.Module):
-    """Audio encoder: mel [B, n_mels, T] -> features [B, T//2, n_audio_state]."""
+    """Audio encoder: mel [B, n_mels, T] -> features [B, T//2, n_audio_state].
+    With ``cfg.remat`` each block runs under :func:`remat_block` with
+    ``cfg.remat_policy`` (``whisper.py:70-74``; the text decoder is not
+    rematerialised, as in JAX)."""
 
     def __init__(self, cfg: WhisperConfig, device=None):
         super().__init__()
+        self.remat = bool(cfg.remat)
+        self.remat_policy = check_remat_policy(cfg.remat_policy)
         dtype, pdtype = _dtypes(cfg)
         d = cfg.n_audio_state
         kw = dict(device=device, param_dtype=pdtype, compute_dtype=dtype)
@@ -83,7 +90,10 @@ class WhisperEncoder(nn.Module):
         x = F.gelu(self.conv2(x)).transpose(1, 2)  # [B, T, d]
         x = x + self.positional_embedding[: x.shape[1]]
         for block in self.blocks:
-            x, _ = block(x, generator=generator)
+            if self.remat:
+                x, _ = remat_block(block, self.remat_policy, (generator,), x, generator=generator)
+            else:
+                x, _ = block(x, generator=generator)
         return self.ln_post(x)
 
 

@@ -1,6 +1,7 @@
 """Training layer of the port: the train step with gradient accumulation,
-the AdamW optimizer and its freeze regimes, the Whisper and AV-HuBERT
-objectives, checkpoints and the runner."""
+the AdamW optimizer and its freeze regimes (LoRA's too), the Whisper and
+AV-HuBERT objectives, checkpoints, the runner with parameter EMA,
+checkpoint averaging and draft distillation."""
 
 from avsl_tpu_torch.train.loop import TrainState, make_eval_step, make_train_step
 from avsl_tpu_torch.train.objectives import (
@@ -11,6 +12,8 @@ from avsl_tpu_torch.train.objectives import (
 from avsl_tpu_torch.train.optim import (
     ClippedAdamW,
     MultiSteps,
+    constant_adamw,
+    lora_optimizer,
     select_optimizer,
     whisper_optimizer,
 )
@@ -23,7 +26,9 @@ __all__ = [
     "TrainerRunner",
     "avhubert_ctc_loss_fn",
     "avhubert_seq2seq_loss_fn",
+    "constant_adamw",
     "flamingo_loss_fn",
+    "lora_optimizer",
     "make_eval_step",
     "make_train_step",
     "select_optimizer",

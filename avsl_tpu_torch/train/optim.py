@@ -21,10 +21,15 @@ state for, and updates, only the TRAIN ones. It mirrors the optax chain
 
 :class:`MultiSteps` is ``optax.MultiSteps(tx, every_k_schedule=k)`` around
 it, the JAX CLI's accumulation across bucketed batches of varying size.
+:func:`lora_optimizer` is the LoRA regime's (every adapter trains, no
+weight decay) and :func:`constant_adamw` is ``optax.adamw(lr,
+weight_decay=wd)``, which draft distillation uses: the same class with a
+constant schedule and no clip.
 """
 
 from __future__ import annotations
 
+import math
 import re
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -289,6 +294,33 @@ def whisper_flamingo_projection_optimizer(model: nn.Module, cfg, t_total: int):
         frozen_patterns=VIDEO_MODEL_PATTERNS,
     )
     return _adamw(model, labels, cfg, t_total), labels
+
+
+def lora_optimizer(lora_model: nn.Module, cfg, t_total: int) -> Tuple[ClippedAdamW, Dict[str, str]]:
+    """The LoRA regime (``models/lora.py``): clip, then AdamW over the
+    adapters, every one of which trains, with weight decay 0 (decaying A
+    and B decays the delta) and the linear warmup/decay schedule; the base
+    is not among the parameters at all."""
+    sched = linear_warmup_decay(float(cfg.learning_rate), int(cfg.warmup_steps), int(t_total))
+    params = dict(lora_model.named_parameters())
+    opt = ClippedAdamW(
+        params, sched, b1=0.9,
+        b2=float(getattr(cfg, "adam_beta2", 0.999)),
+        eps=float(getattr(cfg, "adam_epsilon", 1e-8)),
+        weight_decay=0.0,
+        clip_norm=float(getattr(cfg, "clip_norm", 1.0) or 1.0),
+    )
+    return opt, {name: TRAIN for name in params}
+
+
+def constant_adamw(params: Dict[str, torch.Tensor], lr: float,
+                   weight_decay: float = 0.01) -> ClippedAdamW:
+    """``optax.adamw(lr, weight_decay=weight_decay)``: a constant learning
+    rate, no clip (an infinite ``clip_norm`` leaves every finite gradient
+    as it is: divided and multiplied by 1), decay on every tensor in
+    ``params``."""
+    return ClippedAdamW(params, lambda count: float(lr), weight_decay=weight_decay,
+                        clip_norm=math.inf)
 
 
 def select_optimizer(model: nn.Module, cfg, t_total: int):

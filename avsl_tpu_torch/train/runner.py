@@ -5,13 +5,18 @@ early stopping, resume and SIGTERM-safe exit.
 Port of ``MetricLogger``, ``evaluate_wer`` and ``TrainerRunner`` (with
 the frozen-tower hoist and ``test_best``) from ``avsl_tpu/train/runner.py``.
 Metrics go to a JSONL file (the JAX runner writes TensorBoard when
-TensorFlow is importable). Parameter EMA (``ema_decay > 0``), the mesh,
-ZeRO and FSDP are the later training items (ROADMAP.md queue 1, item 12)
-and raise.
+TensorFlow is importable). With ``ema_decay > 0`` an exponential moving
+average of the trained tensors follows every train-step call (every
+micro-batch under ``MultiSteps``, as JAX applies ``ema_update`` after each
+``train_step``); validation and the pinned best checkpoint use it, the
+rolling checkpoints keep the raw state, and a resume restarts it from the
+restored tensors. The mesh, ZeRO and FSDP are the parallel layer
+(ROADMAP.md queue 1, item 12c) and raise.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import time
@@ -29,6 +34,7 @@ from avsl_tpu_torch.train.checkpoints import (
     restore_params_only,
     save_checkpoint,
 )
+from avsl_tpu_torch.train.ema import ema_update
 from avsl_tpu_torch.train.loop import TrainState, make_train_step
 
 
@@ -113,7 +119,12 @@ class TrainerRunner:
     ``precompute_fn`` (the frozen-tower hoist, gated by the caller) runs
     once a step before the micro-steps; the JAX runner compiles it as a
     program of its own (``split_precompute``), which eager PyTorch has no
-    need of: both forms draw the same numbers."""
+    need of: both forms draw the same numbers.
+
+    ``cfg.ema_decay > 0`` keeps an EMA of the tensors the optimizer trains
+    (JAX's covers its whole ``params`` tree; the frozen tensors, which
+    JAX's EMA leaves equal up to rounding, are the live ones here, see
+    ROADMAP.md §3). ``evaluate`` and ``best/`` see it; ``ema`` holds it."""
 
     def __init__(
         self,
@@ -135,10 +146,6 @@ class TrainerRunner:
         precompute_fn=None,
     ):
         del tx
-        if float(getattr(cfg, "ema_decay", 0.0) or 0.0) > 0.0:
-            raise NotImplementedError(
-                "ema_decay > 0: parameter EMA is not ported yet (ROADMAP.md queue 1, item 12)"
-            )
         if partitioned_state:
             raise NotImplementedError(
                 "partitioned_state: the parallel layer is not ported yet "
@@ -158,6 +165,9 @@ class TrainerRunner:
         self.eval_logits_fn = eval_logits_fn
         self.predictions_fn = predictions_fn
         self.state = init_state
+        self.ema_decay = float(getattr(cfg, "ema_decay", 0.0) or 0.0)
+        self.ema: Optional[Dict[str, torch.Tensor]] = None
+        self._reset_ema()
         self.logger = MetricLogger(log_dir)
         self.ckpt_dir = os.path.abspath(ckpt_dir)
         self._best_dir = os.path.join(self.ckpt_dir, "best")
@@ -186,10 +196,42 @@ class TrainerRunner:
         prev = signal.signal(signal.SIGTERM, on_term)
         return lambda: signal.signal(signal.SIGTERM, prev)
 
+    def _trained(self) -> Dict[str, torch.Tensor]:
+        """The tensors the optimizer updates, by name (without an
+        optimizer, every parameter that takes a gradient)."""
+        opt = self.state.optimizer
+        if opt is not None:
+            return dict(zip(opt.names, opt.params))
+        return {n: p for n, p in self.state.model.named_parameters() if p.requires_grad}
+
+    def _reset_ema(self) -> None:
+        if self.ema_decay > 0.0:
+            self.ema = {n: p.detach().clone() for n, p in self._trained().items()}
+
+    @contextlib.contextmanager
+    def _ema_weights(self):
+        """Within the block the trained tensors hold the EMA (their storage
+        swapped, no copy); without EMA, nothing changes."""
+        if self.ema is None:
+            yield
+            return
+        live = self._trained()
+
+        def swap():
+            for name, p in live.items():
+                p.data, self.ema[name] = self.ema[name], p.data
+
+        swap()
+        try:
+            yield
+        finally:
+            swap()
+
     def maybe_resume(self) -> int:
         step = latest_step(self.ckpt_dir)
         if step is not None and getattr(self.cfg, "resume_training", False):
             self.state = restore_checkpoint(self.ckpt_dir, self.state, step)
+            self._reset_ema()
             return step
         return 0
 
@@ -209,8 +251,10 @@ class TrainerRunner:
         }
 
     def _evaluate(self, batches, **kw) -> Dict[str, float]:
-        return evaluate_wer(lambda b: self.eval_logits_fn(self.state, b), batches,
-                            self.tokenizer, predictions_fn=self.predictions_fn, **kw)
+        """WER on ``batches`` with the EMA weights when there are some."""
+        with self._ema_weights():
+            return evaluate_wer(lambda b: self.eval_logits_fn(self.state, b), batches,
+                                self.tokenizer, predictions_fn=self.predictions_fn, **kw)
 
     def fit(
         self,
@@ -252,6 +296,9 @@ class TrainerRunner:
             if reshaped is None:  # tail batch smaller than accum: drop_last
                 continue
             self.state, metrics = self.train_step(self.state, reshaped)
+            if self.ema is not None:
+                with torch.no_grad():
+                    ema_update(self.ema, self._trained(), self.ema_decay)
             step += 1
             if step % 10 == 0 or step == num_steps:
                 logd = {f"train/{k}": float(v) for k, v in metrics.items()}
@@ -269,8 +316,13 @@ class TrainerRunner:
                 if wer < self.best_wer:
                     self.best_wer, self.best_step = wer, step
                     # the rolling directory keeps only a few steps, so the
-                    # best one is pinned in its own
-                    pin_checkpoint(self.ckpt_dir, self._best_dir, step)
+                    # best one is pinned in its own; with EMA it holds the
+                    # evaluated (averaged) weights, a checkpoint of its own
+                    if self.ema is None:
+                        pin_checkpoint(self.ckpt_dir, self._best_dir, step)
+                    else:
+                        with self._ema_weights():
+                            save_checkpoint(self._best_dir, self.state, step)
                     self._evals_since_best = 0
                 else:
                     self._evals_since_best += 1

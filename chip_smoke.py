@@ -128,7 +128,22 @@ raises on failure:
    daemon, bf16, ``kv_int8``, int8 weights (bit-equal to the CPU's
    quantization of the same weights; the float model then freed) and
    both, each exactly 56 K1 a batch, with the tiny int8 model card
-   against CPU.
+   against CPU;
+13. the training extras: ``distill`` (after the export, ``cli.distill``'s
+   ``main`` on a seeded audio-only large-v2 target saved to a checkpoint,
+   the ``tiny`` draft, 32 seeded 10-30 s clips: the label pass and the
+   steps with K1/K2 counted and every launch shape against the plain
+   version, then ``serving_extras_speculative_distilled``: the distilled
+   draft through the ``--draft_ckpt`` path against plain greedy on that
+   target, greedy's tokens but at near-ties); after the dataset path,
+   ``flamingo_lora_train`` (the training YAML through ``make_job`` and
+   ``run`` with rank-8 adapters, EMA 0.999 and the YAML's remat: 3
+   optimizer steps of 16 micro-batches, base tensors bit-identical, every
+   B non-zero, ``best/`` the EMA, exact K1/K2 counts with the recompute,
+   every launch shape against the plain version; ``cli.export_lora``, the
+   merged model's logits within BF16_TOL, ``cli.transcribe --ckpt_dir``
+   on 8 items) and ``remat_ab`` (that job, 2 steps of 4 micro-batches with
+   remat off, ``block`` and ``dots``: s/step and peak memory each).
 
 Each model is freed before the next one is built. It prints the kernel
 list, the card's name and power limit and, last,
@@ -2176,13 +2191,19 @@ def phase_flamingo_dataset_train(card: str, out_dir: str):
                              f"accumulation {runner.accum}, hoisted {runner.hoisted}")
     named = dict(model.named_parameters())
     trained = set(opt.names)
+    # the YAML's remat is on, but nothing remat'd trains here: the Whisper
+    # encoder and the tower are frozen, and the text decoder is not remat'd
+    remat_trained = sorted(n for n in trained if n.split(".")[0] in ("encoder", "video_model"))
+    if not (model.encoder.remat and model.video_model.encoder.remat) or remat_trained:
+        raise AssertionError(f"dataset path: remat {model.encoder.remat}, trained tensors in "
+                             f"remat'd stacks {remat_trained[:3]}")
     rates = collections.Counter(r["audio"]["sampling_rate"] for r in rows[0])
     log({"phase": "build_flamingo_dataset_train", "params": sum(p.numel() for p in named.values()),
          "trained_params": sum(named[n].numel() for n in trained),
          "rows": list(DATASET_ROWS), "native_rates": dict(rates),
          "batch_bins": (int(cfg.audio_max_length) // 160) * int(cfg.batch_size),
          "accumulation": accum, "optimizer_steps": DATASET_STEPS,
-         "seconds": time.perf_counter() - t0})
+         "remat": model.encoder.remat, "seconds": time.perf_counter() - t0})
     frozen_before = {n: p.detach().to("cpu", copy=True) for n, p in named.items()
                      if n not in trained}
     records, eval_calls = [], []
@@ -3533,6 +3554,465 @@ def phase_serving_extras_export(card: str) -> int:
     return sum(runs["replay"]["k1_per_run"])
 
 
+# the training extras (LoRA, EMA, remat, distillation)
+LORA_RANK, LORA_ALPHA, LORA_EMA = 8, 16.0, 0.999
+LORA_STEPS = 3
+REMAT_AB_ACCUM, REMAT_AB_STEPS = 4, 2
+DISTILL_CLIPS, DISTILL_STEPS, DISTILL_LR = 32, 100, 1e-3
+
+
+def lora_job_config(out_dir: str, vocab_dir: str) -> str:
+    """The training YAML with ``lora_rank`` 8, ``lora_alpha`` 16,
+    ``ema_decay`` 0.999, 3 optimizer steps validated once at the end, the
+    published vocabulary's size (:func:`write_published_size_vocab`, so that
+    ``cli.export_lora`` and ``cli.transcribe`` build the same model from it)
+    and its outputs under ``out_dir``; written there, its path returned."""
+    import os
+
+    import yaml
+
+    with open(TRAIN_CONFIG) as f:
+        fields = yaml.safe_load(f)
+    accum = int(fields["gradient_accumulation_steps"])
+    fields.update(lora_rank=LORA_RANK, lora_alpha=LORA_ALPHA, ema_decay=LORA_EMA,
+                  num_train_steps=LORA_STEPS, validate_every_n_batches=LORA_STEPS * accum,
+                  num_sanity_val_steps=0, download_root=vocab_dir,
+                  log_output_dir=os.path.join(out_dir, "lora_logs"),
+                  check_output_dir=os.path.join(out_dir, "lora_ckpt"))
+    path = os.path.join(out_dir, "lora.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(fields, f)
+    return path
+
+
+class SeededLipFrames:
+    """A dataset's items, each with seeded lip frames in place of the one
+    zero frame a row without a clip gets: ``round(audio_frames / 4)``
+    frames (25 fps) of U[0, 1) grey levels, normalised as a clip is. An
+    all-zero tower input puts every LayerNorm of the untrained tower at
+    zero variance, a gain of 1/sqrt(eps) = 316 on the gradient each, and
+    LoRA's backward through 24 pre-norm blocks overflows (ROADMAP.md §3);
+    lip frames are what an AV LoRA run trains on."""
+
+    def __init__(self, ds, seed: int, crop: int = 88):
+        self.ds, self.seed, self.crop = ds, seed, crop
+
+    def __len__(self) -> int:
+        return len(self.ds)
+
+    def audio_length(self, idx: int) -> int:
+        return self.ds.audio_length(idx)
+
+    def __getitem__(self, idx: int):
+        item = self.ds[idx]
+        frames = max(1, int(round(item["audio_frames"] / 4)))
+        rng = np.random.default_rng((self.seed, idx))
+        grey = rng.random((frames, self.crop, self.crop, 1), dtype=np.float32)
+        item["video"] = (grey - 0.421) / 0.165
+        return item
+
+
+def phase_flamingo_lora_train(card: str, out_dir: str):
+    """LoRA fine-tuning of the full-width Whisper-Flamingo model through
+    ``cli.finetune.make_job`` and ``run`` on the training YAML (large-v2 +
+    AV-HuBERT large, remat on as the YAML sets it) with rank-8 adapters on
+    every q/v projection (encoder, decoder self/cross/x_attn, the tower),
+    EMA 0.999, gates 0.5, on the dataset phase's seeded rows with seeded
+    lip frames (:class:`SeededLipFrames`): 3 optimizer
+    steps of 16 bucketed micro-batches under MultiSteps, validation and
+    ``test_best``. Then ``cli.export_lora`` writes the merged checkpoint
+    (onto the base saved as ``--base_ckpt``: its gates are 0.5),
+    the serving model loaded from it gives the LoRA model's logits, and
+    ``cli.transcribe --ckpt_dir`` serves 8 items from it. Gates: every base
+    tensor bit-identical; every adapter's B non-zero; ``best/`` holds the
+    EMA, not the raw adapters; merged logits within BF16_TOL; K1 and K2
+    launches exactly (32 x 2 + 96) and (32 + 96) a micro-step (the
+    encoder's remat recomputes its K1) and 152 K1 an eval batch; K1 and
+    K2 against the plain version at every distinct launch shape. Returns
+    the job (for ``remat_ab``) and the launches."""
+    import collections
+    import itertools
+    import os
+    import shutil
+
+    from avsl_tpu_torch.cli import export_lora, finetune, transcribe
+    from avsl_tpu_torch.cli._serving_common import build_target_with_weights
+    from avsl_tpu_torch.core.config import FlamingoTrainConfig
+    from avsl_tpu_torch.data.audio_segments import write_wav
+    from avsl_tpu_torch.data.tokenizer import get_tokenizer
+    from avsl_tpu_torch.kernels.attention import fused_attention, fused_attention_bwd
+    from avsl_tpu_torch.models.lora import LoraModel, lora_summary
+    from avsl_tpu_torch.train.checkpoints import (
+        _path,
+        latest_step,
+        restore_params_only,
+        save_checkpoint,
+    )
+    from avsl_tpu_torch.train.loop import TrainState, batch_to_device
+    from avsl_tpu_torch.train.optim import MultiSteps
+
+    vocab_dir = os.path.join(out_dir, "lora_vocab")
+    write_published_size_vocab(vocab_dir)
+    cfg_path = lora_job_config(out_dir, vocab_dir)
+    cfg = FlamingoTrainConfig.from_yaml(cfg_path)
+    accum = int(cfg.gradient_accumulation_steps)
+    rows = [dataset_rows(n, seed) for n, seed in zip(DATASET_ROWS, (20, 21, 22))]
+    t0 = time.perf_counter()
+    job = finetune.make_job(cfg, *rows, "cuda")
+    job.train_ds, job.val_ds, job.test_ds = (SeededLipFrames(ds, seed) for ds, seed in zip(
+        (job.train_ds, job.val_ds, job.test_ds), (30, 31, 32)))
+    set_gates(job.model, GATE)
+    torch.cuda.synchronize()
+    runner, base = job.runner, job.model
+    lora, opt = runner.state.model, runner.state.optimizer
+    if not isinstance(lora, LoraModel) or not isinstance(opt, MultiSteps) or runner.hoisted \
+            or not base.encoder.remat or runner.ema is None:
+        raise AssertionError(f"LoRA path composed {type(lora).__name__}, {type(opt).__name__}, "
+                             f"hoisted {runner.hoisted}, remat {base.encoder.remat}")
+    summary = lora_summary(base, lora.adapters())
+    by_part = collections.Counter(p.split("/")[0] if "x_attn" not in p else "x_attn"
+                                  for p in lora.lora_a)
+    log({"phase": "build_flamingo_lora_train", "params": summary["base_params"],
+         "n_vocab": base.cfg.n_vocab, "adapters": summary["n_adapters"],
+         "adapters_by_part": dict(by_part), "trainable_params": summary["lora_params"],
+         "trainable_fraction": summary["trainable_fraction"], "rank": LORA_RANK,
+         "alpha": LORA_ALPHA, "ema_decay": LORA_EMA, "remat_policy": base.encoder.remat_policy,
+         "accumulation": accum, "optimizer_steps": LORA_STEPS,
+         "seconds": time.perf_counter() - t0})
+    base_before = {n: p.detach().to("cpu", copy=True) for n, p in base.named_parameters()}
+    records, eval_calls = [], []
+    plain_step = observe_steps(runner, records)
+    plain_eval = runner.eval_logits_fn
+
+    def counted_eval(state, batch):
+        eval_calls.append(int(np.asarray(batch["labels"]).shape[0]))
+        return plain_eval(state, batch)
+
+    runner.eval_logits_fn = counted_eval
+    seen: dict = {}
+    with launch_shapes(seen):
+        fused_attention.launches = fused_attention_bwd.launches = 0
+        t_run = time.perf_counter()
+        result = finetune.run(job)
+        run_seconds = time.perf_counter() - t_run
+        k1, k2 = fused_attention.launches, fused_attention_bwd.launches
+    runner.train_step, runner.eval_logits_fn = plain_step, plain_eval
+    steps = optimizer_steps(records, t_run)
+    base_changed = [n for n, v in base_before.items()
+                    if not torch.equal(dict(base.named_parameters())[n].cpu(), v)]
+    del base_before
+    zero_b = [p for p, t in lora.lora_b.items() if not bool(t.detach().ne(0).any())]
+    best_dir = runner._best_dir
+    best = restore_params_only(best_dir, runner.best_step)
+    raw = {n: t.detach().cpu() for n, t in lora.named_parameters()}
+    best_is_ema = all(torch.equal(best[n], runner.ema[n].cpu()) for n in raw)
+    best_is_raw = [n for n in raw if n.startswith("lora_b.") and torch.equal(best[n], raw[n])]
+    ckpt_dir = runner.ckpt_dir
+    adapter_bytes = os.path.getsize(_path(ckpt_dir, latest_step(ckpt_dir)))
+    enc, dec = base.cfg.n_audio_layer, 3 * base.cfg.n_text_layer
+    tower = base.video_model.cfg.num_hidden_layers
+    micro = len(records)
+    want_k1 = (2 * enc + dec) * micro + (enc + tower + dec) * len(eval_calls)
+    want_k2 = (enc + dec) * micro
+    rec = {"phase": "flamingo_lora_train", "card": card, "optimizer_steps": steps,
+           "seconds_per_optimizer_step_median_2_3": statistics.median(
+               s["seconds"] for s in steps[1:]),
+           "segments_per_s_median_2_3": statistics.median(s["segments_per_s"] for s in steps[1:]),
+           "loss_per_optimizer_step": [s["loss"] for s in steps],
+           "micro_batch_items": dict(sorted(collections.Counter(
+               r["items"] for r in records).items())),
+           "max_memory_allocated_bytes": max(r["peak_bytes"] for r in records),
+           "run_seconds": run_seconds, "micro_steps": micro, "eval_batches": eval_calls,
+           "k1_launches": k1, "k2_launches": k2, "expected_k1": want_k1, "expected_k2": want_k2,
+           "k1_per_micro_step": 2 * enc + dec, "k2_per_micro_step": enc + dec,
+           "k1_per_eval_batch": enc + tower + dec, "updates": opt.count,
+           "final_step": result["final_step"], "best_step": runner.best_step,
+           "test": result.get("test"), "base_tensors_changed": len(base_changed),
+           "adapters_with_zero_b": len(zero_b), "best_holds_ema": best_is_ema,
+           "best_equal_to_raw_b": len(best_is_raw),
+           "trainable_fraction": summary["trainable_fraction"],
+           "adapter_checkpoint_bytes": adapter_bytes,
+           "trained_moved_before_update": [i for i, r in enumerate(records)
+                                           if not r["updated"] and not r["unchanged"]]}
+    if (k1, k2) != (want_k1, want_k2):
+        log(rec)
+        raise AssertionError(f"LoRA path: launches K1 {k1} / K2 {k2} != {want_k1} / {want_k2}")
+    if base_changed or zero_b or not best_is_ema or best_is_raw or rec[
+            "trained_moved_before_update"]:
+        log(rec)
+        raise AssertionError(f"LoRA path: {len(base_changed)} base tensors changed, {zero_b[:3]} "
+                             f"B still zero, best holds EMA {best_is_ema}, raw B {best_is_raw[:3]}")
+    if opt.count != LORA_STEPS or result["final_step"] != LORA_STEPS * accum \
+            or not all(math.isfinite(s["loss"]) for s in steps):
+        log(rec)
+        raise AssertionError(f"LoRA path: {opt.count} updates, final step {result['final_step']}")
+
+    # the merged export (onto the base as trained on, its gates at 0.5, saved
+    # as the base checkpoint), its logits against the LoRA model's, and a
+    # served batch
+    base_dir, merged_dir = os.path.join(out_dir, "lora_base"), os.path.join(out_dir, "lora_merged")
+    save_checkpoint(base_dir, TrainState.create(base, None), 0)
+    t0 = time.perf_counter()
+    export_lora.main(["--config", cfg_path, "--adapter_ckpt", ckpt_dir, "--base_ckpt", base_dir,
+                      "--output", merged_dir, "--device", "cuda"])
+    rec["export_seconds"] = time.perf_counter() - t0
+    shutil.rmtree(base_dir, ignore_errors=True)
+    rec["merged_checkpoint_bytes"] = os.path.getsize(_path(merged_dir, latest_step(merged_dir)))
+    gc.collect()
+    torch.cuda.empty_cache()
+    tokenizer = get_tokenizer(vocab_dir, cfg.lang)
+    served, _, _ = build_target_with_weights(cfg, tokenizer, False, merged_dir, device="cuda")
+    batch = batch_to_device(next(iter(job.batches(job.val_ds, 1, False))), torch.device("cuda"))
+    with torch.no_grad():
+        lora.eval()
+        want = lora(batch["input_ids"], batch["dec_input_ids"], video=batch.get("video")).float()
+        got = served(batch["input_ids"], batch["dec_input_ids"], video=batch.get("video")).float()
+    err = float((got - want).abs().max())
+    ok = bool(torch.allclose(got, want, **BF16_TOL))
+    del served, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    wav_dir = os.path.join(out_dir, "lora_wavs")
+    rng = np.random.default_rng(23)
+    for i in range(EXTRAS_BATCH):
+        write_wav(os.path.join(wav_dir, f"lora{i}.wav"),
+                  (0.1 * rng.standard_normal(int(rng.integers(80000, 160001)))).astype(np.float32))
+    t0 = time.perf_counter()
+    results = transcribe.main(["--input", wav_dir, "--config", cfg_path, "--ckpt_dir", merged_dir,
+                               "--batch_size", str(EXTRAS_BATCH), "--max_new_tokens", "16",
+                               "--device", "cuda"])
+    rec.update(merged_logits_max_abs_err=err, merged_logits_within_bf16_tol=ok,
+               transcribe_seconds=time.perf_counter() - t0, served_items=len(results),
+               launch_shapes=check_launch_shapes(seen))
+    shutil.rmtree(merged_dir, ignore_errors=True)
+
+    # one more pair of micro-steps, traced (after the export: a training
+    # step moves the tower's BatchNorm statistics)
+    micro_batches = list(itertools.islice(
+        job.batches(job.train_ds, int(cfg.batch_size), True, 4), 2))
+
+    def two_micro_steps():
+        for b in micro_batches:
+            runner.state, metrics = plain_step(runner.state, b)
+        float(metrics["loss"])
+
+    rec["traced_micro_steps"] = traced_run(two_micro_steps)
+    log(rec)
+    if not ok:
+        raise AssertionError(f"merged model's logits off the LoRA model's by {err}")
+    if len(results) != EXTRAS_BATCH or not all(math.isfinite(r["avg_logprob"]) for r in results):
+        raise AssertionError(f"transcribe --ckpt_dir on the merged checkpoint: {results[:2]}")
+    return job, {"k1": k1, "k2": k2}
+
+
+def set_remat(model, on: bool, policy: str) -> None:
+    """Every remat site of ``model`` on or off, with ``policy``."""
+    for m in model.modules():
+        if hasattr(m, "remat_policy") and hasattr(m, "remat"):
+            m.remat, m.remat_policy = on, policy
+
+
+def phase_remat_ab(card: str, job) -> dict:
+    """The LoRA job of :func:`phase_flamingo_lora_train` for 2 optimizer
+    steps of 4 micro-batches each (the same 8 micro-batches every time),
+    with remat off, on with the ``block`` policy and on with ``dots``, in
+    that order: s/step and peak device memory each, K1 and K2 launches
+    gated to (32 + 96) or (32 x 2 + 96) and (32 + 96) a micro-step.
+    Returns the launches without remat."""
+    import itertools
+
+    from avsl_tpu_torch.kernels.attention import fused_attention, fused_attention_bwd
+    from avsl_tpu_torch.train.optim import MultiSteps
+
+    runner, base = job.runner, job.model
+    opt = runner.state.optimizer
+    micro_batches = list(itertools.islice(job.batches(
+        job.train_ds, int(job.cfg.batch_size), True, 5), REMAT_AB_STEPS * REMAT_AB_ACCUM))
+    enc, dec = base.cfg.n_audio_layer, 3 * base.cfg.n_text_layer
+    runs, launches = {}, {}
+    for name, on, policy in (("no_remat", False, "block"), ("block", True, "block"),
+                             ("dots", True, "dots")):
+        set_remat(base, on, policy)
+        runner.state.optimizer = MultiSteps(opt.inner, REMAT_AB_ACCUM)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fused_attention.launches = fused_attention_bwd.launches = 0
+        seconds = []
+        for b in micro_batches:
+            t = time.perf_counter()
+            runner.state, metrics = runner.train_step(runner.state, b)
+            float(metrics["loss"])
+            seconds.append(time.perf_counter() - t)
+        k1, k2 = fused_attention.launches, fused_attention_bwd.launches
+        micro = len(micro_batches)
+        want = ((2 * enc if on else enc) + dec) * micro, (enc + dec) * micro
+        runs[name] = {"seconds_per_optimizer_step": [
+            sum(seconds[i:i + REMAT_AB_ACCUM]) for i in range(0, micro, REMAT_AB_ACCUM)],
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+            "k1": k1, "k2": k2, "expected": list(want)}
+        launches[name] = (k1, k2)
+        if (k1, k2) != want:
+            raise AssertionError(f"remat_ab {name}: K1 {k1} / K2 {k2} != {want}")
+    runner.state.optimizer = opt
+    set_remat(base, True, "block")
+    log({"phase": "remat_ab", "card": card, "accumulation": REMAT_AB_ACCUM,
+         "optimizer_steps": REMAT_AB_STEPS,
+         "micro_batch_items": [int(b["labels"].shape[0]) for b in micro_batches], "runs": runs})
+    return {"k1": launches["no_remat"][0], "k2": launches["no_remat"][1]}
+
+
+def phase_distill(card: str, out_dir: str):
+    """Draft distillation through ``cli.distill``'s ``main``: the target
+    is audio-only large-v2 (bf16, seeded random weights, the published
+    vocabulary's size) from a checkpoint this phase saves, the draft
+    ``tiny`` in bf16 compute, the input 32 seeded 10-30 s wav clips;
+    ``--batch_size 8 --max_new_tokens 64`` and DISTILL_STEPS steps at
+    DISTILL_LR. K1/K2 counted in the label pass and in the steps (the
+    target's encoder and teacher-forced decoder, the draft's forward and
+    backward) against the code's counts, and every distinct launch shape
+    held against the plain version. Then speculative decoding on that
+    target (30 s windows, batch 8, 64 new tokens, spec_k 4) with the
+    distilled draft loaded through the serving CLIs' ``--draft_ckpt`` path,
+    against plain greedy in turns: greedy's tokens but at near-ties, K1
+    32 + 4 a batch. Returns the launches."""
+    import argparse
+    import os
+
+    import yaml
+
+    from avsl_tpu_torch.cli import distill as distill_cli
+    from avsl_tpu_torch.cli._serving_common import build_draft, build_target_model
+    from avsl_tpu_torch.core.config import FlamingoTrainConfig
+    from avsl_tpu_torch.data.audio_segments import write_wav
+    from avsl_tpu_torch.data.tokenizer import get_tokenizer
+    from avsl_tpu_torch.infer.pipeline import StreamingTranscriber
+    from avsl_tpu_torch.kernels.attention import fused_attention, fused_attention_bwd
+    from avsl_tpu_torch.train import distill
+    from avsl_tpu_torch.train.checkpoints import save_checkpoint
+    from avsl_tpu_torch.train.loop import TrainState
+
+    vocab_dir = os.path.join(out_dir, "distill_vocab")
+    write_published_size_vocab(vocab_dir)
+    fields = dict(model_name="large-v2", add_gated_x_attn=0, use_av_hubert_encoder=False,
+                  audio_max_length=480000, download_root=vocab_dir)
+    cfg_path = os.path.join(out_dir, "distill.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(fields, f)
+    cfg = FlamingoTrainConfig(**fields)
+    tokenizer = get_tokenizer(vocab_dir, cfg.lang)
+    t0 = time.perf_counter()
+    target, w_cfg = build_target_model(cfg, tokenizer, False, None, device="cuda", seed=7)
+    target_dir, draft_dir = os.path.join(out_dir, "distill_target"), os.path.join(
+        out_dir, "distill_draft")
+    save_checkpoint(target_dir, TrainState.create(target, None), 1)
+    wav_dir = os.path.join(out_dir, "distill_wavs")
+    rng = np.random.default_rng(24)
+    for i in range(DISTILL_CLIPS):
+        write_wav(os.path.join(wav_dir, f"clip{i:02d}.wav"),
+                  (0.1 * rng.standard_normal(int(rng.integers(160000, 480001)))).astype(np.float32))
+    prepare_seconds = time.perf_counter() - t0
+
+    counts = {"labels": [0, 0, 0], "steps": [0, 0, 0]}  # calls, K1, K2
+    real_label, real_step = distill.make_greedy_label_fn, distill.make_online_distill_step
+
+    def counting(kind, fn):
+        def run(*a, **kw):
+            k1, k2 = fused_attention.launches, fused_attention_bwd.launches
+            out = fn(*a, **kw)
+            c = counts[kind]
+            c[0] += 1
+            c[1] += fused_attention.launches - k1
+            c[2] += fused_attention_bwd.launches - k2
+            return out
+        return run
+
+    distill.make_greedy_label_fn = lambda *a, **kw: counting("labels", real_label(*a, **kw))
+    distill.make_online_distill_step = lambda *a, **kw: counting("steps", real_step(*a, **kw))
+    seen: dict = {}
+    try:
+        with launch_shapes(seen):
+            fused_attention.launches = fused_attention_bwd.launches = 0
+            t0 = time.perf_counter()
+            summary = distill_cli.main([
+                "--input", wav_dir, "--config", cfg_path, "--ckpt_dir", target_dir,
+                "--draft_model", "tiny", "--output", draft_dir, "--steps", str(DISTILL_STEPS),
+                "--batch_size", "8", "--max_new_tokens", "64", "--lr", str(DISTILL_LR),
+                "--log_every", "10", "--device", "cuda"])
+            cli_seconds = time.perf_counter() - t0
+    finally:
+        distill.make_greedy_label_fn, distill.make_online_distill_step = real_label, real_step
+    gc.collect()
+    torch.cuda.empty_cache()
+    args = argparse.Namespace(draft_model="tiny", draft_ckpt=draft_dir, spec_k=SPEC_K, beam=1,
+                              device="cuda")
+    draft, draft_weights = build_draft(args, w_cfg.n_vocab, smoke=False)
+    d_enc = draft.cfg.n_audio_layer
+    d_dec = 2 * draft.cfg.n_text_layer
+    t_enc, t_dec = w_cfg.n_audio_layer, 2 * w_cfg.n_text_layer
+    n_label_batches = math.ceil(DISTILL_CLIPS / 8)
+    want = {"labels": [n_label_batches, t_enc * n_label_batches, 0],
+            "steps": [DISTILL_STEPS, (t_enc + t_dec + d_enc + d_dec) * DISTILL_STEPS,
+                      (d_enc + d_dec) * DISTILL_STEPS]}
+    rec = {"phase": "distill", "card": card, "target": w_cfg.name, "n_vocab": w_cfg.n_vocab,
+           "draft": [draft.cfg.n_audio_state, draft.cfg.n_audio_head, draft.cfg.n_audio_layer],
+           "clips": DISTILL_CLIPS, "steps": DISTILL_STEPS, "lr": DISTILL_LR,
+           "prepare_seconds": prepare_seconds, "cli_seconds": cli_seconds,
+           "label_seconds": summary["label_seconds"],
+           "seconds_per_step": summary["train_seconds"] / DISTILL_STEPS,
+           "agree_history": [(h["step"], h["agree"]) for h in summary["history"]],
+           "loss_history": [(h["step"], h["loss"]) for h in summary["history"]],
+           "final": summary["final"], "launches": counts, "expected_launches": want,
+           "launch_shapes": check_launch_shapes(seen)}
+    if counts != want:
+        log(rec)
+        raise AssertionError(f"distill launches {counts} != {want}")
+    if not all(math.isfinite(v) for v in summary["final"].values()):
+        log(rec)
+        raise AssertionError(f"distill: non-finite metrics {summary['final']}")
+    log(rec)
+
+    # speculative decoding with the distilled draft on the distillation target
+    rng = np.random.default_rng(25)
+    items = [{"id": f"ds{i}", "audio": (0.1 * rng.standard_normal(int(rng.integers(
+        320000, 480001)))).astype(np.float32)} for i in range(EXTRAS_BATCH)]
+    kw = dict(audio_max_length=480000, batch_size=EXTRAS_BATCH, max_new_tokens=EXTRAS_MAX_NEW)
+    trs = {"plain": StreamingTranscriber(target, tokenizer, **kw),
+           "distilled_draft": StreamingTranscriber(target, tokenizer, draft_model=draft,
+                                                   draft_variables=draft_weights, spec_k=SPEC_K,
+                                                   **kw)}
+    k1 = {"plain": t_enc, "distilled_draft": t_enc + d_enc}
+    prep = trs["plain"]._prepare_batch(items)
+    ref_tokens, ref_gaps = greedy_with_gaps(trs["plain"], prep)
+    trs["distilled_draft"]._run(prep.audio, prep.video)  # warm-up
+    seen = {}
+    with launch_shapes(seen):
+        runs = timed_in_turns({name: (lambda tr=tr: tr._run(prep.audio, prep.video))
+                               for name, tr in trs.items()}, k1)
+    tr, r = trs["distilled_draft"], runs["distilled_draft"]
+    stats = tr.spec_stats()
+    with spec_probe(SPEC_K) as probe:
+        probed = tr._run(prep.audio, prep.video)
+    tokens = r["result"].tokens
+    if not (probed.tokens == tokens).all():
+        raise AssertionError("distilled draft: the probed run's tokens differ from the timed run's")
+    plain_s = runs["plain"]["seconds_per_batch"]
+    spec = {"phase": "serving_extras_speculative_distilled", "card": card, "spec_k": SPEC_K,
+            "near_tie": NEAR_TIE, "plain_seconds_per_batch": plain_s,
+            "seconds_per_batch": r["seconds_per_batch"], "over_plain": r["seconds_per_batch"]
+            / plain_s, "k1_per_batch": r["k1"], "rounds": stats["mean_verify_rounds"],
+            "accept_rate": stats["mean_accept_rate"], "spec_stats": stats,
+            "draft_forwards": probe["draft_forwards"], "target_forwards": probe["target_forwards"],
+            "rejections": len(probe["rejection_gaps"]),
+            "near_tie_rows": near_tie_rows(tokens, ref_tokens, ref_gaps),
+            "launch_shapes": check_launch_shapes(seen)}
+    log(spec)
+    launches = {"labels": counts["labels"][1], "steps": counts["steps"][1],
+                "steps_k2": counts["steps"][2], "speculative": sum(r["k1_per_run"])}
+    del trs, tr, draft, target
+    return launches
+
+
 def sass_counts() -> dict:
     """Tensor-core instructions in each built library, from the toolkit's
     ``cuobjdump -sass``: ``HGMMA`` (wgmma) and ``HMMA`` (mma.sync)."""
@@ -3645,6 +4125,9 @@ def main() -> int:
     free()
     export_launches = phase_serving_extras_export(smi)
     free()
+    with tempfile.TemporaryDirectory() as out_dir:
+        distill_launches = phase_distill(smi, out_dir)
+    free()
     av_serving_launches, av_model, av_record = phase_av_main_path(smi)
     av_raw_launches = phase_av_raw_main_path(smi, *av_model, av_record)
     daemon_launches = phase_serving_daemon(smi, *av_model)
@@ -3662,6 +4145,10 @@ def main() -> int:
         phase_multisteps_small(out_dir)
         job, dataset_launches = phase_flamingo_dataset_train(smi, out_dir)
         phase_prefetch(smi, job)
+        del job
+        free()
+        job, lora_launches = phase_flamingo_lora_train(smi, out_dir)
+        no_remat_launches = phase_remat_ab(smi, job)
         del job
         free()
     log({"phase": "flamingo_kernel_excess", "card": smi,
@@ -3697,6 +4184,11 @@ def main() -> int:
                "flamingo_training": flamingo[False]["k1"],
                "flamingo_training_hoisted": flamingo[True]["k1"],
                "flamingo_dataset_training": dataset_launches["k1"],
+               "flamingo_lora_training": lora_launches["k1"],
+               "flamingo_lora_training_no_remat": no_remat_launches["k1"],
+               "distill_labels": distill_launches["labels"],
+               "distill_training": distill_launches["steps"],
+               "speculative_distilled_draft": distill_launches["speculative"],
                "avhubert_cli_seq2seq": avh_cli["seq2seq"][0], "avhubert_cli_ctc": avh_cli["ctc"][0],
                "avhubert_training": avh["train"][0], "avhubert_eval": avh["eval"][0],
                "avhubert_ctc_eval": avh["ctc_eval"][0]}),
@@ -3709,6 +4201,10 @@ def main() -> int:
                "flamingo_training": flamingo[False]["k2"],
                "flamingo_training_hoisted": flamingo[True]["k2"],
                "flamingo_dataset_training": dataset_launches["k2"],
+               "flamingo_lora_training": lora_launches["k2"],
+               "flamingo_lora_training_no_remat": no_remat_launches["k2"],
+               "distill_labels": 0, "distill_training": distill_launches["steps_k2"],
+               "speculative_distilled_draft": 0,
                "avhubert_cli_seq2seq": avh_cli["seq2seq"][1], "avhubert_cli_ctc": avh_cli["ctc"][1],
                "avhubert_training": avh["train"][1], "avhubert_eval": avh["eval"][1],
                "avhubert_ctc_eval": avh["ctc_eval"][1]}),

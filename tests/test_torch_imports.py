@@ -39,6 +39,13 @@ SERVING_EXTRAS = {
     "avsl_tpu_torch.models.quant", "avsl_tpu_torch.decode.speculative",
     "avsl_tpu_torch.infer.export", "avsl_tpu_torch.cli.export_program",
 }
+# the training extras: their own copies of avsl_tpu/train/ema.py,
+# models/lora.py, train/distill.py and their CLIs
+TRAINING_EXTRAS = {
+    "avsl_tpu_torch.train.ema", "avsl_tpu_torch.cli.avg_ckpt", "avsl_tpu_torch.models.lora",
+    "avsl_tpu_torch.cli.export_lora", "avsl_tpu_torch.train.distill",
+    "avsl_tpu_torch.cli.distill",
+}
 
 
 def test_torch_port_imports_no_jax():
@@ -60,6 +67,7 @@ def test_torch_port_imports_no_jax():
             "avsl_tpu_torch.data.prefetch"} <= set(ALL_SUBMODULES)
     assert SERVING_MODULES <= set(ALL_SUBMODULES)
     assert SERVING_EXTRAS <= set(ALL_SUBMODULES)
+    assert TRAINING_EXTRAS <= set(ALL_SUBMODULES)
 
 
 def test_torch_port_imports_no_cv2():
