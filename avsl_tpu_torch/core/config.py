@@ -1,6 +1,8 @@
 """Model and run configuration: Whisper presets, the AV-HuBERT config with
 its fairseq-style YAML card loader, the Whisper-Flamingo training/serving
-config, and the YAML helpers.
+config, the YAML helpers, and the typed default-config registry
+(``get_default_config``, ``register_default_config``,
+``parse_args_with_config``: registry defaults < YAML < explicit flags).
 
 A copy of the matching parts of ``avsl_tpu/core/config.py`` with the same
 fields and defaults (the port may not import the JAX package). PyYAML is
@@ -10,12 +12,14 @@ nothing beyond the standard library.
 
 from __future__ import annotations
 
+import argparse
 import copy
 import dataclasses
+import json
 import os
 from dataclasses import dataclass, fields
 from types import SimpleNamespace
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 # ---------------------------------------------------------------------------
 # YAML load / save / merge / namespace
@@ -81,6 +85,156 @@ def namespace_to_dict(ns: Any) -> Any:
     if isinstance(ns, (list, tuple)):
         return [namespace_to_dict(v) for v in ns]
     return ns
+
+
+# ---------------------------------------------------------------------------
+# Typed default-config registry
+# ---------------------------------------------------------------------------
+
+_WHISPER_FLAMINGO_DEFAULTS: Dict[str, Any] = {
+    # Key names match config/ami_whisper_flamingo_large.yaml in the reference.
+    "train_name": "whisper_flamingo_ft_ami",
+    "train_data_path": "",
+    "val_data_path": "",
+    "test_data_path": "",
+    "audio_max_length": 160000,
+    "dataset_audio_max_length": 160000,
+    "max_duration_filter_seconds": 10.0,
+    "dataset_fraction": 0.0,
+    "text_max_length": 350,
+    "accelerator": "auto",
+    "weight_decay": 0.01,
+    "adam_epsilon": 1.0e-8,
+    "num_worker": 4,
+    "validate_every_n_batches": 1000,
+    "num_devices": 1,
+    "model_name": "large-v2",
+    "learning_rate": 1.0e-5,
+    "batch_size": 1,
+    "eval_batch_size": 1,
+    "num_train_steps": 8000,
+    "warmup_steps": 1000,
+    "gradient_accumulation_steps": 16,
+    "monitor": "val/wer_av",
+    "video_model_ckpt": "",
+    "freeze_video_model": True,
+    "freeze_video_batch_norm_stats": False,
+    "spec_augment": "ls-basic",
+    "dropout_rate": 0.1,
+    "lang": "en",
+    "pt_ckpt": "",
+    "resume_training": False,
+    "train_id": "whisper-flamingo_ft_ami",
+    "video_projection_train_only": False,
+    "video_projection_separate_lr": "",
+    "prob_use_av": 1.0,
+    "use_av_hubert_encoder": True,
+    "add_gated_x_attn": 1,
+    "av_fusion": "separate",
+    "log_output_dir": "output/train_whisper_flamingo_ft",
+    "check_output_dir": "checkpoints/whisper_flamingo_ft",
+    "num_sanity_val_steps": 2,
+    "precision": "bf16",  # the JAX package's default (the reference used fp16)
+    "reload_dataloaders_every_n_epochs": 1,
+    "sync_batchnorm": True,
+    "download_root": "models/whisper",
+    "enable_gradient_checkpointing": True,
+}
+
+_LAUGH_DATASET_DEFAULTS: Dict[str, Any] = {
+    "markers_csv": "ami_laugh_markers.csv",
+    "output_dir": "data/ami/laughter",
+    "audio_dir": "",
+    "video_dir": "",
+    "sample_rate": 16000,
+    "min_duration": 0.05,
+    "balance_classes": True,
+    "chunk_size": 500,
+    "num_workers": 8,
+    "resume": True,
+    "extract_lips": True,
+    "lip_size": 96,
+    "fps": 25,
+}
+
+_PREPROCESS_DEFAULTS: Dict[str, Any] = {
+    "ami_root": "",
+    "annotations_dir": "",
+    "output_dir": "data/ami",
+    "sample_rate": 16000,
+    "fps": 25,
+    "min_segment_seconds": 0.1,
+    "lip_size": 96,
+    "crop_size": 88,
+    "num_workers": 8,
+    "chunk_size": 1000,
+    "resume": True,
+}
+
+_CONFIG_REGISTRY: Dict[str, Dict[str, Any]] = {
+    "whisper_flamingo": _WHISPER_FLAMINGO_DEFAULTS,
+    "laugh_dataset": _LAUGH_DATASET_DEFAULTS,
+    "preprocess": _PREPROCESS_DEFAULTS,
+}
+
+
+def get_default_config(config_type: str) -> Dict[str, Any]:
+    """Return a deep copy of the registered defaults for ``config_type``."""
+    if config_type not in _CONFIG_REGISTRY:
+        raise KeyError(
+            f"Unknown config type {config_type!r}; known: {sorted(_CONFIG_REGISTRY)}"
+        )
+    return copy.deepcopy(_CONFIG_REGISTRY[config_type])
+
+
+def register_default_config(config_type: str, defaults: Dict[str, Any]) -> None:
+    _CONFIG_REGISTRY[config_type] = copy.deepcopy(defaults)
+
+
+def parse_args_with_config(
+    config_type: str,
+    argv: Optional[Sequence[str]] = None,
+    extra_args: Optional[Dict[str, Dict[str, Any]]] = None,
+) -> SimpleNamespace:
+    """Resolve a config as: registry defaults < YAML file < explicit CLI flags.
+
+    Builds an argparse parser whose flags are derived from the registered
+    defaults for ``config_type`` (plus ``--config`` for the YAML path).
+    Only flags the user explicitly passed override the YAML values.
+    """
+    defaults = get_default_config(config_type)
+    parser = argparse.ArgumentParser(description=f"avsl_tpu_torch {config_type} config")
+    parser.add_argument("--config", type=str, default=None, help="YAML config path")
+    for key, value in defaults.items():
+        arg = f"--{key}"
+        if isinstance(value, bool):
+            parser.add_argument(arg, type=_str2bool, default=None)
+        elif isinstance(value, (int, float, str)) or value is None:
+            parser.add_argument(arg, type=type(value) if value is not None else str, default=None)
+        else:
+            parser.add_argument(arg, type=json.loads, default=None)
+    for key, kwargs in (extra_args or {}).items():
+        parser.add_argument(f"--{key}", **kwargs)
+
+    ns, _unknown = parser.parse_known_args(argv)
+    cfg = defaults
+    if ns.config:
+        cfg = merge_configs(cfg, load_yaml_config(ns.config))
+    cli_overrides = {
+        k: v for k, v in vars(ns).items() if k != "config" and v is not None
+    }
+    cfg = merge_configs(cfg, cli_overrides)
+    return dict_to_namespace(cfg)
+
+
+def _str2bool(v: str) -> bool:
+    if isinstance(v, bool):
+        return v
+    if v.lower() in ("true", "1", "yes", "y", "t"):
+        return True
+    if v.lower() in ("false", "0", "no", "n", "f"):
+        return False
+    raise argparse.ArgumentTypeError(f"Expected a boolean, got {v!r}")
 
 
 # ---------------------------------------------------------------------------

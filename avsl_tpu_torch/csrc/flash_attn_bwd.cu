@@ -40,7 +40,7 @@
 // contiguous), so the wrapper makes no transpose copies; dQ/dK/dV are
 // contiguous [B,T,H,D].
 //
-// bf16 design (the training path's type), D in {32, 64, 128}: (b) and (c)
+// bf16 design (the training path's type), D in {16, 32, 64, 128}: (b) and (c)
 // are one launch whose blocks are one warpgroup (128 threads) each, the first
 // ceil(Tk / 64) along x doing (b) and the rest (c), so at the training
 // path's batch of 1 both halves fill the card together (1,20,500,500
@@ -70,10 +70,14 @@
 // beside S and dP, past the 255 a thread can have. The S and dP
 // products are computed twice, which the tensor cores can spare at these
 // sequence lengths.
+// At D = 16 the tiles are 32-byte rows (32-byte swizzle): S^T, dP^T, S and
+// dP are one m64n64k16 product each, and the dV, dK and dQ chains are
+// m64n16k16 (csrc/hopper_tiles.cuh).
 // fp32 operands keep the first version's bodies on the FMA pipes (4x4
-// register tiles from shared memory, 256 threads a block): the bf16 tensor
-// cores would change their result. They run only in the small fp32
-// references.
+// register tiles from shared memory, 256 threads a block, D / 16
+// accumulator columns a thread): the bf16 tensor cores would change their
+// result. They run only in the small fp32 references and the tiny test
+// models.
 
 #include "hopper_tiles.cuh"
 
@@ -117,12 +121,15 @@ delta_kernel(const T* __restrict__ o, const T* __restrict__ g,
 
 // Shared memory of (b) and (c), in floats: four transposed tiles [D][RS]
 // (in (b) two of them are re-used as [64][RS] P/dS tiles, hence max(D, 64)
-// rows), two more tiles of at most [64][RS] (row-major [64][D + PAD] tiles,
-// and in (c) the [64][RS] dS tile), and three per-row vectors.
+// rows), two more tiles of [64][max(D + PAD, RS)] (row-major [64][D + PAD]
+// tiles, and in (c) the [64][RS] dS tile), and three per-row vectors. At
+// D = 128 that is 51,904 floats (203 KB, under the 227 KB opt-in limit).
 template <int D>
 constexpr int bwd_smem_floats() {
-  static_assert(D + PAD <= RS, "a row-major tile must fit a [64][RS] slot");
-  return 4 * (D > BQ ? D : BQ) * RS + 2 * BQ * RS + 3 * BQ;
+  constexpr int row = D + PAD > RS ? D + PAD : RS;
+  static_assert(sizeof(float) * (4 * (D > BQ ? D : BQ) * RS + 2 * BQ * row + 3 * BQ) <= 232448,
+                "fits the 227 KB a block can use");
+  return 4 * (D > BQ ? D : BQ) * RS + 2 * BQ * row + 3 * BQ;
 }
 
 // (b) one block per (64-key tile, head, batch): dK and dV of the tile.
@@ -892,7 +899,7 @@ cudaError_t launch_wgmma(const Args& a, cudaStream_t stream) {
 // statistics, `delta` an fp32 [B,H,Tq] scratch, `lengths` a device int32
 // [B] or null; dQ/dK/dV are contiguous [B,T,H,D]. Launches the three
 // kernels on `stream` and returns the first cudaError_t (0 on success); an
-// unsupported D or dtype (fp32 takes D 32 and 64, bf16 32, 64 and 128), or
+// unsupported D or dtype (both take D 16, 32, 64 and 128), or
 // bf16 operands that TMA cannot read (base or strides not multiples of 16
 // bytes), return cudaErrorInvalidValue.
 extern "C" int flash_attn_bwd(
@@ -911,10 +918,13 @@ extern "C" int flash_attn_bwd(
                q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh,
                o_sb, o_st, o_sh, g_sb, g_st, g_sh, scale, causal};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && D == 128) return static_cast<int>(launch_fma<128>(a, s));
   if (dtype == 0 && D == 64) return static_cast<int>(launch_fma<64>(a, s));
   if (dtype == 0 && D == 32) return static_cast<int>(launch_fma<32>(a, s));
+  if (dtype == 0 && D == 16) return static_cast<int>(launch_fma<16>(a, s));
   if (dtype == 1 && D == 128) return static_cast<int>(launch_wgmma<128>(a, s));
   if (dtype == 1 && D == 64) return static_cast<int>(launch_wgmma<64>(a, s));
   if (dtype == 1 && D == 32) return static_cast<int>(launch_wgmma<32>(a, s));
+  if (dtype == 1 && D == 16) return static_cast<int>(launch_wgmma<16>(a, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }

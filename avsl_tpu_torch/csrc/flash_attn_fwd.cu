@@ -18,7 +18,7 @@
 // tile, online softmax in registers, one division by the row sum at the
 // end, so device memory traffic stays near the 123 MB floor.
 //
-// bf16 design (the main paths' type), D in {32, 64, 128}:
+// bf16 design (the main paths' type), D in {16, 32, 64, 128}:
 //   - one consumer warpgroup (128 threads) per 64 q rows; a block holds 2
 //     warpgroups (128 rows) when the 128-row grid still has a block for
 //     every SM, else 1 (the training shapes at B = 1: 1,20,500,500 gives
@@ -63,7 +63,9 @@
 // the result (and TF32 would miss the fp32 tolerance), so the fp32
 // instantiation keeps the first version's body on the FMA pipes: one
 // 256-thread block per 64-row q tile, 4x4 register tiles from shared
-// memory. It runs only in the small fp32 references.
+// memory, D / 16 output columns a thread (1 at D = 16; at D = 128 the
+// shared memory is 2*128*68 + 64*132 + 64*68 floats, 118 KB). It runs only
+// in the small fp32 references and the tiny test models.
 //
 // Row statistics for the backward (csrc/flash_attn_bwd.cu): when the
 // caller passes `m_out`/`l_out` (fp32 [B,H,Tq]), the kernel also writes
@@ -487,8 +489,8 @@ cudaError_t launch_bf16(const Args& a, cudaStream_t stream) {
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements. `lengths` is
 // a device int32 [B] or null. `m_out`/`l_out` are device fp32 [B,H,Tq]
 // for the row statistics, or both null. Returns the cudaError_t of the
-// launch (0 on success); an unsupported D or dtype (fp32 takes D 32 and
-// 64, bf16 32, 64 and 128), or bf16 operands that TMA cannot read (base or
+// launch (0 on success); an unsupported D or dtype (both take D 16, 32,
+// 64 and 128), or bf16 operands that TMA cannot read (base or
 // strides not multiples of 16 bytes), return cudaErrorInvalidValue.
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
                               void* o, const void* lengths, int B, int H,
@@ -503,10 +505,13 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
                static_cast<float*>(m_out), static_cast<float*>(l_out)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if ((a.m == nullptr) != (a.l == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0 && D == 128) return static_cast<int>(launch_fma<128>(a, s));
   if (dtype == 0 && D == 64) return static_cast<int>(launch_fma<64>(a, s));
   if (dtype == 0 && D == 32) return static_cast<int>(launch_fma<32>(a, s));
+  if (dtype == 0 && D == 16) return static_cast<int>(launch_fma<16>(a, s));
   if (dtype == 1 && D == 128) return static_cast<int>(launch_bf16<128>(a, s));
   if (dtype == 1 && D == 64) return static_cast<int>(launch_bf16<64>(a, s));
   if (dtype == 1 && D == 32) return static_cast<int>(launch_bf16<32>(a, s));
+  if (dtype == 1 && D == 16) return static_cast<int>(launch_bf16<16>(a, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }

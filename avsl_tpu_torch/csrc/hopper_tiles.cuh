@@ -4,7 +4,8 @@
 //
 // Tiles. Every bf16 operand tile is [rows][D] with D contiguous, loaded by
 // TMA with the swizzle whose span is one row: 128 bytes for D = 64, 64
-// bytes for D = 32. A row of D = 128 (256 bytes) is twice what a swizzle
+// bytes for D = 32, 32 bytes for D = 16 (one k16 step of depth, so S = Q K^T
+// is a single m64n64k16 product there). A row of D = 128 (256 bytes) is twice what a swizzle
 // spans, so such a tile is two sub-tiles of [64][64], the columns 0-63
 // and then 64-127, each its own TMA box (SUB below is a sub-tile's
 // width, D for D <= 64). So a (sub-)tile is 8-row groups of 8 * 2 SUB
@@ -20,6 +21,7 @@
 //     and a 16-wide k step advances the start address by 16 rows. At
 //     D = 128 each sub-tile is the B of its own m64n64 product, into
 //     the accumulator's columns 0-63 and 64-127.
+// At D = 16 (32-byte rows) O += P V is a chain of m64n16k16 products.
 // Tiles and sub-tiles start on a multiple of 1024 bytes, so the swizzle
 // phase of every row is its row index mod 8 and the descriptors' base
 // offset is 0. A tile with two sub-tiles always has 64 rows.
@@ -110,11 +112,12 @@ __device__ __forceinline__ void tma_load_tile(void* dst, const CUtensorMap* map,
 
 // Shared-memory matrix descriptor of a swizzled [rows][SUB] bf16 (sub-)tile
 // whose rows are ROW_BYTES = 2 SUB long (128 -> 128-byte swizzle, 64 ->
-// 64-byte).
+// 64-byte, 32 -> 32-byte; the descriptor's layout codes 1, 2 and 3).
 template <int ROW_BYTES>
 __device__ __forceinline__ uint64_t tile_desc(const void* tile) {
-  static_assert(ROW_BYTES == 128 || ROW_BYTES == 64, "rows of 64 or 32 bf16");
-  constexpr uint64_t layout = ROW_BYTES == 128 ? 1 : 2;  // SWIZZLE_128B : SWIZZLE_64B
+  static_assert(ROW_BYTES == 128 || ROW_BYTES == 64 || ROW_BYTES == 32,
+                "rows of 64, 32 or 16 bf16");
+  constexpr uint64_t layout = ROW_BYTES == 128 ? 1 : ROW_BYTES == 64 ? 2 : 3;
   constexpr uint64_t sbo = 8 * ROW_BYTES;                // next 8-row group
   return uint64_t((smem_u32(tile) & 0x3FFFF) >> 4) | (uint64_t(16 >> 4) << 16) |
          (uint64_t(sbo >> 4) << 32) | (layout << 62);
@@ -209,6 +212,16 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t* a, uint
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+__device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : HT_F4(0), HT_F4(4)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 #undef HT_F16
 #undef HT_F4
 
@@ -289,7 +302,9 @@ inline cudaError_t encode_bthd(CUtensorMap* map, const void* base, int B, int T,
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
                         strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        sub == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                        sub == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                        : sub == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                    : CU_TENSOR_MAP_SWIZZLE_32B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }

@@ -1,14 +1,15 @@
-"""WAV ingest: integer PCM to float32, wav loading at a target rate, and
-noise mixing at a set SNR.
+"""WAV ingest and audio segmentation: integer PCM to float32, wav loading
+at a target rate, slicing every segment of a source wav loaded once,
+noise mixing at a set SNR, and audio/video length alignment.
 
-Port of ``pcm_to_float``, ``load_wav``, ``write_wav`` and ``add_noise``
-from ``avsl_tpu/data/audio_segments.py``. A wav at another rate is
+Port of ``avsl_tpu/data/audio_segments.py``. A wav at another rate is
 resampled on the host CPU (``kernels/resample.py``).
 """
 
 from __future__ import annotations
 
 import os
+from typing import List, Sequence, Tuple
 
 import numpy as np
 
@@ -49,6 +50,42 @@ def write_wav(path: str, audio: np.ndarray, sr: int = 16000) -> str:
     return path
 
 
+def slice_segment(audio: np.ndarray, start: float, end: float, sr: int = 16000) -> np.ndarray:
+    """Samples ``[round(start sr), round(end sr))`` of ``audio``, clipped to it."""
+    i0 = max(int(round(start * sr)), 0)
+    i1 = min(int(round(end * sr)), len(audio))
+    return audio[i0:i1]
+
+
+def batch_segment_audio(
+    source_path: str,
+    segments: Sequence,
+    output_dir: str,
+    sr: int = 16000,
+    overwrite: bool = False,
+) -> List[Tuple[bool, str]]:
+    """Slice every segment (``segment_id``, ``start``, ``end``) of one source
+    wav, loaded once, to ``{output_dir}/{segment_id}.wav``. Returns one
+    ``(success, path)`` a segment; an empty slice or a failed write is
+    ``(False, path)``."""
+    os.makedirs(output_dir, exist_ok=True)
+    audio = load_wav(source_path, sr)
+    results: List[Tuple[bool, str]] = []
+    for seg in segments:
+        out = os.path.join(output_dir, f"{seg.segment_id}.wav")
+        try:
+            if overwrite or not os.path.exists(out):
+                clip = slice_segment(audio, seg.start, seg.end, sr)
+                if len(clip) == 0:
+                    results.append((False, out))
+                    continue
+                write_wav(out, clip, sr)
+            results.append((True, out))
+        except Exception:
+            results.append((False, out))
+    return results
+
+
 def add_noise(clean: np.ndarray, noise: np.ndarray, snr_db: float, rng=None) -> np.ndarray:
     """Mix ``noise`` into ``clean`` at ``snr_db`` dB: a random window of the
     (tiled) noise scaled to the target RMS, in float64, the mix divided by
@@ -67,3 +104,12 @@ def add_noise(clean: np.ndarray, noise: np.ndarray, snr_db: float, rng=None) -> 
     if peak > 1.0:
         mixed = mixed / peak
     return mixed.astype(np.float32)
+
+
+def align_audio_video_lengths(
+    audio_feats: np.ndarray, video_feats: np.ndarray
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Truncate both feature streams to the shorter length (frames axis 0),
+    the reference's alignment rule."""
+    t = min(len(audio_feats), len(video_feats))
+    return audio_feats[:t], video_feats[:t]

@@ -1,8 +1,10 @@
 """Host video decoding and the runtime lip-feature loader.
 
-A copy of ``read_video_frames``, ``write_video_frames``,
-``load_video_feats``, ``trim_video_to_audio`` and the source resolver they
-use from ``avsl_tpu/data/video_io.py``: decode with OpenCV
+A copy of ``avsl_tpu/data/video_io.py``: the source resolver,
+``read_video_frames``, ``write_video_frames``, ``video_fps_and_frames``,
+``load_video_feats``, ``trim_video_to_audio``, and the validation helpers
+``validate_video`` (exists, at least 1 KB, first frame readable) and
+``filter_corrupted_videos``. Decode with OpenCV
 -> ITU-R 601 grayscale -> [0, 1] -> centre crop (resized up when smaller)
 -> (x - 0.421) / 0.165 -> [T, crop, crop, 1] float32. ``cv2`` is imported
 inside the functions that decode, so importing this module (and serving
@@ -14,7 +16,7 @@ from __future__ import annotations
 import contextlib
 import os
 import tempfile
-from typing import Any, Optional
+from typing import Any, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -106,6 +108,17 @@ def write_video_frames(path: str, frames: np.ndarray, fps: int = 25) -> str:
     return path
 
 
+def video_fps_and_frames(path: str) -> Tuple[float, int]:
+    """The container's frame rate and frame count, as OpenCV reads them."""
+    import cv2
+
+    cap = cv2.VideoCapture(path)
+    fps = cap.get(cv2.CAP_PROP_FPS)
+    n = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
+    cap.release()
+    return fps, n
+
+
 def load_video_feats(
     path: Any,
     train: bool = False,
@@ -138,3 +151,39 @@ def trim_video_to_audio(video: np.ndarray, audio_samples: int,
     """Trim video frames to ``round(audio_samples / sample_rate * fps)``."""
     max_len = int(round(audio_samples / sample_rate * fps))
     return video[:max_len] if len(video) > max_len else video
+
+
+def validate_video(path: Any, min_bytes: int = 1024) -> Tuple[bool, str]:
+    """(ok, reason): the file exists, holds at least ``min_bytes`` and its
+    first frame decodes. Takes any video source (a bytes-backed record is
+    checked on its payload)."""
+    if not isinstance(path, (str, os.PathLike)):
+        try:
+            with video_source_path(path) as p:
+                return validate_video(p, min_bytes)
+        except IOError as e:
+            return False, f"unresolvable:{e}"
+    if not os.path.exists(path):
+        return False, "missing"
+    if os.path.getsize(path) < min_bytes:
+        return False, "too_small"
+    try:
+        import cv2
+
+        cap = cv2.VideoCapture(path)
+        ok, _ = cap.read()
+        cap.release()
+        if not ok:
+            return False, "unreadable_first_frame"
+    except Exception as e:  # pragma: no cover
+        return False, f"decode_error:{e}"
+    return True, "ok"
+
+
+def filter_corrupted_videos(paths: Sequence[str]) -> Tuple[List[int], List[str]]:
+    """(valid_indices, corrupted_paths) over ``paths``."""
+    valid, corrupted = [], []
+    for i, p in enumerate(paths):
+        ok, _ = validate_video(p)
+        (valid if ok else corrupted).append(i if ok else p)
+    return valid, corrupted

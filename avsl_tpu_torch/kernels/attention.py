@@ -35,9 +35,10 @@ import torch
 NEG_INF = -1.0e30
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# head dims each body takes: the bf16 tensor-core bodies 32, 64 and 128 (the
-# AV-HuBERT decoder's), the fp32 FMA bodies 32 and 64 (ROADMAP.md queue 2)
-_HEAD_DIMS = {torch.float32: (32, 64), torch.bfloat16: (32, 64, 128)}
+# head dims each body takes, the same for the bf16 tensor-core bodies and
+# the fp32 FMA bodies: 16 (the tiny_test configs'), 32, 64 and 128 (the
+# AV-HuBERT decoder's)
+_HEAD_DIMS = {torch.float32: (16, 32, 64, 128), torch.bfloat16: (16, 32, 64, 128)}
 
 Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -174,8 +175,7 @@ def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     b, _, h, d = q.shape
     dims = _HEAD_DIMS[q.dtype]
     if d not in dims:
-        raise ValueError(f"flash attention in {q.dtype} takes head dims {dims}, got {d} "
-                         "(ROADMAP.md queue 2)")
+        raise ValueError(f"flash attention in {q.dtype} takes head dims {dims}, got {d}")
     if k.shape != v.shape or k.shape[0] != b or k.shape[2:] != (h, d):
         raise ValueError(f"k/v shapes {tuple(k.shape)}/{tuple(v.shape)} do not match q {tuple(q.shape)}")
     if k.shape[1] < 1:

@@ -143,7 +143,23 @@ raises on failure:
    every launch shape against the plain version; ``cli.export_lora``, the
    merged model's logits within BF16_TOL, ``cli.transcribe --ckpt_dir``
    on 8 items) and ``remat_ab`` (that job, 2 steps of 4 micro-batches with
-   remat off, ``block`` and ``dots``: s/step and peak memory each).
+   remat off, ``block`` and ``dots``: s/step and peak memory each);
+14. evaluation and the reference's dataset layer: in phase 3, K1 and K2 at
+   the tiny_test head dim 16 in fp32 and bf16 and fp32 at D = 128 (causal
+   with key lengths and a length-0 row among them); after the daemon,
+   ``preprocess_chain`` (a seeded NITE corpus of 2 meetings x 4 speakers x
+   3 segments, one headset at 48 kHz, through the port's
+   ``process_transcripts``, ``segment_sources`` and the sharded dataset
+   round trip, on the host; the native media decode against ``load_wav``
+   where ``cpp/avsl_media`` builds) and ``evaluate_main_path`` (``cli.
+   evaluate``'s ``evaluate`` on the AV model of phase 6 with the flagship
+   YAML at an eval batch of 8 over the chain's 24 segments with seeded lip
+   frames: teacher-forced, then beam 4 with 64 new tokens, K1 exactly 152
+   and 56 a batch, K2 never, every launch shape against the plain version,
+   a traced beam batch); at the end ``evaluate_cli_smoke`` and
+   ``avhubert_cli_smoke`` (``cli.evaluate --smoke --beam 2`` and
+   ``cli.avhubert_ft --smoke`` on the card, whose tiny towers run K1 and
+   K2 at head dim 16), each with exact K1/K2 counts.
 
 Each model is freed before the next one is built. It prints the kernel
 list, the card's name and power limit and, last,
@@ -187,7 +203,8 @@ TRAIN_STEPS = 3
 # key lengths of the AV-HuBERT encoder case: full, partial, 1 and 0 frames
 AV_LENGTHS = (250, 180, 1, 0, 250, 250, 97, 250)
 # tiny Whisper-Flamingo on the card: AVHuBERTConfig.tiny_test widened to 2
-# heads of 32 (K1 takes head dims 32 and 64; tiny_test's is 16)
+# heads of 32 (the card-vs-CPU references predate K1's head dim 16, which is
+# tiny_test's; the widths stay so their numbers stay comparable)
 SMALL_AV_OVERRIDES = dict(hidden_size=64, intermediate_size=128)
 SMALL_AV_TOL = 1e-3
 GATE = 0.5
@@ -206,6 +223,10 @@ AVHUBERT_CONFIG = "configs/avhubert_large.yaml"
 CLI_DEC_LENGTHS = [16, 9, 1, 12]
 AMI_DEC_LENGTHS = [64, 1, 40, 17, 63, 2, 33, 64]
 D64_CAUSAL_LENGTHS = [100, 1, 37, 64, 65, 99, 2, 100]
+# the bodies added for the tiny_test head dim 16 (both types) and fp32 at
+# D = 128: causal with key lengths, a length-0 row in each
+D16_LENGTHS = [100, 37, 0, 1]
+D128_LENGTHS = [64, 0, 40, 17, 63, 2, 33, 64]
 # K2's bf16 bodies round P and dS to bf16 (relative error at most 2^-9
 # each) before their fp32-accumulated products, so an element of dV = P^T dO
 # can be off by 2^-9 sum_q |P||dO| (dQ and dK likewise over |dS|), which
@@ -449,6 +470,15 @@ def phase_kernels(label_len: int, flamingo_len: int):
         check_attention_case("u_causal_lengths_d64", 8, 16, 100, 100, 64, bf16, causal=True,
                              lengths=D64_CAUSAL_LENGTHS),
         check_attention_case("v_tiny_draft_encoder", 8, 6, 1500, 1500, 64, bf16),
+        check_attention_case("w_head_dim_16_fp32", 8, 2, 200, 200, 16, f32),
+        check_attention_case("x_head_dim_16_bf16", 8, 2, 200, 200, 16, bf16),
+        check_attention_case("y_head_dim_16_causal_lengths_fp32", 4, 2, 100, 100, 16, f32,
+                             causal=True, lengths=D16_LENGTHS),
+        check_attention_case("z_head_dim_16_causal_lengths_bf16", 4, 2, 100, 100, 16, bf16,
+                             causal=True, lengths=D16_LENGTHS),
+        check_attention_case("za_head_dim_128_fp32", 8, 8, 250, 250, 128, f32),
+        check_attention_case("zb_head_dim_128_causal_lengths_fp32", 8, 8, 64, 64, 128, f32,
+                             causal=True, lengths=D128_LENGTHS),
     ]
 
 
@@ -580,6 +610,10 @@ def phase_kernel_stats(flamingo_len: int):
     check_attention_stats("flamingo_x_attn", 1, 20, flamingo_len, VIDEO_FRAMES, 64, bf16)
     check_attention_stats("avhubert_decoder_self_ami", 8, 8, 64, 64, 128, bf16, causal=True,
                           lengths=AMI_DEC_LENGTHS)
+    check_attention_stats("head_dim_16_causal_lengths", 4, 2, 100, 100, 16, bf16, causal=True,
+                          lengths=D16_LENGTHS)
+    check_attention_stats("head_dim_128_fp32_causal_lengths", 8, 8, 64, 64, 128, torch.float32,
+                          causal=True, lengths=D128_LENGTHS)
 
 
 def phase_kernels_bwd(label_len: int, flamingo_len: int):
@@ -613,6 +647,15 @@ def phase_kernels_bwd(label_len: int, flamingo_len: int):
         check_attention_bwd_case("n_head_dim_128", 8, 8, 250, 250, 128, bf16, magnitude=True),
         check_attention_bwd_case("o_causal_lengths_d64", 8, 16, 100, 100, 64, bf16, causal=True,
                                  lengths=D64_CAUSAL_LENGTHS, magnitude=True),
+        check_attention_bwd_case("p_head_dim_16_fp32", 8, 2, 200, 200, 16, f32),
+        check_attention_bwd_case("q_head_dim_16_bf16", 8, 2, 200, 200, 16, bf16),
+        check_attention_bwd_case("r_head_dim_16_causal_lengths_fp32", 4, 2, 100, 100, 16, f32,
+                                 causal=True, lengths=D16_LENGTHS),
+        check_attention_bwd_case("s_head_dim_16_causal_lengths_bf16", 4, 2, 100, 100, 16, bf16,
+                                 causal=True, lengths=D16_LENGTHS, magnitude=True),
+        check_attention_bwd_case("t_head_dim_128_fp32", 8, 8, 250, 250, 128, f32),
+        check_attention_bwd_case("u_head_dim_128_causal_lengths_fp32", 8, 8, 64, 64, 128, f32,
+                                 causal=True, lengths=D128_LENGTHS),
     ]
 
 
@@ -4013,6 +4056,249 @@ def phase_distill(card: str, out_dir: str):
     return launches
 
 
+# evaluation and the reference's dataset layer: a synthetic AMI corpus of
+# 2 meetings x 4 speakers x 3 segments of 2-10 s, one speaker's headset at
+# 48 kHz; the full-width evaluation at the flagship YAML's eval batch of 8
+CHAIN_MEETINGS, CHAIN_SPEAKERS, CHAIN_SEGMENTS = ("EN2001a", "EN2003a"), "ABCD", 3
+CHAIN_48K = ("EN2003a", "C")
+CHAIN_AUDIO_TOL = 1e-4  # libav's decode of a 16-bit slice against load_wav's
+EVAL_BATCH, EVAL_BEAM, EVAL_NEW = 8, 4, 64
+CHAIN_WORDS = ("okay", "so", "the", "remote", "control", "should", "have", "a", "button",
+               "for", "volume", "and", "we", "need", "to", "think", "about", "price", "yeah",
+               "design", "battery", "interface", "user", "meeting")
+
+
+def write_nite_corpus(root: str, seed: int = 0):
+    """A seeded NITE-XML corpus (``words/{m}.{s}.words.xml`` and
+    ``segments/{m}.{s}.segments.xml`` for every meeting and speaker, words
+    of 0.25-0.5 s, segments of 2-10 s apart by 0.5-2 s) and a headset wav
+    a speaker of seeded speech-band noise (300-3400 Hz) at 16 kHz, the
+    ``CHAIN_48K`` speaker's at 48 kHz. Returns ``{(meeting, speaker): wav}``."""
+    import os
+
+    import scipy.io.wavfile as wavfile
+    import scipy.signal as signal
+
+    from avsl_tpu_torch.data.ami_xml import AMI_SPEAKERS
+
+    nite = 'xmlns:nite="http://nite.sourceforge.net/"'
+    rng = np.random.default_rng(seed)
+    for sub in ("words", "segments", "media"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    sources = {}
+    for meeting in CHAIN_MEETINGS:
+        for speaker in CHAIN_SPEAKERS:
+            words, segs, t, n = [], [], 0.5, 0
+            for _ in range(CHAIN_SEGMENTS):
+                start, end = t, t + float(rng.uniform(2.0, 10.0))
+                first = n
+                w = start
+                while w + 0.25 < end:
+                    dur = min(float(rng.uniform(0.25, 0.5)), end - w)
+                    text = CHAIN_WORDS[int(rng.integers(len(CHAIN_WORDS)))]
+                    words.append(f'<w nite:id="{meeting}.{speaker}.words{n}" '
+                                 f'starttime="{w:.2f}" endtime="{w + dur:.2f}">{text}</w>')
+                    n, w = n + 1, w + dur + 0.05
+                segs.append(f'<segment transcriber_start="{start:.2f}" '
+                            f'transcriber_end="{end:.2f}"><nite:child href="{meeting}.{speaker}'
+                            f'.words.xml#id({meeting}.{speaker}.words{first})..id({meeting}.'
+                            f'{speaker}.words{n - 1})"/></segment>')
+                t = end + float(rng.uniform(0.5, 2.0))
+            for sub, body in (("words", words), ("segments", segs)):
+                with open(os.path.join(root, sub, f"{meeting}.{speaker}.{sub}.xml"), "w") as f:
+                    f.write(f'<?xml version="1.0"?>\n<nite:root {nite}>\n' + "\n".join(body)
+                            + "\n</nite:root>\n")
+            sr = 48000 if (meeting, speaker) == CHAIN_48K else 16000
+            sos = signal.butter(4, [300, 3400], btype="band", fs=sr, output="sos")
+            noise = signal.sosfilt(sos, rng.standard_normal(int((t + 1.0) * sr)))
+            pcm = (0.3 * noise / np.abs(noise).max() * 32767).astype(np.int16)
+            channel = AMI_SPEAKERS[speaker]["audio"]
+            path = os.path.join(root, "media", f"{meeting}.{channel}.wav")
+            wavfile.write(path, sr, pcm)
+            sources[(meeting, speaker)] = path
+    return sources
+
+
+def phase_preprocess_chain(card: str, root: str) -> list:
+    """The reference's dataset chain on the host, through the port's entry
+    points: a synthetic NITE corpus (:func:`write_nite_corpus`) ->
+    ``process_transcripts`` -> ``segment_sources(video_sources=None,
+    package_hf=False)`` (each headset loaded once, resampled when at 48
+    kHz, every segment sliced) -> ``av_to_hf_dataset_with_shards`` ->
+    ``load_sharded_records``. Gates: 24 segments, 24 audio slices, no
+    alignment issue, the records back in order; where ``cpp/avsl_media`` is
+    built (libav), its batch decode of the slices equals ``load_wav``
+    within CHAIN_AUDIO_TOL. Returns the records (what ``cli.evaluate``
+    reads as a test split)."""
+    import os
+
+    from avsl_tpu_torch.data import media_native
+    from avsl_tpu_torch.data.ami_xml import process_transcripts
+    from avsl_tpu_torch.data.audio_segments import load_wav
+    from avsl_tpu_torch.data.dataset_process import segment_sources
+    from avsl_tpu_torch.data.hf_dataset import av_to_hf_dataset_with_shards, load_sharded_records
+
+    t0 = time.perf_counter()
+    sources = write_nite_corpus(os.path.join(root, "corpus"))
+    t_corpus = time.perf_counter()
+    written = process_transcripts(os.path.join(root, "corpus"), os.path.join(root, "txt"))
+    t_txt = time.perf_counter()
+    out = segment_sources(os.path.join(root, "txt"), sources, os.path.join(root, "ds"),
+                          video_sources=None, package_hf=False)
+    t_seg = time.perf_counter()
+    records = out["records"]
+    manifest = av_to_hf_dataset_with_shards(records, os.path.join(root, "shards"), num_shards=4,
+                                            check_videos=False)
+    back = load_sharded_records(os.path.join(root, "shards"))
+    t_shards = time.perf_counter()
+    n = len(CHAIN_MEETINGS) * len(CHAIN_SPEAKERS) * CHAIN_SEGMENTS
+    stats = out["stats"]
+    rec = {"phase": "preprocess_chain", "card": card, "transcript_files": len(written),
+           "stats": stats, "sharded_records": manifest["n_records"],
+           "round_trip_in_order": back == records,
+           "durations_s": [min(r["duration"] for r in records),
+                           max(r["duration"] for r in records)],
+           "native_media_available": media_native.native_available(),
+           "seconds": {"corpus": t_corpus - t0, "transcripts": t_txt - t_corpus,
+                       "segment_sources": t_seg - t_txt, "shards_round_trip": t_shards - t_seg}}
+    if rec["native_media_available"]:
+        paths = [r["audio"] for r in records]
+        arena, counts = media_native.decode_audio_batch(paths, 16000, max_samples=10 * 16000 + 16)
+        err = 0.0
+        for row, count, path in zip(arena, counts, paths):
+            want = load_wav(path)
+            err = max(err, float(np.abs(row[:count] - want).max()) if count == len(want)
+                      else math.inf)
+        rec["native_decode_max_abs_err"] = err
+        if not err <= CHAIN_AUDIO_TOL:
+            raise AssertionError(f"preprocess_chain: native audio decode differs by {err}")
+    rec["seconds"]["total"] = time.perf_counter() - t0
+    log(rec)
+    if (stats["segments"], stats["audio_ok"], stats["alignment_issues"]) != (n, n, 0) \
+            or len(records) != n or not rec["round_trip_in_order"]:
+        raise AssertionError(f"preprocess_chain: {rec}")
+    return records
+
+
+def phase_evaluate_main_path(card: str, model, serve_cfg, records) -> dict:
+    """``cli.evaluate``'s ``evaluate`` at full width on the AV serving
+    model (large-v2 + AV-HuBERT large, bf16, gates 0.5) with the flagship
+    YAML at an eval batch of 8, the serving phases' tokenizer, and the
+    chain's 24 records, each given seeded lip frames
+    (:class:`SeededLipFrames`): teacher-forced (K1 exactly 152 a batch:
+    encoder 32, tower 24, decoder 96), then with beam 4 and 64 new tokens
+    (that run's teacher-forced pass again, then 56 a batch: the encoder
+    and the tower; the cached steps run the einsum path); K2 never; every
+    distinct K1 launch shape against the plain version; one beam batch
+    traced. Returns the K1 launches by mode."""
+    from avsl_tpu_torch.cli import evaluate as cli_evaluate
+    from avsl_tpu_torch.core.config import FlamingoTrainConfig
+    from avsl_tpu_torch.data.runtime import AmiVideoDataset, WhisperVideoCollator
+    from avsl_tpu_torch.data.tokenizer import ByteTokenizer
+
+    cfg = FlamingoTrainConfig.from_yaml(TRAIN_CONFIG)
+    cfg.eval_batch_size = EVAL_BATCH
+    if (cfg.model_name, cfg.add_gated_x_attn) != (serve_cfg.model_name, serve_cfg.add_gated_x_attn):
+        raise AssertionError(f"{TRAIN_CONFIG} names another model than the serving phases'")
+    tokenizer = ByteTokenizer()
+    wrap = lambda ds: SeededLipFrames(ds, seed=12)  # noqa: E731
+    n_batches = len(records) // EVAL_BATCH
+    per_tf = model.cfg.n_audio_layer + model.video_model.cfg.num_hidden_layers \
+        + 3 * model.cfg.n_text_layer
+    per_beam = model.cfg.n_audio_layer + model.video_model.cfg.num_hidden_layers
+    seen = {}
+    torch.cuda.reset_peak_memory_stats()
+    with launch_shapes(seen):
+        tf, tf_s, tf_k1, tf_stats, tf_k2 = run_counted(
+            lambda: cli_evaluate.evaluate(cfg, model, tokenizer, records, wrap_dataset=wrap))
+        both, both_s, both_k1, both_stats, both_k2 = run_counted(
+            lambda: cli_evaluate.evaluate(cfg, model, tokenizer, records, beam=EVAL_BEAM,
+                                          max_new_tokens=EVAL_NEW, wrap_dataset=wrap))
+    peak = torch.cuda.max_memory_allocated()
+    beam_k1, beam_s = both_k1 - tf_k1, both_s - tf_s
+    ds = wrap(AmiVideoDataset(records, tokenizer, audio_max_length=int(cfg.audio_max_length),
+                              n_mels=model.cfg.n_mels, lang=cfg.lang, load_video=True))
+    batch = next(cli_evaluate.eval_batches(
+        ds, WhisperVideoCollator(eot_id=tokenizer.eot, max_label_len=model.cfg.n_text_ctx),
+        EVAL_BATCH))
+    prompt = np.tile(np.asarray(tokenizer.sot_sequence(cfg.lang))[None], (EVAL_BATCH, 1))
+    model.eval()
+    traced = traced_run(lambda: cli_evaluate.beam_decode_batch(
+        model, batch, prompt, EVAL_BEAM, EVAL_NEW, tokenizer.eot))
+    shapes = check_launch_shapes(seen)
+    rec = {"phase": "evaluate_main_path", "card": card, "config": TRAIN_CONFIG,
+           "model": model.cfg.name, "items": len(records), "batches": n_batches,
+           "eval_batch_size": EVAL_BATCH, "beam": EVAL_BEAM, "max_new_tokens": EVAL_NEW,
+           "teacher_forced": {"metrics": tf, "seconds": tf_s, "seconds_per_batch": tf_s / n_batches,
+                              "segments_per_s": len(records) / tf_s, "k1": tf_k1},
+           "beam_search": {"metrics": both, "seconds": beam_s,
+                           "seconds_per_batch": beam_s / n_batches,
+                           "segments_per_s": len(records) / beam_s, "k1": beam_k1},
+           "expected_k1": {"teacher_forced": per_tf * n_batches, "beam": per_beam * n_batches},
+           "k2": tf_k2 + both_k2, "row_statistics_written": tf_stats + both_stats,
+           "max_memory_allocated_bytes": peak, "traced_beam_batch": traced,
+           "launch_shapes": shapes}
+    log(rec)
+    if (tf_k1, beam_k1) != (per_tf * n_batches, per_beam * n_batches) or tf_k2 or both_k2 \
+            or tf_stats or both_stats:
+        raise AssertionError(f"evaluate_main_path: K1 {tf_k1} / {beam_k1}, K2 {tf_k2 + both_k2}, "
+                             f"expected {per_tf * n_batches} / {per_beam * n_batches}, 0")
+    for key in ("test/wer_av", "test/cer_av", "test/wer_beam", "test/cer_beam"):
+        if key not in both:
+            raise AssertionError(f"evaluate_main_path: {key} missing from {both}")
+    if not (math.isfinite(tf["test/loss"]) and math.isfinite(both["test/loss"])):
+        raise AssertionError(f"evaluate_main_path: test/loss not finite: {tf}, {both}")
+    return {"teacher_forced": tf_k1, "beam": beam_k1}
+
+
+def phase_evaluate_cli_smoke(card: str) -> tuple:
+    """``cli.evaluate --smoke --beam 2 --max_new_tokens 6`` on the card, as
+    ``python -m avsl_tpu_torch.cli.evaluate`` runs it: the tiny fp32
+    Whisper-Flamingo (its AV-HuBERT tower 2 heads of 16, the head dim the
+    D = 16 bodies take) on 4 synthetic rows, one batch: K1 exactly
+    (encoder, tower, decoder x 3) teacher-forced plus (encoder, tower) for
+    the beam batch, no K2. Returns (K1, K2)."""
+    from avsl_tpu_torch.cli import evaluate as cli_evaluate
+    from avsl_tpu_torch.core.config import AVHuBERTConfig, WhisperConfig
+
+    w, av = WhisperConfig.tiny_test(), AVHuBERTConfig.tiny_test()
+    result, seconds, k1, stats_writes, k2 = run_counted(lambda: cli_evaluate.main(
+        ["--smoke", "--beam", "2", "--max_new_tokens", "6"]))
+    want = 2 * (w.n_audio_layer + av.num_hidden_layers) + 3 * w.n_text_layer
+    log({"phase": "evaluate_cli_smoke", "card": card, "seconds": seconds, "cli_json": result,
+         "k1_launches": k1, "k2_launches": k2, "expected_k1_k2": [want, 0],
+         "tower_head_dim": av.hidden_size // av.num_attention_heads})
+    if (k1, k2, stats_writes) != (want, 0, 0) or not math.isfinite(result["test/loss"]) \
+            or "test/wer_beam" not in result:
+        raise AssertionError(f"cli.evaluate --smoke: K1 {k1} / K2 {k2}, expected {want} / 0: "
+                             f"{result}")
+    return k1, k2
+
+
+def phase_avhubert_cli_smoke(card: str) -> tuple:
+    """``cli.avhubert_ft --smoke`` on the card: the tiny fp32 AV-HuBERT
+    seq2seq model (encoder and decoder 2 heads of 16), 6 steps: K1 and K2
+    exactly the decoder's self-attention a step (the encoder trains with
+    attention dropout, unfused), then K1 in the eval forward's encoder and
+    decoder. Returns (K1, K2)."""
+    from avsl_tpu_torch.cli import avhubert_ft
+    from avsl_tpu_torch.core.config import AVHuBERTConfig
+
+    cfg = AVHuBERTConfig.tiny_test()
+    result, seconds, k1, stats_writes, k2 = run_counted(lambda: avhubert_ft.main(["--smoke"]))
+    steps, dec = result["steps"], cfg.decoder_layers
+    want = (steps * dec + cfg.num_hidden_layers + dec, steps * dec)
+    log({"phase": "avhubert_cli_smoke", "card": card, "seconds": seconds, "cli_json": result,
+         "k1_launches": k1, "k2_launches": k2, "expected_k1_k2": list(want),
+         "head_dims": [cfg.hidden_size // cfg.num_attention_heads,
+                       cfg.decoder_hidden_size // cfg.decoder_attention_heads]})
+    losses = [result[k] for k in ("first_loss", "last_loss", "eval_loss")]
+    if (k1, k2) != want or stats_writes != steps * dec or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"cli.avhubert_ft --smoke: K1 {k1} / K2 {k2} / row statistics "
+                             f"{stats_writes}, expected {want}: {result}")
+    return k1, k2
+
+
 def sass_counts() -> dict:
     """Tensor-core instructions in each built library, from the toolkit's
     ``cuobjdump -sass``: ``HGMMA`` (wgmma) and ``HMMA`` (mma.sync)."""
@@ -4131,6 +4417,9 @@ def main() -> int:
     av_serving_launches, av_model, av_record = phase_av_main_path(smi)
     av_raw_launches = phase_av_raw_main_path(smi, *av_model, av_record)
     daemon_launches = phase_serving_daemon(smi, *av_model)
+    with tempfile.TemporaryDirectory() as chain_dir:
+        chain_records = phase_preprocess_chain(smi, chain_dir)
+        eval_launches = phase_evaluate_main_path(smi, *av_model, chain_records)
     av_model = list(av_model)
     int8_launches = phase_serving_extras_int8(smi, av_model)
     free()
@@ -4155,6 +4444,9 @@ def main() -> int:
          **flamingo_kernel_excess(fwd_cases, bwd_cases, int(fl_cfg.gradient_accumulation_steps))})
     avh_cli = phase_avhubert_cli(smi)
     avh = phase_avhubert_train_main_path(smi)
+    free()
+    eval_smoke = phase_evaluate_cli_smoke(smi)
+    avh_smoke = phase_avhubert_cli_smoke(smi)
     free()
 
     def entry(name, lib, source, replaces, cases, launches):
@@ -4191,7 +4483,10 @@ def main() -> int:
                "speculative_distilled_draft": distill_launches["speculative"],
                "avhubert_cli_seq2seq": avh_cli["seq2seq"][0], "avhubert_cli_ctc": avh_cli["ctc"][0],
                "avhubert_training": avh["train"][0], "avhubert_eval": avh["eval"][0],
-               "avhubert_ctc_eval": avh["ctc_eval"][0]}),
+               "avhubert_ctc_eval": avh["ctc_eval"][0],
+               "evaluate_teacher_forced": eval_launches["teacher_forced"],
+               "evaluate_beam": eval_launches["beam"], "evaluate_cli_smoke": eval_smoke[0],
+               "avhubert_cli_smoke": avh_smoke[0]}),
         entry("flash_attention_bwd", "flash_attn_bwd", "avsl_tpu_torch/csrc/flash_attn_bwd.cu",
               "avsl_tpu/kernels/attention.py:159", bwd_cases,
               {"serving": 0, "av_serving": 0, "av_raw_serving": 0, "serving_daemon": 0,
@@ -4207,7 +4502,9 @@ def main() -> int:
                "speculative_distilled_draft": 0,
                "avhubert_cli_seq2seq": avh_cli["seq2seq"][1], "avhubert_cli_ctc": avh_cli["ctc"][1],
                "avhubert_training": avh["train"][1], "avhubert_eval": avh["eval"][1],
-               "avhubert_ctc_eval": avh["ctc_eval"][1]}),
+               "avhubert_ctc_eval": avh["ctc_eval"][1],
+               "evaluate_teacher_forced": 0, "evaluate_beam": 0,
+               "evaluate_cli_smoke": eval_smoke[1], "avhubert_cli_smoke": avh_smoke[1]}),
     ]})
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

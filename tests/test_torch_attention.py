@@ -15,6 +15,7 @@ import jax.numpy as jnp
 
 from avsl_tpu.kernels import attention as A
 from avsl_tpu_torch.kernels.attention import (
+    _check_shapes,
     _check_tma,
     flash_attention_fwd_cuda,
     fused_attention,
@@ -126,3 +127,39 @@ def test_torch_dot_product_attention_matches_jax(case):
     got = dot_product_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
                                 None if mask is None else torch.from_numpy(mask)).numpy()
     np.testing.assert_allclose(got, want, atol=1e-5)
+
+
+# the bodies the wrapper took last: head dim 16 (tiny_test's) in both
+# types and fp32 at 128; causal with key lengths and a length-0 row
+NEW_BODIES = {
+    "fp32_d16": (torch.float32, 16),
+    "bf16_d16": (torch.bfloat16, 16),
+    "fp32_d128": (torch.float32, 128),
+}
+
+
+@pytest.mark.parametrize("body", sorted(NEW_BODIES))
+def test_torch_attention_new_bodies_accepted_and_match_jax(body):
+    """The wrapper's shape check takes these head dims, and its CPU plain
+    path matches ``avsl_tpu.kernels.attention`` there (fp32 1e-5; bf16
+    within chip_smoke.py's BF16_TOL, both sides rounding the weights to
+    bf16 before the PV product)."""
+    from chip_smoke import BF16_TOL, D16_LENGTHS
+
+    dtype, d = NEW_BODIES[body]
+    b, tq, h = 4, 37, 2
+    q, k, v = (torch.from_numpy(x).to(dtype) for x in _inputs(b, tq, tq, h, d, seed=3))
+    _check_shapes(q, k, v)
+    lengths = [min(n, tq) for n in D16_LENGTHS]
+    lens = torch.tensor(lengths, dtype=torch.int32)
+    got = fused_attention(q, k, v, lengths=lens, causal=True)
+    tr = lambda x: jnp.asarray(x.float().numpy().transpose(0, 2, 1, 3))  # noqa: E731
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    want = np.asarray(A._reference_attention(
+        tr(q).astype(jdt), tr(k).astype(jdt), tr(v).astype(jdt),
+        jnp.asarray(np.asarray(lengths, np.int32)), True).astype(jnp.float32))
+    tol = dict(atol=1e-5, rtol=0.0) if dtype == torch.float32 else BF16_TOL
+    np.testing.assert_allclose(got.float().numpy().transpose(0, 2, 1, 3), want, **tol)
+    mean_v = v[2].float().mean(dim=0)  # the length-0 row: uniform weights
+    np.testing.assert_allclose(got[2].float().numpy(),
+                               np.broadcast_to(mean_v.numpy(), got[2].shape), **tol)

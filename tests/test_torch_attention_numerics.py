@@ -19,8 +19,8 @@ These tests emulate the kernels' arithmetic in plain torch and hold it to
 ``BF16_TOL``, and the emulated m and l to ``reference_attention_stats``
 within ``STATS_TOL`` (both from ``chip_smoke.py``), on ``chip_smoke.py``'s
 bf16 cases at H = 2 (B = 2 for the 1500-frame encoder, to bound memory),
-the AV-HuBERT decoder's D = 128 and the causal-with-lengths cases among
-them; those hold K2 to the limit with ``chip_smoke.py``'s magnitude term.
+the AV-HuBERT decoder's D = 128, the tiny_test head dim 16 and the
+causal-with-lengths cases among them; those hold K2 to the limit with ``chip_smoke.py``'s magnitude term.
 So the tolerances are known to hold at the new rounding points before the
 card checks the kernels themselves.
 """
@@ -40,6 +40,7 @@ from chip_smoke import (
     AMI_DEC_LENGTHS,
     BF16_MAGNITUDE,
     BF16_TOL,
+    D16_LENGTHS,
     D64_CAUSAL_LENGTHS,
     STATS_TOL,
     bwd_magnitudes,
@@ -61,10 +62,13 @@ CASES = {
     "avhubert_decoder_self_ami": (8, 2, 64, 64, 128, True, AMI_DEC_LENGTHS),
     "head_dim_128": (2, 2, 250, 250, 128, False, None),
     "causal_lengths_d64": (8, 2, 100, 100, 64, True, D64_CAUSAL_LENGTHS),
+    "head_dim_16": (8, 2, 200, 200, 16, False, None),
+    "head_dim_16_causal_lengths": (4, 2, 100, 100, 16, True, D16_LENGTHS),
 }
 # the cases whose K2 limit adds BF16_MAGNITUDE times each element's
 # magnitude sum, as chip_smoke.py's do
-MAGNITUDE_CASES = {"avhubert_decoder_self_ami", "head_dim_128", "causal_lengths_d64"}
+MAGNITUDE_CASES = {"avhubert_decoder_self_ami", "head_dim_128", "causal_lengths_d64",
+                   "head_dim_16_causal_lengths"}
 
 
 def _inputs(b, h, tq, tk, d, seed=0):

@@ -47,6 +47,17 @@ TRAINING_EXTRAS = {
     "avsl_tpu_torch.cli.distill",
 }
 
+# evaluation and the reference's dataset layer: their own copies of
+# avsl_tpu/data/{ami_xml,segments,video_segments,media_native,chunked,
+# hf_dataset,dataset_process}.py and cli/{evaluate,preprocess}.py
+DATASET_LAYER = {
+    "avsl_tpu_torch.cli.evaluate", "avsl_tpu_torch.cli.preprocess",
+    "avsl_tpu_torch.data.ami_xml", "avsl_tpu_torch.data.segments",
+    "avsl_tpu_torch.data.video_segments", "avsl_tpu_torch.data.media_native",
+    "avsl_tpu_torch.data.chunked", "avsl_tpu_torch.data.hf_dataset",
+    "avsl_tpu_torch.data.dataset_process",
+}
+
 
 def test_torch_port_imports_no_jax():
     code = (
@@ -68,18 +79,22 @@ def test_torch_port_imports_no_jax():
     assert SERVING_MODULES <= set(ALL_SUBMODULES)
     assert SERVING_EXTRAS <= set(ALL_SUBMODULES)
     assert TRAINING_EXTRAS <= set(ALL_SUBMODULES)
+    assert DATASET_LAYER <= set(ALL_SUBMODULES)
 
 
 def test_torch_port_imports_no_cv2():
-    """The card's machine has no OpenCV: importing the port, the video
-    tower and the lip-feature loader included, must not import it."""
+    """The card's machine has no OpenCV, pandas or ``datasets``: importing
+    the port, the video tower, the lip-feature loader and the dataset
+    layer included, must import none of them."""
     assert {"avsl_tpu_torch.models.resnet3d", "avsl_tpu_torch.models.avhubert",
-            "avsl_tpu_torch.data.video_io"} <= set(ALL_SUBMODULES)
+            "avsl_tpu_torch.data.video_io"} | DATASET_LAYER <= set(ALL_SUBMODULES)
     code = (
         "import importlib, sys\n"
         f"for name in {ALL_SUBMODULES!r}:\n"
         "    importlib.import_module(name)\n"
-        "sys.exit(1 if 'cv2' in sys.modules else 0)\n"
+        "bad = [m for m in ('cv2', 'pandas', 'datasets') if m in sys.modules]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=300)

@@ -1,16 +1,18 @@
-"""Dataset trees on disk for the port's dataset tests, written by the JAX
-package's own writer (``avsl_tpu.data.hf_dataset.av_to_hf_dataset``, as
-``tests/test_cli.py`` writes its), so the port reads what the JAX package
-writes: one ``save_to_disk`` directory per split, rows of ``id``,
+"""Dataset trees on disk for the port's dataset tests, written by the
+port's own writer (``avsl_tpu_torch.data.hf_dataset.av_to_hf_dataset``;
+``tests/test_torch_data_l3.py`` holds it to the JAX package's on the same
+records): one ``save_to_disk`` directory per split, rows of ``id``,
 ``transcript``, ``duration`` and ``audio`` (a wav path cast to an
-undecoded ``datasets.Audio``, its bytes embedded on save)."""
+undecoded ``datasets.Audio``, its bytes embedded on save). Also a pool
+worker for the chunked-processing tests, at module level so that a
+spawned worker can import it."""
 
 import os
 
 import numpy as np
 import scipy.io.wavfile as wavfile
 
-from avsl_tpu.data.hf_dataset import av_to_hf_dataset
+from avsl_tpu_torch.data.hf_dataset import av_to_hf_dataset
 
 WORDS = ("meeting", "the", "remote", "control", "design", "button", "we", "should", "think",
          "about", "battery", "price", "user", "interface", "yeah", "okay")
@@ -46,3 +48,10 @@ def write_tree(root, sizes, seed=0, durations=None, rates=None):
         av_to_hf_dataset(recs, os.path.join(str(root), name), check_videos=False)
         out[name] = recs
     return out
+
+
+def boom_on_three(x):
+    """A pool item that raises on 3 and doubles anything else."""
+    if x == 3:
+        raise ValueError("corrupt item")
+    return True, x * 2
