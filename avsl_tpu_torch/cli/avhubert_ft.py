@@ -17,9 +17,15 @@ decode of the eval batch). Weights are fp32 and the compute is the card's
 dtype (bf16); ``--smoke`` runs the tiny fp32 test model with modality
 dropout 0.2 and audio dropout 0.5 for 6 steps.
 
-Runs on ``cuda`` unless ``--device cpu``. ``--n_experts``,
-``--model_parallel`` and ``--experts_parallel`` above their defaults raise
-(ROADMAP.md queue 1, item 12).
+``--n_experts N`` (with ``--moe_top_k``) puts an N-expert MoE FFN in
+every encoder block (:mod:`avsl_tpu_torch.models.moe`) and the result
+reports ``n_experts``; its Switch balance loss joins the training loss at
+weight 0.01. For the CTC head that is the JAX CLI's own closure
+(:func:`cli_ctc_loss_fn`), which adds it whatever its ``train`` flag.
+
+Runs on ``cuda`` unless ``--device cpu``. ``--model_parallel`` and
+``--experts_parallel`` above 1 raise (ROADMAP.md queue 1, item 12c: the
+parallel layer).
 """
 
 from __future__ import annotations
@@ -91,6 +97,31 @@ def ctc_batch(batch: Dict[str, np.ndarray], pad_id: int) -> Dict[str, np.ndarray
     return out
 
 
+def cli_ctc_loss_fn(model, train: bool = True, moe_aux_coef: float = 0.01):
+    """The JAX CLI's CTC closure (``avsl_tpu/cli/avhubert_ft.py:154-185``) on
+    a :func:`ctc_batch`: the CTC loss plus ``moe_aux_coef`` times the MoE
+    balance loss when the encoder has experts, in training and in eval
+    alike (``train/objectives.py`` adds it in training only). Returns
+    ``loss_fn(batch, generator) -> (loss, {})``."""
+    from avsl_tpu_torch.models.avhubert import ctc_loss
+    from avsl_tpu_torch.models.intermediates import collect_intermediates
+    from avsl_tpu_torch.models.moe import moe_aux_loss
+
+    def loss_fn(batch, generator):
+        model.train(train)
+        with collect_intermediates() as inter:
+            logits = model(audio=batch["audio"], video=batch["video"],
+                           padding_mask=batch["padding_mask"],
+                           generator=generator if train else None)
+        loss = ctc_loss(logits, batch["logit_padding"], batch["labels"], batch["label_padding"],
+                        model.cfg.pad_token_id)
+        if model.cfg.n_experts > 0:
+            loss = loss + moe_aux_coef * moe_aux_loss(inter)
+        return loss, {}
+
+    return loss_fn
+
+
 def make_optimizer(model, lr: float, steps: int):
     """The JAX CLI's optax chain: ``clip_by_global_norm(10)`` then AdamW
     (b1 0.9, b2 0.98, eps 1e-6, weight decay 0.01, no mask) over every
@@ -120,7 +151,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     from avsl_tpu_torch.models import build_avhubert
     from avsl_tpu_torch.train import TrainState, make_train_step
     from avsl_tpu_torch.train.loop import batch_to_device
-    from avsl_tpu_torch.train.objectives import avhubert_ctc_loss_fn, avhubert_seq2seq_loss_fn
+    from avsl_tpu_torch.train.objectives import avhubert_seq2seq_loss_fn
 
     p = argparse.ArgumentParser()
     p.add_argument("--config", default=None, help="fairseq-style model card YAML")
@@ -137,9 +168,10 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
 
-    if args.n_experts > 0 or args.model_parallel > 1 or args.experts_parallel > 1:
-        raise NotImplementedError("--n_experts, --model_parallel and --experts_parallel are not "
-                                  "ported yet (ROADMAP.md queue 1, item 12: MoE and the mesh)")
+    for flag in ("model_parallel", "experts_parallel"):
+        if getattr(args, flag) > 1:
+            raise NotImplementedError(f"--{flag} > 1: the parallel layer is not ported yet "
+                                      "(ROADMAP.md queue 1, item 12c)")
     if args.smoke:
         cfg = AVHuBERTConfig.tiny_test(dtype="float32", modality_dropout=0.2, audio_dropout=0.5)
         args.steps = 6
@@ -147,7 +179,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         cfg = AVHuBERTConfig.from_yaml(args.config)
     else:
         cfg = AVHuBERTConfig()
-    cfg = dataclasses.replace(cfg, moe_top_k=args.moe_top_k)
+    cfg = dataclasses.replace(cfg, n_experts=args.n_experts, moe_top_k=args.moe_top_k)
     device = resolve_device(args.device)
 
     rows = make_synthetic_av_batchset(
@@ -162,7 +194,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         def host(batch):
             return batch
     else:
-        loss_fn = avhubert_ctc_loss_fn(model, train=True)
+        loss_fn = cli_ctc_loss_fn(model, train=True)
 
         def host(batch):
             return ctc_batch(batch, cfg.pad_token_id)
@@ -183,6 +215,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     eval_batch = batch_to_device(host(probe), device)
     result: Dict[str, Any] = {"head": args.head, "steps": args.steps, "first_loss": losses[0],
                               "last_loss": losses[-1]}
+    if args.n_experts > 0:
+        result["n_experts"] = args.n_experts
     with torch.no_grad():
         if args.head == "seq2seq":
             loss, _ = avhubert_seq2seq_loss_fn(model, train=False)(eval_batch, None)

@@ -47,8 +47,16 @@ With ``cfg.remat`` the ResNet frontend, each encoder block and each
 decoder block of a full-sequence forward run under
 :func:`~avsl_tpu_torch.models.layers.remat_block` with
 ``cfg.remat_policy``, where JAX remats them (``avhubert.py:197-203``,
-``:298-305``, ``:678-683``). Span masking (``apply_time_mask``) and the
-MoE FFN raise ``NotImplementedError`` naming ``ROADMAP.md`` item 12.
+``:298-305``, ``:678-683``).
+
+Span masks (:func:`span_mask`, the static-shape draw of fairseq's
+``compute_mask_indices``) are drawn in training by ``AVHuBERTModel`` with
+``apply_time_mask``, and by the pretraining head
+(:mod:`avsl_tpu_torch.models.pretrain`). With ``cfg.n_experts > 0`` every
+encoder block's MLP is the MoE FFN of :mod:`avsl_tpu_torch.models.moe`. The
+wrapper sows its fused features before ``layer_norm`` as
+``"extracted_features"`` (the pretraining feature penalty reads them;
+:mod:`avsl_tpu_torch.models.intermediates`).
 """
 
 from __future__ import annotations
@@ -62,6 +70,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from avsl_tpu_torch.core.config import AVHuBERTConfig
+from avsl_tpu_torch.models.intermediates import sow
 from avsl_tpu_torch.models.layers import (
     Cache,
     CastConv1d,
@@ -81,8 +90,69 @@ from avsl_tpu_torch.models.layers import (
 from avsl_tpu_torch.models.resnet3d import ResNet3DFrontend
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md queue 1, {item})")
+def span_mask_from_uniform(
+    u: torch.Tensor,
+    mask_prob: float,
+    mask_length: int,
+    padding_mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The span mask [B, T] (True = masked) that JAX's ``span_mask``
+    (``avhubert.py:46-99``) makes from its uniforms ``u`` [B, T]: a
+    deterministic function of ``u``, so JAX's own draw gives JAX's mask.
+
+    ``num_spans = round(mask_prob * T / mask_length)`` clamped to [1, T]
+    starts are the first ``num_spans`` of a stable argsort of ``u`` with
+    the positions at or past ``hi = max(sz - mask_length, 1)`` set to inf
+    (``sz`` each row's unpadded length), i.e. distinct starts drawn
+    uniformly without replacement from [0, hi); a row keeps its first
+    ``round(mask_prob * sz / mask_length)`` (at least 1) spans whose start
+    is finite; each masks ``mask_length`` steps; the result is ANDed with
+    ``padding_mask`` (True = a real step)."""
+    batch, length = u.shape
+    if mask_prob <= 0.0 or length == 0:
+        return torch.zeros((batch, length), dtype=torch.bool, device=u.device)
+    num_spans = min(max(1, int(mask_prob * length / float(mask_length) + 0.5)), length)
+    if padding_mask is not None:
+        padding_mask = padding_mask.to(u.device).bool()
+        sz = padding_mask.sum(dim=1, dtype=torch.int32)
+    else:
+        sz = torch.full((batch,), length, dtype=torch.int32, device=u.device)
+    hi = (sz - mask_length).clamp_min(1)
+    num_i = (mask_prob * sz.float() / mask_length + 0.5).to(torch.int32).clamp_min(1)
+    pos1 = torch.arange(length, device=u.device)[None, :]
+    u = torch.where(pos1 < hi[:, None], u.float(), torch.full((), math.inf, device=u.device))
+    starts = torch.argsort(u, dim=1, stable=True)[:, :num_spans]
+    span_ids = torch.arange(num_spans, device=u.device)[None, :]
+    valid = (u.gather(1, starts) < math.inf) & (span_ids < num_i[:, None])
+    pos = torch.arange(length, device=u.device)[None, None, :]
+    spans = ((pos >= starts[..., None]) & (pos < starts[..., None] + mask_length)
+             & valid[..., None])
+    mask = spans.any(dim=1)
+    if padding_mask is not None:
+        mask = mask & padding_mask
+    return mask
+
+
+def span_mask(
+    generator: Optional[torch.Generator],
+    batch: int,
+    length: int,
+    mask_prob: float,
+    mask_length: int,
+    padding_mask: Optional[torch.Tensor] = None,
+    device=None,
+) -> torch.Tensor:
+    """A random span mask [B, T] (True = masked): ``u`` uniform [B, T] from
+    ``generator`` on ``device`` (``padding_mask``'s when None), then
+    :func:`span_mask_from_uniform`."""
+    if mask_prob <= 0.0 or length == 0:
+        return torch.zeros((batch, length), dtype=torch.bool, device=device)
+    if generator is None:
+        raise ValueError("a span mask needs an explicit torch.Generator")
+    if device is None and padding_mask is not None:
+        device = padding_mask.device
+    u = torch.rand((batch, length), generator=generator, device=device)
+    return span_mask_from_uniform(u, mask_prob, mask_length, padding_mask)
 
 
 def _resolve_deterministic(module: nn.Module, deterministic: Optional[bool]) -> bool:
@@ -157,6 +227,14 @@ class Wav2Vec2FeatureEncoder(nn.Module):
                 x = self.group_norm(x.float()).to(self.dtype)
             x = F.gelu(x)
         return x.transpose(1, 2)
+
+    @staticmethod
+    def output_length(cfg: AVHuBERTConfig, n_samples: int) -> int:
+        """Frames out of ``n_samples`` through the valid strided convs."""
+        t = n_samples
+        for kernel, stride in zip(cfg.conv_kernel, cfg.conv_stride):
+            t = (t - kernel) // stride + 1
+        return t
 
 
 class AVHuBERTAudioEncoder(nn.Module):
@@ -258,12 +336,12 @@ class AVHuBERTTransformerEncoder(nn.Module):
     (``model.train()``): dropout at ``hidden_dropout`` after the positional
     conv, the blocks' own dropouts, and LayerDrop: one draw a layer a
     forward, shared by the batch, keeping the layer's output or its input
-    with ``torch.where`` on the device (no host sync)."""
+    with ``torch.where`` on the device (no host sync). The block runs
+    before that choice, so a dropped MoE layer still sows its balance
+    loss, as in JAX."""
 
     def __init__(self, cfg: AVHuBERTConfig, device=None):
         super().__init__()
-        if cfg.n_experts > 0:
-            raise _not_ported("n_experts > 0 (the MoE encoder FFN)", "item 12: models/moe.py")
         dtype, pdtype = _dtypes(cfg)
         self.layer_norm_first = cfg.layer_norm_first
         self.hidden_dropout, self.layerdrop = cfg.hidden_dropout, cfg.layerdrop
@@ -275,7 +353,8 @@ class AVHuBERTTransformerEncoder(nn.Module):
                 pre_norm=cfg.layer_norm_first, use_k_bias=True, names="fairseq",
                 dtype=dtype, param_dtype=pdtype, device=device, dropout=cfg.hidden_dropout,
                 attention_dropout=cfg.attention_dropout,
-                activation_dropout=cfg.activation_dropout,
+                activation_dropout=cfg.activation_dropout, n_experts=cfg.n_experts,
+                moe_top_k=cfg.moe_top_k, moe_capacity_factor=cfg.moe_capacity_factor,
             )
             for _ in range(cfg.num_hidden_layers)
         )
@@ -435,7 +514,9 @@ class AVHuBERTEncoderWrapper(nn.Module):
             feat_v = _scaled(self.feature_extractor_video(video, use_running_average), v_pres)
         if feat_a is None and feat_v is None:
             raise ValueError("At least one modality input is required")
-        x = self.post_extract_proj(self.layer_norm(self._fuse(feat_a, feat_v)))
+        fused = self._fuse(feat_a, feat_v)
+        sow("extracted_features", fused)  # the pretraining feature penalty's input
+        x = self.post_extract_proj(self.layer_norm(fused))
         t = x.shape[1]
         if feature_mask is not None:
             x = torch.where(feature_mask[:, :t, None].to(x.device), self.mask_emb.to(x.dtype), x)
@@ -451,17 +532,35 @@ class AVHuBERTEncoderWrapper(nn.Module):
 class AVHuBERTModel(AVHuBERTEncoderWrapper):
     """Encoder-only AV-HuBERT with ``extract_features``. fairseq keeps the
     wrapper's modules on the model, so this class is the wrapper plus the
-    JAX model's entry points; train-time span masking raises."""
+    JAX model's entry points and its train-time span masking."""
 
     def forward(self, audio=None, video=None, padding_mask=None, audio_present=None,
                 video_present=None, apply_time_mask: bool = False,
                 deterministic: Optional[bool] = None, use_running_average=None,
                 feature_mask=None, channel_mask=None, output_layer=None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """With ``apply_time_mask`` in training and no mask given (masks the
+        caller passes take precedence), a time span mask is drawn from
+        ``generator`` at the audio rates (``mask_prob_audio``,
+        ``mask_length_audio``) when audio is given, else the image rates,
+        over the conv stack's output length for a raw waveform; and with
+        ``mask_feature_prob > 0`` a channel span mask over ``hidden_size``
+        (``avhubert.py:519-572``)."""
         if (apply_time_mask and feature_mask is None and channel_mask is None
                 and not _resolve_deterministic(self, deterministic)):
-            raise _not_ported("span masking (apply_time_mask)",
-                              "item 12: models/pretrain.py")
+            cfg = self.cfg
+            src = audio if audio is not None else video
+            t = src.shape[1]
+            if audio is not None and cfg.use_conv_audio_frontend and audio.ndim == 2:
+                t = Wav2Vec2FeatureEncoder.output_length(cfg, t)
+            prob, span = ((cfg.mask_prob_audio, cfg.mask_length_audio) if audio is not None
+                          else (cfg.mask_prob_image, cfg.mask_length_image))
+            feature_mask = span_mask(generator, src.shape[0], t, prob, span, padding_mask,
+                                     device=src.device)
+            if cfg.mask_feature_prob > 0.0:
+                channel_mask = span_mask(generator, src.shape[0], cfg.hidden_size,
+                                         cfg.mask_feature_prob, cfg.mask_feature_length,
+                                         device=src.device)
         return super().forward(
             audio=audio, video=video, padding_mask=padding_mask, audio_present=audio_present,
             video_present=video_present, feature_mask=feature_mask, channel_mask=channel_mask,

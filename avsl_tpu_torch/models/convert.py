@@ -7,7 +7,12 @@ the AV-HuBERT video tower under ``video_model/av_hubert/encoder/`` and for
 the ``AVHuBERTForSpeech2Text`` / ``AVHuBERTForCTC`` trees
 (``avhubert/encoder/...``, ``decoder/...``, ``ctc_head``), of its
 ``convert_avhubert_state_dict`` (fairseq names; the heads' encoder under
-``encoder.w2v_model.``, which that converter strips). The decoder's
+``encoder.w2v_model.``, which that converter strips). The pretraining
+model ``AVHuBERTForPretraining`` goes to fairseq ``AVHubertModel``'s names
+(the encoder's modules at the top level, ``final_proj``,
+``label_embs_concat``). An MoE encoder's FFN leaves
+(``layer_i/mlp/{router,w_in,b_in,w_out,b_out}``) keep their names and
+layouts under ``encoder.layers.i.mlp.``. The decoder's
 sinusoid table is recomputed, not carried. Linear kernels go from
 flax [in, out] to torch [out, in], Conv1d kernels from [k, in, out] to
 [out, in, k], Conv2d kernels from [kh, kw, in, out] to [out, in, kh, kw]
@@ -96,6 +101,9 @@ _AV_ENCODER_RULES: List[Tuple[str, str]] = [
     (r"^transformer/layer_(\d+)/self_attn_ln/LayerNorm_0/",
      r"encoder/layers/\1/self_attn_layer_norm/"),
     (r"^transformer/layer_(\d+)/mlp_ln/LayerNorm_0/", r"encoder/layers/\1/final_layer_norm/"),
+    # the MoE FFN's leaves (not kernels: carried as they are)
+    (r"^transformer/layer_(\d+)/mlp/(router|w_in|b_in|w_out|b_out)$",
+     r"encoder/layers/\1/mlp/\2"),
     (r"^transformer/layer_(\d+)/mlp/", r"encoder/layers/\1/"),
     (r"^transformer/layer_(\d+)/", r"encoder/layers/\1/"),
     (r"/kernel$", r"/weight"),
@@ -144,6 +152,22 @@ def avhubert_flax_path_to_torch_key(path: str) -> str:
                 path = re.sub(pat, rep, path)
             return (out + path).replace("/", ".")
     raise KeyError(f"{path}: not a path of the AV-HuBERT seq2seq or CTC model")
+
+
+def pretrain_flax_path_to_torch_key(path: str) -> str:
+    """A flax path of ``AVHuBERTForPretraining`` (without the collection)
+    -> the port's key, fairseq ``AVHubertModel``'s: the encoder's modules
+    at the top level, ``final_proj`` and ``label_embs_concat``."""
+    if path.startswith("avhubert/encoder/"):
+        path = path[len("avhubert/encoder/"):]
+        for pat, rep in _AV_ENCODER_RULES:
+            path = re.sub(pat, rep, path)
+        return path.replace("/", ".")
+    if path == "label_embs":
+        return "label_embs_concat"
+    if path.startswith("final_proj/"):
+        return re.sub(r"kernel$", "weight", path).replace("/", ".")
+    raise KeyError(f"{path}: not a path of the AV-HuBERT pretraining model")
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
@@ -199,6 +223,16 @@ def avhubert_state_dict_from_flax(
     """Flax ``AVHuBERTForSpeech2Text`` or ``AVHuBERTForCTC`` variables ->
     the port's fp32 state dict (fairseq names)."""
     return state_dict_from_flax(params, batch_stats, key_fn=avhubert_flax_path_to_torch_key)
+
+
+def pretrain_state_dict_from_flax(
+    params: Mapping[str, Any], batch_stats: Optional[Mapping[str, Any]] = None
+) -> Dict[str, torch.Tensor]:
+    """Flax ``AVHuBERTForPretraining`` variables -> the port's fp32 state
+    dict under fairseq ``AVHubertModel``'s names, the keys the JAX
+    converter drops (``avsl_tpu/models/convert.py:286-289``) included, so a
+    fairseq-pretrained state dict loads into the port as it is."""
+    return state_dict_from_flax(params, batch_stats, key_fn=pretrain_flax_path_to_torch_key)
 
 
 def whisper_state_dict_from_flax(

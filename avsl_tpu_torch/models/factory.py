@@ -4,14 +4,16 @@ AV-HuBERT video encoder, and AV-HuBERT with its seq2seq or CTC head.
 Port of ``avsl_tpu/models/factory.py`` (``make_av_hubert_video_encoder``
 and ``build_whisper_flamingo``), for serving and for training, plus the
 builders of the two AV-HuBERT heads that ``cli/avhubert_ft.py`` trains
-(the JAX CLI constructs ``AVHuBERTForSpeech2Text`` / ``AVHuBERTForCTC``
-itself).
+and of the pretraining model ``cli/pretrain.py`` trains (the JAX CLIs
+construct ``AVHuBERTForSpeech2Text`` / ``AVHuBERTForCTC`` /
+``AVHuBERTForPretraining`` themselves).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple, Union
+import functools
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -23,6 +25,7 @@ from avsl_tpu_torch.models.avhubert import (
     AVHuBERTModel,
     init_weights,
 )
+from avsl_tpu_torch.models.pretrain import AVHuBERTForPretraining
 from avsl_tpu_torch.models.whisper import Whisper
 
 
@@ -106,14 +109,18 @@ def build_avhubert(
     head: str = "seq2seq",
     device: Union[str, torch.device] = "cuda",
     seed: int = 0,
-) -> Union[AVHuBERTForSpeech2Text, AVHuBERTForCTC]:
+    num_classes: Sequence[int] = (500,),
+) -> Union[AVHuBERTForSpeech2Text, AVHuBERTForCTC, AVHuBERTForPretraining]:
     """AV-HuBERT with its ``head`` ("seq2seq": :class:`AVHuBERTForSpeech2Text`,
-    "ctc": :class:`AVHuBERTForCTC`) on ``device``, random weights from a
+    "ctc": :class:`AVHuBERTForCTC`, "pretrain":
+    :class:`~avsl_tpu_torch.models.pretrain.AVHuBERTForPretraining` over
+    codebooks of ``num_classes``) on ``device``, random weights from a
     ``torch.Generator`` there seeded with ``seed`` (see
     :func:`~avsl_tpu_torch.models.avhubert.init_weights`); returned in eval
     mode. Weights live in ``cfg.param_dtype`` and compute runs in
     ``cfg.dtype``."""
-    classes = {"seq2seq": AVHuBERTForSpeech2Text, "ctc": AVHuBERTForCTC}
+    classes = {"seq2seq": AVHuBERTForSpeech2Text, "ctc": AVHuBERTForCTC,
+               "pretrain": functools.partial(AVHuBERTForPretraining, num_classes=num_classes)}
     if head not in classes:
         raise ValueError(f"head {head!r}: expected one of {sorted(classes)}")
     dev = resolve_device(device)

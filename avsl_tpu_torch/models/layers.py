@@ -1,6 +1,6 @@
 """Transformer building blocks in PyTorch, with OpenAI Whisper names.
 
-Port of the dense parts of ``avsl_tpu/models/layers.py``:
+Port of ``avsl_tpu/models/layers.py``:
 ``LayerNormF32``, ``sinusoid_embedding``, ``fairseq_sinusoid_embedding``,
 ``dot_product_attention``, ``MultiHeadAttention`` (full sequence through
 the flash-attention kernels, with key lengths; an explicit ``mask`` sends
@@ -8,7 +8,8 @@ it down the unfused masked path; the self cache with a scalar index or a
 per-sequence [B] index tensor, the precomputed cross cache, int8 or not),
 ``MLP`` (exact GELU, activation dropout) and ``TransformerBlock`` (pre- or
 post-norm, the tanh-gated ``x_attn``/``x_mlp`` sublayers of
-Whisper-Flamingo, residual, attention-weight and activation dropout),
+Whisper-Flamingo, residual, attention-weight and activation dropout, or
+the MoE FFN of :mod:`.moe` in the MLP's place),
 ``grad_multiply`` and :func:`remat_block` (activation checkpointing of
 one block with the policies ``block`` and ``dots``). Module and
 parameter names follow the OpenAI Whisper state dict (``attn.query``,
@@ -560,7 +561,11 @@ class TransformerBlock(nn.Module):
     state-dict names of the self- and cross-attention, their norms and the
     MLP (see ``_BLOCK_NAMES``); the gated sublayers keep Whisper's.
     ``cross_kv_dim`` is the width of the cross-attention's context
-    (``d_model`` when None).
+    (``d_model`` when None). ``n_experts > 0`` puts a
+    :class:`~avsl_tpu_torch.models.moe.MoEFFN` (``moe_top_k``,
+    ``moe_capacity_factor``) in the MLP's place, as the module ``mlp``
+    under either naming; with ``kv_lengths`` the positions past each row's
+    length neither route nor enter its balance loss (``layers.py:474-481``).
     """
 
     def __init__(
@@ -581,6 +586,9 @@ class TransformerBlock(nn.Module):
         attention_dropout: float = 0.0,
         activation_dropout: float = 0.0,
         cross_kv_dim: Optional[int] = None,
+        n_experts: int = 0,
+        moe_top_k: int = 2,
+        moe_capacity_factor: float = 1.25,
     ):
         super().__init__()
         self.causal_self_attn = causal_self_attn
@@ -608,7 +616,13 @@ class TransformerBlock(nn.Module):
             self.x_mlp = MLP(d_model, d_ff, dropout=activation_dropout, **kw)
             self.x_mlp_ln = LayerNormF32(d_model, device=device)
             self.x_mlp_gate = nn.Parameter(torch.empty(1, device=device, dtype=torch.float32))
-        if names == "fairseq":
+        self.n_experts = n_experts
+        if n_experts > 0:
+            from avsl_tpu_torch.models.moe import MoEFFN
+
+            self.mlp = MoEFFN(d_model, d_ff, n_experts, top_k=moe_top_k,
+                              capacity_factor=moe_capacity_factor, **kw)
+        elif names == "fairseq":
             lin = dict(device=device, param_dtype=param_dtype or dtype, compute_dtype=dtype)
             self.fc1 = CastLinear(d_model, d_ff, **lin)
             self.fc2 = CastLinear(d_ff, d_model, **lin)
@@ -624,7 +638,14 @@ class TransformerBlock(nn.Module):
         """The cross-attention, under either naming."""
         return self._sub("cross")
 
-    def _ffn(self, h: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
+    def _ffn(self, h: torch.Tensor, generator: Optional[torch.Generator],
+             kv_lengths: Optional[torch.Tensor]) -> torch.Tensor:
+        if self.n_experts > 0:
+            valid = None
+            if kv_lengths is not None:
+                valid = (torch.arange(h.shape[1], device=h.device)[None, :]
+                         < kv_lengths.to(h.device)[:, None])
+            return self.mlp(h, valid=valid)
         if self.names == "fairseq":
             h = F.gelu(self.fc1(h))
             return self.fc2(residual_dropout(h, self.activation_dropout, self.training, generator))
@@ -683,5 +704,6 @@ class TransformerBlock(nn.Module):
                 return out
 
             x = self._sublayer(x, self._sub("cross_ln"), cross_attn, generator)
-        x = self._sublayer(x, self._sub("mlp_ln"), lambda h: self._ffn(h, generator), generator)
+        x = self._sublayer(x, self._sub("mlp_ln"), lambda h: self._ffn(h, generator, kv_lengths),
+                           generator)
         return x, new_cache

@@ -1,11 +1,13 @@
 """Training layer of the port: the train step with gradient accumulation,
 the AdamW optimizer and its freeze regimes (LoRA's too), the Whisper and
-AV-HuBERT objectives, checkpoints, the runner with parameter EMA,
-checkpoint averaging and draft distillation."""
+AV-HuBERT objectives (fine-tuning and masked-cluster pretraining),
+checkpoints, the runner with parameter EMA, checkpoint averaging and
+draft distillation."""
 
 from avsl_tpu_torch.train.loop import TrainState, make_eval_step, make_train_step
 from avsl_tpu_torch.train.objectives import (
     avhubert_ctc_loss_fn,
+    avhubert_pretrain_loss_fn,
     avhubert_seq2seq_loss_fn,
     flamingo_loss_fn,
 )
@@ -25,6 +27,7 @@ __all__ = [
     "TrainState",
     "TrainerRunner",
     "avhubert_ctc_loss_fn",
+    "avhubert_pretrain_loss_fn",
     "avhubert_seq2seq_loss_fn",
     "constant_adamw",
     "flamingo_loss_fn",

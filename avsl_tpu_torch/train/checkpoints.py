@@ -9,7 +9,8 @@ holding the model's state dict (BatchNorm statistics included), the
 optimizer state, the update count and the generator state;
 :func:`pin_checkpoint` links a saved step into another directory.
 ``restore_sharded`` waits for the parallel layer (ROADMAP.md queue 1,
-item 12). Files are read with ``weights_only=True``.
+item 12c). ``partial_load`` hands a pretraining state dict's encoder to
+the fine-tune heads. Files are read with ``weights_only=True``.
 """
 
 from __future__ import annotations
@@ -23,6 +24,8 @@ import torch
 from torch import nn
 
 _NAME = re.compile(r"^step_(\d+)\.pt$")
+# where the fine-tune heads keep the encoder (fairseq's seq2seq nesting)
+_W2V = "encoder.w2v_model."
 
 
 def _path(directory: str, step: int) -> str:
@@ -104,8 +107,18 @@ def partial_load(
     not in ``loaded``), ``unexpected`` (in ``loaded`` only) and
     ``shape_mismatch`` keys, the triage the reference logs on its
     non-strict load (``checkpoints.py:138-171``). ``strict`` raises on any
-    of the last three."""
+    of the last three.
+
+    A pretraining state dict (fairseq ``AVHubertModel``'s, with
+    ``label_embs_concat``) loaded into a model whose encoder sits under
+    ``encoder.w2v_model.`` (the fine-tune heads) has its encoder keys
+    moved there; ``final_proj`` and ``label_embs_concat`` stay as they are,
+    so they come out ``unexpected`` and the head ``missing``."""
     own = model.state_dict()
+    if "label_embs_concat" in loaded and "label_embs_concat" not in own and any(
+            k.startswith(_W2V) for k in own):
+        loaded = {k if k == "label_embs_concat" or k.startswith("final_proj.") else _W2V + k: v
+                  for k, v in loaded.items()}
     report: Dict[str, List[str]] = {
         "missing": [k for k in own if k not in loaded],
         "unexpected": [k for k in loaded if k not in own],

@@ -1,8 +1,8 @@
 """Loss closures binding the model to the train step.
 
 Port of ``flamingo_loss_fn``, ``flamingo_tower_precompute``,
-``avhubert_seq2seq_loss_fn`` and ``avhubert_ctc_loss_fn`` from
-``avsl_tpu/train/objectives.py``. Whisper(-Flamingo): SpecAugment on the mel (training only),
+``avhubert_seq2seq_loss_fn``, ``avhubert_ctc_loss_fn`` and
+``avhubert_pretrain_loss_fn`` from ``avsl_tpu/train/objectives.py``. Whisper(-Flamingo): SpecAugment on the mel (training only),
 the train-time AV-mode draw, the teacher-forced forward with every
 training draw on, and token-mean CE over the labels (-100 ignored).
 Batches follow the collator's layout: ``input_ids`` (mel [B, n_mels, T]),
@@ -12,9 +12,13 @@ hoist the batch also carries the precomputed context (``enc_features``,
 ``video_feats``, ``video_scale``) and the loss runs only the trainable
 tail. AV-HuBERT: the label-smoothed CE of the seq2seq head on
 teacher-forced ``dec_input_ids``, or the CTC loss of the CTC head, with
-every training draw on and BatchNorm on the batch's statistics. The JAX
-losses' MoE balance term has nothing to read here: the port has no MoE
-tower (ROADMAP.md queue 1, item 12).
+every training draw on and BatchNorm on the batch's statistics; the
+masked-cluster pretraining loss with its feature penalty. With an MoE
+encoder (``n_experts > 0``, in an AV-HuBERT model or a Flamingo model's
+video tower) each loss reads the Switch balance loss the forward sows
+(:func:`~avsl_tpu_torch.models.moe.moe_aux_loss`), adds ``moe_aux_coef``
+times it in training only and reports it as ``metrics["moe_aux"]``; the
+hoisted Flamingo loss runs no tower and has none.
 """
 
 from __future__ import annotations
@@ -25,6 +29,20 @@ import torch
 
 from avsl_tpu_torch.kernels.specaugment import spec_augment_batch
 from avsl_tpu_torch.models.avhubert import cross_entropy_loss, ctc_loss
+from avsl_tpu_torch.models.intermediates import collect_intermediates
+from avsl_tpu_torch.models.moe import moe_aux_loss
+from avsl_tpu_torch.models.pretrain import extracted_features_from, pretrain_loss
+
+
+def _add_moe_aux(loss, metrics, intermediates, train: bool, coef: float):
+    """``loss + coef * aux`` in training (the eval loss stays comparable
+    across configs), with ``metrics["moe_aux"]``, when the forward sowed a
+    balance loss; ``loss`` as it is otherwise."""
+    if "moe_aux" not in intermediates:
+        return loss
+    aux = moe_aux_loss(intermediates)
+    metrics["moe_aux"] = aux
+    return loss + coef * aux if train else loss
 
 
 def _spec_augment(mel: torch.Tensor, frames: Optional[torch.Tensor],
@@ -56,7 +74,7 @@ def _av_mode(generator: torch.Generator, shape: Tuple[int, ...], device,
 
 def flamingo_loss_fn(model, train: bool = True, freeze_video_bn_stats: bool = False,
                      spec_augment: Optional[str] = None,
-                     prob_av: float = 1.0, prob_a: float = 0.0):
+                     prob_av: float = 1.0, prob_a: float = 0.0, moe_aux_coef: float = 0.01):
     """CE loss for Whisper(-Flamingo): encoder(mel, video) -> decoder.
 
     ``train`` puts the model in training mode (dropout, the tower's
@@ -68,8 +86,10 @@ def flamingo_loss_fn(model, train: bool = True, freeze_video_bn_stats: bool = Fa
     real-statistics batch) or video-only (the mel multiplied by 0), as
     ``objectives.py:118-126`` does. A batch holding ``enc_features`` comes
     from :func:`flamingo_tower_precompute`: only ``project_and_decode``
-    runs. The returned ``loss_fn(batch, generator)`` gives ``(loss,
-    metrics)`` and draws every random number from ``generator``."""
+    runs, and an MoE tower's balance loss is skipped there (the frozen
+    router takes no gradient). The returned ``loss_fn(batch, generator)``
+    gives ``(loss, metrics)`` and draws every random number from
+    ``generator``."""
     mixing = prob_av < 1.0 or prob_a > 0.0
 
     def loss_fn(batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator]):
@@ -88,11 +108,14 @@ def flamingo_loss_fn(model, train: bool = True, freeze_video_bn_stats: bool = Fa
         if train and video is not None and mixing:
             video_scale, keep_audio = _av_mode(generator, (), mel.device, prob_av, prob_a)
             mel = mel * keep_audio.to(mel.dtype)
-        logits = model(mel, batch["dec_input_ids"], video=video,
-                       video_mask=batch.get("video_mask"), generator=gen,
-                       video_feature_scale=video_scale,
-                       freeze_video_bn_stats=freeze_video_bn_stats)
-        return cross_entropy_loss(logits, batch["labels"], label_smoothing=0.0), {}
+        with collect_intermediates() as inter:
+            logits = model(mel, batch["dec_input_ids"], video=video,
+                           video_mask=batch.get("video_mask"), generator=gen,
+                           video_feature_scale=video_scale,
+                           freeze_video_bn_stats=freeze_video_bn_stats)
+        metrics: Dict[str, torch.Tensor] = {}
+        loss = cross_entropy_loss(logits, batch["labels"], label_smoothing=0.0)
+        return _add_moe_aux(loss, metrics, inter, train, moe_aux_coef), metrics
 
     return loss_fn
 
@@ -155,13 +178,8 @@ def flamingo_tower_precompute(model, train: bool = True, freeze_video_bn_stats: 
     return pre_fn
 
 
-def _refuse_moe(model) -> None:
-    if getattr(model.cfg, "n_experts", 0) > 0:
-        raise NotImplementedError("the MoE balance loss is not ported yet "
-                                  "(ROADMAP.md queue 1, item 12: models/moe.py)")
-
-
-def avhubert_seq2seq_loss_fn(model, train: bool = True, label_smoothing: Optional[float] = None):
+def avhubert_seq2seq_loss_fn(model, train: bool = True, label_smoothing: Optional[float] = None,
+                             moe_aux_coef: float = 0.01):
     """Label-smoothed CE (``cfg.label_smoothing`` unless given) of an
     ``AVHuBERTForSpeech2Text`` on a batch with ``dec_input_ids`` and
     ``labels`` (-100 ignored), ``audio`` and/or ``video``, and optionally
@@ -169,41 +187,77 @@ def avhubert_seq2seq_loss_fn(model, train: bool = True, label_smoothing: Optiona
     puts the model in training mode (dropouts, LayerDrop, modality dropout,
     BatchNorm on the batch's statistics). Returns ``loss_fn(batch,
     generator) -> (loss, metrics)``."""
-    _refuse_moe(model)
     smoothing = model.cfg.label_smoothing if label_smoothing is None else label_smoothing
 
     def loss_fn(batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator]):
         model.train(train)
-        out = model(audio=batch.get("audio"), video=batch.get("video"),
-                    decoder_input_ids=batch["dec_input_ids"],
-                    padding_mask=batch.get("padding_mask"),
-                    audio_present=batch.get("audio_present"),
-                    video_present=batch.get("video_present"),
-                    generator=generator if train else None)
-        return cross_entropy_loss(out["logits"], batch["labels"], label_smoothing=smoothing), {}
+        with collect_intermediates() as inter:
+            out = model(audio=batch.get("audio"), video=batch.get("video"),
+                        decoder_input_ids=batch["dec_input_ids"],
+                        padding_mask=batch.get("padding_mask"),
+                        audio_present=batch.get("audio_present"),
+                        video_present=batch.get("video_present"),
+                        generator=generator if train else None)
+        metrics: Dict[str, torch.Tensor] = {}
+        loss = cross_entropy_loss(out["logits"], batch["labels"], label_smoothing=smoothing)
+        return _add_moe_aux(loss, metrics, inter, train, moe_aux_coef), metrics
 
     return loss_fn
 
 
-def avhubert_ctc_loss_fn(model, train: bool = True):
+def avhubert_ctc_loss_fn(model, train: bool = True, moe_aux_coef: float = 0.01):
     """CTC loss (blank = pad id, the zero-length guard) of an
     ``AVHuBERTForCTC`` on a batch with ``labels`` [B, L] token ids,
     ``label_padding`` [B, L] (1 = PAD), ``audio`` and/or ``video``,
     optionally ``padding_mask`` and ``logit_padding`` [B, T'] (1 = padded
     frame; no padding when absent). Returns ``loss_fn(batch, generator)
     -> (loss, metrics)``."""
-    _refuse_moe(model)
 
     def loss_fn(batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator]):
         model.train(train)
-        logits = model(audio=batch.get("audio"), video=batch.get("video"),
-                       padding_mask=batch.get("padding_mask"),
-                       generator=generator if train else None)
+        with collect_intermediates() as inter:
+            logits = model(audio=batch.get("audio"), video=batch.get("video"),
+                           padding_mask=batch.get("padding_mask"),
+                           generator=generator if train else None)
         logit_padding = batch.get("logit_padding")
         if logit_padding is None:
             logit_padding = torch.zeros(logits.shape[:2], device=logits.device)
         loss = ctc_loss(logits, logit_padding, batch["labels"], batch["label_padding"],
                         blank_id=model.cfg.pad_token_id)
-        return loss, {}
+        metrics: Dict[str, torch.Tensor] = {}
+        return _add_moe_aux(loss, metrics, inter, train, moe_aux_coef), metrics
+
+    return loss_fn
+
+
+def avhubert_pretrain_loss_fn(model, train: bool = True, masked_weight: float = 1.0,
+                              nomask_weight: float = 1.0, feature_pen_weight: float = 10.0,
+                              moe_aux_coef: float = 0.01):
+    """Masked-cluster prediction loss of an ``AVHuBERTForPretraining``
+    (:func:`~avsl_tpu_torch.models.pretrain.pretrain_loss`) on a batch with
+    ``audio`` and/or ``video``, ``targets`` [B, T] (or [B, T, G]) cluster
+    ids and optionally ``padding_mask``, ``audio_present`` and
+    ``video_present``: fairseq HubertCriterion's weights, the feature
+    penalty on the fused features before ``layer_norm`` times
+    ``feature_pen_weight``. The span mask is drawn from ``generator`` in
+    eval too (validation measures masked prediction, as fairseq's does),
+    so the eval loss needs one as well. Returns ``loss_fn(batch,
+    generator) -> (loss, metrics)``."""
+
+    def loss_fn(batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator]):
+        if generator is None:
+            raise ValueError("the pretraining loss draws its span mask in eval too: "
+                             "pass a torch.Generator")
+        model.train(train)
+        with collect_intermediates() as inter:
+            out = model(audio=batch.get("audio"), video=batch.get("video"),
+                        targets=batch["targets"], padding_mask=batch.get("padding_mask"),
+                        audio_present=batch.get("audio_present"),
+                        video_present=batch.get("video_present"), generator=generator)
+        loss, metrics = pretrain_loss(out, model.cfg, masked_weight=masked_weight,
+                                      nomask_weight=nomask_weight,
+                                      feature_pen=extracted_features_from(inter),
+                                      feature_pen_weight=feature_pen_weight)
+        return _add_moe_aux(loss, metrics, inter, train, moe_aux_coef), metrics
 
     return loss_fn

@@ -97,7 +97,7 @@ raises on failure:
    training YAML through ``cli.finetune.make_job`` and ``run``, what the
    CLI's ``main`` runs once ``load_datasets`` has read the splits, here on
    128 seeded rows held in memory, a quarter at 44.1 or 48 kHz, 8 val and
-   8 test: 3 optimizer steps of 16 bucketed micro-batches, validation and
+   8 test: 2 optimizer steps of 16 bucketed micro-batches, validation and
    ``test_best``, with exact K1/K2 launches a micro-step and an eval batch,
    frozen tensors bit-identical, trained tensors still between updates,
    every distinct K1 and K2 launch shape of the run against the plain
@@ -137,12 +137,12 @@ raises on failure:
    draft through the ``--draft_ckpt`` path against plain greedy on that
    target, greedy's tokens but at near-ties); after the dataset path,
    ``flamingo_lora_train`` (the training YAML through ``make_job`` and
-   ``run`` with rank-8 adapters, EMA 0.999 and the YAML's remat: 3
+   ``run`` with rank-8 adapters, EMA 0.999 and the YAML's remat: 2
    optimizer steps of 16 micro-batches, base tensors bit-identical, every
    B non-zero, ``best/`` the EMA, exact K1/K2 counts with the recompute,
    every launch shape against the plain version; ``cli.export_lora``, the
    merged model's logits within BF16_TOL, ``cli.transcribe --ckpt_dir``
-   on 8 items) and ``remat_ab`` (that job, 2 steps of 4 micro-batches with
+   on 8 items) and ``remat_ab`` (that job, 2 steps of 2 micro-batches with
    remat off, ``block`` and ``dots``: s/step and peak memory each);
 14. evaluation and the reference's dataset layer: in phase 3, K1 and K2 at
    the tiny_test head dim 16 in fp32 and bf16 and fp32 at D = 128 (causal
@@ -159,7 +159,25 @@ raises on failure:
    a traced beam batch); at the end ``evaluate_cli_smoke`` and
    ``avhubert_cli_smoke`` (``cli.evaluate --smoke --beam 2`` and
    ``cli.avhubert_ft --smoke`` on the card, whose tiny towers run K1 and
-   K2 at head dim 16), each with exact K1/K2 counts.
+   K2 at head dim 16), each with exact K1/K2 counts;
+15. span masks, MoE and pretraining: after the tiny AV-HuBERT reference,
+   ``pretrain_small_reference`` (the tiny pretraining model card against
+   CPU: logits, loss and gradients under one feature mask; a 4-expert
+   top-2 MoE block's output and gradients; k-means on separated blobs);
+   after ``avhubert_train``, ``pretrain_main_path`` (AV-HuBERT large on an
+   AMI segment batch, k-means targets of 100 clusters on the card, 3
+   steps of the masked-cluster loss with the CLI's optimizer (K1 0, K2 0:
+   attention dropout 0.1 takes the unfused path), a traced step, the eval
+   loss (24 K1) and the relabel tap at layer 12 (12 K1) with every launch
+   shape against the plain version, and 500-cluster k-means of the tapped
+   features) and ``pretrain_moe`` (the same with 8 experts of top 2 in
+   every block: 1.74 B parameters, the balance loss in (0, 8]); at the end
+   ``pretrain_cli_smoke`` (``cli.pretrain --smoke``, with ``--n_experts 4
+   --iterations 2``, and ``cli.avhubert_ft --smoke --n_experts 4`` for
+   both heads), each with exact K1/K2 counts. The depth of the LoRA,
+   dataset, remat and distillation phases was cut to make room (see
+   LORA_STEPS, DATASET_STEPS, REMAT_AB_ACCUM, DISTILL_STEPS). Each
+   phase's seconds are logged as ``phase_seconds``.
 
 Each model is freed before the next one is built. It prints the kernel
 list, the card's name and power limit and, last,
@@ -1982,7 +2000,7 @@ RESAMPLE_TOL = 1e-5
 # rows as cli/finetune's load_datasets gives them (train, val, test), fed in
 # memory: the card's machine has no `datasets` package and no OpenCV
 DATASET_ROWS = (128, 8, 8)
-DATASET_STEPS = 3
+DATASET_STEPS = 2
 # tiny Flamingo under MultiSteps: bucketed micro-batches of these sizes
 MULTISTEPS_SIZES = (3, 1, 2, 4, 2, 3)
 
@@ -2197,11 +2215,11 @@ def phase_flamingo_dataset_train(card: str, out_dir: str):
     large, bf16 compute, batch 1 under a token budget of 1000 frames, so
     micro-batches of 1 to 10 items, accumulation 16 through MultiSteps.
     128 seeded train rows (a quarter at 44.1 or 48 kHz), 8 val and 8 test;
-    3 optimizer steps (48 micro-batches), validation once at the end,
+    DATASET_STEPS (2) optimizer steps (32 micro-batches), validation once at the end,
     ``test_best`` on the test rows. Gates: K1 and K2 launches equal to the
     count per micro-step and per eval batch, frozen tensors bit-identical,
     trained tensors unchanged on the micro-steps that do not update,
-    exactly 3 updates, and K1 and K2 against their plain versions at every
+    exactly DATASET_STEPS updates, and K1 and K2 against their plain versions at every
     distinct shape the run launched them at. Then one more optimizer step
     traced. Returns the job (for the prefetch phase) and the launches."""
     import collections
@@ -2683,6 +2701,417 @@ def phase_avhubert_train_main_path(card: str, device: str = "cuda") -> dict:
             float(metrics["loss"])) or not bool(torch.isfinite(clogits).all()):
         raise AssertionError(f"avhubert_ctc: train K1/K2 {c1}/{c2}, eval {ce1}/{ce2}")
     return {"train": (k1, k2), "eval": (e1, e2), "ctc_eval": (ce1, ce2)}
+
+
+# the pretraining path (phase 15): masked-cluster pretraining with k-means
+# targets, dense and with 8 experts of top 2, at AV-HuBERT large widths
+PRETRAIN_CLUSTERS, PRETRAIN_RELABEL_CLUSTERS, PRETRAIN_KMEANS_ITERS = 100, 500, 15
+PRETRAIN_LR = 5e-4
+MOE_EXPERTS, MOE_TOP_K, MOE_CAPACITY = 8, 2, 1.25
+# the Switch balance loss is 1 at perfect balance and at most n_experts
+MOE_AUX_RANGE = (0.0, float(MOE_EXPERTS))
+# k-means card against CPU on separated blobs: fp32 sums in other orders
+KMEANS_TOL = 1e-4
+
+
+def _small_pretrain_batch():
+    """4 rows of the pretraining CLI's synthetic frames (12 of 104-dim audio
+    features and 48 x 48 lip frames, 4 latent states), cut to 12, 9, 10 and
+    11 frames, seeded targets of 8 clusters and a seeded feature mask."""
+    from avsl_tpu_torch.cli.pretrain import collate_pretrain, make_synthetic_pretrain_rows
+
+    rows = make_synthetic_pretrain_rows(4, t=12, image=48, seed=5)
+    rng = np.random.default_rng(6)
+    for row, n in zip(rows, (12, 9, 10, 11)):
+        row["audio_feats"], row["video_feats"] = row["audio_feats"][:n], row["video_feats"][:n]
+    batch = collate_pretrain(rows, [rng.integers(0, 8, 12) for _ in rows])
+    batch["feature_mask"] = (rng.random(batch["padding_mask"].shape) < 0.5) & batch["padding_mask"]
+    return batch
+
+
+def _pretrain_grads(model, batch):
+    """One training-mode forward (every rate 0) under the given feature
+    mask and its backward: (logits, loss, metrics, gradients by name)."""
+    from avsl_tpu_torch.models.intermediates import collect_intermediates
+    from avsl_tpu_torch.models.pretrain import extracted_features_from, pretrain_loss
+    from avsl_tpu_torch.train.loop import batch_to_device
+
+    b = batch_to_device(batch, next(model.parameters()).device)
+    model.train()
+    with collect_intermediates() as inter:
+        out = model(audio=b["audio"], video=b["video"], targets=b["targets"],
+                    padding_mask=b["padding_mask"], feature_mask=b["feature_mask"])
+    loss, metrics = pretrain_loss(out, model.cfg, feature_pen=extracted_features_from(inter))
+    loss.backward()
+    grads = {n: p.grad.detach().float().cpu() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return (out["logits"][0].detach().float().cpu(), float(loss),
+            {k: float(v) for k, v in metrics.items()}, grads)
+
+
+def phase_pretrain_small_reference(card: str, device: str = "cuda") -> tuple:
+    """Tiny AV-HuBERT pretraining (encoder 2 heads of 32, every rate 0, bf16
+    compute over fp32 weights) on the card (K1 and K2: at attention dropout
+    0 the encoder's self-attention is fused in training) against the CPU
+    (plain), within SMALL_AVH_TRAIN_TOL: the logits and all the gradients
+    together by the relative norm of the difference, the loss relatively,
+    under one feature mask; a 4-expert top-2 MoE block's output within
+    BF16_TOL and its gradients (all together, the input's and each MoE
+    tensor's) by relative norm; and k-means on separated blobs, labels
+    equal and centroids within KMEANS_TOL. Returns the card's (K1, K2)."""
+    from avsl_tpu_torch.core.config import AVHuBERTConfig
+    from avsl_tpu_torch.data.clustering import kmeans_assign, kmeans_fit
+    from avsl_tpu_torch.models import build_avhubert
+    from avsl_tpu_torch.models.intermediates import collect_intermediates
+    from avsl_tpu_torch.models.layers import TransformerBlock
+    from avsl_tpu_torch.models.moe import moe_aux_loss
+
+    tol = SMALL_AVH_TRAIN_TOL
+    cfg = AVHuBERTConfig.tiny_test(dtype="bfloat16", **ZERO_AVH_RATES, **SMALL_AVH_OVERRIDES)
+    card_model = build_avhubert(cfg, "pretrain", device=device, seed=3, num_classes=(8,))
+    cpu_model = build_avhubert(cfg, "pretrain", device="cpu", num_classes=(8,))
+    cpu_model.load_state_dict(card_model.state_dict())
+    batch = _small_pretrain_batch()
+    (l_card, loss_card, m_card, g_card), seconds, k1, stats_writes, k2 = run_counted(
+        lambda: _pretrain_grads(card_model, batch))
+    l_cpu, loss_cpu, m_cpu, g_cpu = _pretrain_grads(cpu_model, batch)
+    # the logits are cosines over logit_temp (0.1): held like the gradients,
+    # by the relative norm of the difference
+    err = (l_card - l_cpu).abs()
+    logits_err = _rel_norm(l_card, l_cpu)
+    loss_err = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    names = sorted(g_cpu)
+    grad_err = _rel_norm(torch.cat([g_card[n].flatten() for n in names]),
+                         torch.cat([g_cpu[n].flatten() for n in names]))
+    want = (cfg.num_hidden_layers, cfg.num_hidden_layers)
+    del card_model, cpu_model
+
+    # a 4-expert top-2 MoE block with key lengths
+    def block(device):
+        blk = TransformerBlock(cfg.hidden_size, cfg.num_attention_heads, cfg.intermediate_size,
+                               names="fairseq", use_k_bias=True, dtype=torch.bfloat16,
+                               param_dtype=torch.float32, device=device, n_experts=4,
+                               moe_top_k=2)
+        gen = torch.Generator(device=device).manual_seed(7)
+        with torch.no_grad():
+            for name, prm in blk.named_parameters():
+                prm.normal_(0.0, 0.05, generator=gen)
+            for mod in blk.modules():
+                if isinstance(mod, torch.nn.LayerNorm):
+                    mod.weight.fill_(1.0)
+        return blk
+
+    card_blk = block(device)
+    cpu_blk = block("cpu")
+    cpu_blk.load_state_dict(card_blk.state_dict())
+    x = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        (4, 12, cfg.hidden_size)).astype(np.float32))
+    lengths = torch.tensor([12, 9, 10, 11], dtype=torch.int32)
+
+    def moe_run(blk):
+        dev = next(blk.parameters()).device
+        xin = x.to(dev).requires_grad_(True)
+        with collect_intermediates() as inter:
+            y, _ = blk(xin, kv_lengths=lengths.to(dev))
+            aux = moe_aux_loss(inter)
+        ((y.float() ** 2).sum() + 0.01 * aux).backward()
+        return (y.detach().float().cpu(), float(aux), xin.grad.float().cpu(),
+                {n: p.grad.float().cpu() for n, p in blk.named_parameters()})
+
+    (y_card, aux_card, gx_card, gb_card), _, mk1, _, mk2 = run_counted(lambda: moe_run(card_blk))
+    y_cpu, aux_cpu, gx_cpu, gb_cpu = moe_run(cpu_blk)
+    moe_err = float((y_card - y_cpu).abs().max())
+    moe_ok = bool(torch.allclose(y_card, y_cpu, **BF16_TOL))
+    # all tensors together and the input (the key bias's gradient is zero
+    # up to rounding), and each of the MoE's own tensors
+    names = sorted(gb_cpu)
+    moe_grads = {"all": _rel_norm(torch.cat([gb_card[n].flatten() for n in names]),
+                                  torch.cat([gb_cpu[n].flatten() for n in names])),
+                 "input": _rel_norm(gx_card, gx_cpu),
+                 **{n: _rel_norm(gb_card[n], gb_cpu[n]) for n in names if n.startswith("mlp.")}}
+    moe_grad = max(moe_grads.values())
+    del card_blk, cpu_blk
+
+    # k-means on 8 separated blobs of 16 dims
+    rng = np.random.default_rng(9)
+    centers = rng.normal(size=(8, 16)).astype(np.float32) * 10
+    pts = (centers[rng.integers(0, 8, 4000)]
+           + rng.normal(size=(4000, 16)).astype(np.float32))
+    t0 = time.perf_counter()
+    c_card, i_card = kmeans_fit(pts, 8, n_iters=PRETRAIN_KMEANS_ITERS, seed=0, device=device)
+    kmeans_seconds = time.perf_counter() - t0
+    c_cpu, i_cpu = kmeans_fit(pts, 8, n_iters=PRETRAIN_KMEANS_ITERS, seed=0, device="cpu")
+    labels_equal = bool((kmeans_assign(pts, c_card, device=device)
+                         == kmeans_assign(pts, c_cpu, device="cpu")).all())
+    c_err = float(np.abs(c_card - c_cpu).max())
+
+    log({"phase": "pretrain_small_reference", "card": card,
+         "encoder_heads": [cfg.num_attention_heads, cfg.hidden_size // cfg.num_attention_heads],
+         "logits_max_abs_err": err.max().item(), "logits_rel_norm_err": logits_err,
+         "loss": {"card": loss_card, "cpu": loss_cpu}, "loss_rel_err": loss_err,
+         "metrics": {"card": m_card, "cpu": m_cpu}, "grad_rel_norm_err": grad_err,
+         "tolerance": tol, "k1_k2": [k1, k2], "row_statistics_written": stats_writes,
+         "expected_k1_k2": list(want),
+         "moe_block": {"max_abs_err": moe_err, "within_bf16_tol": moe_ok,
+                       "aux": {"card": aux_card, "cpu": aux_cpu},
+                       "grad_rel_norm_err": moe_grads, "k1_k2": [mk1, mk2]},
+         "kmeans": {"labels_equal": labels_equal, "centroid_max_abs_err": c_err,
+                    "inertia": {"card": i_card, "cpu": i_cpu}, "card_seconds": kmeans_seconds,
+                    "tolerance": KMEANS_TOL}})
+    if max(logits_err, grad_err) > tol["grad_rel_norm"] or loss_err > tol["loss_rtol"]:
+        raise AssertionError(f"tiny pretraining card-vs-cpu: logits {logits_err:.3e}, "
+                             f"loss {loss_err:.3e}, grads {grad_err:.3e}")
+    if (k1, k2) != want or stats_writes != k1 or (mk1, mk2) != (1, 1):
+        raise AssertionError(f"tiny pretraining: K1/K2 {k1}/{k2} (MoE block {mk1}/{mk2}), "
+                             f"expected {want} (1/1)")
+    if not moe_ok or moe_grad > tol["grad_rel_norm"] or abs(aux_card - aux_cpu) > 1e-4:
+        raise AssertionError(f"MoE block card-vs-cpu: output {moe_err:.3e}, grads "
+                             f"{moe_grad:.3e}, aux {aux_card} / {aux_cpu}")
+    if not labels_equal or c_err > KMEANS_TOL:
+        raise AssertionError(f"k-means card-vs-cpu: labels equal {labels_equal}, centroids "
+                             f"{c_err:.3e}")
+    return k1 + mk1, k2 + mk2
+
+
+def _train_pretrain(model, batch, steps: int, name: str) -> tuple:
+    """``steps`` (at least 2) train steps of ``avhubert_pretrain_loss_fn``
+    with the CLI's optimizer, launches counted around exactly those steps,
+    then a traced step: (records, rates, K1/K2/statistics, peak bytes,
+    traced, last metrics)."""
+    from avsl_tpu_torch.cli.avhubert_ft import make_optimizer
+    from avsl_tpu_torch.train import TrainState, make_train_step
+    from avsl_tpu_torch.train.objectives import avhubert_pretrain_loss_fn
+
+    opt = make_optimizer(model, PRETRAIN_LR, 100)
+    state = TrainState.create(model, opt, seed=0)
+    step = make_train_step(avhubert_pretrain_loss_fn(model, train=True))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    records, last = [], {}
+
+    def run():
+        for i in range(steps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            _, metrics = step(state, batch)
+            vals = {k: float(v) for k, v in metrics.items()}
+            records.append({"step": i + 1, "seconds": time.perf_counter() - t, **vals})
+            last.update(vals)
+
+    _, _, k1, stats_writes, k2 = run_counted(run)
+    peak = torch.cuda.max_memory_allocated()
+    sec = statistics.median(r["seconds"] for r in records[1:])  # step 1 carries first use
+    rates = {"seconds_per_step_median_2_3": sec, "segments_per_s": AVH_BATCH / sec}
+    traced = traced_run(lambda: float(step(state, batch)[1]["loss"]))
+    if not all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in records):
+        raise AssertionError(f"{name}: non-finite loss or grad_norm {records}")
+    del state, opt
+    return records, rates, (k1, k2, stats_writes), peak, traced, last
+
+
+def _pretrain_eval_and_relabel(model, batch, seen: dict, device: str) -> dict:
+    """The eval loss (the mask drawn from a generator seeded 42) and the
+    relabel tap at the middle layer, each with K1 counted and every launch
+    shape recorded: {"eval": (loss, metrics, K1, K2, stats, s), "relabel":
+    (features, K1, K2, stats, s)}."""
+    from avsl_tpu_torch.models.pretrain import extract_layer_features
+    from avsl_tpu_torch.train.loop import batch_to_device
+    from avsl_tpu_torch.train.objectives import avhubert_pretrain_loss_fn
+
+    dev = batch_to_device(batch, torch.device(device))
+    gen = torch.Generator(device=device).manual_seed(42)
+    layer = max(1, model.cfg.num_hidden_layers // 2)
+    with launch_shapes(seen):
+        with torch.no_grad():
+            (loss, metrics), e_s, e1, e_st, e2 = run_counted(
+                lambda: avhubert_pretrain_loss_fn(model, train=False)(dev, gen))
+        feats, r_s, r1, r_st, r2 = run_counted(lambda: extract_layer_features(
+            model, layer, audio=dev["audio"], video=dev["video"],
+            padding_mask=dev["padding_mask"]))
+    return {"eval": (float(loss), {k: float(v) for k, v in metrics.items()}, e1, e2, e_st, e_s),
+            "relabel": (feats, r1, r2, r_st, r_s), "layer": layer}
+
+
+def phase_pretrain_main_path(card: str, device: str = "cuda") -> tuple:
+    """AV-HuBERT large (``configs/avhubert_large.yaml``: bf16 compute, fp32
+    weights and AdamW state, the card's rates: attention dropout 0.1 sends
+    every encoder self-attention of a train step down the unfused path)
+    pretrained on an AMI segment batch (:func:`prepare_avhubert_batch`, 8
+    x 10 s): k-means targets (PRETRAIN_CLUSTERS clusters, 15 Lloyd
+    iterations on the card over the batch's 2,000 frames of features), 3
+    steps of ``avhubert_pretrain_loss_fn`` with the CLI's optimizer (K1 0,
+    K2 0), a traced step; then the eval loss (K1 one a layer), the relabel
+    tap at layer 12 (K1 12), every K1 launch shape against the plain
+    version, and k-means of PRETRAIN_RELABEL_CLUSTERS clusters over the
+    tapped features. Returns (counts by path, the batch, s/step)."""
+    from avsl_tpu_torch.core.config import AVHuBERTConfig
+    from avsl_tpu_torch.data.clustering import kmeans_assign, kmeans_fit
+    from avsl_tpu_torch.models import build_avhubert
+
+    cfg = AVHuBERTConfig.from_yaml(AVHUBERT_CONFIG)
+    prep, timed = timed_stages()
+    batch = prepare_avhubert_batch(cfg, timed, device)
+    frames = torch.from_numpy(batch["audio"]).to(device)[torch.from_numpy(
+        batch["padding_mask"]).to(device)]  # [2000, 104], the valid frames
+    centroids, inertia = timed("kmeans_targets", lambda: kmeans_fit(
+        frames, PRETRAIN_CLUSTERS, n_iters=PRETRAIN_KMEANS_ITERS, seed=0, device=device))
+    batch["targets"] = timed("kmeans_assign", lambda: kmeans_assign(
+        batch["audio"], centroids, device=device))
+    batch = {k: v for k, v in batch.items() if k in ("audio", "video", "padding_mask",
+                                                      "targets")}
+    t0 = time.perf_counter()
+    model = build_avhubert(cfg, "pretrain", device=device, seed=0,
+                           num_classes=(PRETRAIN_CLUSTERS,))
+    torch.cuda.synchronize()
+    prep["build_model"] = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    records, rates, (k1, k2, st), peak, traced, last = _train_pretrain(
+        model, batch, TRAIN_STEPS, "pretrain_main_path")
+    seen: dict = {}
+    ev = _pretrain_eval_and_relabel(model, batch, seen, device)
+    feats, r1, r2, r_st, r_s = ev["relabel"]
+    t0 = time.perf_counter()
+    valid = torch.from_numpy(batch["padding_mask"]).to(device)
+    relabel_c, relabel_inertia = kmeans_fit(feats.float()[valid], PRETRAIN_RELABEL_CLUSTERS,
+                                            n_iters=PRETRAIN_KMEANS_ITERS, seed=1, device=device)
+    relabel_seconds = time.perf_counter() - t0
+    del model, feats
+    shapes = check_launch_shapes(seen)
+    e_loss, e_metrics, e1, e2, e_st, e_s = ev["eval"]
+    layers = cfg.num_hidden_layers
+    rec = {"phase": "pretrain_main_path", "card": card, "config": AVHUBERT_CONFIG,
+           "params": n_params, "dtype": cfg.dtype, "param_dtype": cfg.param_dtype,
+           "batch": {k: list(v.shape) for k, v in batch.items()},
+           "clusters": PRETRAIN_CLUSTERS, "kmeans_inertia": inertia,
+           "prepare_seconds": prep, "steps": records, **rates,
+           "frames_per_s": (float(batch["padding_mask"].sum())
+                            / rates["seconds_per_step_median_2_3"]),
+           "max_memory_allocated_bytes": peak, "train_k1_k2": [k1, k2],
+           "last_step": {k: last[k] for k in ("loss", "loss_m", "loss_u", "acc_m", "acc_u",
+                                              "features_pen")},
+           "traced_step": traced,
+           "eval": {"loss": e_loss, "metrics": e_metrics, "seconds": e_s, "k1_k2": [e1, e2],
+                    "expected_k1": layers},
+           "relabel": {"layer": ev["layer"], "seconds": r_s, "k1_k2": [r1, r2],
+                       "expected_k1": ev["layer"], "kmeans_clusters": PRETRAIN_RELABEL_CLUSTERS,
+                       "kmeans_seconds": relabel_seconds, "kmeans_inertia": relabel_inertia,
+                       "centroids_shape": list(relabel_c.shape)},
+           "launch_shapes": shapes}
+    log(rec)
+    if (k1, k2, st) != (0, 0, 0):
+        raise AssertionError(f"pretrain_main_path: train K1 {k1} / K2 {k2}, expected 0 / 0 "
+                             "(attention dropout 0.1 takes the unfused path)")
+    if (e1, e2, e_st) != (layers, 0, 0) or (r1, r2, r_st) != (ev["layer"], 0, 0):
+        raise AssertionError(f"pretrain_main_path: eval K1 {e1} / K2 {e2}, relabel K1 {r1} / "
+                             f"K2 {r2}, expected {layers} and {ev['layer']}")
+    if not math.isfinite(e_loss) or not shapes["fwd"]["shapes"] \
+            or not np.isfinite(relabel_c).all():
+        raise AssertionError(f"pretrain_main_path: eval loss {e_loss}, shapes {shapes}")
+    out = {"train": (k1, k2), "eval": (e1, e2), "relabel": (r1, r2)}
+    return out, batch, rates["seconds_per_step_median_2_3"]
+
+
+def phase_pretrain_moe(card: str, batch, dense_seconds: float, device: str = "cuda") -> dict:
+    """The pretraining model of :func:`phase_pretrain_main_path` with
+    MOE_EXPERTS experts of top MOE_TOP_K at capacity MOE_CAPACITY in every
+    encoder block (Mixtral's 8 x top-2 over AV-HuBERT large's FFN widths),
+    on the same batch: the parameter count, 3 steps (K1 0, K2 0) with the
+    balance loss in range, a traced step, peak memory, s/step against the
+    dense path's in this call; then the eval loss and the relabel tap with
+    their K1 counts."""
+    import dataclasses
+
+    from avsl_tpu_torch.core.config import AVHuBERTConfig
+    from avsl_tpu_torch.models import build_avhubert
+
+    cfg = dataclasses.replace(AVHuBERTConfig.from_yaml(AVHUBERT_CONFIG), n_experts=MOE_EXPERTS,
+                              moe_top_k=MOE_TOP_K, moe_capacity_factor=MOE_CAPACITY)
+    t0 = time.perf_counter()
+    model = build_avhubert(cfg, "pretrain", device=device, seed=0,
+                           num_classes=(PRETRAIN_CLUSTERS,))
+    torch.cuda.synchronize()
+    build_seconds = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    n_expert = sum(p.numel() for n, p in model.named_parameters()
+                   if n.rsplit(".", 1)[-1] in ("w_in", "b_in", "w_out", "b_out"))
+    n_tokens = int(np.prod(batch["padding_mask"].shape))
+    capacity = model.encoder.layers[0].mlp.capacity(n_tokens)
+    records, rates, (k1, k2, st), peak, traced, last = _train_pretrain(
+        model, batch, TRAIN_STEPS, "pretrain_moe")
+    seen: dict = {}
+    ev = _pretrain_eval_and_relabel(model, batch, seen, device)
+    _, r1, r2, r_st, r_s = ev["relabel"]
+    e_loss, e_metrics, e1, e2, e_st, e_s = ev["eval"]
+    del model
+    layers = cfg.num_hidden_layers
+    auxes = [r["moe_aux"] for r in records]
+    rec = {"phase": "pretrain_moe", "card": card, "experts": MOE_EXPERTS, "top_k": MOE_TOP_K,
+           "capacity_factor": MOE_CAPACITY, "capacity": capacity,
+           "dispatch_shape": [n_tokens, MOE_EXPERTS, capacity], "params": n_params,
+           "expert_params": n_expert, "build_seconds": build_seconds, "steps": records,
+           **rates, "over_dense_seconds_per_step": rates["seconds_per_step_median_2_3"]
+           / dense_seconds, "max_memory_allocated_bytes": peak, "train_k1_k2": [k1, k2],
+           "moe_aux": auxes, "last_step": last, "traced_step": traced,
+           "eval": {"loss": e_loss, "moe_aux": e_metrics.get("moe_aux"), "seconds": e_s,
+                    "k1_k2": [e1, e2]},
+           "relabel": {"layer": ev["layer"], "seconds": r_s, "k1_k2": [r1, r2]},
+           "launch_shapes": check_launch_shapes(seen)}
+    log(rec)
+    if (k1, k2, st) != (0, 0, 0) or (e1, e2, e_st) != (layers, 0, 0) \
+            or (r1, r2, r_st) != (ev["layer"], 0, 0):
+        raise AssertionError(f"pretrain_moe: train K1/K2 {k1}/{k2}, eval {e1}/{e2}, relabel "
+                             f"{r1}/{r2}")
+    if not all(math.isfinite(a) and MOE_AUX_RANGE[0] < a <= MOE_AUX_RANGE[1] for a in auxes):
+        raise AssertionError(f"pretrain_moe: balance loss {auxes} outside {MOE_AUX_RANGE}")
+    if not math.isfinite(e_loss):
+        raise AssertionError(f"pretrain_moe: eval loss {e_loss}")
+    return {"train": (k1, k2), "eval": (e1, e2), "relabel": (r1, r2)}
+
+
+def phase_pretrain_cli_smoke(card: str, device: str = "cuda") -> dict:
+    """The pretraining and fine-tuning entry points with experts on the card,
+    as a user calls them: ``cli.pretrain --smoke`` (tiny fp32, attention
+    dropout 0.1: the train steps unfused; K1 one a layer in the eval loss),
+    then with ``--n_experts 4 --iterations 2`` (two evals and the relabel
+    tap at layer 1 over 4 batches); ``cli.avhubert_ft --smoke --n_experts
+    4`` for both heads (the seq2seq decoder's self-attention a step, K1 and
+    K2, then the eval forward; CTC: K1 in the eval forward only). Returns
+    (K1, K2) by run."""
+    from avsl_tpu_torch.cli import avhubert_ft, pretrain
+    from avsl_tpu_torch.core.config import AVHuBERTConfig
+
+    cfg = AVHuBERTConfig.tiny_test()
+    enc, dec, relabel_batches = cfg.num_hidden_layers, cfg.decoder_layers, 4
+    runs = {
+        "pretrain_cli_smoke": (["--smoke"], (enc, 0)),
+        "pretrain_cli_smoke_moe": (["--smoke", "--n_experts", "4", "--iterations", "2"],
+                                   (2 * enc + relabel_batches * max(1, enc // 2), 0)),
+    }
+    out, on = {}, ([] if device == "cuda" else ["--device", device])
+    for name, (argv, want) in runs.items():
+        result, seconds, k1, stats_writes, k2 = run_counted(lambda: pretrain.main(argv + on))
+        log({"phase": name, "card": card, "seconds": seconds, "cli_json": result,
+             "k1_launches": k1, "k2_launches": k2, "expected_k1_k2": list(want)})
+        if (k1, k2, stats_writes) != (*want, 0) or not all(
+                math.isfinite(it[k]) for it in result["iterations"] for k in it):
+            raise AssertionError(f"cli.pretrain {argv}: K1 {k1} / K2 {k2}, expected {want}: "
+                                 f"{result}")
+        out[name] = (k1, k2)
+    for head in ("seq2seq", "ctc"):
+        name = f"avhubert_cli_smoke_moe_{head}"
+        result, seconds, k1, stats_writes, k2 = run_counted(lambda: avhubert_ft.main(
+            ["--smoke", "--n_experts", "4", "--head", head, *on]))
+        steps = result["steps"]
+        want = ((steps * dec + enc + dec, steps * dec) if head == "seq2seq" else (enc, 0))
+        log({"phase": name, "card": card, "seconds": seconds, "cli_json": result,
+             "k1_launches": k1, "k2_launches": k2, "expected_k1_k2": list(want)})
+        losses = [result[k] for k in ("first_loss", "last_loss", "eval_loss")]
+        if (k1, k2) != want or result.get("n_experts") != 4 or not all(
+                map(math.isfinite, losses)):
+            raise AssertionError(f"cli.avhubert_ft --smoke --n_experts 4 --head {head}: K1 {k1}"
+                                 f" / K2 {k2}, expected {want}: {result}")
+        out[name] = (k1, k2)
+    return out
 
 
 # the serving daemon (phase 11): the tiny models card against CPU on the
@@ -3599,14 +4028,16 @@ def phase_serving_extras_export(card: str) -> int:
 
 # the training extras (LoRA, EMA, remat, distillation)
 LORA_RANK, LORA_ALPHA, LORA_EMA = 8, 16.0, 0.999
-LORA_STEPS = 3
-REMAT_AB_ACCUM, REMAT_AB_STEPS = 4, 2
-DISTILL_CLIPS, DISTILL_STEPS, DISTILL_LR = 32, 100, 1e-3
+# depths cut to make room for the pretraining path (were 3 steps, 4
+# micro-batches a remat step and 100 distillation steps)
+LORA_STEPS = 2
+REMAT_AB_ACCUM, REMAT_AB_STEPS = 2, 2
+DISTILL_CLIPS, DISTILL_STEPS, DISTILL_LR = 32, 50, 1e-3
 
 
 def lora_job_config(out_dir: str, vocab_dir: str) -> str:
     """The training YAML with ``lora_rank`` 8, ``lora_alpha`` 16,
-    ``ema_decay`` 0.999, 3 optimizer steps validated once at the end, the
+    ``ema_decay`` 0.999, LORA_STEPS optimizer steps validated once at the end, the
     published vocabulary's size (:func:`write_published_size_vocab`, so that
     ``cli.export_lora`` and ``cli.transcribe`` build the same model from it)
     and its outputs under ``out_dir``; written there, its path returned."""
@@ -3661,7 +4092,7 @@ def phase_flamingo_lora_train(card: str, out_dir: str):
     AV-HuBERT large, remat on as the YAML sets it) with rank-8 adapters on
     every q/v projection (encoder, decoder self/cross/x_attn, the tower),
     EMA 0.999, gates 0.5, on the dataset phase's seeded rows with seeded
-    lip frames (:class:`SeededLipFrames`): 3 optimizer
+    lip frames (:class:`SeededLipFrames`): LORA_STEPS (2) optimizer
     steps of 16 bucketed micro-batches under MultiSteps, validation and
     ``test_best``. Then ``cli.export_lora`` writes the merged checkpoint
     (onto the base saved as ``--base_ckpt``: its gates are 0.5),
@@ -3856,8 +4287,9 @@ def set_remat(model, on: bool, policy: str) -> None:
 
 
 def phase_remat_ab(card: str, job) -> dict:
-    """The LoRA job of :func:`phase_flamingo_lora_train` for 2 optimizer
-    steps of 4 micro-batches each (the same 8 micro-batches every time),
+    """The LoRA job of :func:`phase_flamingo_lora_train` for REMAT_AB_STEPS
+    optimizer steps of REMAT_AB_ACCUM micro-batches each (the same
+    micro-batches every time),
     with remat off, on with the ``block`` policy and on with ``dots``, in
     that order: s/step and peak device memory each, K1 and K2 launches
     gated to (32 + 96) or (32 x 2 + 96) and (32 + 96) a micro-step.
@@ -4384,70 +4816,100 @@ def main() -> int:
     sass = sass_counts()
     log({"phase": "sass", "tensor_core_instructions": sass})
 
-    cfg, tokenizer, train_batches, label_len = prepare_train_path(TRAIN_STEPS)
-    fl_cfg, fl_tokenizer, fl_batches, fl_len = prepare_flamingo_path(TRAIN_STEPS)
+    # each phase's seconds on the host clock, logged before the kernel list
+    phase_seconds: dict = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            phase_seconds[name] = round(time.perf_counter() - t, 3)
+
+    cfg, tokenizer, train_batches, label_len = timed("prepare_train_path", prepare_train_path,
+                                                     TRAIN_STEPS)
+    fl_cfg, fl_tokenizer, fl_batches, fl_len = timed("prepare_flamingo_path",
+                                                     prepare_flamingo_path, TRAIN_STEPS)
     log({"phase": "prepare_train_paths", "label_len": label_len, "flamingo_label_len": fl_len})
-    fwd_cases = phase_kernels(label_len, fl_len)
-    phase_kernel_stats(fl_len)
-    bwd_cases = phase_kernels_bwd(label_len, fl_len)
-    phase_small_reference()
-    phase_small_av_reference()
-    phase_cached_attention()
-    phase_small_train_reference()
-    phase_small_flamingo_train_reference()
-    phase_small_avhubert_reference()
-    phase_small_serving_reference()
-    phase_resample(smi)
+    fwd_cases = timed("kernels", phase_kernels, label_len, fl_len)
+    timed("kernel_stats", phase_kernel_stats, fl_len)
+    bwd_cases = timed("kernels_bwd", phase_kernels_bwd, label_len, fl_len)
+    timed("small_reference", phase_small_reference)
+    timed("small_av_reference", phase_small_av_reference)
+    timed("cached_attention", phase_cached_attention)
+    timed("small_train_reference", phase_small_train_reference)
+    timed("small_flamingo_train_reference", phase_small_flamingo_train_reference)
+    timed("small_avhubert_reference", phase_small_avhubert_reference)
+    pre_small = timed("pretrain_small_reference", phase_pretrain_small_reference, smi)
+    timed("small_serving_reference", phase_small_serving_reference)
+    timed("resample", phase_resample, smi)
 
     def free():
         gc.collect()
         torch.cuda.empty_cache()
 
-    phase_lip_frontend(smi)
+    timed("lip_frontend", phase_lip_frontend, smi)
     free()
-    serving_launches, main_model = phase_main_path(smi)
-    spec_launches = phase_serving_extras_spec(smi, main_model)
+    serving_launches, main_model = timed("main_path", phase_main_path, smi)
+    spec_launches = timed("serving_extras_speculative", phase_serving_extras_spec, smi,
+                          main_model)
     del main_model
     free()
-    export_launches = phase_serving_extras_export(smi)
+    export_launches = timed("serving_extras_export", phase_serving_extras_export, smi)
     free()
     with tempfile.TemporaryDirectory() as out_dir:
-        distill_launches = phase_distill(smi, out_dir)
+        distill_launches = timed("distill", phase_distill, smi, out_dir)
     free()
-    av_serving_launches, av_model, av_record = phase_av_main_path(smi)
-    av_raw_launches = phase_av_raw_main_path(smi, *av_model, av_record)
-    daemon_launches = phase_serving_daemon(smi, *av_model)
+    av_serving_launches, av_model, av_record = timed("av_main_path", phase_av_main_path, smi)
+    av_raw_launches = timed("av_raw_main_path", phase_av_raw_main_path, smi, *av_model,
+                            av_record)
+    daemon_launches = timed("serving_daemon", phase_serving_daemon, smi, *av_model)
     with tempfile.TemporaryDirectory() as chain_dir:
-        chain_records = phase_preprocess_chain(smi, chain_dir)
-        eval_launches = phase_evaluate_main_path(smi, *av_model, chain_records)
+        chain_records = timed("preprocess_chain", phase_preprocess_chain, smi, chain_dir)
+        eval_launches = timed("evaluate_main_path", phase_evaluate_main_path, smi, *av_model,
+                              chain_records)
     av_model = list(av_model)
-    int8_launches = phase_serving_extras_int8(smi, av_model)
+    int8_launches = timed("serving_extras_int8", phase_serving_extras_int8, smi, av_model)
     free()
     with tempfile.TemporaryDirectory() as out_dir:
-        train_launches = phase_train_main_path(smi, cfg, tokenizer, train_batches, out_dir)
+        train_launches = timed("train_main_path", phase_train_main_path, smi, cfg, tokenizer,
+                               train_batches, out_dir)
         free()
         flamingo = {}
         for hoisted in (False, True):
-            flamingo[hoisted] = phase_flamingo_train_main_path(
-                smi, fl_cfg, fl_tokenizer, fl_batches, out_dir, hoisted)
+            flamingo[hoisted] = timed(
+                "flamingo_train_hoisted" if hoisted else "flamingo_train",
+                phase_flamingo_train_main_path, smi, fl_cfg, fl_tokenizer, fl_batches, out_dir,
+                hoisted)
             free()
-        phase_multisteps_small(out_dir)
-        job, dataset_launches = phase_flamingo_dataset_train(smi, out_dir)
-        phase_prefetch(smi, job)
+        timed("multisteps_small", phase_multisteps_small, out_dir)
+        job, dataset_launches = timed("flamingo_dataset_train", phase_flamingo_dataset_train,
+                                      smi, out_dir)
+        timed("prefetch", phase_prefetch, smi, job)
         del job
         free()
-        job, lora_launches = phase_flamingo_lora_train(smi, out_dir)
-        no_remat_launches = phase_remat_ab(smi, job)
+        job, lora_launches = timed("flamingo_lora_train", phase_flamingo_lora_train, smi,
+                                   out_dir)
+        no_remat_launches = timed("remat_ab", phase_remat_ab, smi, job)
         del job
         free()
     log({"phase": "flamingo_kernel_excess", "card": smi,
          **flamingo_kernel_excess(fwd_cases, bwd_cases, int(fl_cfg.gradient_accumulation_steps))})
-    avh_cli = phase_avhubert_cli(smi)
-    avh = phase_avhubert_train_main_path(smi)
+    avh_cli = timed("avhubert_cli", phase_avhubert_cli, smi)
+    avh = timed("avhubert_train", phase_avhubert_train_main_path, smi)
     free()
-    eval_smoke = phase_evaluate_cli_smoke(smi)
-    avh_smoke = phase_avhubert_cli_smoke(smi)
+    pre, pre_batch, dense_step = timed("pretrain_main_path", phase_pretrain_main_path, smi)
     free()
+    pre_moe = timed("pretrain_moe", phase_pretrain_moe, smi, pre_batch, dense_step)
+    del pre_batch
+    free()
+    eval_smoke = timed("evaluate_cli_smoke", phase_evaluate_cli_smoke, smi)
+    avh_smoke = timed("avhubert_cli_smoke", phase_avhubert_cli_smoke, smi)
+    pre_smoke = timed("pretrain_cli_smoke", phase_pretrain_cli_smoke, smi)
+    free()
+    log({"phase": "phase_seconds", "card": smi, "seconds": phase_seconds,
+         "sum_s": round(sum(phase_seconds.values()), 3),
+         "script_s": round(time.perf_counter() - T_START, 3)})
 
     def entry(name, lib, source, replaces, cases, launches):
         case = cases[0]
@@ -4486,7 +4948,12 @@ def main() -> int:
                "avhubert_ctc_eval": avh["ctc_eval"][0],
                "evaluate_teacher_forced": eval_launches["teacher_forced"],
                "evaluate_beam": eval_launches["beam"], "evaluate_cli_smoke": eval_smoke[0],
-               "avhubert_cli_smoke": avh_smoke[0]}),
+               "avhubert_cli_smoke": avh_smoke[0], "pretrain_small_reference": pre_small[0],
+               "pretrain_training": pre["train"][0], "pretrain_eval": pre["eval"][0],
+               "pretrain_relabel": pre["relabel"][0], "pretrain_moe_training": pre_moe["train"][0],
+               "pretrain_moe_eval": pre_moe["eval"][0],
+               "pretrain_moe_relabel": pre_moe["relabel"][0],
+               **{name: counts[0] for name, counts in pre_smoke.items()}}),
         entry("flash_attention_bwd", "flash_attn_bwd", "avsl_tpu_torch/csrc/flash_attn_bwd.cu",
               "avsl_tpu/kernels/attention.py:159", bwd_cases,
               {"serving": 0, "av_serving": 0, "av_raw_serving": 0, "serving_daemon": 0,
@@ -4504,7 +4971,13 @@ def main() -> int:
                "avhubert_training": avh["train"][1], "avhubert_eval": avh["eval"][1],
                "avhubert_ctc_eval": avh["ctc_eval"][1],
                "evaluate_teacher_forced": 0, "evaluate_beam": 0,
-               "evaluate_cli_smoke": eval_smoke[1], "avhubert_cli_smoke": avh_smoke[1]}),
+               "evaluate_cli_smoke": eval_smoke[1], "avhubert_cli_smoke": avh_smoke[1],
+               "pretrain_small_reference": pre_small[1], "pretrain_training": pre["train"][1],
+               "pretrain_eval": pre["eval"][1], "pretrain_relabel": pre["relabel"][1],
+               "pretrain_moe_training": pre_moe["train"][1],
+               "pretrain_moe_eval": pre_moe["eval"][1],
+               "pretrain_moe_relabel": pre_moe["relabel"][1],
+               **{name: counts[1] for name, counts in pre_smoke.items()}}),
     ]})
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -217,14 +217,20 @@ def test_torch_avhubert_refuses_what_is_not_ported(video_encoder):
     # a video-only tower ignores audio, as the JAX wrapper does
     with torch.inference_mode():
         assert torch.equal(port(audio=torch.zeros(3, 7, 104), video=clip), port(video=clip))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        AVHuBERTEncoderWrapper(AVHuBERTConfig.tiny_test(n_experts=2))  # the MoE FFN
+    # the MoE FFN is ported (models/moe.py): each block's MLP is the MoE
+    moe = AVHuBERTEncoderWrapper(AVHuBERTConfig.tiny_test(n_experts=2))
+    assert all(type(layer.mlp).__name__ == "MoEFFN" for layer in moe.encoder.layers)
     # the training draws follow the module's mode; an explicit flag must agree
     with pytest.raises(ValueError, match="deterministic=False in eval mode"):
         port(video=clip, deterministic=False)
+    # span masking is ported: in training apply_time_mask draws a mask
     port.train()
     try:
-        with pytest.raises(NotImplementedError, match="item 12"):
-            port(video=clip, apply_time_mask=True, generator=torch.Generator().manual_seed(0))
+        with torch.no_grad():
+            masked = port(video=clip, apply_time_mask=True, use_running_average=True,
+                          generator=torch.Generator().manual_seed(0))
+            plain = port(video=clip, use_running_average=True,
+                         generator=torch.Generator().manual_seed(0))
+        assert bool(torch.isfinite(masked).all()) and not torch.equal(masked, plain)
     finally:
         port.eval()

@@ -145,9 +145,11 @@ def test_torch_avhubert_ft_cli_smoke_on_cpu(head, capsys):
         assert len(out["ctc_decoded_lens"]) == 4 and np.isfinite(out["ctc_mean_logprob"])
 
 
-@pytest.mark.parametrize("flag", [["--n_experts", "2"], ["--model_parallel", "2"],
-                                  ["--experts_parallel", "2"]])
+@pytest.mark.parametrize("flag", [["--n_experts", "2", "--experts_parallel", "2"],
+                                  ["--model_parallel", "2"], ["--experts_parallel", "2"]])
 def test_torch_avhubert_ft_cli_refuses_the_parallel_layer(flag):
+    # --n_experts alone trains (tests/test_torch_pretrain_cli.py); with the
+    # expert-parallel mesh it raises, naming item 12c
     with pytest.raises(NotImplementedError, match="item 12"):
         avhubert_ft.main(["--smoke", "--device", "cpu", *flag])
 

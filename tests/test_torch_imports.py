@@ -58,6 +58,15 @@ DATASET_LAYER = {
     "avsl_tpu_torch.data.dataset_process",
 }
 
+# span masks, the MoE FFN and masked-cluster pretraining: their own copies
+# of avsl_tpu/models/{moe,pretrain}.py, data/clustering.py and
+# cli/pretrain.py, and the collector that stands in for flax's sow
+PRETRAINING = {
+    "avsl_tpu_torch.models.moe", "avsl_tpu_torch.models.pretrain",
+    "avsl_tpu_torch.models.intermediates", "avsl_tpu_torch.data.clustering",
+    "avsl_tpu_torch.cli.pretrain",
+}
+
 
 def test_torch_port_imports_no_jax():
     code = (
@@ -80,6 +89,7 @@ def test_torch_port_imports_no_jax():
     assert SERVING_EXTRAS <= set(ALL_SUBMODULES)
     assert TRAINING_EXTRAS <= set(ALL_SUBMODULES)
     assert DATASET_LAYER <= set(ALL_SUBMODULES)
+    assert PRETRAINING <= set(ALL_SUBMODULES)
 
 
 def test_torch_port_imports_no_cv2():
@@ -87,7 +97,7 @@ def test_torch_port_imports_no_cv2():
     the port, the video tower, the lip-feature loader and the dataset
     layer included, must import none of them."""
     assert {"avsl_tpu_torch.models.resnet3d", "avsl_tpu_torch.models.avhubert",
-            "avsl_tpu_torch.data.video_io"} | DATASET_LAYER <= set(ALL_SUBMODULES)
+            "avsl_tpu_torch.data.video_io"} | DATASET_LAYER | PRETRAINING <= set(ALL_SUBMODULES)
     code = (
         "import importlib, sys\n"
         f"for name in {ALL_SUBMODULES!r}:\n"

@@ -296,13 +296,15 @@ def test_torch_flamingo_schema_matches_jax():
 def test_torch_factory_refuses_gated_x_attn():
     """add_gated_x_attn=1 now builds the Flamingo model, with zero gates at
     initialisation, the AV-HuBERT tower as its video model and every other
-    block's sublayers; what the factory still refuses is an MoE tower."""
+    block's sublayers; an MoE tower (models/moe.py) builds too."""
     port, cfg = build_whisper_flamingo("test", add_gated_x_attn=1, device="cpu")
     assert cfg.video_state == AVHuBERTConfig.tiny_test().hidden_size
     assert port.video_model.cfg.use_audio is False and port.video_model.cfg.modality_fuse == "add"
     gates = [p for n, p in port.named_parameters() if n.endswith("_gate")]
     assert len(gates) == 2 * cfg.n_text_layer and all(g.dtype == torch.float32 for g in gates)
     assert not any(bool(g.detach().any()) for g in gates)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        build_whisper_flamingo("test", add_gated_x_attn=1, device="cpu",
-                               av_hubert_cfg=AVHuBERTConfig.tiny_test(n_experts=2))
+    moe, _ = build_whisper_flamingo("test", add_gated_x_attn=1, device="cpu",
+                                    av_hubert_cfg=AVHuBERTConfig.tiny_test(n_experts=2))
+    routers = [p for n, p in moe.named_parameters() if n.endswith(".mlp.router")]
+    assert len(routers) == AVHuBERTConfig.tiny_test().num_hidden_layers
+    assert all(bool(r.detach().any()) for r in routers)
