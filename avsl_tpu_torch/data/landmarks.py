@@ -1,9 +1,8 @@
-"""68-point landmark detectors without a learned model.
+"""68-point landmark detectors: model-free ones and the CNN regressor.
 
-Port of ``avsl_tpu/data/landmarks.py`` without its CNN regressor (which no
-lip-cropping mode calls; ROADMAP.md queue 1, item 14). Every detector
-returns, per frame, a [68, 2] float (x, y) array or None (no detection),
-the contract :func:`avsl_tpu_torch.data.lip_roi.extract_lip_clip` takes:
+Port of ``avsl_tpu/data/landmarks.py``. Every detector returns, per
+frame, a [68, 2] float (x, y) array or None (no detection), the contract
+:func:`avsl_tpu_torch.data.lip_roi.extract_lip_clip` takes:
 
 * :class:`EnergyBoxDetector`: a face box from a centre-weighted
   gradient-energy profile, the canonical layout scaled into it;
@@ -13,6 +12,11 @@ the contract :func:`avsl_tpu_torch.data.lip_roi.extract_lip_clip` takes:
 * :class:`BatchedMotionDetector`: the same over a clip batch with the
   dense maps and the detection logic on a device (``_device_maps_fn``,
   ``_device_detect_fn``);
+* :class:`CNNLandmarkDetector`: the conv regressor :class:`LandmarkNet`
+  over the clip in one batch on a device, with the weights shipped as
+  ``data/assets/landmark_cnn.npz`` (flax's layout, shared with the JAX
+  package: :func:`cnn_state_dict_from_flax` and
+  :func:`cnn_state_dict_to_flax` carry them across);
 * :class:`AnchorTrackDetector`: a mid-clip anchor tracked both ways by
   normalised cross-correlation (OpenCV);
 * :class:`PrecomputedLandmarks`: landmarks served from arrays.
@@ -23,10 +27,13 @@ are torch and run where their inputs are, in float32.
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Union
+import os
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Union
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch import nn
 
 from avsl_tpu_torch.data.lip_roi import canonical_mean_face
 from avsl_tpu_torch.kernels.stats import nanmedian, nanquantile
@@ -483,6 +490,175 @@ class BatchedMotionDetector:
         return out
 
 
+# the CNN regressor: five 3x3 stride-2 convolutions (flax 'SAME' padding),
+# a ReLU after each, then Dense 256, ReLU, Dense 136 and a sigmoid
+CNN_FEATURES = (16, 32, 64, 128, 128)
+CNN_INPUT = 128
+# flax module names of the layers, in order, and the port's
+_FLAX_CNN_LAYERS = tuple(f"Conv_{i}" for i in range(len(CNN_FEATURES))) + ("Dense_0", "Dense_1")
+_TORCH_CNN_LAYERS = tuple(f"convs.{i}" for i in range(len(CNN_FEATURES))) + ("dense_0", "dense_1")
+
+
+def _same_pad(size: int, kernel: int = 3, stride: int = 2):
+    """XLA's 'SAME' padding of one axis, (before, after): the odd unit goes
+    after, so a stride-2 3x3 convolution of an even side pads (0, 1)."""
+    total = max((-(-size // stride) - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+class LandmarkNet(nn.Module):
+    """The CNN landmark regressor (JAX ``landmark_net``'s module):
+    [B, 128, 128, 1] grey levels in [0, 1], NHWC as the flax module takes
+    them -> [B, 68, 2] (x, y) in [0, 1]. Each convolution pads as flax's
+    'SAME' does (see :func:`_same_pad`), and the [B, 4, 4, 128] features
+    are flattened in flax's NHWC order before ``dense_0``."""
+
+    def __init__(self, device=None):
+        super().__init__()
+        chans = (1,) + CNN_FEATURES
+        self.convs = nn.ModuleList(nn.Conv2d(a, b, 3, stride=2, device=device)
+                                   for a, b in zip(chans, chans[1:]))
+        side = CNN_INPUT // 2 ** len(CNN_FEATURES)
+        self.dense_0 = nn.Linear(CNN_FEATURES[-1] * side * side, 256, device=device)
+        self.dense_1 = nn.Linear(256, 136, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.permute(0, 3, 1, 2)
+        for conv in self.convs:
+            (top, bottom), (left, right) = _same_pad(x.shape[2]), _same_pad(x.shape[3])
+            x = F.relu(conv(F.pad(x, (left, right, top, bottom))))
+        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
+        x = self.dense_1(F.relu(self.dense_0(x)))
+        return torch.sigmoid(x).reshape(-1, 68, 2)
+
+
+@torch.no_grad()
+def landmark_net(device: Union[str, torch.device] = "cuda", seed: int = 0) -> LandmarkNet:
+    """A :class:`LandmarkNet` on ``device`` with random weights from a
+    generator seeded with ``seed``: fan-in-scaled normal kernels (flax's
+    lecun-normal scale, not its draw) and zero biases."""
+    from avsl_tpu_torch.core.device import resolve_device
+
+    dev = resolve_device(device)
+    net = LandmarkNet(device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    for name in _TORCH_CNN_LAYERS:
+        layer = net.get_submodule(name)
+        layer.weight.normal_(0.0, 1.0 / float(np.sqrt(layer.weight[0].numel())), generator=gen)
+        layer.bias.zero_()
+    return net
+
+
+def cnn_state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A flax ``landmark_net`` param tree (numpy or jax leaves, with or
+    without the ``params`` level) -> the fp32 state dict of
+    :class:`LandmarkNet`: conv kernels [kh, kw, in, out] to [out, in, kh,
+    kw], dense kernels [in, out] to [out, in]."""
+    tree = params.get("params", params)
+    sd: Dict[str, torch.Tensor] = {}
+    for flax_name, name in zip(_FLAX_CNN_LAYERS, _TORCH_CNN_LAYERS):
+        kernel = np.asarray(tree[flax_name]["kernel"], np.float32)
+        kernel = kernel.transpose(3, 2, 0, 1) if kernel.ndim == 4 else kernel.T
+        sd[f"{name}.weight"] = torch.from_numpy(np.ascontiguousarray(kernel))
+        sd[f"{name}.bias"] = torch.from_numpy(np.array(tree[flax_name]["bias"], np.float32))
+    return sd
+
+
+def cnn_state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]
+                           ) -> Dict[str, Dict[str, Dict[str, np.ndarray]]]:
+    """The inverse of :func:`cnn_state_dict_from_flax`: ``{"params":
+    {"Conv_0": {"kernel", "bias"}, ..., "Dense_1": {...}}}`` of fp32 numpy
+    arrays, the tree ``landmark_net().apply`` takes."""
+    out: Dict[str, Dict[str, np.ndarray]] = {}
+    for flax_name, name in zip(_FLAX_CNN_LAYERS, _TORCH_CNN_LAYERS):
+        weight = state_dict[f"{name}.weight"].detach().cpu().float().numpy()
+        kernel = weight.transpose(2, 3, 1, 0) if weight.ndim == 4 else weight.T
+        out[flax_name] = {"kernel": np.ascontiguousarray(kernel),
+                          "bias": state_dict[f"{name}.bias"].detach().cpu().float().numpy()}
+    return {"params": out}
+
+
+DEFAULT_CNN_WEIGHTS = os.path.join(
+    os.path.dirname(os.path.abspath(__file__)), "assets", "landmark_cnn.npz"
+)
+
+
+def save_cnn_params(state_dict: Mapping[str, torch.Tensor], path: str) -> None:
+    """Save :class:`LandmarkNet` weights as the JAX package's flat ``.npz``
+    (flax's "/"-joined keys, ``params/Conv_0/kernel`` ...
+    ``params/Dense_1/bias``, in flax's layouts): a plain-array format
+    with no code-execution surface (unlike pickle), which either package
+    loads."""
+    flat = {f"params/{layer}/{leaf}": value
+            for layer, leaves in cnn_state_dict_to_flax(state_dict)["params"].items()
+            for leaf, value in leaves.items()}
+    np.savez_compressed(path, **flat)
+
+
+def load_cnn_params(path: str) -> Dict[str, torch.Tensor]:
+    """Load a flat ``.npz`` weight file (either package's) as the state
+    dict of :class:`LandmarkNet`."""
+    tree: dict = {}
+    with np.load(path) as z:
+        for key in z.files:
+            node = tree
+            parts = key.split("/")
+            for part in parts[:-1]:
+                node = node.setdefault(part, {})
+            node[parts[-1]] = z[key]
+    return cnn_state_dict_from_flax(tree)
+
+
+class CNNLandmarkDetector(LandmarkDetector):
+    """Conv landmark regressor batched over the clip (one forward on
+    ``device``).
+
+    Loads the synthetic-face-pretrained weights shipped under
+    data/assets/landmark_cnn.npz when present (train with
+    ``python -m avsl_tpu_torch.cli.train_landmarks``), else ``weights_path``
+    or ``params`` (a state dict); random weights from ``seed`` otherwise.
+
+    Documented departure: the JAX detector resizes every frame to 128 x
+    128 with ``cv2.resize``; here frames that are already 128 x 128 are
+    not resized (OpenCV's resize to the same size is the identity), so
+    such clips need no OpenCV, which a card's host may lack. Frames are
+    cast to uint8 first, as in JAX.
+    """
+
+    INPUT = CNN_INPUT
+
+    def __init__(self, params: Optional[Mapping[str, torch.Tensor]] = None, seed: int = 0,
+                 weights_path: Optional[str] = None,
+                 device: Union[str, torch.device] = "cuda"):
+        self.net = landmark_net(device, seed).eval()
+        self.device = next(self.net.parameters()).device
+        if params is None:
+            path = weights_path or (
+                DEFAULT_CNN_WEIGHTS if os.path.exists(DEFAULT_CNN_WEIGHTS) else None
+            )
+            if path:
+                params = load_cnn_params(path)
+        if params is not None:
+            self.net.load_state_dict(params)
+
+    def load_params(self, path: str) -> None:
+        self.net.load_state_dict(load_cnn_params(path))
+
+    @torch.no_grad()
+    def __call__(self, frames: np.ndarray) -> List[Optional[np.ndarray]]:
+        t, h, w = frames.shape
+        frames = frames.astype(np.uint8)
+        if (h, w) != (self.INPUT, self.INPUT):
+            import cv2
+
+            frames = np.stack([cv2.resize(f, (self.INPUT, self.INPUT)) for f in frames])
+        x = torch.from_numpy(frames).to(self.device, torch.float32)[..., None] / 255.0
+        norm = self.net(x).cpu().numpy()  # [T, 68, 2] in [0, 1]
+        scaled = norm * np.array([w, h], np.float32)
+        return [scaled[i] for i in range(t)]
+
+
 class AnchorTrackDetector(LandmarkDetector):
     """Mid-clip anchor and bidirectional NCC mouth tracking (OpenCV).
 
@@ -567,16 +743,14 @@ class PrecomputedLandmarks(LandmarkDetector):
 
 
 def create_detector(kind: str = "energy", **kw) -> LandmarkDetector:
-    """Detector factory by name: ``motion``, ``energy``, ``anchor_track``
-    or ``refined``. The CNN regressor (``cnn``) is not ported."""
+    """Detector factory by name: ``motion``, ``energy``, ``cnn``,
+    ``anchor_track`` or ``refined``."""
     if kind == "motion":
         return MotionEnergyDetector(**kw)
     if kind == "energy":
         return EnergyBoxDetector(**kw)
     if kind == "cnn":
-        raise NotImplementedError(
-            "the CNN landmark detector is not ported yet (ROADMAP.md queue 1, item 14)"
-        )
+        return CNNLandmarkDetector(**kw)
     if kind == "anchor_track":
         return AnchorTrackDetector(**kw)
     if kind == "refined":

@@ -228,7 +228,9 @@ def ctc_forced_align(
     states = np.empty(T, np.int64)
     for t in range(T - 1, -1, -1):
         states[t] = s
-        s -= bp[t, s]
+        # a Python int: int8 arithmetic would overflow past state 127 (64+
+        # tokens), where the JAX package's copy raises under numpy 2
+        s -= int(bp[t, s])
 
     spans: List[Optional[List[int]]] = [None] * L
     for t, st in enumerate(states.tolist()):

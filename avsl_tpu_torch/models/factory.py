@@ -3,10 +3,11 @@ AV-HuBERT video encoder, and AV-HuBERT with its seq2seq or CTC head.
 
 Port of ``avsl_tpu/models/factory.py`` (``make_av_hubert_video_encoder``
 and ``build_whisper_flamingo``), for serving and for training, plus the
-builders of the two AV-HuBERT heads that ``cli/avhubert_ft.py`` trains
-and of the pretraining model ``cli/pretrain.py`` trains (the JAX CLIs
-construct ``AVHuBERTForSpeech2Text`` / ``AVHuBERTForCTC`` /
-``AVHuBERTForPretraining`` themselves).
+builders of the two AV-HuBERT heads that ``cli/avhubert_ft.py`` trains,
+of the pretraining model ``cli/pretrain.py`` trains and of the bare
+encoder ``cli/extract.py`` taps (the JAX CLIs construct
+``AVHuBERTForSpeech2Text`` / ``AVHuBERTForCTC`` /
+``AVHuBERTForPretraining`` / ``AVHuBERTModel`` themselves).
 """
 
 from __future__ import annotations
@@ -110,17 +111,20 @@ def build_avhubert(
     device: Union[str, torch.device] = "cuda",
     seed: int = 0,
     num_classes: Sequence[int] = (500,),
-) -> Union[AVHuBERTForSpeech2Text, AVHuBERTForCTC, AVHuBERTForPretraining]:
+) -> Union[AVHuBERTForSpeech2Text, AVHuBERTForCTC, AVHuBERTForPretraining,
+           AVHuBERTModel]:
     """AV-HuBERT with its ``head`` ("seq2seq": :class:`AVHuBERTForSpeech2Text`,
     "ctc": :class:`AVHuBERTForCTC`, "pretrain":
     :class:`~avsl_tpu_torch.models.pretrain.AVHuBERTForPretraining` over
-    codebooks of ``num_classes``) on ``device``, random weights from a
+    codebooks of ``num_classes``, "encoder": the bare
+    :class:`AVHuBERTModel`) on ``device``, random weights from a
     ``torch.Generator`` there seeded with ``seed`` (see
     :func:`~avsl_tpu_torch.models.avhubert.init_weights`); returned in eval
     mode. Weights live in ``cfg.param_dtype`` and compute runs in
     ``cfg.dtype``."""
     classes = {"seq2seq": AVHuBERTForSpeech2Text, "ctc": AVHuBERTForCTC,
-               "pretrain": functools.partial(AVHuBERTForPretraining, num_classes=num_classes)}
+               "pretrain": functools.partial(AVHuBERTForPretraining, num_classes=num_classes),
+               "encoder": AVHuBERTModel}
     if head not in classes:
         raise ValueError(f"head {head!r}: expected one of {sorted(classes)}")
     dev = resolve_device(device)

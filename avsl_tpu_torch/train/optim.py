@@ -24,7 +24,8 @@ it, the JAX CLI's accumulation across bucketed batches of varying size.
 :func:`lora_optimizer` is the LoRA regime's (every adapter trains, no
 weight decay) and :func:`constant_adamw` is ``optax.adamw(lr,
 weight_decay=wd)``, which draft distillation uses: the same class with a
-constant schedule and no clip.
+constant schedule and no clip. :func:`warmup_cosine_decay` is optax's
+``warmup_cosine_decay_schedule``, which the landmark CNN trains on.
 """
 
 from __future__ import annotations
@@ -81,6 +82,30 @@ def linear_warmup_decay(lr: float, warmup_steps: int, total_steps: int) -> Sched
         if count < warm:
             return linear(0.0, lr, warm, count)
         return linear(lr, 0.0, decay, count - warm)
+
+    return schedule
+
+
+def warmup_cosine_decay(init_value: float, peak_value: float, warmup_steps: int,
+                        decay_steps: int) -> Schedule:
+    """optax ``warmup_cosine_decay_schedule`` (end value 0, exponent 1) in
+    fp32: linear from ``init_value`` to ``peak_value`` over
+    ``warmup_steps`` updates, then a cosine from ``peak_value`` to 0 over
+    ``decay_steps - warmup_steps`` (0 after). Raises ValueError, as optax
+    does, unless ``decay_steps > warmup_steps``."""
+    steps = decay_steps - warmup_steps
+    if not steps > 0:
+        raise ValueError(f"warmup_cosine_decay needs decay_steps > warmup_steps, got "
+                         f"{decay_steps=} and {warmup_steps=}")
+    f32 = np.float32
+
+    def schedule(count: int) -> float:
+        if count < warmup_steps:  # optax polynomial_schedule, power 1
+            frac = f32(1.0) - f32(min(max(count, 0), warmup_steps)) / f32(warmup_steps)
+            return float(f32(init_value - peak_value) * frac + f32(peak_value))
+        c = f32(min(count - warmup_steps, steps))
+        cosine = f32(0.5) * (f32(1.0) + np.cos(f32(np.pi) * c / f32(steps)))
+        return float(f32(peak_value) * cosine)
 
     return schedule
 

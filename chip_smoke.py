@@ -96,8 +96,8 @@ raises on failure:
    against CPU after every micro-step), ``flamingo_dataset_train`` (the
    training YAML through ``cli.finetune.make_job`` and ``run``, what the
    CLI's ``main`` runs once ``load_datasets`` has read the splits, here on
-   128 seeded rows held in memory, a quarter at 44.1 or 48 kHz, 8 val and
-   8 test: 2 optimizer steps of 16 bucketed micro-batches, validation and
+   128 seeded rows held in memory, a quarter at 44.1 or 48 kHz, 4 val and
+   4 test: 2 optimizer steps of 16 bucketed micro-batches, validation and
    ``test_best``, with exact K1/K2 launches a micro-step and an eval batch,
    frozen tensors bit-identical, trained tensors still between updates,
    every distinct K1 and K2 launch shape of the run against the plain
@@ -108,7 +108,7 @@ raises on failure:
    before it is freed): ``TranscriptionServer`` on 127.0.0.1 at batch 8,
    16 concurrent 10 s requests (8 over HTTP as base64 PCM, 8 with lip
    features through ``submit``) against the transcriber's ``transcribe``
-   on the same items, a 60 s ``long`` request, a 30 s streaming session
+   on the same items, a 60 s ``long`` request, a 15 s streaming session
    through the daemon, and the temperature fallback, word timestamps,
    phrase boosting and language ID on a batch each, with K1's launches
    gated around each, every reply held to 200 with no error or rejection,
@@ -177,7 +177,24 @@ raises on failure:
    both heads), each with exact K1/K2 counts. The depth of the LoRA,
    dataset, remat and distillation phases was cut to make room (see
    LORA_STEPS, DATASET_STEPS, REMAT_AB_ACCUM, DISTILL_STEPS). Each
-   phase's seconds are logged as ``phase_seconds``.
+   phase's seconds are logged as ``phase_seconds``;
+16. the AV-HuBERT tools, the landmark CNN and the preflight, last:
+   ``avh_tools_main_path`` (``cli.extract``, default tap and ``--layer
+   12``, and ``cli.align`` at full width on 8 seeded AMI-like 2-10 s rows
+   without lip clips: K1 exactly 24, 12 and 24 a row at [1, 16, Tb, Tb,
+   64] with no key lengths, every launch shape against the plain version,
+   segments/s, seconds a row and peak memory), ``avh_tools_card_vs_cpu``
+   (the tiny card in fp32 through ``cli.extract`` and ``cli.align`` on the
+   ``--smoke`` input, on the card against ``--device cpu`` from one
+   checkpoint each), ``landmark_cnn``
+   (``CNNLandmarkDetector`` on the shipped weights over JAX's 48 held-out
+   faces, card against CPU and against the exact labels, then
+   ``cli.train_landmarks`` 300 steps on 2,048 faces) and ``doctor``
+   (``cli.doctor`` with and without ``--config``: rc 0, no FAIL, one K1
+   launch each). To make room, the daemon's live stream was cut from 30 to
+   STREAM_SECONDS, the dataset path's val and test rows from 8 to 4 each
+   (DATASET_ROWS, shared by the LoRA phase) and the export phase's timing
+   to one round of live and replay.
 
 Each model is freed before the next one is built. It prints the kernel
 list, the card's name and power limit and, last,
@@ -1999,7 +2016,9 @@ RESAMPLE_ITEMS, RESAMPLE_SECONDS = 8, 10
 RESAMPLE_TOL = 1e-5
 # rows as cli/finetune's load_datasets gives them (train, val, test), fed in
 # memory: the card's machine has no `datasets` package and no OpenCV
-DATASET_ROWS = (128, 8, 8)
+# train, val and test rows (val and test were 8 before the AV-HuBERT tools'
+# phases: cut to make room for them)
+DATASET_ROWS = (128, 4, 4)
 DATASET_STEPS = 2
 # tiny Flamingo under MultiSteps: bucketed micro-batches of these sizes
 MULTISTEPS_SIZES = (3, 1, 2, 4, 2, 3)
@@ -2214,7 +2233,7 @@ def phase_flamingo_dataset_train(card: str, out_dir: str):
     ``load_datasets`` has run) on the training YAML: large-v2 + AV-HuBERT
     large, bf16 compute, batch 1 under a token budget of 1000 frames, so
     micro-batches of 1 to 10 items, accumulation 16 through MultiSteps.
-    128 seeded train rows (a quarter at 44.1 or 48 kHz), 8 val and 8 test;
+    128 seeded train rows (a quarter at 44.1 or 48 kHz), 4 val and 4 test;
     DATASET_STEPS (2) optimizer steps (32 micro-batches), validation once at the end,
     ``test_best`` on the test rows. Gates: K1 and K2 launches equal to the
     count per micro-step and per eval batch, frozen tensors bit-identical,
@@ -2239,7 +2258,6 @@ def phase_flamingo_dataset_train(card: str, out_dir: str):
     cfg.num_sanity_val_steps = 0
     cfg.log_output_dir = os.path.join(out_dir, "dataset_logs")
     cfg.check_output_dir = os.path.join(out_dir, "dataset_ckpt")  # emptied after each run
-    n_train, n_val, n_test = DATASET_ROWS
     rows = [dataset_rows(n, seed) for n, seed in zip(DATASET_ROWS, (20, 21, 22))]
     t0 = time.perf_counter()
     job = finetune.make_job(cfg, *rows, "cuda", vocab_size=LARGE_V2_VOCAB)
@@ -3259,6 +3277,11 @@ def timed_calls(owner, *names):
         spent.extend(start.elapsed_time(end) / 1e3 for start, end in spans)
 
 
+# the daemon's live stream (30 s before the AV-HuBERT tools' phases: cut
+# to make room for them)
+STREAM_SECONDS = 15.0
+
+
 def daemon_items(n: int, n_video: int, seed: int):
     """``n`` requests of exactly 10 s of seeded noise PCM; the first
     ``n_video`` carry 150-250 frames of seeded lip features."""
@@ -3329,7 +3352,8 @@ def serving_daemon_parts(card: str, model, serve_cfg):
     audio-only over HTTP with base64 PCM and 8 with lip features through
     ``submit``, against the transcriber's own ``transcribe`` on the same
     items; (b) one ``long`` request of 60 s with 0.5 s pauses; (c) a
-    ``StreamingSession`` routed through the daemon, 30 s in 0.32 s chunks;
+    ``StreamingSession`` routed through the daemon, STREAM_SECONDS (15 s)
+    in 0.32 s chunks;
     (d) the temperature fallback at (0.2, 0.4), (e) word timestamps (with
     the boost, so that random weights decode words), (f) 20 boosted
     phrases, each on 8 of the items, and (g) language ID on 8 clips. K1's launches are gated around (a), (b), (d), (e), (f) and (g)
@@ -3451,7 +3475,7 @@ def serving_daemon_parts(card: str, model, serve_cfg):
                 raise AssertionError("serving_daemon: a streamed utterance failed")
             return [p.result for p in ps]
 
-        stream_pcm, _ = bursts_with_pauses(30.0, (5.0, 7.0), 0.6, seed=5)
+        stream_pcm, _ = bursts_with_pauses(STREAM_SECONDS, (5.0, 7.0), 0.6, seed=5)
         sess = StreamingSession(tr, stream_id="live", transcribe_fn=via_server)
         t0 = time.perf_counter()
         stream_segs, chunk = [], 5120  # 0.32 s
@@ -3460,7 +3484,7 @@ def serving_daemon_parts(card: str, model, serve_cfg):
         stream_segs += sess.flush()
         stream_s = time.perf_counter() - t0
         ordered = all(a.end_s <= b.start_s + 1e-6 for a, b in zip(stream_segs, stream_segs[1:]))
-        rec["streaming"] = {"seconds_of_audio": 30.0, "chunk_s": 0.32,
+        rec["streaming"] = {"seconds_of_audio": STREAM_SECONDS, "chunk_s": 0.32,
                             "utterances": len(stream_segs), "seconds": stream_s,
                             "ordered": ordered,
                             "spans": [[s.start_s, s.end_s] for s in stream_segs]}
@@ -3604,14 +3628,16 @@ def extras_breakdown(tr, prep, batch_seconds: float, traced_steps: int = 16) -> 
             "traced_decode": traced}
 
 
-def timed_in_turns(runs: dict, k1: dict) -> dict:
+def timed_in_turns(runs: dict, k1: dict, rounds: int = 2) -> dict:
     """Each of ``runs`` (name -> a function that runs one batch) timed
-    twice, in the order given and then reversed (A B C C B A), so that a
-    drift of the host is shared; each run's K1 launches gated to ``k1``'s
-    count for its name, with no row statistics and no K2. Returns per name
-    the two seconds, their mean, the K1 launches of each run and of the
-    last, the peak device memory of its runs and the last run's output."""
-    order = list(runs) + list(reversed(runs))
+    ``rounds`` times, in the order given and then reversed (A B C C B A),
+    so that a drift of the host is shared; each run's K1 launches gated to
+    ``k1``'s count for its name, with no row statistics and no K2. Returns
+    per name the seconds of each run, their mean, the K1 launches of each
+    run and of the last, the peak device memory of its runs and the last
+    run's output."""
+    order = [name for r in range(rounds) for name in (list(runs) if r % 2 == 0
+                                                       else list(reversed(runs)))]
     out = {name: {"seconds": [], "k1_per_run": [], "peak_bytes": 0} for name in runs}
     for name in order:
         torch.cuda.reset_peak_memory_stats()
@@ -4001,9 +4027,10 @@ def phase_serving_extras_export(card: str) -> int:
         call(audio, video, live._prompt)
         torch.cuda.synchronize()
     layers = w_cfg.n_audio_layer
+    # one round (live, replay; two before the AV-HuBERT tools' phases)
     runs = timed_in_turns({"live": lambda: live._run(prep.audio, prep.video),
                            "replay": lambda: call(audio, video, live._prompt)},
-                          {"live": layers, "replay": layers})
+                          {"live": layers, "replay": layers}, rounds=1)
     want, got = runs["live"]["result"], runs["replay"]["result"]
     live_s, replay_s = runs["live"]["seconds_per_batch"], runs["replay"]["seconds_per_batch"]
     traced_k1 = sum(1 for e in prof.profiler.kineto_results.events()
@@ -4731,6 +4758,333 @@ def phase_avhubert_cli_smoke(card: str) -> tuple:
     return k1, k2
 
 
+# the AV-HuBERT tools, the landmark CNN and the preflight
+AVH_TOOLS_ROWS, AVH_TOOLS_SECONDS = 8, (2.0, 10.0)
+LANDMARK_HELD_OUT_SEED = 20260820
+# the CLI's batch 64, its data and steps cut from 20,000 + 1,000 and 3,000
+LANDMARK_TRAIN_ARGS = ["--n_train", "2048", "--n_val", "256", "--steps", "300"]
+LANDMARK_PX_TOL = 1e-4
+# the WARNs the preflight may give on a card's host (no libav headers, no OpenCV)
+DOCTOR_WARNS_ALLOWED = ("native media decoder", "video IO fallback chain")
+
+
+def avh_tool_rows(d: str, n: int, seed: int):
+    """``n`` AMI-like segments in ``d``: 2-10 s of seeded noise written by
+    the port's ``write_wav``, each with a transcript of meeting vocabulary
+    of at most a third as many bytes (byte-level tokens) as it has 25 Hz
+    frames, room for the blanks between repeated letters. Returns the
+    CSV's path (id, audio, text; no video column, so each row takes the
+    zero-clip branch) and the rows."""
+    import csv
+    import os
+
+    from avsl_tpu_torch.data.audio_segments import write_wav
+
+    rng = np.random.default_rng(seed)
+    rows = []
+    for i in range(n):
+        dur = float(rng.uniform(*AVH_TOOLS_SECONDS))
+        pcm = (0.1 * rng.standard_normal(int(dur * 16000))).astype(np.float32)
+        rows.append({"id": f"seg{i}", "audio": write_wav(os.path.join(d, f"seg{i}.wav"), pcm),
+                     "text": " " + _word_transcript(rng, int(dur * 25) // 3)})
+    table = os.path.join(d, "segs.csv")
+    with open(table, "w", newline="") as f:
+        writer = csv.DictWriter(f, fieldnames=["id", "audio", "text"])
+        writer.writeheader()
+        writer.writerows(rows)
+    return table, rows
+
+
+@contextlib.contextmanager
+def row_starts(stamps: list):
+    """Within the block, the host clock at the start of each row the
+    AV-HuBERT tools load (``cli/_avh_common.load_row_features``) is
+    appended to ``stamps``; the rows themselves are unchanged."""
+    from avsl_tpu_torch.cli import _avh_common
+
+    plain = _avh_common.load_row_features
+
+    def stamped(*args, **kw):
+        stamps.append(time.perf_counter())
+        return plain(*args, **kw)
+
+    _avh_common.load_row_features = stamped
+    try:
+        yield stamps
+    finally:
+        _avh_common.load_row_features = plain
+
+
+def run_tool(main, argv: list, per_row_k1: int, n_rows: int) -> tuple:
+    """``main(argv)``, a CLI of the AV-HuBERT tools over ``n_rows`` rows,
+    with K1 and K2 counted, its standard output kept, each row's start
+    stamped (the first row's time includes building the model) and the
+    peak device memory read. Returns (result, record); raises unless K1
+    launched ``per_row_k1`` times a row, with no row statistics and no
+    K2."""
+    import io
+
+    stamps, out = [], io.StringIO()
+    torch.cuda.reset_peak_memory_stats()
+    with row_starts(stamps), contextlib.redirect_stdout(out):
+        result, seconds, k1, stats_writes, k2 = run_counted(lambda: main(argv))
+    end = time.perf_counter()
+    after_first = (end - stamps[1]) / (n_rows - 1)
+    rec = {"rows": n_rows, "seconds": seconds, "segments_per_s": n_rows / seconds,
+           "first_row_seconds": stamps[1] - stamps[0],
+           "seconds_per_row_after_first": after_first,
+           "segments_per_s_after_first": 1.0 / after_first,
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+           "k1": k1, "expected_k1": per_row_k1 * n_rows, "k2": k2,
+           "stdout_first_line": out.getvalue().splitlines()[0]}
+    if (k1, k2, stats_writes) != (per_row_k1 * n_rows, 0, 0):
+        raise AssertionError(f"{argv}: K1 {k1} ({stats_writes} with statistics), K2 {k2}; "
+                             f"expected {per_row_k1} a row x {n_rows}")
+    return result, rec
+
+
+def phase_avh_tools_main_path(card: str) -> dict:
+    """The AV-HuBERT tools at full width (``configs/avhubert_large.yaml``:
+    24 layers of 1024, 16 heads of 64, bf16 compute; random weights) on
+    a CSV of AVH_TOOLS_ROWS seeded AMI-like rows (:func:`avh_tool_rows`):
+    ``cli.extract`` with the default tap and with ``--layer 12``, then
+    ``cli.align``, each through its ``main``. No row has a lip clip, so
+    each runs the JAX CLIs' zero-clip branch through the full ResNet.
+    Every row is padded to a bucket of 32 frames with no key lengths, so
+    K1 runs [1, 16, Tb, Tb, 64] with real frames attending to the pad
+    frames, as in JAX. Gates: K1 exactly 24, 12 and 24 a row, no K2;
+    every distinct K1 launch shape against the plain version within
+    BF16_TOL; every feature file [t, 1024] and finite, t the row's frames,
+    the two taps different; every row aligned (no error) with the
+    transcript's words, each ending after it starts. Returns the K1
+    launches by CLI."""
+    import os
+
+    from avsl_tpu_torch.cli import align, extract
+    from avsl_tpu_torch.core.config import AVHuBERTConfig
+
+    cfg = AVHuBERTConfig.from_yaml(AVHUBERT_CONFIG)
+    layers = cfg.num_hidden_layers
+    tap = layers // 2  # --layer 12 of the large card's 24
+    rec = {"phase": "avh_tools_main_path", "card": card, "config": AVHUBERT_CONFIG,
+           "rows": AVH_TOOLS_ROWS}
+    seen: dict = {}
+    bad = []
+    with tempfile.TemporaryDirectory() as d:
+        table, rows = avh_tool_rows(d, AVH_TOOLS_ROWS, seed=40)
+        base = ["--csv", table, "--config", AVHUBERT_CONFIG]
+        with launch_shapes(seen):
+            feats, rec["extract"] = run_tool(
+                extract.main, base + ["--output", os.path.join(d, "feats")], layers, len(rows))
+            tapped, rec["extract_layer12"] = run_tool(
+                extract.main, base + ["--output", os.path.join(d, "feats12"), "--layer", str(tap)],
+                tap, len(rows))
+            aligned, rec["align"] = run_tool(
+                align.main, base + ["--output", os.path.join(d, "aligned.json")], layers,
+                len(rows))
+        frames = [r.get("n_frames") for r in aligned]
+        for r, row in zip(aligned, rows):
+            words = r.get("words") or []
+            if "error" in r or [w["word"] for w in words] != row["text"].split() \
+                    or not all(w["end_s"] > w["start_s"] >= 0 for w in words):
+                bad.append(("align", r))
+        tap_gap = 0.0
+        for full, mid, t in zip(feats, tapped, frames):
+            x, y = np.load(full["path"]), np.load(mid["path"])
+            for name, z in (("extract", x), ("extract_layer12", y)):
+                if z.shape != (t, cfg.hidden_size) or z.dtype != np.float32 \
+                        or not np.isfinite(z).all():
+                    bad.append((name, full["id"], z.shape))
+            if x.shape == y.shape:
+                tap_gap = max(tap_gap, float(np.abs(x - y).max()))
+    rec.update(frames=frames, buckets=sorted({-(-t // 32) * 32 for t in frames if t}),
+               tap_max_abs_difference=tap_gap, align_scores=[r.get("score") for r in aligned],
+               words=sum(len(r.get("words") or []) for r in aligned),
+               launch_shapes=check_launch_shapes(seen))
+    log(rec)
+    if bad or len(feats) != len(rows) or len(tapped) != len(rows) or not tap_gap > 0:
+        raise AssertionError(f"AV-HuBERT tools: {bad[:3]}, {len(feats)}/{len(tapped)} feature "
+                             f"files for {len(rows)} rows, taps {tap_gap}")
+    return {name: rec[name]["k1"] for name in ("extract", "extract_layer12", "align")}
+
+
+def phase_avh_tools_card_vs_cpu(card: str) -> int:
+    """The tiny card in fp32 (``tiny_test`` with ``dtype: float32``, written
+    as a model card YAML: 2 layers of 2 heads of 16, K1's fp32 D = 16 body
+    on the card) through ``cli.extract --config`` on two seeded rows (1.5
+    and 2.3 s, neither a bucket's multiple) and ``cli.align --config`` on
+    the ``--smoke`` input (a 1 s 300 Hz tone, " hello world"), on the card
+    and with ``--device cpu``, each from one checkpoint (random weights
+    saved on the CPU by ``save_checkpoint``). ``--tiny`` and ``--smoke``
+    themselves compute in bf16 (the tiny card's dtype), where a random
+    model's best alignment sits at a near-tie: the card and the CPU part
+    there. Gates: features within SMALL_TRAIN_TOL, the same words and
+    spans, alignment scores within 1e-3, K1 exactly 2 a row on the card
+    and none on the CPU, no K2. Returns the card's K1 launches."""
+    import csv
+    import dataclasses
+    import io
+    import os
+
+    import yaml
+
+    from avsl_tpu_torch.cli import align, extract
+    from avsl_tpu_torch.core.config import AVHuBERTConfig
+    from avsl_tpu_torch.data.audio_segments import write_wav
+    from avsl_tpu_torch.data.tokenizer import get_tokenizer
+    from avsl_tpu_torch.models import build_avhubert
+    from avsl_tpu_torch.train.checkpoints import save_checkpoint
+    from avsl_tpu_torch.train.loop import TrainState
+
+    cfg = AVHuBERTConfig.tiny_test(dtype="float32", vocab_size=get_tokenizer(None, "en").vocab_size)
+    runs = {}
+    with tempfile.TemporaryDirectory() as d:
+        card_yaml = os.path.join(d, "tiny_fp32.yaml")
+        with open(card_yaml, "w") as f:
+            yaml.safe_dump({k: list(v) if isinstance(v, tuple) else v
+                            for k, v in dataclasses.asdict(cfg).items()}, f)
+        for head in ("encoder", "ctc"):
+            save_checkpoint(os.path.join(d, head), TrainState.create(
+                build_avhubert(cfg, head, device="cpu", seed=3), None), 1)
+        rng = np.random.default_rng(41)
+        table = os.path.join(d, "tiny.csv")
+        with open(table, "w", newline="") as f:
+            writer = csv.writer(f)
+            writer.writerow(["id", "audio"])
+            for i, seconds in enumerate((1.5, 2.3)):
+                pcm = (0.1 * rng.standard_normal(int(seconds * 16000))).astype(np.float32)
+                writer.writerow([f"tiny{i}", write_wav(os.path.join(d, f"tiny{i}.wav"), pcm)])
+        tone = write_wav(os.path.join(d, "smoke.wav"), (0.1 * np.sin(
+            2 * np.pi * 300 * np.arange(16000) / 16000)).astype(np.float32))
+        for dev in ("cuda", "cpu"):
+            def both(dev=dev):
+                common = ["--config", card_yaml, "--device", dev]
+                return (extract.main(["--csv", table, "--ckpt_dir", os.path.join(d, "encoder"),
+                                      "--output", os.path.join(d, dev), *common]),
+                        align.main(["--audio", tone, "--id", "smoke", "--text", " hello world",
+                                    "--ckpt_dir", os.path.join(d, "ctc"), *common]))
+
+            with contextlib.redirect_stdout(io.StringIO()):
+                (feats, aligned), seconds, k1, stats_writes, k2 = run_counted(both)
+            runs[dev] = {"feats": [np.load(r["path"]) for r in feats], "aligned": aligned,
+                         "seconds": seconds, "k1": k1, "k2": k2, "stats": stats_writes}
+    card_run, cpu_run = runs["cuda"], runs["cpu"]
+    errs = [float(np.abs(a - b).max()) for a, b in zip(card_run["feats"], cpu_run["feats"])]
+    within = len(errs) == 2 and all(
+        a.shape == b.shape and np.allclose(a, b, **SMALL_TRAIN_TOL)
+        for a, b in zip(card_run["feats"], cpu_run["feats"]))
+    words = [r["aligned"][0].get("words") for r in (card_run, cpu_run)]
+    scores = [r["aligned"][0].get("score") for r in (card_run, cpu_run)]
+    want_k1 = cfg.num_hidden_layers * (len(card_run["feats"]) + 1)
+    log({"phase": "avh_tools_card_vs_cpu", "card": card, "tolerance": SMALL_TRAIN_TOL,
+         "feature_shapes": [list(a.shape) for a in card_run["feats"]],
+         "features_max_abs_err": errs, "words_card": words[0], "words_equal": words[0] == words[1],
+         "align_score": scores, "seconds": {dev: r["seconds"] for dev, r in runs.items()},
+         "k1": {dev: r["k1"] for dev, r in runs.items()}, "expected_card_k1": want_k1})
+    counts = [(r["k1"], r["k2"], r["stats"]) for r in (card_run, cpu_run)]
+    if not within or not words[0] or words[0] != words[1] or None in scores \
+            or abs(scores[0] - scores[1]) > 1e-3 or counts != [(want_k1, 0, 0), (0, 0, 0)]:
+        raise AssertionError(f"tiny AV-HuBERT tools card vs CPU: features {errs}, words "
+                             f"{words}, scores {scores}, (K1, K2, statistics) {counts}, K1 "
+                             f"expected {want_k1}")
+    return card_run["k1"]
+
+
+def phase_landmark_cnn(card: str) -> dict:
+    """The landmark CNN (five cuDNN convolutions and two dense layers, no
+    kernel of the port's): ``CNNLandmarkDetector`` on the shipped weights
+    over JAX's held-out synthetic faces (48 at 128 x 128, seed 20260820,
+    no resize), card against CPU within LANDMARK_PX_TOL px (TF32 off) and
+    against the exact labels at the JAX truth test's limits (mouth under 8
+    px, all points under 11 px, the worst face's mouth under 35 px); then
+    ``cli.train_landmarks.main`` on the card at the CLI's batch 64 with
+    LANDMARK_TRAIN_ARGS (2,048 + 256 faces, 300 steps) into a temporary
+    file, read back by ``load_cnn_params`` with flax's keys. Raises on a
+    non-finite loss. Returns the record."""
+    import io
+    import os
+
+    from avsl_tpu_torch.cli import train_landmarks
+    from avsl_tpu_torch.data.landmarks import CNNLandmarkDetector, load_cnn_params
+    from avsl_tpu_torch.data.synthetic_faces import generate_dataset
+
+    imgs, lms = generate_dataset(48, seed=LANDMARK_HELD_OUT_SEED)
+    imgs = imgs.astype(np.uint8)
+    det = CNNLandmarkDetector(device="cuda")
+    got = np.stack(det(imgs))
+    want = np.stack(CNNLandmarkDetector(device="cpu")(imgs))
+    err = float(np.abs(got - want).max())
+    errors = np.linalg.norm(got - lms * imgs.shape[-1], axis=-1)
+    truth = {"mouth_px": float(errors[:, 48:68].mean()), "all_px": float(errors.mean()),
+             "worst_face_mouth_px": float(errors[:, 48:68].mean(axis=1).max())}
+    rec = {"phase": "landmark_cnn", "card": card, "faces": len(imgs),
+           "card_vs_cpu_max_abs_px": err, "tolerance_px": LANDMARK_PX_TOL, "held_out": truth,
+           "detector_ms_48_faces": cuda_ms(lambda: det(imgs), reps=5, warmup=1)}
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "landmark_cnn.npz")
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            result = train_landmarks.main(LANDMARK_TRAIN_ARGS + ["--out", path])
+        seconds = time.perf_counter() - t0
+        with np.load(path) as z:
+            keys = sorted(z.files)
+        state = load_cnn_params(path)
+        trained = np.stack(CNNLandmarkDetector(params=state, device="cuda")(imgs))
+    losses = result["losses"]
+    steps = int(LANDMARK_TRAIN_ARGS[LANDMARK_TRAIN_ARGS.index("--steps") + 1])
+    want_keys = sorted(f"params/{layer}/{leaf}"
+                       for layer in [f"Conv_{i}" for i in range(5)] + ["Dense_0", "Dense_1"]
+                       for leaf in ("kernel", "bias"))
+    rec["train"] = {
+        "args": LANDMARK_TRAIN_ARGS, "batch_size": 64, "seconds": seconds,
+        "loop_seconds": result["seconds"], "seconds_per_step": result["seconds"] / steps,
+        "loss_history": [[i, losses[i]] for i in range(0, len(losses), 25)]
+        + [[len(losses) - 1, losses[-1]]],
+        "val_px_error": result["val_px_error"], "val_mouth_px_error": result["val_mouth_px_error"],
+        "held_out_mouth_px_after": float(np.linalg.norm(
+            trained - lms * imgs.shape[-1], axis=-1)[:, 48:68].mean()),
+        "flax_keys": keys == want_keys, "stdout_first_line": out.getvalue().splitlines()[0]}
+    log(rec)
+    if err > LANDMARK_PX_TOL or not (truth["mouth_px"] < 8.0 and truth["all_px"] < 11.0
+                                     and truth["worst_face_mouth_px"] < 35.0):
+        raise AssertionError(f"landmark CNN: card vs CPU {err:.3e} px, held out {truth}")
+    if len(losses) != steps or not np.isfinite(losses).all() or keys != want_keys \
+            or set(state) != set(det.net.state_dict()):
+        raise AssertionError(f"train_landmarks: {len(losses)} losses (finite "
+                             f"{bool(np.isfinite(losses).all())}), keys {keys}")
+    return rec
+
+
+def phase_doctor(card: str) -> int:
+    """``cli.doctor.main([])`` and ``main(["--config",
+    configs/avhubert_large.yaml])`` on the card: exit code 0, no FAIL, WARNs
+    only in DOCTOR_WARNS_ALLOWED (each logged), and exactly one K1 launch
+    each (the kernel probe). Returns the K1 launches."""
+    import io
+
+    from avsl_tpu_torch.cli import doctor
+
+    runs, total = {}, 0
+    for argv in ([], ["--config", AVHUBERT_CONFIG]):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc, seconds, k1, stats_writes, k2 = run_counted(lambda: doctor.main(argv))
+        checks = [line for line in out.getvalue().splitlines() if line.startswith("[")]
+        warns = [line for line in checks if line.startswith("[WARN]")]
+        fails = [line for line in checks if line.startswith("[FAIL]")]
+        runs[" ".join(argv) or "(no arguments)"] = {"rc": rc, "seconds": seconds, "k1": k1,
+                                                     "checks": checks, "warns": warns}
+        unexpected = [w for w in warns if not w[len("[WARN] "):].startswith(DOCTOR_WARNS_ALLOWED)]
+        if rc != 0 or fails or unexpected or (k1, k2, stats_writes) != (1, 0, 0):
+            log({"phase": "doctor", "card": card, "runs": runs})
+            raise AssertionError(f"doctor {argv}: rc {rc}, FAIL {fails}, WARN {unexpected}, "
+                                 f"K1 {k1}, K2 {k2}")
+        total += k1
+    log({"phase": "doctor", "card": card, "runs": runs})
+    return total
+
+
 def sass_counts() -> dict:
     """Tensor-core instructions in each built library, from the toolkit's
     ``cuobjdump -sass``: ``HGMMA`` (wgmma) and ``HMMA`` (mma.sync)."""
@@ -4907,6 +5261,12 @@ def main() -> int:
     avh_smoke = timed("avhubert_cli_smoke", phase_avhubert_cli_smoke, smi)
     pre_smoke = timed("pretrain_cli_smoke", phase_pretrain_cli_smoke, smi)
     free()
+    avh_tools = timed("avh_tools_main_path", phase_avh_tools_main_path, smi)
+    free()
+    avh_tiny = timed("avh_tools_card_vs_cpu", phase_avh_tools_card_vs_cpu, smi)
+    timed("landmark_cnn", phase_landmark_cnn, smi)
+    doctor_launches = timed("doctor", phase_doctor, smi)
+    free()
     log({"phase": "phase_seconds", "card": smi, "seconds": phase_seconds,
          "sum_s": round(sum(phase_seconds.values()), 3),
          "script_s": round(time.perf_counter() - T_START, 3)})
@@ -4953,7 +5313,11 @@ def main() -> int:
                "pretrain_relabel": pre["relabel"][0], "pretrain_moe_training": pre_moe["train"][0],
                "pretrain_moe_eval": pre_moe["eval"][0],
                "pretrain_moe_relabel": pre_moe["relabel"][0],
-               **{name: counts[0] for name, counts in pre_smoke.items()}}),
+               **{name: counts[0] for name, counts in pre_smoke.items()},
+               "avh_extract": avh_tools["extract"],
+               "avh_extract_layer12": avh_tools["extract_layer12"],
+               "avh_align": avh_tools["align"], "avh_tools_tiny": avh_tiny,
+               "doctor_probe": doctor_launches}),
         entry("flash_attention_bwd", "flash_attn_bwd", "avsl_tpu_torch/csrc/flash_attn_bwd.cu",
               "avsl_tpu/kernels/attention.py:159", bwd_cases,
               {"serving": 0, "av_serving": 0, "av_raw_serving": 0, "serving_daemon": 0,
@@ -4977,7 +5341,9 @@ def main() -> int:
                "pretrain_moe_training": pre_moe["train"][1],
                "pretrain_moe_eval": pre_moe["eval"][1],
                "pretrain_moe_relabel": pre_moe["relabel"][1],
-               **{name: counts[1] for name, counts in pre_smoke.items()}}),
+               **{name: counts[1] for name, counts in pre_smoke.items()},
+               "avh_extract": 0, "avh_extract_layer12": 0, "avh_align": 0,
+               "avh_tools_tiny": 0, "doctor_probe": 0}),
     ]})
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -67,6 +67,16 @@ PRETRAINING = {
     "avsl_tpu_torch.cli.pretrain",
 }
 
+# the AV-HuBERT tools, the landmark CNN and its trainer, and the preflight:
+# their own copies of avsl_tpu/cli/{_avh_common,extract,align,doctor,
+# train_landmarks}.py, data/synthetic_faces.py and the CNN half of
+# data/landmarks.py
+AVH_TOOLS = {
+    "avsl_tpu_torch.cli._avh_common", "avsl_tpu_torch.cli.extract", "avsl_tpu_torch.cli.align",
+    "avsl_tpu_torch.cli.doctor", "avsl_tpu_torch.cli.train_landmarks",
+    "avsl_tpu_torch.data.synthetic_faces", "avsl_tpu_torch.data.landmarks",
+}
+
 
 def test_torch_port_imports_no_jax():
     code = (
@@ -90,6 +100,7 @@ def test_torch_port_imports_no_jax():
     assert TRAINING_EXTRAS <= set(ALL_SUBMODULES)
     assert DATASET_LAYER <= set(ALL_SUBMODULES)
     assert PRETRAINING <= set(ALL_SUBMODULES)
+    assert AVH_TOOLS <= set(ALL_SUBMODULES)
 
 
 def test_torch_port_imports_no_cv2():
@@ -97,7 +108,8 @@ def test_torch_port_imports_no_cv2():
     the port, the video tower, the lip-feature loader and the dataset
     layer included, must import none of them."""
     assert {"avsl_tpu_torch.models.resnet3d", "avsl_tpu_torch.models.avhubert",
-            "avsl_tpu_torch.data.video_io"} | DATASET_LAYER | PRETRAINING <= set(ALL_SUBMODULES)
+            "avsl_tpu_torch.data.video_io"} | DATASET_LAYER | PRETRAINING | AVH_TOOLS \
+        <= set(ALL_SUBMODULES)
     code = (
         "import importlib, sys\n"
         f"for name in {ALL_SUBMODULES!r}:\n"

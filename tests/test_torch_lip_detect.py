@@ -156,7 +156,6 @@ def test_torch_create_detector():
     from avsl_tpu_torch.data.lip_refine import RefinedMouthTracker
 
     assert isinstance(tl.create_detector("refined"), RefinedMouthTracker)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tl.create_detector("cnn")
+    assert isinstance(tl.create_detector("cnn", device="cpu"), tl.CNNLandmarkDetector)
     with pytest.raises(ValueError):
         tl.create_detector("dlib")
