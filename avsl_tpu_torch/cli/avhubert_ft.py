@@ -24,8 +24,8 @@ weight 0.01. For the CTC head that is the JAX CLI's own closure
 (:func:`cli_ctc_loss_fn`), which adds it whatever its ``train`` flag.
 
 Runs on ``cuda`` unless ``--device cpu``. ``--model_parallel`` and
-``--experts_parallel`` above 1 raise (ROADMAP.md queue 1, item 12c: the
-parallel layer).
+``--experts_parallel`` above 1 raise (ROADMAP.md queue 1, item 12e: the
+AV-HuBERT and pretraining mesh flags).
 """
 
 from __future__ import annotations
@@ -170,8 +170,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
 
     for flag in ("model_parallel", "experts_parallel"):
         if getattr(args, flag) > 1:
-            raise NotImplementedError(f"--{flag} > 1: the parallel layer is not ported yet "
-                                      "(ROADMAP.md queue 1, item 12c)")
+            raise NotImplementedError(f"--{flag} > 1: the AV-HuBERT mesh is not ported yet "
+                                      "(ROADMAP.md queue 1, item 12e)")
     if args.smoke:
         cfg = AVHuBERTConfig.tiny_test(dtype="float32", modality_dropout=0.2, audio_dropout=0.5)
         args.steps = 6

@@ -35,9 +35,22 @@ the next batch while a step runs; ``test_best`` on the test split when
 there is one. ``--smoke`` trains the tiny test model on a synthetic
 dataset with the JAX CLI's settings (6 steps, batch 4 × accumulation
 min(YAML, 2) in one ``[accum, micro]`` batch, validation every 3 steps).
-A mesh raises (ROADMAP.md item 12c). Runs on ``cuda`` unless ``--device
-cpu``. :func:`make_job` composes a run from rows already loaded and
-:func:`run` trains it; ``main`` loads the rows and calls both.
+Runs on ``cuda`` unless ``--device cpu``. :func:`make_job` composes a
+run from rows already loaded and :func:`run` trains it; ``main`` loads
+the rows and calls both.
+
+On a mesh: ``python -m torch.distributed.run --nproc_per_node N -m
+avsl_tpu_torch.cli.finetune cfg.yaml`` with ``num_devices: N`` (or 0)
+starts one rank per device (``cuda:LOCAL_RANK`` over NCCL; gloo on the
+CPU with ``--device cpu``) and trains over a (data, model) mesh of
+``model_parallel`` contiguous ranks per model group, with ``zero1`` or
+``fsdp`` (``core/mesh.py``, ``core/partitioning.py``), as the JAX CLI
+builds its mesh (``finetune.py:253-257,320-351`` there). Each rank reads
+the same global batches and takes its rows; rank 0 alone writes
+checkpoints, metrics and the summary lines. A world of one rank builds no
+mesh, as JAX builds none on one device. Unlike JAX, which takes
+``min(num_devices, devices)``, a nonzero ``num_devices`` other than the
+world size raises: each rank is a process the launcher started.
 """
 
 from __future__ import annotations
@@ -50,6 +63,7 @@ from typing import Any, Callable, Dict, Iterator, List, Optional
 import numpy as np
 import torch
 
+from avsl_tpu_torch.core.mesh import rank
 from avsl_tpu_torch.train.optim import TRAIN
 
 
@@ -127,8 +141,26 @@ def hoist_enabled(labels: Dict[str, str], cfg, lora_rank: int = 0, accum: int = 
     return towers_frozen and bn_frozen and bool(getattr(cfg, "hoist_frozen_towers", True))
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md queue 1, {item})")
+def make_mesh_for(cfg):
+    """The (data, model) mesh of ``num_devices`` ranks with
+    ``model_parallel`` ranks on the model axis over the launched process
+    group, or None in a world of one rank. Raises when ``num_devices`` > 1
+    is asked for without ``torch.distributed.run``, or when a nonzero
+    ``num_devices`` is not the world size."""
+    from avsl_tpu_torch.core.mesh import make_mesh, world_size
+
+    world = world_size()
+    n = int(getattr(cfg, "num_devices", 0) or 0)
+    if world == 1:
+        if n > 1:
+            raise RuntimeError(
+                f"num_devices={n} needs one process per device: launch with python -m "
+                f"torch.distributed.run --nproc_per_node {n} -m avsl_tpu_torch.cli.finetune ...")
+        return None
+    if n and n != world:
+        raise ValueError(f"num_devices={n} but torch.distributed.run started {world} ranks; "
+                         f"set num_devices to {world} (or 0)")
+    return make_mesh(world, model_parallel=int(getattr(cfg, "model_parallel", 1) or 1))
 
 
 def build_model(cfg, tokenizer, device, smoke: bool = False,
@@ -197,7 +229,7 @@ def make_lora(cfg, model, seed: int = 0):
 
 
 def make_runner(cfg, model, tokenizer, log_dir: str, ckpt_dir: str, seed: int = 0,
-                cross_batch: bool = False):
+                cross_batch: bool = False, mesh=None):
     """``TrainerRunner`` over the regime ``select_optimizer`` picks (or,
     with ``lora_rank > 0``, the adapters of :func:`make_lora` under
     ``lora_optimizer``, the state's model then the ``LoraModel``),
@@ -207,7 +239,9 @@ def make_runner(cfg, model, tokenizer, log_dir: str, ckpt_dir: str, seed: int = 
     ``cross_batch`` (bucketed batches, whose sizes vary) an accumulation
     above 1 goes through :class:`MultiSteps` and the runner steps every
     batch (accumulation 1), which keeps the hoist off; else each batch is
-    reshaped to ``[accum, micro]``."""
+    reshaped to ``[accum, micro]``. On ``mesh`` the runner puts the state
+    there with the config's ``zero1`` and ``fsdp`` (tensor parallelism on
+    a model axis above 1)."""
     from avsl_tpu_torch.models.lora import lora_loss_fn
     from avsl_tpu_torch.train.loop import TrainState, batch_to_device
     from avsl_tpu_torch.train.objectives import flamingo_loss_fn, flamingo_tower_precompute
@@ -215,6 +249,10 @@ def make_runner(cfg, model, tokenizer, log_dir: str, ckpt_dir: str, seed: int = 
     from avsl_tpu_torch.train.runner import TrainerRunner
 
     lora_rank = int(getattr(cfg, "lora_rank", 0) or 0)
+    fsdp = bool(getattr(cfg, "fsdp", False))
+    if lora_rank > 0 and mesh is not None and (fsdp or mesh.shape["model"] > 1):
+        raise NotImplementedError("LoRA over FSDP or tensor parallelism is not ported yet "
+                                  "(ROADMAP.md queue 1, item 12e)")
     state_model = make_lora(cfg, model, seed) if lora_rank > 0 else model
     if lora_rank > 0:
         tx, labels = lora_optimizer(state_model, cfg, int(cfg.num_train_steps))
@@ -246,7 +284,9 @@ def make_runner(cfg, model, tokenizer, log_dir: str, ckpt_dir: str, seed: int = 
     runner = TrainerRunner(
         loss_fn, eval_logits, tx, TrainState.create(state_model, tx, seed=seed), tokenizer, cfg,
         log_dir=log_dir, ckpt_dir=ckpt_dir, grad_accum_steps=runner_accum, param_labels=labels,
-        precompute_fn=precompute,
+        precompute_fn=precompute, mesh=mesh,
+        partitioned_state=mesh is not None and mesh.shape["model"] > 1,
+        zero1=bool(getattr(cfg, "zero1", False)), fsdp=fsdp,
     )
     runner.hoisted = precompute is not None
     return runner
@@ -267,6 +307,7 @@ class FinetuneJob:
     val_ds: Any
     test_ds: Any
     batches: Callable[..., Iterator[Dict[str, np.ndarray]]]
+    mesh: Any = None
 
 
 def make_job(cfg, train_rows, val_rows, test_rows, device, smoke: bool = False,
@@ -274,14 +315,14 @@ def make_job(cfg, train_rows, val_rows, test_rows, device, smoke: bool = False,
     """Compose a run from rows already loaded (datasets on disk, or lists
     of row dicts): the model (``pt_ckpt`` loaded when the file exists), the
     datasets, the collator and the runner. Without ``smoke`` batches are
-    bucketed by the token budget and accumulation crosses batches."""
+    bucketed by the token budget and accumulation crosses batches. The
+    mesh comes from :func:`make_mesh_for`."""
     from avsl_tpu_torch.cli.whisper_ft import batches as fixed_batches
     from avsl_tpu_torch.data.runtime import make_bucketed_loader
     from avsl_tpu_torch.data.tokenizer import get_tokenizer
     from avsl_tpu_torch.models.convert import load_torch_checkpoint_into
 
-    if int(getattr(cfg, "model_parallel", 1) or 1) > 1 or int(cfg.num_devices or 1) > 1:
-        raise _not_ported("a device mesh (model_parallel or num_devices > 1)", "item 12c")
+    mesh = make_mesh_for(cfg)
     tokenizer = get_tokenizer(getattr(cfg, "download_root", None), cfg.lang)
     model, w_cfg = build_model(cfg, tokenizer, device, smoke=smoke, vocab_size=vocab_size,
                                seed=seed)
@@ -305,22 +346,27 @@ def make_job(cfg, train_rows, val_rows, test_rows, device, smoke: bool = False,
     runner = make_runner(cfg, model, tokenizer,
                          log_dir=os.path.join(cfg.log_output_dir, cfg.train_id),
                          ckpt_dir=os.path.join(cfg.check_output_dir, cfg.train_id), seed=seed,
-                         cross_batch=not smoke)
+                         cross_batch=not smoke, mesh=mesh)
     return FinetuneJob(cfg, torch.device(device), model, runner, dataset(train_rows, True),
-                       dataset(val_rows, False), dataset(test_rows, False), batches)
+                       dataset(val_rows, False), dataset(test_rows, False), batches, mesh)
 
 
 def train_batches(job: FinetuneJob, epoch: int) -> Iterator[Dict[str, Any]]:
     """Epoch ``epoch``'s train batches of ``batch_size ×`` the runner's
     accumulation items (bucketed unless smoke); with ``prefetch_batches >
     0`` they are uploaded to the job's device ahead of the step that takes
-    them (``data/prefetch.py``)."""
+    them (``data/prefetch.py``): on a mesh, each rank's rows when the
+    runner steps every batch, the whole batch when it reshapes batches to
+    ``[accum, micro]`` (its micro-batches are the global batch's)."""
     from avsl_tpu_torch.data.prefetch import prefetch_to_device
 
     cfg = job.cfg
     it = job.batches(job.train_ds, int(cfg.batch_size) * job.runner.accum, True, epoch)
     n_prefetch = int(getattr(cfg, "prefetch_batches", 0) or 0)
-    return prefetch_to_device(it, job.device, size=n_prefetch) if n_prefetch > 0 else it
+    if n_prefetch <= 0:
+        return it
+    mesh = job.mesh if job.runner.accum == 1 else None
+    return prefetch_to_device(it, job.device, size=n_prefetch, mesh=mesh)
 
 
 def run(job: FinetuneJob) -> Dict[str, Any]:
@@ -342,19 +388,25 @@ def run(job: FinetuneJob) -> Dict[str, Any]:
         sanity_val_steps=int(getattr(cfg, "num_sanity_val_steps", 0)),
     )
     result["hoisted"] = runner.hoisted
-    print(f"done: step={result['final_step']} best_wer={result['best_wer']:.4f} "
-          f"(step {result['best_step']})")
+    lead = rank() == 0
+    if lead:
+        print(f"done: step={result['final_step']} best_wer={result['best_wer']:.4f} "
+              f"(step {result['best_step']})")
     if job.test_ds is not None:
         tm = runner.test_best(lambda: job.batches(job.test_ds, eval_bs, False))
-        print(f"test (best ckpt step {result['best_step']}): "
-              f"wer={tm.get('test/wer_av'):.4f} cer={tm.get('test/cer_av'):.4f}")
+        if lead:
+            print(f"test (best ckpt step {result['best_step']}): "
+                  f"wer={tm.get('test/wer_av'):.4f} cer={tm.get('test/cer_av'):.4f}")
         result["test"] = tm
     return result
 
 
 def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
+    import torch.distributed as dist
+
     from avsl_tpu_torch.core.config import FlamingoTrainConfig
     from avsl_tpu_torch.core.device import resolve_device
+    from avsl_tpu_torch.core.mesh import init_distributed
 
     p = argparse.ArgumentParser()
     p.add_argument("config", nargs="?", default=None)
@@ -362,7 +414,9 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the plain PyTorch path")
     args = p.parse_args(argv)
-    device = resolve_device(args.device)
+    joined = dist.is_initialized()
+    device = init_distributed(resolve_device(args.device))
+    joined = dist.is_initialized() and not joined
     cfg = FlamingoTrainConfig.from_yaml(args.config) if args.config else FlamingoTrainConfig()
     if args.smoke:
         cfg.model_name = "test"
@@ -380,7 +434,11 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         rows = load_datasets(cfg)
         if rows[0] is None:
             raise FileNotFoundError(f"train dataset not found at {cfg.train_data_path!r}")
-    return run(make_job(cfg, *rows, device, smoke=args.smoke))
+    try:
+        return run(make_job(cfg, *rows, device, smoke=args.smoke))
+    finally:
+        if joined:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

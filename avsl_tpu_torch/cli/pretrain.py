@@ -28,8 +28,8 @@ probability 0.5 over spans of 4) for at most 6 steps on at most 8
 clusters.
 
 Runs on ``cuda`` unless ``--device cpu``. ``--model_parallel`` and
-``--experts_parallel`` above 1 raise (ROADMAP.md queue 1, item 12c: the
-parallel layer).
+``--experts_parallel`` above 1 raise (ROADMAP.md queue 1, item 12e: the
+AV-HuBERT and pretraining mesh flags).
 """
 
 from __future__ import annotations
@@ -86,8 +86,8 @@ def collate_pretrain(rows, targets_per_row) -> Dict[str, np.ndarray]:
 
 
 def _parallel_not_ported(flag: str) -> NotImplementedError:
-    return NotImplementedError(f"{flag} > 1: the parallel layer is not ported yet "
-                               "(ROADMAP.md queue 1, item 12c)")
+    return NotImplementedError(f"{flag} > 1: the pretraining mesh is not ported yet "
+                               "(ROADMAP.md queue 1, item 12e)")
 
 
 def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:

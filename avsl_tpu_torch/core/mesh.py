@@ -1,0 +1,345 @@
+"""The (data, model) process grid and the batch and collective helpers.
+
+Port of ``avsl_tpu/core/mesh.py``. JAX runs one process over every device
+and shards arrays by annotation; PyTorch runs one process per rank
+(``python -m torch.distributed.run --nproc_per_node N ...``), so here:
+
+* :func:`init_distributed` joins the launcher's process group: ``nccl``
+  on a card (the rank's device is ``cuda:LOCAL_RANK``), ``gloo`` on the
+  CPU. There is no fallback from one to the other.
+* :func:`make_mesh` lays the ranks out as JAX's ``reshape(n // mp, mp)``
+  does: ``model_parallel`` contiguous ranks share the model axis. The
+  :class:`Mesh` holds ``.shape`` (``{"data": dp, "model": mp}``, as
+  ``jax.sharding.Mesh.shape``) over a ``torch.distributed`` ``DeviceMesh``
+  and this rank's coordinates and groups.
+* :func:`shard_batch` hands each data rank its rows of the global batch;
+  a leaf whose batch dim does not divide the data axis, or a 0-d leaf, is
+  given whole to every rank, as JAX replicates it.
+* Random draws over rows (dropout, SpecAugment, span masks) go through
+  :func:`draw_rows`: inside :func:`row_shard_scope` each rank draws at the
+  global batch's shape from a generator seeded alike on every rank and
+  keeps its own rows, so a data-parallel step draws the single-device
+  step's numbers and every rank's generator stays in step with the
+  others; a dim split over the model axis (attention dropout on local
+  heads) keeps its own slice the same way. Draws once a step or once a
+  layer (LayerDrop, the AV-mode draw) use the generator directly and
+  agree on every rank.
+* The autograd collectives of tensor parallelism and synchronised
+  BatchNorm: :func:`copy_to_group`, :func:`reduce_from_group`,
+  :func:`gather_from_group` and :func:`all_reduce_sum`.
+
+``activation_sharding_scope`` and ``constrain_activation`` (sequence
+parallelism) are not ported (ROADMAP.md item 12d).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Iterator, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+DATA_AXIS = "data"
+MODEL_AXIS = "model"
+
+
+class PartitionSpec(tuple):
+    """``jax.sharding.PartitionSpec``: one mesh axis name (or None) per
+    dim of an array, in the JAX package's (flax) layout."""
+
+    def __new__(cls, *axes):
+        return super().__new__(cls, axes)
+
+    def __repr__(self) -> str:
+        return f"P{tuple(self)!r}"
+
+
+P = PartitionSpec
+
+
+def init_distributed(device) -> torch.device:
+    """Join the process group that ``torch.distributed.run`` describes in
+    the environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
+    ``MASTER_ADDR``/``MASTER_PORT``) and return this rank's device:
+    ``cuda:LOCAL_RANK`` over ``nccl`` when ``device`` is a CUDA device,
+    the CPU over ``gloo`` when it is the CPU. Outside the launcher, or in
+    a group already joined, nothing is joined and ``device`` comes back
+    as it is (a CUDA device then on its index)."""
+    device = torch.device(device)
+    if dist.is_initialized() or "WORLD_SIZE" not in os.environ:
+        return device
+    if device.type == "cuda":
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        torch.cuda.set_device(device)
+        backend = "nccl"
+    elif device.type == "cpu":
+        backend = "gloo"
+    else:
+        raise ValueError(f"no process-group backend for device {device}")
+    dist.init_process_group(backend, init_method="env://")
+    return device
+
+
+def world_size() -> int:
+    """Ranks in the default process group (1 without one)."""
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def rank() -> int:
+    """This process's rank in the default group (0 without one)."""
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+class Mesh:
+    """A (data, model) grid of ranks: ``shape`` as ``Mesh.shape`` in JAX,
+    this rank's ``data_rank`` and ``model_rank``, the groups of its row
+    (``model_group``) and column (``data_group``), the ``DeviceMesh`` and
+    this rank's ``device``."""
+
+    def __init__(self, device_mesh, device: torch.device):
+        self.device_mesh = device_mesh
+        self.device = device
+        dp, mp = device_mesh.shape
+        self.shape: Dict[str, int] = {DATA_AXIS: dp, MODEL_AXIS: mp}
+        self.data_rank, self.model_rank = device_mesh.get_coordinate()
+        self.data_group = device_mesh.get_group(DATA_AXIS)
+        self.model_group = device_mesh.get_group(MODEL_AXIS)
+
+    def __repr__(self) -> str:
+        return f"Mesh({self.shape}, data_rank={self.data_rank}, model_rank={self.model_rank})"
+
+
+def make_mesh(n_devices: Optional[int] = None, model_parallel: int = 1) -> Mesh:
+    """The (data, model) mesh over the joined process group:
+    ``model_parallel`` contiguous ranks on the model axis, the rest on
+    data (``core/mesh.py:23-44`` in JAX). ``n_devices`` (the world size
+    when None) must be the world size: each rank is a process the
+    launcher started, so there is none to leave out."""
+    if not dist.is_initialized():
+        raise RuntimeError("make_mesh needs a process group: launch with python -m "
+                           "torch.distributed.run and call init_distributed first")
+    world = dist.get_world_size()
+    n = world if n_devices is None else int(n_devices)
+    if n != world:
+        raise ValueError(f"n_devices={n} but the process group has {world} ranks")
+    if n % model_parallel != 0:
+        raise ValueError(f"n_devices={n} not divisible by model_parallel={model_parallel}")
+    from torch.distributed.device_mesh import init_device_mesh
+
+    if dist.get_backend() == "nccl":
+        device = torch.device("cuda", torch.cuda.current_device())
+    else:
+        device = torch.device("cpu")
+    grid = init_device_mesh(device.type, (n // model_parallel, model_parallel),
+                            mesh_dim_names=(DATA_AXIS, MODEL_AXIS))
+    return Mesh(grid, device)
+
+
+def data_sharding(mesh: Mesh, ndim: int = 1) -> PartitionSpec:
+    """Dim 0 over the data axis, the rest replicated; a 0-d leaf
+    replicates."""
+    del mesh
+    return P() if ndim <= 0 else P(DATA_AXIS, *([None] * (ndim - 1)))
+
+
+def replicated_sharding(mesh: Mesh) -> PartitionSpec:
+    del mesh
+    return P()
+
+
+class ShardedBatch(dict):
+    """A batch as :func:`shard_batch` hands it to one rank: its rows of
+    each leaf named in ``sharded`` (along ``batch_dim``), the others
+    whole."""
+
+    def __init__(self, leaves: Dict[str, torch.Tensor], sharded: frozenset, batch_dim: int):
+        super().__init__(leaves)
+        self.sharded = sharded
+        self.batch_dim = batch_dim
+
+
+def host_rows(mesh: Mesh, batch: Dict[str, Any], batch_dim: int = 0
+              ) -> Tuple[Dict[str, torch.Tensor], frozenset]:
+    """This data rank's rows of each leaf of a host batch, as CPU
+    tensors, and the keys that were cut (see :func:`shard_batch`)."""
+    n = mesh.shape[DATA_AXIS]
+    out, sharded = {}, set()
+    for key, value in batch.items():
+        t = value if isinstance(value, torch.Tensor) else torch.as_tensor(np.asarray(value))
+        if t.ndim > batch_dim and t.shape[batch_dim] % n == 0:
+            size = t.shape[batch_dim] // n
+            t = t.narrow(batch_dim, mesh.data_rank * size, size)
+            sharded.add(key)
+        out[key] = t
+    return out, frozenset(sharded)
+
+
+def shard_batch(mesh: Mesh, batch: Dict[str, Any], batch_dim: int = 0) -> ShardedBatch:
+    """This data rank's rows of a host (global) batch, on the mesh's
+    device: leaves whose ``batch_dim`` divides the data axis are cut into
+    ``dp`` contiguous blocks; a leaf with fewer dims or whose dim does not
+    divide (a final partial batch) is given whole to every rank."""
+    rows, sharded = host_rows(mesh, batch, batch_dim)
+    return ShardedBatch({k: t.to(mesh.device, non_blocking=True) for k, t in rows.items()},
+                        sharded, batch_dim)
+
+
+def local_batch_size(global_batch_size: int, mesh: Mesh) -> int:
+    n_data = mesh.shape[DATA_AXIS]
+    if global_batch_size % n_data != 0:
+        raise ValueError(
+            f"global batch {global_batch_size} not divisible by data-axis size {n_data}")
+    return global_batch_size // n_data
+
+
+# ---------------------------------------------------------------------------
+# row draws
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class RowShard:
+    """This rank's share of the rows being computed: ``rank`` of ``size``
+    data ranks over ``group``, each holding contiguous blocks of every one
+    of ``groups`` leading row groups (``groups`` > 1: micro-batches
+    flattened together, as the frozen-tower hoist runs them)."""
+
+    group: Any
+    rank: int
+    size: int
+    groups: int = 1
+
+
+_ROWS: list = [None]
+
+
+@contextlib.contextmanager
+def row_shard_scope(shard: Optional[RowShard]) -> Iterator[None]:
+    """Within the block, rows are sharded as ``shard`` says (None: every
+    rank holds the whole batch): :func:`draw_rows` draws at the global
+    shape and BatchNorm reduces its statistics over ``shard.group``."""
+    prev = _ROWS[0]
+    _ROWS[0] = shard
+    try:
+        yield
+    finally:
+        _ROWS[0] = prev
+
+
+def current_row_shard() -> Optional[RowShard]:
+    """The active :class:`RowShard`, or None outside a sharded step."""
+    shard = _ROWS[0]
+    return shard if shard is not None and shard.size > 1 else None
+
+
+def draw_rows(draw: Callable[[Tuple[int, ...]], torch.Tensor], shape: Sequence[int],
+              split: Optional[Tuple[int, int, int]] = None) -> torch.Tensor:
+    """``draw(s)`` (a random tensor of shape ``s``) for a tensor of local
+    ``shape`` whose dim 0 holds rows: under a sharded :class:`RowShard`
+    it draws the global rows and keeps this rank's; ``split = (dim, rank,
+    size)`` names a dim that ``size`` model ranks hold slices of, drawn
+    whole and sliced the same way."""
+    shape = tuple(shape)
+    full, index = list(shape), [slice(None)] * len(shape)
+    if split is not None and split[2] > 1:
+        dim, r, size = split
+        dim %= len(shape)
+        full[dim] *= size
+        index[dim] = slice(r * shape[dim], (r + 1) * shape[dim])
+    rows = current_row_shard()
+    if rows is None or not shape:
+        return draw(tuple(full))[tuple(index)]
+    per = shape[0] // rows.groups
+    full = [rows.groups, per * rows.size] + full[1:]
+    index = [slice(None), slice(rows.rank * per, (rows.rank + 1) * per)] + index[1:]
+    return draw(tuple(full))[tuple(index)].reshape(shape)
+
+
+# ---------------------------------------------------------------------------
+# autograd collectives
+# ---------------------------------------------------------------------------
+
+
+def _size(group) -> int:
+    return 1 if group is None else dist.get_world_size(group)
+
+
+def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    x = x.contiguous().clone()
+    dist.all_reduce(x, group=group)
+    return x
+
+
+class _Copy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        ctx.rank, ctx.width = dist.get_rank(group), x.shape[dim]
+        parts = [torch.empty_like(x) for _ in range(_size(group))]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        return torch.cat(parts, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.rank * ctx.width, ctx.width).contiguous(), None, None
+
+
+def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
+    """Identity forward; the backward sums the gradient over ``group``
+    (the input of a column-parallel product, whose ranks each see part of
+    its gradient)."""
+    return x if _size(group) == 1 else _Copy.apply(x, group)
+
+
+def reduce_from_group(x: torch.Tensor, group) -> torch.Tensor:
+    """Sum over ``group`` forward (the partial products of a row-parallel
+    layer); identity backward."""
+    return x if _size(group) == 1 else _Reduce.apply(x, group)
+
+
+def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """Sum over ``group`` forward and backward: a statistic of the whole
+    batch that every rank's loss reads (synchronised BatchNorm)."""
+    return x if _size(group) == 1 else _AllReduceSum.apply(x, group)
+
+
+def gather_from_group(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The ranks' slices of ``group`` concatenated along ``dim`` forward
+    (vocab-parallel logits); the backward keeps this rank's slice."""
+    return x if _size(group) == 1 else _Gather.apply(x, group, dim % x.ndim)

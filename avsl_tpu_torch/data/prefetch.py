@@ -6,8 +6,8 @@ copied from pinned host memory on a stream of its own with
 ``non_blocking=True``; the consumer's stream waits on the copy's event
 before it reads the batch, and the tensors are recorded on that stream so
 the caching allocator does not hand their memory back to the copy stream
-while the step still reads it. A mesh-sharded upload is the parallel layer
-(ROADMAP.md queue 1, item 12) and raises.
+while the step still reads it. With ``mesh`` each rank uploads only its
+rows of every batch (``core/mesh.py::shard_batch``), to the mesh's device.
 """
 
 from __future__ import annotations
@@ -38,17 +38,17 @@ def prefetch_to_device(
     """Wrap a host-batch iterator (dicts of numpy arrays or tensors) so its
     batches arrive as tensors on ``device``.
 
-    ``size`` bounds the batches in flight (2 = double buffering).
+    ``size`` bounds the batches in flight (2 = double buffering). With
+    ``mesh`` each batch arrives as this data rank's
+    :class:`~avsl_tpu_torch.core.mesh.ShardedBatch` on the mesh's device
+    (``device`` is then the mesh's), which the train step takes as it is.
     Exceptions raised by the source iterator or by an upload re-raise at the
     consumer's ``next()``; the producer is a daemon thread that stops once
     the consumer is closed or dropped, so an abandoned consumer cannot keep
     it parked on a full queue."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "prefetch_to_device(mesh=...): the parallel layer is not ported yet "
-            "(ROADMAP.md queue 1, item 12)"
-        )
-    device = torch.device(device)
+    from avsl_tpu_torch.core.mesh import ShardedBatch, host_rows
+
+    device = torch.device(device) if mesh is None else mesh.device
     cuda = device.type == "cuda"
     copy_stream = torch.cuda.Stream(device) if cuda else None
     q: "queue.Queue" = queue.Queue(maxsize=max(1, size))
@@ -58,14 +58,18 @@ def prefetch_to_device(
         return value if isinstance(value, torch.Tensor) else torch.as_tensor(np.asarray(value))
 
     def put(batch):
+        sharded = None
+        if mesh is not None:
+            batch, sharded = host_rows(mesh, batch)
         if not cuda:
-            return {k: host(v).to(device) for k, v in batch.items()}, None
-        with torch.cuda.stream(copy_stream):
-            out = {k: host(v).pin_memory().to(device, non_blocking=True)
-                   for k, v in batch.items()}
-            done = torch.cuda.Event()
-            done.record(copy_stream)
-        return out, done
+            out, done = {k: host(v).to(device) for k, v in batch.items()}, None
+        else:
+            with torch.cuda.stream(copy_stream):
+                out = {k: host(v).pin_memory().to(device, non_blocking=True)
+                       for k, v in batch.items()}
+                done = torch.cuda.Event()
+                done.record(copy_stream)
+        return (out if sharded is None else ShardedBatch(out, sharded, 0)), done
 
     def enqueue(item) -> bool:
         # a bounded put that notices an abandoned consumer instead of

@@ -122,7 +122,7 @@ class BatchOutput(NamedTuple):
 # serving options of later work, each with the ROADMAP.md item that ports
 # it; the transcriber and the serving CLIs refuse them from this table
 UNPORTED = {
-    "mesh": "item 12 (the parallel layer)",
+    "mesh": "item 12d (the serving mesh)",
 }
 
 

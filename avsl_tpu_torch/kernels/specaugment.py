@@ -17,13 +17,16 @@ from __future__ import annotations
 
 import torch
 
+from avsl_tpu_torch.core.mesh import draw_rows
+
 F_MAX = 27
 T_MAX = 100
 
 
 def _below(hi: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
     """One uniform integer in [0, hi) per element of ``hi`` (hi >= 1)."""
-    u = torch.rand(hi.shape, generator=generator, device=hi.device, dtype=torch.float64)
+    u = draw_rows(lambda s: torch.rand(s, generator=generator, device=hi.device,
+                                       dtype=torch.float64), hi.shape)
     return torch.minimum((u * hi).floor().long(), hi - 1)
 
 
@@ -46,10 +49,12 @@ def draw_spec_augment(
     b, dev = frames.shape[0], frames.device
     draws = []
     for _ in range(n_freq_mask):
-        f = torch.randint(0, f_max + 1, (b,), generator=generator, device=dev)
+        f = draw_rows(lambda s: torch.randint(0, f_max + 1, s, generator=generator, device=dev),
+                      (b,))
         draws.append(torch.stack([f, _below((n_mels - f).clamp(min=1), generator)], -1))
     for _ in range(n_time_mask):
-        t = torch.randint(0, t_max + 1, (b,), generator=generator, device=dev)
+        t = draw_rows(lambda s: torch.randint(0, t_max + 1, s, generator=generator, device=dev),
+                      (b,))
         t = torch.minimum(t, frames)
         draws.append(torch.stack([t, _below((frames - t).clamp(min=1), generator)], -1))
     if not draws:

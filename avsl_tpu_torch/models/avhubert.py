@@ -70,6 +70,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from avsl_tpu_torch.core.config import AVHuBERTConfig
+from avsl_tpu_torch.core.mesh import draw_rows
 from avsl_tpu_torch.models.intermediates import sow
 from avsl_tpu_torch.models.layers import (
     Cache,
@@ -151,7 +152,7 @@ def span_mask(
         raise ValueError("a span mask needs an explicit torch.Generator")
     if device is None and padding_mask is not None:
         device = padding_mask.device
-    u = torch.rand((batch, length), generator=generator, device=device)
+    u = draw_rows(lambda s: torch.rand(s, generator=generator, device=device), (batch, length))
     return span_mask_from_uniform(u, mask_prob, mask_length, padding_mask)
 
 

@@ -44,6 +44,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from avsl_tpu_torch.core.mesh import copy_to_group, draw_rows, reduce_from_group
 from avsl_tpu_torch.kernels.attention import fused_attention
 from avsl_tpu_torch.models.quant import QTensor
 
@@ -110,16 +111,47 @@ def cast_param(p: Optional[torch.Tensor], dtype: torch.dtype) -> Optional[torch.
 class CastLinear(nn.Linear):
     """``nn.Linear`` whose weight and bias are cast to ``compute_dtype`` at
     use when they are stored in another dtype (flax ``Dense`` with
-    ``dtype`` and ``param_dtype``), as is an input in another dtype."""
+    ``dtype`` and ``param_dtype``), as is an input in another dtype.
+
+    Under tensor parallelism (:meth:`set_tensor_parallel`) the layer holds
+    this model rank's rows of the weight and bias ("col": its slice of the
+    output features; the input's gradient is summed over the group) or
+    its columns of the weight ("row": the partial products are summed
+    over the group, then the whole bias is added)."""
 
     def __init__(self, in_features, out_features, bias=True, device=None,
                  param_dtype=torch.bfloat16, compute_dtype=None):
         super().__init__(in_features, out_features, bias=bias, device=device, dtype=param_dtype)
         self.compute_dtype = compute_dtype or param_dtype
+        self.tp: Optional[Tuple[str, Any, int, int]] = None
+
+    def set_tensor_parallel(self, mode: str, group, rank: int, size: int) -> None:
+        """Run as the ``mode`` ("col" or "row") part ``rank`` of ``size``
+        over ``group``; ``core/partitioning.py::shard_state`` cuts the
+        tensors."""
+        if mode not in ("col", "row"):
+            raise ValueError(f"tensor-parallel mode {mode!r}: 'col' or 'row'")
+        self.tp = (mode, group, rank, size)
+
+    def output_split(self, dim: int) -> Optional[Tuple[int, int, int]]:
+        """``(dim, rank, size)`` when the output's features along ``dim``
+        are this rank's slice (column-parallel), else None: the ``split``
+        of :func:`~avsl_tpu_torch.core.mesh.draw_rows`."""
+        if self.tp is None or self.tp[0] != "col":
+            return None
+        return (dim, self.tp[2], self.tp[3])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(cast_param(x, self.compute_dtype), cast_param(self.weight, self.compute_dtype),
-                        cast_param(self.bias, self.compute_dtype))
+        dtype = self.compute_dtype
+        x = cast_param(x, dtype)
+        if self.tp is None:
+            return F.linear(x, cast_param(self.weight, dtype), cast_param(self.bias, dtype))
+        mode, group = self.tp[:2]
+        if mode == "col":
+            return F.linear(copy_to_group(x, group), cast_param(self.weight, dtype),
+                            cast_param(self.bias, dtype))
+        y = reduce_from_group(F.linear(x, cast_param(self.weight, dtype)), group)
+        return y if self.bias is None else y + cast_param(self.bias, dtype)
 
 
 class CastConv1d(nn.Conv1d):
@@ -136,17 +168,21 @@ class CastConv1d(nn.Conv1d):
 
 
 def residual_dropout(
-    x: torch.Tensor, rate: float, training: bool, generator: Optional[torch.Generator]
+    x: torch.Tensor, rate: float, training: bool, generator: Optional[torch.Generator],
+    split: Optional[Tuple[int, int, int]] = None,
 ) -> torch.Tensor:
     """flax ``nn.Dropout``: keep each element with probability ``1 - rate``
     and scale it by ``1 / (1 - rate)``; the identity outside training. The
-    mask is drawn from ``generator`` (``F.dropout`` takes none)."""
+    mask is drawn from ``generator`` (``F.dropout`` takes none), over
+    ``x``'s rows through :func:`~avsl_tpu_torch.core.mesh.draw_rows`
+    (``split``: a dim of ``x`` that is this model rank's slice)."""
     if not training or rate <= 0.0:
         return x
     if generator is None:
         raise ValueError("dropout in training needs an explicit torch.Generator")
     keep_prob = 1.0 - rate
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    keep = draw_rows(lambda s: torch.rand(s, generator=generator, device=x.device),
+                     x.shape, split) < keep_prob
     return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -276,16 +312,18 @@ def head_major_attention(
     dropout_rate: float = 0.0,
     generator: Optional[torch.Generator] = None,
     return_weights: bool = False,
+    split: Optional[Tuple[int, int, int]] = None,
 ):
     """[B,H,Q,D] x [B,H,K,D] -> [B,H,Q,D]; the body of
     :func:`dot_product_attention` over head-major operands (with
-    ``return_weights`` also the fp32 [B,H,Q,K] softmax weights)."""
+    ``return_weights`` also the fp32 [B,H,Q,K] softmax weights; ``split``
+    as :func:`residual_dropout`'s, for the weights' dropout)."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     logits = _matmul_f32(q, k.transpose(-1, -2)) * scale
     if mask is not None:
         logits = torch.where(mask, logits, torch.finfo(torch.float32).min)
     probs = torch.softmax(logits, dim=-1)
-    weights = residual_dropout(probs.to(q.dtype), dropout_rate, True, generator)
+    weights = residual_dropout(probs.to(q.dtype), dropout_rate, True, generator, split)
     out = _matmul_f32(weights, v).to(q.dtype)
     return (out, probs) if return_weights else out
 
@@ -298,6 +336,7 @@ def dot_product_attention(
     dropout_rate: float = 0.0,
     generator: Optional[torch.Generator] = None,
     return_weights: bool = False,
+    split: Optional[Tuple[int, int, int]] = None,
 ):
     """[B,Q,H,D] x [B,K,H,D] -> [B,Q,H,D]; fp32 logits and softmax; mask
     True = attend, masked logits take ``finfo(float32).min``. Weights are
@@ -307,7 +346,7 @@ def dot_product_attention(
     ``return_weights`` also returns the fp32 [B,H,Q,K] softmax weights (the
     alignment capture, ``decode/word_timestamps.py``)."""
     out = head_major_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), mask,
-                               dropout_rate, generator, return_weights)
+                               dropout_rate, generator, return_weights, split)
     if return_weights:
         return out[0].transpose(1, 2), out[1]
     return out.transpose(1, 2)
@@ -400,6 +439,7 @@ class MultiHeadAttention(nn.Module):
                  attn_dropout: float = 0.0, kv_dim: Optional[int] = None):
         super().__init__()
         self.d_model, self.n_heads = d_model, n_heads
+        self.head_dim = d_model // n_heads
         self.attn_dropout = attn_dropout
         kw = dict(device=device, param_dtype=param_dtype or dtype, compute_dtype=dtype)
         self._proj_names = _PROJ_NAMES[names]
@@ -414,8 +454,10 @@ class MultiHeadAttention(nn.Module):
         return self._modules[self._proj_names[i]]
 
     def _split(self, x: torch.Tensor) -> torch.Tensor:
+        """[B, T, H*D] -> [B, T, H, D]: every head, or this model rank's
+        ``n_heads / mp`` under tensor parallelism."""
         b, t, _ = x.shape
-        return x.view(b, t, self.n_heads, self.d_model // self.n_heads)
+        return x.view(b, t, -1, self.head_dim)
 
     def precompute_kv(self, kv_src: torch.Tensor) -> Cache:
         """Cross-attention K/V for the decode loop: the model-dtype
@@ -498,7 +540,8 @@ class MultiHeadAttention(nn.Module):
             v = self._split(self._proj(2)(src))
             if self.training and self.attn_dropout > 0.0:
                 out = dot_product_attention(q, k, v, mask, dropout_rate=self.attn_dropout,
-                                            generator=generator)
+                                            generator=generator,
+                                            split=self._proj(0).output_split(1))
             elif self.capture is not None and kv_src is not None:
                 out, weights = dot_product_attention(q, k, v, mask, return_weights=True)
                 self.capture.append(weights)
@@ -507,7 +550,7 @@ class MultiHeadAttention(nn.Module):
             else:
                 out = dot_product_attention(q, k, v, mask)
         b, t = out.shape[:2]
-        return self._proj(3)(out.reshape(b, t, self.d_model)), new_cache
+        return self._proj(3)(out.reshape(b, t, -1)), new_cache
 
 
 class MLP(nn.Sequential):
@@ -523,7 +566,8 @@ class MLP(nn.Sequential):
         self.dropout = dropout
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        h = residual_dropout(self[1](self[0](x)), self.dropout, self.training, generator)
+        h = residual_dropout(self[1](self[0](x)), self.dropout, self.training, generator,
+                             self[0].output_split(-1))
         return self[2](h)
 
 
@@ -648,7 +692,8 @@ class TransformerBlock(nn.Module):
             return self.mlp(h, valid=valid)
         if self.names == "fairseq":
             h = F.gelu(self.fc1(h))
-            return self.fc2(residual_dropout(h, self.activation_dropout, self.training, generator))
+            return self.fc2(residual_dropout(h, self.activation_dropout, self.training, generator,
+                                             self.fc1.output_split(-1)))
         return self.mlp(h, generator)
 
     def _residual(self, x, delta, generator):

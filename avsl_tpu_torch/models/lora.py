@@ -36,43 +36,11 @@ import numpy as np
 import torch
 from torch import nn
 
+from avsl_tpu_torch.core.tree import flax_path
+
 DEFAULT_TARGETS: Tuple[str, ...] = (r"(q_proj|v_proj)/kernel$",)
 
 Adapters = Dict[str, Dict[str, torch.Tensor]]
-
-_TOWER = "video_model/av_hubert/encoder/"
-_WHISPER_PROJ = {"query": "q_proj", "key": "k_proj", "value": "v_proj", "out": "out_proj"}
-# (regex over a state-dict key of a 2-D parameter, flax path builder)
-_FLAX_PATHS = [
-    (r"^decoder\.token_embedding\.weight$", lambda m: "decoder/token_embedding/embedding"),
-    (r"^decoder\.positional_embedding$", lambda m: "decoder/positional_embedding"),
-    (r"^video_projection\.weight$", lambda m: "video_projection/kernel"),
-    (r"^(encoder|decoder)\.blocks\.(\d+)\.(attn|cross_attn|x_attn)\.(query|key|value|out)\.weight$",
-     lambda m: (f"{m[1]}/block_{m[2]}/{'self_attn' if m[3] == 'attn' else m[3]}/"
-                f"{_WHISPER_PROJ[m[4]]}/kernel")),
-    (r"^(encoder|decoder)\.blocks\.(\d+)\.(mlp|x_mlp)\.(0|2)\.weight$",
-     lambda m: f"{m[1]}/block_{m[2]}/{m[3]}/fc{1 if m[4] == '0' else 2}/kernel"),
-    (r"^video_model\.post_extract_proj\.weight$", lambda m: _TOWER + "post_extract_proj/kernel"),
-    (r"^video_model\.feature_extractor_(video|audio)\.proj\.weight$",
-     lambda m: f"{_TOWER}{m[1]}_encoder/proj/kernel".replace("video_encoder", "visual_encoder")),
-    (r"^video_model\.encoder\.layers\.(\d+)\.(fc1|fc2)\.weight$",
-     lambda m: f"{_TOWER}transformer/layer_{m[1]}/mlp/{m[2]}/kernel"),
-    (r"^video_model\.encoder\.layers\.(\d+)\.self_attn\.(q_proj|k_proj|v_proj|out_proj)\.weight$",
-     lambda m: f"{_TOWER}transformer/layer_{m[1]}/self_attn/{m[2]}/kernel"),
-]
-
-
-def flax_path(key: str) -> str:
-    """The JAX package's flax path ("/"-joined, without the collection) of
-    the port's 2-D parameter ``key`` of a Whisper(-Flamingo) model: the
-    inverse of ``models/convert.py::flax_path_to_torch_key`` there. Raises
-    KeyError for a key it does not know."""
-    for pattern, build in _FLAX_PATHS:
-        m = re.match(pattern, key)
-        if m:
-            return build(m)
-    raise KeyError(f"{key}: no flax path known for this 2-D parameter")
-
 
 def _two_d(model: nn.Module) -> Dict[str, Tuple[str, nn.Parameter]]:
     """Every 2-D parameter of ``model`` by flax path: (state-dict key, tensor)."""

@@ -16,8 +16,8 @@ its key lengths) keeps pad tokens from claiming capacity and from the
 balance statistics; their FFN delta is zero. Without ``valid`` every
 position routes.
 
-Expert parallelism (``make_ep_mesh``, ``--experts_parallel``) is the
-parallel layer's (ROADMAP.md queue 1, item 12c) and raises.
+Expert parallelism (``make_ep_mesh``, ``--experts_parallel``) and an MoE
+tower on a data axis above 1 are ROADMAP.md item 12e's and raise.
 """
 
 from __future__ import annotations
@@ -43,9 +43,9 @@ _TRUNC_STD = 0.87962566103423978
 
 def make_ep_mesh(n_devices: Optional[int] = None, experts_parallel: int = 1,
                  devices: Optional[Sequence] = None):
-    """The (data, expert) mesh of the JAX package: the parallel layer."""
+    """The (data, expert) mesh of the JAX package: not ported yet."""
     raise NotImplementedError("make_ep_mesh (expert parallelism) is not ported yet "
-                              "(ROADMAP.md queue 1, item 12c: the parallel layer)")
+                              "(ROADMAP.md queue 1, item 12e)")
 
 
 class MoEFFN(nn.Module):

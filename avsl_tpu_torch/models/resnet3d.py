@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from avsl_tpu_torch.core.mesh import all_reduce_sum, current_row_shard
 from avsl_tpu_torch.models.layers import cast_param, recomputing
 
 
@@ -57,7 +58,11 @@ class BatchNormF32(nn.Module):
     * batch`` with the biased variance. ``F.batch_norm`` in training would
     store the unbiased variance instead. A remat recompute
     (:func:`~avsl_tpu_torch.models.layers.recomputing`) normalises the same
-    way and leaves the buffers alone: flax updates ``batch_stats`` once."""
+    way and leaves the buffers alone: flax updates ``batch_stats`` once.
+    Inside a data-parallel step whose rows are sharded
+    (``core/mesh.py::row_shard_scope``) the sums of ``x`` and ``x^2`` are
+    added over the data ranks first, so the statistics are the global
+    batch's, as under JAX's jit."""
 
     def __init__(self, channels: int, eps: float = 1e-5, momentum: float = 0.9, device=None):
         super().__init__()
@@ -82,8 +87,16 @@ class BatchNormF32(nn.Module):
                                 self.bias, False, 0.0, self.eps).to(x.dtype)
         xf = x.float()
         axes = [d for d in range(x.ndim) if d != 1]
-        mean = xf.mean(dim=axes)
-        var = torch.clamp_min(xf.square().mean(dim=axes) - mean.square(), 0.0)
+        rows = current_row_shard()
+        if rows is None:
+            mean = xf.mean(dim=axes)
+            var = torch.clamp_min(xf.square().mean(dim=axes) - mean.square(), 0.0)
+        else:
+            sums = all_reduce_sum(torch.stack([xf.sum(dim=axes), xf.square().sum(dim=axes)]),
+                                  rows.group)
+            n = (xf.numel() // xf.shape[1]) * rows.size
+            mean = sums[0] / n
+            var = torch.clamp_min(sums[1] / n - mean.square(), 0.0)
         if not recomputing():
             with torch.no_grad():
                 m = self.momentum

@@ -32,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from avsl_tpu_torch.core.config import WhisperConfig
+from avsl_tpu_torch.core.mesh import copy_to_group, gather_from_group, reduce_from_group
 from avsl_tpu_torch.models.layers import (
     Cache,
     CastConv1d,
@@ -100,7 +101,13 @@ class WhisperEncoder(nn.Module):
 class WhisperTextDecoder(nn.Module):
     """Text decoder with learned positions, logits tied to the token
     embedding (fp32 logits) and, with ``cfg.add_gated_x_attn``, the gated
-    video cross-attention in every block."""
+    video cross-attention in every block.
+
+    With a vocab-sharded embedding (:meth:`set_vocab_parallel`) each model
+    rank holds its rows of the vocabulary: the lookup embeds the ids in
+    its rows and sums over the group, and the tied logits of each rank's
+    rows are all-gathered over the vocabulary before the loss, as XLA
+    gathers them."""
 
     def __init__(self, cfg: WhisperConfig, device=None):
         super().__init__()
@@ -122,6 +129,24 @@ class WhisperTextDecoder(nn.Module):
             for _ in range(cfg.n_text_layer)
         )
         self.ln = LayerNormF32(d, device=device)
+        self.vocab_tp: Optional[Tuple[object, int, int]] = None
+
+    def set_vocab_parallel(self, group, rank: int, size: int) -> None:
+        """Run as part ``rank`` of ``size`` of a vocab-sharded embedding over
+        ``group``; ``core/partitioning.py::shard_state`` cuts the rows."""
+        self.vocab_tp = (group, rank, size)
+
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        if self.vocab_tp is None:
+            return self.token_embedding(tokens)
+        group, rank, _ = self.vocab_tp
+        rows = self.token_embedding.weight.shape[0]
+        local = tokens - rank * rows
+        outside = (local < 0) | (local >= rows)
+        emb = F.embedding(local.clamp(0, rows - 1), self.token_embedding.weight)
+        emb = torch.where(outside[..., None], torch.zeros((), dtype=emb.dtype, device=emb.device),
+                          emb)
+        return reduce_from_group(emb, group)
 
     def forward(
         self,
@@ -132,7 +157,7 @@ class WhisperTextDecoder(nn.Module):
         xv: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, Optional[List[Cache]]]:
         qlen = tokens.shape[1]
-        x = self.token_embedding(tokens).to(self.compute_dtype)
+        x = self._embed(tokens).to(self.compute_dtype)
         x = x + positions(self.positional_embedding, cache, qlen).to(x.dtype)
 
         new_cache: Optional[List[Cache]] = [] if cache is not None else None
@@ -146,8 +171,11 @@ class WhisperTextDecoder(nn.Module):
         # preferred_element_type=float32: the embedding is rounded to the
         # compute dtype first (a no-op when it is stored in it)
         emb = cast_param(self.token_embedding.weight, self.compute_dtype)
-        logits = F.linear(x.float(), emb.float())
-        return logits, new_cache
+        if self.vocab_tp is None:
+            return F.linear(x.float(), emb.float()), new_cache
+        group = self.vocab_tp[0]
+        logits = F.linear(copy_to_group(x.float(), group), emb.float())
+        return gather_from_group(logits, group, -1), new_cache
 
 
 class Whisper(nn.Module):

@@ -1,8 +1,9 @@
-"""Train and eval steps: gradient accumulation, clipping and AdamW.
+"""Train and eval steps: gradient accumulation, clipping and AdamW, on one
+device or on a (data, model) mesh.
 
-Port of ``avsl_tpu/train/loop.py`` for one device. The JAX step is one jit
-program that scans over micro-batches; here it is a Python loop of
-forward/backward passes, which is what the scan computes:
+Port of ``avsl_tpu/train/loop.py``. The JAX step is one jit program that
+scans over micro-batches; here it is a Python loop of forward/backward
+passes, which is what the scan computes:
 
 * a batch whose leaves carry a leading ``[accum, micro, ...]`` axis runs
   ``accum`` micro-steps; the gradients of each micro-batch's mean loss
@@ -23,19 +24,49 @@ forward/backward passes, which is what the scan computes:
   micro-steps and without gradients, on the whole stacked batch, and its
   context is merged into each micro-batch.
 
-``mesh``, ZeRO and FSDP are the parallel layer (ROADMAP.md queue 1, item
-12) and raise here.
+On a mesh (one process per rank, ``core/mesh.py``) the step takes the
+global batch, as JAX's does, and computes what JAX's SPMD program
+computes, the single-device step on that batch:
+
+* each data rank takes its rows (:func:`~avsl_tpu_torch.core.mesh.shard_batch`;
+  a batch that does not divide the data axis is given whole to every
+  rank); a state not yet on the mesh is put there first
+  (:func:`~avsl_tpu_torch.core.partitioning.shard_state` with ``zero1``
+  and ``fsdp``, tensor parallelism from the rules when the model axis is
+  above 1);
+* the loss is the token mean of the global batch: each micro-step sums
+  the valid-label count over the data ranks and scales the rank's mean by
+  ``local count x dp / global count``, so the mean over ranks of the
+  gradients (an all-reduce after the micro-steps, or FSDP's
+  reduce-scatter) and of the ``loss`` metric is the global one;
+* BatchNorm in training reduces its statistics over the data ranks and
+  row draws are made at the global batch's shape
+  (:func:`~avsl_tpu_torch.core.mesh.row_shard_scope`), so dropout masks
+  differ across data ranks while LayerDrop and the AV-mode draw agree.
+
+``sequence_parallel=True`` (activation sharding) is not ported (ROADMAP.md
+item 12d); None, JAX's auto, runs tensor parallelism without it, which
+computes the same numbers.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
+from avsl_tpu_torch.core.mesh import (
+    DATA_AXIS,
+    RowShard,
+    ShardedBatch,
+    row_shard_scope,
+    shard_batch,
+)
+from avsl_tpu_torch.core.partitioning import local_tensor, shard_state
 from avsl_tpu_torch.train.optim import TRAIN, ClippedAdamW, MultiSteps, global_norm
 
 # loss_fn(batch, generator) -> (loss, metrics dict), over the state's model
@@ -46,21 +77,29 @@ PrecomputeFn = Callable[[Dict[str, torch.Tensor], Optional[torch.Generator]],
                         Dict[str, torch.Tensor]]
 
 
-def _parallel_not_ported(option: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{option}: the parallel layer is not ported yet (ROADMAP.md queue 1, item 12)"
-    )
+# labels the loss ignores (``models/avhubert.py::cross_entropy_loss``)
+IGNORE_INDEX = -100
+# elements per all-reduce of the gradients
+_BUCKET_ELEMENTS = 1 << 26
+
+
+def sequence_parallel_not_ported() -> NotImplementedError:
+    return NotImplementedError("sequence_parallel=True: activation sharding is not ported "
+                               "yet (ROADMAP.md queue 1, item 12d)")
 
 
 @dataclass
 class TrainState:
     """The model (parameters in place), its optimizer, the update count,
-    and the generator every random draw of a step comes from."""
+    and the generator every random draw of a step comes from (seeded alike
+    on every rank of a mesh); on a mesh, the state's
+    :class:`~avsl_tpu_torch.core.partitioning.Layout` there."""
 
     model: nn.Module
     optimizer: Optional[Union[ClippedAdamW, MultiSteps]]
     step: int = 0
     generator: Optional[torch.Generator] = None
+    layout: Any = None
 
     @classmethod
     def create(cls, model: nn.Module, optimizer: Optional[Union[ClippedAdamW, MultiSteps]],
@@ -81,6 +120,59 @@ def batch_to_device(batch: Dict[str, Any], device: torch.device) -> Dict[str, to
     return out
 
 
+def _all_reduce_mean(tensors: List[torch.Tensor], group, n: int) -> None:
+    """Average ``tensors`` in place over the ``n`` ranks of ``group``, in
+    flat buckets of one dtype."""
+    by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
+    for t in tensors:
+        by_dtype.setdefault(t.dtype, []).append(t)
+    for group_tensors in by_dtype.values():
+        bucket, size = [], 0
+        for t in group_tensors + [None]:
+            if t is not None:
+                bucket.append(t)
+                size += t.numel()
+            if bucket and (t is None or size >= _BUCKET_ELEMENTS):
+                flat = torch.cat([b.reshape(-1) for b in bucket])
+                dist.all_reduce(flat, group=group)
+                flat.div_(n)
+                for b, part in zip(bucket, flat.split([b.numel() for b in bucket])):
+                    b.copy_(part.view_as(b))
+                bucket, size = [], 0
+
+
+def _rows(mesh, batch: ShardedBatch, groups: int = 1) -> Optional[RowShard]:
+    """The :class:`RowShard` of a sharded batch on a data axis above 1
+    (None when the labels were given whole to every rank)."""
+    if mesh is None or mesh.shape[DATA_AXIS] <= 1 or "labels" not in batch.sharded:
+        return None
+    return RowShard(mesh.data_group, mesh.data_rank, mesh.shape[DATA_AXIS], groups)
+
+
+def _token_scale(rows: RowShard, labels: torch.Tensor) -> torch.Tensor:
+    """``local count x dp / global count`` of valid labels: the factor
+    that turns this rank's token mean into its share of the global token
+    mean."""
+    local = (labels != IGNORE_INDEX).sum().float()
+    total = local.clone()
+    dist.all_reduce(total, group=rows.group)
+    return local.clamp_min(1.0) * rows.size / total.clamp_min(1.0)
+
+
+def _prepare(state: "TrainState", mesh, batch: Dict[str, Any], batch_dim: int,
+             zero1: bool, fsdp: bool) -> Tuple[Dict[str, torch.Tensor], Optional[ShardedBatch]]:
+    """The batch on the state's device: this rank's rows of it on a mesh
+    (the state put on the mesh first when it is not yet), as it is
+    otherwise. Returns ``(batch, sharded batch or None)``."""
+    if mesh is None:
+        return batch_to_device(batch, next(state.model.parameters()).device), None
+    if state.layout is None:
+        shard_state(state, mesh, zero1=zero1, fsdp=fsdp)
+    if not isinstance(batch, ShardedBatch):
+        batch = shard_batch(mesh, batch, batch_dim)
+    return dict(batch), batch
+
+
 def make_train_step(
     loss_fn: LossFn,
     mesh: Any = None,
@@ -90,13 +182,18 @@ def make_train_step(
     split_precompute: bool = False,
     zero1: bool = False,
     fsdp: bool = False,
+    sequence_parallel: Optional[bool] = None,
 ):
     """Build ``step(state, batch) -> (state, metrics)``.
 
     ``batch`` leaves are ``[micro, ...]``, or ``[accum, micro, ...]`` when
-    ``grad_accum_steps > 1``. ``metrics`` holds device scalars (``loss``
-    and whatever ``loss_fn`` reports, averaged over micro-steps, and
-    ``grad_norm``); reading one waits for the step.
+    ``grad_accum_steps > 1``: the global batch, whose rows each data rank
+    of ``mesh`` takes (a :class:`~avsl_tpu_torch.core.mesh.ShardedBatch`
+    from ``prefetch_to_device(mesh=...)`` is taken as it is). ``metrics``
+    holds device scalars (``loss`` and whatever ``loss_fn`` reports,
+    averaged over micro-steps and data ranks, and ``grad_norm``); reading
+    one waits for the step. On a mesh, ``zero1`` and ``fsdp`` say how a
+    state that is not on it yet is put there.
 
     ``precompute_fn(batch, generator) -> ctx`` (e.g.
     :func:`~avsl_tpu_torch.train.objectives.flamingo_tower_precompute`)
@@ -106,45 +203,57 @@ def make_train_step(
     ``split_precompute=True`` the result is ``(step, pre)``: ``ctx =
     pre(state, batch)`` then ``step(state, batch, ctx)``, which draws
     the same numbers as the fused step."""
-    if mesh is not None:
-        raise _parallel_not_ported("mesh")
-    if zero1 or fsdp:
-        raise _parallel_not_ported("zero1/fsdp")
+    if sequence_parallel:
+        raise sequence_parallel_not_ported()
     accum = int(grad_accum_steps)
+    batch_dim = 1 if accum > 1 else 0
 
     def pre_fn(state: TrainState, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        batch = batch_to_device(batch, next(state.model.parameters()).device)
-        with torch.no_grad():
+        batch, sharded = _prepare(state, mesh, batch, batch_dim, zero1, fsdp)
+        rows = None if sharded is None else _rows(mesh, sharded, accum if accum > 1 else 1)
+        with torch.no_grad(), row_shard_scope(rows):
             return precompute_fn(batch, state.generator)
 
     def step_fn(state: TrainState, batch: Dict[str, Any],
                 ctx: Optional[Dict[str, torch.Tensor]] = None,
                 ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        batch, sharded = _prepare(state, mesh, batch, batch_dim, zero1, fsdp)
         model, opt = state.model, state.optimizer
         if param_labels is not None:
             for name, p in model.named_parameters():
                 p.requires_grad_(param_labels.get(name) == TRAIN)
-        device = next(model.parameters()).device
-        batch = batch_to_device(batch, device)
+        rows = None if sharded is None else _rows(mesh, sharded)
         if precompute_fn is not None and ctx is None:
-            ctx = pre_fn(state, batch)
+            ctx = pre_fn(state, sharded if sharded is not None else batch)
         if ctx is not None:
             batch = {**batch, **ctx}
         micros = [batch] if accum <= 1 else [{k: v[i] for k, v in batch.items()}
                                               for i in range(accum)]
         sums: Dict[str, torch.Tensor] = {}
-        for micro in micros:
-            loss, metrics = loss_fn(micro, state.generator)
-            loss.backward()
-            for key, value in {**metrics, "loss": loss}.items():
-                value = value.detach().float()
-                sums[key] = value if key not in sums else sums[key] + value
-        params = [p for p in model.parameters() if p.requires_grad]
+        with row_shard_scope(rows):
+            for micro in micros:
+                loss, metrics = loss_fn(micro, state.generator)
+                if rows is not None:
+                    loss = loss * _token_scale(rows, micro["labels"])
+                loss.backward()
+                for key, value in {**metrics, "loss": loss}.items():
+                    value = value.detach().float()
+                    sums[key] = value if key not in sums else sums[key] + value
+        named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+        params = [p for _, p in named]
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+        layout = state.layout
+        if rows is not None and not (layout is not None and layout.fsdp):
+            _all_reduce_mean(grads, rows.group, rows.size)
         if accum > 1:
-            torch._foreach_div_(grads, float(accum))
+            torch._foreach_div_([local_tensor(g) for g in grads], float(accum))
         out = {key: value / len(micros) for key, value in sums.items()}
-        out["grad_norm"] = global_norm(grads)
+        if rows is not None:
+            stacked = torch.stack([out[k] for k in sorted(out)])
+            dist.all_reduce(stacked, group=rows.group)
+            out = {k: v / rows.size for k, v in zip(sorted(out), stacked)}
+        groups = None if layout is None else [layout.norm_group(n) for n, _ in named]
+        out["grad_norm"] = global_norm([local_tensor(g) for g in grads], groups)
         if opt is not None:
             by_param = {id(p): g for p, g in zip(params, grads)}
             opt_grads = [by_param[id(p)] if id(p) in by_param else torch.zeros_like(p)
@@ -164,16 +273,24 @@ def make_train_step(
     return step_fn
 
 
-def make_eval_step(loss_fn: LossFn, mesh: Any = None):
+def make_eval_step(loss_fn: LossFn, mesh: Any = None, sequence_parallel: Optional[bool] = None):
     """``eval(state, batch) -> metrics``: the loss without gradients or
-    random draws."""
-    if mesh is not None:
-        raise _parallel_not_ported("mesh")
+    random draws; on a mesh each data rank evaluates its rows and the
+    metrics are the global batch's (the loss its token mean)."""
+    if sequence_parallel:
+        raise sequence_parallel_not_ported()
 
     @torch.no_grad()
     def step_fn(state: TrainState, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        device = next(state.model.parameters()).device
-        loss, metrics = loss_fn(batch_to_device(batch, device), None)
-        return {**metrics, "loss": loss}
+        batch, sharded = _prepare(state, mesh, batch, 0, False, False)
+        loss, metrics = loss_fn(batch, None)
+        out = {**metrics, "loss": loss}
+        rows = None if sharded is None else _rows(mesh, sharded)
+        if rows is not None:
+            out["loss"] = loss * _token_scale(rows, batch["labels"])
+            stacked = torch.stack([out[k].float() for k in sorted(out)])
+            dist.all_reduce(stacked, group=rows.group)
+            out = {k: v / rows.size for k, v in zip(sorted(out), stacked)}
+        return out
 
     return step_fn

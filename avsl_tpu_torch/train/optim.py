@@ -32,11 +32,14 @@ from __future__ import annotations
 
 import math
 import re
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
+
+from avsl_tpu_torch.core.partitioning import local_tensor
 
 TRAIN = "train"
 FROZEN = "frozen"
@@ -110,13 +113,30 @@ def warmup_cosine_decay(init_value: float, peak_value: float, warmup_steps: int,
     return schedule
 
 
-def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+def global_norm(tensors: Sequence[torch.Tensor],
+                groups: Optional[Sequence[Tuple[Any, Any]]] = None) -> torch.Tensor:
     """sqrt of the sum of squares over all ``tensors``, fp32, on their
-    device (no host sync)."""
+    device (no host sync). ``groups`` gives, for each tensor that is a
+    part of a larger one, the (data, model) process groups its other parts
+    live on (None where it is whole along that axis): the squared sums
+    are then added over those groups, so every rank gets the norm of the
+    whole."""
     if not tensors:
         return torch.zeros(())
     norms = torch._foreach_norm([t.float() if t.dtype != torch.float32 else t for t in tensors])
-    return torch.linalg.vector_norm(torch.stack(norms))
+    if groups is None or all(g == (None, None) for g in groups):
+        return torch.linalg.vector_norm(torch.stack(norms))
+    buckets: Dict[Tuple[Any, Any], List[torch.Tensor]] = {}
+    for n, g in zip(norms, groups):
+        buckets.setdefault(g, []).append(n)
+    total = None
+    for (data, model), part in buckets.items():
+        sq = torch.stack(part).square().sum()
+        for group in (data, model):
+            if group is not None:
+                dist.all_reduce(sq, group=group)
+        total = sq if total is None else total + sq
+    return total.sqrt()
 
 
 class ClippedAdamW:
@@ -125,7 +145,12 @@ class ClippedAdamW:
     ``params`` are the trained tensors (updated in place by :meth:`step`);
     their moments are fp32 (or the parameter dtype) tensors on their
     device. Frozen parameters get neither state nor updates
-    (``set_to_zero``)."""
+    (``set_to_zero``). On a mesh (:meth:`bind`, from
+    ``core/partitioning.py::shard_state``) each rank updates its own part
+    of every tensor (a DTensor's local shard under FSDP, its columns or
+    rows under tensor parallelism, its ZeRO-1 slice, whose parameter is
+    then all-gathered over the data ranks) and the clip reads the norm of
+    the whole gradient."""
 
     def __init__(
         self,
@@ -145,23 +170,50 @@ class ClippedAdamW:
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
         self.count = 0
+        self.layout = None
+
+    def bind(self, params: Dict[str, torch.Tensor], layout) -> None:
+        """Take the parameters ``params`` (by name, as ``shard_state``
+        left them) and cut the moments to ``layout``."""
+        self.params = [params[n] for n in self.names]
+        with torch.no_grad():
+            self.mu = [layout.local(n, m, moment=True).clone() for n, m in zip(self.names, self.mu)]
+            self.nu = [layout.local(n, m, moment=True).clone() for n, m in zip(self.names, self.nu)]
+        self.layout = layout
+
+    def norm_groups(self) -> Optional[List[Tuple[Any, Any]]]:
+        """For :func:`global_norm`: where the other parts of each
+        gradient live (None off a mesh)."""
+        if self.layout is None:
+            return None
+        return [self.layout.norm_group(n) for n in self.names]
 
     def learning_rate(self) -> float:
         """The learning rate of the next update."""
         return self.schedule(self.count)
+
+    def _zero_slice(self, i: int, t: torch.Tensor) -> torch.Tensor:
+        """This data rank's ZeRO-1 slice of tensor ``i`` (``t`` itself when
+        its moments are whole)."""
+        name = self.names[i]
+        if self.layout is None or name not in self.layout.zero:
+            return t
+        d, n = self.layout.zero[name], self.layout.dp
+        size = t.shape[d] // n
+        return t.narrow(d, self.layout.mesh.data_rank * size, size)
 
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor], grad_norm: Optional[torch.Tensor] = None) -> None:
         """One update from ``grads`` (aligned with :attr:`params`; they are
         overwritten). ``grad_norm`` is their global norm when the caller
         already has it."""
-        grads = list(grads)
+        grads = [local_tensor(g) for g in grads]
         if len(grads) != len(self.params):
             raise ValueError(f"{len(grads)} gradients for {len(self.params)} parameters")
         if not grads:
             self.count += 1
             return
-        norm = global_norm(grads) if grad_norm is None else grad_norm
+        norm = global_norm(grads, self.norm_groups()) if grad_norm is None else grad_norm
         # (g / norm) * clip_norm when norm >= clip_norm, else g unchanged
         below = norm < self.clip_norm
         divisor = torch.where(below, torch.ones_like(norm), norm)
@@ -170,8 +222,10 @@ class ClippedAdamW:
         bc1 = float(np.float32(1.0) - np.float32(self.b1) ** np.float32(count))
         bc2 = float(np.float32(1.0) - np.float32(self.b2) ** np.float32(count))
         lr = self.schedule(self.count)
+        params = [self._zero_slice(i, local_tensor(p)) for i, p in enumerate(self.params)]
+        grads = [self._zero_slice(i, g) for i, g in enumerate(grads)]
         for lo, hi in self._chunks():
-            g, p = grads[lo:hi], self.params[lo:hi]
+            g, p = grads[lo:hi], params[lo:hi]
             mu, nu = self.mu[lo:hi], self.nu[lo:hi]
             torch._foreach_div_(g, divisor.to(g[0].device))
             torch._foreach_mul_(g, factor.to(g[0].device))
@@ -188,7 +242,23 @@ class ClippedAdamW:
             torch._foreach_add_(upd, p, alpha=self.weight_decay)
             torch._foreach_mul_(upd, -lr)
             torch._foreach_add_(p, upd)
+        if self.layout is not None and self.layout.zero:
+            self._gather_zero()
         self.count = count
+
+    def _gather_zero(self) -> None:
+        """All-gather each ZeRO-1 parameter's updated slices over the data
+        ranks (one collective per tensor)."""
+        layout = self.layout
+        for name, p in zip(self.names, self.params):
+            if name in layout.zero:
+                d = layout.zero[name]
+                full = local_tensor(p)
+                size = full.shape[d] // layout.dp
+                part = full.narrow(d, layout.mesh.data_rank * size, size).contiguous()
+                parts = [torch.empty_like(part) for _ in range(layout.dp)]
+                dist.all_gather(parts, part, group=layout.mesh.data_group)
+                full.copy_(torch.cat(parts, d))
 
     def _chunks(self):
         lo, size = 0, 0
@@ -238,6 +308,17 @@ class MultiSteps:
         self.acc = [torch.zeros_like(p) for p in self.params]
         self.mini_step = 0
 
+    def bind(self, params: Dict[str, torch.Tensor], layout) -> None:
+        """:meth:`ClippedAdamW.bind`, the accumulators cut like the
+        gradients."""
+        self.inner.bind(params, layout)
+        self.params = self.inner.params
+        with torch.no_grad():
+            self.acc = [layout.local(n, a).clone() for n, a in zip(self.names, self.acc)]
+
+    def norm_groups(self):
+        return self.inner.norm_groups()
+
     @property
     def count(self) -> int:
         """Updates of the inner optimizer so far."""
@@ -256,7 +337,7 @@ class MultiSteps:
         :meth:`ClippedAdamW.step` takes it and dropped: the clip uses the
         norm of the mean."""
         del grad_norm
-        grads = list(grads)
+        grads = [local_tensor(g) for g in grads]
         if len(grads) != len(self.params):
             raise ValueError(f"{len(grads)} gradients for {len(self.params)} parameters")
         if self.acc:

@@ -10,8 +10,16 @@ average of the trained tensors follows every train-step call (every
 micro-batch under ``MultiSteps``, as JAX applies ``ema_update`` after each
 ``train_step``); validation and the pinned best checkpoint use it, the
 rolling checkpoints keep the raw state, and a resume restarts it from the
-restored tensors. The mesh, ZeRO and FSDP are the parallel layer
-(ROADMAP.md queue 1, item 12c) and raise.
+restored tensors.
+
+With a ``mesh`` (``core/mesh.py``) the runner puts its state there
+(``core/partitioning.py::shard_state``: tensor parallelism from the rules,
+``zero1``, ``fsdp``) and every rank runs the same loop on the same global
+batches: the step takes each rank's rows, validation gathers every rank's
+logits so each computes the same WER and picks the same best step,
+checkpoints are collective and written by rank 0 alone (the whole
+logical state, restored into any layout), as are the metrics, and the EMA
+follows each rank's part of the trained tensors.
 """
 
 from __future__ import annotations
@@ -24,7 +32,17 @@ from typing import Any, Callable, Dict, Iterable, Iterator, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from avsl_tpu_torch.core.mesh import (
+    DATA_AXIS,
+    ShardedBatch,
+    gather_from_group,
+    rank,
+    shard_batch,
+    world_size,
+)
+from avsl_tpu_torch.core.partitioning import local_tensor, shard_state
 from avsl_tpu_torch.decode.greedy import teacher_forced_predictions
 from avsl_tpu_torch.decode.text_norm import normalize_text, wer_cer
 from avsl_tpu_torch.train.checkpoints import (
@@ -40,13 +58,17 @@ from avsl_tpu_torch.train.loop import TrainState, make_train_step
 
 class MetricLogger:
     """Appends ``{"step": N, metric: value, ...}`` lines to
-    ``<log_dir>/metrics.jsonl``."""
+    ``<log_dir>/metrics.jsonl``; in a process group, on rank 0 only."""
 
     def __init__(self, log_dir: str):
-        os.makedirs(log_dir, exist_ok=True)
         self.path = os.path.join(log_dir, "metrics.jsonl")
+        self.enabled = rank() == 0
+        if self.enabled:
+            os.makedirs(log_dir, exist_ok=True)
 
     def log(self, step: int, metrics: Dict[str, float]) -> None:
+        if not self.enabled:
+            return
         with open(self.path, "a") as f:
             f.write(json.dumps({"step": step, **{k: float(v) for k, v in metrics.items()}}) + "\n")
 
@@ -146,11 +168,15 @@ class TrainerRunner:
         precompute_fn=None,
     ):
         del tx
-        if partitioned_state:
-            raise NotImplementedError(
-                "partitioned_state: the parallel layer is not ported yet "
-                "(ROADMAP.md queue 1, item 12)"
-            )
+        self.mesh = mesh
+        # fsdp subsumes zero1; tensor parallelism follows the rules on any
+        # model axis above 1, so partitioned_state adds nothing to them
+        self.fsdp = bool(fsdp) and mesh is not None
+        self.zero1 = bool(zero1) and mesh is not None and not self.fsdp
+        self.partitioned = (bool(partitioned_state) or self.zero1 or self.fsdp) \
+            and mesh is not None
+        if mesh is not None and init_state.layout is None:
+            shard_state(init_state, mesh, zero1=self.zero1, fsdp=self.fsdp)
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.accum = (
@@ -160,7 +186,7 @@ class TrainerRunner:
         )
         self.train_step = make_train_step(
             loss_fn, mesh=mesh, grad_accum_steps=self.accum, param_labels=param_labels,
-            precompute_fn=precompute_fn, zero1=zero1, fsdp=fsdp,
+            precompute_fn=precompute_fn, zero1=self.zero1, fsdp=self.fsdp,
         )
         self.eval_logits_fn = eval_logits_fn
         self.predictions_fn = predictions_fn
@@ -198,28 +224,40 @@ class TrainerRunner:
 
     def _trained(self) -> Dict[str, torch.Tensor]:
         """The tensors the optimizer updates, by name (without an
-        optimizer, every parameter that takes a gradient)."""
+        optimizer, every parameter that takes a gradient); on a mesh, this
+        rank's parts of them."""
         opt = self.state.optimizer
         if opt is not None:
-            return dict(zip(opt.names, opt.params))
-        return {n: p for n, p in self.state.model.named_parameters() if p.requires_grad}
+            named = dict(zip(opt.names, opt.params))
+        else:
+            named = {n: p for n, p in self.state.model.named_parameters() if p.requires_grad}
+        return {n: local_tensor(p) for n, p in named.items()}
 
     def _reset_ema(self) -> None:
         if self.ema_decay > 0.0:
-            self.ema = {n: p.detach().clone() for n, p in self._trained().items()}
+            with torch.no_grad():
+                self.ema = {n: p.detach().clone() for n, p in self._trained().items()}
 
     @contextlib.contextmanager
     def _ema_weights(self):
         """Within the block the trained tensors hold the EMA (their storage
-        swapped, no copy); without EMA, nothing changes."""
+        swapped, no copy; a DTensor's local shard by value); without EMA,
+        nothing changes."""
         if self.ema is None:
             yield
             return
         live = self._trained()
+        fsdp = self.state.layout is not None and self.state.layout.fsdp
 
+        @torch.no_grad()
         def swap():
             for name, p in live.items():
-                p.data, self.ema[name] = self.ema[name], p.data
+                if fsdp:
+                    held = p.clone()
+                    p.copy_(self.ema[name])
+                    self.ema[name].copy_(held)
+                else:
+                    p.data, self.ema[name] = self.ema[name], p.data
 
         swap()
         try:
@@ -241,6 +279,9 @@ class TrainerRunner:
         non-divisible batches drop the tail remainder."""
         if self.accum <= 1:
             return batch
+        if isinstance(batch, ShardedBatch):
+            raise ValueError("a batch already cut into a rank's rows cannot be reshaped to "
+                             "[accum, micro]: hand the runner global batches")
         b = next(iter(batch.values())).shape[0]
         micro = b // self.accum
         if micro == 0:
@@ -250,11 +291,32 @@ class TrainerRunner:
             for k, v in batch.items()
         }
 
+    def _logits(self, batch: Dict[str, Any]) -> torch.Tensor:
+        """``eval_logits_fn`` on the global batch: on a mesh each data rank
+        runs its rows and the logits of every rank are gathered (a batch
+        that does not divide the data axis runs whole on every rank)."""
+        if self.mesh is None:
+            return self.eval_logits_fn(self.state, batch)
+        local = shard_batch(self.mesh, batch)
+        logits = self.eval_logits_fn(self.state, local)
+        if "labels" not in local.sharded or self.mesh.shape[DATA_AXIS] <= 1:
+            return logits
+        return gather_from_group(logits.contiguous(), self.mesh.data_group, 0)
+
     def _evaluate(self, batches, **kw) -> Dict[str, float]:
         """WER on ``batches`` with the EMA weights when there are some."""
         with self._ema_weights():
-            return evaluate_wer(lambda b: self.eval_logits_fn(self.state, b), batches,
-                                self.tokenizer, predictions_fn=self.predictions_fn, **kw)
+            return evaluate_wer(self._logits, batches, self.tokenizer,
+                                predictions_fn=self.predictions_fn, **kw)
+
+    def _preempted_anywhere(self) -> bool:
+        """Whether any rank got SIGTERM (all ranks checkpoint together)."""
+        if world_size() <= 1:
+            return self._preempted
+        device = local_tensor(next(self.state.model.parameters())).device
+        flag = torch.tensor([float(self._preempted)], device=device)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        return bool(flag.item())
 
     def fit(
         self,
@@ -281,7 +343,7 @@ class TrainerRunner:
         t0, last_logged_step, history = time.time(), step, []
         saved = None  # the step last written to ckpt_dir by this loop
         while step < num_steps:
-            if self._preempted:
+            if self._preempted_anywhere():
                 save_checkpoint(self.ckpt_dir, self.state, step)
                 saved = step
                 self.logger.log(step, {"train/preempted": 1.0})
@@ -366,15 +428,22 @@ class TrainerRunner:
                       "evaluating the in-memory (final) state instead")
                 step = None
         live = None
+        layout = self.state.layout
         if saved is not None:
-            live = {k: v.detach().to("cpu", copy=True) for k, v in model.state_dict().items()}
-            model.load_state_dict(saved)
+            live = {k: local_tensor(v).detach().to("cpu", copy=True)
+                    for k, v in model.state_dict().items()}
+            if layout is None:
+                model.load_state_dict(saved)
+            else:
+                layout.load_model_state(model, saved)
         try:
-            m = evaluate_wer(lambda b: self.eval_logits_fn(self.state, b), test_batches(),
-                             self.tokenizer, max_batches=max_batches, prefix=prefix,
+            m = evaluate_wer(self._logits, test_batches(), self.tokenizer,
+                             max_batches=max_batches, prefix=prefix,
                              predictions_fn=self.predictions_fn)
         finally:
             if live is not None:
-                model.load_state_dict(live)
+                with torch.no_grad():
+                    for k, v in model.state_dict(keep_vars=True).items():
+                        local_tensor(v).copy_(live[k])
         self.logger.log(step or 0, m)
         return m

@@ -138,7 +138,7 @@ raises on failure:
    target, greedy's tokens but at near-ties); after the dataset path,
    ``flamingo_lora_train`` (the training YAML through ``make_job`` and
    ``run`` with rank-8 adapters, EMA 0.999 and the YAML's remat: 2
-   optimizer steps of 16 micro-batches, base tensors bit-identical, every
+   optimizer steps of PATH_ACCUM micro-batches, base tensors bit-identical, every
    B non-zero, ``best/`` the EMA, exact K1/K2 counts with the recompute,
    every launch shape against the plain version; ``cli.export_lora``, the
    merged model's logits within BF16_TOL, ``cli.transcribe --ckpt_dir``
@@ -195,6 +195,22 @@ raises on failure:
    STREAM_SECONDS, the dataset path's val and test rows from 8 to 4 each
    (DATASET_ROWS, shared by the LoRA phase) and the export phase's timing
    to one round of live and replay.
+17. the mesh (``core/mesh.py``, ``core/partitioning.py``), after the
+   Flamingo training phases: ``mesh_train_main_path`` (the flagship
+   Whisper-Flamingo through ``cli.finetune.make_runner`` in a process
+   group of one rank over NCCL, built four ways from one seeded state: no
+   mesh, ``make_mesh(1)`` replicated, ZeRO-1 and FSDP, MESH_STEPS
+   optimizer steps of MESH_ACCUM micro-batches each; losses, grad norms,
+   trained tensors and BatchNorm statistics equal to the no-mesh runner's,
+   K1/K2 counts equal, the FSDP checkpoint through ``restore_sharded`` into
+   a replicated runner and back bit-equal; seconds a step, peak memory per
+   variant and a traced FSDP step) and ``mesh_cpu_ranks`` (the tiny
+   model over 2 gloo ranks on the host CPU at dp 2 replicated, ZeRO-1,
+   FSDP and dp 1 x mp 2 against one process, then ``cli.finetune --smoke
+   --device cpu`` under ``torch.distributed.run`` with ``num_devices: 2``).
+   To make room, the Flamingo training phases' accumulation was cut from
+   the YAML's 16 to PATH_ACCUM (8) and ``serving_extras_int8`` to one
+   timing round.
 
 Each model is freed before the next one is built. It prints the kernel
 list, the card's name and power limit and, last,
@@ -235,6 +251,10 @@ SMALL_TRAIN_TOL = dict(atol=1e-5, rtol=1e-4)
 TRAIN_CONFIG = "configs/ami_whisper_flamingo_large.yaml"
 LARGE_V2_VOCAB = 51865 + 1  # large-v2's vocab plus <laugh>
 TRAIN_STEPS = 3
+# the accumulation of the full-width Flamingo training phases (towers in
+# the loop and hoisted, the dataset path and its prefetch, LoRA): the
+# YAML's 16 until the mesh phases came, cut to make room for them
+PATH_ACCUM = 8
 # key lengths of the AV-HuBERT encoder case: full, partial, 1 and 0 frames
 AV_LENGTHS = (250, 180, 1, 0, 250, 250, 97, 250)
 # tiny Whisper-Flamingo on the card: AVHuBERTConfig.tiny_test widened to 2
@@ -496,7 +516,7 @@ def phase_kernels(label_len: int, flamingo_len: int):
         check_attention_case("o_flamingo_decoder_self_causal", 1, 20, flamingo_len, flamingo_len,
                              64, bf16, causal=True),
         check_attention_case("p_flamingo_cross", 1, 20, flamingo_len, 500, 64, bf16),
-        check_attention_case("q_hoisted_whisper_encoder", 16, 20, 500, 500, 64, bf16),
+        check_attention_case("q_hoisted_whisper_encoder", PATH_ACCUM, 20, 500, 500, 64, bf16),
         check_attention_case("r_avhubert_decoder_self_cli", 4, 8, 16, 16, 128, bf16, causal=True,
                              lengths=CLI_DEC_LENGTHS),
         check_attention_case("s_avhubert_decoder_self_ami", 8, 8, 64, 64, 128, bf16, causal=True,
@@ -1818,6 +1838,7 @@ def prepare_flamingo_path(steps: int):
     from avsl_tpu_torch.data.tokenizer import get_tokenizer
 
     cfg = FlamingoTrainConfig.from_yaml(TRAIN_CONFIG)
+    cfg.gradient_accumulation_steps = PATH_ACCUM
     tokenizer = get_tokenizer(cfg.download_root or None, cfg.lang)
     tokenizer.add_tokens(["<laugh>"])
     w_cfg = WhisperConfig.from_name(cfg.model_name)
@@ -1841,7 +1862,7 @@ def phase_flamingo_train_main_path(card: str, cfg, tokenizer, batches, out_dir: 
     large), composed as the port's cli/finetune composes the training
     YAML: fp32 weights with Adam for the trained tensors only (the
     Flamingo regime: gated x_attn/x_mlp, their gates, video_projection),
-    bf16 compute, vocab 51866, batch 1 x accumulation 16, 10 s windows and
+    bf16 compute, vocab 51866, batch 1 x accumulation PATH_ACCUM, 10 s windows and
     250 lip frames, SpecAugment ls-basic, Whisper dropout 0.1, the tower's
     dropouts and LayerDrop 0.05, gates 0.5. With ``hoisted`` the YAML's
     BatchNorm freeze is turned on, which engages the frozen-tower hoist;
@@ -2232,7 +2253,7 @@ def phase_flamingo_dataset_train(card: str, out_dir: str):
     port's ``cli.finetune.make_job`` and ``run`` (what ``main`` calls once
     ``load_datasets`` has run) on the training YAML: large-v2 + AV-HuBERT
     large, bf16 compute, batch 1 under a token budget of 1000 frames, so
-    micro-batches of 1 to 10 items, accumulation 16 through MultiSteps.
+    micro-batches of 1 to 10 items, accumulation PATH_ACCUM through MultiSteps.
     128 seeded train rows (a quarter at 44.1 or 48 kHz), 4 val and 4 test;
     DATASET_STEPS (2) optimizer steps (32 micro-batches), validation once at the end,
     ``test_best`` on the test rows. Gates: K1 and K2 launches equal to the
@@ -2252,6 +2273,7 @@ def phase_flamingo_dataset_train(card: str, out_dir: str):
     from avsl_tpu_torch.train.optim import MultiSteps
 
     cfg = FlamingoTrainConfig.from_yaml(TRAIN_CONFIG)
+    cfg.gradient_accumulation_steps = PATH_ACCUM
     accum = int(cfg.gradient_accumulation_steps)
     cfg.num_train_steps = DATASET_STEPS
     cfg.validate_every_n_batches = DATASET_STEPS * accum  # once, at the end
@@ -2354,7 +2376,7 @@ def phase_flamingo_dataset_train(card: str, out_dir: str):
          "tolerance": {"bf16": BF16_TOL, "fp32": FP32_TOL, "bwd_fp32": BWD_FP32_TOL},
          **check_launch_shapes(seen)})
 
-    # one more optimizer step (16 micro-batches prepared first), traced
+    # one more optimizer step (its micro-batches prepared first), traced
     micro_batches = list(itertools.islice(
         job.batches(job.train_ds, int(cfg.batch_size), True, 1), accum))
 
@@ -3718,7 +3740,7 @@ def phase_serving_extras_int8(card: str, holder: list) -> dict:
     gated bit-equal to the CPU's quantization of the same weights; then
     one batch of 8 items of 10 s (6 with lip features), 64 new tokens,
     greedy, in bf16, ``kv_int8``, ``quantize="int8"`` and both, each run
-    twice in turns, exactly 56 K1 a batch, with the breakdown of each
+    once in turn (twice before the mesh phases), exactly 56 K1 a batch, with the breakdown of each
     (decode share, launches a decode step, static cache bytes); then the
     float model freed, the resident bytes read, and the int8 model's peak
     over one more batch without it. Returns K1 launches by variant."""
@@ -3750,8 +3772,9 @@ def phase_serving_extras_int8(card: str, holder: list) -> dict:
     prep = trs["bf16"]._prepare_batch(av_items(EXTRAS_BATCH, seed=3))
     for name in ("bf16", "int8"):  # warm-up: cuBLAS handles, allocator
         trs[name].run_batch(prep)
+    # one round (bf16, kv_int8, int8, int8_kv_int8; two before the mesh phases)
     runs = timed_in_turns({name: (lambda tr=tr: tr.run_batch(prep)) for name, tr in trs.items()},
-                          dict.fromkeys(trs, per_batch))
+                          dict.fromkeys(trs, per_batch), rounds=1)
     base = runs["bf16"]["result"].tokens
     variants = {}
     for name, tr in trs.items():
@@ -4074,7 +4097,7 @@ def lora_job_config(out_dir: str, vocab_dir: str) -> str:
 
     with open(TRAIN_CONFIG) as f:
         fields = yaml.safe_load(f)
-    accum = int(fields["gradient_accumulation_steps"])
+    accum = fields["gradient_accumulation_steps"] = PATH_ACCUM
     fields.update(lora_rank=LORA_RANK, lora_alpha=LORA_ALPHA, ema_decay=LORA_EMA,
                   num_train_steps=LORA_STEPS, validate_every_n_batches=LORA_STEPS * accum,
                   num_sanity_val_steps=0, download_root=vocab_dir,
@@ -5140,6 +5163,397 @@ def traced_run(fn) -> dict:
             "top_kernels": [{"name": k[:90], "ms": v[0] / 1e3, "count": v[1]} for k, v in top]}
 
 
+# the mesh phases: the flagship model at world size 1 over NCCL, four
+# ways from one state, MESH_STEPS optimizer steps of MESH_ACCUM
+# micro-batches each (the Flamingo phase's seeded batches)
+MESH_ACCUM, MESH_STEPS = 4, 2
+MESH_VARIANTS = ("no_mesh", "replicated", "zero1", "fsdp")
+# every mesh variant against the no-mesh runner: at world size 1 each runs
+# the no-mesh arithmetic, so bit-equality is expected and logged. FSDP's
+# gathered weights sit elsewhere in memory, where cuBLAS may pick GEMMs
+# that sum the weight gradients in another order (a first call measured
+# the grad norm 3.5e-6 apart): the loss within MESH_RTOL, the grad norm
+# within MESH_NORM_RTOL, and the trained tensors within one update at the
+# YAML's learning rate (MESH_UPDATE_ATOL; warmup is cut to 1 step so step
+# 2 updates at that rate: Adam's normalised update can move an element
+# whose gradient is near 0 by up to that much) with at most
+# MESH_MOVED_SHARE of them more than MESH_ATOL apart
+MESH_RTOL, MESH_NORM_RTOL = 1e-6, 1e-5
+MESH_UPDATE_ATOL, MESH_ATOL, MESH_MOVED_SHARE = 1e-5, 1e-7, 1e-3
+# FSDP's per-rank bytes of parameters and Adam moments against the split
+# state_shardings(fsdp=True) implies (FSDP2 splits small leaves too)
+MESH_BYTES_MARGIN = 0.10
+# the host-CPU ranks: the tiny Whisper-Flamingo (Whisper dropout 0.1, the
+# tiny tower's own rates) over 2 gloo ranks against one process
+MESH_CPU_VARIANTS = {"dp2": dict(mp=1), "dp2_zero1": dict(mp=1, zero1=True),
+                     "dp2_fsdp": dict(mp=1, fsdp=True), "dp1_mp2": dict(mp=2)}
+MESH_CPU_TOL = dict(rtol=1e-6, atol=1e-6)
+
+
+def phase_mesh_train_main_path(card: str, cfg, tokenizer, batches, out_dir: str) -> dict:
+    """Whisper-Flamingo fine-tuning on a (data, model) mesh through the
+    port's ``cli.finetune.make_runner`` at full width (large-v2 +
+    AV-HuBERT large, the training YAML, accumulation MESH_ACCUM, warmup 1)
+    in a process group of one rank over NCCL: the runner built four ways
+    from one seeded state (no mesh, ``make_mesh(1)`` replicated, ZeRO-1,
+    FSDP), each MESH_STEPS optimizer steps on the same batches. Gates:
+    each mesh variant's losses, grad norms, trained tensors and BatchNorm
+    statistics equal the no-mesh runner's (MESH_RTOL, MESH_NORM_RTOL,
+    MESH_UPDATE_ATOL, MESH_MOVED_SHARE; bit equality logged), its K1 and K2 counts equal; the FSDP checkpoint
+    restores through ``restore_sharded`` into a replicated runner and back
+    into the FSDP runner, bit-equal; FSDP's per-rank state bytes within
+    MESH_BYTES_MARGIN of ``state_shardings(fsdp=True)``. Logs seconds a
+    step, peak memory per variant and one traced FSDP step."""
+    import copy
+    import os
+    import shutil
+
+    import torch.distributed as dist
+
+    from avsl_tpu_torch.cli import finetune
+    from avsl_tpu_torch.core.mesh import DATA_AXIS, make_mesh
+    from avsl_tpu_torch.core.partitioning import local_tensor, state_shardings
+    from avsl_tpu_torch.kernels.attention import fused_attention, fused_attention_bwd
+    from avsl_tpu_torch.train.checkpoints import restore_sharded, save_checkpoint
+    from avsl_tpu_torch.utils.memory import get_memory_stats
+
+    cfg = copy.copy(cfg)
+    cfg.gradient_accumulation_steps, cfg.warmup_steps = MESH_ACCUM, 1
+    steps = [{k: v[:MESH_ACCUM] for k, v in b.items()} for b in batches[:MESH_STEPS]]
+    root = os.path.join(out_dir, "mesh")
+    os.makedirs(root, exist_ok=True)
+    dist.init_process_group("nccl", init_method="file://" + os.path.join(root, "rendezvous"),
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh(1)
+
+        def build(variant):
+            v_cfg = copy.copy(cfg)
+            v_cfg.zero1, v_cfg.fsdp = variant == "zero1", variant == "fsdp"
+            model, _ = finetune.build_model(v_cfg, tokenizer, "cuda", vocab_size=LARGE_V2_VOCAB)
+            set_gates(model, GATE)
+            runner = finetune.make_runner(v_cfg, model, tokenizer,
+                                          log_dir=os.path.join(root, variant),
+                                          ckpt_dir=os.path.join(root, variant, "ckpt"),
+                                          mesh=None if variant == "no_mesh" else mesh)
+            return model, runner
+
+        def whole(runner, name, p):
+            layout = runner.state.layout
+            return p.detach() if layout is None else layout.full(name, p)
+
+        def state_bytes(runner):
+            opt = runner.state.optimizer
+            held = [local_tensor(p) for p in runner.state.model.parameters()] + opt.mu + opt.nu
+            return sum(t.numel() * t.element_size() for t in held)
+
+        ref, variants = None, {}
+        for variant in MESH_VARIANTS:
+            free_cuda()
+            model, runner = build(variant)
+            reshaped = [runner.reshape_accum(b) for b in steps]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            fused_attention.launches = fused_attention_bwd.launches = 0
+            records, _ = timed_train_steps(runner, reshaped, lambda: None)
+            k1, k2 = fused_attention.launches, fused_attention_bwd.launches
+            named = dict(model.named_parameters())
+            opt = runner.state.optimizer
+            # compared on the card: the no-mesh run's trained tensors (2.5 GB)
+            # stay there
+            trained = {n: whole(runner, n, named[n]).clone() for n in opt.names}
+            stats = {n: b.detach().clone() for n, b in model.named_buffers() if "running_" in n}
+            rec = {"seconds_per_step": [r["seconds"] for r in records],
+                   "loss": [r["loss"] for r in records],
+                   "grad_norm": [r["grad_norm"] for r in records],
+                   "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+                   "memory_stats_gb": get_memory_stats(), "state_bytes": state_bytes(runner),
+                   "k1": k1, "k2": k2, "layout": None if runner.state.layout is None else {
+                       "tp": len(runner.state.layout.tp), "zero": len(runner.state.layout.zero),
+                       "fsdp": runner.state.layout.fsdp}}
+            if ref is None:
+                ref = dict(rec, trained=trained, stats=stats)
+            else:
+                deltas = [(trained[n] - ref["trained"][n]).abs() for n in trained]
+                diff = max(float(d.max()) for d in deltas)
+                moved = sum(int((d > MESH_ATOL).sum()) for d in deltas) / sum(
+                    d.numel() for d in deltas)
+                del trained
+                del deltas
+                sdiff = max(float((stats[n] - ref["stats"][n]).abs().max()) for n in stats)
+                rec.update(trained_max_abs_diff=diff, trained_share_over_atol=moved,
+                           stats_max_abs_diff=sdiff,
+                           bit_equal=diff == 0.0 and sdiff == 0.0
+                           and rec["loss"] == ref["loss"] and rec["grad_norm"] == ref["grad_norm"])
+                close = all(math.isclose(a, b, rel_tol=tol, abs_tol=0.0)
+                            for key, tol in (("loss", MESH_RTOL), ("grad_norm", MESH_NORM_RTOL))
+                            for a, b in zip(rec[key], ref[key]))
+                if not close or diff > MESH_UPDATE_ATOL or moved > MESH_MOVED_SHARE \
+                        or sdiff > MESH_ATOL:
+                    raise AssertionError(f"mesh {variant}: loss {rec['loss']} / {ref['loss']}, "
+                                         f"grad norm {rec['grad_norm']} / {ref['grad_norm']}, "
+                                         f"trained tensors off by {diff} ({moved} of them over "
+                                         f"{MESH_ATOL}), statistics by {sdiff}")
+                if (k1, k2) != (ref["k1"], ref["k2"]):
+                    raise AssertionError(f"mesh {variant}: K1/K2 {k1}/{k2} != no mesh "
+                                         f"{ref['k1']}/{ref['k2']}")
+            if variant == "no_mesh":
+                want_k1 = (model.cfg.n_audio_layer + 3 * model.cfg.n_text_layer) * MESH_ACCUM \
+                    * MESH_STEPS
+                if (k1, k2) != (want_k1, 3 * model.cfg.n_text_layer * MESH_ACCUM * MESH_STEPS):
+                    raise AssertionError(f"mesh no_mesh: K1/K2 {k1}/{k2}")
+                if not all(bool((trained[n] != 0).any()) for n in list(trained)[:4]):
+                    raise AssertionError("mesh no_mesh: trained tensors are zero")
+            variants[variant] = rec
+            if variant != "fsdp":
+                del model, runner, named, opt, stats
+            trained = None
+        del ref
+        fsdp_runner, fsdp_model = runner, model
+
+        # the FSDP per-rank state against JAX's fsdp layout
+        specs = state_shardings(fsdp_runner.state, mesh, fsdp=True)
+        dp = mesh.shape[DATA_AXIS]
+        shapes = fsdp_runner.state.layout.shapes
+
+        def implied(name, spec, copies):
+            n = math.prod(shapes[name]) * 4
+            return copies * (n // dp if DATA_AXIS in spec else n)
+
+        implied_bytes = sum(implied(n, s, 1) for n, s in specs["params"].items()) + \
+            sum(implied(n, s, 2) for n, s in specs["opt_state"].items())
+        share = variants["fsdp"]["state_bytes"] / implied_bytes
+        if abs(share - 1.0) > MESH_BYTES_MARGIN:
+            raise AssertionError(f"mesh fsdp: {variants['fsdp']['state_bytes']} state bytes a "
+                                 f"rank against {implied_bytes} implied")
+
+        def one_step():
+            fsdp_runner.state, metrics = fsdp_runner.train_step(
+                fsdp_runner.state, fsdp_runner.reshape_accum(steps[0]))
+            float(metrics["loss"])
+
+        traced = traced_run(one_step)
+
+        # the FSDP checkpoint into a replicated runner and back
+        ckpt = os.path.join(root, "fsdp_ckpt")
+        t = time.perf_counter()
+        save_checkpoint(ckpt, fsdp_runner.state, MESH_STEPS + 1)
+        save_s = time.perf_counter() - t
+        ckpt_bytes = os.path.getsize(os.path.join(ckpt, f"step_{MESH_STEPS + 1}.pt"))
+        rep_model, rep_runner = build("replicated")
+        t = time.perf_counter()
+        restore_sharded(ckpt, rep_runner.state, mesh)
+        restore_s = time.perf_counter() - t
+        fsdp_named, rep_named = dict(fsdp_model.named_parameters()), dict(rep_model.named_parameters())
+        fsdp_layout = fsdp_runner.state.layout
+
+        def mismatches():
+            bad = [n for n, p in rep_named.items()
+                   if not torch.equal(p.detach(), fsdp_layout.full(n, fsdp_named[n]))]
+            f_opt, r_opt = fsdp_runner.state.optimizer, rep_runner.state.optimizer
+            bad += [f"mu:{n}" for n, a, b in zip(f_opt.names, f_opt.mu, r_opt.mu)
+                    if not torch.equal(fsdp_layout.full(n, a, moment=True), b)]
+            bad += [f"nu:{n}" for n, a, b in zip(f_opt.names, f_opt.nu, r_opt.nu)
+                    if not torch.equal(fsdp_layout.full(n, a, moment=True), b)]
+            if f_opt.count != r_opt.count or fsdp_runner.state.step != rep_runner.state.step:
+                bad.append("counts")
+            return bad
+
+        into_replicated = mismatches()
+        with torch.no_grad():  # then back: wipe the FSDP runner's trained state, restore it
+            for n in fsdp_runner.state.optimizer.names:
+                local_tensor(fsdp_named[n]).zero_()
+            for m in fsdp_runner.state.optimizer.mu + fsdp_runner.state.optimizer.nu:
+                m.zero_()
+        restore_sharded(ckpt, fsdp_runner.state, mesh, fsdp=True)
+        back_into_fsdp = mismatches()
+        shutil.rmtree(ckpt, ignore_errors=True)
+        log({"phase": "mesh_train_main_path", "card": card, "world_size": dist.get_world_size(),
+             "backend": dist.get_backend(), "mesh": mesh.shape, "accumulation": MESH_ACCUM,
+             "optimizer_steps": MESH_STEPS, "variants": variants,
+             "fsdp_state_bytes_over_implied": share, "fsdp_implied_bytes": implied_bytes,
+             "fsdp_traced_step": traced, "checkpoint_bytes": ckpt_bytes,
+             "checkpoint_save_s": save_s, "restore_sharded_s": restore_s,
+             "restore_mismatches": {"into_replicated": into_replicated[:5],
+                                    "back_into_fsdp": back_into_fsdp[:5]}})
+        if into_replicated or back_into_fsdp:
+            raise AssertionError(f"mesh: restore_sharded mismatches {into_replicated[:3]} "
+                                 f"{back_into_fsdp[:3]}")
+        del fsdp_runner, fsdp_model, rep_model, rep_runner, runner, model
+        return {"k1": variants["no_mesh"]["k1"] * len(MESH_VARIANTS),
+                "k2": variants["no_mesh"]["k2"] * len(MESH_VARIANTS)}
+    finally:
+        dist.destroy_process_group()
+
+
+def free_cuda() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _mesh_cpu_train(state_path: str, batch, mesh_kw) -> dict:
+    """The tiny Whisper-Flamingo of ``state_path`` trained 2 steps of 2
+    micro-batches on ``batch`` under the Flamingo regime (Whisper dropout
+    0.1 and the tiny tower's rates), on a mesh from ``mesh_kw`` (None:
+    one process): losses and the trained tensors whole."""
+    from avsl_tpu_torch.core.config import FlamingoTrainConfig
+    from avsl_tpu_torch.core.mesh import make_mesh
+    from avsl_tpu_torch.core.partitioning import shard_state
+    from avsl_tpu_torch.models import build_whisper_flamingo
+    from avsl_tpu_torch.train import TrainState, flamingo_loss_fn, make_train_step
+    from avsl_tpu_torch.train import select_optimizer
+
+    model, _ = build_whisper_flamingo("test", add_gated_x_attn=1, dtype="float32",
+                                      param_dtype="float32", device="cpu", dropout_rate=0.1)
+    model.load_state_dict(torch.load(state_path, weights_only=True))
+    opt, labels = select_optimizer(model, FlamingoTrainConfig(
+        add_gated_x_attn=1, learning_rate=1e-3, warmup_steps=1, num_train_steps=10), 10)
+    state, mesh = TrainState.create(model, opt, seed=3), None
+    if mesh_kw is not None:
+        mesh = make_mesh(2, model_parallel=mesh_kw["mp"])
+        shard_state(state, mesh, zero1=mesh_kw.get("zero1", False),
+                    fsdp=mesh_kw.get("fsdp", False))
+    step = make_train_step(flamingo_loss_fn(model, train=True, spec_augment="ls-basic",
+                                            prob_av=1.0, prob_a=0.5),
+                           mesh=mesh, grad_accum_steps=2, param_labels=labels)
+    losses = []
+    for _ in range(2):
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+    named = dict(model.named_parameters())
+    whole = {n: (named[n].detach() if state.layout is None else state.layout.full(n, named[n]))
+             for n in opt.names}
+    return {"loss": losses, "trained": {n: t.numpy().copy() for n, t in whole.items()}}
+
+
+def _mesh_cpu_rank(rank: int, init_file: str, queue, state_path: str, batch) -> None:
+    """One gloo rank of ``phase_mesh_cpu_ranks`` (spawned; CPU only)."""
+    import traceback
+
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    try:
+        dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
+                                world_size=2)
+        try:
+            queue.put((rank, {name: _mesh_cpu_train(state_path, batch, kw)
+                              for name, kw in MESH_CPU_VARIANTS.items()}))
+        finally:
+            dist.destroy_process_group()
+    except BaseException:  # noqa: BLE001 (relayed to the parent, which raises)
+        queue.put((rank, traceback.format_exc()))
+
+
+def phase_mesh_cpu_ranks(card: str) -> dict:
+    """The mesh over 2 gloo ranks on this machine's host CPU (spawned, a
+    ``file://`` rendezvous): the tiny Whisper-Flamingo at dp 2
+    replicated, ZeRO-1 and FSDP and at dp 1 x mp 2, each 2 steps equal to
+    one process's (MESH_CPU_TOL; dropout, SpecAugment and the AV-mode draw
+    on, which the ranks draw as one process does); meanwhile ``python -m
+    torch.distributed.run --standalone --nproc_per_node 2 -m
+    avsl_tpu_torch.cli.finetune cfg.yaml --smoke --device cpu`` with
+    ``num_devices: 2`` and ZeRO-1: rc 0, one ``done:`` line, each metrics
+    line once, the checkpoints."""
+    import json as json_mod
+    import multiprocessing as mp
+    import os
+
+    from avsl_tpu_torch.cli import finetune
+    from avsl_tpu_torch.core.config import WhisperConfig
+    from avsl_tpu_torch.models import build_whisper_flamingo
+
+    t0 = time.perf_counter()
+    w_cfg = WhisperConfig.tiny_test()
+    rng = np.random.default_rng(11)
+    labels = rng.integers(0, w_cfg.n_vocab, size=(2, 4, 6))
+    labels[..., 4:] = -100
+    labels[:, 2:, 1:] = -100  # the second data rank holds fewer labels
+    batch = {"input_ids": rng.normal(size=(2, 4, w_cfg.n_mels, 100)).astype(np.float32),
+             "dec_input_ids": rng.integers(0, w_cfg.n_vocab, size=(2, 4, 6)),
+             "labels": labels, "audio_frames": np.full((2, 4), 100),
+             "video": rng.normal(size=(2, 4, 6, 48, 48, 1)).astype(np.float32),
+             "video_mask": np.arange(6) < rng.integers(1, 7, size=(2, 4, 1))}
+    with tempfile.TemporaryDirectory() as tmp:
+        # the launcher's two ranks run beside the spawned ones (its TCP
+        # store on a free localhost port, theirs a file)
+        run_dir = os.path.join(tmp, "cli")
+        os.makedirs(run_dir)
+        cfg_path = os.path.join(run_dir, "cfg.yaml")
+        with open(cfg_path, "w") as f:
+            f.write(f"num_devices: 2\ntrain_id: mesh\nlog_output_dir: {run_dir}/logs\n"
+                    f"check_output_dir: {run_dir}/ckpt\nzero1: true\n")
+        repo = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
+            finetune.__file__))))
+        env = {**os.environ, "OMP_NUM_THREADS": "1", "PYTHONPATH": repo}
+        cli = subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+             "2", "-m", "avsl_tpu_torch.cli.finetune", cfg_path, "--smoke", "--device", "cpu"],
+            cwd=run_dir, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        try:
+            model, _ = build_whisper_flamingo("test", add_gated_x_attn=1, dtype="float32",
+                                              param_dtype="float32", device="cpu", seed=5)
+            set_gates(model, GATE)
+            state_path = os.path.join(tmp, "state.pt")
+            torch.save(model.state_dict(), state_path)
+            del model
+            ctx = mp.get_context("spawn")
+            queue = ctx.Queue()
+            procs = [ctx.Process(target=_mesh_cpu_rank, daemon=True,
+                                 args=(r, os.path.join(tmp, "rendezvous"), queue, state_path,
+                                       batch))
+                     for r in range(2)]
+            for p in procs:
+                p.start()
+            threads = torch.get_num_threads()
+            torch.set_num_threads(2)
+            try:
+                single = _mesh_cpu_train(state_path, batch, None)
+            finally:
+                torch.set_num_threads(threads)
+            ranks = dict(queue.get(timeout=300) for _ in procs)
+            for p in procs:
+                p.join(timeout=30)
+            spawn_s = time.perf_counter() - t0
+            stdout, stderr = cli.communicate(timeout=300)
+        finally:
+            if cli.poll() is None:
+                cli.kill()
+                cli.wait()
+        cli_s = time.perf_counter() - t0
+        for r, out in ranks.items():
+            if isinstance(out, str):
+                raise AssertionError(f"mesh_cpu_ranks: rank {r} failed:\n{out}")
+        worst = {}
+        for name in MESH_CPU_VARIANTS:
+            for r in (0, 1):
+                got = ranks[r][name]
+                np.testing.assert_allclose(got["loss"], single["loss"], **MESH_CPU_TOL,
+                                           err_msg=f"{name} rank {r}")
+                for n, w in single["trained"].items():
+                    np.testing.assert_allclose(got["trained"][n], w, **MESH_CPU_TOL,
+                                               err_msg=f"{name} rank {r} {n}")
+            worst[name] = max(float(np.abs(ranks[r][name]["trained"][n] - w).max())
+                              for r in (0, 1) for n, w in single["trained"].items())
+        if cli.returncode != 0:
+            raise AssertionError(f"mesh_cpu_ranks: torch.distributed.run rc {cli.returncode}:\n"
+                                 f"{stdout[-2000:]}\n{stderr[-2000:]}")
+        lines = [json_mod.loads(line) for line in open(os.path.join(run_dir, "logs", "mesh",
+                                                                    "metrics.jsonl"))]
+        ckpts = sorted(os.listdir(os.path.join(run_dir, "ckpt", "mesh")))
+        done = stdout.count("done: step=6")
+        train_lines = [line["step"] for line in lines if "train/loss" in line]
+        if done != 1 or train_lines != [6] or ckpts != ["best", "step_3.pt", "step_6.pt"]:
+            raise AssertionError(f"mesh_cpu_ranks: {done} done lines, train lines {train_lines}, "
+                                 f"checkpoints {ckpts}")
+    log({"phase": "mesh_cpu_ranks", "card": card, "ranks": 2, "backend": "gloo",
+         "variants": list(MESH_CPU_VARIANTS), "loss_single": single["loss"],
+         "trained_max_abs_diff": worst, "tolerance": MESH_CPU_TOL, "spawn_s": spawn_s,
+         "cli": {"seconds_from_start": cli_s, "done_lines": done, "checkpoints": ckpts,
+                 "metrics_lines": len(lines)}})
+    return worst
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card",
@@ -5236,6 +5650,10 @@ def main() -> int:
                 phase_flamingo_train_main_path, smi, fl_cfg, fl_tokenizer, fl_batches, out_dir,
                 hoisted)
             free()
+        mesh_launches = timed("mesh_train_main_path", phase_mesh_train_main_path, smi, fl_cfg,
+                              fl_tokenizer, fl_batches, out_dir)
+        free()
+        timed("mesh_cpu_ranks", phase_mesh_cpu_ranks, smi)
         timed("multisteps_small", phase_multisteps_small, out_dir)
         job, dataset_launches = timed("flamingo_dataset_train", phase_flamingo_dataset_train,
                                       smi, out_dir)
@@ -5297,6 +5715,7 @@ def main() -> int:
                "training": train_launches["k1"],
                "flamingo_training": flamingo[False]["k1"],
                "flamingo_training_hoisted": flamingo[True]["k1"],
+               "mesh_training": mesh_launches["k1"],
                "flamingo_dataset_training": dataset_launches["k1"],
                "flamingo_lora_training": lora_launches["k1"],
                "flamingo_lora_training_no_remat": no_remat_launches["k1"],
@@ -5326,6 +5745,7 @@ def main() -> int:
                "training": train_launches["k2"],
                "flamingo_training": flamingo[False]["k2"],
                "flamingo_training_hoisted": flamingo[True]["k2"],
+               "mesh_training": mesh_launches["k2"],
                "flamingo_dataset_training": dataset_launches["k2"],
                "flamingo_lora_training": lora_launches["k2"],
                "flamingo_lora_training_no_remat": no_remat_launches["k2"],

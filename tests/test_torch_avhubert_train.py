@@ -149,7 +149,7 @@ def test_torch_avhubert_ft_cli_smoke_on_cpu(head, capsys):
                                   ["--model_parallel", "2"], ["--experts_parallel", "2"]])
 def test_torch_avhubert_ft_cli_refuses_the_parallel_layer(flag):
     # --n_experts alone trains (tests/test_torch_pretrain_cli.py); with the
-    # expert-parallel mesh it raises, naming item 12c
+    # expert-parallel mesh it raises, naming item 12e
     with pytest.raises(NotImplementedError, match="item 12"):
         avhubert_ft.main(["--smoke", "--device", "cpu", *flag])
 

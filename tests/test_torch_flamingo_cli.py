@@ -4,9 +4,9 @@ audio-only entry point's loss (CPU).
 * ``cli.finetune --smoke --device cpu``: the tiny Whisper-Flamingo model,
   6 steps of batch 4 x accumulation min(YAML, 2), towers in the loop by
   default; with ``freeze_video_batch_norm_stats: true`` and accumulation 2
-  it takes the frozen-tower hoist; what is not ported raises naming its
-  ROADMAP item, a missing dataset raises, and the default device is the
-  card;
+  it takes the frozen-tower hoist; two devices without the launcher's
+  ranks raise naming ``torch.distributed.run``, a missing dataset raises,
+  and the default device is the card;
 * ``--ckpt_dir`` round trip: the transcriber restored from the trained
   run's checkpoints gives the trained model's logits exactly (the same
   fp32 weights and BatchNorm statistics through the same operations), and
@@ -98,7 +98,8 @@ def test_torch_finetune_refuses_what_is_not_ported(tmp_path):
     # LoRA is ported (models/lora.py): it trains where it used to raise
     assert finetune.main([_yaml(tmp_path, lora_rank=4), "--smoke", "--device", "cpu"]
                          )["final_step"] == 6
-    with pytest.raises(NotImplementedError, match="item 12"):
+    # a mesh is ported (core/mesh.py): 2 devices need 2 ranks of the launcher
+    with pytest.raises(RuntimeError, match="torch.distributed.run --nproc_per_node 2"):
         finetune.main([_yaml(tmp_path, num_devices=2), "--smoke", "--device", "cpu"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):

@@ -11,7 +11,7 @@ block's ``kv_lengths``. Then JAX against the port on carried parameters:
 compute (chip_smoke.py's BF16_TOL); flax's initialisation; the aux of
 every layer LayerDrop drops; remat counting the first forward's aux once
 with the same gradients; and the parallel entry points refusing, naming
-item 12c. The losses with an MoE trunk are in
+item 12e. The losses with an MoE trunk are in
 ``tests/test_torch_moe_losses.py``.
 """
 
@@ -261,10 +261,10 @@ def test_torch_moe_aux_counts_dropped_layers_and_remat_once():
 
 
 def test_torch_moe_parallel_entry_points_refuse():
-    with pytest.raises(NotImplementedError, match="12c"):
+    with pytest.raises(NotImplementedError, match="12e"):
         make_ep_mesh(8, experts_parallel=4)
     from avsl_tpu_torch.cli import avhubert_ft
 
     for flag in ("--experts_parallel", "--model_parallel"):
-        with pytest.raises(NotImplementedError, match="12c"):
+        with pytest.raises(NotImplementedError, match="12e"):
             avhubert_ft.main(["--smoke", "--device", "cpu", "--n_experts", "4", flag, "2"])

@@ -1,7 +1,8 @@
 """The port's host-to-device prefetch iterator (CPU), as
 ``tests/test_prefetch.py`` holds the JAX one: order kept, tensors on the
 requested device, a source error re-raised at the consumer, an abandoned
-consumer's producer ends, a mesh raises. The CUDA stream path runs in
+consumer's producer ends, a mesh hands each rank its rows. The CUDA
+stream path runs in
 ``chip_smoke.py``'s ``prefetch`` phase."""
 
 import threading
@@ -54,5 +55,21 @@ def test_torch_prefetch_abandoned_consumer_releases_producer():
 
 
 def test_torch_prefetch_mesh_raises():
-    with pytest.raises(NotImplementedError, match="item 12"):
+    """With a mesh each batch arrives as this data rank's rows (a
+    ``ShardedBatch`` the train step takes as it is); an object that is no
+    mesh raises."""
+    from types import SimpleNamespace
+
+    from avsl_tpu_torch.core.mesh import ShardedBatch
+
+    mesh = SimpleNamespace(shape={"data": 2, "model": 1}, data_rank=1,
+                           device=torch.device("cpu"))
+    out = list(prefetch_to_device(_batches(3), "cpu", size=2, mesh=mesh))
+    assert len(out) == 3
+    for i, b in enumerate(out):
+        assert isinstance(b, ShardedBatch) and b.sharded == frozenset(b)
+        full = next(iter(_batches(1)))
+        assert all(b[k].shape[0] == full[k].shape[0] // 2 for k in b)
+        assert int(b["i"][0]) == i
+    with pytest.raises(AttributeError):
         next(prefetch_to_device(_batches(1), "cpu", mesh=object()))

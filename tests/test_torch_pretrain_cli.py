@@ -9,7 +9,7 @@ collation are the JAX CLI's, array for array. A ``--km_model`` codebook
 written by the JAX package loads in the port (and a fresh fit is written
 where the file does not exist); ``--checkpoint_dir`` writes a state whose
 encoder the fine-tune heads load; the parallel flags raise naming item
-12c. ``cli.avhubert_ft --smoke --n_experts 4 --device cpu`` trains both
+12e. ``cli.avhubert_ft --smoke --n_experts 4 --device cpu`` trains both
 heads, reporting ``n_experts`` as JAX does.
 """
 
@@ -106,7 +106,7 @@ def test_torch_pretrain_cli_checkpoint_feeds_finetune(tmp_path):
 
 @pytest.mark.parametrize("flag", ["--model_parallel", "--experts_parallel"])
 def test_torch_pretrain_cli_parallel_flags_raise(flag):
-    with pytest.raises(NotImplementedError, match="12c"):
+    with pytest.raises(NotImplementedError, match="12e"):
         pretrain.main(["--smoke", "--device", "cpu", flag, "2"])
 
 
