@@ -9,8 +9,11 @@ wrote there (an empty directory exits rather than serve random weights),
 whose fp32 weights ``--quantize int8`` quantizes. ``--draft_model <preset>``
 builds that Whisper preset audio-only as the speculative draft, with
 ``--draft_ckpt``'s weights (a random draft is refused outside
-``--smoke``). ``--model_parallel``/``--data_parallel`` above 1 raise
-before any model is built, naming their item.
+``--smoke``). ``--model_parallel``/``--data_parallel`` above 1 serve on a
+(data, model) mesh: one process a rank under ``python -m
+torch.distributed.run``, whose world size must be their product; each rank
+builds the same seeded (or restored) model on its card, and the
+transcriber shards it (``infer/pipeline.py``).
 """
 
 from __future__ import annotations
@@ -69,13 +72,20 @@ def serving_video_frames(audio_max_length: int) -> int:
     return min(int(round(audio_max_length / 16000 * 25)), 250)
 
 
-def refuse_unported(args) -> None:
-    """Raise for the serving flags whose modules are not ported yet (the
-    mesh, ``infer.pipeline.UNPORTED``) before any model is built."""
-    from avsl_tpu_torch.infer.pipeline import not_ported
+def serving_mesh(args):
+    """The (data, model) mesh of ``--data_parallel`` x ``--model_parallel``
+    (``avsl_tpu/cli/_serving_common.py:95-101``): None when both are 1.
+    It joins the launcher's process group first; ``args.device`` becomes
+    this rank's device. Outside the launcher, or on a world of another
+    size, :func:`~avsl_tpu_torch.core.mesh.make_mesh` raises."""
+    mp = int(getattr(args, "model_parallel", 1) or 1)
+    dp = int(getattr(args, "data_parallel", 1) or 1)
+    if mp <= 1 and dp <= 1:
+        return None
+    from avsl_tpu_torch.core.mesh import init_distributed, make_mesh
 
-    if max(getattr(args, "model_parallel", 1) or 1, getattr(args, "data_parallel", 1) or 1) > 1:
-        raise not_ported("mesh", "--model_parallel/--data_parallel")
+    args.device = str(init_distributed(args.device))
+    return make_mesh(dp * mp, model_parallel=mp)
 
 
 def shapes_match(restored, probe) -> bool:
@@ -137,9 +147,9 @@ def build_transcriber(args, cfg):
     from avsl_tpu_torch.data.tokenizer import get_tokenizer
     from avsl_tpu_torch.infer.pipeline import StreamingTranscriber
 
-    refuse_unported(args)
     smoke = bool(getattr(args, "smoke", False))
     refuse_draft_args(args, smoke)
+    mesh = serving_mesh(args)
     tokenizer = get_tokenizer(getattr(cfg, "download_root", None), cfg.lang)
     model, w_cfg, weights = build_target_with_weights(cfg, tokenizer, smoke, args.ckpt_dir,
                                                       device=args.device)
@@ -161,6 +171,7 @@ def build_transcriber(args, cfg):
         draft_model=draft,
         draft_variables=draft_weights,
         spec_k=int(getattr(args, "spec_k", 4)),
+        mesh=mesh,
     )
 
 

@@ -241,7 +241,7 @@ def make_runner(cfg, model, tokenizer, log_dir: str, ckpt_dir: str, seed: int = 
     batch (accumulation 1), which keeps the hoist off; else each batch is
     reshaped to ``[accum, micro]``. On ``mesh`` the runner puts the state
     there with the config's ``zero1`` and ``fsdp`` (tensor parallelism on
-    a model axis above 1)."""
+    a model axis above 1, and there sequence parallelism in its step)."""
     from avsl_tpu_torch.models.lora import lora_loss_fn
     from avsl_tpu_torch.train.loop import TrainState, batch_to_device
     from avsl_tpu_torch.train.objectives import flamingo_loss_fn, flamingo_tower_precompute

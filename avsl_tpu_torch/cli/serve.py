@@ -9,10 +9,12 @@ large-v2 with the AV-HuBERT video tower and gated cross-attention; with
 ``--smoke`` the tiny test model at 1 s windows), on ``--device`` (the card
 unless ``cpu`` is asked for). It takes the JAX CLI's flags: ``--quantize
 int8``, ``--kv_int8`` and ``--draft_model``/``--draft_ckpt``/``--spec_k``
-as ``cli/transcribe.py`` does; ``--model_parallel``/``--data_parallel``
-above 1 raise, naming their ``ROADMAP.md`` item. ``/healthz`` reports
-``quantize``, ``/stats`` the draft's acceptance. ``--smoke`` binds, prints
-``{"ok": true, "address": ...}`` and stops.
+as ``cli/transcribe.py`` does. ``--model_parallel``/``--data_parallel``
+serve on a mesh, one process a rank under ``python -m
+torch.distributed.run``: rank 0 owns the HTTP daemon and sends each batch
+to the other ranks, which run it with it and stop when it stops.
+``/healthz`` reports ``quantize``, ``/stats`` the draft's acceptance.
+``--smoke`` binds, prints ``{"ok": true, "address": ...}`` and stops.
 """
 
 from __future__ import annotations
@@ -61,6 +63,12 @@ def main(argv: Optional[List[str]] = None):
         cfg.audio_max_length = 16000
 
     transcriber = build_transcriber(args, cfg)
+    if transcriber.mesh is not None:
+        from avsl_tpu_torch.core.mesh import rank
+
+        if rank() != 0:  # a follower runs rank 0's batches until it stops
+            transcriber.follow()
+            return None
     server = TranscriptionServer(transcriber, host=args.host, port=args.port,
                                  max_wait_ms=args.max_wait_ms)
     host, port = server.address

@@ -20,6 +20,10 @@ float weights: with ``--quantize`` it exits). ``--quantize int8`` serves
 int8 weights, ``--kv_int8`` an int8 cross-attention cache, and
 ``--draft_model tiny --draft_ckpt <dir> [--spec_k 4]`` decodes
 speculatively against that draft (``cli/_serving_common.py``).
+``--model_parallel M --data_parallel D`` serve on a mesh of D x M ranks,
+one process each: ``python -m torch.distributed.run --nproc_per_node
+$((D*M)) -m avsl_tpu_torch.cli.transcribe ...``. Every rank reads the same
+inputs; rank 0 writes ``--output`` and prints.
 """
 
 from __future__ import annotations
@@ -138,6 +142,7 @@ def main(argv: Optional[List[str]] = None) -> List[Dict[str, Any]]:
         raise SystemExit("--detect_language needs float weights (no --quantize)")
     transcriber = build_transcriber(args, cfg)
     results = transcriber.transcribe(items)
+    lead = transcriber.mesh is None or _rank() == 0
     out = [
         {"id": r.id, "text": r.text, "has_video": r.has_video,
          "avg_logprob": r.avg_logprob,
@@ -146,12 +151,23 @@ def main(argv: Optional[List[str]] = None) -> List[Dict[str, Any]]:
     ]
     if args.detect_language:
         add_languages(out, items, transcriber, int(cfg.audio_max_length), args.batch_size)
-    if args.output:
+    if args.output and lead:
         with open(args.output, "w") as f:
             json.dump(out, f, indent=2)
-    for r in out[:10]:
-        print(json.dumps(r))
+    if lead:
+        for r in out[:10]:
+            print(json.dumps(r))
+    if transcriber.mesh is not None:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
     return out
+
+
+def _rank() -> int:
+    from avsl_tpu_torch.core.mesh import rank
+
+    return rank()
 
 
 if __name__ == "__main__":

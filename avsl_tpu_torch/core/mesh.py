@@ -27,9 +27,17 @@ and shards arrays by annotation; PyTorch runs one process per rank
 * The autograd collectives of tensor parallelism and synchronised
   BatchNorm: :func:`copy_to_group`, :func:`reduce_from_group`,
   :func:`gather_from_group` and :func:`all_reduce_sum`.
-
-``activation_sharding_scope`` and ``constrain_activation`` (sequence
-parallelism) are not ported (ROADMAP.md item 12d).
+* Sequence parallelism (Megatron's, JAX's ``core/mesh.py:86-155``):
+  inside :func:`activation_sharding_scope` (which the train and eval
+  steps enter themselves) :func:`constrain_activation` splits an
+  encoder's [B, T, D] activations over T on the model group between
+  blocks and returns the :class:`SequenceSplit` it made (an axis of size
+  1, or one that does not divide T, is dropped, as in JAX, and the
+  activations stay whole). A block run under the
+  split (:func:`sequence_split_scope`) all-gathers T before its
+  column-parallel products and reduce-scatters after its row-parallel
+  ones (``models/layers.py``); the rows of a batch are already this data
+  rank's (:func:`shard_batch`), so the data axis needs nothing here.
 """
 
 from __future__ import annotations
@@ -343,3 +351,151 @@ def gather_from_group(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     """The ranks' slices of ``group`` concatenated along ``dim`` forward
     (vocab-parallel logits); the backward keeps this rank's slice."""
     return x if _size(group) == 1 else _Gather.apply(x, group, dim % x.ndim)
+
+
+def _reduce_scatter(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Sum ``x`` over ``group`` and keep this rank's slice along ``dim``."""
+    n, r = _size(group), dist.get_rank(group)
+    width = x.shape[dim] // n
+    if dist.get_backend(group) == "nccl":
+        src = x.movedim(dim, 0).contiguous()
+        out = src.new_empty((width,) + tuple(src.shape[1:]))
+        dist.reduce_scatter_tensor(out, src, group=group)
+        return out.movedim(0, dim).contiguous()
+    return _all_reduce(x, group).narrow(dim, r * width, width).contiguous()
+
+
+def _all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    parts = [torch.empty_like(x) for _ in range(_size(group))]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts, dim)
+
+
+class _GatherReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter(g, ctx.group, ctx.dim), None, None
+
+
+class _ReduceScatterGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _reduce_scatter(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.group, ctx.dim), None, None
+
+
+class _Scatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        width = x.shape[dim] // _size(group)
+        return x.narrow(dim, dist.get_rank(group) * width, width).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.group, ctx.dim), None, None
+
+
+# ---------------------------------------------------------------------------
+# sequence parallelism
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class SequenceSplit:
+    """Activations split along ``dim`` (T) over the ``size`` ranks of the
+    model ``group``: this rank holds the contiguous slice ``rank``. The
+    autograd collectives between the two forms:
+
+    * :meth:`scatter` keeps this rank's slice of a whole tensor (backward:
+      all-gather), :meth:`gather` the reverse for a consumer that every
+      rank runs whole (backward: keep the slice);
+    * :meth:`gather_for_product` all-gathers the input of column-parallel
+      products, whose input gradient is then summed and split in one
+      reduce-scatter; :meth:`reduce_scatter` sums a row-parallel layer's
+      partial products and keeps the slice (backward: all-gather)."""
+
+    group: Any
+    rank: int
+    size: int
+    dim: int = 1
+
+    def scatter(self, x: torch.Tensor) -> torch.Tensor:
+        return _Scatter.apply(x, self.group, self.dim)
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        return gather_from_group(x, self.group, self.dim)
+
+    def gather_for_product(self, x: torch.Tensor) -> torch.Tensor:
+        return _GatherReduceScatter.apply(x, self.group, self.dim)
+
+    def reduce_scatter(self, x: torch.Tensor) -> torch.Tensor:
+        return _ReduceScatterGather.apply(x, self.group, self.dim)
+
+    def draw_split(self) -> Tuple[int, int, int]:
+        """The ``split`` of :func:`draw_rows` for a tensor in the split form."""
+        return (self.dim, self.rank, self.size)
+
+
+_ACTIVATION_MESH: list = [None]
+_SEQUENCE: list = [None]
+
+
+@contextlib.contextmanager
+def activation_sharding_scope(mesh: Optional[Mesh]) -> Iterator[Optional[Mesh]]:
+    """Within the block, :func:`constrain_activation` splits activations over
+    ``mesh``'s model axis (None: it splits nothing). The train and eval
+    steps enter it themselves (``train/loop.py``), so a caller never
+    needs to; the scope is a module global and not thread-safe."""
+    prev = _ACTIVATION_MESH[0]
+    _ACTIVATION_MESH[0] = mesh
+    try:
+        yield mesh
+    finally:
+        _ACTIVATION_MESH[0] = prev
+
+
+def constrain_activation(x: torch.Tensor, *spec
+                         ) -> Tuple[torch.Tensor, Optional[SequenceSplit]]:
+    """JAX's ``constrain_activation`` (``with_sharding_constraint(x,
+    P(*spec))`` under the active scope) on the whole activation ``x``: this
+    model rank's slice of the dim ``spec`` names :data:`MODEL_AXIS`, and
+    the :class:`SequenceSplit` that took it. ``(x, None)`` outside the
+    scope, for a model axis of 1, or when the axis does not divide the
+    dim: the activation stays whole, as JAX drops such an axis (the data
+    axis names rows this rank already holds)."""
+    mesh = _ACTIVATION_MESH[0]
+    if mesh is None or MODEL_AXIS not in spec:
+        return x, None
+    dim, size = spec.index(MODEL_AXIS), mesh.shape.get(MODEL_AXIS, 1)
+    if size <= 1 or x.shape[dim] % size != 0:
+        return x, None
+    split = SequenceSplit(mesh.model_group, mesh.model_rank, size, dim)
+    return split.scatter(x), split
+
+
+@contextlib.contextmanager
+def sequence_split_scope(split: Optional[SequenceSplit]) -> Iterator[None]:
+    """Within the block the activations entering the layers are in
+    ``split``'s form (None: whole); a transformer block enters it around
+    its own forward, so a remat recompute runs under it too."""
+    prev = _SEQUENCE[0]
+    _SEQUENCE[0] = split
+    try:
+        yield
+    finally:
+        _SEQUENCE[0] = prev
+
+
+def current_sequence_split() -> Optional[SequenceSplit]:
+    """The split of :func:`sequence_split_scope`, or None."""
+    return _SEQUENCE[0]

@@ -28,7 +28,11 @@ parameter's spec in its own (torch) layout.
   transformer block of the Whisper encoder and decoder and of the video
   tower, on the root's children that hold parameters, then on the root. FSDP2 splits every parameter along dim 0,
   small ones too, where JAX keeps leaves under ``ZERO1_MIN_ELEMS``
-  whole.
+  whole. On a data axis of 1 it is JAX's no-op (a data axis of size 1
+  splits nothing): no ``fully_shard``, so the step is the no-mesh one.
+  FSDP2 there would only add copies, and its hooks on each unit's inputs
+  sum a tensor's gradient from several units (the projected video that
+  every decoder block reads) in another order than one device does.
 
 The resulting :class:`Layout` maps each tensor between its local form and
 the full (logical) one, which checkpoints hold.
@@ -278,6 +282,12 @@ class Layout:
                 local_tensor(dst).copy_(src)
 
 
+def fsdp_applies(mesh: Mesh, fsdp: bool) -> bool:
+    """Whether ``fsdp`` shards anything on ``mesh``: only on a data axis
+    above 1."""
+    return bool(fsdp) and mesh.shape[DATA_AXIS] > 1
+
+
 def _tp_dim(spec: PartitionSpec) -> Optional[int]:
     return spec.index(MODEL_AXIS) if MODEL_AXIS in spec else None
 
@@ -354,6 +364,7 @@ def shard_state(state, mesh: Mesh, rules: Sequence[Tuple[str, PartitionSpec]] = 
             if DATA_AXIS in spec:
                 zero[name] = spec.index(DATA_AXIS)
     trained = set() if opt is None else set(opt.names)
+    fsdp = fsdp_applies(mesh, fsdp)
     if fsdp:
         from torch.distributed.fsdp import fully_shard, register_fsdp_forward_method
 
@@ -366,7 +377,7 @@ def shard_state(state, mesh: Mesh, rules: Sequence[Tuple[str, PartitionSpec]] = 
         for method in ("encode_towers", "project_and_decode"):
             if hasattr(model, method):
                 register_fsdp_forward_method(model, method)
-    layout = Layout(mesh, tp, zero, bool(fsdp), shapes)
+    layout = Layout(mesh, tp, zero, fsdp, shapes)
     if opt is not None:
         opt.bind(dict(model.named_parameters()), layout)
     state.layout = layout

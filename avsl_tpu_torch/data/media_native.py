@@ -11,7 +11,7 @@ arena) and audio (mono float32 at a target rate) via libav — the
 framework's replacement for the reference's ffmpeg-subprocess / decord /
 OpenCV decode paths. Falls back to the cv2-based implementations in
 avsl_tpu_torch.data.video_io when the shared library has not been built
-(``make -C cpp/avsl_media``).
+(``make -C cpp/avsl_media`` into ``build/avsl_tpu_torch/native/``).
 """
 
 from __future__ import annotations
@@ -23,20 +23,16 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
-_LIB_PATHS = [
-    os.path.join(os.path.dirname(__file__), "..", "..", "cpp", "avsl_media", "libavsl_media.so"),
-    os.path.join(os.path.dirname(__file__), "libavsl_media.so"),
-]
+_LIB_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "..", "cpp", "avsl_media")
+_LIB_NAME = "libavsl_media.so"
 
 
 @functools.lru_cache(maxsize=1)
 def _load_lib() -> Optional[ctypes.CDLL]:
     from avsl_tpu_torch.utils.native_build import ensure_built
 
-    ensure_built(os.path.dirname(os.path.abspath(_LIB_PATHS[0])),
-                 "libavsl_media.so")
-    for path in _LIB_PATHS:
-        path = os.path.abspath(path)
+    built = ensure_built(_LIB_DIR, _LIB_NAME)
+    for path in (built, os.path.join(os.path.dirname(os.path.abspath(__file__)), _LIB_NAME)):
         if os.path.exists(path):
             try:
                 lib = ctypes.CDLL(path)

@@ -23,6 +23,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from avsl_tpu_torch.core.mesh import draw_rows
 from avsl_tpu_torch.decode.biasing import bias_adjust, bias_advance
 
 # step_fn(tokens [B, L], cache) -> (logits [B, L, V], cache)
@@ -43,8 +44,11 @@ def teacher_forced_predictions(logits: torch.Tensor, eot_id: int) -> torch.Tenso
 
 def gumbel_noise(generator: torch.Generator, shape, device) -> torch.Tensor:
     """Standard Gumbel noise ``-log(-log(u))``, ``u`` uniform on [tiny, 1)
-    in fp32, drawn from ``generator`` on ``device``."""
-    u = torch.rand(shape, generator=generator, device=device, dtype=torch.float32)
+    in fp32, drawn from ``generator`` on ``device`` over the rows of
+    ``shape`` (``core/mesh.py::draw_rows``: at the whole batch's shape on
+    a mesh's data rank)."""
+    u = draw_rows(lambda s: torch.rand(s, generator=generator, device=device,
+                                       dtype=torch.float32), shape)
     return -torch.log(-torch.log(u.clamp_(min=torch.finfo(torch.float32).tiny)))
 
 

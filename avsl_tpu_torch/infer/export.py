@@ -169,9 +169,13 @@ def export_serving_program(transcriber, path: str,
     paths, the card's bf16 products among them), so ``platforms`` (the
     transcriber's device when None) may name only that device; the CLI
     exports for another by building the transcriber there. Returns the
-    manifest."""
+    manifest. A transcriber on a mesh is refused, as in JAX."""
     from torch.export import save
 
+    if getattr(transcriber, "mesh", None) is not None:
+        raise ValueError(
+            "cannot export a mesh-sharded transcriber: the program would hold one rank's "
+            "slice of the weights and its collectives; export a transcriber without a mesh")
     here = transcriber.device.type
     platforms = list(platforms) if platforms else [here]
     check_platforms(platforms)

@@ -50,7 +50,20 @@ Whisper with its weights, or ``draft_variables``, a state dict loaded into
 it) proposes ``spec_k`` tokens a round of speculative greedy decoding
 (``decode/speculative.py``), token-exact against greedy, on its own
 log-mel at its own ``n_mels``; ``spec_stats()`` reports its acceptance.
-``mesh`` belongs to later work and raises, naming its ``ROADMAP.md`` item.
+
+``mesh`` (a ``core/mesh.py::Mesh``; one process a rank) serves on a
+(data, model) mesh, as ``avsl_tpu/infer/pipeline.py:134-190`` does: the
+weights go through ``core/partitioning.py::shard_state`` (tensor
+parallelism over the model axis), every rank prepares the same batch and
+computes the rows of its data rank, and the results are gathered over the
+data axis in item order, so every rank returns every item's result. The
+draft stays whole on every rank. ``quantize`` with a mesh, and a
+``batch_size`` the data axis does not divide, are refused. The sampled
+fallback draws its noise at the whole batch's shape
+(``core/mesh.py::draw_rows``), so a row gets the draws one device gives
+it. :meth:`StreamingTranscriber.follow` and
+:meth:`StreamingTranscriber.lead` let one rank take requests (the
+daemon) while the others run each of its batches.
 """
 
 from __future__ import annotations
@@ -65,6 +78,7 @@ from typing import Any, Dict, List, Mapping, NamedTuple, Optional, Sequence, Tup
 import numpy as np
 import torch
 
+from avsl_tpu_torch.core.mesh import RowShard, row_shard_scope
 from avsl_tpu_torch.data.audio_segments import load_wav
 from avsl_tpu_torch.data.video_io import load_video_feats, read_video_frames
 from avsl_tpu_torch.decode.beam import beam_search
@@ -119,21 +133,6 @@ class BatchOutput(NamedTuple):
     words: Optional[List[List[dict]]] = None
 
 
-# serving options of later work, each with the ROADMAP.md item that ports
-# it; the transcriber and the serving CLIs refuse them from this table
-UNPORTED = {
-    "mesh": "item 12d (the serving mesh)",
-}
-
-
-def not_ported(option: str, name: Optional[str] = None) -> NotImplementedError:
-    """The refusal of ``UNPORTED[option]``, naming it as ``name`` (a CLI
-    flag) when given."""
-    return NotImplementedError(
-        f"{name or option} is not ported yet (ROADMAP.md queue 1, {UNPORTED[option]})"
-    )
-
-
 class StreamingTranscriber:
     """Greedy or beam-search batch transcription with host/device overlap.
 
@@ -172,8 +171,23 @@ class StreamingTranscriber:
         boost_weight: float = 4.0,
         weights: Optional[Mapping[str, torch.Tensor]] = None,
     ):
+        self.mesh = mesh
+        self._leading = False
+        rows = batch_size
         if mesh is not None:
-            raise not_ported("mesh")
+            if quantize is not None:
+                raise ValueError(
+                    "quantize + mesh unsupported: int8 halves one card's weight traffic, tensor "
+                    "parallelism splits it across cards — pick one")
+            n_data = mesh.shape["data"]
+            if batch_size % n_data:
+                raise ValueError(
+                    f"batch_size {batch_size} not divisible by the mesh data axis ({n_data})")
+            rows = batch_size // n_data
+            from avsl_tpu_torch.core.partitioning import shard_state
+            from avsl_tpu_torch.train.loop import TrainState
+
+            shard_state(TrainState(model=model, optimizer=None), mesh)
         if raw_lip_mode not in ("host_refined", "device"):
             raise ValueError(f"raw_lip_mode {raw_lip_mode!r}")
         self.temperature_fallback = tuple(float(t) for t in temperature_fallback)
@@ -221,7 +235,8 @@ class StreamingTranscriber:
         self.raw_lip_mode = raw_lip_mode
         self._lip_stages = make_staged_lip_frontend(video_frames)
         sot = np.asarray(tokenizer.sot_sequence(lang), np.int64)
-        self._prompt_np = np.tile(sot[None], (batch_size, 1))
+        # the prompt of the rows this rank computes (all of them off a mesh)
+        self._prompt_np = np.tile(sot[None], (rows, 1))
         self._prompt = torch.as_tensor(self._prompt_np, device=self.device)
         self.boost_phrases = tuple(boost_phrases or ())
         self._biasing = None
@@ -255,7 +270,66 @@ class StreamingTranscriber:
     def run_batch(self, batch: PreparedBatch) -> BatchOutput:
         """The device half of one prepared batch: its raw closeups
         lip-cropped on the device and merged into its video, then
-        :meth:`_run`."""
+        :meth:`_run`. On a mesh this rank computes its data rank's rows
+        and the outputs of every row are gathered; while :meth:`lead`
+        is on, the batch goes to the other ranks first."""
+        if self._leading:
+            _broadcast(batch)
+        if self.mesh is None:
+            return self._run_rows(batch)
+        return self._gather_rows(self._run_rows(self._own_rows(batch)))
+
+    def _own_rows(self, batch: PreparedBatch) -> PreparedBatch:
+        """This data rank's contiguous rows of a prepared batch."""
+        n, r = self.mesh.shape["data"], self.mesh.data_rank
+        size = self.batch_size // n
+        cut = slice(r * size, (r + 1) * size)
+        return PreparedBatch(batch.audio[cut], batch.video[cut],
+                             None if batch.raw is None else batch.raw[cut],
+                             batch.raw_mask[cut], batch.raw_frames[cut], batch.flags[cut],
+                             None if batch.n_samples is None else batch.n_samples[cut])
+
+    def _gather_rows(self, out: BatchOutput) -> BatchOutput:
+        """Every data rank's rows of a batch's outputs, in row order."""
+        import torch.distributed as dist
+
+        n, group = self.mesh.shape["data"], self.mesh.data_group
+        if n == 1:
+            return out
+        parts = []
+        for a in (out.tokens, out.scores):
+            t = torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+            got = [torch.empty_like(t) for _ in range(n)]
+            dist.all_gather(got, t, group=group)
+            parts.append(torch.cat(got).cpu().numpy())
+        words = None
+        if out.words is not None:
+            got = [None] * n
+            dist.all_gather_object(got, out.words, group=group)
+            words = [w for part in got for w in part]
+        return BatchOutput(parts[0], parts[1], words)
+
+    def lead(self, on: bool = True) -> None:
+        """On the rank that takes requests (rank 0): from now on send each
+        batch to the other ranks before running it (``on``), or tell them
+        to stop (``on=False``); they wait in :meth:`follow`."""
+        if not on and self._leading:
+            _broadcast(None)
+        self._leading = on
+
+    def follow(self) -> int:
+        """On every other rank: run the batches of the rank that leads,
+        until it stops. Returns the number of batches run."""
+        n = 0
+        while True:
+            batch = _broadcast(None)
+            if batch is None:
+                return n
+            self.run_batch(batch)
+            n += 1
+
+    def _run_rows(self, batch: PreparedBatch) -> BatchOutput:
+        """The device half of the rows this rank computes."""
         video = batch.video
         if batch.raw is not None and self.model.cfg.add_gated_x_attn:
             lip = self._lip_from_raw(torch.from_numpy(batch.raw).to(self.device),
@@ -376,6 +450,12 @@ class StreamingTranscriber:
                 "mean_accept_rate": self._spec_accept_sum / self._spec_batches,
                 "mean_verify_rounds": self._spec_rounds_sum / self._spec_batches}
 
+    def _row_shard(self) -> Optional[RowShard]:
+        """The data rank's share of a batch's rows, for the sampled draws."""
+        if self.mesh is None:
+            return None
+        return RowShard(self.mesh.data_group, self.mesh.data_rank, self.mesh.shape["data"])
+
     def _retry_mask(self, seqs: np.ndarray, scores: np.ndarray) -> np.ndarray:
         """Per row: confidence below ``logprob_threshold``, or text that
         compresses above ``compression_ratio_threshold`` (repetition)."""
@@ -402,7 +482,8 @@ class StreamingTranscriber:
                 break
             gen = torch.Generator(device=self.device)
             gen.manual_seed(1234 + self._fallback_calls * 31 + k)
-            s2, sc2 = (t.cpu().numpy() for t in self._decode(feats, xv, temp, gen)[:2])
+            with row_shard_scope(self._row_shard()):
+                s2, sc2 = (t.cpu().numpy() for t in self._decode(feats, xv, temp, gen)[:2])
             self.fallback_decodes += 1
             passes = ~self._retry_mask(s2, sc2)
             adopt = need & (passes | ((k == last) & (sc2 > scores)))
@@ -589,3 +670,12 @@ class StreamingTranscriber:
             results.extend(self._results(chunk, batch.flags, self.run_batch(batch), len(results)))
         t.join()
         return results
+
+
+def _broadcast(obj):
+    """``obj`` from rank 0 to every rank of the default process group."""
+    import torch.distributed as dist
+
+    box = [obj]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]

@@ -26,7 +26,10 @@ Protocol (JSON over HTTP, standard library only):
 
 A full queue answers 429, a request that waits too long 504, a malformed
 one 400. Use :class:`TranscriptionServer` directly or through
-``python -m avsl_tpu_torch.cli.serve``.
+``python -m avsl_tpu_torch.cli.serve``. With a transcriber on a mesh of
+several ranks the server's rank leads (``StreamingTranscriber.lead``): the
+other ranks, in ``StreamingTranscriber.follow``, run each of its batches
+with it, and stop when the server stops.
 """
 
 from __future__ import annotations
@@ -117,6 +120,12 @@ class TranscriptionServer:
     def __init__(self, transcriber, host: str = "127.0.0.1", port: int = 0,
                  max_wait_ms: float = 30.0, max_queue: int = 256):
         self.transcriber = transcriber
+        from avsl_tpu_torch.core.mesh import world_size
+
+        # on a mesh of several ranks this one leads: the others run its batches
+        self._leads = getattr(transcriber, "mesh", None) is not None and world_size() > 1
+        if self._leads:
+            transcriber.lead(True)
         self.max_wait_ms = float(max_wait_ms)
         self.stats = _Stats()
         self._queue: "Queue[_Pending]" = Queue(maxsize=max(int(max_queue), 1))
@@ -334,7 +343,10 @@ class TranscriptionServer:
             self._http.shutdown()
         self._http.server_close()
         if self._scheduler.is_alive():
-            self._scheduler.join(timeout=5.0)
+            self._scheduler.join(timeout=None if self._leads else 5.0)
+        if self._leads:  # the followers stop after the last batch
+            self.transcriber.lead(False)
+            self._leads = False
         # fail what is still queued: its handlers wait on pending.done
         while True:
             try:

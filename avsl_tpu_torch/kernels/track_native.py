@@ -24,8 +24,7 @@ _LIB_NAME = "libavsl_track.so"
 def _load_lib() -> Optional[ctypes.CDLL]:
     from avsl_tpu_torch.utils.native_build import ensure_built
 
-    ensure_built(_LIB_DIR, _LIB_NAME)
-    path = os.path.abspath(os.path.join(_LIB_DIR, _LIB_NAME))
+    path = ensure_built(_LIB_DIR, _LIB_NAME)
     if not os.path.exists(path):
         return None
     try:

@@ -4,7 +4,8 @@ Port of ``avsl_tpu/kernels/warp_native.py``. A threaded C++ separable
 bilinear sampler for uint8 frames, the host twin of
 :func:`avsl_tpu_torch.kernels.warp.sample_separable` (per-tap masking,
 float32 accumulation); :func:`sample_separable_np` computes the same in
-numpy when the library is not built (``make -C cpp/avsl_warp``, which
+numpy when the library is not built (``make -C cpp/avsl_warp`` into
+``build/avsl_tpu_torch/native/``, which
 :func:`avsl_tpu_torch.utils.native_build.ensure_built` tries once).
 """
 
@@ -25,8 +26,7 @@ _LIB_NAME = "libavsl_warp.so"
 def _load_lib() -> Optional[ctypes.CDLL]:
     from avsl_tpu_torch.utils.native_build import ensure_built
 
-    ensure_built(_LIB_DIR, _LIB_NAME)
-    path = os.path.abspath(os.path.join(_LIB_DIR, _LIB_NAME))
+    path = ensure_built(_LIB_DIR, _LIB_NAME)
     if not os.path.exists(path):
         return None
     try:

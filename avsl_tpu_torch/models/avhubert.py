@@ -70,7 +70,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from avsl_tpu_torch.core.config import AVHuBERTConfig
-from avsl_tpu_torch.core.mesh import draw_rows
+from avsl_tpu_torch.core.mesh import DATA_AXIS, MODEL_AXIS, constrain_activation, draw_rows
 from avsl_tpu_torch.models.intermediates import sow
 from avsl_tpu_torch.models.layers import (
     Cache,
@@ -376,18 +376,23 @@ class AVHuBERTTransformerEncoder(nn.Module):
         if not self.layer_norm_first:
             x = self.layer_norm(x)
         x = residual_dropout(x, self.hidden_dropout, self.training, generator)
+        # sequence parallelism between blocks (see models/whisper.py); the
+        # key lengths stay global, as attention sees the whole sequence
+        x, split = constrain_activation(x, DATA_AXIS, MODEL_AXIS, None)
         for i, layer in enumerate(self.layers):
             if self.remat:
                 out, _ = remat_block(layer, self.remat_policy, (generator,), x,
-                                     kv_lengths=kv_lengths, generator=generator)
+                                     kv_lengths=kv_lengths, generator=generator, seq_split=split)
             else:
-                out, _ = layer(x, kv_lengths=kv_lengths, generator=generator)
+                out, _ = layer(x, kv_lengths=kv_lengths, generator=generator, seq_split=split)
             if self.training and self.layerdrop > 0.0:
                 x = _layerdrop(out, x, self.layerdrop, generator)
             else:
                 x = out
             if output_layer is not None and i + 1 == output_layer:
-                return x
+                return x if split is None else split.gather(x)
+        if split is not None:
+            x = split.gather(x)
         if self.layer_norm_first:
             x = self.layer_norm(x)
         return x

@@ -44,7 +44,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from avsl_tpu_torch.core.mesh import copy_to_group, draw_rows, reduce_from_group
+from avsl_tpu_torch.core.mesh import (
+    copy_to_group,
+    current_sequence_split,
+    draw_rows,
+    gather_from_group,
+    reduce_from_group,
+    sequence_split_scope,
+)
 from avsl_tpu_torch.kernels.attention import fused_attention
 from avsl_tpu_torch.models.quant import QTensor
 
@@ -98,8 +105,17 @@ class LayerNormF32(nn.LayerNorm):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.layer_norm(
-            x.float(), self.normalized_shape, self.weight, self.bias, self.eps
+            x.float(), self.normalized_shape, _seq_param(self.weight), _seq_param(self.bias),
+            self.eps
         ).to(x.dtype)
+
+
+def _seq_param(p: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """A whole parameter that a block applies to its slice of the rows
+    under sequence parallelism: its gradient is summed over the model
+    group, where each rank holds the part from its rows."""
+    split = current_sequence_split()
+    return p if split is None or p is None else copy_to_group(p, split.group)
 
 
 def cast_param(p: Optional[torch.Tensor], dtype: torch.dtype) -> Optional[torch.Tensor]:
@@ -117,7 +133,11 @@ class CastLinear(nn.Linear):
     this model rank's rows of the weight and bias ("col": its slice of the
     output features; the input's gradient is summed over the group) or
     its columns of the weight ("row": the partial products are summed
-    over the group, then the whole bias is added)."""
+    over the group, then the whole bias is added). Inside a block under
+    sequence parallelism (``core/mesh.py::sequence_split_scope``) the
+    column-parallel layer takes an input its sublayer has all-gathered
+    over T (:func:`seq_enter`), and the row-parallel one reduce-scatters
+    its partial products over T where it would all-reduce them."""
 
     def __init__(self, in_features, out_features, bias=True, device=None,
                  param_dtype=torch.bfloat16, compute_dtype=None):
@@ -147,11 +167,32 @@ class CastLinear(nn.Linear):
         if self.tp is None:
             return F.linear(x, cast_param(self.weight, dtype), cast_param(self.bias, dtype))
         mode, group = self.tp[:2]
+        split = current_sequence_split()
         if mode == "col":
-            return F.linear(copy_to_group(x, group), cast_param(self.weight, dtype),
-                            cast_param(self.bias, dtype))
-        y = reduce_from_group(F.linear(x, cast_param(self.weight, dtype)), group)
-        return y if self.bias is None else y + cast_param(self.bias, dtype)
+            x = x if split is not None else copy_to_group(x, group)
+            return F.linear(x, cast_param(self.weight, dtype), cast_param(self.bias, dtype))
+        y = F.linear(x, cast_param(self.weight, dtype))
+        y = reduce_from_group(y, group) if split is None else split.reduce_scatter(y)
+        return y if self.bias is None else y + cast_param(_seq_param(self.bias), dtype)
+
+
+def seq_enter(x: torch.Tensor, first: "CastLinear") -> torch.Tensor:
+    """A sublayer's input under sequence parallelism, whole over T: for a
+    column-parallel ``first`` layer all-gathered with a reduce-scattering
+    backward, for a replicated one all-gathered (each rank then runs the
+    sublayer whole); ``x`` itself outside it."""
+    split = current_sequence_split()
+    if split is None:
+        return x
+    return split.gather_for_product(x) if first.tp is not None else split.gather(x)
+
+
+def seq_leave(y: torch.Tensor, last: "CastLinear") -> torch.Tensor:
+    """A sublayer's output back in the split form: a row-parallel ``last``
+    layer has reduce-scattered it already, a replicated one's whole output
+    keeps this rank's slice; ``y`` itself outside sequence parallelism."""
+    split = current_sequence_split()
+    return y if split is None or last.tp is not None else split.scatter(y)
 
 
 class CastConv1d(nn.Conv1d):
@@ -453,6 +494,12 @@ class MultiHeadAttention(nn.Module):
         """The i-th projection: 0 query, 1 key, 2 value, 3 output."""
         return self._modules[self._proj_names[i]]
 
+    @property
+    def local_heads(self) -> int:
+        """Heads this rank computes: every head, or ``n_heads / mp`` under
+        tensor parallelism (the rows of the query weight it holds)."""
+        return self._proj(0).weight.shape[0] // self.head_dim
+
     def _split(self, x: torch.Tensor) -> torch.Tensor:
         """[B, T, H*D] -> [B, T, H, D]: every head, or this model rank's
         ``n_heads / mp`` under tensor parallelism."""
@@ -486,7 +533,7 @@ class MultiHeadAttention(nn.Module):
         row = (idx[:, None] + q_ids[None, :]).clamp(max=max_len - 1)  # [B, Q] row written
         src = row - idx[:, None]  # the query whose K/V lands in that row; < 0: none, keep it
         fresh = (src >= 0)[:, None, :, None]
-        shape = (b, self.n_heads, qlen, head_dim)
+        shape = (b, self.local_heads, qlen, head_dim)
         row = row[:, None, :, None].expand(shape)
         src = src.clamp(min=0)[:, None, :, None].expand(shape)
         for name, i in (("k", 1), ("v", 2)):
@@ -509,6 +556,11 @@ class MultiHeadAttention(nn.Module):
         generator: Optional[torch.Generator] = None,
         mask: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, Optional[Cache]]:
+        if current_sequence_split() is not None:
+            if cache is not None or kv_src is not None:
+                raise NotImplementedError("sequence parallelism splits self-attention blocks "
+                                          "without a cache only")
+            x = seq_enter(x, self._proj(0))
         q = self._split(self._proj(0)(x))
         new_cache = None
         if cache is not None and is_vector_index(cache.get("index")):
@@ -544,13 +596,16 @@ class MultiHeadAttention(nn.Module):
                                             split=self._proj(0).output_split(1))
             elif self.capture is not None and kv_src is not None:
                 out, weights = dot_product_attention(q, k, v, mask, return_weights=True)
-                self.capture.append(weights)
+                tp = self._proj(0).tp
+                # every head's weights, as one device holds them
+                self.capture.append(weights if tp is None else
+                                    gather_from_group(weights, tp[1], 1))
             elif mask is None:
                 out = fused_attention(q, k, v, lengths=kv_lengths, causal=causal)
             else:
                 out = dot_product_attention(q, k, v, mask)
         b, t = out.shape[:2]
-        return self._proj(3)(out.reshape(b, t, -1)), new_cache
+        return seq_leave(self._proj(3)(out.reshape(b, t, -1)), self._proj(3)), new_cache
 
 
 class MLP(nn.Sequential):
@@ -566,9 +621,9 @@ class MLP(nn.Sequential):
         self.dropout = dropout
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        h = residual_dropout(self[1](self[0](x)), self.dropout, self.training, generator,
-                             self[0].output_split(-1))
-        return self[2](h)
+        h = residual_dropout(self[1](self[0](seq_enter(x, self[0]))), self.dropout,
+                             self.training, generator, self[0].output_split(-1))
+        return seq_leave(self[2](h), self[2])
 
 
 # state-dict names of a block's self-attention, its norm, the MLP norm, the
@@ -610,6 +665,11 @@ class TransformerBlock(nn.Module):
     ``moe_capacity_factor``) in the MLP's place, as the module ``mlp``
     under either naming; with ``kv_lengths`` the positions past each row's
     length neither route nor enter its balance loss (``layers.py:474-481``).
+    ``seq_split`` (a :class:`~avsl_tpu_torch.core.mesh.SequenceSplit`)
+    runs the block under sequence parallelism: ``x`` is this model rank's
+    slice of T, and so is the output; attention sees the whole sequence
+    (key lengths are global), and the layer norms, residual dropout and
+    residual run on the slice.
     """
 
     def __init__(
@@ -685,19 +745,25 @@ class TransformerBlock(nn.Module):
     def _ffn(self, h: torch.Tensor, generator: Optional[torch.Generator],
              kv_lengths: Optional[torch.Tensor]) -> torch.Tensor:
         if self.n_experts > 0:
+            if current_sequence_split() is not None:
+                raise NotImplementedError("sequence parallelism with MoE layers is not ported "
+                                          "yet (ROADMAP.md queue 1, item 12e)")
             valid = None
             if kv_lengths is not None:
                 valid = (torch.arange(h.shape[1], device=h.device)[None, :]
                          < kv_lengths.to(h.device)[:, None])
             return self.mlp(h, valid=valid)
         if self.names == "fairseq":
-            h = F.gelu(self.fc1(h))
-            return self.fc2(residual_dropout(h, self.activation_dropout, self.training, generator,
-                                             self.fc1.output_split(-1)))
+            h = F.gelu(self.fc1(seq_enter(h, self.fc1)))
+            h = self.fc2(residual_dropout(h, self.activation_dropout, self.training, generator,
+                                          self.fc1.output_split(-1)))
+            return seq_leave(h, self.fc2)
         return self.mlp(h, generator)
 
     def _residual(self, x, delta, generator):
-        return x + residual_dropout(delta, self.dropout, self.training, generator)
+        split = current_sequence_split()
+        return x + residual_dropout(delta, self.dropout, self.training, generator,
+                                    None if split is None else split.draw_split())
 
     def _sublayer(self, x, ln, fn, generator):
         """``x + dropout(fn(ln(x)))`` pre-norm, ``ln(x + dropout(fn(x)))`` post-norm."""
@@ -715,7 +781,12 @@ class TransformerBlock(nn.Module):
         kv_lengths: Optional[torch.Tensor] = None,
         self_mask: Optional[torch.Tensor] = None,
         enc_mask: Optional[torch.Tensor] = None,
+        seq_split=None,
     ) -> Tuple[torch.Tensor, Optional[Cache]]:
+        with sequence_split_scope(seq_split):
+            return self._forward(x, enc, cache, generator, xv, kv_lengths, self_mask, enc_mask)
+
+    def _forward(self, x, enc, cache, generator, xv, kv_lengths, self_mask, enc_mask):
         new_cache: Optional[Cache] = {} if cache is not None else None
 
         xv_cache = None if cache is None else cache.get("xv")

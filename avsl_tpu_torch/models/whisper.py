@@ -32,7 +32,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from avsl_tpu_torch.core.config import WhisperConfig
-from avsl_tpu_torch.core.mesh import copy_to_group, gather_from_group, reduce_from_group
+from avsl_tpu_torch.core.mesh import (
+    DATA_AXIS,
+    MODEL_AXIS,
+    constrain_activation,
+    copy_to_group,
+    gather_from_group,
+    reduce_from_group,
+)
 from avsl_tpu_torch.models.layers import (
     Cache,
     CastConv1d,
@@ -90,11 +97,18 @@ class WhisperEncoder(nn.Module):
         x = F.gelu(self.conv1(mel.to(self.conv1.compute_dtype)))
         x = F.gelu(self.conv2(x)).transpose(1, 2)  # [B, T, d]
         x = x + self.positional_embedding[: x.shape[1]]
+        # sequence parallelism between blocks (None outside
+        # core/mesh.py::activation_sharding_scope, or when the model axis
+        # does not divide T)
+        x, split = constrain_activation(x, DATA_AXIS, MODEL_AXIS, None)
         for block in self.blocks:
             if self.remat:
-                x, _ = remat_block(block, self.remat_policy, (generator,), x, generator=generator)
+                x, _ = remat_block(block, self.remat_policy, (generator,), x, generator=generator,
+                                   seq_split=split)
             else:
-                x, _ = block(x, generator=generator)
+                x, _ = block(x, generator=generator, seq_split=split)
+        if split is not None:
+            x = split.gather(x)
         return self.ln_post(x)
 
 
@@ -324,7 +338,7 @@ class Whisper(nn.Module):
         for block in self.decoder.blocks:
             entry: Cache = {
                 "self": init_self_attn_cache(
-                    b, max_len, cfg.n_text_head, head_dim,
+                    b, max_len, block.attn.local_heads, head_dim,
                     torch_dtype(cfg.dtype), audio_features.device,
                 ),
                 "cross": block.cross_attn.precompute_kv(audio_features),

@@ -157,13 +157,13 @@ def restore_sharded(directory: str, target, mesh, rules=None, step: Optional[int
     not matter (``checkpoints.py:79-130`` in JAX). ``mesh`` None restores
     as :func:`restore_checkpoint`."""
     if mesh is not None:
-        from avsl_tpu_torch.core.partitioning import DEFAULT_RULES, shard_state
+        from avsl_tpu_torch.core.partitioning import DEFAULT_RULES, fsdp_applies, shard_state
 
         layout = getattr(target, "layout", None)
         if layout is None:
             shard_state(target, mesh, DEFAULT_RULES if rules is None else rules,
                         zero1=zero1, fsdp=fsdp)
-        elif layout.mesh is not mesh or layout.fsdp != bool(fsdp):
+        elif layout.mesh is not mesh or layout.fsdp != fsdp_applies(mesh, fsdp):
             raise ValueError("the target is already laid out on another mesh or layout")
     return restore_checkpoint(directory, target, step)
 

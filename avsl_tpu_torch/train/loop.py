@@ -44,9 +44,13 @@ computes, the single-device step on that batch:
   (:func:`~avsl_tpu_torch.core.mesh.row_shard_scope`), so dropout masks
   differ across data ranks while LayerDrop and the AV-mode draw agree.
 
-``sequence_parallel=True`` (activation sharding) is not ported (ROADMAP.md
-item 12d); None, JAX's auto, runs tensor parallelism without it, which
-computes the same numbers.
+Sequence parallelism (``sequence_parallel``; None, JAX's default, turns
+it on when the mesh's model axis is above 1): the step enters
+:func:`~avsl_tpu_torch.core.mesh.activation_sharding_scope` itself, around
+its forward and backward passes, so every call carries it whatever the
+caller's context; the encoders then split their activations over T on the
+model group between blocks (``core/mesh.py``). It moves no number beyond
+the order of a few fp32 sums; at a model axis of 1 it splits nothing.
 """
 
 from __future__ import annotations
@@ -61,8 +65,10 @@ from torch import nn
 
 from avsl_tpu_torch.core.mesh import (
     DATA_AXIS,
+    MODEL_AXIS,
     RowShard,
     ShardedBatch,
+    activation_sharding_scope,
     row_shard_scope,
     shard_batch,
 )
@@ -83,9 +89,13 @@ IGNORE_INDEX = -100
 _BUCKET_ELEMENTS = 1 << 26
 
 
-def sequence_parallel_not_ported() -> NotImplementedError:
-    return NotImplementedError("sequence_parallel=True: activation sharding is not ported "
-                               "yet (ROADMAP.md queue 1, item 12d)")
+def sp_scope(mesh, sequence_parallel: Optional[bool]):
+    """The activation-sharding scope of a step (``avsl_tpu/train/loop.py:
+    33-49``): None turns it on when ``mesh`` has a model axis above 1; off,
+    or without a mesh, a scope that splits nothing."""
+    if sequence_parallel is None:
+        sequence_parallel = mesh is not None and mesh.shape.get(MODEL_AXIS, 1) > 1
+    return activation_sharding_scope(mesh if sequence_parallel else None)
 
 
 @dataclass
@@ -202,16 +212,16 @@ def make_train_step(
     micro-batch ``i`` (``ctx`` itself without accumulation). With
     ``split_precompute=True`` the result is ``(step, pre)``: ``ctx =
     pre(state, batch)`` then ``step(state, batch, ctx)``, which draws
-    the same numbers as the fused step."""
-    if sequence_parallel:
-        raise sequence_parallel_not_ported()
+    the same numbers as the fused step. ``sequence_parallel`` (None: on
+    when the model axis is above 1) splits the encoders' activations over
+    T on the model group (see the module docstring)."""
     accum = int(grad_accum_steps)
     batch_dim = 1 if accum > 1 else 0
 
     def pre_fn(state: TrainState, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         batch, sharded = _prepare(state, mesh, batch, batch_dim, zero1, fsdp)
         rows = None if sharded is None else _rows(mesh, sharded, accum if accum > 1 else 1)
-        with torch.no_grad(), row_shard_scope(rows):
+        with torch.no_grad(), row_shard_scope(rows), sp_scope(mesh, sequence_parallel):
             return precompute_fn(batch, state.generator)
 
     def step_fn(state: TrainState, batch: Dict[str, Any],
@@ -230,7 +240,7 @@ def make_train_step(
         micros = [batch] if accum <= 1 else [{k: v[i] for k, v in batch.items()}
                                               for i in range(accum)]
         sums: Dict[str, torch.Tensor] = {}
-        with row_shard_scope(rows):
+        with row_shard_scope(rows), sp_scope(mesh, sequence_parallel):
             for micro in micros:
                 loss, metrics = loss_fn(micro, state.generator)
                 if rows is not None:
@@ -276,14 +286,14 @@ def make_train_step(
 def make_eval_step(loss_fn: LossFn, mesh: Any = None, sequence_parallel: Optional[bool] = None):
     """``eval(state, batch) -> metrics``: the loss without gradients or
     random draws; on a mesh each data rank evaluates its rows and the
-    metrics are the global batch's (the loss its token mean)."""
-    if sequence_parallel:
-        raise sequence_parallel_not_ported()
+    metrics are the global batch's (the loss its token mean), under
+    sequence parallelism as :func:`make_train_step` decides it."""
 
     @torch.no_grad()
     def step_fn(state: TrainState, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         batch, sharded = _prepare(state, mesh, batch, 0, False, False)
-        loss, metrics = loss_fn(batch, None)
+        with sp_scope(mesh, sequence_parallel):
+            loss, metrics = loss_fn(batch, None)
         out = {**metrics, "loss": loss}
         rows = None if sharded is None else _rows(mesh, sharded)
         if rows is not None:

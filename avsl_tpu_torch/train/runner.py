@@ -146,7 +146,9 @@ class TrainerRunner:
     ``cfg.ema_decay > 0`` keeps an EMA of the tensors the optimizer trains
     (JAX's covers its whole ``params`` tree; the frozen tensors, which
     JAX's EMA leaves equal up to rounding, are the live ones here, see
-    ROADMAP.md §3). ``evaluate`` and ``best/`` see it; ``ema`` holds it."""
+    ROADMAP.md §3). ``evaluate`` and ``best/`` see it; ``ema`` holds it.
+    On a model axis above 1 the step carries sequence parallelism, as
+    JAX's runner's does (``make_train_step``'s default)."""
 
     def __init__(
         self,

@@ -211,6 +211,20 @@ raises on failure:
    To make room, the Flamingo training phases' accumulation was cut from
    the YAML's 16 to PATH_ACCUM (8) and ``serving_extras_int8`` to one
    timing round.
+18. sequence parallelism and the serving mesh: ``mesh_serving_main_path``
+   (right after the daemon, on its model: the flagship transcriber built
+   through ``cli/_serving_common.py::build_transcriber`` on a mesh of one
+   rank over NCCL, greedy and beam 2 over the AV main path's 16 items,
+   tokens bit-equal to the no-mesh transcriber's, 56 K1 a batch);
+   ``mesh_train_main_path``'s replicated variant steps with
+   ``sequence_parallel=True`` (at a model axis of 1 it splits nothing) and
+   every variant is held bit-equal to no mesh, FSDP included (at a data
+   axis of 1 it is JAX's no-op); ``mesh_cpu_ranks`` runs dp 1 x mp 2 with
+   sequence parallelism (train and eval steps, splits counted), the tiny
+   transcriber at mp 2 and dp 2 against one process, and ``cli.transcribe
+   --model_parallel 2`` under ``torch.distributed.run``. To make room:
+   MESH_ACCUM 4 -> 2, LORA_ACCUM 8 -> 4, DISTILL_STEPS 50 -> 25,
+   STREAM_SECONDS 15 -> 10.
 
 Each model is freed before the next one is built. It prints the kernel
 list, the card's name and power limit and, last,
@@ -1099,6 +1113,8 @@ def phase_av_main_path(card: str):
               "flash_attention_launches": launches, "row_statistics_written": stats_writes,
               "backward_launches": k2, "avg_logprob_first": results[0].avg_logprob}
     log(record)
+    # the mesh transcriber's reference (phase_mesh_serving_main_path), not logged
+    record["tokens"] = [list(r.tokens) for r in results]
 
     # per-stage breakdown of one batch (host clock, synchronised per stage):
     # the host's preparation, one whole device program, then its parts
@@ -3301,7 +3317,7 @@ def timed_calls(owner, *names):
 
 # the daemon's live stream (30 s before the AV-HuBERT tools' phases: cut
 # to make room for them)
-STREAM_SECONDS = 15.0
+STREAM_SECONDS = 10.0
 
 
 def daemon_items(n: int, n_video: int, seed: int):
@@ -3374,7 +3390,7 @@ def serving_daemon_parts(card: str, model, serve_cfg):
     audio-only over HTTP with base64 PCM and 8 with lip features through
     ``submit``, against the transcriber's own ``transcribe`` on the same
     items; (b) one ``long`` request of 60 s with 0.5 s pauses; (c) a
-    ``StreamingSession`` routed through the daemon, STREAM_SECONDS (15 s)
+    ``StreamingSession`` routed through the daemon, STREAM_SECONDS (10 s)
     in 0.32 s chunks;
     (d) the temperature fallback at (0.2, 0.4), (e) word timestamps (with
     the boost, so that random weights decode words), (f) 20 boosted
@@ -4081,8 +4097,12 @@ LORA_RANK, LORA_ALPHA, LORA_EMA = 8, 16.0, 0.999
 # depths cut to make room for the pretraining path (were 3 steps, 4
 # micro-batches a remat step and 100 distillation steps)
 LORA_STEPS = 2
+# the LoRA phase's accumulation (PATH_ACCUM until the sequence-parallel and
+# serving-mesh phases came, cut to make room for them)
+LORA_ACCUM = 4
 REMAT_AB_ACCUM, REMAT_AB_STEPS = 2, 2
-DISTILL_CLIPS, DISTILL_STEPS, DISTILL_LR = 32, 50, 1e-3
+# distillation steps: 100, cut to 50 and then to 25 to make room for the serving mesh
+DISTILL_CLIPS, DISTILL_STEPS, DISTILL_LR = 32, 25, 1e-3
 
 
 def lora_job_config(out_dir: str, vocab_dir: str) -> str:
@@ -4097,7 +4117,7 @@ def lora_job_config(out_dir: str, vocab_dir: str) -> str:
 
     with open(TRAIN_CONFIG) as f:
         fields = yaml.safe_load(f)
-    accum = fields["gradient_accumulation_steps"] = PATH_ACCUM
+    accum = fields["gradient_accumulation_steps"] = LORA_ACCUM
     fields.update(lora_rank=LORA_RANK, lora_alpha=LORA_ALPHA, ema_decay=LORA_EMA,
                   num_train_steps=LORA_STEPS, validate_every_n_batches=LORA_STEPS * accum,
                   num_sanity_val_steps=0, download_root=vocab_dir,
@@ -5166,27 +5186,25 @@ def traced_run(fn) -> dict:
 # the mesh phases: the flagship model at world size 1 over NCCL, four
 # ways from one state, MESH_STEPS optimizer steps of MESH_ACCUM
 # micro-batches each (the Flamingo phase's seeded batches)
-MESH_ACCUM, MESH_STEPS = 4, 2
-MESH_VARIANTS = ("no_mesh", "replicated", "zero1", "fsdp")
+MESH_ACCUM, MESH_STEPS = 2, 2
+MESH_VARIANTS = ("no_mesh", "replicated_sp", "zero1", "fsdp")
 # every mesh variant against the no-mesh runner: at world size 1 each runs
-# the no-mesh arithmetic, so bit-equality is expected and logged. FSDP's
-# gathered weights sit elsewhere in memory, where cuBLAS may pick GEMMs
-# that sum the weight gradients in another order (a first call measured
-# the grad norm 3.5e-6 apart): the loss within MESH_RTOL, the grad norm
-# within MESH_NORM_RTOL, and the trained tensors within one update at the
-# YAML's learning rate (MESH_UPDATE_ATOL; warmup is cut to 1 step so step
-# 2 updates at that rate: Adam's normalised update can move an element
-# whose gradient is near 0 by up to that much) with at most
-# MESH_MOVED_SHARE of them more than MESH_ATOL apart
-MESH_RTOL, MESH_NORM_RTOL = 1e-6, 1e-5
-MESH_UPDATE_ATOL, MESH_ATOL, MESH_MOVED_SHARE = 1e-5, 1e-7, 1e-3
+# the no-mesh arithmetic (FSDP at a data axis of 1 is JAX's no-op, sequence
+# parallelism at a model axis of 1 splits nothing), so each is held
+# bit-equal: losses, grad norms, trained tensors and BatchNorm statistics
 # FSDP's per-rank bytes of parameters and Adam moments against the split
 # state_shardings(fsdp=True) implies (FSDP2 splits small leaves too)
 MESH_BYTES_MARGIN = 0.10
 # the host-CPU ranks: the tiny Whisper-Flamingo (Whisper dropout 0.1, the
 # tiny tower's own rates) over 2 gloo ranks against one process
 MESH_CPU_VARIANTS = {"dp2": dict(mp=1), "dp2_zero1": dict(mp=1, zero1=True),
-                     "dp2_fsdp": dict(mp=1, fsdp=True), "dp1_mp2": dict(mp=2)}
+                     "dp2_fsdp": dict(mp=1, fsdp=True), "dp1_mp2_sp": dict(mp=2, sp=True)}
+# the tiny transcriber (gates 0.5) over 2 gloo ranks: tokens equal to one
+# process's, log-probabilities within the transcriber's 4-place rounding
+MESH_CPU_SERVE = {"mp2": 2, "dp2": 1}
+MESH_CPU_SERVE_KW = dict(audio_max_length=16000, video_frames=25, batch_size=4,
+                         max_new_tokens=6)
+MESH_CPU_LOGPROB_TOL = 1e-4
 MESH_CPU_TOL = dict(rtol=1e-6, atol=1e-6)
 
 
@@ -5195,11 +5213,12 @@ def phase_mesh_train_main_path(card: str, cfg, tokenizer, batches, out_dir: str)
     port's ``cli.finetune.make_runner`` at full width (large-v2 +
     AV-HuBERT large, the training YAML, accumulation MESH_ACCUM, warmup 1)
     in a process group of one rank over NCCL: the runner built four ways
-    from one seeded state (no mesh, ``make_mesh(1)`` replicated, ZeRO-1,
-    FSDP), each MESH_STEPS optimizer steps on the same batches. Gates:
-    each mesh variant's losses, grad norms, trained tensors and BatchNorm
-    statistics equal the no-mesh runner's (MESH_RTOL, MESH_NORM_RTOL,
-    MESH_UPDATE_ATOL, MESH_MOVED_SHARE; bit equality logged), its K1 and K2 counts equal; the FSDP checkpoint
+    from one seeded state (no mesh; ``make_mesh(1)`` replicated, its step
+    rebuilt with ``sequence_parallel=True`` by :func:`sp_train_step`;
+    ZeRO-1; FSDP), each MESH_STEPS
+    optimizer steps on the same batches. Gates: each mesh variant's
+    losses, grad norms, trained tensors and BatchNorm statistics bit-equal
+    to the no-mesh runner's, its K1 and K2 counts equal; the FSDP checkpoint
     restores through ``restore_sharded`` into a replicated runner and back
     into the FSDP runner, bit-equal; FSDP's per-rank state bytes within
     MESH_BYTES_MARGIN of ``state_shardings(fsdp=True)``. Logs seconds a
@@ -5236,6 +5255,8 @@ def phase_mesh_train_main_path(card: str, cfg, tokenizer, batches, out_dir: str)
                                           log_dir=os.path.join(root, variant),
                                           ckpt_dir=os.path.join(root, variant, "ckpt"),
                                           mesh=None if variant == "no_mesh" else mesh)
+            if variant == "replicated_sp":
+                runner.train_step = sp_train_step(runner, model, v_cfg, mesh)
             return model, runner
 
         def whole(runner, name, p):
@@ -5274,26 +5295,16 @@ def phase_mesh_train_main_path(card: str, cfg, tokenizer, batches, out_dir: str)
             if ref is None:
                 ref = dict(rec, trained=trained, stats=stats)
             else:
-                deltas = [(trained[n] - ref["trained"][n]).abs() for n in trained]
-                diff = max(float(d.max()) for d in deltas)
-                moved = sum(int((d > MESH_ATOL).sum()) for d in deltas) / sum(
-                    d.numel() for d in deltas)
+                diff = max(float((trained[n] - ref["trained"][n]).abs().max()) for n in trained)
                 del trained
-                del deltas
                 sdiff = max(float((stats[n] - ref["stats"][n]).abs().max()) for n in stats)
-                rec.update(trained_max_abs_diff=diff, trained_share_over_atol=moved,
-                           stats_max_abs_diff=sdiff,
+                rec.update(trained_max_abs_diff=diff, stats_max_abs_diff=sdiff,
                            bit_equal=diff == 0.0 and sdiff == 0.0
                            and rec["loss"] == ref["loss"] and rec["grad_norm"] == ref["grad_norm"])
-                close = all(math.isclose(a, b, rel_tol=tol, abs_tol=0.0)
-                            for key, tol in (("loss", MESH_RTOL), ("grad_norm", MESH_NORM_RTOL))
-                            for a, b in zip(rec[key], ref[key]))
-                if not close or diff > MESH_UPDATE_ATOL or moved > MESH_MOVED_SHARE \
-                        or sdiff > MESH_ATOL:
+                if not rec["bit_equal"]:
                     raise AssertionError(f"mesh {variant}: loss {rec['loss']} / {ref['loss']}, "
                                          f"grad norm {rec['grad_norm']} / {ref['grad_norm']}, "
-                                         f"trained tensors off by {diff} ({moved} of them over "
-                                         f"{MESH_ATOL}), statistics by {sdiff}")
+                                         f"trained tensors off by {diff}, statistics by {sdiff}")
                 if (k1, k2) != (ref["k1"], ref["k2"]):
                     raise AssertionError(f"mesh {variant}: K1/K2 {k1}/{k2} != no mesh "
                                          f"{ref['k1']}/{ref['k2']}")
@@ -5386,6 +5397,119 @@ def phase_mesh_train_main_path(card: str, cfg, tokenizer, batches, out_dir: str)
         dist.destroy_process_group()
 
 
+def sp_train_step(runner, model, cfg, mesh):
+    """``runner``'s step as ``cli.finetune.make_runner`` builds it (no
+    LoRA, no cross-batch accumulation), with ``sequence_parallel=True``:
+    the runner's own step takes JAX's default, which at a model axis of 1
+    leaves sequence parallelism off."""
+    from avsl_tpu_torch.train.loop import make_train_step
+    from avsl_tpu_torch.train.objectives import flamingo_loss_fn, flamingo_tower_precompute
+    from avsl_tpu_torch.train.optim import FROZEN, TRAIN
+
+    mixing = dict(spec_augment=getattr(cfg, "spec_augment", None),
+                  prob_av=float(cfg.prob_use_av), prob_a=float(cfg.prob_use_a))
+    loss_fn = flamingo_loss_fn(
+        model, train=True,
+        freeze_video_bn_stats=bool(getattr(cfg, "freeze_video_batch_norm_stats", False)),
+        **mixing)
+    trained = set(runner.state.optimizer.names)
+    labels = {n: TRAIN if n in trained else FROZEN for n, _ in model.named_parameters()}
+    precompute = flamingo_tower_precompute(model, train=True, freeze_video_bn_stats=True,
+                                           **mixing) if runner.hoisted else None
+    return make_train_step(loss_fn, mesh=mesh, grad_accum_steps=runner.accum,
+                           param_labels=labels, precompute_fn=precompute,
+                           zero1=runner.zero1, fsdp=runner.fsdp, sequence_parallel=True)
+
+
+MESH_SERVE_BEAM = 2
+
+
+def phase_mesh_serving_main_path(card: str, model, serve_cfg, av_record: dict) -> int:
+    """The flagship Whisper-Flamingo transcriber on a (data, model) mesh
+    of one rank over NCCL, built through
+    ``cli/_serving_common.py::build_transcriber`` (a process group of one:
+    ``make_mesh(1, 1)`` and ``shard_state``) on the AV phase's model (the
+    builder is handed that model rather than building 2.5 B parameters
+    again, and that mesh, which flags of 1 x 1 do not ask for), greedy then beam MESH_SERVE_BEAM over the AV main path's 16
+    items at its serving shape. Gates: greedy tokens bit-equal to the AV
+    main path's no-mesh run in this call, beam tokens bit-equal to a
+    no-mesh beam run here, exactly 56 K1 a batch (32 encoder + 24 tower).
+    Logs segments/s and peak memory per run beside the no-mesh run's.
+    Returns the mesh runs' K1 launches."""
+    import argparse
+    import os
+
+    import torch.distributed as dist
+
+    from avsl_tpu_torch.cli import _serving_common
+    from avsl_tpu_torch.core.mesh import make_mesh
+    from avsl_tpu_torch.infer.pipeline import StreamingTranscriber
+
+    items = av_items(len(av_record["tokens"]))
+    batch, max_new = 8, 64
+    n_batches = math.ceil(len(items) / batch)
+    per_batch = model.cfg.n_audio_layer + model.video_model.cfg.num_hidden_layers
+    out, launches = {}, 0
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method="file://" + os.path.join(tmp, "rendezvous"),
+                                rank=0, world_size=1)
+        # the AV phase's model, and the 1 x 1 mesh the flags cannot ask for
+        builder, mesher = _serving_common.build_target_with_weights, _serving_common.serving_mesh
+        _serving_common.build_target_with_weights = lambda *a, **kw: (model, model.cfg, None)
+        _serving_common.serving_mesh = lambda args: make_mesh(1, model_parallel=1)
+        try:
+            for beam in (1, MESH_SERVE_BEAM):
+                args = argparse.Namespace(batch_size=batch, max_new_tokens=max_new, beam=beam,
+                                          ckpt_dir=None, device="cuda", smoke=False,
+                                          model_parallel=1, data_parallel=1)
+                tr = _serving_common.build_transcriber(args, serve_cfg)
+                if tr.mesh is None or tr.mesh.shape != {"data": 1, "model": 1}:
+                    raise AssertionError(f"mesh_serving: the transcriber's mesh is {tr.mesh}")
+                if beam == 1:  # the AV main path's no-mesh run in this call
+                    want, plain_s = av_record["tokens"], av_record["seconds"]
+                    plain_peak = av_record["max_memory_allocated_bytes"]
+                else:  # a no-mesh run here, just before the mesh one
+                    plain = StreamingTranscriber(
+                        model, tr.tokenizer, audio_max_length=tr.audio_max_length,
+                        video_frames=tr.video_frames, batch_size=batch,
+                        max_new_tokens=max_new, beam_size=beam)
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    t0 = time.perf_counter()
+                    want = [list(r.tokens) for r in plain.transcribe(items)]
+                    torch.cuda.synchronize()
+                    plain_s = time.perf_counter() - t0
+                    plain_peak = torch.cuda.max_memory_allocated()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                results, seconds, k1, stats_writes, k2 = run_counted(
+                    lambda: tr.transcribe(items))
+                check_served(results, len(items), max_new)
+                got = [list(r.tokens) for r in results]
+                if k1 != per_batch * n_batches or k2 or stats_writes:
+                    raise AssertionError(f"mesh_serving beam {beam}: K1 {k1} (want "
+                                         f"{per_batch * n_batches}), K2 {k2}")
+                if got != want:
+                    bad = [r.id for r, g, w in zip(results, got, want) if g != w]
+                    raise AssertionError(f"mesh_serving beam {beam}: tokens differ from the "
+                                         f"no-mesh transcriber's on {bad}")
+                launches += k1
+                out["greedy" if beam == 1 else f"beam{beam}"] = {
+                    "seconds": seconds, "segments_per_s": len(items) / seconds,
+                    "k1_per_batch": k1 / n_batches, "tokens_bit_equal": True,
+                    "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+                    "no_mesh_seconds": plain_s, "no_mesh_max_memory_allocated_bytes": plain_peak,
+                    "seconds_over_no_mesh": seconds / plain_s}
+        finally:
+            _serving_common.build_target_with_weights = builder
+            _serving_common.serving_mesh = mesher
+            dist.destroy_process_group()
+    log({"phase": "mesh_serving_main_path", "card": card, "mesh": {"data": 1, "model": 1},
+         "items": len(items), "batches": n_batches, "batch": batch, "max_new_tokens": max_new,
+         "no_mesh_greedy_segments_per_s": av_record["segments_per_s"], "runs": out})
+    return launches
+
+
 def free_cuda() -> None:
     gc.collect()
     torch.cuda.empty_cache()
@@ -5395,13 +5519,16 @@ def _mesh_cpu_train(state_path: str, batch, mesh_kw) -> dict:
     """The tiny Whisper-Flamingo of ``state_path`` trained 2 steps of 2
     micro-batches on ``batch`` under the Flamingo regime (Whisper dropout
     0.1 and the tiny tower's rates), on a mesh from ``mesh_kw`` (None:
-    one process): losses and the trained tensors whole."""
+    one process; ``sp``: the steps' ``sequence_parallel``), then the eval
+    step on the first micro-batch: losses, the eval loss, the trained
+    tensors whole and the sequence splits the steps made."""
+    from avsl_tpu_torch.core import mesh as mesh_mod
     from avsl_tpu_torch.core.config import FlamingoTrainConfig
     from avsl_tpu_torch.core.mesh import make_mesh
     from avsl_tpu_torch.core.partitioning import shard_state
     from avsl_tpu_torch.models import build_whisper_flamingo
-    from avsl_tpu_torch.train import TrainState, flamingo_loss_fn, make_train_step
-    from avsl_tpu_torch.train import select_optimizer
+    from avsl_tpu_torch.train import TrainState, flamingo_loss_fn, make_eval_step
+    from avsl_tpu_torch.train import make_train_step, select_optimizer
 
     model, _ = build_whisper_flamingo("test", add_gated_x_attn=1, dtype="float32",
                                       param_dtype="float32", device="cpu", dropout_rate=0.1)
@@ -5413,20 +5540,57 @@ def _mesh_cpu_train(state_path: str, batch, mesh_kw) -> dict:
         mesh = make_mesh(2, model_parallel=mesh_kw["mp"])
         shard_state(state, mesh, zero1=mesh_kw.get("zero1", False),
                     fsdp=mesh_kw.get("fsdp", False))
+    sp = (mesh_kw or {}).get("sp")
     step = make_train_step(flamingo_loss_fn(model, train=True, spec_augment="ls-basic",
                                             prob_av=1.0, prob_a=0.5),
-                           mesh=mesh, grad_accum_steps=2, param_labels=labels)
-    losses = []
-    for _ in range(2):
-        state, metrics = step(state, batch)
-        losses.append(float(metrics["loss"]))
+                           mesh=mesh, grad_accum_steps=2, param_labels=labels,
+                           sequence_parallel=sp)
+    splits = [0]
+    scatter = mesh_mod.SequenceSplit.scatter
+
+    def counted(self, x):
+        splits[0] += 1
+        return scatter(self, x)
+
+    mesh_mod.SequenceSplit.scatter = counted
+    try:
+        losses = []
+        for _ in range(2):
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))
+        evaluate = make_eval_step(flamingo_loss_fn(model, train=False), mesh=mesh,
+                                  sequence_parallel=sp)
+        eval_loss = float(evaluate(state, {k: v[0] for k, v in batch.items()})["loss"])
+    finally:
+        mesh_mod.SequenceSplit.scatter = scatter
     named = dict(model.named_parameters())
     whole = {n: (named[n].detach() if state.layout is None else state.layout.full(n, named[n]))
              for n in opt.names}
-    return {"loss": losses, "trained": {n: t.numpy().copy() for n, t in whole.items()}}
+    return {"loss": losses, "eval_loss": eval_loss, "splits": splits[0],
+            "trained": {n: t.numpy().copy() for n, t in whole.items()}}
 
 
-def _mesh_cpu_rank(rank: int, init_file: str, queue, state_path: str, batch) -> None:
+def _mesh_cpu_serve(state_path: str, items, mp) -> list:
+    """The tiny Whisper-Flamingo of ``state_path`` serving ``items``
+    through ``StreamingTranscriber`` at MESH_CPU_SERVE_KW, on a mesh of
+    the 2 ranks with a model axis of ``mp`` (None: one process):
+    ``(id, tokens, avg_logprob)`` per item."""
+    from avsl_tpu_torch.core.mesh import make_mesh
+    from avsl_tpu_torch.data.tokenizer import ByteTokenizer
+    from avsl_tpu_torch.infer import StreamingTranscriber
+    from avsl_tpu_torch.models import build_whisper_flamingo
+
+    model, _ = build_whisper_flamingo("test", add_gated_x_attn=1, dtype="float32",
+                                      param_dtype="float32", device="cpu",
+                                      vocab_size=ByteTokenizer().add_tokens(["<laugh>"]))
+    model.load_state_dict(torch.load(state_path, weights_only=True))
+    tr = StreamingTranscriber(model.eval(), ByteTokenizer(), **MESH_CPU_SERVE_KW,
+                              mesh=None if mp is None else make_mesh(2, model_parallel=mp))
+    return [(r.id, list(r.tokens), r.avg_logprob) for r in tr.transcribe(items)]
+
+
+def _mesh_cpu_rank(rank: int, init_file: str, queue, state_path: str, batch, serve_path: str,
+                   items) -> None:
     """One gloo rank of ``phase_mesh_cpu_ranks`` (spawned; CPU only)."""
     import traceback
 
@@ -5437,8 +5601,11 @@ def _mesh_cpu_rank(rank: int, init_file: str, queue, state_path: str, batch) -> 
         dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
                                 world_size=2)
         try:
-            queue.put((rank, {name: _mesh_cpu_train(state_path, batch, kw)
-                              for name, kw in MESH_CPU_VARIANTS.items()}))
+            out = {name: _mesh_cpu_train(state_path, batch, kw)
+                   for name, kw in MESH_CPU_VARIANTS.items()}
+            out["serve"] = {name: _mesh_cpu_serve(serve_path, items, mp)
+                            for name, mp in MESH_CPU_SERVE.items()}
+            queue.put((rank, out))
         finally:
             dist.destroy_process_group()
     except BaseException:  # noqa: BLE001 (relayed to the parent, which raises)
@@ -5448,19 +5615,27 @@ def _mesh_cpu_rank(rank: int, init_file: str, queue, state_path: str, batch) -> 
 def phase_mesh_cpu_ranks(card: str) -> dict:
     """The mesh over 2 gloo ranks on this machine's host CPU (spawned, a
     ``file://`` rendezvous): the tiny Whisper-Flamingo at dp 2
-    replicated, ZeRO-1 and FSDP and at dp 1 x mp 2, each 2 steps equal to
-    one process's (MESH_CPU_TOL; dropout, SpecAugment and the AV-mode draw
-    on, which the ranks draw as one process does); meanwhile ``python -m
+    replicated, ZeRO-1 and FSDP and at dp 1 x mp 2 with sequence
+    parallelism (the encoders' activations split over T), each 2 steps and
+    an eval step equal to one process's (MESH_CPU_TOL; dropout, SpecAugment
+    and the AV-mode draw on, which the ranks draw as one process does);
+    the tiny transcriber at mp 2 and at dp 2 against one process (tokens
+    equal, MESH_CPU_LOGPROB_TOL); meanwhile ``python -m
     torch.distributed.run --standalone --nproc_per_node 2 -m
     avsl_tpu_torch.cli.finetune cfg.yaml --smoke --device cpu`` with
-    ``num_devices: 2`` and ZeRO-1: rc 0, one ``done:`` line, each metrics
-    line once, the checkpoints."""
+    ``num_devices: 2`` and ZeRO-1 (rc 0, one ``done:`` line, each metrics
+    line once, the checkpoints) and ``-m avsl_tpu_torch.cli.transcribe
+    --smoke --device cpu --model_parallel 2`` on four wavs (rc 0, one
+    output file of four rows, written by rank 0)."""
     import json as json_mod
     import multiprocessing as mp
     import os
 
+    import scipy.io.wavfile as wavfile
+
     from avsl_tpu_torch.cli import finetune
     from avsl_tpu_torch.core.config import WhisperConfig
+    from avsl_tpu_torch.data.tokenizer import ByteTokenizer
     from avsl_tpu_torch.models import build_whisper_flamingo
 
     t0 = time.perf_counter()
@@ -5474,9 +5649,17 @@ def phase_mesh_cpu_ranks(card: str) -> dict:
              "labels": labels, "audio_frames": np.full((2, 4), 100),
              "video": rng.normal(size=(2, 4, 6, 48, 48, 1)).astype(np.float32),
              "video_mask": np.arange(6) < rng.integers(1, 7, size=(2, 4, 1))}
+    items = [{"id": f"m{i}", "audio": (0.1 * rng.standard_normal(12000 + 1000 * i)).astype(
+        np.float32)} for i in range(6)]
+    items[1]["lip_feats"] = rng.standard_normal((20, 88, 88, 1), dtype=np.float32)
     with tempfile.TemporaryDirectory() as tmp:
-        # the launcher's two ranks run beside the spawned ones (its TCP
-        # store on a free localhost port, theirs a file)
+        # the launchers' ranks run beside the spawned ones (their TCP
+        # stores on free localhost ports, the spawned ranks' a file)
+        wav_dir = os.path.join(tmp, "wavs")
+        os.makedirs(wav_dir)
+        for i in range(4):
+            pcm = (0.1 * rng.standard_normal(16000)).astype(np.float32)
+            wavfile.write(os.path.join(wav_dir, f"u{i}.wav"), 16000, pcm)
         run_dir = os.path.join(tmp, "cli")
         os.makedirs(run_dir)
         cfg_path = os.path.join(run_dir, "cfg.yaml")
@@ -5490,18 +5673,31 @@ def phase_mesh_cpu_ranks(card: str) -> dict:
             [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
              "2", "-m", "avsl_tpu_torch.cli.finetune", cfg_path, "--smoke", "--device", "cpu"],
             cwd=run_dir, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        served = os.path.join(tmp, "transcripts.json")
+        tr_cli = subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+             "2", "-m", "avsl_tpu_torch.cli.transcribe", "--smoke", "--device", "cpu",
+             "--model_parallel", "2", "--input", wav_dir, "--output", served,
+             "--batch_size", "2", "--max_new_tokens", "4"],
+            cwd=tmp, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         try:
             model, _ = build_whisper_flamingo("test", add_gated_x_attn=1, dtype="float32",
                                               param_dtype="float32", device="cpu", seed=5)
             set_gates(model, GATE)
             state_path = os.path.join(tmp, "state.pt")
             torch.save(model.state_dict(), state_path)
+            model, _ = build_whisper_flamingo("test", add_gated_x_attn=1, dtype="float32",
+                                              param_dtype="float32", device="cpu", seed=6,
+                                              vocab_size=ByteTokenizer().add_tokens(["<laugh>"]))
+            set_gates(model, GATE)
+            serve_path = os.path.join(tmp, "serve_state.pt")
+            torch.save(model.state_dict(), serve_path)
             del model
             ctx = mp.get_context("spawn")
             queue = ctx.Queue()
             procs = [ctx.Process(target=_mesh_cpu_rank, daemon=True,
                                  args=(r, os.path.join(tmp, "rendezvous"), queue, state_path,
-                                       batch))
+                                       batch, serve_path, items))
                      for r in range(2)]
             for p in procs:
                 p.start()
@@ -5509,6 +5705,7 @@ def phase_mesh_cpu_ranks(card: str) -> dict:
             torch.set_num_threads(2)
             try:
                 single = _mesh_cpu_train(state_path, batch, None)
+                single_served = _mesh_cpu_serve(serve_path, items, None)
             finally:
                 torch.set_num_threads(threads)
             ranks = dict(queue.get(timeout=300) for _ in procs)
@@ -5516,11 +5713,22 @@ def phase_mesh_cpu_ranks(card: str) -> dict:
                 p.join(timeout=30)
             spawn_s = time.perf_counter() - t0
             stdout, stderr = cli.communicate(timeout=300)
+            tr_stdout, tr_stderr = tr_cli.communicate(timeout=300)
         finally:
-            if cli.poll() is None:
-                cli.kill()
-                cli.wait()
+            for proc in (cli, tr_cli):
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
         cli_s = time.perf_counter() - t0
+        if tr_cli.returncode != 0 or not os.path.exists(served):
+            raise AssertionError(f"mesh_cpu_ranks: cli.transcribe rc {tr_cli.returncode}:\n"
+                                 f"{tr_stdout[-2000:]}\n{tr_stderr[-2000:]}")
+        with open(served) as f:
+            transcripts = json_mod.load(f)
+        printed = [line for line in tr_stdout.splitlines() if line.startswith("{")]
+        if [r["id"] for r in transcripts] != [f"u{i}" for i in range(4)] or len(printed) != 4:
+            raise AssertionError(f"mesh_cpu_ranks: cli.transcribe wrote {transcripts}, "
+                                 f"printed {len(printed)} rows")
         for r, out in ranks.items():
             if isinstance(out, str):
                 raise AssertionError(f"mesh_cpu_ranks: rank {r} failed:\n{out}")
@@ -5533,8 +5741,23 @@ def phase_mesh_cpu_ranks(card: str) -> dict:
                 for n, w in single["trained"].items():
                     np.testing.assert_allclose(got["trained"][n], w, **MESH_CPU_TOL,
                                                err_msg=f"{name} rank {r} {n}")
+                np.testing.assert_allclose(got["eval_loss"], single["eval_loss"], **MESH_CPU_TOL,
+                                           err_msg=f"{name} rank {r} eval")
             worst[name] = max(float(np.abs(ranks[r][name]["trained"][n] - w).max())
                               for r in (0, 1) for n, w in single["trained"].items())
+        splits = {r: ranks[r]["dp1_mp2_sp"]["splits"] for r in (0, 1)}
+        if not all(splits.values()) or single["splits"]:
+            raise AssertionError(f"mesh_cpu_ranks: sequence splits {splits}, one process "
+                                 f"{single['splits']}")
+        for name in MESH_CPU_SERVE:
+            for r in (0, 1):
+                got = ranks[r]["serve"][name]
+                if [g[:2] for g in got] != [w[:2] for w in single_served]:
+                    raise AssertionError(f"mesh_cpu_ranks: transcriber {name} rank {r} tokens "
+                                         "differ from one process's")
+                np.testing.assert_allclose([g[2] for g in got], [w[2] for w in single_served],
+                                           rtol=0, atol=MESH_CPU_LOGPROB_TOL,
+                                           err_msg=f"transcriber {name} rank {r}")
         if cli.returncode != 0:
             raise AssertionError(f"mesh_cpu_ranks: torch.distributed.run rc {cli.returncode}:\n"
                                  f"{stdout[-2000:]}\n{stderr[-2000:]}")
@@ -5548,9 +5771,13 @@ def phase_mesh_cpu_ranks(card: str) -> dict:
                                  f"checkpoints {ckpts}")
     log({"phase": "mesh_cpu_ranks", "card": card, "ranks": 2, "backend": "gloo",
          "variants": list(MESH_CPU_VARIANTS), "loss_single": single["loss"],
+         "eval_loss_single": single["eval_loss"], "sequence_splits": splits,
          "trained_max_abs_diff": worst, "tolerance": MESH_CPU_TOL, "spawn_s": spawn_s,
+         "transcriber": {"variants": list(MESH_CPU_SERVE), "items": len(items),
+                         "tokens_equal": True},
          "cli": {"seconds_from_start": cli_s, "done_lines": done, "checkpoints": ckpts,
-                 "metrics_lines": len(lines)}})
+                 "metrics_lines": len(lines)},
+         "transcribe_cli": {"rows": len(transcripts), "printed": len(printed)}})
     return worst
 
 
@@ -5632,6 +5859,8 @@ def main() -> int:
     av_raw_launches = timed("av_raw_main_path", phase_av_raw_main_path, smi, *av_model,
                             av_record)
     daemon_launches = timed("serving_daemon", phase_serving_daemon, smi, *av_model)
+    mesh_serving_launches = timed("mesh_serving_main_path", phase_mesh_serving_main_path, smi,
+                                  *av_model, av_record)
     with tempfile.TemporaryDirectory() as chain_dir:
         chain_records = timed("preprocess_chain", phase_preprocess_chain, smi, chain_dir)
         eval_launches = timed("evaluate_main_path", phase_evaluate_main_path, smi, *av_model,
@@ -5707,6 +5936,7 @@ def main() -> int:
               "avsl_tpu/kernels/attention.py:63", fwd_cases,
               {"serving": serving_launches, "av_serving": av_serving_launches,
                "av_raw_serving": av_raw_launches, "serving_daemon": daemon_launches,
+               "mesh_serving": mesh_serving_launches,
                "serving_int8": int8_launches["int8"] + int8_launches["int8_kv_int8"],
                "serving_kv_int8": int8_launches["kv_int8"],
                "speculative_tiny_draft": spec_launches["tiny_draft"],
@@ -5740,6 +5970,7 @@ def main() -> int:
         entry("flash_attention_bwd", "flash_attn_bwd", "avsl_tpu_torch/csrc/flash_attn_bwd.cu",
               "avsl_tpu/kernels/attention.py:159", bwd_cases,
               {"serving": 0, "av_serving": 0, "av_raw_serving": 0, "serving_daemon": 0,
+               "mesh_serving": 0,
                "serving_int8": 0, "serving_kv_int8": 0, "speculative_tiny_draft": 0,
                "speculative_self_draft": 0, "exported_replay": 0,
                "training": train_launches["k2"],

@@ -18,6 +18,16 @@ from avsl_tpu_torch.infer.host_crops import HostLipCropper
 from avsl_tpu_torch.kernels.warp import sample_separable
 from test_torch_flamingo_common import one_torch_thread  # noqa: F401 (fixture)
 from torch_lip_fixtures import closeup_clips
+from torch_native_fixtures import load_jax_native
+
+
+@pytest.fixture(scope="module", autouse=True)
+def steady_jax_natives():
+    """JAX's cropper loads the shared tracker and sampler from ``cpp/``."""
+    from avsl_tpu.kernels import track_native, warp_native
+
+    load_jax_native(track_native, "avsl_track")
+    load_jax_native(warp_native, "avsl_warp")
 
 
 @pytest.fixture(scope="module")

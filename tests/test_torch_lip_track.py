@@ -27,6 +27,7 @@ from avsl_tpu_torch.kernels import track as tt
 from avsl_tpu_torch.kernels import track_native as t_native
 from avsl_tpu_torch.kernels import warp_native as t_warp_native
 from test_torch_flamingo_common import one_torch_thread  # noqa: F401 (fixture)
+from torch_native_fixtures import load_jax_native
 
 SAME_FRACTION = 0.95
 TRACK_ATOL = 2.0
@@ -138,7 +139,7 @@ def test_torch_native_tracker_matches_jax(prefer):
     small = np.zeros((1, 40, 30, 30), np.uint8)
     pos = np.array([[28.0, 22.0], [30.0, 21.0], [30.0, 30.0]], np.float32)
     kw = dict(ds=2, template_size=16, search=24, stride=2, top_k=3, prefer=prefer)
-    assert t_native.native_available() == j_native.native_available()
+    assert t_native.native_available() == (load_jax_native(j_native, "avsl_track") is not None)
     want, ok_w = j_native.ncc_track_batch_host(clips, pos, 20, **kw)
     got, ok_g = t_native.ncc_track_batch_host(clips, pos, 20, **kw)
     np.testing.assert_array_equal(got, want)
@@ -154,7 +155,7 @@ def test_torch_native_sampler_matches_jax():
     frames = rng.integers(0, 256, (2, 11, 61, 77), np.uint8)
     ys = rng.uniform(-3, 64, (2, 11, 32)).astype(np.float32)
     xs = rng.uniform(-3, 80, (2, 11, 32)).astype(np.float32)
-    assert t_warp_native.native_available() == j_warp_native.native_available()
+    assert t_warp_native.native_available() == (load_jax_native(j_warp_native, "avsl_warp") is not None)
     for dt in (np.uint8, np.float32):
         np.testing.assert_array_equal(t_warp_native.sample_separable_host(frames, ys, xs, out_dtype=dt),
                                       j_warp_native.sample_separable_host(frames, ys, xs, out_dtype=dt))
@@ -172,10 +173,12 @@ def test_torch_native_build_skips_when_asked(tmp_path, monkeypatch):
     not at all under AVSL_NO_NATIVE_BUILD=1."""
     from avsl_tpu_torch.utils.native_build import ensure_built
 
-    (tmp_path / "Makefile").write_text("out.so:\n\ttouch out.so\n")
+    src, out = tmp_path / "src", tmp_path / "out"
+    src.mkdir()
+    (src / "Makefile").write_text("TARGET := out.so\n$(TARGET):\n\ttouch $@\n")
     monkeypatch.setenv("AVSL_NO_NATIVE_BUILD", "1")
-    ensure_built(str(tmp_path), "out.so")
-    assert not (tmp_path / "out.so").exists()
+    ensure_built(str(src), "out.so", out_dir=str(out))
+    assert not (out / "out.so").exists()
     monkeypatch.delenv("AVSL_NO_NATIVE_BUILD")
-    ensure_built(str(tmp_path), "out.so")
-    assert (tmp_path / "out.so").exists()
+    assert ensure_built(str(src), "out.so", out_dir=str(out)) == str(out / "out.so")
+    assert (out / "out.so").exists() and not (src / "out.so").exists()

@@ -13,9 +13,6 @@ same library. The cv2 path taken without the library (``_load_lib``
 returning None) gives the port's ``read_video_frames`` exactly.
 """
 
-import os
-import subprocess
-
 import numpy as np
 import pytest
 import scipy.io.wavfile as wavfile
@@ -23,22 +20,15 @@ import scipy.io.wavfile as wavfile
 from avsl_tpu.data import media_native as jax_mn
 from avsl_tpu_torch.data import media_native as mn
 from avsl_tpu_torch.data.video_io import read_video_frames, write_video_frames
-
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+from torch_native_fixtures import load_jax_native
 
 
 @pytest.fixture(scope="module")
 def native():
-    so = os.path.join(REPO, "cpp", "avsl_media", "libavsl_media.so")
-    if not os.path.exists(so):
-        r = subprocess.run(["make", "-C", os.path.join(REPO, "cpp", "avsl_media")],
-                           capture_output=True, text=True)
-        if r.returncode != 0:
-            pytest.skip(f"cannot build native module: {r.stderr[-500:]}")
     mn._load_lib.cache_clear()
-    jax_mn._load_lib.cache_clear()
     if not mn.native_available():
-        pytest.skip("native module unavailable")
+        pytest.skip("native module unavailable (no libav headers, or libav does not load)")
+    assert load_jax_native(jax_mn, "avsl_media") is not None
     return mn
 
 

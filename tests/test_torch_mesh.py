@@ -253,20 +253,37 @@ def test_torch_layerdrop_agrees_and_dropout_differs_across_data_ranks():
 
 
 def test_torch_sequence_parallel_raises():
+    """Sequence parallelism is ported (it raised before): the steps build
+    with it on, and JAX's rule decides the scope (``train/loop.py:33-49``):
+    None turns it on for a model axis above 1 only, False never."""
+    from avsl_tpu_torch.core import mesh as mesh_mod
     from avsl_tpu_torch.train import make_eval_step, make_train_step
+    from avsl_tpu_torch.train.loop import sp_scope
 
-    with pytest.raises(NotImplementedError, match="item 12d"):
-        make_train_step(lambda b, g: None, sequence_parallel=True)
-    with pytest.raises(NotImplementedError, match="item 12d"):
-        make_eval_step(lambda b, g: None, sequence_parallel=True)
+    make_train_step(lambda b, g: None, sequence_parallel=True)
+    make_eval_step(lambda b, g: None, sequence_parallel=True)
+    for mesh, sp, on in ((fake_mesh(2, 2), None, True), (fake_mesh(4, 1), None, False),
+                         (fake_mesh(2, 2), False, False), (fake_mesh(4, 1), True, True),
+                         (None, None, False)):
+        with sp_scope(mesh, sp):
+            assert (mesh_mod._ACTIVATION_MESH[0] is not None) == on
+    assert mesh_mod._ACTIVATION_MESH[0] is None
 
 
 def test_torch_serving_mesh_raises(carried):
-    from avsl_tpu_torch.infer.pipeline import UNPORTED, not_ported
+    """The serving mesh is ported: outside the launcher the CLIs' mesh
+    raises, and the transcriber refuses int8 weights on a mesh and a batch
+    the data axis does not divide (JAX's ``tests/test_infer.py:207``)."""
+    from avsl_tpu_torch.cli._serving_common import serving_mesh
+    from avsl_tpu_torch.data.tokenizer import ByteTokenizer
+    from avsl_tpu_torch.infer import StreamingTranscriber
 
-    assert "12d" in UNPORTED["mesh"]
-    with pytest.raises(NotImplementedError, match="item 12d"):
-        raise not_ported("mesh", "--model_parallel/--data_parallel")
+    assert serving_mesh(SimpleNamespace(model_parallel=1, data_parallel=1)) is None
+    model = carried[2]
+    with pytest.raises(ValueError, match="quantize"):
+        StreamingTranscriber(model, ByteTokenizer(), quantize="int8", mesh=fake_mesh(1, 2))
+    with pytest.raises(ValueError, match="not divisible"):
+        StreamingTranscriber(model, ByteTokenizer(), batch_size=3, mesh=fake_mesh(2, 1))
 
 
 def test_torch_expert_parallel_and_avhubert_mesh_flags_raise():

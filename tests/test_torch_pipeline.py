@@ -14,6 +14,7 @@ their JAX versions directly.
 
 import copy
 import os
+from types import SimpleNamespace
 
 import cv2
 import numpy as np
@@ -116,14 +117,15 @@ def test_torch_transcribe_batch_matches_transcribe(transcribers):
     assert ptr.transcribe_batch(items) == ptr.transcribe(items)
 
 
-# what the transcriber refuses: the mesh (later work, naming its ROADMAP
-# item), and the JAX transcriber's refusals of the serving options, with
-# its messages (a draft on the meta device is a draft without weights)
+# what the transcriber refuses: the JAX transcriber's refusals of the
+# serving options, with its messages (a draft on the meta device is a draft
+# without weights; "dp2" and "mp2" name a mesh of 2 data or 2 model ranks,
+# refused before it is used)
 REFUSALS = [
     ({"draft_variables": {}}, ValueError, "go together"),
     ({"quantize": "int4"}, ValueError, "expected None or 'int8'"),
-    ({"kv_int8": True, "mesh": object()}, NotImplementedError, "ROADMAP.md queue 1, item 12"),
-    ({"mesh": object()}, NotImplementedError, "ROADMAP.md queue 1, item 12"),
+    ({"quantize": "int8", "mesh": "mp2"}, ValueError, r"quantize \+ mesh unsupported"),
+    ({"batch_size": 3, "mesh": "dp2"}, ValueError, "not divisible by the mesh data axis"),
     ({"draft_model": "meta"}, ValueError, "go together"),
     ({"draft_model": "cpu", "beam_size": 2}, ValueError, "greedy only"),
     ({"draft_model": "cpu", "spec_k": 0}, ValueError, "spec_k must be >= 1"),
@@ -136,6 +138,9 @@ def test_torch_transcriber_refuses_later_slices(transcribers, option):
     _, ptr = transcribers
     _, error, match = next(r for r in REFUSALS if r[0] is option)
     kw = dict(option)
+    if "mesh" in kw:
+        kw["mesh"] = SimpleNamespace(shape={"data": 2 if kw["mesh"] == "dp2" else 1,
+                                            "model": 2 if kw["mesh"] == "mp2" else 1})
     if "draft_model" in kw:
         kw["draft_model"] = ptr.model if kw["draft_model"] == "cpu" else copy.deepcopy(
             ptr.model).to("meta")

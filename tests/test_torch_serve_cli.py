@@ -1,6 +1,6 @@
 """``python -m avsl_tpu_torch.cli.serve``: ``--smoke --device cpu`` binds,
-prints its address and stops; the flags of later work (the mesh) raise,
-naming their ROADMAP item, before a model is built; without ``--device
+prints its address and stops; the mesh flags outside
+``torch.distributed.run`` raise before a model is built; without ``--device
 cpu`` it needs CUDA; and the serving options reach the transcriber, int8
 weights, the int8 cache and a speculative draft included."""
 
@@ -46,11 +46,13 @@ def test_torch_serve_cli_passes_serving_options():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--model_parallel", "2"], "item 12"),
-    (["--data_parallel", "2"], "item 12"),
+    (["--model_parallel", "2"], "torch.distributed.run"),
+    (["--data_parallel", "2"], "torch.distributed.run"),
 ])
-def test_torch_serve_cli_refuses_later_work(flags, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1, {item}"):
+def test_torch_serve_cli_refuses_later_work(flags, item, monkeypatch):
+    """A mesh needs the launcher's process group: one process a rank."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(RuntimeError, match=item):
         serve.main(["--smoke", "--device", "cpu", "--port", "0", *flags])
 
 

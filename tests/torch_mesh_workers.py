@@ -92,7 +92,8 @@ def load_flamingo(state_path: str, vocab_size=None):
 def train_flamingo(state_path, batches, mesh_kw, accum=2, vocab_size=None, steps_out=None):
     """Train the carried tiny Flamingo (Flamingo regime) on ``batches``
     (global batches) with ``make_train_step`` on a mesh built from
-    ``mesh_kw`` (``n``, ``mp``, ``zero1``, ``fsdp``; None: no mesh).
+    ``mesh_kw`` (``n``, ``mp``, ``zero1``, ``fsdp``, and ``sp``, the step's
+    ``sequence_parallel``; None: no mesh).
     Returns per-step losses and grad norms, the trained tensors whole, the
     BatchNorm statistics, and the per-rank bytes of parameters plus Adam
     moments."""
@@ -112,7 +113,8 @@ def train_flamingo(state_path, batches, mesh_kw, accum=2, vocab_size=None, steps
         shard_state(state, mesh, zero1=mesh_kw.get("zero1", False),
                     fsdp=mesh_kw.get("fsdp", False))
     step = make_train_step(flamingo_loss_fn(port, train=True, **MIXING), mesh=mesh,
-                           grad_accum_steps=accum, param_labels=labels)
+                           grad_accum_steps=accum, param_labels=labels,
+                           sequence_parallel=(mesh_kw or {}).get("sp"))
     losses, norms = [], []
     for batch in batches:
         state, m = step(state, batch)
@@ -247,3 +249,220 @@ def restore_ranks(rank, world, path, ckpt, out_dir, batch, layouts):
                          "decoder.token_embedding.weight")}
         shapes[name]["mu"] = tuple(state.optimizer.mu[0].shape)
     return shapes
+
+
+# ---------------------------------------------------------------------------
+# sequence parallelism
+# ---------------------------------------------------------------------------
+
+DROPOUT_RATES = dict(hidden_dropout=0.1, attention_dropout=0.0, activation_dropout=0.1,
+                     dropout_input=0.1, layerdrop=0.1, modality_dropout=0.0)
+
+
+def load_flamingo_dropout(state_path: str):
+    """The carried tiny Whisper-Flamingo with dropout on: Whisper 0.1 and
+    the tower's hidden, activation and input dropout and LayerDrop."""
+    from avsl_tpu_torch.core.config import AVHuBERTConfig
+    from avsl_tpu_torch.models import build_whisper_flamingo
+
+    port, _ = build_whisper_flamingo(
+        "test", add_gated_x_attn=1, use_av_hubert_encoder=True,
+        av_hubert_cfg=AVHuBERTConfig.tiny_test(dtype="float32", **DROPOUT_RATES),
+        dtype="float32", param_dtype="float32", device="cpu", dropout_rate=0.1)
+    port.load_state_dict(torch.load(state_path, weights_only=True))
+    return port
+
+
+def _count_scatters():
+    """Patch ``SequenceSplit.scatter`` to count its calls; returns the
+    counter (a one-element list)."""
+    from avsl_tpu_torch.core import mesh as mesh_mod
+
+    n = [0]
+    inner = mesh_mod.SequenceSplit.scatter
+
+    def counted(self, x):
+        n[0] += 1
+        return inner(self, x)
+
+    mesh_mod.SequenceSplit.scatter = counted
+    return n
+
+
+def sp_ranks(rank, world, path, mel, video, odd_video, batches, eval_batch):
+    """Every sequence-parallel case on 2 model ranks (dp 1 x mp 2): the
+    encoders under the scope (the video at an even and an odd frame
+    count), train steps with SP auto, on and off with dropout on, the eval
+    step, and the runner's scope on a model-parallel and a data-only
+    mesh. At a world of 1: the same cases without a mesh."""
+    from avsl_tpu_torch.core import mesh as mesh_mod
+    from avsl_tpu_torch.core.config import FlamingoTrainConfig
+    from avsl_tpu_torch.core.partitioning import shard_state
+    from avsl_tpu_torch.train import TrainState, flamingo_loss_fn, make_eval_step
+    from avsl_tpu_torch.train import make_train_step, select_optimizer
+
+    n_scatter = _count_scatters()
+    mp_mesh = None if world == 1 else mesh_mod.make_mesh(world, model_parallel=world)
+    out = {}
+
+    # the encoders: features and projected video, even and odd T
+    port = load_flamingo(path)
+    if mp_mesh is not None:
+        shard_state(TrainState.create(port, None), mp_mesh)
+    with torch.no_grad(), mesh_mod.activation_sharding_scope(mp_mesh):
+        for name, v in (("even", video), ("odd", odd_video)):
+            before = n_scatter[0]
+            feats, xv = port.encode(torch.as_tensor(mel), torch.as_tensor(v))
+            out[f"encode_{name}"] = (feats.numpy(), xv.numpy(), n_scatter[0] - before)
+
+    # train steps on the dropout model: SP auto (None), on and off
+    def train(sp, record=None, batches=batches):
+        model = load_flamingo_dropout(path)
+        opt, labels = select_optimizer(model, FlamingoTrainConfig(**TRAIN_CFG), 20)
+        state = TrainState.create(model, opt, seed=3)
+        loss_fn = flamingo_loss_fn(model, train=True, spec_augment="ls-basic", **MIXING)
+
+        def spy(batch, gen):
+            if record is not None:
+                record.append(mesh_mod._ACTIVATION_MESH[0] is not None)
+            return loss_fn(batch, gen)
+
+        step = make_train_step(spy, mesh=mp_mesh, grad_accum_steps=2, param_labels=labels,
+                               sequence_parallel=sp)
+        before, losses = n_scatter[0], []
+        for batch in batches:
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+        named = dict(model.named_parameters())
+        whole = {n: (named[n].detach() if state.layout is None else
+                     state.layout.full(n, named[n])).numpy().copy() for n in opt.names}
+        return {"loss": losses, "trained": whole, "scatters": n_scatter[0] - before}
+
+    seen = []
+    out["auto"] = dict(train(None, seen), seen=seen)
+    if mp_mesh is not None:
+        out["on"] = train(True, batches=batches[:1])
+        out["off"] = train(False)
+
+    # the eval step (SP auto)
+    model = load_flamingo(path)
+    before = n_scatter[0]
+    ev = make_eval_step(flamingo_loss_fn(model, train=False), mesh=mp_mesh)
+    out["eval"] = (float(ev(TrainState.create(model, None), eval_batch)["loss"]),
+                   n_scatter[0] - before)
+
+    # the runner (tests/test_runner.py:165): in the scope on a
+    # model-parallel mesh, not on a data-only one
+    if mp_mesh is not None:
+        from avsl_tpu_torch.train import TrainerRunner
+
+        class _Cfg:
+            gradient_accumulation_steps = 2
+            num_train_steps = 2
+
+        runs = {}
+        for name, mesh in (("mp2", mp_mesh), ("dp2", mesh_mod.make_mesh(world))):
+            model = load_flamingo(path)
+            opt, labels = select_optimizer(model, FlamingoTrainConfig(**TRAIN_CFG), 20)
+            loss_fn = flamingo_loss_fn(model, train=True, **MIXING)
+            seen = []
+
+            def spy(batch, gen, loss_fn=loss_fn, seen=seen):
+                seen.append(mesh_mod._ACTIVATION_MESH[0] is not None)
+                return loss_fn(batch, gen)
+
+            runner = TrainerRunner(spy, None, None, TrainState.create(model, opt), None, _Cfg(),
+                                   mesh=mesh, log_dir=os.path.join(os.path.dirname(path),
+                                                                   f"splog{rank}{name}"),
+                                   ckpt_dir=os.path.join(os.path.dirname(path), f"spck{name}"),
+                                   param_labels=labels)
+            runner.state, _ = runner.train_step(runner.state, batches[0])
+            runs[name] = seen
+        out["runner"] = runs
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the serving mesh
+# ---------------------------------------------------------------------------
+
+
+def load_serving(state_path: str, av: bool = True):
+    """The tiny fp32 serving model (the ByteTokenizer's vocabulary with
+    ``<laugh>``; with the tiny video tower when ``av``) from a state
+    dict, in eval mode."""
+    from avsl_tpu_torch.data.tokenizer import ByteTokenizer
+    from avsl_tpu_torch.models import build_whisper_flamingo
+
+    vocab = ByteTokenizer().add_tokens(["<laugh>"])
+    port, _ = build_whisper_flamingo("test", vocab_size=vocab, add_gated_x_attn=int(av),
+                                     use_av_hubert_encoder=av, dtype="float32", device="cpu")
+    port.load_state_dict(torch.load(state_path, weights_only=True))
+    return port.eval()
+
+
+def _results(res):
+    return [(r.id, r.text, list(r.tokens), r.avg_logprob, r.has_video, r.words) for r in res]
+
+
+def serve_cases(path, draft_path, items, kw, variants, mesh_for=None, daemon=None):
+    """Transcribe ``items`` with each ``(name, mp, options)`` of
+    ``variants`` (``options["draft"]``: the draft of ``draft_path``),
+    each on ``mesh_for(mp)`` (None: no mesh); with ``daemon`` (``(mp,
+    lead)``) also through a :class:`TranscriptionServer` on that mesh,
+    this rank leading when ``lead``, else following."""
+    from avsl_tpu_torch.data.tokenizer import ByteTokenizer
+    from avsl_tpu_torch.infer import StreamingTranscriber, TranscriptionServer
+
+    out = {}
+    for name, mp, options in variants:
+        options = dict(options)
+        if options.pop("draft", False):
+            options.update(draft_model=load_serving(draft_path, av=False), spec_k=3)
+        tr = StreamingTranscriber(load_serving(path), ByteTokenizer(), **kw, **options,
+                                  mesh=None if mesh_for is None else mesh_for(mp))
+        out[name] = _results(tr.transcribe(items))
+        if name == "options":
+            out["fallback_calls"] = tr._fallback_calls
+    if daemon is not None:
+        mp, lead = daemon
+        tr = StreamingTranscriber(load_serving(path), ByteTokenizer(), **kw, mesh=mesh_for(mp))
+        if lead:
+            server = TranscriptionServer(tr, port=0, max_wait_ms=200.0).start()
+            pending = [server.submit(it) for it in items]
+            for p in pending:
+                p.done.wait(timeout=TIMEOUT_S)
+            server.stop()
+            out["daemon"] = [(p.result.id, p.result.text, list(p.result.tokens))
+                             if p.error is None else p.error for p in pending]
+        else:
+            out["daemon_batches_followed"] = tr.follow()
+    return out
+
+
+def serve_ranks(rank, world, path, draft_path, items, kw, variants, daemon_mp):
+    """:func:`serve_cases` on ``world`` gloo ranks, each variant on a mesh
+    of ``world`` ranks with its model axis; rank 0 leads the daemon. At a
+    world of 1: the variants without a mesh, and no daemon."""
+    from avsl_tpu_torch.core.mesh import make_mesh
+
+    if world == 1:
+        return serve_cases(path, draft_path, items, kw, variants)
+    return serve_cases(path, draft_path, items, kw, variants,
+                       mesh_for=lambda mp: make_mesh(world, model_parallel=mp),
+                       daemon=(daemon_mp, rank == 0))
+
+
+def fsdp_dp1_ranks(rank, world, path, batches):
+    """FSDP at a data axis of 1 (world 1) against no mesh: JAX's no-op, so
+    the same numbers bit for bit and no FSDP2 parameter."""
+    from avsl_tpu_torch.core.mesh import make_mesh
+    from avsl_tpu_torch.core.partitioning import shard_state
+
+    out = {"none": train_flamingo(path, batches, None),
+           "fsdp": train_flamingo(path, batches, dict(n=1, fsdp=True))}
+    state, _ = _flamingo_state(path)
+    shard_state(state, make_mesh(1), fsdp=True)
+    out["layout_fsdp"] = state.layout.fsdp
+    out["param_types"] = sorted({type(p).__name__ for p in state.model.parameters()})
+    return out
