@@ -23,9 +23,15 @@ reports ``n_experts``; its Switch balance loss joins the training loss at
 weight 0.01. For the CTC head that is the JAX CLI's own closure
 (:func:`cli_ctc_loss_fn`), which adds it whatever its ``train`` flag.
 
-Runs on ``cuda`` unless ``--device cpu``. ``--model_parallel`` and
-``--experts_parallel`` above 1 raise (ROADMAP.md queue 1, item 12e: the
-AV-HuBERT and pretraining mesh flags).
+Runs on ``cuda`` unless ``--device cpu``. ``--experts_parallel N`` (N > 1)
+trains on the (data, expert) mesh of ``models/moe.py::make_ep_mesh``, and
+else ``--model_parallel N`` on the (data, model) mesh, as the JAX CLI
+builds them (:func:`cli_mesh`; the expert axis wins when both are above
+1), one process a rank: ``python -m torch.distributed.run --standalone
+--nproc_per_node W -m avsl_tpu_torch.cli.avhubert_ft --smoke --n_experts 4
+--experts_parallel 2 [--device cpu]``, whose world size ``W`` is the JAX
+CLI's device count. The result then adds ``mesh`` and ``sharded_params``
+(the parameters the rules split) and rank 0 prints it.
 """
 
 from __future__ import annotations
@@ -140,19 +146,7 @@ def batches(rows, batch_size: int, pad_id: int, epoch: int = 0) -> Iterator[Dict
         yield collate_av([rows[j] for j in order[i : i + batch_size]], pad_id)
 
 
-def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
-    import dataclasses
-
-    import torch
-
-    from avsl_tpu_torch.core.config import AVHuBERTConfig
-    from avsl_tpu_torch.core.device import resolve_device
-    from avsl_tpu_torch.decode.ctc import ctc_best_path_scores
-    from avsl_tpu_torch.models import build_avhubert
-    from avsl_tpu_torch.train import TrainState, make_train_step
-    from avsl_tpu_torch.train.loop import batch_to_device
-    from avsl_tpu_torch.train.objectives import avhubert_seq2seq_loss_fn
-
+def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p = argparse.ArgumentParser()
     p.add_argument("--config", default=None, help="fairseq-style model card YAML")
     p.add_argument("--head", choices=("seq2seq", "ctc"), default="seq2seq")
@@ -166,12 +160,45 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     p.add_argument("--model_parallel", type=int, default=1)
     p.add_argument("--experts_parallel", type=int, default=1)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    args = p.parse_args(argv)
+    return p.parse_args(argv)
 
-    for flag in ("model_parallel", "experts_parallel"):
-        if getattr(args, flag) > 1:
-            raise NotImplementedError(f"--{flag} > 1: the AV-HuBERT mesh is not ported yet "
-                                      "(ROADMAP.md queue 1, item 12e)")
+
+def cli_mesh(args: argparse.Namespace):
+    """The JAX CLIs' mesh (``avsl_tpu/cli/avhubert_ft.py:212-236``,
+    ``pretrain.py:182-224``): none unless a flag is above 1; the (data,
+    expert) mesh of ``--experts_parallel`` over the launcher's ranks, else
+    the (data, model) mesh of ``--model_parallel`` (``--model_parallel`` is
+    ignored beside ``--experts_parallel``, as in JAX). Joins the process
+    group first (``core/mesh.py::init_distributed``)."""
+    if args.experts_parallel <= 1 and args.model_parallel <= 1:
+        return None
+    from avsl_tpu_torch.core.device import resolve_device
+    from avsl_tpu_torch.core.mesh import init_distributed, make_mesh
+    from avsl_tpu_torch.models.moe import make_ep_mesh
+
+    init_distributed(resolve_device(args.device))
+    if args.experts_parallel > 1:
+        return make_ep_mesh(experts_parallel=args.experts_parallel)
+    return make_mesh(model_parallel=args.model_parallel)
+
+
+def train(args: argparse.Namespace, mesh=None):
+    """The CLI's run on parsed flags ``args``, on ``mesh`` (None: one
+    device): ``(result, state, metrics)``, the printed keys, the trained
+    state and each step's metrics."""
+    import dataclasses
+
+    import torch
+
+    from avsl_tpu_torch.core.config import AVHuBERTConfig
+    from avsl_tpu_torch.core.device import resolve_device
+    from avsl_tpu_torch.core.partitioning import describe_shardings, shard_state
+    from avsl_tpu_torch.decode.ctc import ctc_best_path_scores
+    from avsl_tpu_torch.models import build_avhubert
+    from avsl_tpu_torch.train import TrainState, make_train_step
+    from avsl_tpu_torch.train.loop import batch_to_device
+    from avsl_tpu_torch.train.objectives import avhubert_seq2seq_loss_fn
+
     if args.smoke:
         cfg = AVHuBERTConfig.tiny_test(dtype="float32", modality_dropout=0.2, audio_dropout=0.5)
         args.steps = 6
@@ -180,7 +207,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     else:
         cfg = AVHuBERTConfig()
     cfg = dataclasses.replace(cfg, n_experts=args.n_experts, moe_top_k=args.moe_top_k)
-    device = resolve_device(args.device)
+    device = resolve_device(args.device) if mesh is None else mesh.device
 
     rows = make_synthetic_av_batchset(
         4 * args.batch_size, image=cfg.image_crop_size if not args.smoke else 24,
@@ -199,9 +226,13 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         def host(batch):
             return ctc_batch(batch, cfg.pad_token_id)
 
-    step = make_train_step(loss_fn)
+    step = make_train_step(loss_fn, mesh=mesh)
     state = TrainState.create(model, make_optimizer(model, args.lr, args.steps), seed=0)
-    it, epoch, losses = batches(rows, args.batch_size, cfg.pad_token_id), 0, []
+    n_sharded = 0
+    if mesh is not None:
+        n_sharded = len(describe_shardings(model, mesh))
+        shard_state(state, mesh)
+    it, epoch, losses, history = batches(rows, args.batch_size, cfg.pad_token_id), 0, [], []
     for _ in range(args.steps):
         try:
             batch = next(it)
@@ -210,11 +241,16 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
             it = batches(rows, args.batch_size, cfg.pad_token_id, epoch)
             batch = next(it)
         state, metrics = step(state, host(batch))
+        history.append(metrics)
         losses.append(float(metrics["loss"]))
 
+    # every rank evaluates the whole probe batch: one device's result
     eval_batch = batch_to_device(host(probe), device)
     result: Dict[str, Any] = {"head": args.head, "steps": args.steps, "first_loss": losses[0],
                               "last_loss": losses[-1]}
+    if mesh is not None:
+        result["mesh"] = dict(mesh.shape)
+        result["sharded_params"] = n_sharded
     if args.n_experts > 0:
         result["n_experts"] = args.n_experts
     with torch.no_grad():
@@ -236,7 +272,16 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
                 logit_pad=1.0 - probe["padding_mask"].astype(np.float32))
             result["ctc_decoded_lens"] = [len(s) for s in seqs]
             result["ctc_mean_logprob"] = float(np.mean(scores))
-    print(json.dumps(result))
+    return result, state, history
+
+
+def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
+    from avsl_tpu_torch.core.mesh import rank
+
+    args = parse_args(argv)
+    result = train(args, cli_mesh(args))[0]
+    if rank() == 0:
+        print(json.dumps(result))
     return result
 
 

@@ -241,7 +241,9 @@ def make_runner(cfg, model, tokenizer, log_dir: str, ckpt_dir: str, seed: int = 
     batch (accumulation 1), which keeps the hoist off; else each batch is
     reshaped to ``[accum, micro]``. On ``mesh`` the runner puts the state
     there with the config's ``zero1`` and ``fsdp`` (tensor parallelism on
-    a model axis above 1, and there sequence parallelism in its step)."""
+    a model axis above 1, and there sequence parallelism in its step;
+    under LoRA the base runs whole on every rank and ``fsdp`` splits the
+    adapters' moments, ``core/partitioning.py::shard_state``)."""
     from avsl_tpu_torch.models.lora import lora_loss_fn
     from avsl_tpu_torch.train.loop import TrainState, batch_to_device
     from avsl_tpu_torch.train.objectives import flamingo_loss_fn, flamingo_tower_precompute
@@ -250,9 +252,6 @@ def make_runner(cfg, model, tokenizer, log_dir: str, ckpt_dir: str, seed: int = 
 
     lora_rank = int(getattr(cfg, "lora_rank", 0) or 0)
     fsdp = bool(getattr(cfg, "fsdp", False))
-    if lora_rank > 0 and mesh is not None and (fsdp or mesh.shape["model"] > 1):
-        raise NotImplementedError("LoRA over FSDP or tensor parallelism is not ported yet "
-                                  "(ROADMAP.md queue 1, item 12e)")
     state_model = make_lora(cfg, model, seed) if lora_rank > 0 else model
     if lora_rank > 0:
         tx, labels = lora_optimizer(state_model, cfg, int(cfg.num_train_steps))
@@ -285,7 +284,7 @@ def make_runner(cfg, model, tokenizer, log_dir: str, ckpt_dir: str, seed: int = 
         loss_fn, eval_logits, tx, TrainState.create(state_model, tx, seed=seed), tokenizer, cfg,
         log_dir=log_dir, ckpt_dir=ckpt_dir, grad_accum_steps=runner_accum, param_labels=labels,
         precompute_fn=precompute, mesh=mesh,
-        partitioned_state=mesh is not None and mesh.shape["model"] > 1,
+        partitioned_state=mesh is not None and mesh.shape.get("model", 1) > 1,
         zero1=bool(getattr(cfg, "zero1", False)), fsdp=fsdp,
     )
     runner.hoisted = precompute is not None

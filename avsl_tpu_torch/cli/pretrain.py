@@ -27,9 +27,13 @@ the tiny fp32 model (modality dropout 0.2, audio dropout 0.5, mask
 probability 0.5 over spans of 4) for at most 6 steps on at most 8
 clusters.
 
-Runs on ``cuda`` unless ``--device cpu``. ``--model_parallel`` and
-``--experts_parallel`` above 1 raise (ROADMAP.md queue 1, item 12e: the
-AV-HuBERT and pretraining mesh flags).
+Runs on ``cuda`` unless ``--device cpu``. ``--experts_parallel`` or
+``--model_parallel`` above 1 trains on the JAX CLI's mesh
+(``cli/avhubert_ft.py::cli_mesh``), one process a rank under ``python -m
+torch.distributed.run``: each iteration's fresh state is put on it, the
+relabel tap gives every rank the features of the whole rows (so every
+rank fits the same k-means targets), the result adds ``mesh`` and
+``sharded_params``, and rank 0 prints it.
 """
 
 from __future__ import annotations
@@ -85,19 +89,16 @@ def collate_pretrain(rows, targets_per_row) -> Dict[str, np.ndarray]:
     return {"audio": audio, "video": video, "padding_mask": pad, "targets": tgt}
 
 
-def _parallel_not_ported(flag: str) -> NotImplementedError:
-    return NotImplementedError(f"{flag} > 1: the pretraining mesh is not ported yet "
-                               "(ROADMAP.md queue 1, item 12e)")
-
-
 def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     import dataclasses
 
     import torch
 
-    from avsl_tpu_torch.cli.avhubert_ft import make_optimizer
+    from avsl_tpu_torch.cli.avhubert_ft import cli_mesh, make_optimizer
     from avsl_tpu_torch.core.config import AVHuBERTConfig
     from avsl_tpu_torch.core.device import resolve_device
+    from avsl_tpu_torch.core.mesh import rank
+    from avsl_tpu_torch.core.partitioning import describe_shardings, shard_state
     from avsl_tpu_torch.data.clustering import KMeansQuantizer
     from avsl_tpu_torch.models import build_avhubert
     from avsl_tpu_torch.models.pretrain import extract_layer_features
@@ -129,10 +130,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
 
-    if args.model_parallel > 1:
-        raise _parallel_not_ported("--model_parallel")
-    if args.experts_parallel > 1:
-        raise _parallel_not_ported("--experts_parallel")
+    mesh = cli_mesh(args)
     if args.smoke:
         cfg = AVHuBERTConfig.tiny_test(dtype="float32", modality_dropout=0.2, audio_dropout=0.5,
                                        mask_prob_audio=0.5, mask_length_audio=4)
@@ -144,7 +142,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         cfg = AVHuBERTConfig()
     if args.n_experts > 0:
         cfg = dataclasses.replace(cfg, n_experts=args.n_experts, moe_top_k=args.moe_top_k)
-    device = resolve_device(args.device)
+    device = resolve_device(args.device) if mesh is None else mesh.device
 
     rows = make_synthetic_pretrain_rows(4 * args.batch_size, feat_dim=cfg.audio_feat_dim,
                                         image=cfg.image_crop_size if not args.smoke else 24)
@@ -178,7 +176,10 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         model = build_avhubert(cfg, "pretrain", device=device, seed=iteration,
                                num_classes=(quant.n_clusters,))
         state = TrainState.create(model, make_optimizer(model, args.lr, args.steps), seed=0)
-        step = make_train_step(avhubert_pretrain_loss_fn(model, train=True))
+        if mesh is not None:
+            n_sharded = len(describe_shardings(model, mesh))
+            shard_state(state, mesh)
+        step = make_train_step(avhubert_pretrain_loss_fn(model, train=True), mesh=mesh)
         it, epoch, losses = batches(0), 0, []
         for _ in range(args.steps):
             try:
@@ -231,7 +232,11 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         "relabel_layer": relabel_layer if args.iterations > 1 else None,
         **iterations[-1],
     }
-    print(json.dumps(result))
+    if mesh is not None:
+        result["mesh"] = dict(mesh.shape)
+        result["sharded_params"] = n_sharded
+    if rank() == 0:
+        print(json.dumps(result))
     return result
 
 

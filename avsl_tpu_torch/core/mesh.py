@@ -1,4 +1,5 @@
-"""The (data, model) process grid and the batch and collective helpers.
+"""The (data, model) or (data, expert) process grid and the batch and
+collective helpers.
 
 Port of ``avsl_tpu/core/mesh.py``. JAX runs one process over every device
 and shards arrays by annotation; PyTorch runs one process per rank
@@ -8,10 +9,15 @@ and shards arrays by annotation; PyTorch runs one process per rank
   on a card (the rank's device is ``cuda:LOCAL_RANK``), ``gloo`` on the
   CPU. There is no fallback from one to the other.
 * :func:`make_mesh` lays the ranks out as JAX's ``reshape(n // mp, mp)``
-  does: ``model_parallel`` contiguous ranks share the model axis. The
-  :class:`Mesh` holds ``.shape`` (``{"data": dp, "model": mp}``, as
+  does: ``model_parallel`` contiguous ranks share the second axis, named
+  ``axis_names[1]`` (``"model"``, or ``"expert"`` for
+  ``models/moe.py::make_ep_mesh``). The :class:`Mesh` holds ``.shape``
+  (``{"data": dp, "model": mp}`` or ``{"data": dp, "expert": ep}``, as
   ``jax.sharding.Mesh.shape``) over a ``torch.distributed`` ``DeviceMesh``
-  and this rank's coordinates and groups.
+  and this rank's coordinates and groups. The MoE layer holds its own
+  experts' slice of the ``[E, C, D]`` blocks on an expert axis
+  (``models/moe.py``), so :func:`constrain_activation` splits only over
+  the model axis.
 * :func:`shard_batch` hands each data rank its rows of the global batch;
   a leaf whose batch dim does not divide the data axis, or a 0-d leaf, is
   given whole to every rank, as JAX replicates it.
@@ -53,6 +59,7 @@ import torch.distributed as dist
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
+EXPERT_AXIS = "expert"
 
 
 class PartitionSpec(tuple):
@@ -103,30 +110,43 @@ def rank() -> int:
 
 
 class Mesh:
-    """A (data, model) grid of ranks: ``shape`` as ``Mesh.shape`` in JAX,
-    this rank's ``data_rank`` and ``model_rank``, the groups of its row
-    (``model_group``) and column (``data_group``), the ``DeviceMesh`` and
-    this rank's ``device``."""
+    """A (data, model) or (data, expert) grid of ranks: ``shape`` as
+    ``Mesh.shape`` in JAX, ``axis`` the second axis's name, this rank's
+    ``data_rank`` and the group of its column (``data_group``), the
+    ``DeviceMesh`` and this rank's ``device``. The second axis's rank and
+    group (its row) are ``model_rank``/``model_group`` on a model axis and
+    ``expert_rank``/``expert_group`` on an expert axis; the other pair is
+    0 and None (an axis of size 1, over which every collective is the
+    identity)."""
 
     def __init__(self, device_mesh, device: torch.device):
         self.device_mesh = device_mesh
         self.device = device
-        dp, mp = device_mesh.shape
-        self.shape: Dict[str, int] = {DATA_AXIS: dp, MODEL_AXIS: mp}
-        self.data_rank, self.model_rank = device_mesh.get_coordinate()
+        dp, n = device_mesh.shape
+        self.axis = device_mesh.mesh_dim_names[1]
+        if self.axis not in (MODEL_AXIS, EXPERT_AXIS):
+            raise ValueError(f"second mesh axis {self.axis!r}: {MODEL_AXIS!r} or {EXPERT_AXIS!r}")
+        self.shape: Dict[str, int] = {DATA_AXIS: dp, self.axis: n}
+        self.data_rank, second_rank = device_mesh.get_coordinate()
         self.data_group = device_mesh.get_group(DATA_AXIS)
-        self.model_group = device_mesh.get_group(MODEL_AXIS)
+        second_group = device_mesh.get_group(self.axis)
+        self.model_rank, self.model_group, self.expert_rank, self.expert_group = (
+            (second_rank, second_group, 0, None) if self.axis == MODEL_AXIS
+            else (0, None, second_rank, second_group))
 
     def __repr__(self) -> str:
-        return f"Mesh({self.shape}, data_rank={self.data_rank}, model_rank={self.model_rank})"
+        return (f"Mesh({self.shape}, data_rank={self.data_rank}, "
+                f"{self.axis}_rank={getattr(self, self.axis + '_rank')})")
 
 
-def make_mesh(n_devices: Optional[int] = None, model_parallel: int = 1) -> Mesh:
+def make_mesh(n_devices: Optional[int] = None, model_parallel: int = 1,
+              axis_names: Tuple[str, str] = (DATA_AXIS, MODEL_AXIS)) -> Mesh:
     """The (data, model) mesh over the joined process group:
-    ``model_parallel`` contiguous ranks on the model axis, the rest on
-    data (``core/mesh.py:23-44`` in JAX). ``n_devices`` (the world size
-    when None) must be the world size: each rank is a process the
-    launcher started, so there is none to leave out."""
+    ``model_parallel`` contiguous ranks on the second axis (named
+    ``axis_names[1]``), the rest on data (``core/mesh.py:23-44`` in JAX).
+    ``n_devices`` (the world size when None) must be the world size: each
+    rank is a process the launcher started, so there is none to leave
+    out."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs a process group: launch with python -m "
                            "torch.distributed.run and call init_distributed first")
@@ -142,8 +162,10 @@ def make_mesh(n_devices: Optional[int] = None, model_parallel: int = 1) -> Mesh:
         device = torch.device("cuda", torch.cuda.current_device())
     else:
         device = torch.device("cpu")
+    if tuple(axis_names)[0] != DATA_AXIS:
+        raise ValueError(f"the first mesh axis is {DATA_AXIS!r}, got {axis_names}")
     grid = init_device_mesh(device.type, (n // model_parallel, model_parallel),
-                            mesh_dim_names=(DATA_AXIS, MODEL_AXIS))
+                            mesh_dim_names=tuple(axis_names))
     return Mesh(grid, device)
 
 

@@ -1,5 +1,5 @@
-"""Parameter partitioning over the (data, model) mesh: the rule table,
-tensor parallelism, ZeRO-1 and FSDP.
+"""Parameter partitioning over the (data, model) or (data, expert) mesh:
+the rule table, tensor and expert parallelism, ZeRO-1 and FSDP.
 
 Port of ``avsl_tpu/core/partitioning.py``. ``DEFAULT_RULES``, ``spec_for``,
 ``ZERO1_MIN_ELEMS`` and ``_add_data_axis`` are JAX's pure functions over
@@ -19,7 +19,14 @@ parameter's spec in its own (torch) layout.
   rows of the weight and bias, a row-parallel one its columns (its bias
   whole, added after the sum), and ``MultiHeadAttention`` then runs on
   ``n_heads / mp`` local heads; a vocab-sharded token embedding keeps its
-  rows (``models/whisper.py``'s vocab-parallel lookup and tied logits);
+  rows (the vocab-parallel lookup and tied logits of
+  ``models/whisper.py`` and of the AV-HuBERT decoder); the classifier
+  heads ``ctc_head`` and ``final_proj`` run column-parallel and gather
+  their output, and the pretraining codebook ``label_embs_concat`` keeps
+  its rows of the classes (``models/pretrain.py``); an MoE FFN keeps its
+  slice of the hidden dim (``models/moe.py``);
+* expert parallelism on an expert axis: an MoE FFN keeps its ``E / ep``
+  experts of ``w_in``, ``b_in``, ``w_out`` and ``b_out``;
 * ``zero1``: the Adam moments of each trained tensor of at least
   ``ZERO1_MIN_ELEMS`` elements keep this data rank's slice along the dim
   ``_add_data_axis`` picks (``train/optim.py`` updates that slice and
@@ -33,9 +40,14 @@ parameter's spec in its own (torch) layout.
   FSDP2 there would only add copies, and its hooks on each unit's inputs
   sum a tensor's gradient from several units (the projected video that
   every decoder block reads) in another order than one device does.
+  Under LoRA (a ``models/lora.py::LoraModel`` state) the base model is a
+  constant whole on every rank, as JAX's closure holds it, and the
+  adapters, which no rule names, take ZeRO-1's split of their moments.
 
 The resulting :class:`Layout` maps each tensor between its local form and
-the full (logical) one, which checkpoints hold.
+the full (logical) one, which checkpoints hold. The tensor- and
+expert-parallel splits are both over the mesh's second axis (the mesh has
+one or the other).
 """
 
 from __future__ import annotations
@@ -47,11 +59,10 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
-from avsl_tpu_torch.core.mesh import DATA_AXIS, MODEL_AXIS, Mesh, PartitionSpec
+from avsl_tpu_torch.core.mesh import DATA_AXIS, EXPERT_AXIS, MODEL_AXIS, Mesh, PartitionSpec
 from avsl_tpu_torch.core.tree import flax_dims, rule_path
 
 P = PartitionSpec
-EXPERT_AXIS = "expert"
 
 # (path regex, spec) - first match wins; specs name dims of the flax layout
 DEFAULT_RULES: List[Tuple[str, PartitionSpec]] = [
@@ -206,18 +217,27 @@ def local_tensor(t: torch.Tensor) -> torch.Tensor:
     return t.to_local() if hasattr(t, "to_local") else t
 
 
+def second_axis(mesh) -> str:
+    """The name of ``mesh``'s axis besides data: ``"model"`` or ``"expert"``."""
+    return EXPERT_AXIS if EXPERT_AXIS in mesh.shape else MODEL_AXIS
+
+
 class Layout:
-    """How a train state sits on ``mesh``: the dim each tensor-parallel
-    parameter is split along over the model axis (``tp``), the dim of
-    each trained tensor's Adam moments split over the data axis under
-    ZeRO-1 (``zero``), whether FSDP shards every parameter along dim 0
-    over the data axis (``fsdp``), and each parameter's logical shape
+    """How a train state sits on ``mesh``: the dim each parameter split
+    over the mesh's second axis is split along (``tp``: tensor-parallel on
+    a model axis, expert-parallel on an expert axis), the dim of each
+    trained tensor's Adam moments split over the data axis under ZeRO-1
+    (``zero``), whether FSDP shards every parameter along dim 0 over the
+    data axis (``fsdp``), and each parameter's logical shape
     (``shapes``)."""
 
     def __init__(self, mesh: Mesh, tp: Dict[str, int], zero: Dict[str, int], fsdp: bool,
                  shapes: Dict[str, Tuple[int, ...]]):
         self.mesh, self.tp, self.zero, self.fsdp, self.shapes = mesh, tp, zero, fsdp, shapes
-        self.dp, self.mp = mesh.shape[DATA_AXIS], mesh.shape[MODEL_AXIS]
+        self.axis = second_axis(mesh)
+        self.dp, self.mp = mesh.shape[DATA_AXIS], mesh.shape[self.axis]
+        self.split_rank = getattr(mesh, f"{self.axis}_rank")
+        self.split_group = getattr(mesh, f"{self.axis}_group", None)
 
     # --- full <-> local ---------------------------------------------------
 
@@ -228,7 +248,7 @@ class Layout:
         if name in self.tp:
             d = self.tp[name]
             size = t.shape[d] // self.mp
-            t = t.narrow(d, self.mesh.model_rank * size, size)
+            t = t.narrow(d, self.split_rank * size, size)
         if self.fsdp:
             t = _chunk(t, self.mesh.data_rank, self.dp)
         elif moment and name in self.zero:
@@ -247,15 +267,15 @@ class Layout:
         elif moment and name in self.zero:
             t = _gather_dim(t, self.zero[name], self.mesh.data_group, self.dp)
         if name in self.tp:
-            t = _gather_dim(t, self.tp[name], self.mesh.model_group, self.mp)
+            t = _gather_dim(t, self.tp[name], self.split_group, self.mp)
         return t
 
     def norm_group(self, name: str):
         """The groups over which the local gradient of ``name`` is a part
-        of the whole: ``(data group or None, model group or None)``."""
+        of the whole: ``(data group or None, second-axis group or None)``."""
         data = self.mesh.data_group if self.fsdp and self.dp > 1 else None
-        model = self.mesh.model_group if name in self.tp and self.mp > 1 else None
-        return data, model
+        split = self.split_group if name in self.tp and self.mp > 1 else None
+        return data, split
 
     # --- whole state dicts ----------------------------------------------
 
@@ -288,8 +308,8 @@ def fsdp_applies(mesh: Mesh, fsdp: bool) -> bool:
     return bool(fsdp) and mesh.shape[DATA_AXIS] > 1
 
 
-def _tp_dim(spec: PartitionSpec) -> Optional[int]:
-    return spec.index(MODEL_AXIS) if MODEL_AXIS in spec else None
+def _tp_dim(spec: PartitionSpec, axis: str) -> Optional[int]:
+    return spec.index(axis) if axis in spec else None
 
 
 def _fsdp_units(model: nn.Module) -> List[nn.Module]:
@@ -308,49 +328,70 @@ def _fsdp_units(model: nn.Module) -> List[nn.Module]:
     return units
 
 
+def _set_parallel(model: nn.Module, tp: Dict[str, int], mesh: Mesh) -> set:
+    """Tell each module that holds a split parameter of ``tp`` how it runs
+    on ``mesh``'s second axis; returns the names of the parameters so
+    handled."""
+    from avsl_tpu_torch.models.avhubert import AVHuBERTDecoder
+    from avsl_tpu_torch.models.layers import CastLinear
+    from avsl_tpu_torch.models.moe import MoEFFN
+    from avsl_tpu_torch.models.pretrain import AVHuBERTForPretraining
+    from avsl_tpu_torch.models.whisper import WhisperTextDecoder
+
+    axis = second_axis(mesh)
+    group, rank = getattr(mesh, f"{axis}_group", None), getattr(mesh, f"{axis}_rank")
+    size = mesh.shape[axis]
+    handled = set()
+    for mname, module in model.named_modules():
+        prefix = f"{mname}." if mname else ""
+        if isinstance(module, CastLinear) and prefix + "weight" in tp:
+            # the classifier heads' loss reads every class: their output gathers
+            head = mname.rsplit(".", 1)[-1] in ("ctc_head", "final_proj")
+            mode = ("col_gather" if head else "col") if tp[prefix + "weight"] == 0 else "row"
+            module.set_tensor_parallel(mode, group, rank, size)
+            handled.update({prefix + "weight", prefix + "bias"})
+        elif isinstance(module, MoEFFN) and prefix + "w_in" in tp:
+            module.set_parallel(axis, group, rank, size)
+            handled.update(prefix + n for n in ("w_in", "b_in", "w_out", "b_out"))
+        elif isinstance(module, WhisperTextDecoder) and prefix + "token_embedding.weight" in tp:
+            module.set_vocab_parallel(group, rank, size)
+            handled.add(prefix + "token_embedding.weight")
+        elif isinstance(module, AVHuBERTDecoder) and prefix + "embed_tokens.weight" in tp:
+            module.set_vocab_parallel(group, rank, size)
+            handled.add(prefix + "embed_tokens.weight")
+        if isinstance(module, AVHuBERTForPretraining) and prefix + "label_embs_concat" in tp:
+            module.set_class_parallel(group, rank, size)
+            handled.add(prefix + "label_embs_concat")
+    return handled
+
+
 def shard_state(state, mesh: Mesh, rules: Sequence[Tuple[str, PartitionSpec]] = DEFAULT_RULES,
                 zero1: bool = False, fsdp: bool = False):
     """Put ``state`` (a ``train.loop.TrainState`` whose model and
     optimizer are whole, on ``mesh.device``) on ``mesh`` in place: tensor
-    parallelism from the rules, then ZeRO-1 or FSDP; ``state.layout`` is
-    set and the optimizer is rebound to the local
-    tensors. Returns ``state``."""
-    from avsl_tpu_torch.models.layers import CastLinear
-    from avsl_tpu_torch.models.whisper import WhisperTextDecoder
-
-    from avsl_tpu_torch.models.moe import MoEFFN
+    or expert parallelism from the rules, then ZeRO-1 or FSDP (a LoRA
+    state's adapters take ZeRO-1's split under either); ``state.layout``
+    is set and the optimizer is rebound to the local tensors. Returns
+    ``state``."""
+    from avsl_tpu_torch.models.lora import LoraModel
 
     if getattr(state, "layout", None) is not None:
         raise ValueError("the state is already on a mesh")
     model, opt = state.model, state.optimizer
-    if mesh.shape[DATA_AXIS] > 1 and any(isinstance(m, MoEFFN) for m in model.modules()):
-        raise NotImplementedError("an MoE model on a data axis above 1 is not ported yet: its "
-                                  "balance loss over the global tokens is ROADMAP.md queue 1, "
-                                  "item 12e's")
+    if isinstance(model, LoraModel):  # JAX's frozen base is a constant, whole everywhere
+        zero1, fsdp = zero1 or fsdp, False
+    axis = second_axis(mesh)
     shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
     tp: Dict[str, int] = {}
     for name, p in model.named_parameters():
-        d = _tp_dim(torch_spec(name, p.shape, mesh, rules))
+        d = _tp_dim(torch_spec(name, p.shape, mesh, rules), axis)
         if d is not None:
             tp[name] = d
-    modules = dict(model.named_modules())
-    handled = set()
-    group, rank, mp = mesh.model_group, mesh.model_rank, mesh.shape[MODEL_AXIS]
-    for mname, module in modules.items():
-        prefix = f"{mname}." if mname else ""
-        if isinstance(module, CastLinear) and prefix + "weight" in tp:
-            mode = "col" if tp[prefix + "weight"] == 0 else "row"
-            module.set_tensor_parallel(mode, group, rank, mp)
-            handled.update({prefix + "weight", prefix + "bias"})
-        elif isinstance(module, WhisperTextDecoder) and prefix + "token_embedding.weight" in tp:
-            module.set_vocab_parallel(group, rank, mp)
-            handled.add(prefix + "token_embedding.weight")
-    unsupported = sorted(set(tp) - handled)
-    if unsupported:
-        raise NotImplementedError(
-            f"tensor parallelism of {unsupported[:3]} is not ported yet "
-            "(ROADMAP.md queue 1, item 12e)")
-    tp = {n: d for n, d in tp.items() if n in handled and n in shapes}
+    handled = _set_parallel(model, tp, mesh)
+    if set(tp) - handled:
+        raise ValueError(f"the rules split {sorted(set(tp) - handled)[:3]} over {axis!r}, "
+                         "which no module of the model runs split")
+    mp, rank = mesh.shape[axis], getattr(mesh, f"{axis}_rank")
     with torch.no_grad():
         for name, p in list(model.named_parameters()):
             if name in tp:

@@ -70,7 +70,15 @@ import torch.nn.functional as F
 from torch import nn
 
 from avsl_tpu_torch.core.config import AVHuBERTConfig
-from avsl_tpu_torch.core.mesh import DATA_AXIS, MODEL_AXIS, constrain_activation, draw_rows
+from avsl_tpu_torch.core.mesh import (
+    DATA_AXIS,
+    MODEL_AXIS,
+    constrain_activation,
+    copy_to_group,
+    draw_rows,
+    gather_from_group,
+    reduce_from_group,
+)
 from avsl_tpu_torch.models.intermediates import sow
 from avsl_tpu_torch.models.layers import (
     Cache,
@@ -682,13 +690,20 @@ class AVHuBERTDecoder(nn.Module):
     at the end), and the cross-attention takes ``encoder_padding`` as a
     mask (unfused). In training: dropout on the scaled, positioned
     embeddings, the blocks' dropouts and decoder LayerDrop (full mode only),
-    one device draw a layer a forward, computed in every layer."""
+    one device draw a layer a forward, computed in every layer.
+
+    With a vocab-sharded ``embed_tokens`` (:meth:`set_vocab_parallel`) each
+    model rank holds its rows of the vocabulary: the lookup embeds the ids
+    in its rows and sums over the group, and the tied logits of each
+    rank's rows are all-gathered over the vocabulary, as
+    ``WhisperTextDecoder`` does."""
 
     def __init__(self, cfg: AVHuBERTConfig, device=None):
         super().__init__()
         self.cfg = cfg
         dtype, pdtype = _dtypes(cfg)
         self.compute_dtype = dtype
+        self.vocab_tp: Optional[Tuple[object, int, int]] = None
         self.remat_policy = check_remat_policy(cfg.remat_policy)
         d = cfg.decoder_hidden_size
         self.embed_tokens = nn.Embedding(cfg.vocab_size, d, device=device, dtype=pdtype)
@@ -724,6 +739,23 @@ class AVHuBERTDecoder(nn.Module):
         else:
             self.reset_sinusoid_positions()
 
+    def set_vocab_parallel(self, group, rank: int, size: int) -> None:
+        """Run as part ``rank`` of ``size`` of a vocab-sharded embedding over
+        ``group``; ``core/partitioning.py::shard_state`` cuts the rows."""
+        self.vocab_tp = (group, rank, size)
+
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        if self.vocab_tp is None:
+            return self.embed_tokens(tokens)
+        group, rank, _ = self.vocab_tp
+        rows = self.embed_tokens.weight.shape[0]
+        local = tokens - rank * rows
+        outside = (local < 0) | (local >= rows)
+        emb = F.embedding(local.clamp(0, rows - 1), self.embed_tokens.weight)
+        emb = torch.where(outside[..., None], torch.zeros((), dtype=emb.dtype, device=emb.device),
+                          emb)
+        return reduce_from_group(emb, group)
+
     def reset_sinusoid_positions(self) -> None:
         table = fairseq_sinusoid_embedding(*self.sinusoid_positions.shape, self.cfg.pad_token_id)
         with torch.no_grad():
@@ -744,7 +776,7 @@ class AVHuBERTDecoder(nn.Module):
     ) -> Tuple[torch.Tensor, Optional[List[Cache]]]:
         cfg = self.cfg
         qlen = tokens.shape[1]
-        emb = self.embed_tokens(tokens).to(self.compute_dtype)
+        emb = self._embed(tokens).to(self.compute_dtype)
         # the compute-dtype embedding times the fp32 sqrt(d): an fp32 stream
         x = emb.float() * np.float32(math.sqrt(cfg.decoder_hidden_size))
         x = x + positions(self._positions(), cache, qlen).to(x.dtype)
@@ -774,7 +806,12 @@ class AVHuBERTDecoder(nn.Module):
                 new_cache.append(c)
         if cfg.decoder_normalize_before:
             x = self.layer_norm(x)
-        if cfg.tie_word_embeddings:
+        if cfg.tie_word_embeddings and self.vocab_tp is not None:
+            group = self.vocab_tp[0]
+            logits = gather_from_group(
+                F.linear(copy_to_group(x.float(), group), self.embed_tokens.weight.float()),
+                group, -1)
+        elif cfg.tie_word_embeddings:
             # fp32 products of x and the stored embedding, as the JAX einsum
             logits = F.linear(x.float(), self.embed_tokens.weight.float())
         else:

@@ -131,9 +131,11 @@ class CastLinear(nn.Linear):
 
     Under tensor parallelism (:meth:`set_tensor_parallel`) the layer holds
     this model rank's rows of the weight and bias ("col": its slice of the
-    output features; the input's gradient is summed over the group) or
-    its columns of the weight ("row": the partial products are summed
-    over the group, then the whole bias is added). Inside a block under
+    output features; the input's gradient is summed over the group;
+    "col_gather": the same, its output then all-gathered over the
+    features, for a head whose loss every rank computes whole) or its
+    columns of the weight ("row": the partial products are summed over
+    the group, then the whole bias is added). Inside a block under
     sequence parallelism (``core/mesh.py::sequence_split_scope``) the
     column-parallel layer takes an input its sublayer has all-gathered
     over T (:func:`seq_enter`), and the row-parallel one reduce-scatters
@@ -146,11 +148,11 @@ class CastLinear(nn.Linear):
         self.tp: Optional[Tuple[str, Any, int, int]] = None
 
     def set_tensor_parallel(self, mode: str, group, rank: int, size: int) -> None:
-        """Run as the ``mode`` ("col" or "row") part ``rank`` of ``size``
-        over ``group``; ``core/partitioning.py::shard_state`` cuts the
-        tensors."""
-        if mode not in ("col", "row"):
-            raise ValueError(f"tensor-parallel mode {mode!r}: 'col' or 'row'")
+        """Run as the ``mode`` ("col", "col_gather" or "row") part ``rank``
+        of ``size`` over ``group``; ``core/partitioning.py::shard_state``
+        cuts the tensors."""
+        if mode not in ("col", "col_gather", "row"):
+            raise ValueError(f"tensor-parallel mode {mode!r}: 'col', 'col_gather' or 'row'")
         self.tp = (mode, group, rank, size)
 
     def output_split(self, dim: int) -> Optional[Tuple[int, int, int]]:
@@ -168,9 +170,10 @@ class CastLinear(nn.Linear):
             return F.linear(x, cast_param(self.weight, dtype), cast_param(self.bias, dtype))
         mode, group = self.tp[:2]
         split = current_sequence_split()
-        if mode == "col":
+        if mode != "row":
             x = x if split is not None else copy_to_group(x, group)
-            return F.linear(x, cast_param(self.weight, dtype), cast_param(self.bias, dtype))
+            y = F.linear(x, cast_param(self.weight, dtype), cast_param(self.bias, dtype))
+            return y if mode == "col" else gather_from_group(y, group, -1)
         y = F.linear(x, cast_param(self.weight, dtype))
         y = reduce_from_group(y, group) if split is None else split.reduce_scatter(y)
         return y if self.bias is None else y + cast_param(_seq_param(self.bias), dtype)
@@ -667,9 +670,10 @@ class TransformerBlock(nn.Module):
     length neither route nor enter its balance loss (``layers.py:474-481``).
     ``seq_split`` (a :class:`~avsl_tpu_torch.core.mesh.SequenceSplit`)
     runs the block under sequence parallelism: ``x`` is this model rank's
-    slice of T, and so is the output; attention sees the whole sequence
-    (key lengths are global), and the layer norms, residual dropout and
-    residual run on the slice.
+    slice of T, and so is the output; attention and an MoE FFN (whose
+    routing is one device's) see the whole sequence (key lengths are
+    global), and the layer norms, residual dropout and residual run on
+    the slice.
     """
 
     def __init__(
@@ -745,14 +749,16 @@ class TransformerBlock(nn.Module):
     def _ffn(self, h: torch.Tensor, generator: Optional[torch.Generator],
              kv_lengths: Optional[torch.Tensor]) -> torch.Tensor:
         if self.n_experts > 0:
-            if current_sequence_split() is not None:
-                raise NotImplementedError("sequence parallelism with MoE layers is not ported "
-                                          "yet (ROADMAP.md queue 1, item 12e)")
+            # the routing runs over the whole T (one device's); every model
+            # rank then holds the whole output and keeps its slice
+            split = current_sequence_split()
+            h = h if split is None else split.gather(h)
             valid = None
             if kv_lengths is not None:
                 valid = (torch.arange(h.shape[1], device=h.device)[None, :]
                          < kv_lengths.to(h.device)[:, None])
-            return self.mlp(h, valid=valid)
+            y = self.mlp(h, valid=valid)
+            return y if split is None else split.scatter(y)
         if self.names == "fairseq":
             h = F.gelu(self.fc1(seq_enter(h, self.fc1)))
             h = self.fc2(residual_dropout(h, self.activation_dropout, self.training, generator,

@@ -17,6 +17,12 @@ fairseq-pretrained state dict loads as it is, and
 :func:`~avsl_tpu_torch.train.checkpoints.partial_load` hands its encoder to
 the fine-tune heads. Selection of masked and unmasked frames is by
 weighting, as in JAX.
+
+Under tensor parallelism (``core/partitioning.py``) ``final_proj`` runs
+column-parallel with its output gathered, and ``label_embs_concat`` keeps
+this model rank's rows of the classes (:meth:`set_class_parallel`): each
+rank's similarities to its rows are all-gathered over the classes before
+the softmax, as XLA gathers them.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ import torch
 from torch import nn
 
 from avsl_tpu_torch.core.config import AVHuBERTConfig
+from avsl_tpu_torch.core.mesh import copy_to_group, gather_from_group
 from avsl_tpu_torch.models.avhubert import AVHuBERTModel, _resolve_deterministic, span_mask
 from avsl_tpu_torch.models.layers import CastLinear, torch_dtype
 
@@ -55,6 +62,12 @@ class AVHuBERTForPretraining(AVHuBERTModel):
                                      compute_dtype=torch_dtype(cfg.dtype))
         self.label_embs_concat = nn.Parameter(
             torch.empty(sum(self.num_classes), cfg.final_dim, device=device, dtype=pdtype))
+        self.class_tp = None
+
+    def set_class_parallel(self, group, rank: int, size: int) -> None:
+        """Hold part ``rank`` of ``size`` of the codebook's rows over
+        ``group``; ``core/partitioning.py::shard_state`` cuts them."""
+        self.class_tp = (group, rank, size)
 
     @torch.no_grad()
     def init_from(self, generator: torch.Generator) -> None:
@@ -78,14 +91,22 @@ class AVHuBERTForPretraining(AVHuBERTModel):
         if cfg.sim_type not in ("cosine", "dot"):
             raise ValueError(f"Unknown sim_type {cfg.sim_type!r}")
         logits, start = [], 0
+        group = None if self.class_tp is None else self.class_tp[0]
         for g, n_cls in enumerate(self.num_classes):
             p = proj[..., g * cfg.final_dim:(g + 1) * cfg.final_dim] if cfg.untie_final_proj \
                 else proj
-            p, emb = p.float(), self.label_embs_concat[start:start + n_cls].float()
+            # split over classes: this rank's rows of every group, all-gathered after
+            emb = self.label_embs_concat if group is not None else \
+                self.label_embs_concat[start:start + n_cls]
+            p, emb = p.float(), emb.float()
             if cfg.sim_type == "cosine":
                 p = p / torch.linalg.vector_norm(p, dim=-1, keepdim=True).clamp_min(1e-8)
                 emb = emb / torch.linalg.vector_norm(emb, dim=-1, keepdim=True).clamp_min(1e-8)
-            logits.append(torch.einsum("btd,cd->btc", p, emb) / cfg.logit_temp)
+            if group is None:
+                logits.append(torch.einsum("btd,cd->btc", p, emb) / cfg.logit_temp)
+            else:
+                local = torch.einsum("btd,cd->btc", copy_to_group(p, group), emb) / cfg.logit_temp
+                logits.append(gather_from_group(local, group, -1)[..., start:start + n_cls])
             start += n_cls
         return tuple(logits)
 

@@ -1,5 +1,5 @@
 """Train and eval steps: gradient accumulation, clipping and AdamW, on one
-device or on a (data, model) mesh.
+device or on a (data, model) or (data, expert) mesh.
 
 Port of ``avsl_tpu/train/loop.py``. The JAX step is one jit program that
 scans over micro-batches; here it is a Python loop of forward/backward
@@ -39,10 +39,12 @@ computes, the single-device step on that batch:
   ``local count x dp / global count``, so the mean over ranks of the
   gradients (an all-reduce after the micro-steps, or FSDP's
   reduce-scatter) and of the ``loss`` metric is the global one;
-* BatchNorm in training reduces its statistics over the data ranks and
-  row draws are made at the global batch's shape
-  (:func:`~avsl_tpu_torch.core.mesh.row_shard_scope`), so dropout masks
-  differ across data ranks while LayerDrop and the AV-mode draw agree.
+* BatchNorm in training reduces its statistics over the data ranks, row
+  draws are made at the global batch's shape and an MoE layer routes the
+  global tokens (:func:`~avsl_tpu_torch.core.mesh.row_shard_scope`, over
+  the data group only: the ranks of an expert or model row hold the same
+  rows), so dropout masks differ across data ranks while LayerDrop and
+  the AV-mode draw agree on every rank of both axes.
 
 Sequence parallelism (``sequence_parallel``; None, JAX's default, turns
 it on when the mesh's model axis is above 1): the step enters
@@ -285,17 +287,18 @@ def make_train_step(
 
 def make_eval_step(loss_fn: LossFn, mesh: Any = None, sequence_parallel: Optional[bool] = None):
     """``eval(state, batch) -> metrics``: the loss without gradients or
-    random draws; on a mesh each data rank evaluates its rows and the
+    random draws; on a mesh each data rank evaluates its rows (an MoE
+    layer routing them as one device routes the global batch) and the
     metrics are the global batch's (the loss its token mean), under
     sequence parallelism as :func:`make_train_step` decides it."""
 
     @torch.no_grad()
     def step_fn(state: TrainState, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         batch, sharded = _prepare(state, mesh, batch, 0, False, False)
-        with sp_scope(mesh, sequence_parallel):
+        rows = None if sharded is None else _rows(mesh, sharded)
+        with row_shard_scope(rows), sp_scope(mesh, sequence_parallel):
             loss, metrics = loss_fn(batch, None)
         out = {**metrics, "loss": loss}
-        rows = None if sharded is None else _rows(mesh, sharded)
         if rows is not None:
             out["loss"] = loss * _token_scale(rows, batch["labels"])
             stacked = torch.stack([out[k].float() for k in sorted(out)])

@@ -225,6 +225,17 @@ raises on failure:
    --model_parallel 2`` under ``torch.distributed.run``. To make room:
    MESH_ACCUM 4 -> 2, LORA_ACCUM 8 -> 4, DISTILL_STEPS 50 -> 25,
    STREAM_SECONDS 15 -> 10.
+19. expert parallelism: ``ep_avhubert_main_path`` (after ``pretrain_moe``:
+   AV-HuBERT large with the seq2seq head and EP_EXPERTS experts of top
+   EP_TOP_K through ``cli/avhubert_ft.py::train`` on a 1 x 1
+   ``make_ep_mesh`` over NCCL and on no mesh, EP_STEPS steps each, every
+   loss, balance loss, grad norm, the eval loss and every trained tensor
+   bit-equal, K1 and K2 in every step; seconds a step, peak memory,
+   ``moe_aux``, K1/K2 a step and ``sharded_params`` logged) and, in
+   ``mesh_cpu_ranks``, the tiny MoE AV-HuBERT at (data 2, expert 1) with
+   capacity binding and at (data 1, expert 2) against one process, and
+   ``cli.pretrain --smoke --n_experts 4 --experts_parallel 2`` under
+   ``torch.distributed.run``. To make room: LORA_ACCUM 4 -> 2.
 
 Each model is freed before the next one is built. It prints the kernel
 list, the card's name and power limit and, last,
@@ -4098,8 +4109,9 @@ LORA_RANK, LORA_ALPHA, LORA_EMA = 8, 16.0, 0.999
 # micro-batches a remat step and 100 distillation steps)
 LORA_STEPS = 2
 # the LoRA phase's accumulation (PATH_ACCUM until the sequence-parallel and
-# serving-mesh phases came, cut to make room for them)
-LORA_ACCUM = 4
+# serving-mesh phases came, cut to make room for them, then 4 -> 2 for the
+# expert-parallel ones)
+LORA_ACCUM = 2
 REMAT_AB_ACCUM, REMAT_AB_STEPS = 2, 2
 # distillation steps: 100, cut to 50 and then to 25 to make room for the serving mesh
 DISTILL_CLIPS, DISTILL_STEPS, DISTILL_LR = 32, 25, 1e-3
@@ -5206,6 +5218,16 @@ MESH_CPU_SERVE_KW = dict(audio_max_length=16000, video_frames=25, batch_size=4,
                          max_new_tokens=6)
 MESH_CPU_LOGPROB_TOL = 1e-4
 MESH_CPU_TOL = dict(rtol=1e-6, atol=1e-6)
+# the tiny CTC AV-HuBERT with 4 experts of top 2 at capacity factor 0.5
+# (half the claims find no slot, so the global routing differs from a
+# rank-local one) over the 2 gloo ranks: data 2 x expert 1, data 1 x
+# expert 2
+MESH_CPU_MOE = {"dp2_ep1": 1, "dp1_ep2": 2}
+MESH_CPU_MOE_CF, MESH_CPU_MOE_LR = 0.5, 1e-3
+# an attention key bias's gradient is zero in exact arithmetic (the
+# softmax cancels q . b_k), so Adam turns its rounding noise into a step
+# of the learning rate: those tensors are held within 3 learning rates
+MESH_CPU_KEY_BIAS_ATOL = 3 * MESH_CPU_MOE_LR
 
 
 def phase_mesh_train_main_path(card: str, cfg, tokenizer, batches, out_dir: str) -> dict:
@@ -5510,6 +5532,128 @@ def phase_mesh_serving_main_path(card: str, model, serve_cfg, av_record: dict) -
     return launches
 
 
+# expert parallelism at full width: AV-HuBERT large (1024 wide, 16 heads,
+# 24 layers, FFN 4096) with the seq2seq head and 8 experts of top 2 in
+# every encoder block, through cli.avhubert_ft's step (the CLI's batch of 4
+# items of 24 frames) on a 1 x 1 make_ep_mesh and on no mesh, EP_STEPS each
+EP_EXPERTS, EP_TOP_K, EP_STEPS = 8, 2, 3
+
+
+def phase_ep_avhubert_main_path(card: str) -> dict:
+    """``cli/avhubert_ft.py::train`` (the CLI's run) on the MoE AV-HuBERT
+    large card, EP_EXPERTS experts of top EP_TOP_K, in a process group of
+    one rank over NCCL: first with no mesh, then on ``make_ep_mesh(1, 1)``
+    passed explicitly (flags of 1 x 1 build no mesh, as in JAX), from the
+    same seed. Gates: the losses, every step's ``moe_aux`` and grad norm,
+    the eval loss and every trained tensor bit-equal to the no-mesh run
+    (at world size 1 the mesh splits nothing and the routing is one
+    device's); K1 and K2 launched in every step, the same counts in both
+    runs. Logs seconds a step, peak memory, ``moe_aux``, K1/K2 a step and
+    ``sharded_params``. Every tensor trains here, the ResNet stem's
+    convolutions too, whose cuDNN weight gradients are not deterministic by
+    default: the phase runs with ``torch.use_deterministic_algorithms`` (and
+    deterministic cuDNN), so that two runs can be compared bit for bit."""
+    import os
+
+    import torch.distributed as dist
+
+    import avsl_tpu_torch.train as train_pkg
+    from avsl_tpu_torch.cli import avhubert_ft
+    from avsl_tpu_torch.kernels import attention
+    from avsl_tpu_torch.models.moe import make_ep_mesh
+
+    args = ["--config", AVHUBERT_CONFIG, "--steps", str(EP_STEPS), "--n_experts",
+            str(EP_EXPERTS), "--moe_top_k", str(EP_TOP_K), "--device", "cuda"]
+    build = train_pkg.make_train_step
+    steps: list = []
+
+    def timed_make_train_step(*a, **kw):  # each step's seconds and K1/K2 launches
+        step = build(*a, **kw)
+
+        def timed(state, batch):
+            k1, k2 = attention.fused_attention.launches, attention.fused_attention_bwd.launches
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = step(state, batch)
+            torch.cuda.synchronize()
+            steps.append({"seconds": time.perf_counter() - t,
+                          "k1": attention.fused_attention.launches - k1,
+                          "k2": attention.fused_attention_bwd.launches - k2})
+            return out
+
+        return timed
+
+    runs, kept = {}, None
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method="file://" + os.path.join(tmp, "rendezvous"),
+                                rank=0, world_size=1)
+        train_pkg.make_train_step = timed_make_train_step
+        cudnn_deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            for name in ("no_mesh", "ep_1x1"):
+                mesh = None if name == "no_mesh" else make_ep_mesh(1, experts_parallel=1)
+                steps.clear()
+                torch.cuda.reset_peak_memory_stats()
+                (result, state, history), seconds, k1, _, k2 = run_counted(
+                    lambda: avhubert_ft.train(avhubert_ft.parse_args(args), mesh))
+                named = dict(state.model.named_parameters())
+                trained = {n: (p.detach() if state.layout is None
+                               else state.layout.full(n, p)) for n, p in named.items()}
+                runs[name] = {
+                    "result": result, "seconds": seconds, "k1": k1, "k2": k2,
+                    "steps": [dict(st, loss=float(m["loss"]), moe_aux=float(m["moe_aux"]),
+                                   grad_norm=float(m["grad_norm"]))
+                              for st, m in zip(list(steps), history)],
+                    "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+                    "params": sum(p.numel() for p in named.values()),
+                    "mesh": None if mesh is None else dict(mesh.shape)}
+                if kept is None:
+                    kept = {n: t.clone() for n, t in trained.items()}
+                else:
+                    differ = sorted(n for n, t in trained.items() if not torch.equal(t, kept[n]))
+                    runs[name]["tensors_differing"] = differ
+                del state, named, trained, history
+                free_cuda()
+        finally:
+            torch.use_deterministic_algorithms(False)
+            torch.backends.cudnn.deterministic = cudnn_deterministic
+            train_pkg.make_train_step = build
+            dist.destroy_process_group()
+    del kept
+    free_cuda()
+    base, ep = runs["no_mesh"], runs["ep_1x1"]
+    for run in runs.values():
+        run["seconds_per_step"] = [st["seconds"] for st in run["steps"]]
+        run["seconds_per_step_median_2_3"] = statistics.median(run["seconds_per_step"][1:])
+    log({"phase": "ep_avhubert_main_path", "card": card, "experts": EP_EXPERTS,
+         "top_k": EP_TOP_K, "steps": EP_STEPS, "runs": runs,
+         "sharded_params": ep["result"]["sharded_params"], "mesh": ep["result"]["mesh"],
+         "moe_aux": [st["moe_aux"] for st in ep["steps"]],
+         "k1_per_step": [st["k1"] for st in ep["steps"]],
+         "k2_per_step": [st["k2"] for st in ep["steps"]]})
+    same = ([st["loss"] for st in ep["steps"]] == [st["loss"] for st in base["steps"]]
+            and [st["moe_aux"] for st in ep["steps"]] == [st["moe_aux"] for st in base["steps"]]
+            and [st["grad_norm"] for st in ep["steps"]]
+            == [st["grad_norm"] for st in base["steps"]]
+            and ep["result"]["eval_loss"] == base["result"]["eval_loss"])
+    if not same or ep["tensors_differing"]:
+        raise AssertionError(f"ep_avhubert_main_path: the 1 x 1 EP mesh differs from no mesh: "
+                             f"{ep['tensors_differing'][:5]}, {ep['steps']} vs {base['steps']}")
+    if ep["mesh"] != {"data": 1, "expert": 1} or not all(
+            math.isfinite(st["loss"]) and 0.0 < st["moe_aux"] <= EP_EXPERTS
+            for st in ep["steps"]):
+        raise AssertionError(f"ep_avhubert_main_path: {ep['mesh']}, {ep['steps']}")
+    per_step = [(st["k1"], st["k2"]) for st in ep["steps"]]
+    if (len(per_step) != EP_STEPS or any(k1 <= 0 or k2 <= 0 for k1, k2 in per_step)
+            or per_step != [(st["k1"], st["k2"]) for st in base["steps"]]
+            or (ep["k1"], ep["k2"]) != (base["k1"], base["k2"])):
+        raise AssertionError(f"ep_avhubert_main_path: K1/K2 a step {per_step}, totals "
+                             f"{ep['k1']}/{ep['k2']} against {base['k1']}/{base['k2']}")
+    return {"k1": ep["k1"], "k2": ep["k2"]}
+
+
 def free_cuda() -> None:
     gc.collect()
     torch.cuda.empty_cache()
@@ -5570,6 +5714,44 @@ def _mesh_cpu_train(state_path: str, batch, mesh_kw) -> dict:
             "trained": {n: t.numpy().copy() for n, t in whole.items()}}
 
 
+def _mesh_cpu_moe(state_path: str, rows, ep) -> dict:
+    """The tiny CTC AV-HuBERT with MoE of ``state_path`` (MESH_CPU_MOE_CF)
+    trained 2 steps on ``rows`` (two global batches of 4) with the
+    fine-tune CLI's optimizer and the CTC loss plus the balance loss, then
+    the eval step on the first batch, on ``make_ep_mesh(2, ep)`` (None:
+    one process): losses, grad norms, the eval loss, the balance losses and
+    the trained tensors whole."""
+    from avsl_tpu_torch.cli.avhubert_ft import ctc_batch, make_optimizer
+    from avsl_tpu_torch.core.config import AVHuBERTConfig
+    from avsl_tpu_torch.models import build_avhubert
+    from avsl_tpu_torch.models.moe import make_ep_mesh
+    from avsl_tpu_torch.train import TrainState, make_eval_step, make_train_step
+    from avsl_tpu_torch.train.objectives import avhubert_ctc_loss_fn
+
+    cfg = AVHuBERTConfig.tiny_test(dtype="float32", n_experts=4,
+                                   moe_capacity_factor=MESH_CPU_MOE_CF)
+    model = build_avhubert(cfg, "ctc", device="cpu")
+    model.load_state_dict(torch.load(state_path, weights_only=True))
+    mesh = None if ep is None else make_ep_mesh(2, experts_parallel=ep)
+    state = TrainState.create(model, make_optimizer(model, MESH_CPU_MOE_LR, 10), seed=2)
+    step = make_train_step(avhubert_ctc_loss_fn(model), mesh=mesh)
+    batches = [ctc_batch(b, cfg.pad_token_id) for b in rows]
+    losses, norms, auxes = [], [], []
+    for batch in batches:
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        auxes.append(float(m["moe_aux"]))
+    eval_loss = float(make_eval_step(avhubert_ctc_loss_fn(model, train=False), mesh=mesh)(
+        state, batches[0])["loss"])
+    named = dict(model.named_parameters())
+    whole = {n: (p.detach() if state.layout is None else state.layout.full(n, p))
+             for n, p in named.items()}
+    return {"loss": losses, "grad_norm": norms, "moe_aux": auxes, "eval_loss": eval_loss,
+            "trained": {n: t.numpy().copy() for n, t in whole.items()},
+            "split": [] if state.layout is None else sorted(state.layout.tp)}
+
+
 def _mesh_cpu_serve(state_path: str, items, mp) -> list:
     """The tiny Whisper-Flamingo of ``state_path`` serving ``items``
     through ``StreamingTranscriber`` at MESH_CPU_SERVE_KW, on a mesh of
@@ -5590,7 +5772,7 @@ def _mesh_cpu_serve(state_path: str, items, mp) -> list:
 
 
 def _mesh_cpu_rank(rank: int, init_file: str, queue, state_path: str, batch, serve_path: str,
-                   items) -> None:
+                   items, moe_path: str, moe_rows) -> None:
     """One gloo rank of ``phase_mesh_cpu_ranks`` (spawned; CPU only)."""
     import traceback
 
@@ -5605,6 +5787,8 @@ def _mesh_cpu_rank(rank: int, init_file: str, queue, state_path: str, batch, ser
                    for name, kw in MESH_CPU_VARIANTS.items()}
             out["serve"] = {name: _mesh_cpu_serve(serve_path, items, mp)
                             for name, mp in MESH_CPU_SERVE.items()}
+            out["moe"] = {name: _mesh_cpu_moe(moe_path, moe_rows, ep)
+                          for name, ep in MESH_CPU_MOE.items()}
             queue.put((rank, out))
         finally:
             dist.destroy_process_group()
@@ -5626,7 +5810,14 @@ def phase_mesh_cpu_ranks(card: str) -> dict:
     ``num_devices: 2`` and ZeRO-1 (rc 0, one ``done:`` line, each metrics
     line once, the checkpoints) and ``-m avsl_tpu_torch.cli.transcribe
     --smoke --device cpu --model_parallel 2`` on four wavs (rc 0, one
-    output file of four rows, written by rank 0)."""
+    output file of four rows, written by rank 0). Expert parallelism: the
+    tiny CTC AV-HuBERT with 4 experts of top 2 at capacity factor
+    MESH_CPU_MOE_CF (capacity binds) at (data 2, expert 1) and (data 1,
+    expert 2), 2 steps and an eval step equal to one process's
+    (MESH_CPU_TOL; the key biases MESH_CPU_KEY_BIAS_ATOL), and ``-m
+    avsl_tpu_torch.cli.pretrain --smoke --device cpu --n_experts 4
+    --experts_parallel 2`` under the launcher (rc 0, one printed result,
+    its ``mesh`` ``{"data": 1, "expert": 2}``)."""
     import json as json_mod
     import multiprocessing as mp
     import os
@@ -5634,9 +5825,10 @@ def phase_mesh_cpu_ranks(card: str) -> dict:
     import scipy.io.wavfile as wavfile
 
     from avsl_tpu_torch.cli import finetune
-    from avsl_tpu_torch.core.config import WhisperConfig
+    from avsl_tpu_torch.cli.avhubert_ft import collate_av, make_synthetic_av_batchset
+    from avsl_tpu_torch.core.config import AVHuBERTConfig, WhisperConfig
     from avsl_tpu_torch.data.tokenizer import ByteTokenizer
-    from avsl_tpu_torch.models import build_whisper_flamingo
+    from avsl_tpu_torch.models import build_avhubert, build_whisper_flamingo
 
     t0 = time.perf_counter()
     w_cfg = WhisperConfig.tiny_test()
@@ -5652,6 +5844,10 @@ def phase_mesh_cpu_ranks(card: str) -> dict:
     items = [{"id": f"m{i}", "audio": (0.1 * rng.standard_normal(12000 + 1000 * i)).astype(
         np.float32)} for i in range(6)]
     items[1]["lip_feats"] = rng.standard_normal((20, 88, 88, 1), dtype=np.float32)
+    moe_cfg = AVHuBERTConfig.tiny_test(dtype="float32", n_experts=4,
+                                       moe_capacity_factor=MESH_CPU_MOE_CF)
+    av_rows = make_synthetic_av_batchset(8, image=24, vocab=moe_cfg.vocab_size, seed=5)
+    moe_rows = [collate_av(av_rows[i:i + 4], moe_cfg.pad_token_id) for i in (0, 4)]
     with tempfile.TemporaryDirectory() as tmp:
         # the launchers' ranks run beside the spawned ones (their TCP
         # stores on free localhost ports, the spawned ranks' a file)
@@ -5680,7 +5876,14 @@ def phase_mesh_cpu_ranks(card: str) -> dict:
              "--model_parallel", "2", "--input", wav_dir, "--output", served,
              "--batch_size", "2", "--max_new_tokens", "4"],
             cwd=tmp, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        pre_cli = subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+             "2", "-m", "avsl_tpu_torch.cli.pretrain", "--smoke", "--device", "cpu",
+             "--n_experts", "4", "--experts_parallel", "2"],
+            cwd=tmp, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         try:
+            moe_path = os.path.join(tmp, "moe_state.pt")
+            torch.save(build_avhubert(moe_cfg, "ctc", device="cpu", seed=4).state_dict(), moe_path)
             model, _ = build_whisper_flamingo("test", add_gated_x_attn=1, dtype="float32",
                                               param_dtype="float32", device="cpu", seed=5)
             set_gates(model, GATE)
@@ -5697,7 +5900,7 @@ def phase_mesh_cpu_ranks(card: str) -> dict:
             queue = ctx.Queue()
             procs = [ctx.Process(target=_mesh_cpu_rank, daemon=True,
                                  args=(r, os.path.join(tmp, "rendezvous"), queue, state_path,
-                                       batch, serve_path, items))
+                                       batch, serve_path, items, moe_path, moe_rows))
                      for r in range(2)]
             for p in procs:
                 p.start()
@@ -5706,6 +5909,7 @@ def phase_mesh_cpu_ranks(card: str) -> dict:
             try:
                 single = _mesh_cpu_train(state_path, batch, None)
                 single_served = _mesh_cpu_serve(serve_path, items, None)
+                single_moe = _mesh_cpu_moe(moe_path, moe_rows, None)
             finally:
                 torch.set_num_threads(threads)
             ranks = dict(queue.get(timeout=300) for _ in procs)
@@ -5714,8 +5918,9 @@ def phase_mesh_cpu_ranks(card: str) -> dict:
             spawn_s = time.perf_counter() - t0
             stdout, stderr = cli.communicate(timeout=300)
             tr_stdout, tr_stderr = tr_cli.communicate(timeout=300)
+            pre_stdout, pre_stderr = pre_cli.communicate(timeout=300)
         finally:
-            for proc in (cli, tr_cli):
+            for proc in (cli, tr_cli, pre_cli):
                 if proc.poll() is None:
                     proc.kill()
                     proc.wait()
@@ -5758,6 +5963,31 @@ def phase_mesh_cpu_ranks(card: str) -> dict:
                 np.testing.assert_allclose([g[2] for g in got], [w[2] for w in single_served],
                                            rtol=0, atol=MESH_CPU_LOGPROB_TOL,
                                            err_msg=f"transcriber {name} rank {r}")
+        moe_worst = {}
+        for name in MESH_CPU_MOE:
+            for r in (0, 1):
+                got, what = ranks[r]["moe"][name], f"moe {name} rank {r}"
+                for key in ("loss", "grad_norm", "moe_aux", "eval_loss"):
+                    np.testing.assert_allclose(got[key], single_moe[key], **MESH_CPU_TOL,
+                                               err_msg=f"{what} {key}")
+                for n, w in single_moe["trained"].items():
+                    atol = MESH_CPU_KEY_BIAS_ATOL if n.endswith("k_proj.bias") else \
+                        MESH_CPU_TOL["atol"]
+                    np.testing.assert_allclose(got["trained"][n], w, rtol=MESH_CPU_TOL["rtol"],
+                                               atol=atol, err_msg=f"{what} {n}")
+            moe_worst[name] = max(float(np.abs(ranks[r]["moe"][name]["trained"][n] - w).max())
+                                  for r in (0, 1) for n, w in single_moe["trained"].items()
+                                  if not n.endswith("k_proj.bias"))
+        if ranks[0]["moe"]["dp2_ep1"]["split"] or not ranks[0]["moe"]["dp1_ep2"]["split"]:
+            raise AssertionError("mesh_cpu_ranks: the expert leaves split "
+                                 f"{ranks[0]['moe']['dp1_ep2']['split']}")
+        pre_printed = [json_mod.loads(line) for line in pre_stdout.splitlines()
+                       if line.startswith("{")]
+        if pre_cli.returncode != 0 or len(pre_printed) != 1 \
+                or pre_printed[0].get("mesh") != {"data": 1, "expert": 2}:
+            raise AssertionError(f"mesh_cpu_ranks: cli.pretrain rc {pre_cli.returncode}, "
+                                 f"printed {pre_printed}:\n{pre_stdout[-2000:]}\n"
+                                 f"{pre_stderr[-2000:]}")
         if cli.returncode != 0:
             raise AssertionError(f"mesh_cpu_ranks: torch.distributed.run rc {cli.returncode}:\n"
                                  f"{stdout[-2000:]}\n{stderr[-2000:]}")
@@ -5777,7 +6007,13 @@ def phase_mesh_cpu_ranks(card: str) -> dict:
                          "tokens_equal": True},
          "cli": {"seconds_from_start": cli_s, "done_lines": done, "checkpoints": ckpts,
                  "metrics_lines": len(lines)},
-         "transcribe_cli": {"rows": len(transcripts), "printed": len(printed)}})
+         "transcribe_cli": {"rows": len(transcripts), "printed": len(printed)},
+         "moe": {"variants": list(MESH_CPU_MOE), "capacity_factor": MESH_CPU_MOE_CF,
+                 "loss_single": single_moe["loss"], "moe_aux_single": single_moe["moe_aux"],
+                 "eval_loss_single": single_moe["eval_loss"],
+                 "expert_leaves_split": len(ranks[0]["moe"]["dp1_ep2"]["split"]),
+                 "trained_max_abs_diff": moe_worst},
+         "pretrain_cli": pre_printed[0]})
     return worst
 
 
@@ -5904,6 +6140,8 @@ def main() -> int:
     pre_moe = timed("pretrain_moe", phase_pretrain_moe, smi, pre_batch, dense_step)
     del pre_batch
     free()
+    ep_launches = timed("ep_avhubert_main_path", phase_ep_avhubert_main_path, smi)
+    free()
     eval_smoke = timed("evaluate_cli_smoke", phase_evaluate_cli_smoke, smi)
     avh_smoke = timed("avhubert_cli_smoke", phase_avhubert_cli_smoke, smi)
     pre_smoke = timed("pretrain_cli_smoke", phase_pretrain_cli_smoke, smi)
@@ -5962,6 +6200,7 @@ def main() -> int:
                "pretrain_relabel": pre["relabel"][0], "pretrain_moe_training": pre_moe["train"][0],
                "pretrain_moe_eval": pre_moe["eval"][0],
                "pretrain_moe_relabel": pre_moe["relabel"][0],
+               "ep_avhubert_training": ep_launches["k1"],
                **{name: counts[0] for name, counts in pre_smoke.items()},
                "avh_extract": avh_tools["extract"],
                "avh_extract_layer12": avh_tools["extract_layer12"],
@@ -5992,6 +6231,7 @@ def main() -> int:
                "pretrain_moe_training": pre_moe["train"][1],
                "pretrain_moe_eval": pre_moe["eval"][1],
                "pretrain_moe_relabel": pre_moe["relabel"][1],
+               "ep_avhubert_training": ep_launches["k2"],
                **{name: counts[1] for name, counts in pre_smoke.items()},
                "avh_extract": 0, "avh_extract_layer12": 0, "avh_align": 0,
                "avh_tools_tiny": 0, "doctor_probe": 0}),

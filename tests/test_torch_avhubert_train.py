@@ -147,10 +147,13 @@ def test_torch_avhubert_ft_cli_smoke_on_cpu(head, capsys):
 
 @pytest.mark.parametrize("flag", [["--n_experts", "2", "--experts_parallel", "2"],
                                   ["--model_parallel", "2"], ["--experts_parallel", "2"]])
-def test_torch_avhubert_ft_cli_refuses_the_parallel_layer(flag):
-    # --n_experts alone trains (tests/test_torch_pretrain_cli.py); with the
-    # expert-parallel mesh it raises, naming item 12e
-    with pytest.raises(NotImplementedError, match="item 12"):
+def test_torch_avhubert_ft_cli_refuses_the_parallel_layer(flag, tmp_path):
+    """On one rank a parallel flag of 2 is refused as JAX refuses it on one
+    device, its axis not dividing the devices (the meshes run in
+    ``tests/test_torch_avhubert_mesh_cli.py``)."""
+    from torch_mesh_workers import one_rank_group
+
+    with one_rank_group(tmp_path), pytest.raises(ValueError, match="not divisible"):
         avhubert_ft.main(["--smoke", "--device", "cpu", *flag])
 
 

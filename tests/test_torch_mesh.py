@@ -13,9 +13,10 @@ ported, and ``cli.finetune`` under ``torch.distributed.run``.
 * row draws: under ``row_shard_scope`` each rank's dropout mask is its
   rows of the single-device mask, so masks differ across data ranks, each
   at the rate within 5 sigma, while LayerDrop's draw agrees on every rank;
-* one test per refusal (sequence parallelism, the serving mesh, expert
-  parallelism and the AV-HuBERT/pretraining flags, an MoE model on a data
-  axis above 1, ``num_devices`` against the world size);
+* one test per refusal (sequence parallelism, the serving mesh,
+  ``num_devices`` against the world size), and the meshes of the
+  AV-HuBERT/pretraining flags (on 2 spawned ranks) and an MoE tower put on
+  a data axis and on an expert axis;
 * ``python -m torch.distributed.run --standalone --nproc_per_node 2 -m
   avsl_tpu_torch.cli.finetune cfg.yaml --smoke --device cpu`` with
   ``num_devices: 2`` (with ZeRO-1, then ``model_parallel: 2`` with FSDP):
@@ -286,28 +287,52 @@ def test_torch_serving_mesh_raises(carried):
         StreamingTranscriber(model, ByteTokenizer(), batch_size=3, mesh=fake_mesh(2, 1))
 
 
-def test_torch_expert_parallel_and_avhubert_mesh_flags_raise():
-    from avsl_tpu_torch.cli import avhubert_ft, pretrain
-    from avsl_tpu_torch.models.moe import make_ep_mesh
+def test_torch_expert_parallel_and_avhubert_mesh_flags_raise(tmp_path):
+    """The flags build JAX's meshes (``avhubert_ft.py:212-236``): on 2
+    ranks ``make_ep_mesh`` gives (data 1, expert 2) or (data 2, expert 1),
+    ``--experts_parallel`` wins beside ``--model_parallel``, flags of 1
+    give no mesh; JAX's one refusal, an axis that does not divide the
+    devices, stays."""
+    from torch_mesh_workers import mesh_flag_ranks, spawn
 
-    with pytest.raises(NotImplementedError, match="item 12e"):
-        make_ep_mesh(2, experts_parallel=2)
-    with pytest.raises(NotImplementedError, match="item 12e"):
-        avhubert_ft.main(["--smoke", "--device", "cpu", "--model_parallel", "2"])
-    with pytest.raises(NotImplementedError, match="item 12e"):
-        pretrain.main(["--smoke", "--device", "cpu", "--experts_parallel", "2"])
+    for out in spawn(mesh_flag_ranks, 2, tmp_path):
+        assert out["ep"] == {"data": 1, "expert": 2}
+        assert out["ep1"] == {"data": 2, "expert": 1}
+        assert out["both"] == {"data": 1, "expert": 2}
+        assert out["mp"] == {"data": 1, "model": 2}
+        assert out["none"] is None
+        assert "not divisible by model_parallel=3" in out["indivisible"]
 
 
 def test_torch_moe_on_a_data_axis_raises():
+    """An MoE tower is put on a mesh as JAX puts it: at (data 2, model 1)
+    nothing splits (its routing is made global in the step, see
+    ``tests/test_torch_ep.py``); at (data 1, expert 2) each tower MoE leaf
+    keeps this rank's expert, and the layer runs its expert."""
     from avsl_tpu_torch.core.config import AVHuBERTConfig
     from avsl_tpu_torch.models import build_whisper_flamingo
+    from avsl_tpu_torch.models.moe import MoEFFN
     from avsl_tpu_torch.train import TrainState
 
-    port, _ = build_whisper_flamingo(
-        "test", add_gated_x_attn=1, dtype="float32", device="cpu",
-        av_hubert_cfg=AVHuBERTConfig.tiny_test(dtype="float32", n_experts=2))
-    with pytest.raises(NotImplementedError, match="item 12e"):
-        part.shard_state(TrainState.create(port, None), fake_mesh(2, 1))
+    def build():
+        return build_whisper_flamingo(
+            "test", add_gated_x_attn=1, dtype="float32", device="cpu",
+            av_hubert_cfg=AVHuBERTConfig.tiny_test(dtype="float32", n_experts=2))[0]
+
+    state = part.shard_state(TrainState.create(build(), None), fake_mesh(2, 1))
+    assert state.layout.tp == {}
+    assert all(m.parallel is None for m in state.model.modules() if isinstance(m, MoEFFN))
+    whole = build().state_dict()
+    ep = SimpleNamespace(shape={"data": 1, "expert": 2}, data_rank=0, expert_rank=1,
+                         expert_group=None, device=torch.device("cpu"))
+    state = part.shard_state(TrainState.create(build(), None), ep)
+    moes = [m for m in state.model.modules() if isinstance(m, MoEFFN)]
+    assert moes and all(m.parallel == ("expert", None, 1, 2) for m in moes)
+    names = [n for n in whole if n.split(".")[-1] in ("w_in", "b_in", "w_out", "b_out")]
+    assert sorted(state.layout.tp) == sorted(names) and set(state.layout.tp.values()) == {0}
+    local = dict(state.model.named_parameters())
+    for n in names:
+        torch.testing.assert_close(local[n], whole[n][1:2], atol=0, rtol=0)
 
 
 def test_torch_num_devices_against_the_world_raises(monkeypatch):

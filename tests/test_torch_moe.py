@@ -10,9 +10,10 @@ block's ``kv_lengths``. Then JAX against the port on carried parameters:
 ``sum(y^2) + 0.01 aux`` in fp32 (atol 1e-5 + rtol 1e-4) and in bf16
 compute (chip_smoke.py's BF16_TOL); flax's initialisation; the aux of
 every layer LayerDrop drops; remat counting the first forward's aux once
-with the same gradients; and the parallel entry points refusing, naming
-item 12e. The losses with an MoE trunk are in
-``tests/test_torch_moe_losses.py``.
+with the same gradients; and the parallel entry points on one rank,
+refusing what JAX refuses on one device. The losses with an MoE trunk are
+in ``tests/test_torch_moe_losses.py``; expert parallelism and the global
+routing on a mesh in ``tests/test_torch_ep.py``.
 """
 
 import math
@@ -260,11 +261,21 @@ def test_torch_moe_aux_counts_dropped_layers_and_remat_once():
         torch.testing.assert_close(grads[True][n], g, atol=1e-6, rtol=1e-5, msg=n)
 
 
-def test_torch_moe_parallel_entry_points_refuse():
-    with pytest.raises(NotImplementedError, match="12e"):
-        make_ep_mesh(8, experts_parallel=4)
+def test_torch_moe_parallel_entry_points_refuse(tmp_path):
+    """The parallel entry points on one rank refuse only what JAX refuses
+    on one device: an expert axis that does not divide it
+    (``make_ep_mesh(1, 2)`` and the CLI's ``--experts_parallel 2`` /
+    ``--model_parallel 2``); ``make_ep_mesh(1, 1)`` is the (data 1, expert
+    1) mesh, and a mesh needs the launcher's process group."""
     from avsl_tpu_torch.cli import avhubert_ft
+    from torch_mesh_workers import one_rank_group
 
-    for flag in ("--experts_parallel", "--model_parallel"):
-        with pytest.raises(NotImplementedError, match="12e"):
-            avhubert_ft.main(["--smoke", "--device", "cpu", "--n_experts", "4", flag, "2"])
+    with pytest.raises(RuntimeError, match="process group"):
+        make_ep_mesh(1, experts_parallel=1)
+    with one_rank_group(tmp_path):
+        assert make_ep_mesh(1, experts_parallel=1).shape == {"data": 1, "expert": 1}
+        with pytest.raises(ValueError, match="not divisible"):
+            make_ep_mesh(1, experts_parallel=2)
+        for flag in ("--experts_parallel", "--model_parallel"):
+            with pytest.raises(ValueError, match="not divisible"):
+                avhubert_ft.main(["--smoke", "--device", "cpu", "--n_experts", "4", flag, "2"])

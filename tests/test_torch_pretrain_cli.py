@@ -8,9 +8,11 @@ model on k-means of the middle layer's features. Its synthetic rows and
 collation are the JAX CLI's, array for array. A ``--km_model`` codebook
 written by the JAX package loads in the port (and a fresh fit is written
 where the file does not exist); ``--checkpoint_dir`` writes a state whose
-encoder the fine-tune heads load; the parallel flags raise naming item
-12e. ``cli.avhubert_ft --smoke --n_experts 4 --device cpu`` trains both
-heads, reporting ``n_experts`` as JAX does.
+encoder the fine-tune heads load; on one rank a parallel flag of 2 is
+refused as JAX refuses it on one device (the mesh runs in
+``tests/test_torch_pretrain_mesh_cli.py``). ``cli.avhubert_ft --smoke
+--n_experts 4 --device cpu`` trains both heads, reporting ``n_experts``
+as JAX does.
 """
 
 import json
@@ -105,8 +107,13 @@ def test_torch_pretrain_cli_checkpoint_feeds_finetune(tmp_path):
 
 
 @pytest.mark.parametrize("flag", ["--model_parallel", "--experts_parallel"])
-def test_torch_pretrain_cli_parallel_flags_raise(flag):
-    with pytest.raises(NotImplementedError, match="12e"):
+def test_torch_pretrain_cli_parallel_flags_raise(flag, tmp_path):
+    """On one rank a flag of 2 is JAX's refusal on one device: the axis
+    does not divide it (the meshes themselves run in
+    ``tests/test_torch_pretrain_mesh_cli.py``)."""
+    from torch_mesh_workers import one_rank_group
+
+    with one_rank_group(tmp_path), pytest.raises(ValueError, match="not divisible"):
         pretrain.main(["--smoke", "--device", "cpu", flag, "2"])
 
 

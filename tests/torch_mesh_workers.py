@@ -11,6 +11,7 @@ parent wrote (``load_flamingo``)."""
 
 from __future__ import annotations
 
+import contextlib
 import multiprocessing as mp
 import os
 import queue
@@ -465,4 +466,299 @@ def fsdp_dp1_ranks(rank, world, path, batches):
     shard_state(state, make_mesh(1), fsdp=True)
     out["layout_fsdp"] = state.layout.fsdp
     out["param_types"] = sorted({type(p).__name__ for p in state.model.parameters()})
+    return out
+
+
+# ---------------------------------------------------------------------------
+# expert parallelism
+# ---------------------------------------------------------------------------
+
+
+def load_moe_block(state_path: str, cf: float):
+    """The port's MoE ``TransformerBlock`` of ``tests/test_moe.py:233`` (d
+    16, 2 heads, F 32, 4 experts of top 2, fp32) at capacity factor ``cf``
+    with the state dict at ``state_path``."""
+    from avsl_tpu_torch.models.layers import TransformerBlock
+
+    block = TransformerBlock(16, 2, 32, dtype=torch.float32, param_dtype=torch.float32,
+                             n_experts=4, moe_top_k=2, moe_capacity_factor=cf)
+    block.load_state_dict(torch.load(state_path, weights_only=True))
+    return block
+
+
+def moe_block_step(block, x, mesh):
+    """``sum(y^2) + 0.01 aux`` of the block on the global batch ``x`` and
+    its gradients, whole, as the train step forms them on ``mesh`` (None:
+    one process): each data rank runs its rows inside the row scope,
+    backs ``dp x`` its part of the sum plus the balance term, and the
+    gradients are averaged over the data group. Returns (loss, aux,
+    gradients by name)."""
+    import torch.distributed as dist
+
+    from avsl_tpu_torch.core.mesh import RowShard, row_shard_scope
+    from avsl_tpu_torch.core.partitioning import shard_state
+    from avsl_tpu_torch.models.intermediates import collect_intermediates
+    from avsl_tpu_torch.models.moe import moe_aux_loss
+    from avsl_tpu_torch.train import TrainState
+
+    x = torch.as_tensor(x)
+    rows, layout = None, None
+    if mesh is not None:
+        layout = shard_state(TrainState.create(block, None), mesh).layout
+        dp = mesh.shape["data"]
+        if dp > 1:
+            rows = RowShard(mesh.data_group, mesh.data_rank, dp)
+            size = x.shape[0] // dp
+            x = x[mesh.data_rank * size:(mesh.data_rank + 1) * size]
+    dp = 1 if rows is None else rows.size
+    with row_shard_scope(rows), collect_intermediates() as inter:
+        y, _ = block(x)
+        aux = moe_aux_loss(inter)
+        loss = dp * (y ** 2).sum() + 0.01 * aux
+    loss.backward()
+    grads = {}
+    for name, p in block.named_parameters():
+        g = p.grad.detach().clone()
+        if rows is not None:
+            dist.all_reduce(g, group=rows.group)
+            g /= dp
+        grads[name] = (g if layout is None else layout.full(name, g)).numpy()
+    loss = loss.detach()
+    if rows is not None:
+        dist.all_reduce(loss, group=rows.group)
+        loss /= dp
+    return float(loss), float(aux.detach()), grads
+
+
+def ep_block_ranks(rank, world, state_paths, x, meshes):
+    """:func:`moe_block_step` at each (data, expert) shape of ``meshes``
+    (a product ``world``) and each capacity factor of ``state_paths``
+    (``{cf: path}``), and at (data 2, expert 1) the dispatch of this rank's
+    tokens, routed globally and rank-locally."""
+    from avsl_tpu_torch.core.mesh import RowShard, row_shard_scope
+    from avsl_tpu_torch.models.moe import make_ep_mesh
+
+    out = {}
+    for dp, ep in meshes:
+        mesh = make_ep_mesh(world, experts_parallel=ep)
+        assert mesh.shape == {"data": dp, "expert": ep}, mesh.shape
+        for cf, path in state_paths.items():
+            out[(dp, ep, cf)] = moe_block_step(load_moe_block(path, cf), x, mesh)
+            if (dp, ep) == (2, 1):
+                moe = load_moe_block(path, cf).mlp
+                size = x.shape[0] // 2
+                local = torch.as_tensor(x[mesh.data_rank * size:(mesh.data_rank + 1) * size])
+                with torch.no_grad():
+                    with row_shard_scope(RowShard(mesh.data_group, mesh.data_rank, 2)):
+                        routed = moe.route(local).dispatch.numpy()
+                    alone = moe.route(local).dispatch.numpy()
+                    # two row blocks (the hoist's flattened micro-batches): this
+                    # rank holds row r of each half of the global batch
+                    blocks = torch.as_tensor(x[[mesh.data_rank, 2 + mesh.data_rank]])
+                    with row_shard_scope(RowShard(mesh.data_group, mesh.data_rank, 2, groups=2)):
+                        grouped = moe.route(blocks).dispatch.numpy()
+                out[("dispatch", cf)] = (routed, alone, grouped)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# LoRA on a mesh
+# ---------------------------------------------------------------------------
+
+LORA_CFG = dict(lora_rank=4, lora_alpha=16.0, learning_rate=1e-3, warmup_steps=1,
+                num_train_steps=20, add_gated_x_attn=1, prob_use_av=1.0, prob_use_a=0.5)
+
+
+def train_lora(state_path, batches, mesh_kw, min_elems=None):
+    """The carried tiny Whisper-Flamingo under LoRA (rank 4 on the query
+    and value projections; ``cli/finetune.py``'s adapters, optimizer and
+    loss) trained on ``batches`` with ``make_train_step`` on a mesh from
+    ``mesh_kw`` (``n``, ``mp``, ``fsdp``; None: no mesh), with
+    ``ZERO1_MIN_ELEMS`` at ``min_elems`` when given. Returns the losses,
+    the adapters whole, each adapter's local Adam moment shape and the
+    sequence splits the steps made."""
+    import avsl_tpu_torch.core.partitioning as part
+    from avsl_tpu_torch.cli.finetune import make_lora
+    from avsl_tpu_torch.core.config import FlamingoTrainConfig
+    from avsl_tpu_torch.core.mesh import make_mesh
+    from avsl_tpu_torch.models.lora import lora_loss_fn
+    from avsl_tpu_torch.train import TrainState, flamingo_loss_fn, make_train_step
+    from avsl_tpu_torch.train.optim import lora_optimizer
+
+    if min_elems is not None:
+        part.ZERO1_MIN_ELEMS = min_elems
+    cfg = FlamingoTrainConfig(**LORA_CFG)
+    base = load_flamingo(state_path)
+    lora = make_lora(cfg, base, seed=0)
+    opt, labels = lora_optimizer(lora, cfg, 20)
+    state = TrainState.create(lora, opt)
+    mesh = None
+    if mesh_kw is not None:
+        mesh = make_mesh(mesh_kw["n"], model_parallel=mesh_kw.get("mp", 1))
+        part.shard_state(state, mesh, fsdp=mesh_kw.get("fsdp", False))
+    loss_fn = lora_loss_fn(flamingo_loss_fn(base, train=True, **MIXING), lora)
+    step = make_train_step(loss_fn, mesh=mesh, grad_accum_steps=2, param_labels=labels)
+    n_scatter = _count_scatters()
+    losses = []
+    for batch in batches:
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+    named = dict(lora.named_parameters())
+    whole = {n: (p.detach().clone() if state.layout is None else state.layout.full(n, p))
+             for n, p in named.items()}
+    return {"loss": losses, "adapters": {n: t.numpy() for n, t in whole.items()},
+            "mu_shapes": {n: tuple(m.shape) for n, m in zip(opt.names, opt.mu)},
+            "splits": n_scatter[0], "fsdp": None if state.layout is None else state.layout.fsdp}
+
+
+def lora_ranks(rank, world, path, batches, variants, min_elems):
+    """:func:`train_lora` for each ``(name, mesh_kw)`` of ``variants``."""
+    return {name: train_lora(path, batches, kw, min_elems) for name, kw in variants}
+
+
+# ---------------------------------------------------------------------------
+# the AV-HuBERT heads under tensor parallelism
+# ---------------------------------------------------------------------------
+
+AVH_TP_CFG = dict(dtype="float32", vocab_size=60, n_experts=2)
+
+
+def train_avhubert(head, state_path, batches, mesh_kw):
+    """The tiny AV-HuBERT ``head`` model (``AVH_TP_CFG``: an even
+    vocabulary, 2 experts, the tiny card's rates) with the state at
+    ``state_path``, trained on ``batches`` with the fine-tune CLI's
+    optimizer and loss (``cli/avhubert_ft.py``) on a (data, model) mesh
+    from ``mesh_kw`` (``n``, ``mp``; None: no mesh), then its eval loss on
+    the first batch. Returns the losses, the eval loss, the parameters
+    whole and the names the rules split (and the grad norms)."""
+    from avsl_tpu_torch.cli.avhubert_ft import cli_ctc_loss_fn, ctc_batch, make_optimizer
+    from avsl_tpu_torch.core.config import AVHuBERTConfig
+    from avsl_tpu_torch.core.mesh import make_mesh
+    from avsl_tpu_torch.core.partitioning import describe_shardings, shard_state
+    from avsl_tpu_torch.models import build_avhubert
+    from avsl_tpu_torch.train import TrainState, make_eval_step, make_train_step
+    from avsl_tpu_torch.train.objectives import avhubert_seq2seq_loss_fn
+
+    cfg = AVHuBERTConfig.tiny_test(**AVH_TP_CFG)
+    model = build_avhubert(cfg, head, device="cpu")
+    model.load_state_dict(torch.load(state_path, weights_only=True))
+    if head == "ctc":
+        batches = [ctc_batch(b, cfg.pad_token_id) for b in batches]
+        loss_fn, eval_fn = cli_ctc_loss_fn(model), cli_ctc_loss_fn(model, train=False)
+    else:
+        loss_fn = avhubert_seq2seq_loss_fn(model, train=True)
+        eval_fn = avhubert_seq2seq_loss_fn(model, train=False)
+    state = TrainState.create(model, make_optimizer(model, 1e-3, 10), seed=2)
+    mesh, split = None, []
+    if mesh_kw is not None:
+        mesh = make_mesh(mesh_kw["n"], model_parallel=mesh_kw["mp"])
+        split = sorted(n for n, _, _ in describe_shardings(model, mesh))
+        shard_state(state, mesh)
+    step = make_train_step(loss_fn, mesh=mesh)
+    losses, norms = [], []
+    for batch in batches:
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    eval_loss = float(make_eval_step(eval_fn, mesh=mesh)(state, batches[0])["loss"])
+    named = dict(model.named_parameters())
+    whole = {n: (p.detach() if state.layout is None else state.layout.full(n, p)).numpy().copy()
+             for n, p in named.items()}
+    return {"loss": losses, "grad_norm": norms, "eval_loss": eval_loss, "params": whole,
+            "split": split}
+
+
+def avh_tp_ranks(rank, world, paths, batches):
+    """:func:`train_avhubert` for both heads at dp 1 x mp ``world``."""
+    return {head: train_avhubert(head, path, batches, dict(n=world, mp=world))
+            for head, path in paths.items()}
+
+
+@contextlib.contextmanager
+def one_rank_group(tmp_path):
+    """A gloo process group of this process alone (a ``file://``
+    rendezvous under ``tmp_path``), destroyed on exit: the launcher's
+    group at a world size of 1."""
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/one_rank", rank=0,
+                            world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_flag_ranks(rank, world):
+    """The meshes of the JAX CLIs' flags on ``world`` ranks: their shapes,
+    and JAX's refusal of an axis that does not divide the ranks."""
+    from types import SimpleNamespace
+
+    from avsl_tpu_torch.cli.avhubert_ft import cli_mesh
+    from avsl_tpu_torch.models.moe import make_ep_mesh
+
+    def flags(ep, mp):
+        return SimpleNamespace(experts_parallel=ep, model_parallel=mp, device="cpu")
+
+    out = {"ep": make_ep_mesh(world, experts_parallel=world).shape,
+           "ep1": make_ep_mesh(experts_parallel=1).shape,
+           "both": cli_mesh(flags(2, 2)).shape, "mp": cli_mesh(flags(1, 2)).shape,
+           "none": cli_mesh(flags(1, 1))}
+    try:
+        make_ep_mesh(world, experts_parallel=3)
+    except ValueError as e:
+        out["indivisible"] = str(e)
+    return out
+
+
+def ep_state_ranks(rank, world, path, batches, ckpt):
+    """The tiny CTC AV-HuBERT of ``AVH_TP_CFG`` (2 experts) trained on
+    ``batches`` at (data 2, expert 2) with ZeRO-1 on 4 ranks, then
+    checkpointed to ``ckpt`` and restored through ``restore_sharded`` into
+    a fresh state on the same mesh and into one without a mesh. Returns
+    the run's losses and grad norms, its parameters whole, the local shape
+    of an expert leaf and of its Adam moment, and whether each restored
+    state holds the saved tensors and moments."""
+    import avsl_tpu_torch.core.partitioning as part
+    from avsl_tpu_torch.cli.avhubert_ft import cli_ctc_loss_fn, ctc_batch, make_optimizer
+    from avsl_tpu_torch.core.config import AVHuBERTConfig
+    from avsl_tpu_torch.models import build_avhubert
+    from avsl_tpu_torch.models.moe import make_ep_mesh
+    from avsl_tpu_torch.train import TrainState, make_train_step
+    from avsl_tpu_torch.train.checkpoints import restore_sharded, save_checkpoint
+
+    part.ZERO1_MIN_ELEMS = 1024  # so the tiny experts' moments split, as JAX's test patches it
+    cfg = AVHuBERTConfig.tiny_test(**AVH_TP_CFG)
+    mesh = make_ep_mesh(world, experts_parallel=2)
+
+    def fresh():
+        model = build_avhubert(cfg, "ctc", device="cpu")
+        model.load_state_dict(torch.load(path, weights_only=True))
+        return TrainState.create(model, make_optimizer(model, 1e-3, 10), seed=2)
+
+    state = part.shard_state(fresh(), mesh, zero1=True)
+    step = make_train_step(cli_ctc_loss_fn(state.model), mesh=mesh)
+    losses, norms = [], []
+    for batch in batches:
+        state, m = step(state, ctc_batch(batch, cfg.pad_token_id))
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    name = "encoder.w2v_model.encoder.layers.0.mlp.w_in"
+    named = dict(state.model.named_parameters())
+    i = state.optimizer.names.index(name)
+    out = {"loss": losses, "grad_norm": norms,
+           "params": {n: state.layout.full(n, p).numpy().copy() for n, p in named.items()},
+           "w_in_local": tuple(named[name].shape), "w_in_mu": tuple(state.optimizer.mu[i].shape),
+           "zero_dim": state.layout.zero.get(name), "tp_dim": state.layout.tp.get(name)}
+    save_checkpoint(ckpt, state, 1)
+    saved = torch.load(f"{ckpt}/step_1.pt", weights_only=True)
+    for label, target_mesh in (("same_mesh", mesh), ("no_mesh", None)):
+        target = restore_sharded(ckpt, fresh(), target_mesh, zero1=target_mesh is not None)
+        layout = target.layout
+        whole = {n: (p.detach() if layout is None else layout.full(n, p))
+                 for n, p in target.model.named_parameters()}
+        mu = [(t if layout is None else layout.full(n, t, moment=True))
+              for n, t in zip(target.optimizer.names, target.optimizer.mu)]
+        out[label] = (all(torch.equal(whole[n], saved["model"][n]) for n in whole)
+                      and all(torch.equal(m, s) for m, s in zip(mu, saved["optimizer"]["mu"])))
     return out
