@@ -1,6 +1,24 @@
-"""Configuration and device selection for the PyTorch port."""
+"""Configuration, device selection and pipeline parallelism for the
+PyTorch port."""
 
 from avsl_tpu_torch.core.config import AVHuBERTConfig, FlamingoTrainConfig, WhisperConfig
 from avsl_tpu_torch.core.device import resolve_device
+from avsl_tpu_torch.core.pipeline import (
+    StackedBlocks,
+    make_pp_mesh,
+    pipeline_apply,
+    stack_block_params,
+    unstack_block_params,
+)
 
-__all__ = ["AVHuBERTConfig", "FlamingoTrainConfig", "WhisperConfig", "resolve_device"]
+__all__ = [
+    "AVHuBERTConfig",
+    "FlamingoTrainConfig",
+    "StackedBlocks",
+    "WhisperConfig",
+    "make_pp_mesh",
+    "pipeline_apply",
+    "resolve_device",
+    "stack_block_params",
+    "unstack_block_params",
+]

@@ -1,5 +1,5 @@
-"""The (data, model) or (data, expert) process grid and the batch and
-collective helpers.
+"""The (data, model), (data, expert) or (data, stage) process grid and the
+batch and collective helpers.
 
 Port of ``avsl_tpu/core/mesh.py``. JAX runs one process over every device
 and shards arrays by annotation; PyTorch runs one process per rank
@@ -10,10 +10,12 @@ and shards arrays by annotation; PyTorch runs one process per rank
   CPU. There is no fallback from one to the other.
 * :func:`make_mesh` lays the ranks out as JAX's ``reshape(n // mp, mp)``
   does: ``model_parallel`` contiguous ranks share the second axis, named
-  ``axis_names[1]`` (``"model"``, or ``"expert"`` for
-  ``models/moe.py::make_ep_mesh``). The :class:`Mesh` holds ``.shape``
-  (``{"data": dp, "model": mp}`` or ``{"data": dp, "expert": ep}``, as
-  ``jax.sharding.Mesh.shape``) over a ``torch.distributed`` ``DeviceMesh``
+  ``axis_names[1]`` (``"model"``, ``"expert"`` for
+  ``models/moe.py::make_ep_mesh``, or ``"stage"`` for
+  ``core/pipeline.py::make_pp_mesh``). The :class:`Mesh` holds ``.shape``
+  (``{"data": dp, "model": mp}``, ``{"data": dp, "expert": ep}`` or
+  ``{"data": dp, "stage": pp}``, as ``jax.sharding.Mesh.shape``) over a
+  ``torch.distributed`` ``DeviceMesh``
   and this rank's coordinates and groups. The MoE layer holds its own
   experts' slice of the ``[E, C, D]`` blocks on an expert axis
   (``models/moe.py``), so :func:`constrain_activation` splits only over
@@ -60,6 +62,8 @@ import torch.distributed as dist
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
 EXPERT_AXIS = "expert"
+STAGE_AXIS = "stage"
+SECOND_AXES = (MODEL_AXIS, EXPERT_AXIS, STAGE_AXIS)
 
 
 class PartitionSpec(tuple):
@@ -110,29 +114,30 @@ def rank() -> int:
 
 
 class Mesh:
-    """A (data, model) or (data, expert) grid of ranks: ``shape`` as
-    ``Mesh.shape`` in JAX, ``axis`` the second axis's name, this rank's
-    ``data_rank`` and the group of its column (``data_group``), the
-    ``DeviceMesh`` and this rank's ``device``. The second axis's rank and
-    group (its row) are ``model_rank``/``model_group`` on a model axis and
-    ``expert_rank``/``expert_group`` on an expert axis; the other pair is
-    0 and None (an axis of size 1, over which every collective is the
-    identity)."""
+    """A (data, model), (data, expert) or (data, stage) grid of ranks:
+    ``shape`` as ``Mesh.shape`` in JAX, ``axis`` the second axis's name,
+    this rank's ``data_rank`` and the group of its column
+    (``data_group``), the ``DeviceMesh`` and this rank's ``device``. The
+    second axis's rank and group (its row) are ``model_rank``/
+    ``model_group``, ``expert_rank``/``expert_group`` or ``stage_rank``/
+    ``stage_group``, after its name; the other pairs are 0 and None (an
+    axis of size 1, over which every collective is the identity)."""
 
     def __init__(self, device_mesh, device: torch.device):
         self.device_mesh = device_mesh
         self.device = device
         dp, n = device_mesh.shape
         self.axis = device_mesh.mesh_dim_names[1]
-        if self.axis not in (MODEL_AXIS, EXPERT_AXIS):
-            raise ValueError(f"second mesh axis {self.axis!r}: {MODEL_AXIS!r} or {EXPERT_AXIS!r}")
+        if self.axis not in SECOND_AXES:
+            raise ValueError(f"second mesh axis {self.axis!r}: one of {SECOND_AXES}")
         self.shape: Dict[str, int] = {DATA_AXIS: dp, self.axis: n}
         self.data_rank, second_rank = device_mesh.get_coordinate()
         self.data_group = device_mesh.get_group(DATA_AXIS)
         second_group = device_mesh.get_group(self.axis)
-        self.model_rank, self.model_group, self.expert_rank, self.expert_group = (
-            (second_rank, second_group, 0, None) if self.axis == MODEL_AXIS
-            else (0, None, second_rank, second_group))
+        for axis in SECOND_AXES:
+            mine = axis == self.axis
+            setattr(self, f"{axis}_rank", second_rank if mine else 0)
+            setattr(self, f"{axis}_group", second_group if mine else None)
 
     def __repr__(self) -> str:
         return (f"Mesh({self.shape}, data_rank={self.data_rank}, "

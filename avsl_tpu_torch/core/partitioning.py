@@ -1,5 +1,6 @@
-"""Parameter partitioning over the (data, model) or (data, expert) mesh:
-the rule table, tensor and expert parallelism, ZeRO-1 and FSDP.
+"""Parameter partitioning over the (data, model), (data, expert) or
+(data, stage) mesh: the rule table, tensor and expert parallelism, ZeRO-1
+and FSDP, and the layout of a pipeline's stage rows.
 
 Port of ``avsl_tpu/core/partitioning.py``. ``DEFAULT_RULES``, ``spec_for``,
 ``ZERO1_MIN_ELEMS`` and ``_add_data_axis`` are JAX's pure functions over
@@ -47,7 +48,10 @@ parameter's spec in its own (torch) layout.
 The resulting :class:`Layout` maps each tensor between its local form and
 the full (logical) one, which checkpoints hold. The tensor- and
 expert-parallel splits are both over the mesh's second axis (the mesh has
-one or the other).
+one or the other). On a stage axis the same layout holds a pipeline's
+split: every stacked block tensor keeps its stage's rows of dim 0
+(``train/pp.py::shard_pp_state`` builds it; :func:`shard_state` refuses
+such a mesh).
 """
 
 from __future__ import annotations
@@ -59,7 +63,14 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
-from avsl_tpu_torch.core.mesh import DATA_AXIS, EXPERT_AXIS, MODEL_AXIS, Mesh, PartitionSpec
+from avsl_tpu_torch.core.mesh import (
+    DATA_AXIS,
+    EXPERT_AXIS,
+    MODEL_AXIS,
+    STAGE_AXIS,
+    Mesh,
+    PartitionSpec,
+)
 from avsl_tpu_torch.core.tree import flax_dims, rule_path
 
 P = PartitionSpec
@@ -218,14 +229,16 @@ def local_tensor(t: torch.Tensor) -> torch.Tensor:
 
 
 def second_axis(mesh) -> str:
-    """The name of ``mesh``'s axis besides data: ``"model"`` or ``"expert"``."""
-    return EXPERT_AXIS if EXPERT_AXIS in mesh.shape else MODEL_AXIS
+    """The name of ``mesh``'s axis besides data: ``"model"``, ``"expert"``
+    or ``"stage"``."""
+    return next((a for a in (EXPERT_AXIS, STAGE_AXIS) if a in mesh.shape), MODEL_AXIS)
 
 
 class Layout:
     """How a train state sits on ``mesh``: the dim each parameter split
     over the mesh's second axis is split along (``tp``: tensor-parallel on
-    a model axis, expert-parallel on an expert axis), the dim of each
+    a model axis, expert-parallel on an expert axis, a stage's rows of dim
+    0 on a stage axis), the dim of each
     trained tensor's Adam moments split over the data axis under ZeRO-1
     (``zero``), whether FSDP shards every parameter along dim 0 over the
     data axis (``fsdp``), and each parameter's logical shape
@@ -377,6 +390,8 @@ def shard_state(state, mesh: Mesh, rules: Sequence[Tuple[str, PartitionSpec]] = 
 
     if getattr(state, "layout", None) is not None:
         raise ValueError("the state is already on a mesh")
+    if STAGE_AXIS in mesh.shape:
+        raise ValueError("a state goes on a stage mesh through train.pp.shard_pp_state")
     model, opt = state.model, state.optimizer
     if isinstance(model, LoraModel):  # JAX's frozen base is a constant, whole everywhere
         zero1, fsdp = zero1 or fsdp, False

@@ -1,8 +1,8 @@
 """Training layer of the port: the train step with gradient accumulation,
 the AdamW optimizer and its freeze regimes (LoRA's too), the Whisper and
 AV-HuBERT objectives (fine-tuning and masked-cluster pretraining),
-checkpoints, the runner with parameter EMA, checkpoint averaging and
-draft distillation."""
+checkpoints, the runner with parameter EMA, checkpoint averaging, draft
+distillation and pipeline-parallel training."""
 
 from avsl_tpu_torch.train.loop import TrainState, make_eval_step, make_train_step
 from avsl_tpu_torch.train.objectives import (
@@ -18,6 +18,11 @@ from avsl_tpu_torch.train.optim import (
     lora_optimizer,
     select_optimizer,
     whisper_optimizer,
+)
+from avsl_tpu_torch.train.pp import (
+    shard_pp_state,
+    split_whisper_encoder_params,
+    whisper_encoder_pp_forward,
 )
 from avsl_tpu_torch.train.runner import TrainerRunner
 
@@ -35,5 +40,8 @@ __all__ = [
     "make_eval_step",
     "make_train_step",
     "select_optimizer",
+    "shard_pp_state",
+    "split_whisper_encoder_params",
+    "whisper_encoder_pp_forward",
     "whisper_optimizer",
 ]

@@ -1,5 +1,5 @@
 """Train and eval steps: gradient accumulation, clipping and AdamW, on one
-device or on a (data, model) or (data, expert) mesh.
+device or on a (data, model), (data, expert) or (data, stage) mesh.
 
 Port of ``avsl_tpu/train/loop.py``. The JAX step is one jit program that
 scans over micro-batches; here it is a Python loop of forward/backward
@@ -45,6 +45,15 @@ computes, the single-device step on that batch:
   the data group only: the ranks of an expert or model row hold the same
   rows), so dropout masks differ across data ranks while LayerDrop and
   the AV-mode draw agree on every rank of both axes.
+
+On a stage mesh (pipeline parallelism, ``core/pipeline.py``) the state
+is put there first by :func:`~avsl_tpu_torch.train.pp.shard_pp_state`
+(each stage keeps its rows of the stacked blocks and of their moments;
+``shard_state`` refuses the mesh). The loss's ``pipeline_apply`` returns
+the same output on every stage rank, and its backward gives every
+replicated tensor the same gradient there, so the step reduces gradients
+over the data group only; the gradient norm adds the block slices'
+squared sums over the stage group.
 
 Sequence parallelism (``sequence_parallel``; None, JAX's default, turns
 it on when the mesh's model axis is above 1): the step enters

@@ -106,8 +106,9 @@ raises on failure:
    with ``prefetch_batches`` 0 and 2);
 11. the serving daemon (``serving_daemon``, on the model of phase 6,
    before it is freed): ``TranscriptionServer`` on 127.0.0.1 at batch 8,
-   16 concurrent 10 s requests (8 over HTTP as base64 PCM, 8 with lip
-   features through ``submit``) against the transcriber's ``transcribe``
+   DAEMON_REQUESTS (8) concurrent 10 s requests (4 over HTTP as base64
+   PCM, 4 with lip features through ``submit``) against the
+   transcriber's ``transcribe``
    on the same items, a 60 s ``long`` request, a 15 s streaming session
    through the daemon, and the temperature fallback, word timestamps,
    phrase boosting and language ID on a batch each, with K1's launches
@@ -236,6 +237,22 @@ raises on failure:
    capacity binding and at (data 1, expert 2) against one process, and
    ``cli.pretrain --smoke --n_experts 4 --experts_parallel 2`` under
    ``torch.distributed.run``. To make room: LORA_ACCUM 4 -> 2.
+20. pipeline parallelism: ``pp_whisper_main_path`` (after
+   ``mesh_train_main_path``: large-v2's encoder at full width through
+   ``train/pp.py::whisper_encoder_pp_forward`` on a 1 x 1 (data, stage)
+   mesh over NCCL, PP_BATCH x 30 s in PP_MICRO microbatches bit-equal to
+   the unpipelined blocks on the same row chunks and within BF16_TOL of
+   the whole-batch encoder; the encoder with a pooled [1280, 51865] head
+   trained PP_STEPS steps through ``shard_pp_state``, ``ClippedAdamW``
+   and ``make_train_step`` against the unpipelined step, losses and step
+   1's gradients within PP_LOSS_RTOL and PP_GRAD_REL_L2; the pp
+   checkpoint read back into the unpipelined model; K1 and K2 counted and
+   every launch shape against the plain version) and, in
+   ``mesh_cpu_ranks``, the tiny encoder with its head pipelined over the
+   2 gloo ranks as 2 stages, forward and 2 steps, against one process.
+   To make room: the daemon's burst from 16 requests to DAEMON_REQUESTS
+   (8), its new tokens from 64 to SERVE_MAX_NEW (32) and the int8 phase's
+   from 64 to INT8_MAX_NEW (32).
 
 Each model is freed before the next one is built. It prints the kernel
 list, the card's name and power limit and, last,
@@ -3183,7 +3200,9 @@ def phase_pretrain_cli_smoke(card: str, device: str = "cuda") -> dict:
 
 # the serving daemon (phase 11): the tiny models card against CPU on the
 # serving options, then the full-width AV model behind the HTTP daemon
-SERVE_BATCH, SERVE_MAX_NEW, SERVE_WAIT_MS = 8, 64, 30.0
+# the daemon's new tokens a batch: 64, cut to 32 to make room for the
+# pipeline phase
+SERVE_BATCH, SERVE_MAX_NEW, SERVE_WAIT_MS = 8, 32, 30.0
 # tiny models, card (K1) against CPU (plain), fp32: scores and the captured
 # cross-attention weights within this
 SMALL_SERVING_TOL = 1e-4
@@ -3329,6 +3348,9 @@ def timed_calls(owner, *names):
 # the daemon's live stream (30 s before the AV-HuBERT tools' phases: cut
 # to make room for them)
 STREAM_SECONDS = 10.0
+# concurrent requests of the daemon's burst: 16, cut to make room for the
+# pipeline phase
+DAEMON_REQUESTS = 8
 
 
 def daemon_items(n: int, n_video: int, seed: int):
@@ -3397,8 +3419,9 @@ def phase_serving_daemon(card: str, model, serve_cfg):
 def serving_daemon_parts(card: str, model, serve_cfg):
     """The full-width Whisper-Flamingo model behind the port's HTTP daemon
     (phase 11): ``TranscriptionServer`` on 127.0.0.1, batch 8, 30 ms wait,
-    at the JAX CLI's serving shape. (a) 16 concurrent 10 s requests, 8
-    audio-only over HTTP with base64 PCM and 8 with lip features through
+    at the JAX CLI's serving shape. (a) DAEMON_REQUESTS (8) concurrent 10
+    s requests, 4 audio-only over HTTP with base64 PCM and 4 with lip
+    features through
     ``submit``, against the transcriber's own ``transcribe`` on the same
     items; (b) one ``long`` request of 60 s with 0.5 s pauses; (c) a
     ``StreamingSession`` routed through the daemon, STREAM_SECONDS (10 s)
@@ -3427,6 +3450,8 @@ def serving_daemon_parts(card: str, model, serve_cfg):
               batch_size=SERVE_BATCH, max_new_tokens=SERVE_MAX_NEW)
     tr = StreamingTranscriber(model, ByteTokenizer(), **kw)
     items = daemon_items(16, 8, seed=3)
+    # (a) fires DAEMON_REQUESTS of them, half with lip features
+    burst = items[8 - DAEMON_REQUESTS // 2:8 + DAEMON_REQUESTS // 2]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     server = TranscriptionServer(tr, host="127.0.0.1", port=0, max_wait_ms=SERVE_WAIT_MS).start()
@@ -3441,7 +3466,7 @@ def serving_daemon_parts(card: str, model, serve_cfg):
             raise AssertionError(f"serving_daemon {name}: K1 launches {launches} != {want}")
 
     try:
-        # (a) 16 concurrent requests
+        # (a) DAEMON_REQUESTS concurrent requests
         replies, pendings = {}, {}
 
         def http(item):
@@ -3451,7 +3476,7 @@ def serving_daemon_parts(card: str, model, serve_cfg):
 
         def fire_all():
             threads = []
-            for item in items:
+            for item in burst:
                 if "lip_feats" in item:
                     pendings[item["id"]] = server.submit(dict(item))
                 else:
@@ -3469,7 +3494,7 @@ def serving_daemon_parts(card: str, model, serve_cfg):
         gate("concurrent", launches, batches)
         bad = [i for i, (s, _) in replies.items() if s != 200]
         bad += [i for i, p in pendings.items() if p.error is not None or p.result is None]
-        if bad or len(replies) + len(pendings) != 16:
+        if bad or len(replies) + len(pendings) != len(burst):
             raise AssertionError(f"serving_daemon: failed requests {bad}")
         wrong_id = [i for i, (_, r) in replies.items() if r.get("id") != i]
         wrong_id += [i for i, p in pendings.items() if p.result.id != i]
@@ -3477,19 +3502,20 @@ def serving_daemon_parts(card: str, model, serve_cfg):
             raise AssertionError(f"serving_daemon: replies carry other requests' ids {wrong_id}")
         served = {i: (r["text"], r["avg_logprob"]) for i, (_, r) in replies.items()}
         served.update({i: (p.result.text, p.result.avg_logprob) for i, p in pendings.items()})
-        direct, direct_s, direct_launches, _, _ = run_counted(lambda: tr.transcribe(items))
-        gate("direct", direct_launches, 2)
+        direct, direct_s, direct_launches, _, _ = run_counted(lambda: tr.transcribe(burst))
+        gate("direct", direct_launches, -(-len(burst) // SERVE_BATCH))
         same_text = sum(served[r.id][0] == r.text for r in direct)
         logprob_err = max(abs(served[r.id][1] - r.avg_logprob) for r in direct)
         rec["concurrent"] = {
-            "requests": 16, "with_video": 8, "seconds": seconds, "segments_per_s": 16 / seconds,
+            "requests": len(burst), "with_video": len(pendings), "seconds": seconds,
+            "segments_per_s": len(burst) / seconds,
             "batches": batches, "latency_ms": snap.get("latency_ms"),
             "batch_occupancy": snap.get("batch_occupancy"),
-            "direct_seconds": direct_s, "direct_segments_per_s": 16 / direct_s,
+            "direct_seconds": direct_s, "direct_segments_per_s": len(burst) / direct_s,
             "same_text_as_direct": same_text, "avg_logprob_max_abs_err": logprob_err,
             "has_video": sum(p.result.has_video for p in pendings.values())}
-        if same_text != len(items) or logprob_err > SERVE_LOGPROB_TOL:
-            raise AssertionError(f"serving_daemon: {same_text} of {len(items)} texts as the "
+        if same_text != len(burst) or logprob_err > SERVE_LOGPROB_TOL:
+            raise AssertionError(f"serving_daemon: {same_text} of {len(burst)} texts as the "
                                  f"direct run's, avg_logprob off by {logprob_err:.3e}")
 
         # (b) one long request: 60 s with 0.5 s pauses
@@ -3628,6 +3654,9 @@ def serving_daemon_parts(card: str, model, serve_cfg):
 # model, speculative decoding and the exported programs on the audio-only
 # large-v2 target
 EXTRAS_BATCH, EXTRAS_MAX_NEW = 8, 64
+# new tokens a batch of the int8 phase: EXTRAS_MAX_NEW, cut to make room for
+# the pipeline phase
+INT8_MAX_NEW = 32
 SPEC_K = 4
 # a row may leave plain greedy only where the target's top two logits are
 # nearer than the bf16 tolerance: the verify pass runs (k+1)-row products,
@@ -3765,7 +3794,8 @@ def phase_serving_extras_int8(card: str, holder: list) -> dict:
     """int8 weights and the int8 cache on the JAX CLI's default AV model
     (``holder`` = [model, serve config], emptied here): the int8 copy,
     gated bit-equal to the CPU's quantization of the same weights; then
-    one batch of 8 items of 10 s (6 with lip features), 64 new tokens,
+    one batch of 8 items of 10 s (6 with lip features), INT8_MAX_NEW (32)
+    new tokens,
     greedy, in bf16, ``kv_int8``, ``quantize="int8"`` and both, each run
     once in turn (twice before the mesh phases), exactly 56 K1 a batch, with the breakdown of each
     (decode share, launches a decode step, static cache bytes); then the
@@ -3782,7 +3812,7 @@ def phase_serving_extras_int8(card: str, holder: list) -> dict:
     audio_max_length = int(serve_cfg.audio_max_length)
     kw = dict(audio_max_length=audio_max_length,
               video_frames=serving_video_frames(audio_max_length), crop=88,
-              batch_size=EXTRAS_BATCH, max_new_tokens=EXTRAS_MAX_NEW)
+              batch_size=EXTRAS_BATCH, max_new_tokens=INT8_MAX_NEW)
     per_batch = model.cfg.n_audio_layer + model.video_model.cfg.num_hidden_layers
     t0 = time.perf_counter()
     int8 = StreamingTranscriber(model, ByteTokenizer(), quantize="int8", **kw)
@@ -5224,6 +5254,9 @@ MESH_CPU_TOL = dict(rtol=1e-6, atol=1e-6)
 # expert 2
 MESH_CPU_MOE = {"dp2_ep1": 1, "dp1_ep2": 2}
 MESH_CPU_MOE_CF, MESH_CPU_MOE_LR = 0.5, 1e-3
+# the tiny Whisper encoder with a pooled head pipelined over the 2 gloo
+# ranks as 2 stages (data 1), forward and 2 train steps
+MESH_CPU_STAGES = 2
 # an attention key bias's gradient is zero in exact arithmetic (the
 # softmax cancels q . b_k), so Adam turns its rounding noise into a step
 # of the learning rate: those tensors are held within 3 learning rates
@@ -5654,6 +5687,272 @@ def phase_ep_avhubert_main_path(card: str) -> dict:
     return {"k1": ep["k1"], "k2": ep["k2"]}
 
 
+# the pipelined Whisper encoder (train/pp.py) at large-v2 widths on a 1 x 1
+# (data, stage) mesh: the forward at batch PP_BATCH in PP_MICRO
+# microbatches, then PP_STEPS train steps at batch PP_TRAIN_BATCH in
+# PP_TRAIN_MICRO microbatches against the unpipelined step on the same
+# weights; 30 s of mel an item
+PP_BATCH, PP_MICRO = 8, 4
+PP_TRAIN_BATCH, PP_TRAIN_MICRO, PP_STEPS = 4, 2, 3
+PP_LR = 1e-5
+PP_LOSS_RTOL, PP_GRAD_REL_L2 = 1e-3, 1e-2
+
+
+class EncoderClassifier(torch.nn.Module):
+    """A Whisper encoder, mean pooling over T and a [d, V] head: JAX's
+    ``tests/test_pp_train.py::_sandwich`` with the encoder as its trunk.
+    With ``pp`` the encoder's stem modules are kept and its blocks stacked
+    into a ``StackedBlocks`` that ``whisper_encoder_pp_forward`` pipelines
+    over ``mesh``'s stages; else the encoder runs as it is."""
+
+    def __init__(self, cfg, encoder, head: torch.Tensor, pp: bool):
+        from avsl_tpu_torch.core.pipeline import StackedBlocks
+        from avsl_tpu_torch.train import split_whisper_encoder_params
+
+        super().__init__()
+        self.cfg = cfg
+        self.head = torch.nn.Parameter(head)
+        if pp:
+            stacked, stem = split_whisper_encoder_params(encoder, cfg.n_audio_layer)
+            self.stem = torch.nn.ModuleDict({k: getattr(encoder, k) for k in sorted(stem)})
+            self.blocks = StackedBlocks(encoder.blocks[0], stacked)
+        else:
+            self.encoder = encoder
+
+    def features(self, mel, mesh=None, n_microbatches: int = 1):
+        from avsl_tpu_torch.train import whisper_encoder_pp_forward
+
+        if not hasattr(self, "blocks"):
+            return self.encoder(mel)
+        stem = {k: dict(m.named_parameters()) for k, m in self.stem.items()}
+        return whisper_encoder_pp_forward(self.cfg, stem, self.blocks, mel, mesh=mesh,
+                                          n_microbatches=n_microbatches)
+
+    def forward(self, mel, mesh=None, n_microbatches: int = 1):
+        return self.features(mel, mesh, n_microbatches).float().mean(1) @ self.head
+
+
+def unpipelined_names(named: dict) -> dict:
+    """A pipelined ``EncoderClassifier``'s tensors under the unpipelined
+    one's names, each stacked block tensor split into its layers."""
+    out = {}
+    for name, t in named.items():
+        if name.startswith("blocks."):
+            out.update({f"encoder.blocks.{i}.{name[7:]}": t[i] for i in range(t.shape[0])})
+        else:
+            out[name.replace("stem.", "encoder.", 1)] = t
+    return out
+
+
+def chunked_encoder(enc, mel, n_chunks: int):
+    """``WhisperEncoder``'s forward with its blocks run on ``n_chunks``
+    row chunks in turn: the stem and ``ln_post`` on the whole batch, as
+    the pipelined forward runs them."""
+    import torch.nn.functional as F
+
+    x = F.gelu(enc.conv1(mel.to(enc.conv1.compute_dtype)))
+    x = F.gelu(enc.conv2(x)).transpose(1, 2)
+    x = x + enc.positional_embedding[: x.shape[1]]
+    parts = []
+    for h in x.split(x.shape[0] // n_chunks):
+        for block in enc.blocks:
+            h, _ = block(h)
+        parts.append(h)
+    return enc.ln_post(torch.cat(parts))
+
+
+def phase_pp_whisper_main_path(card: str) -> dict:
+    """Pipeline parallelism (``core/pipeline.py``, ``train/pp.py``) at
+    large-v2's encoder widths (32 blocks of 1280, 20 heads, 1500 frames,
+    bf16 compute on fp32 weights, seeded random weights) in a process
+    group of one rank over NCCL, on ``make_pp_mesh(1, stages=1)``: the
+    card holds one H100, so a stage axis above 1 runs only on gloo ranks
+    (``mesh_cpu_ranks``). (1) ``whisper_encoder_pp_forward`` on PP_BATCH
+    items of 30 s in PP_MICRO microbatches: bit-equal to the unpipelined
+    blocks run on the same row chunks (:func:`chunked_encoder`), within
+    BF16_TOL of the whole-batch encoder, 32 K1 a microbatch. (2) The
+    encoder with a pooled [1280, 51865] head (:class:`EncoderClassifier`)
+    through ``shard_pp_state``, ``ClippedAdamW`` and ``make_train_step``,
+    PP_STEPS steps at batch PP_TRAIN_BATCH in PP_TRAIN_MICRO microbatches
+    against the unpipelined step on the same weights, under
+    ``torch.use_deterministic_algorithms``: every loss within PP_LOSS_RTOL,
+    step 1's gradients within a relative L2 of PP_GRAD_REL_L2 per tensor,
+    32 K1 and 32 K2 a microbatch (the schedule keeps each microbatch's
+    graph, so the backward recomputes nothing). (3) ``save_checkpoint`` of
+    the pp state read back into the unpipelined model: the same tensors.
+    Every launch shape is held against the plain version. Logs seconds a
+    step (median of steps 2-3, both variants), peak memory and a traced
+    step's idle share."""
+    import copy
+    import os
+
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    from avsl_tpu_torch.core.pipeline import make_pp_mesh
+    from avsl_tpu_torch.kernels import attention
+    from avsl_tpu_torch.models import build_whisper_flamingo
+    from avsl_tpu_torch.train import TrainState, make_train_step, shard_pp_state
+    from avsl_tpu_torch.train.checkpoints import save_checkpoint
+    from avsl_tpu_torch.train.optim import ClippedAdamW
+
+    t0 = time.perf_counter()
+    model, cfg = build_whisper_flamingo("large-v2", add_gated_x_attn=0,
+                                        use_av_hubert_encoder=False, dtype="bfloat16",
+                                        param_dtype="float32", device="cuda", seed=7)
+    enc = model.encoder
+    del model
+    free_cuda()
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    head = 0.02 * torch.randn(cfg.n_audio_state, LARGE_V2_VOCAB, device="cuda", generator=gen)
+    base = EncoderClassifier(cfg, copy.deepcopy(enc), head.clone(), pp=False)
+    pp = EncoderClassifier(cfg, enc, head, pp=True)
+    del enc, head
+    free_cuda()
+    build_s = time.perf_counter() - t0
+    layers = cfg.n_audio_layer
+    mel = torch.randn(PP_BATCH, cfg.n_mels, 2 * cfg.n_audio_ctx, device="cuda", generator=gen)
+    labels = torch.randint(0, LARGE_V2_VOCAB, (PP_STEPS, PP_TRAIN_BATCH), device="cuda",
+                           generator=gen)
+    train_mel = torch.randn(PP_STEPS, PP_TRAIN_BATCH, cfg.n_mels, 2 * cfg.n_audio_ctx,
+                            device="cuda", generator=gen)
+    rec = {"phase": "pp_whisper_main_path", "card": card, "layers": layers,
+           "width": cfg.n_audio_state, "heads": cfg.n_audio_head,
+           "frames": cfg.n_audio_ctx, "build_seconds": build_s,
+           "params": sum(p.numel() for p in pp.parameters())}
+    seen: dict = {}
+    cudnn_deterministic = torch.backends.cudnn.deterministic
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method="file://" + os.path.join(tmp, "rendezvous"),
+                                rank=0, world_size=1)
+        torch.backends.cudnn.deterministic = True
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            mesh = make_pp_mesh(1, stages=1)
+            rec["mesh"] = dict(mesh.shape)
+            with torch.no_grad():
+                with launch_shapes(seen):
+                    pp_out, fwd_s, fwd_k1, _, fwd_k2 = run_counted(
+                        lambda: pp.features(mel, mesh, PP_MICRO))
+                chunked = chunked_encoder(base.encoder, mel, PP_MICRO)
+                whole = base.encoder(mel)
+            torch.cuda.synchronize()
+            rec["forward"] = {
+                "batch": PP_BATCH, "microbatches": PP_MICRO, "seconds": fwd_s, "k1": fwd_k1,
+                "k2": fwd_k2, "bit_equal_to_chunked": bool(torch.equal(pp_out, chunked)),
+                "max_abs_diff_chunked": float((pp_out.float() - chunked.float()).abs().max()),
+                "max_abs_err_whole": float((pp_out.float() - whole.float()).abs().max()),
+                "finite": bool(torch.isfinite(pp_out).all())}
+            fwd_ok = torch.allclose(pp_out.float(), whole.float(), **BF16_TOL)
+            del pp_out, chunked, whole
+            if not (rec["forward"]["bit_equal_to_chunked"] and fwd_ok and rec["forward"]["finite"]
+                    and fwd_k1 == layers * PP_MICRO and fwd_k2 == 0):
+                raise AssertionError(f"pp_whisper_main_path forward: {rec['forward']}")
+
+            def loss_of(m):  # the unpipelined encoder ignores the mesh
+                def loss_fn(batch, _gen):
+                    return F.cross_entropy(m(batch["mel"], mesh, PP_TRAIN_MICRO),
+                                           batch["labels"]), {}
+                return loss_fn
+
+            variants, grads = {}, {}
+            for name, m in (("pp", pp), ("unpipelined", base)):
+                opt = ClippedAdamW(dict(m.named_parameters()), lambda c: PP_LR)
+                state = TrainState.create(m, opt)
+                if name == "pp":
+                    shard_pp_state(state, mesh)
+                step = make_train_step(loss_of(m), mesh=mesh if name == "pp" else None)
+                inner = opt.step
+
+                def capture(g, norm=None, inner=inner, name=name, opt=opt):
+                    if name not in grads:  # step 1's gradients, before the clip
+                        grads[name] = {n: t.detach().clone() for n, t in zip(opt.names, g)}
+                    return inner(g, norm)
+
+                opt.step = capture
+                torch.cuda.reset_peak_memory_stats()
+                attention.fused_attention.launches = attention.fused_attention_bwd.launches = 0
+                steps = []
+                for i in range(PP_STEPS):
+                    batch = {"mel": train_mel[i], "labels": labels[i]}
+                    k1 = attention.fused_attention.launches
+                    k2 = attention.fused_attention_bwd.launches
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    with launch_shapes(seen) if name == "pp" else contextlib.nullcontext():
+                        state, metrics = step(state, batch)
+                        loss, norm = float(metrics["loss"]), float(metrics["grad_norm"])
+                    torch.cuda.synchronize()
+                    steps.append({"seconds": time.perf_counter() - t, "loss": loss,
+                                  "grad_norm": norm,
+                                  "k1": attention.fused_attention.launches - k1,
+                                  "k2": attention.fused_attention_bwd.launches - k2})
+                opt.step = inner
+                totals = (attention.fused_attention.launches,
+                          attention.fused_attention_bwd.launches)
+                variants[name] = {"k1": totals[0], "k2": totals[1],
+                    "steps": steps, "seconds_per_step_median_2_3": statistics.median(
+                        [s["seconds"] for s in steps[1:]]),
+                    "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+                if name == "pp":
+                    pp_state, pp_step = state, step
+            rec["train"] = variants
+            pp_steps, base_steps = variants["pp"]["steps"], variants["unpipelined"]["steps"]
+            loss_rel = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                        for a, b in zip(pp_steps, base_steps)]
+            pp_grads = unpipelined_names(grads["pp"])
+            grad_rel = {n: float((pp_grads[n].float() - g.float()).norm()
+                                 / g.float().norm().clamp_min(1e-30))
+                        for n, g in grads["unpipelined"].items()}
+            del grads, pp_grads
+            worst = max(grad_rel, key=grad_rel.get)
+            rec["loss_rel_err"] = loss_rel
+            rec["grad_rel_l2_worst"] = {"tensor": worst, "value": grad_rel[worst],
+                                        "tensors": len(grad_rel)}
+            per_step = [(s["k1"], s["k2"]) for s in pp_steps]
+            if (max(loss_rel) > PP_LOSS_RTOL or grad_rel[worst] > PP_GRAD_REL_L2
+                    or set(grad_rel) != set(unpipelined_names(dict(pp.named_parameters())))
+                    or per_step != [(layers * PP_TRAIN_MICRO,) * 2] * PP_STEPS
+                    or not all(math.isfinite(s["loss"]) for s in pp_steps)):
+                raise AssertionError(f"pp_whisper_main_path train: losses {loss_rel}, gradient "
+                                     f"{worst} {grad_rel[worst]}, K1/K2 a step {per_step}")
+
+            def one_step():
+                nonlocal pp_state
+                pp_state, metrics = pp_step(pp_state, {"mel": train_mel[0], "labels": labels[0]})
+                float(metrics["loss"])
+
+            rec["traced_step"] = traced_run(one_step)
+
+            ckpt = os.path.join(tmp, "ckpt")
+            t = time.perf_counter()
+            path = save_checkpoint(ckpt, pp_state, pp_state.step)
+            rec["checkpoint_save_s"] = time.perf_counter() - t
+            rec["checkpoint_bytes"] = os.path.getsize(path)
+            saved = torch.load(path, map_location="cuda", weights_only=True)["model"]
+            os.remove(path)
+            logical = unpipelined_names(saved)
+            own = base.state_dict()
+            missing = sorted(set(own) - set(logical) - {"encoder.positional_embedding"})
+            base.load_state_dict({**logical, "encoder.positional_embedding":
+                                  own["encoder.positional_embedding"]})
+            named = unpipelined_names(dict(pp.named_parameters()))
+            differ = [n for n, p in base.named_parameters() if not torch.equal(p, named[n])]
+            rec["checkpoint_round_trip"] = {"missing": missing, "differing": differ[:5],
+                                            "tensors": len(named)}
+            del saved, logical
+            if missing or differ:
+                raise AssertionError(f"pp_whisper_main_path checkpoint: {missing[:3]} {differ[:3]}")
+        finally:
+            torch.use_deterministic_algorithms(False)
+            torch.backends.cudnn.deterministic = cudnn_deterministic
+            dist.destroy_process_group()
+    rec["launch_shapes"] = check_launch_shapes(seen)
+    log(rec)
+    return {"forward": fwd_k1, "train_k1": variants["pp"]["k1"],
+            "train_k2": variants["pp"]["k2"]}
+
+
 def free_cuda() -> None:
     gc.collect()
     torch.cuda.empty_cache()
@@ -5771,8 +6070,48 @@ def _mesh_cpu_serve(state_path: str, items, mp) -> list:
     return [(r.id, list(r.tokens), r.avg_logprob) for r in tr.transcribe(items)]
 
 
+def _mesh_cpu_pp(state_path: str, mel, labels, stages) -> dict:
+    """The tiny fp32 Whisper encoder of ``state_path`` with its pooled head
+    (:class:`EncoderClassifier`) on ``make_pp_mesh(2, stages)`` (None: one
+    process, unpipelined): its features on ``mel[0]``, then 2 train steps
+    on ``(mel[i], labels[i])`` (``ClippedAdamW`` at MESH_CPU_MOE_LR), each
+    in 2 microbatches: the features, losses and trained tensors whole,
+    under the unpipelined names."""
+    import torch.nn.functional as F
+
+    from avsl_tpu_torch.core.config import WhisperConfig
+    from avsl_tpu_torch.core.pipeline import make_pp_mesh
+    from avsl_tpu_torch.models.whisper import WhisperEncoder
+    from avsl_tpu_torch.train import TrainState, make_train_step, shard_pp_state
+    from avsl_tpu_torch.train.optim import ClippedAdamW
+
+    cfg = WhisperConfig.tiny_test(dtype="float32", param_dtype="float32")
+    saved = torch.load(state_path, weights_only=True)
+    enc = WhisperEncoder(cfg, device="cpu")
+    enc.load_state_dict({k[len("encoder."):]: v for k, v in saved.items() if k != "head"})
+    model = EncoderClassifier(cfg, enc, saved["head"], pp=stages is not None)
+    mesh = None if stages is None else make_pp_mesh(2, stages=stages)
+    with torch.no_grad():
+        features = model.features(torch.from_numpy(mel[0]), mesh, 2).numpy()
+    opt = ClippedAdamW(dict(model.named_parameters()), lambda count: MESH_CPU_MOE_LR)
+    state = TrainState.create(model, opt)
+    if mesh is not None:
+        shard_pp_state(state, mesh)
+    step = make_train_step(lambda b, _gen: (F.cross_entropy(model(b["mel"], mesh, 2),
+                                                            b["labels"]), {}), mesh=mesh)
+    losses = []
+    for i in range(len(mel)):
+        state, metrics = step(state, {"mel": mel[i], "labels": labels[i]})
+        losses.append(float(metrics["loss"]))
+    whole = {n: (p.detach() if state.layout is None else state.layout.full(n, p))
+             for n, p in model.named_parameters()}
+    return {"features": features, "loss": losses,
+            "trained": {n: t.numpy().copy() for n, t in unpipelined_names(whole).items()},
+            "split": [] if state.layout is None else sorted(state.layout.tp)}
+
+
 def _mesh_cpu_rank(rank: int, init_file: str, queue, state_path: str, batch, serve_path: str,
-                   items, moe_path: str, moe_rows) -> None:
+                   items, moe_path: str, moe_rows, pp_case) -> None:
     """One gloo rank of ``phase_mesh_cpu_ranks`` (spawned; CPU only)."""
     import traceback
 
@@ -5789,6 +6128,7 @@ def _mesh_cpu_rank(rank: int, init_file: str, queue, state_path: str, batch, ser
                             for name, mp in MESH_CPU_SERVE.items()}
             out["moe"] = {name: _mesh_cpu_moe(moe_path, moe_rows, ep)
                           for name, ep in MESH_CPU_MOE.items()}
+            out["pp"] = _mesh_cpu_pp(*pp_case, MESH_CPU_STAGES)
             queue.put((rank, out))
         finally:
             dist.destroy_process_group()
@@ -5817,7 +6157,10 @@ def phase_mesh_cpu_ranks(card: str) -> dict:
     (MESH_CPU_TOL; the key biases MESH_CPU_KEY_BIAS_ATOL), and ``-m
     avsl_tpu_torch.cli.pretrain --smoke --device cpu --n_experts 4
     --experts_parallel 2`` under the launcher (rc 0, one printed result,
-    its ``mesh`` ``{"data": 1, "expert": 2}``)."""
+    its ``mesh`` ``{"data": 1, "expert": 2}``). Pipeline parallelism: the
+    tiny encoder with a pooled head (:class:`EncoderClassifier`) over the
+    2 ranks as MESH_CPU_STAGES stages, its features and 2 steps equal to
+    one process's unpipelined run (MESH_CPU_TOL)."""
     import json as json_mod
     import multiprocessing as mp
     import os
@@ -5848,6 +6191,8 @@ def phase_mesh_cpu_ranks(card: str) -> dict:
                                        moe_capacity_factor=MESH_CPU_MOE_CF)
     av_rows = make_synthetic_av_batchset(8, image=24, vocab=moe_cfg.vocab_size, seed=5)
     moe_rows = [collate_av(av_rows[i:i + 4], moe_cfg.pad_token_id) for i in (0, 4)]
+    pp_mel = rng.normal(size=(2, 4, w_cfg.n_mels, 100)).astype(np.float32)
+    pp_labels = rng.integers(0, 16, size=(2, 4))
     with tempfile.TemporaryDirectory() as tmp:
         # the launchers' ranks run beside the spawned ones (their TCP
         # stores on free localhost ports, the spawned ranks' a file)
@@ -5895,12 +6240,22 @@ def phase_mesh_cpu_ranks(card: str) -> dict:
             set_gates(model, GATE)
             serve_path = os.path.join(tmp, "serve_state.pt")
             torch.save(model.state_dict(), serve_path)
+            model, _ = build_whisper_flamingo("test", add_gated_x_attn=0,
+                                              use_av_hubert_encoder=False, dtype="float32",
+                                              param_dtype="float32", device="cpu", seed=9)
+            pp_path = os.path.join(tmp, "pp_state.pt")
+            torch.save({**{f"encoder.{k}": v for k, v in model.encoder.state_dict().items()},
+                        "head": 0.1 * torch.randn(w_cfg.n_audio_state, 16,
+                                                  generator=torch.Generator().manual_seed(9))},
+                       pp_path)
+            pp_case = (pp_path, pp_mel, pp_labels)
             del model
             ctx = mp.get_context("spawn")
             queue = ctx.Queue()
             procs = [ctx.Process(target=_mesh_cpu_rank, daemon=True,
                                  args=(r, os.path.join(tmp, "rendezvous"), queue, state_path,
-                                       batch, serve_path, items, moe_path, moe_rows))
+                                       batch, serve_path, items, moe_path, moe_rows,
+                                       pp_case))
                      for r in range(2)]
             for p in procs:
                 p.start()
@@ -5910,6 +6265,7 @@ def phase_mesh_cpu_ranks(card: str) -> dict:
                 single = _mesh_cpu_train(state_path, batch, None)
                 single_served = _mesh_cpu_serve(serve_path, items, None)
                 single_moe = _mesh_cpu_moe(moe_path, moe_rows, None)
+                single_pp = _mesh_cpu_pp(*pp_case, None)
             finally:
                 torch.set_num_threads(threads)
             ranks = dict(queue.get(timeout=300) for _ in procs)
@@ -5978,6 +6334,20 @@ def phase_mesh_cpu_ranks(card: str) -> dict:
             moe_worst[name] = max(float(np.abs(ranks[r]["moe"][name]["trained"][n] - w).max())
                                   for r in (0, 1) for n, w in single_moe["trained"].items()
                                   if not n.endswith("k_proj.bias"))
+        for r in (0, 1):
+            got, what = ranks[r]["pp"], f"pp stage rank {r}"
+            np.testing.assert_allclose(got["features"], single_pp["features"], **MESH_CPU_TOL,
+                                       err_msg=f"{what} features")
+            np.testing.assert_allclose(got["loss"], single_pp["loss"], **MESH_CPU_TOL,
+                                       err_msg=f"{what} loss")
+            assert sorted(got["trained"]) == sorted(single_pp["trained"]), what
+            for n, w in single_pp["trained"].items():
+                np.testing.assert_allclose(got["trained"][n], w, **MESH_CPU_TOL,
+                                           err_msg=f"{what} {n}")
+            if not got["split"] or not all(n.startswith("blocks.") for n in got["split"]):
+                raise AssertionError(f"mesh_cpu_ranks: {what} split {got['split']}")
+        pp_worst = max(float(np.abs(ranks[r]["pp"]["trained"][n] - w).max())
+                       for r in (0, 1) for n, w in single_pp["trained"].items())
         if ranks[0]["moe"]["dp2_ep1"]["split"] or not ranks[0]["moe"]["dp1_ep2"]["split"]:
             raise AssertionError("mesh_cpu_ranks: the expert leaves split "
                                  f"{ranks[0]['moe']['dp1_ep2']['split']}")
@@ -6013,7 +6383,10 @@ def phase_mesh_cpu_ranks(card: str) -> dict:
                  "eval_loss_single": single_moe["eval_loss"],
                  "expert_leaves_split": len(ranks[0]["moe"]["dp1_ep2"]["split"]),
                  "trained_max_abs_diff": moe_worst},
-         "pretrain_cli": pre_printed[0]})
+         "pretrain_cli": pre_printed[0],
+         "pp": {"stages": MESH_CPU_STAGES, "loss_single": single_pp["loss"],
+                "stage_leaves_split": len(ranks[0]["pp"]["split"]),
+                "trained_max_abs_diff": pp_worst}})
     return worst
 
 
@@ -6118,6 +6491,8 @@ def main() -> int:
         mesh_launches = timed("mesh_train_main_path", phase_mesh_train_main_path, smi, fl_cfg,
                               fl_tokenizer, fl_batches, out_dir)
         free()
+        pp_launches = timed("pp_whisper_main_path", phase_pp_whisper_main_path, smi)
+        free()
         timed("mesh_cpu_ranks", phase_mesh_cpu_ranks, smi)
         timed("multisteps_small", phase_multisteps_small, out_dir)
         job, dataset_launches = timed("flamingo_dataset_train", phase_flamingo_dataset_train,
@@ -6201,6 +6576,8 @@ def main() -> int:
                "pretrain_moe_eval": pre_moe["eval"][0],
                "pretrain_moe_relabel": pre_moe["relabel"][0],
                "ep_avhubert_training": ep_launches["k1"],
+               "pp_whisper_forward": pp_launches["forward"],
+               "pp_whisper_training": pp_launches["train_k1"],
                **{name: counts[0] for name, counts in pre_smoke.items()},
                "avh_extract": avh_tools["extract"],
                "avh_extract_layer12": avh_tools["extract_layer12"],
@@ -6232,6 +6609,7 @@ def main() -> int:
                "pretrain_moe_eval": pre_moe["eval"][1],
                "pretrain_moe_relabel": pre_moe["relabel"][1],
                "ep_avhubert_training": ep_launches["k2"],
+               "pp_whisper_forward": 0, "pp_whisper_training": pp_launches["train_k2"],
                **{name: counts[1] for name, counts in pre_smoke.items()},
                "avh_extract": 0, "avh_extract_layer12": 0, "avh_align": 0,
                "avh_tools_tiny": 0, "doctor_probe": 0}),

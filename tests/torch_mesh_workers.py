@@ -762,3 +762,149 @@ def ep_state_ranks(rank, world, path, batches, ckpt):
         out[label] = (all(torch.equal(whole[n], saved["model"][n]) for n in whole)
                       and all(torch.equal(m, s) for m, s in zip(mu, saved["optimizer"]["mu"])))
     return out
+
+
+# ---------------------------------------------------------------------------
+# pipeline parallelism (core/pipeline.py, train/pp.py)
+# ---------------------------------------------------------------------------
+
+
+def pp_stack(stacked: dict, heads: int):
+    """A ``StackedBlocks`` of fp32 Whisper blocks over the numpy ``[L, ...]``
+    arrays ``stacked`` (port keys), ``heads`` attention heads."""
+    from avsl_tpu_torch.core.pipeline import StackedBlocks
+    from avsl_tpu_torch.models.layers import TransformerBlock
+
+    d, ff = stacked["attn_ln.weight"].shape[1], stacked["mlp.0.weight"].shape[1]
+    block = TransformerBlock(d, heads, ff, dtype=torch.float32, param_dtype=torch.float32,
+                             device="meta")
+    return StackedBlocks(block, {k: torch.from_numpy(v.copy()) for k, v in stacked.items()})
+
+
+def _data_rows(mesh, a):
+    """This data rank's rows of the numpy array ``a`` as a tensor."""
+    n = a.shape[0] // mesh.shape["data"]
+    return torch.from_numpy(a[mesh.data_rank * n:(mesh.data_rank + 1) * n].copy())
+
+
+def pp_schedule_ranks(rank, world, cases):
+    """Each case of ``cases`` (``stages``, ``micro``, ``stacked``, ``heads``,
+    ``x``, optional ``mask`` and ``grad``) through ``pipeline_apply`` on
+    ``make_pp_mesh(world, stages)``, each data rank on its rows of ``x``:
+    the output and, with ``grad``, the gradients of the stacked tensors
+    (whole; zero outside this stage's rows) and of ``x`` under
+    ``mean(y ** 2)``."""
+    from avsl_tpu_torch.core.pipeline import make_pp_mesh, pipeline_apply
+
+    out = []
+    for case in cases:
+        mesh = make_pp_mesh(world, stages=case["stages"])
+        blocks = pp_stack(case["stacked"], case["heads"])
+        x = _data_rows(mesh, case["x"]).requires_grad_(bool(case.get("grad")))
+        extras = None if case.get("mask") is None else {"self_mask": _data_rows(mesh, case["mask"])}
+        y = pipeline_apply(blocks.block_fn, blocks, x, mesh=mesh,
+                           n_microbatches=case["micro"], extras=extras)
+        rec = {"y": y.detach().numpy(), "data_rank": mesh.data_rank,
+               "stage_rank": mesh.stage_rank}
+        if case.get("grad"):
+            (y ** 2).mean().backward()
+            rec["grads"] = {k: p.grad.numpy() for k, p in blocks.named_parameters()}
+            rec["gx"] = x.grad.numpy()
+        out.append(rec)
+    return out
+
+
+class PPSandwich(torch.nn.Module):
+    """JAX's ``tests/test_pp_train.py::_sandwich``: an ``embed`` table, the
+    stacked blocks pipelined over ``mesh``, a mean-pooled ``head``."""
+
+    def __init__(self, state: dict, heads: int):
+        super().__init__()
+        self.embed = torch.nn.Parameter(torch.from_numpy(state["embed"].copy()))
+        self.head = torch.nn.Parameter(torch.from_numpy(state["head"].copy()))
+        self.blocks = pp_stack({k[len("blocks."):]: v for k, v in state.items()
+                                if k.startswith("blocks.")}, heads)
+
+    def forward(self, tokens, mesh, n_microbatches: int):
+        from avsl_tpu_torch.core.pipeline import pipeline_apply
+
+        h = pipeline_apply(self.blocks.block_fn, self.blocks, self.embed[tokens], mesh=mesh,
+                           n_microbatches=n_microbatches)
+        return h.mean(1) @ self.head
+
+
+def pp_train(state: dict, heads: int, batch: dict, mesh, lr: float, steps: int, ckpt_dir=None):
+    """The sandwich of ``state`` trained ``steps`` steps on ``batch`` with
+    ``constant_adamw(lr, weight_decay=0)`` (no clip) through
+    ``make_train_step`` on the stage mesh ``mesh``, its state placed by
+    ``shard_pp_state``: losses, grad norms, the tensors whole, this rank's
+    local shapes of the tensors and of their moments (and their rows
+    against the whole), and, with ``ckpt_dir``, a checkpoint written there
+    after the steps."""
+    import torch.nn.functional as F
+
+    from avsl_tpu_torch.train import TrainState, make_train_step, shard_pp_state
+    from avsl_tpu_torch.train.checkpoints import save_checkpoint
+    from avsl_tpu_torch.train.optim import constant_adamw
+
+    model = PPSandwich(state, heads)
+    opt = constant_adamw(dict(model.named_parameters()), lr, weight_decay=0.0)
+    train = shard_pp_state(TrainState.create(model, opt), mesh)
+
+    def loss_fn(b, _gen):
+        return F.cross_entropy(model(b["tokens"], mesh, 2), b["labels"]), {}
+
+    step = make_train_step(loss_fn, mesh=mesh)
+    losses, norms = [], []
+    for _ in range(steps):
+        train, m = step(train, batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    layout = train.layout
+    named = dict(model.named_parameters())
+    whole = {n: layout.full(n, p).numpy() for n, p in named.items()}
+    moments = {n: layout.full(n, mu, moment=True).numpy() for n, mu in zip(opt.names, opt.mu)}
+    first, count = model.blocks.rows
+
+    def rows(name, full):  # this stage's rows of a whole block tensor
+        return full[first:first + count] if name.startswith("blocks.") else full
+
+    local = {n: {"shape": tuple(p.shape), "mu_shape": tuple(mu.shape),
+                 "rows_equal": bool(np.array_equal(p.detach().numpy(), rows(n, whole[n]))
+                                    and np.array_equal(mu.numpy(), rows(n, moments[n])))}
+             for (n, p), mu in zip(named.items(), opt.mu)}
+    if ckpt_dir is not None:
+        save_checkpoint(ckpt_dir, train, train.step)
+    return {"loss": losses, "grad_norm": norms, "whole": whole, "local": local,
+            "split": sorted(layout.tp), "rows": model.blocks.rows}
+
+
+def pp_encoder(state_path: str, cfg_kw: dict, mel, mesh, n_microbatches: int) -> dict:
+    """The port's Whisper encoder of ``state_path`` split by
+    ``split_whisper_encoder_params`` and run by
+    ``whisper_encoder_pp_forward`` on this data rank's rows of ``mel``."""
+    from avsl_tpu_torch.core.config import WhisperConfig
+    from avsl_tpu_torch.models.whisper import WhisperEncoder
+    from avsl_tpu_torch.train import split_whisper_encoder_params, whisper_encoder_pp_forward
+
+    cfg = WhisperConfig(**cfg_kw)
+    enc = WhisperEncoder(cfg, device="cpu")
+    enc.load_state_dict(torch.load(state_path, weights_only=True))
+    stacked, stem = split_whisper_encoder_params(enc, cfg.n_audio_layer)
+    with torch.no_grad():
+        y = whisper_encoder_pp_forward(cfg, stem, stacked, _data_rows(mesh, mel), mesh=mesh,
+                                       n_microbatches=n_microbatches)
+    return {"y": y.numpy(), "stem": sorted(stem)}
+
+
+def pp_train_ranks(rank, world, heads, enc_case, step_case, learn_case, ckpt_dir):
+    """On ``make_pp_mesh(world, stages=2)``: the encoder case, one step of
+    the sandwich (its checkpoint in ``ckpt_dir``) and the learning run."""
+    from avsl_tpu_torch.core.pipeline import make_pp_mesh
+
+    mesh = make_pp_mesh(world, stages=2)
+    return {"mesh": dict(mesh.shape), "data_rank": mesh.data_rank,
+            "stage_rank": mesh.stage_rank,
+            "encoder": pp_encoder(*enc_case, mesh, 2),
+            "step": pp_train(*step_case, mesh, lr=1e-2, steps=1, ckpt_dir=ckpt_dir),
+            "learn": pp_train(*learn_case, mesh, lr=3e-2, steps=5)}
