@@ -42,6 +42,8 @@ from typing import Any, Dict, Iterator, List, Optional
 
 import numpy as np
 
+from avsl_tpu_torch.utils.spans import span
+
 
 def make_synthetic_av_batchset(
     n: int, t: int = 24, feat_dim: int = 104, image: int = 24, vocab: int = 59,
@@ -69,6 +71,11 @@ def collate_av(rows, pad_id: int, max_label_len: int = 16) -> Dict[str, np.ndarr
     with ``padding_mask`` (True = a real frame); labels EOS-terminated (id
     2), padded with -100 and cut to ``max_label_len``; ``dec_input_ids``
     the BOS-prefixed (id 0) labels shifted right, padded with ``pad_id``."""
+    with span("data.batch"):
+        return _collate_av(rows, pad_id, max_label_len)
+
+
+def _collate_av(rows, pad_id: int, max_label_len: int) -> Dict[str, np.ndarray]:
     b = len(rows)
     t = max(len(r["audio_feats"]) for r in rows)
     feat_dim = rows[0]["audio_feats"].shape[1]

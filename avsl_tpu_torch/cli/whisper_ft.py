@@ -36,6 +36,8 @@ from typing import Any, Dict, Iterator, List, Optional
 import numpy as np
 import torch
 
+from avsl_tpu_torch.utils.spans import span
+
 
 def build_model(cfg, tokenizer, device, smoke: bool = False,
                 vocab_size: Optional[int] = None, seed: int = 0):
@@ -74,7 +76,9 @@ def batches(ds, collator, bs: int, shuffle: bool, epoch: int = 0) -> Iterator[Di
     if shuffle:
         order = np.random.default_rng(epoch).permutation(order)
     for i in range(0, len(order) - bs + 1, bs):
-        yield collator([ds[int(j)] for j in order[i: i + bs]])
+        with span("data.batch"):
+            batch = collator([ds[int(j)] for j in order[i: i + bs]])
+        yield batch
 
 
 def make_runner(cfg, model, tokenizer, output_dir: str, seed: int = 0):

@@ -19,6 +19,8 @@ from typing import Any, Dict, Iterator, Optional, Union
 import numpy as np
 import torch
 
+from avsl_tpu_torch.utils.spans import count, span
+
 
 class _End:
     pass
@@ -61,12 +63,14 @@ def prefetch_to_device(
         sharded = None
         if mesh is not None:
             batch, sharded = host_rows(mesh, batch)
+        batch = {k: host(v) for k, v in batch.items()}
+        count("h2d_bytes", sum(t.nbytes for t in batch.values()))
         if not cuda:
-            out, done = {k: host(v).to(device) for k, v in batch.items()}, None
+            out, done = {k: t.to(device) for k, t in batch.items()}, None
         else:
             with torch.cuda.stream(copy_stream):
-                out = {k: host(v).pin_memory().to(device, non_blocking=True)
-                       for k, v in batch.items()}
+                out = {k: t.pin_memory().to(device, non_blocking=True)
+                       for k, t in batch.items()}
                 done = torch.cuda.Event()
                 done.record(copy_stream)
         return (out if sharded is None else ShardedBatch(out, sharded, 0)), done
@@ -95,7 +99,8 @@ def prefetch_to_device(
     threading.Thread(target=producer, daemon=True).start()
     try:
         while True:
-            item = q.get()
+            with span("data.wait"):
+                item = q.get()
             if isinstance(item, _End):
                 return
             if isinstance(item, _Err):

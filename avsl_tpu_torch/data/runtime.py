@@ -26,6 +26,7 @@ from avsl_tpu_torch.data.audio_segments import add_noise, load_wav, pcm_to_float
 from avsl_tpu_torch.data.batching import LengthBucketBatcher
 from avsl_tpu_torch.data.tokenizer import Tokenizer
 from avsl_tpu_torch.decode.text_norm import normalize_text
+from avsl_tpu_torch.utils.spans import span
 
 
 def _extract_audio(item: Dict[str, Any], target_sr: int = 16000) -> np.ndarray:
@@ -314,5 +315,8 @@ def make_bucketed_loader(
     lengths = [max(dataset.audio_length(i) // 160, 1) for i in range(len(dataset))]
     batcher = LengthBucketBatcher(lengths, batch_bins, num_shards=num_shards)
     for idx, padded_frames in batcher.batches(shuffle=shuffle, epoch=epoch):
-        items = [dataset[int(i)] for i in idx]
-        yield collator(items, video_pad_len=max(int(np.ceil(padded_frames * fps / 100.0)), 1))
+        with span("data.batch"):
+            items = [dataset[int(i)] for i in idx]
+            batch = collator(items,
+                             video_pad_len=max(int(np.ceil(padded_frames * fps / 100.0)), 1))
+        yield batch

@@ -25,6 +25,7 @@ import torch
 
 from avsl_tpu_torch.core.mesh import draw_rows
 from avsl_tpu_torch.decode.biasing import bias_adjust, bias_advance
+from avsl_tpu_torch.utils.spans import span
 
 # step_fn(tokens [B, L], cache) -> (logits [B, L, V], cache)
 StepFn = Callable
@@ -54,32 +55,41 @@ def gumbel_noise(generator: torch.Generator, shape, device) -> torch.Tensor:
 
 def _decode_loop(step_fn, cache, init_tokens, max_new_tokens, eot_id, pick, biasing):
     """The shared loop: ``pick(last fp32 logits [B, V], state) -> (tokens,
-    scores or None)``; ``state`` is the biasing state (None without)."""
-    logits, cache = step_fn(init_tokens, cache)
-    b = logits.shape[0]
-    device = logits.device
-    state = None if biasing is None else torch.zeros((b,), dtype=torch.int64, device=device)
-    first, ssum = pick(logits[:, -1].float(), state)
-    if biasing is not None:
-        state = bias_advance(biasing, state, first)
-    scored = ssum is not None
-    cnt = torch.ones((b,), dtype=torch.float32, device=device)
-    finished = first == eot_id
-    out = torch.full((b, max_new_tokens), eot_id, dtype=first.dtype, device=device)
-    out[:, 0] = first
-    tok, i = first, 1
-    while i < max_new_tokens and not bool(finished.all()):
-        logits, cache = step_fn(tok[:, None], cache)
-        nxt, s = pick(logits[:, -1].float(), state)
-        nxt = torch.where(finished, eot_id, nxt)
+    scores or None)``; ``state`` is the biasing state (None without). Spans:
+    ``decode.prefill`` (the prompt step and first pick), ``decode.step``
+    (each later step) and ``decode.sync`` (the host's read of whether every
+    row has finished, skipped once ``max_new_tokens`` are out)."""
+    with span("decode.prefill"):
+        logits, cache = step_fn(init_tokens, cache)
+        b = logits.shape[0]
+        device = logits.device
+        state = None if biasing is None else torch.zeros((b,), dtype=torch.int64, device=device)
+        first, ssum = pick(logits[:, -1].float(), state)
         if biasing is not None:
-            state = bias_advance(biasing, state, nxt)
-        if scored:
-            ssum = ssum + torch.where(finished, 0.0, s)
-            cnt = cnt + torch.where(finished, 0.0, 1.0)
-        finished = finished | (nxt == eot_id)
-        out[:, i] = nxt
-        tok, i = nxt, i + 1
+            state = bias_advance(biasing, state, first)
+        scored = ssum is not None
+        cnt = torch.ones((b,), dtype=torch.float32, device=device)
+        finished = first == eot_id
+        out = torch.full((b, max_new_tokens), eot_id, dtype=first.dtype, device=device)
+        out[:, 0] = first
+    tok, i = first, 1
+    while i < max_new_tokens:
+        with span("decode.sync"):
+            done = bool(finished.all())
+        if done:
+            break
+        with span("decode.step"):
+            logits, cache = step_fn(tok[:, None], cache)
+            nxt, s = pick(logits[:, -1].float(), state)
+            nxt = torch.where(finished, eot_id, nxt)
+            if biasing is not None:
+                state = bias_advance(biasing, state, nxt)
+            if scored:
+                ssum = ssum + torch.where(finished, 0.0, s)
+                cnt = cnt + torch.where(finished, 0.0, 1.0)
+            finished = finished | (nxt == eot_id)
+            out[:, i] = nxt
+            tok, i = nxt, i + 1
     return out, (ssum / cnt if scored else None)
 
 

@@ -91,6 +91,7 @@ from avsl_tpu_torch.infer.longform import LongFormResult, split_item, stitch
 from avsl_tpu_torch.kernels.lip_pipeline import make_staged_lip_frontend
 from avsl_tpu_torch.kernels.logmel import log_mel_spectrogram, pad_or_trim
 from avsl_tpu_torch.models.quant import quantize_kv_cache, quantize_model
+from avsl_tpu_torch.utils.spans import count, span
 
 
 @dataclass
@@ -332,11 +333,18 @@ class StreamingTranscriber:
         """The device half of the rows this rank computes."""
         video = batch.video
         if batch.raw is not None and self.model.cfg.add_gated_x_attn:
-            lip = self._lip_from_raw(torch.from_numpy(batch.raw).to(self.device),
-                                     torch.from_numpy(batch.raw_frames).to(self.device))
-            mask = torch.from_numpy(batch.raw_mask).to(self.device)[:, None, None, None, None]
-            video = torch.where(mask, lip, torch.from_numpy(video).to(self.device))
+            with span("serve.upload"):
+                raw, raw_frames, raw_mask, video = (
+                    self._upload(a) for a in (batch.raw, batch.raw_frames, batch.raw_mask, video))
+            lip = self._lip_from_raw(raw, raw_frames)
+            video = torch.where(raw_mask[:, None, None, None, None], lip, video)
         return self._run(batch.audio, video, batch.n_samples)
+
+    def _upload(self, a: np.ndarray, non_blocking: bool = False) -> torch.Tensor:
+        """A host array on the model's device, its bytes counted as
+        ``h2d_bytes``."""
+        count("h2d_bytes", a.nbytes)
+        return torch.from_numpy(a).to(self.device, non_blocking=non_blocking)
 
     @torch.inference_mode()
     def _run(self, audio: np.ndarray, video, n_samples: Optional[np.ndarray] = None
@@ -349,15 +357,18 @@ class StreamingTranscriber:
         after). A model without gated cross-attention ignores the video, so
         it is not uploaded."""
         with self.serving_mode():
-            x = torch.from_numpy(audio).to(self.device, non_blocking=True)
-            feats, xv = self.encode(x, video)
-            dfeats = None if self.draft_model is None else self.encode_draft(x)
+            with span("serve.upload"):
+                x = self._upload(audio, non_blocking=True)
+            with span("serve.encode"):
+                feats, xv = self.encode(x, video)
+                dfeats = None if self.draft_model is None else self.encode_draft(x)
             out = self._decode(feats, xv, dfeats=dfeats)
             if dfeats is not None:
                 self._spec_batches += 1
                 self._spec_accept_sum += float(out.accept_rate)
                 self._spec_rounds_sum += int(out.rounds)
-            seqs, scores = out[0].cpu().numpy(), out[1].cpu().numpy()
+            with span("serve.readback"):
+                seqs, scores = out[0].cpu().numpy(), out[1].cpu().numpy()
             if self.temperature_fallback:
                 seqs, scores = self._fallback(feats, xv, seqs, scores)
             words = None
@@ -391,7 +402,11 @@ class StreamingTranscriber:
         cfg = self.model.cfg
         v = None
         if cfg.add_gated_x_attn:
-            v = torch.as_tensor(video).to(self.device, non_blocking=True)
+            if isinstance(video, torch.Tensor):
+                v = video.to(self.device, non_blocking=True)
+            else:
+                with span("serve.upload"):
+                    v = self._upload(np.asarray(video), non_blocking=True)
         return self.model.encode(log_mel_spectrogram(audio, n_mels=cfg.n_mels), v)
 
     def encode_draft(self, audio: torch.Tensor) -> torch.Tensor:
@@ -420,7 +435,8 @@ class StreamingTranscriber:
         [B], ...) on the device."""
         model = self.model
         sampled = temperature is not None
-        cache = self.decode_cache(feats, xv, self.cache_len(sampled))
+        with span("serve.cache"):
+            cache = self.decode_cache(feats, xv, self.cache_len(sampled))
 
         def step(tok, c):
             return model.decode(tok, None, None, c)
@@ -651,7 +667,9 @@ class StreamingTranscriber:
             # queue.get() forever
             try:
                 for chunk in batches:
-                    queue.put((chunk, self._prepare_batch(chunk)))
+                    with span("serve.prepare"):
+                        prepared = self._prepare_batch(chunk)
+                    queue.put((chunk, prepared))
                 queue.put(None)
             except Exception as e:  # re-raised by the consumer
                 queue.put(("__producer_error__", e))
@@ -660,14 +678,18 @@ class StreamingTranscriber:
         t.start()
         results: List[TranscribeResult] = []
         while True:
-            got = queue.get()
+            with span("serve.queue_wait"):
+                got = queue.get()
             if got is None:
                 break
             if got[0] == "__producer_error__":
                 t.join()
                 raise got[1]
             chunk, batch = got
-            results.extend(self._results(chunk, batch.flags, self.run_batch(batch), len(results)))
+            with span("serve.batch"):
+                out = self.run_batch(batch)
+            with span("serve.results"):
+                results.extend(self._results(chunk, batch.flags, out, len(results)))
         t.join()
         return results
 

@@ -85,6 +85,7 @@ from avsl_tpu_torch.core.mesh import (
 )
 from avsl_tpu_torch.core.partitioning import local_tensor, shard_state
 from avsl_tpu_torch.train.optim import TRAIN, ClippedAdamW, MultiSteps, global_norm
+from avsl_tpu_torch.utils.spans import count, span
 
 # loss_fn(batch, generator) -> (loss, metrics dict), over the state's model
 LossFn = Callable[[Dict[str, torch.Tensor], Optional[torch.Generator]],
@@ -133,10 +134,13 @@ class TrainState:
 
 def batch_to_device(batch: Dict[str, Any], device: torch.device) -> Dict[str, torch.Tensor]:
     """numpy arrays and tensors -> tensors on ``device`` (integers as
-    int64, floats kept)."""
+    int64, floats kept); the bytes of the host arrays and of tensors on
+    another device are counted as ``h2d_bytes``."""
     out = {}
     for key, value in batch.items():
         t = value if isinstance(value, torch.Tensor) else torch.as_tensor(np.asarray(value))
+        if not isinstance(value, torch.Tensor) or value.device != device:
+            count("h2d_bytes", t.nbytes)
         out[key] = t.to(device, non_blocking=True)
     return out
 
@@ -185,13 +189,14 @@ def _prepare(state: "TrainState", mesh, batch: Dict[str, Any], batch_dim: int,
     """The batch on the state's device: this rank's rows of it on a mesh
     (the state put on the mesh first when it is not yet), as it is
     otherwise. Returns ``(batch, sharded batch or None)``."""
-    if mesh is None:
-        return batch_to_device(batch, next(state.model.parameters()).device), None
-    if state.layout is None:
-        shard_state(state, mesh, zero1=zero1, fsdp=fsdp)
-    if not isinstance(batch, ShardedBatch):
-        batch = shard_batch(mesh, batch, batch_dim)
-    return dict(batch), batch
+    with span("train.upload"):
+        if mesh is None:
+            return batch_to_device(batch, next(state.model.parameters()).device), None
+        if state.layout is None:
+            shard_state(state, mesh, zero1=zero1, fsdp=fsdp)
+        if not isinstance(batch, ShardedBatch):
+            batch = shard_batch(mesh, batch, batch_dim)
+        return dict(batch), batch
 
 
 def make_train_step(
@@ -230,16 +235,21 @@ def make_train_step(
     batch_dim = 1 if accum > 1 else 0
 
     def pre_fn(state: TrainState, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        batch, sharded = _prepare(state, mesh, batch, batch_dim, zero1, fsdp)
-        rows = None if sharded is None else _rows(mesh, sharded, accum if accum > 1 else 1)
-        with torch.no_grad(), row_shard_scope(rows), sp_scope(mesh, sequence_parallel):
-            return precompute_fn(batch, state.generator)
+        with span("train.precompute"):
+            batch, sharded = _prepare(state, mesh, batch, batch_dim, zero1, fsdp)
+            rows = None if sharded is None else _rows(mesh, sharded, accum if accum > 1 else 1)
+            with torch.no_grad(), row_shard_scope(rows), sp_scope(mesh, sequence_parallel):
+                return precompute_fn(batch, state.generator)
 
     def step_fn(state: TrainState, batch: Dict[str, Any],
                 ctx: Optional[Dict[str, torch.Tensor]] = None,
                 ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        with span("train.step"):
+            return _step(state, batch, ctx)
+
+    def _step(state, batch, ctx):
         batch, sharded = _prepare(state, mesh, batch, batch_dim, zero1, fsdp)
-        model, opt = state.model, state.optimizer
+        model = state.model
         if param_labels is not None:
             for name, p in model.named_parameters():
                 p.requires_grad_(param_labels.get(name) == TRAIN)
@@ -253,13 +263,25 @@ def make_train_step(
         sums: Dict[str, torch.Tensor] = {}
         with row_shard_scope(rows), sp_scope(mesh, sequence_parallel):
             for micro in micros:
-                loss, metrics = loss_fn(micro, state.generator)
-                if rows is not None:
-                    loss = loss * _token_scale(rows, micro["labels"])
-                loss.backward()
+                with span("train.forward"):
+                    loss, metrics = loss_fn(micro, state.generator)
+                    if rows is not None:
+                        loss = loss * _token_scale(rows, micro["labels"])
+                with span("train.backward"):
+                    loss.backward()
                 for key, value in {**metrics, "loss": loss}.items():
                     value = value.detach().float()
                     sums[key] = value if key not in sums else sums[key] + value
+        with span("train.optimizer"):
+            out = _update(state, sums, len(micros), rows)
+        state.step += 1
+        return state, out
+
+    def _update(state, sums, n_micros, rows):
+        """After the micro-steps: the gradients (reduced over the data
+        ranks, averaged over the micro-steps), the metrics, the norm and
+        the optimizer's step. Returns the metrics."""
+        model, opt = state.model, state.optimizer
         named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
         params = [p for _, p in named]
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
@@ -268,7 +290,7 @@ def make_train_step(
             _all_reduce_mean(grads, rows.group, rows.size)
         if accum > 1:
             torch._foreach_div_([local_tensor(g) for g in grads], float(accum))
-        out = {key: value / len(micros) for key, value in sums.items()}
+        out = {key: value / n_micros for key, value in sums.items()}
         if rows is not None:
             stacked = torch.stack([out[k] for k in sorted(out)])
             dist.all_reduce(stacked, group=rows.group)
@@ -286,8 +308,7 @@ def make_train_step(
             opt.step(opt_grads, out["grad_norm"] if same else None)
         for p in params:
             p.grad = None
-        state.step += 1
-        return state, out
+        return out
 
     if split_precompute and precompute_fn is not None:
         return step_fn, pre_fn

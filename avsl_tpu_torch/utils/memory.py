@@ -1,19 +1,17 @@
-"""Device-memory telemetry and profiling.
+"""Device-memory telemetry.
 
 Port of ``avsl_tpu/utils/memory.py`` over PyTorch's per-device memory
 statistics: ``get_memory_stats`` reads each visible CUDA device's bytes
 in use, peak and total (``torch.cuda.memory_allocated``,
 ``max_memory_allocated``, ``mem_get_info``) and the host's memory from
 /proc; ``estimate_model_memory`` counts a model's parameters;
-``memory_aware_batch_size`` clamps a batch to the device's free memory;
-``profile_trace`` wraps ``torch.profiler``. Without a card the device
-entries are absent and the batch clamp returns the request.
+``memory_aware_batch_size`` clamps a batch to the device's free memory.
+Without a card the device entries are absent and the batch clamp returns
+the request.
 """
 
 from __future__ import annotations
 
-import contextlib
-import os
 from typing import Dict, Optional
 
 import torch
@@ -39,13 +37,6 @@ def get_memory_stats() -> Dict[str, float]:
         stats["system_available_gb"] = float(info.get("MemAvailable", 0)) / 1024 ** 2
     except OSError:
         pass
-    return stats
-
-
-def log_memory_stats(step: int = 0, print_fn=print) -> Dict[str, float]:
-    stats = get_memory_stats()
-    parts = [f"{k}={v:.2f}" for k, v in stats.items() if not k.startswith("system")]
-    print_fn(f"[step {step}] memory: " + ", ".join(parts))
     return stats
 
 
@@ -79,20 +70,3 @@ def memory_aware_batch_size(requested: int, per_item_gb: float, reserve_gb: floa
     free = torch.cuda.mem_get_info(device)[0] / _GB
     fit = int(max(free - reserve_gb, 0.0) // max(per_item_gb, 1e-6))
     return max(min(requested, fit), 1)
-
-
-@contextlib.contextmanager
-def profile_trace(log_dir: str, enabled: bool = True):
-    """A ``torch.profiler`` trace of the block (CPU and CUDA activity),
-    written as a Chrome trace under ``log_dir``."""
-    if not enabled:
-        yield
-        return
-    from torch.profiler import ProfilerActivity, profile
-
-    os.makedirs(log_dir, exist_ok=True)
-    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
-                                           if torch.cuda.is_available() else [])
-    with profile(activities=activities) as prof:
-        yield
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
