@@ -8,7 +8,10 @@ model, the lip clips -> the AV-HuBERT video tower (the same kernel in
 every block) -> ``video_projection``; then the decode cache with the
 cross-attention and gated ``x_attn`` K/V precomputed -> KV-cached greedy
 decode with the mean token log-probability, or with ``beam_size > 1`` the
-batched beam search with its length-normalised score. The model runs in
+batched beam search with its length-normalised score. On a card, without
+a mesh or phrase boosting, the greedy decode's self caches take an index
+on the device and its steps replay one CUDA graph a batch
+(``decode/greedy.py``). The model runs in
 eval mode whatever mode the caller left it in (the JAX transcriber always
 serves deterministically), and gets its mode back afterwards.
 ``transcribe`` prepares batch N+1 on a producer thread while the device
@@ -83,7 +86,7 @@ from avsl_tpu_torch.data.audio_segments import load_wav
 from avsl_tpu_torch.data.video_io import load_video_feats, read_video_frames
 from avsl_tpu_torch.decode.beam import beam_search
 from avsl_tpu_torch.decode.biasing import build_biasing_trie, encode_phrases
-from avsl_tpu_torch.decode.greedy import greedy_decode_scored, sampled_decode_scored
+from avsl_tpu_torch.decode.greedy import StepGraphs, greedy_decode_scored, sampled_decode_scored
 from avsl_tpu_torch.decode.speculative import speculative_greedy_decode
 from avsl_tpu_torch.decode.text_norm import compression_ratio
 from avsl_tpu_torch.decode.word_timestamps import align_words
@@ -221,6 +224,7 @@ class StreamingTranscriber:
             model = quantize_model(model, weights)
         self.kv_int8 = bool(kv_int8)
         self.word_timestamps = bool(word_timestamps)
+        self._step_graphs = StepGraphs()
         self.model = model
         self.tokenizer = tokenizer
         self.device = model.device
@@ -421,10 +425,22 @@ class StreamingTranscriber:
         extra = self.spec_k + 1 if self.draft_model is not None and not sampled else 2
         return self.max_new_tokens + self._prompt.shape[1] + extra
 
-    def decode_cache(self, feats, xv, max_len: int):
-        """The model's decode cache, int8-compressed with ``kv_int8``."""
+    def decode_cache(self, feats, xv, max_len: int, device_index: bool = False):
+        """The model's decode cache, int8-compressed with ``kv_int8``; with
+        ``device_index`` every block's self cache shares one 0-dim int64
+        index on the device instead of a host integer."""
         cache = self.model.init_decode_cache(feats, xv, max_len)
+        if device_index:
+            index = torch.zeros((), dtype=torch.int64, device=feats.device)
+            for entry in cache:
+                entry["self"]["index"] = index
         return quantize_kv_cache(cache) if self.kv_int8 else cache
+
+    def graphs_decode(self) -> bool:
+        """Whether the greedy decode may replay its steps as a CUDA graph:
+        on a card, with no mesh (no process group joins a step) and no
+        phrase boosting."""
+        return self.device.type == "cuda" and self.mesh is None and self._biasing is None
 
     def _decode(self, feats, xv, temperature: Optional[float] = None,
                 generator: Optional[torch.Generator] = None, dfeats=None):
@@ -435,8 +451,12 @@ class StreamingTranscriber:
         [B], ...) on the device."""
         model = self.model
         sampled = temperature is not None
+        graphs = None
+        if not sampled and dfeats is None and self.beam_size == 1 and self.graphs_decode():
+            graphs = self._step_graphs
         with span("serve.cache"):
-            cache = self.decode_cache(feats, xv, self.cache_len(sampled))
+            cache = self.decode_cache(feats, xv, self.cache_len(sampled),
+                                      device_index=graphs is not None)
 
         def step(tok, c):
             return model.decode(tok, None, None, c)
@@ -453,7 +473,8 @@ class StreamingTranscriber:
             return beam_search(*args, self.beam_size, self.max_new_tokens, eot,
                                biasing=self._biasing)
         if temperature is None:
-            return greedy_decode_scored(*args, self.max_new_tokens, eot, biasing=self._biasing)
+            return greedy_decode_scored(*args, self.max_new_tokens, eot, biasing=self._biasing,
+                                        graphs=graphs)
         return sampled_decode_scored(*args, self.max_new_tokens, eot, temperature, generator,
                                      biasing=self._biasing)
 

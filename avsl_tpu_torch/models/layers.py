@@ -4,8 +4,9 @@ Port of ``avsl_tpu/models/layers.py``:
 ``LayerNormF32``, ``sinusoid_embedding``, ``fairseq_sinusoid_embedding``,
 ``dot_product_attention``, ``MultiHeadAttention`` (full sequence through
 the flash-attention kernels, with key lengths; an explicit ``mask`` sends
-it down the unfused masked path; the self cache with a scalar index or a
-per-sequence [B] index tensor, the precomputed cross cache, int8 or not),
+it down the unfused masked path; the self cache with a scalar index (a
+host integer or a 0-dim device tensor) or a per-sequence [B] index
+tensor, the precomputed cross cache, int8 or not),
 ``MLP`` (exact GELU, activation dropout) and ``TransformerBlock`` (pre- or
 post-norm, the tanh-gated ``x_attn``/``x_mlp`` sublayers of
 Whisper-Flamingo, residual, attention-weight and activation dropout, or
@@ -401,7 +402,7 @@ def init_self_attn_cache(
 ) -> Cache:
     """Self-attention KV cache for incremental decoding, head-major
     [B,H,max_len,D]; ``index`` is the number of positions already written
-    (a host integer)."""
+    (a host integer here; a caller may put a tensor in its place)."""
     shape = (batch, n_heads, max_len, head_dim)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
@@ -425,14 +426,18 @@ def is_vector_index(index) -> bool:
 def positions(table: torch.Tensor, cache: Optional[list], qlen: int) -> torch.Tensor:
     """A decoder's positional rows for ``qlen`` tokens: from 0 without a
     cache; from the self cache's index, clamped so the slice fits
-    (``dynamic_slice``), for a scalar index; and for a [B] index each
-    sequence's own rows, clipped to the table ([B, Q, D])."""
+    (``dynamic_slice``), for a scalar index (a host integer, or a 0-dim
+    tensor read on the device); and for a [B] index each sequence's own
+    rows, clipped to the table ([B, Q, D])."""
     if cache is None:
         return table[:qlen]
     idx = cache[0]["self"]["index"]
     if is_vector_index(idx):
         pos_ids = idx[:, None] + torch.arange(qlen, device=idx.device)[None, :]
         return table[pos_ids.clamp(0, table.shape[0] - 1)]
+    if isinstance(idx, torch.Tensor):
+        start = idx.clamp(0, table.shape[0] - qlen)
+        return table.index_select(0, start + torch.arange(qlen, device=idx.device))
     start = max(0, min(int(idx), table.shape[0] - qlen))
     return table[start:start + qlen]
 
@@ -453,8 +458,10 @@ class MultiHeadAttention(nn.Module):
       ``kv_lengths[b]`` masked when given);
     * incremental self-attention: ``mha(x, cache=c)`` with
       ``c = {"k", "v", "index"}`` writes x's K/V at ``index`` and attends
-      causally over the cached prefix; ``index`` is a host integer, or a
-      [B] tensor that puts each sequence at its own offset;
+      causally over the cached prefix; ``index`` is a host integer, a
+      0-dim tensor on the device (the same, with no host read, so a CUDA
+      graph can replay the step), or a [B] tensor that puts each sequence
+      at its own offset;
     * cross-attention with ``cache={"k", "v"}`` from :meth:`precompute_kv`
       (or its int8 ``QTensor`` form, dequantized on read).
     ``mask`` (broadcast to [B, H, Q, K], True = attend) joins the causal
@@ -569,13 +576,21 @@ class MultiHeadAttention(nn.Module):
         if cache is not None and is_vector_index(cache.get("index")):
             out, new_cache = self._vector_index_step(x, q, cache, mask)
         elif cache is not None and "index" in cache:
-            idx = int(cache["index"])
+            idx = cache["index"]
             qlen, max_len = x.shape[1], cache["k"].shape[2]
             # dynamic_update_slice semantics: the start clamps so the
             # update fits inside the buffer
-            start = max(0, min(idx, max_len - qlen))
-            for name, i in (("k", 1), ("v", 2)):
-                cache[name][:, :, start:start + qlen] = self._split(self._proj(i)(x)).transpose(1, 2)
+            if isinstance(idx, torch.Tensor):  # 0-dim, on the device: the host reads nothing
+                rows = idx.clamp(0, max_len - qlen) + torch.arange(qlen, device=x.device)
+                for name, i in (("k", 1), ("v", 2)):
+                    new = self._split(self._proj(i)(x)).transpose(1, 2).to(cache[name].dtype)
+                    cache[name].index_copy_(2, rows, new)
+            else:
+                idx = int(idx)
+                start = max(0, min(idx, max_len - qlen))
+                for name, i in (("k", 1), ("v", 2)):
+                    cache[name][:, :, start:start + qlen] = \
+                        self._split(self._proj(i)(x)).transpose(1, 2)
             pos_ids = torch.arange(max_len, device=x.device)[None, :]
             q_ids = torch.arange(qlen, device=x.device)[:, None]
             attn_mask = (pos_ids <= q_ids + idx)[None, None]
