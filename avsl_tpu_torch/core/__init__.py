@@ -1,7 +1,12 @@
 """Configuration, device selection and pipeline parallelism for the
 PyTorch port."""
 
-from avsl_tpu_torch.core.config import AVHuBERTConfig, FlamingoTrainConfig, WhisperConfig
+from avsl_tpu_torch.core.config import (
+    AutoAVSRConfig,
+    AVHuBERTConfig,
+    FlamingoTrainConfig,
+    WhisperConfig,
+)
 from avsl_tpu_torch.core.device import resolve_device
 from avsl_tpu_torch.core.pipeline import (
     StackedBlocks,
@@ -13,6 +18,7 @@ from avsl_tpu_torch.core.pipeline import (
 
 __all__ = [
     "AVHuBERTConfig",
+    "AutoAVSRConfig",
     "FlamingoTrainConfig",
     "StackedBlocks",
     "WhisperConfig",

@@ -5,7 +5,9 @@ config, the YAML helpers, and the typed default-config registry
 ``parse_args_with_config``: registry defaults < YAML < explicit flags).
 
 A copy of the matching parts of ``avsl_tpu/core/config.py`` with the same
-fields and defaults (the port may not import the JAX package). PyYAML is
+fields and defaults (the port may not import the JAX package), and the
+port's own ``AutoAVSRConfig`` (Auto-AVSR's audio-visual Conformer, which
+the JAX package does not have). PyYAML is
 imported inside the YAML helpers only, so importing this module needs
 nothing beyond the standard library.
 """
@@ -448,6 +450,114 @@ class AVHuBERTConfig:
         if "label_smoothing" in crit:
             flat["label_smoothing"] = crit["label_smoothing"]
         for k, v in raw.items():  # already-flat keys at the top level
+            if not isinstance(v, dict):
+                flat.setdefault(k, v)
+        return cls.from_dict(flat)
+
+    def to_dict(self) -> Dict[str, Any]:
+        return namespace_to_dict(self)
+
+
+# ---------------------------------------------------------------------------
+# Auto-AVSR (audio-visual Conformer) model config
+# ---------------------------------------------------------------------------
+
+# the published settings the port builds only one way: key -> the value it takes
+_AUTO_AVSR_FIXED: Dict[str, Any] = {
+    "transformer_input_layer": "conv3d",
+    "aux_transformer_input_layer": "conv1d",
+    "transformer_encoder_attn_layer_type": "rel_mha",
+    "rel_pos_type": "latest",
+    "macaron_style": True,
+    "use_cnn_module": True,
+    "zero_triu": False,
+    "a_upsample_ratio": 1,
+    "fusion_norm": "batchnorm",
+    "ctc_type": "builtin",
+    "transformer_length_normalized_loss": False,
+    "relu_type": "swish",
+    "aux_relu_type": "swish",
+}
+
+
+@dataclass
+class AutoAVSRConfig:
+    """Auto-AVSR's audio-visual model (arXiv:2303.14307; mpc001/auto_avsr
+    ``audiovisual_backbone``), under its published key names: two
+    Conformer encoders of ``elayers`` blocks at ``adim`` wide (``aheads``
+    heads, FFN ``eunits``, depthwise kernel ``cnn_module_kernel``), the
+    lips' over the 3-D stem and ResNet-18 and the audio's over the
+    ResNet-1D on raw 16 kHz PCM; the fusion MLP (``2 adim -> fusion_hdim
+    -> adim``); the CTC head; a ``dlayers``-block Transformer decoder
+    (``ddim``, ``dheads``, ``dunits``); ``odim`` vocabulary rows, the last
+    one sos/eos and the first the CTC blank; the loss
+    ``mtlalpha x CTC + (1 - mtlalpha) x`` label-smoothed (``lsm_weight``)
+    attention CE. ``dropout_rate`` is every dropout but the attention
+    weights' (``transformer_attn_dropout_rate``). The ``aux_*`` keys of the
+    published config must equal these (one width for both encoders)."""
+
+    adim: int = 768
+    aheads: int = 12
+    eunits: int = 3072
+    elayers: int = 12
+    cnn_module_kernel: int = 31
+    visual_frontend_channels: int = 64
+    visual_backbone_channels: int = 512
+    audio_backbone_channels: int = 512
+    image_crop_size: int = 88
+    fusion_hdim: int = 8192
+    ddim: int = 768
+    dheads: int = 12
+    dunits: int = 3072
+    dlayers: int = 6
+    odim: int = 5049
+    mtlalpha: float = 0.1
+    lsm_weight: float = 0.1
+    dropout_rate: float = 0.1
+    transformer_attn_dropout_rate: float = 0.1
+    dtype: str = "bfloat16"
+    param_dtype: str = "float32"
+
+    @property
+    def eos_id(self) -> int:
+        """sos and eos: the vocabulary's last row."""
+        return self.odim - 1
+
+    @classmethod
+    def tiny_test(cls, **overrides: Any) -> "AutoAVSRConfig":
+        """Miniature config for unit tests (fast CPU runs)."""
+        base = dict(adim=32, aheads=2, eunits=64, elayers=2, cnn_module_kernel=5,
+                    visual_frontend_channels=8, visual_backbone_channels=32,
+                    audio_backbone_channels=32, image_crop_size=24, fusion_hdim=48, ddim=32,
+                    dheads=2, dunits=64, dlayers=2, odim=41)
+        base.update(overrides)
+        return cls(**base)
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "AutoAVSRConfig":
+        """The fields in ``d`` (published keys); the ``aux_*`` keys must
+        equal the lips' encoder's and each key of ``_AUTO_AVSR_FIXED`` the
+        one value the port builds; other keys are ignored."""
+        for key, value in d.items():
+            if key.startswith("aux_") and key not in _AUTO_AVSR_FIXED and key[4:] in d \
+                    and d[key[4:]] != value:
+                raise ValueError(f"{key}={value!r} differs from {key[4:]}={d[key[4:]]!r}: "
+                                 f"the port builds both encoders alike")
+        for key, value in _AUTO_AVSR_FIXED.items():
+            if key in d and d[key] != value:
+                raise ValueError(f"{key}={d[key]!r}: the port builds only {value!r}")
+        known = {f.name for f in fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in known})
+
+    @classmethod
+    def from_yaml(cls, path: str) -> "AutoAVSRConfig":
+        """Build from auto_avsr's model YAML: the keys of
+        ``model: audiovisual_backbone:`` (or of a flat ``model:``), then
+        flat top-level keys."""
+        raw = load_yaml_config(path)
+        model = raw.get("model", {})
+        flat = dict(model.get("audiovisual_backbone", model))
+        for k, v in raw.items():
             if not isinstance(v, dict):
                 flat.setdefault(k, v)
         return cls.from_dict(flat)

@@ -1,6 +1,7 @@
 """Whisper(-Flamingo) model, AV-HuBERT (video tower, seq2seq and CTC
-heads, span masks, the MoE FFN, masked-cluster pretraining), layers,
-factory and weight carrier of the PyTorch port."""
+heads, span masks, the MoE FFN, masked-cluster pretraining), Auto-AVSR's
+audio-visual Conformer, layers, factory and weight carrier of the PyTorch
+port."""
 
 from avsl_tpu_torch.models.avhubert import (
     AVHuBERTForCTC,
@@ -8,6 +9,7 @@ from avsl_tpu_torch.models.avhubert import (
     AVHuBERTModel,
     span_mask,
 )
+from avsl_tpu_torch.models.conformer import AutoAVSR
 from avsl_tpu_torch.models.convert import (
     avhubert_state_dict_from_flax,
     pretrain_state_dict_from_flax,
@@ -15,6 +17,7 @@ from avsl_tpu_torch.models.convert import (
     whisper_state_dict_from_flax,
 )
 from avsl_tpu_torch.models.factory import (
+    build_auto_avsr,
     build_avhubert,
     build_whisper_flamingo,
     make_av_hubert_video_encoder,
@@ -35,12 +38,14 @@ __all__ = [
     "AVHuBERTForPretraining",
     "AVHuBERTForSpeech2Text",
     "AVHuBERTModel",
+    "AutoAVSR",
     "MoEFFN",
     "ResNet3DFrontend",
     "Whisper",
     "WhisperEncoder",
     "WhisperTextDecoder",
     "avhubert_state_dict_from_flax",
+    "build_auto_avsr",
     "build_avhubert",
     "build_whisper_flamingo",
     "extract_layer_features",

@@ -1,5 +1,7 @@
 """Model assembly, built on the device: Whisper(-Flamingo) with an
-AV-HuBERT video encoder, and AV-HuBERT with its seq2seq or CTC head.
+AV-HuBERT video encoder, AV-HuBERT with its seq2seq or CTC head, and
+Auto-AVSR's audio-visual Conformer (``build_auto_avsr``, which
+``cli/auto_avsr_ft.py`` trains).
 
 Port of ``avsl_tpu/models/factory.py`` (``make_av_hubert_video_encoder``
 and ``build_whisper_flamingo``), for serving and for training, plus the
@@ -18,7 +20,7 @@ from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
-from avsl_tpu_torch.core.config import AVHuBERTConfig, WhisperConfig
+from avsl_tpu_torch.core.config import AutoAVSRConfig, AVHuBERTConfig, WhisperConfig
 from avsl_tpu_torch.core.device import resolve_device
 from avsl_tpu_torch.models.avhubert import (
     AVHuBERTForCTC,
@@ -26,6 +28,7 @@ from avsl_tpu_torch.models.avhubert import (
     AVHuBERTModel,
     init_weights,
 )
+from avsl_tpu_torch.models.conformer import AutoAVSR
 from avsl_tpu_torch.models.pretrain import AVHuBERTForPretraining
 from avsl_tpu_torch.models.whisper import Whisper
 
@@ -129,6 +132,21 @@ def build_avhubert(
         raise ValueError(f"head {head!r}: expected one of {sorted(classes)}")
     dev = resolve_device(device)
     model = classes[head](cfg, device="meta").to_empty(device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return init_weights(model, gen).eval()
+
+
+def build_auto_avsr(cfg: AutoAVSRConfig, device: Union[str, torch.device] = "cuda",
+                    seed: int = 0) -> AutoAVSR:
+    """Auto-AVSR's audio-visual model (:class:`~avsl_tpu_torch.models.conformer.AutoAVSR`)
+    on ``device`` with random weights from a ``torch.Generator`` there
+    seeded with ``seed`` (fan-in-scaled normal weights, zero biases, unit
+    norms, identity BatchNorm, xavier-uniform relative-position biases);
+    returned in eval mode. Weights live in ``cfg.param_dtype`` and compute
+    runs in ``cfg.dtype``."""
+    dev = resolve_device(device)
+    model = AutoAVSR(cfg, device="meta").to_empty(device=dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     return init_weights(model, gen).eval()

@@ -442,11 +442,12 @@ def positions(table: torch.Tensor, cache: Optional[list], qlen: int) -> torch.Te
     return table[start:start + qlen]
 
 
-# projection names of one attention layer: OpenAI Whisper's, or fairseq's
-# (the AV-HuBERT encoder)
+# projection names of one attention layer: OpenAI Whisper's, fairseq's
+# (the AV-HuBERT encoder) or ESPnet's (the Auto-AVSR decoder)
 _PROJ_NAMES = {
     "whisper": ("query", "key", "value", "out"),
     "fairseq": ("q_proj", "k_proj", "v_proj", "out_proj"),
+    "espnet": ("linear_q", "linear_k", "linear_v", "linear_out"),
 }
 
 
@@ -472,7 +473,8 @@ class MultiHeadAttention(nn.Module):
     Returns ``(out, new_cache)``; ``new_cache`` is None without a cache.
     The key projection has a bias only with ``use_k_bias`` (AV-HuBERT's
     has one, Whisper's not); ``names`` picks the projections' state-dict
-    names ("whisper": query/key/value/out, "fairseq": q/k/v/out_proj).
+    names ("whisper": query/key/value/out, "fairseq": q/k/v/out_proj,
+    "espnet": linear_q/k/v/out).
     In training with ``attn_dropout > 0`` the full-sequence path drops
     attention weights and so runs unfused, with neither the causal mask
     nor ``kv_lengths``: the JAX layer (``layers.py:301-310``) passes

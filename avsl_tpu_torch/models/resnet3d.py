@@ -2,7 +2,8 @@
 
 Port of ``avsl_tpu/models/resnet3d.py`` (``TimeChannelStemConv``,
 ``ChannelPReLU``, ``BasicBlock``, ``ResNetTrunk``, ``ResNet3DFrontend``),
-with the fairseq AV-HuBERT state-dict names:
+with the fairseq AV-HuBERT state-dict names (which Auto-AVSR's
+``Conv3dResNet`` shares; its swish has no parameters):
 ``frontend3D.0`` (the [C, 1, 5, 7, 7] stem kernel), ``frontend3D.1`` (its
 BatchNorm), ``frontend3D.2`` (its PReLU) and
 ``trunk.layerS.B.{conv1, bn1, relu1, conv2, bn2, relu2, downsample.{0,1}}``.
@@ -127,7 +128,11 @@ class ChannelPReLU(nn.Module):
 
 
 def _activation(relu_type: str, channels: int, device) -> nn.Module:
-    return ChannelPReLU(channels, device=device) if relu_type == "prelu" else nn.ReLU()
+    """``relu_type``: "prelu" (a slope per channel), "swish" (``x *
+    sigmoid(x)``, Auto-AVSR's) or "relu"."""
+    if relu_type == "prelu":
+        return ChannelPReLU(channels, device=device)
+    return nn.SiLU() if relu_type == "swish" else nn.ReLU()
 
 
 class BasicBlock(nn.Module):

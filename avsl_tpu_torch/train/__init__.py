@@ -1,11 +1,12 @@
 """Training layer of the port: the train step with gradient accumulation,
-the AdamW optimizer and its freeze regimes (LoRA's too), the Whisper and
-AV-HuBERT objectives (fine-tuning and masked-cluster pretraining),
-checkpoints, the runner with parameter EMA, checkpoint averaging, draft
-distillation and pipeline-parallel training."""
+the AdamW optimizer and its freeze regimes (LoRA's too), the Whisper,
+AV-HuBERT (fine-tuning and masked-cluster pretraining) and Auto-AVSR
+objectives, checkpoints, the runner with parameter EMA, checkpoint
+averaging, draft distillation and pipeline-parallel training."""
 
 from avsl_tpu_torch.train.loop import TrainState, make_eval_step, make_train_step
 from avsl_tpu_torch.train.objectives import (
+    auto_avsr_loss_fn,
     avhubert_ctc_loss_fn,
     avhubert_pretrain_loss_fn,
     avhubert_seq2seq_loss_fn,
@@ -31,6 +32,7 @@ __all__ = [
     "MultiSteps",
     "TrainState",
     "TrainerRunner",
+    "auto_avsr_loss_fn",
     "avhubert_ctc_loss_fn",
     "avhubert_pretrain_loss_fn",
     "avhubert_seq2seq_loss_fn",

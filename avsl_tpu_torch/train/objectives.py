@@ -2,7 +2,10 @@
 
 Port of ``flamingo_loss_fn``, ``flamingo_tower_precompute``,
 ``avhubert_seq2seq_loss_fn``, ``avhubert_ctc_loss_fn`` and
-``avhubert_pretrain_loss_fn`` from ``avsl_tpu/train/objectives.py``. Whisper(-Flamingo): SpecAugment on the mel (training only),
+``avhubert_pretrain_loss_fn`` from ``avsl_tpu/train/objectives.py``, and
+the port's own ``auto_avsr_loss_fn`` (Auto-AVSR's joint CTC/attention
+loss, :mod:`avsl_tpu_torch.models.conformer`). Whisper(-Flamingo):
+SpecAugment on the mel (training only),
 the train-time AV-mode draw, the teacher-forced forward with every
 training draw on, and token-mean CE over the labels (-100 ignored).
 Batches follow the collator's layout: ``input_ids`` (mel [B, n_mels, T]),
@@ -29,9 +32,11 @@ import torch
 
 from avsl_tpu_torch.kernels.specaugment import spec_augment_batch
 from avsl_tpu_torch.models.avhubert import cross_entropy_loss, ctc_loss
+from avsl_tpu_torch.models.conformer import joint_loss
 from avsl_tpu_torch.models.intermediates import collect_intermediates
 from avsl_tpu_torch.models.moe import moe_aux_loss
 from avsl_tpu_torch.models.pretrain import extracted_features_from, pretrain_loss
+from avsl_tpu_torch.utils.spans import span
 
 
 def _add_moe_aux(loss, metrics, intermediates, train: bool, coef: float):
@@ -259,5 +264,30 @@ def avhubert_pretrain_loss_fn(model, train: bool = True, masked_weight: float = 
                                       feature_pen=extracted_features_from(inter),
                                       feature_pen_weight=feature_pen_weight)
         return _add_moe_aux(loss, metrics, inter, train, moe_aux_coef), metrics
+
+    return loss_fn
+
+
+def auto_avsr_loss_fn(model, train: bool = True):
+    """Auto-AVSR's joint loss (:func:`~avsl_tpu_torch.models.conformer.joint_loss`)
+    of an :class:`~avsl_tpu_torch.models.conformer.AutoAVSR` on a batch with
+    ``video`` [B, T, H, W] normalised lip frames, ``audio`` [B, S] PCM,
+    ``video_lengths`` and ``audio_lengths`` (samples), ``targets`` [B, L]
+    and ``target_lengths`` (the CTC's), ``dec_input_ids`` (sos, then the
+    targets, eos-padded) and ``labels`` (the targets, eos, -100-padded).
+    ``train`` puts the model in training mode (every dropout, BatchNorm on
+    the batch's statistics). The fusion, both heads and the loss run in the
+    span ``avsr.head``. Returns ``loss_fn(batch, generator) -> (loss,
+    {"loss_ctc", "loss_att"})``."""
+
+    def loss_fn(batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator]):
+        model.train(train)
+        gen = generator if train else None
+        v, a, valid = model.encode(batch["video"], batch["audio"], batch.get("video_lengths"),
+                                   batch.get("audio_lengths"), gen)
+        with span("avsr.head"):
+            ctc_logits, logits = model.heads(v, a, valid, batch["dec_input_ids"], gen)
+            loss, loss_ctc, loss_att = joint_loss(model.cfg, ctc_logits, logits, valid, batch)
+        return loss, {"loss_ctc": loss_ctc, "loss_att": loss_att}
 
     return loss_fn

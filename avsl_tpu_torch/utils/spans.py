@@ -36,7 +36,13 @@ The span names, by layer (the thread is the caller's unless named):
 * the train step (``train/loop.py``): ``train.step``, ``train.upload``,
   ``train.precompute`` (the frozen-tower hoist), ``train.forward`` and ``train.backward`` (each micro-step),
   ``train.optimizer`` (gradient collection, any all-reduce, the norm and
-  the optimizer's step).
+  the optimizer's step);
+* Auto-AVSR's forward (``models/conformer.py``, inside ``train.forward``):
+  ``avsr.frontend`` (both ResNets), ``avsr.conformer`` (both embeddings
+  and Conformer stacks) and ``avsr.head`` (the fusion, the CTC head, the
+  decoder and the joint loss, ``train/objectives.py``), and the counter
+  ``avsr.relpos_bytes`` (the bytes of the relative-position score tensors
+  a forward materialises).
 """
 
 from __future__ import annotations
@@ -142,6 +148,11 @@ def count(name: str, n: int) -> None:
     with rec._lock:
         if rec._open:
             rec.counters[name] = rec.counters.get(name, 0) + int(n)
+
+
+def current() -> Optional[Record]:
+    """The :class:`Record` of the :func:`recording` open now, or None."""
+    return _record
 
 
 @contextlib.contextmanager

@@ -87,6 +87,13 @@ def test_torch_spans_recordings_do_not_nest():
     assert [s.name for s in rec.spans] == ["a"]
 
 
+def test_torch_spans_current_is_the_open_recording():
+    assert spans.current() is None
+    with spans.recording() as rec:
+        assert spans.current() is rec
+    assert spans.current() is None
+
+
 def test_torch_spans_entered_after_the_recording_record_nothing():
     """A span made while a recording is open but entered after it ended
     (a thread that outlives the block) leaves the finished record as it
