@@ -97,6 +97,7 @@ from avsl_tpu_torch.models.layers import (
     torch_dtype,
 )
 from avsl_tpu_torch.models.resnet3d import ResNet3DFrontend
+from avsl_tpu_torch.utils.spans import count
 
 
 def span_mask_from_uniform(
@@ -273,13 +274,56 @@ class AVHuBERTAudioEncoder(nn.Module):
         return self.proj(feats)
 
 
+class _GroupedConv1d(torch.autograd.Function):
+    """``F.conv1d(x, w, b, padding=padding, groups=groups)`` with a bias, at
+    stride and dilation 1 and a padding under the taps, whose input
+    gradient runs as a forward convolution: a stride-1 conv's data gradient
+    is the conv of ``dy`` with the kernel regrouped to [in, out/groups, k]
+    and flipped along the taps, at padding ``k - 1 - padding``. At AV-HuBERT
+    large's shape (1024 channels, 128 taps, 16 groups) cuDNN's backward-data
+    engine runs about 70 times slower than its forward, and rounds further
+    from the fp32 gradient. The weight and bias gradients are
+    ``convolution_backward`` with the input's left out of the mask. Each
+    input gradient adds one to the counter ``avhubert.pos_conv_input_grad``."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, padding: int, groups: int):
+        ctx.save_for_backward(x, w)
+        ctx.padding, ctx.groups = padding, groups
+        return F.conv1d(x, w, b, padding=padding, groups=groups)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        p, g = ctx.padding, ctx.groups
+        co, ci_g, k = w.shape
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            count("avhubert.pos_conv_input_grad", 1)
+            w_t = (w.view(g, co // g, ci_g, k).transpose(1, 2).reshape(g * ci_g, co // g, k)
+                   .flip(-1))
+            if dy.is_cpu and dy.dtype == torch.bfloat16:
+                # oneDNN's bf16 conv on the CPU is wrong at some shapes with
+                # few channels a group and 8 taps or more
+                dx = F.conv1d(dy.float(), w_t.float(), padding=k - 1 - p, groups=g).to(dy.dtype)
+            else:
+                dx = F.conv1d(dy, w_t, padding=k - 1 - p, groups=g)
+        mask = [False, ctx.needs_input_grad[1], ctx.needs_input_grad[2]]
+        if mask[1] or mask[2]:
+            _, dw, db = torch.ops.aten.convolution_backward(dy, x, w, [co], [1], [p], [1], False,
+                                                            [0], g, mask)
+        return dx, dw, db, None, None
+
+
 class WeightNormConv1d(nn.Module):
     """Grouped Conv1d under flax ``nn.WeightNorm``'s parametrisation: the
     kernel is ``weight_g * weight_v / ||weight_v||`` with the norm taken per
     output channel (over input channels and taps; torch
     ``weight_norm(dim=0)``). ``weight_g`` [out, 1, 1] and ``weight_v`` [out,
     in/groups, k] are fp32 and the kernel is computed in fp32, then cast
-    once to the compute dtype; the bias lives in ``param_dtype``."""
+    once to the compute dtype; the bias lives in ``param_dtype``. Under
+    autograd the conv is :class:`_GroupedConv1d`."""
 
     def __init__(self, channels: int, kernel: int, groups: int, dtype=torch.bfloat16,
                  param_dtype=None, device=None):
@@ -305,8 +349,10 @@ class WeightNormConv1d(nn.Module):
         return v * torch.rsqrt(v.pow(2).sum(dim=(1, 2), keepdim=True) + 1e-12) * self.weight_g
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv1d(x, self.kernel().to(self.dtype), cast_param(self.bias, self.dtype),
-                        padding=self.padding, groups=self.groups)
+        w, b = self.kernel().to(self.dtype), cast_param(self.bias, self.dtype)
+        if torch.is_grad_enabled():
+            return _GroupedConv1d.apply(x, w, b, self.padding, self.groups)
+        return F.conv1d(x, w, b, padding=self.padding, groups=self.groups)
 
 
 class ConvPositionalEmbedding(nn.Sequential):

@@ -42,7 +42,10 @@ The span names, by layer (the thread is the caller's unless named):
   and Conformer stacks) and ``avsr.head`` (the fusion, the CTC head, the
   decoder and the joint loss, ``train/objectives.py``), and the counter
   ``avsr.relpos_bytes`` (the bytes of the relative-position score tensors
-  a forward materialises).
+  a forward materialises);
+* AV-HuBERT's positional conv (``models/avhubert.py``, inside
+  ``train.backward``): the counter ``avhubert.pos_conv_input_grad`` (one
+  per input gradient computed as a forward-direction conv).
 """
 
 from __future__ import annotations
