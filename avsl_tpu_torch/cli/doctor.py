@@ -65,11 +65,11 @@ def check(name: str, warn_only: bool = False):
 
 def kernel_probe(device) -> str:
     """Both attention kernels built, then one forward launch (bf16, [1,
-    64, 2, 64]) held to the plain version within the bf16 tolerance."""
+    64, 2, 64]) held to the plain version within ``BF16_TOL``."""
     import torch
 
     from avsl_tpu_torch.kernels._build import load_library
-    from avsl_tpu_torch.kernels.attention import fused_attention, reference_attention
+    from avsl_tpu_torch.kernels.attention import BF16_TOL, fused_attention, reference_attention
 
     for name in ("flash_attn_fwd", "flash_attn_bwd"):
         load_library(name)
@@ -82,7 +82,7 @@ def kernel_probe(device) -> str:
         want = reference_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                                    None, False).transpose(1, 2).float()
     err = (got - want).abs().max().item()
-    if not bool(((got - want).abs() <= 2e-2 + 2e-2 * want.abs()).all()):
+    if not bool(((got - want).abs() <= BF16_TOL["atol"] + BF16_TOL["rtol"] * want.abs()).all()):
         raise RuntimeError(f"attention kernel differs from the plain version by {err:.3e}")
     return f"kernels built; attention launch within {err:.1e} of the plain version"
 

@@ -40,6 +40,25 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # AV-HuBERT decoder's)
 _HEAD_DIMS = {torch.float32: (16, 32, 64, 128), torch.bfloat16: (16, 32, 64, 128)}
 
+# The kernels' accuracy contract against the plain versions below, elementwise
+# |got - want| <= atol + rtol * |want|. K1 and K2 in bf16:
+BF16_TOL = dict(atol=2e-2, rtol=2e-2)
+# K1 in fp32:
+FP32_TOL = dict(atol=1e-4, rtol=0.0)
+# K2 in fp32: both sum up to Tq or Tk fp32 products, in other orders, and
+# the kernel's weights come from the forward's online m and l
+BWD_FP32_TOL = dict(atol=1e-4, rtol=1e-4)
+# K1's row statistics against the plain row max and sum: fp32 sums in other
+# orders
+STATS_TOL = dict(atol=1e-5, rtol=1e-5)
+# K2's bf16 bodies round P and dS to bf16 (relative error at most 2^-9
+# each) before their fp32-accumulated products, so an element of dV = P^T dO
+# can be off by 2^-9 sum_q |P||dO| (dQ and dK likewise over |dS|), which
+# passes BF16_TOL's atol where many query rows attend to few keys (a key
+# length of 2 under a causal mask over 100 rows). The causal-with-lengths
+# and D = 128 cases add 2^-8 times that magnitude sum to the limit.
+BF16_MAGNITUDE = 2.0 ** -8
+
 Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 

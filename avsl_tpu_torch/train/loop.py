@@ -205,7 +205,6 @@ def make_train_step(
     grad_accum_steps: int = 1,
     param_labels: Optional[Dict[str, str]] = None,
     precompute_fn: Optional[PrecomputeFn] = None,
-    split_precompute: bool = False,
     zero1: bool = False,
     fsdp: bool = False,
     sequence_parallel: Optional[bool] = None,
@@ -225,12 +224,10 @@ def make_train_step(
     :func:`~avsl_tpu_torch.train.objectives.flamingo_tower_precompute`)
     runs under ``torch.no_grad()`` on the whole batch, drawing from the
     state's generator before any micro-step; ``ctx[k][i]`` joins
-    micro-batch ``i`` (``ctx`` itself without accumulation). With
-    ``split_precompute=True`` the result is ``(step, pre)``: ``ctx =
-    pre(state, batch)`` then ``step(state, batch, ctx)``, which draws
-    the same numbers as the fused step. ``sequence_parallel`` (None: on
-    when the model axis is above 1) splits the encoders' activations over
-    T on the model group (see the module docstring)."""
+    micro-batch ``i`` (``ctx`` itself without accumulation).
+    ``sequence_parallel`` (None: on when the model axis is above 1) splits
+    the encoders' activations over T on the model group (see the module
+    docstring)."""
     accum = int(grad_accum_steps)
     batch_dim = 1 if accum > 1 else 0
 
@@ -241,23 +238,20 @@ def make_train_step(
             with torch.no_grad(), row_shard_scope(rows), sp_scope(mesh, sequence_parallel):
                 return precompute_fn(batch, state.generator)
 
-    def step_fn(state: TrainState, batch: Dict[str, Any],
-                ctx: Optional[Dict[str, torch.Tensor]] = None,
+    def step_fn(state: TrainState, batch: Dict[str, Any]
                 ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         with span("train.step"):
-            return _step(state, batch, ctx)
+            return _step(state, batch)
 
-    def _step(state, batch, ctx):
+    def _step(state, batch):
         batch, sharded = _prepare(state, mesh, batch, batch_dim, zero1, fsdp)
         model = state.model
         if param_labels is not None:
             for name, p in model.named_parameters():
                 p.requires_grad_(param_labels.get(name) == TRAIN)
         rows = None if sharded is None else _rows(mesh, sharded)
-        if precompute_fn is not None and ctx is None:
-            ctx = pre_fn(state, sharded if sharded is not None else batch)
-        if ctx is not None:
-            batch = {**batch, **ctx}
+        if precompute_fn is not None:
+            batch = {**batch, **pre_fn(state, sharded if sharded is not None else batch)}
         micros = [batch] if accum <= 1 else [{k: v[i] for k, v in batch.items()}
                                               for i in range(accum)]
         sums: Dict[str, torch.Tensor] = {}
@@ -310,8 +304,6 @@ def make_train_step(
             p.grad = None
         return out
 
-    if split_precompute and precompute_fn is not None:
-        return step_fn, pre_fn
     return step_fn
 
 

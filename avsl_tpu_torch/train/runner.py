@@ -139,9 +139,7 @@ class TrainerRunner:
     of ``fit`` writes no second copy of a step just saved. ``tx`` (the JAX
     optimizer argument) is unused: the optimizer lives in the state.
     ``precompute_fn`` (the frozen-tower hoist, gated by the caller) runs
-    once a step before the micro-steps; the JAX runner compiles it as a
-    program of its own (``split_precompute``), which eager PyTorch has no
-    need of: both forms draw the same numbers.
+    once a step before the micro-steps, inside the step.
 
     ``cfg.ema_decay > 0`` keeps an EMA of the tensors the optimizer trains
     (JAX's covers its whole ``params`` tree; the frozen tensors, which

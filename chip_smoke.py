@@ -1,4 +1,6 @@
-"""Drive the PyTorch/CUDA port on one NVIDIA GPU and check it.
+"""Drive the PyTorch/CUDA port on one NVIDIA GPU and check it: the port's
+card gate. It measures no speed beyond the two kernels' device times; the
+port's speed comes from the benchmark, ``portbench/``.
 
 Usage: ``python3 chip_smoke.py`` from the repository root, on a machine
 with a CUDA card, ``nvcc`` and ``nvidia-smi``. Phases, each of which
@@ -19,10 +21,10 @@ raises on failure:
    statistics against the plain row max and sum; the backward kernel (K2)
    against its plain version at the shapes of the training paths (and the
    serving encoder's); bf16 at D = 32 and 128 for both, and causal with
-   key lengths at D = 64; each with times (CUDA
-   events around single calls, median of 20, host launch time included;
-   and device time from torch.profiler), the yardstick library call and
-   the least time the card could take;
+   key lengths at D = 64; each with its device time from torch.profiler
+   beside the plain version's and the yardstick library call's, and the
+   least time the card could take (:func:`attention_bound`, against
+   ``portbench/peaks.json``);
 4. small references: the tiny test model's teacher-forced logits on the
    card (through K1) against the same weights on the CPU (plain); the
    tiny Whisper-Flamingo model (its AV-HuBERT tower widened to 2 heads of
@@ -38,9 +40,9 @@ raises on failure:
    32, decoder 2 heads of 128, bf16 compute) the same way: logits with
    padded frames and both modalities, 3 train steps; then the staged lip
    frontend (``lip_frontend``) at the JAX transcriber's shape, 8 closeups
-   x 250 frames x 288 x 352: its stages timed by CUDA events, then run on
-   the CPU (ok flags and mouth-window offsets equal, trajectories and
-   crops within stated bounds), and ``extract_lip_clip`` card against CPU;
+   x 250 frames x 288 x 352: on the card, then on the CPU (ok flags and
+   mouth-window offsets equal, trajectories and crops within stated
+   bounds), and ``extract_lip_clip`` card against CPU;
    and the serving options on the tiny Whisper-Flamingo model
    (``small_serving_reference``): the temperature fallback on the same
    injected noise, biased greedy and beam search, and the alignment
@@ -48,9 +50,7 @@ raises on failure:
 5. serving path: Whisper large-v2 widths (bf16, seeded random weights,
    51865-token vocab) serving 16 synthetic 30 s windows through
    ``StreamingTranscriber`` at batch 8, with K1's launch count read around
-   exactly that run (and no row statistics written), then a per-stage
-   breakdown of one batch and a torch.profiler trace of its encoder and of
-   16 decode steps (device busy time, idle share, top kernels);
+   exactly that run (and no row statistics written);
 6. audio-visual serving path (``av_main_path``): Whisper-Flamingo at full
    width, large-v2 plus the AV-HuBERT large video tower and gated
    cross-attention (bf16, seeded random weights, gates set to 0.5 as a
@@ -58,17 +58,16 @@ raises on failure:
    builds it, serving 16 synthetic 10 s windows (12 with 150-250 frames
    of seeded lip features, 4 audio-only) at the JAX CLI's serving shape
    (250 frames of 88 x 88, batch 8), with K1's launches read around
-   exactly that run ((32 + 24) a batch, no row statistics, no K2), a
-   check that zeroing a batch's video moves its first-step logits, a
-   per-stage breakdown and traces of the video tower and 16 decode steps;
+   exactly that run ((32 + 24) a batch, no row statistics, no K2), and a
+   check that zeroing a batch's video moves its first-step logits;
 7. training path: Whisper large-v2 widths, audio-only, fp32 weights and
    Adam state under bf16 compute, 51866-token vocab, the training YAML's
    settings (batch 1 x accumulation 16, 10 s windows, dropout 0.1, lr
    1e-5 with 1000 warmup steps; no SpecAugment, as ``whisper_ft``)
    composed as the port's ``whisper_ft`` composes them: 3 optimizer steps
    over 48 synthetic items with K1 and K2 launches read around exactly
-   those steps, then one step broken into forward, backward and optimizer
-   and one traced step;
+   those steps, then one more step's gradients checked on every trained
+   tensor;
 8. Flamingo training path (``flamingo_train``, then
    ``flamingo_train_hoisted``): large-v2 plus AV-HuBERT large composed as
    the port's ``cli/finetune`` composes the training YAML (the Flamingo
@@ -76,21 +75,20 @@ raises on failure:
    lip frames an item), towers in the loop with BatchNorm on batch
    statistics, then with BatchNorm frozen, which hoists the towers: 3
    steps each with the kernels' launches and the tower's forwards counted,
-   frozen tensors unchanged, the same breakdown and trace; then each
-   kernel's launches × (device time − bound) a Flamingo step;
+   frozen tensors unchanged, the same gradient check;
 9. AV-HuBERT fine-tuning (``avhubert_cli``, ``avhubert_train``): the
    port's ``cli.avhubert_ft`` at full width (``configs/avhubert_large.yaml``:
    0.48 B parameters, concat fusion of 104-dim audio features and 88 x 88
    lip frames, 9 decoder layers of 8 heads of 128) for both heads, 3
-   steps each, printing the CLI's JSON; then the seq2seq head timed on an
-   AMI segment batch (8 items of 10 s: 250 frames of features made on the
+   steps each, printing the CLI's JSON; then the seq2seq head on an AMI
+   segment batch (8 items of 10 s: 250 frames of features made on the
    card by the port's ``avhubert_audio_features``, 250 lip frames, labels
    of 20-63 tokens): 3 steps with exactly 9 K1 and 9 K2 launches a step,
-   a broken-down and a traced step, the eval forward (24 + 9 K1), and the
+   one more step's gradients checked, the eval forward (24 + 9 K1), and the
    CTC head's train step (no kernel) and eval forward (24 K1);
 10. the dataset path: ``resample`` (8 x 10 s at 44.1, 48 and 8 kHz to 16
    kHz on the card, against the CPU and float64 ``scipy.signal.upfirdn``
-   with the same taps, within RESAMPLE_TOL; one 10 s item's host time),
+   with the same taps, within RESAMPLE_TOL),
    ``multisteps_small`` (the tiny Whisper-Flamingo model under
    ``MultiSteps``, accumulation 2 over micro-batches of 1-4 items, card
    against CPU after every micro-step), ``flamingo_dataset_train`` (the
@@ -101,9 +99,9 @@ raises on failure:
    ``test_best``, with exact K1/K2 launches a micro-step and an eval batch,
    frozen tensors bit-identical, trained tensors still between updates,
    every distinct K1 and K2 launch shape of the run against the plain
-   version, then one traced optimizer step) and ``prefetch`` (bucketed batches
-   through ``prefetch_to_device`` equal on the card; 2 optimizer steps
-   with ``prefetch_batches`` 0 and 2);
+   version) and ``prefetch`` (bucketed batches through
+   ``prefetch_to_device`` equal on the card; 2 optimizer steps with
+   ``prefetch_batches`` 2);
 11. the serving daemon (``serving_daemon``, on the model of phase 6,
    before it is freed): ``TranscriptionServer`` on 127.0.0.1 at batch 8,
    DAEMON_REQUESTS (8) concurrent 10 s requests (4 over HTTP as base64
@@ -125,11 +123,11 @@ raises on failure:
    audio-only large-v2 transcriber exported through ``cli/export_program
    --platforms cuda`` from a checkpoint and replayed with
    ``load_exported`` against the live transcriber (tokens equal, 32 K1 a
-   batch counted and traced); and on the AV model of phase 6, after the
-   daemon, bf16, ``kv_int8``, int8 weights (bit-equal to the CPU's
-   quantization of the same weights; the float model then freed) and
-   both, each exactly 56 K1 a batch, with the tiny int8 model card
-   against CPU;
+   batch by the launch counter and by the profiler's kernels); and on the
+   AV model of phase 6, after the daemon, bf16, ``kv_int8``, int8 weights
+   (bit-equal to the CPU's quantization of the same weights; the float
+   model then freed) and both, each exactly 56 K1 a batch, with the tiny
+   int8 model card against CPU;
 13. the training extras: ``distill`` (after the export, ``cli.distill``'s
    ``main`` on a seeded audio-only large-v2 target saved to a checkpoint,
    the ``tiny`` draft, 32 seeded 10-30 s clips: the label pass and the
@@ -144,7 +142,7 @@ raises on failure:
    every launch shape against the plain version; ``cli.export_lora``, the
    merged model's logits within BF16_TOL, ``cli.transcribe --ckpt_dir``
    on 8 items) and ``remat_ab`` (that job, 2 steps of 2 micro-batches with
-   remat off, ``block`` and ``dots``: s/step and peak memory each);
+   remat off, ``block`` and ``dots``: launches and peak memory each);
 14. evaluation and the reference's dataset layer: in phase 3, K1 and K2 at
    the tiny_test head dim 16 in fp32 and bf16 and fp32 at D = 128 (causal
    with key lengths and a length-0 row among them); after the daemon,
@@ -156,8 +154,8 @@ raises on failure:
    evaluate``'s ``evaluate`` on the AV model of phase 6 with the flagship
    YAML at an eval batch of 8 over the chain's 24 segments with seeded lip
    frames: teacher-forced, then beam 4 with 64 new tokens, K1 exactly 152
-   and 56 a batch, K2 never, every launch shape against the plain version,
-   a traced beam batch); at the end ``evaluate_cli_smoke`` and
+   and 56 a batch, K2 never, every launch shape against the plain
+   version); at the end ``evaluate_cli_smoke`` and
    ``avhubert_cli_smoke`` (``cli.evaluate --smoke --beam 2`` and
    ``cli.avhubert_ft --smoke`` on the card, whose tiny towers run K1 and
    K2 at head dim 16), each with exact K1/K2 counts;
@@ -168,23 +166,22 @@ raises on failure:
    after ``avhubert_train``, ``pretrain_main_path`` (AV-HuBERT large on an
    AMI segment batch, k-means targets of 100 clusters on the card, 3
    steps of the masked-cluster loss with the CLI's optimizer (K1 0, K2 0:
-   attention dropout 0.1 takes the unfused path), a traced step, the eval
-   loss (24 K1) and the relabel tap at layer 12 (12 K1) with every launch
-   shape against the plain version, and 500-cluster k-means of the tapped
+   attention dropout 0.1 takes the unfused path), the eval loss (24 K1)
+   and the relabel tap at layer 12 (12 K1) with every launch shape
+   against the plain version, and 500-cluster k-means of the tapped
    features) and ``pretrain_moe`` (the same with 8 experts of top 2 in
    every block: 1.74 B parameters, the balance loss in (0, 8]); at the end
    ``pretrain_cli_smoke`` (``cli.pretrain --smoke``, with ``--n_experts 4
    --iterations 2``, and ``cli.avhubert_ft --smoke --n_experts 4`` for
    both heads), each with exact K1/K2 counts. The depth of the LoRA,
    dataset, remat and distillation phases was cut to make room (see
-   LORA_STEPS, DATASET_STEPS, REMAT_AB_ACCUM, DISTILL_STEPS). Each
-   phase's seconds are logged as ``phase_seconds``;
+   LORA_STEPS, DATASET_STEPS, REMAT_AB_ACCUM, DISTILL_STEPS);
 16. the AV-HuBERT tools, the landmark CNN and the preflight, last:
    ``avh_tools_main_path`` (``cli.extract``, default tap and ``--layer
    12``, and ``cli.align`` at full width on 8 seeded AMI-like 2-10 s rows
    without lip clips: K1 exactly 24, 12 and 24 a row at [1, 16, Tb, Tb,
    64] with no key lengths, every launch shape against the plain version,
-   segments/s, seconds a row and peak memory), ``avh_tools_card_vs_cpu``
+   peak memory), ``avh_tools_card_vs_cpu``
    (the tiny card in fp32 through ``cli.extract`` and ``cli.align`` on the
    ``--smoke`` input, on the card against ``--device cpu`` from one
    checkpoint each), ``landmark_cnn``
@@ -193,9 +190,8 @@ raises on failure:
    ``cli.train_landmarks`` 300 steps on 2,048 faces) and ``doctor``
    (``cli.doctor`` with and without ``--config``: rc 0, no FAIL, one K1
    launch each). To make room, the daemon's live stream was cut from 30 to
-   STREAM_SECONDS, the dataset path's val and test rows from 8 to 4 each
-   (DATASET_ROWS, shared by the LoRA phase) and the export phase's timing
-   to one round of live and replay.
+   STREAM_SECONDS and the dataset path's val and test rows from 8 to 4
+   each (DATASET_ROWS, shared by the LoRA phase).
 17. the mesh (``core/mesh.py``, ``core/partitioning.py``), after the
    Flamingo training phases: ``mesh_train_main_path`` (the flagship
    Whisper-Flamingo through ``cli.finetune.make_runner`` in a process
@@ -204,14 +200,13 @@ raises on failure:
    optimizer steps of MESH_ACCUM micro-batches each; losses, grad norms,
    trained tensors and BatchNorm statistics equal to the no-mesh runner's,
    K1/K2 counts equal, the FSDP checkpoint through ``restore_sharded`` into
-   a replicated runner and back bit-equal; seconds a step, peak memory per
-   variant and a traced FSDP step) and ``mesh_cpu_ranks`` (the tiny
-   model over 2 gloo ranks on the host CPU at dp 2 replicated, ZeRO-1,
-   FSDP and dp 1 x mp 2 against one process, then ``cli.finetune --smoke
-   --device cpu`` under ``torch.distributed.run`` with ``num_devices: 2``).
+   a replicated runner and back bit-equal; peak memory per variant) and
+   ``mesh_cpu_ranks`` (the tiny model over 2 gloo ranks on the host CPU at
+   dp 2 replicated, ZeRO-1, FSDP and dp 1 x mp 2 against one process, then
+   ``cli.finetune --smoke --device cpu`` under ``torch.distributed.run``
+   with ``num_devices: 2``).
    To make room, the Flamingo training phases' accumulation was cut from
-   the YAML's 16 to PATH_ACCUM (8) and ``serving_extras_int8`` to one
-   timing round.
+   the YAML's 16 to PATH_ACCUM (8).
 18. sequence parallelism and the serving mesh: ``mesh_serving_main_path``
    (right after the daemon, on its model: the flagship transcriber built
    through ``cli/_serving_common.py::build_transcriber`` on a mesh of one
@@ -231,7 +226,7 @@ raises on failure:
    EP_TOP_K through ``cli/avhubert_ft.py::train`` on a 1 x 1
    ``make_ep_mesh`` over NCCL and on no mesh, EP_STEPS steps each, every
    loss, balance loss, grad norm, the eval loss and every trained tensor
-   bit-equal, K1 and K2 in every step; seconds a step, peak memory,
+   bit-equal, K1 and K2 in every step; peak memory,
    ``moe_aux``, K1/K2 a step and ``sharded_params`` logged) and, in
    ``mesh_cpu_ranks``, the tiny MoE AV-HuBERT at (data 2, expert 1) with
    capacity binding and at (data 1, expert 2) against one process, and
@@ -272,21 +267,30 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
-# H100 SXM data sheet (dense): bf16 tensor cores, fp32 outside them, HBM3
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-PEAK_BYTES = 3.35e12
+from avsl_tpu_torch.kernels.attention import (
+    BF16_MAGNITUDE,
+    BF16_TOL,
+    BWD_FP32_TOL,
+    FP32_TOL,
+    STATS_TOL,
+)
+from portbench.launches import recorded
+
+REPO = Path(__file__).resolve().parent
+sys.path.append(str(REPO / "tests"))
+from torch_attention_cases import (  # noqa: E402
+    AMI_DEC_LENGTHS,
+    D16_LENGTHS,
+    D64_CAUSAL_LENGTHS,
+    bwd_magnitudes,
+)
+
 SOURCES = ("flash_attn_fwd", "flash_attn_bwd")
-BF16_TOL = dict(atol=2e-2, rtol=2e-2)
-FP32_TOL = dict(atol=1e-4, rtol=0.0)
-# K2 vs plain in fp32: both sum up to Tq or Tk fp32 products, in other
-# orders, and the kernel's weights come from the forward's online m and l
-BWD_FP32_TOL = dict(atol=1e-4, rtol=1e-4)
-# K1's row statistics vs the plain row max and sum: fp32 sums in other orders
-STATS_TOL = dict(atol=1e-5, rtol=1e-5)
 # tiny fp32 train step, card (kernels) vs CPU (plain): sums over 2 x 2 items
 # and 4 blocks in other orders, and K2 recomputes P from K1's online m, l
 SMALL_TRAIN_TOL = dict(atol=1e-5, rtol=1e-4)
@@ -314,23 +318,11 @@ SMALL_FLAMINGO_TOL = SMALL_TRAIN_TOL
 # lip frames of a 10 s window at 25 fps, as the dataset trims them
 VIDEO_FRAMES = 250
 AVHUBERT_CONFIG = "configs/avhubert_large.yaml"
-# decoder key lengths (non-pad tokens) of AV-HuBERT batches: the CLI's
-# batch of 4 (labels cut to 16), an AMI batch of 8 (labels of 20-63 tokens
-# cut to 64, and two rows of 1 and 2), and a D = 64 case of 100 tokens
+# decoder key lengths (non-pad tokens) of the AV-HuBERT CLI's batch of 4
+# (labels cut to 16); the AMI batch's are AMI_DEC_LENGTHS
 CLI_DEC_LENGTHS = [16, 9, 1, 12]
-AMI_DEC_LENGTHS = [64, 1, 40, 17, 63, 2, 33, 64]
-D64_CAUSAL_LENGTHS = [100, 1, 37, 64, 65, 99, 2, 100]
-# the bodies added for the tiny_test head dim 16 (both types) and fp32 at
-# D = 128: causal with key lengths, a length-0 row in each
-D16_LENGTHS = [100, 37, 0, 1]
+# fp32 at D = 128, causal with key lengths: a length-0 row among them
 D128_LENGTHS = [64, 0, 40, 17, 63, 2, 33, 64]
-# K2's bf16 bodies round P and dS to bf16 (relative error at most 2^-9
-# each) before their fp32-accumulated products, so an element of dV = P^T dO
-# can be off by 2^-9 sum_q |P||dO| (dQ and dK likewise over |dS|), which
-# passes BF16_TOL's atol where many query rows attend to few keys (a key
-# length of 2 under a causal mask over 100 rows). The causal-with-lengths
-# and D = 128 cases add 2^-8 times that magnitude sum to the limit.
-BF16_MAGNITUDE = 2.0 ** -8
 # tiny AV-HuBERT on the card: tiny_test widened to an encoder of 2 heads of
 # 32 and a decoder of 2 heads of 128 (the bf16 tensor-core bodies' head
 # dims), every rate 0, bf16 compute over fp32 weights on both sides
@@ -346,7 +338,7 @@ ZERO_AVH_RATES = dict(ZERO_AV_RATES, decoder_dropout=0.0, decoder_activation_dro
 # logits up to 9.7, 4e-4 on the losses and 3.4e-3 on the statistics.
 SMALL_AVH_LOGITS_TOL = dict(atol=5e-2, rtol=2e-2)
 SMALL_AVH_TRAIN_TOL = dict(loss_rtol=5e-3, grad_rel_norm=5e-2, stats_atol=1e-2)
-# the timed AV-HuBERT run: an AMI segment batch
+# the AV-HuBERT training run's batch: an AMI segment batch
 AVH_BATCH, AVH_SAMPLES, AVH_LABELS, AVH_MAX_LABEL = 8, 160000, (20, 63), 64
 # the lip frontend at the JAX transcriber's shape: 8 closeups of 250 frames
 # at raw_video_hw 288 x 352; card against CPU: trajectories (float32 sums of
@@ -378,29 +370,12 @@ def log(obj) -> None:
     print(json.dumps(obj) if isinstance(obj, dict) else obj, flush=True)
 
 
-def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median device time of ``fn`` in ms over ``reps`` calls (CUDA events)."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
 def device_ms(fn, reps: int = 10):
     """Device time of ``fn`` in ms: the summed duration of the device work
     it launched (torch.profiler, device activity only) over ``reps``
     calls, after one warm-up call; "not measured" when the trace holds no
-    device activity. Unlike :func:`cuda_ms`, it leaves out the host time
-    between launches, which dominates small shapes."""
+    device activity. It leaves out the host time between launches, which
+    dominates small shapes."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -418,19 +393,15 @@ def device_ms(fn, reps: int = 10):
 
 
 def timings(kernel, plain, library) -> dict:
-    """Event times (median of single calls, host launch time included) and
-    device times of the kernel, its plain version and the library call."""
-    rec = {}
-    for key, fn in (("kernel", kernel), ("plain", plain), ("library", library)):
-        rec[f"{key}_ms"] = cuda_ms(fn)
-        rec[f"{key}_device_ms"] = device_ms(fn)
-    return rec
+    """Device times of the kernel, its plain version and the library call."""
+    return {f"{key}_device_ms": device_ms(fn)
+            for key, fn in (("kernel", kernel), ("plain", plain), ("library", library))}
 
 
 def attention_bound(b, h, tq, tk, d, dtype, causal, lengths, backward=False):
     """(bound_ms, bound_by, flops, bytes): the larger of the needed
     operations over the dtype's peak and each input read plus each output
-    written once over the memory rate.
+    written once over the memory rate, both from ``portbench/peaks.json``.
 
     Work counts the (q, key) pairs this data needs: k <= q under the
     causal mask and min(len, Tk) keys for a length. The forward does 2
@@ -453,14 +424,17 @@ def attention_bound(b, h, tq, tk, d, dtype, causal, lengths, backward=False):
         nbytes = (4 * b * tq * h * d + 4 * b * tk * h * d) * itemsize + 2 * b * h * tq * 4
     else:
         nbytes = (2 * b * tq * h * d + 2 * b * tk * h * d) * itemsize
-    t_ops, t_mem = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+    with open(REPO / "portbench" / "peaks.json") as f:
+        peaks = json.load(f)["NVIDIA H100"]
+    peak = peaks["bf16_flops"] if dtype == torch.bfloat16 else peaks["fp32_flops"]
+    t_ops, t_mem = flops / peak, nbytes / peaks["hbm_bytes_per_s"]
     return max(t_ops, t_mem) * 1e3, ("operations" if t_ops >= t_mem else "bytes"), flops, nbytes
 
 
 def check_attention_case(name, b, h, tq, tk, d, dtype, causal=False, lengths=None, seed=0,
                          timed=True):
     """The forward kernel against its plain version on the same tensors;
-    with ``timed``, also its times beside the plain version's, the
+    with ``timed``, also its device time beside the plain version's, the
     library's and the bound, logged. Returns the record."""
     from avsl_tpu_torch.kernels.attention import flash_attention_fwd_cuda, reference_attention
 
@@ -516,7 +490,6 @@ def check_attention_case(name, b, h, tq, tk, d, dtype, causal=False, lengths=Non
     bound_ms, bound_by, flops, nbytes = attention_bound(b, h, tq, tk, d, dtype, causal, lengths)
     rec.update(**timings(kernel, plain, library), bound_ms=bound_ms, bound_by=bound_by,
                flops=flops, bytes=nbytes)
-    rec["kernel_tflops"] = flops / rec["kernel_ms"] / 1e9
     if isinstance(rec["kernel_device_ms"], float):
         rec["kernel_device_tflops"] = flops / rec["kernel_device_ms"] / 1e9
     log(rec)
@@ -610,29 +583,13 @@ def check_attention_stats(name, b, h, tq, tk, d, dtype, causal=False, lengths=No
     log(rec)
 
 
-def bwd_magnitudes(q, k, v, o, g, lens, causal):
-    """[B,T,H,D] fp32 sums of magnitudes behind each gradient element:
-    |dS| |K| / sqrt(D) (dQ), |dS|^T |Q| / sqrt(D) (dK) and |P|^T |dO|
-    (dV), with P and dS as the plain backward forms them."""
-    from avsl_tpu_torch.kernels.attention import _masked_logits
-
-    qh, kh, vh, oh, gh = (t.transpose(1, 2).float() for t in (q, k, v, o, g))
-    p = torch.softmax(_masked_logits(qh, kh, lens, causal), dim=-1)
-    delta = (gh * oh).sum(dim=-1, keepdim=True)
-    ds = (p * (torch.matmul(gh, vh.transpose(-1, -2)) - delta)).abs() / math.sqrt(q.shape[-1])
-    mags = (torch.matmul(ds, kh.abs()), torch.matmul(ds.transpose(-1, -2), qh.abs()),
-            torch.matmul(p.transpose(-1, -2), gh.abs()))
-    return [m.transpose(1, 2) for m in mags]
-
-
 def check_attention_bwd_case(name, b, h, tq, tk, d, dtype, causal=False, lengths=None, seed=0,
                              magnitude=False, timed=True):
     """The backward kernel against its plain version on the same tensors
-    (dQ, dK, dV); with ``timed``, also times (CUDA events, median of 20),
-    the backward of scaled_dot_product_attention as the yardstick, and the
-    bound, logged. With ``magnitude`` the bf16 limit adds
-    ``BF16_MAGNITUDE`` times each element's magnitude sum
-    (:func:`bwd_magnitudes`). Returns the record."""
+    (dQ, dK, dV); with ``timed``, also device times, the backward of
+    scaled_dot_product_attention as the yardstick, and the bound, logged.
+    With ``magnitude`` the bf16 limit adds ``BF16_MAGNITUDE`` times each
+    element's magnitude sum (:func:`bwd_magnitudes`). Returns the record."""
     from avsl_tpu_torch.kernels.attention import (
         flash_attention_bwd_cuda,
         flash_attention_fwd_cuda,
@@ -692,7 +649,6 @@ def check_attention_bwd_case(name, b, h, tq, tk, d, dtype, causal=False, lengths
         b, h, tq, tk, d, dtype, causal, lengths, backward=True)
     rec.update({**timings(kernel, plain, library),
                 "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops, "bytes": nbytes})
-    rec["kernel_tflops"] = flops / rec["kernel_ms"] / 1e9
     if isinstance(rec["kernel_device_ms"], float):
         rec["kernel_device_tflops"] = flops / rec["kernel_device_ms"] / 1e9
     log(rec)
@@ -866,8 +822,7 @@ def phase_cached_attention():
     err = (got.float() - want.float()).abs()
     limit = BF16_TOL["atol"] + BF16_TOL["rtol"] * want.float().abs()
     log({"phase": "cached_attention", "shape": {"B": b, "H": h, "Tq": 1, "Tk": tk, "D": d},
-         "max_abs_err": err.max().item(), "tolerance": BF16_TOL,
-         "ms": cuda_ms(lambda: head_major_attention(q, k, v)), "upcast_ms": cuda_ms(upcast)})
+         "max_abs_err": err.max().item(), "tolerance": BF16_TOL})
     if not torch.isfinite(got.float()).all() or not bool((err <= limit).all()):
         raise AssertionError(f"cached attention differs from upcast by {err.max().item():.3e}")
 
@@ -875,7 +830,7 @@ def phase_cached_attention():
 def run_counted(fn):
     """``fn()`` with K1 and K2 launches counted from 0 around exactly that
     call and the K1 launches that wrote row statistics counted: ``(result,
-    seconds, k1 launches, row-statistics writes, k2 launches)``."""
+    k1 launches, row-statistics writes, k2 launches)``."""
     from avsl_tpu_torch.kernels import attention
 
     stats_writes = []
@@ -888,67 +843,39 @@ def run_counted(fn):
     attention.flash_attention_fwd_cuda = counting
     attention.fused_attention.launches = attention.fused_attention_bwd.launches = 0
     try:
-        t0 = time.perf_counter()
         result = fn()
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
     finally:
         attention.flash_attention_fwd_cuda = unwrapped
-    return (result, seconds, attention.fused_attention.launches, sum(stats_writes),
+    return (result, attention.fused_attention.launches, sum(stats_writes),
             attention.fused_attention_bwd.launches)
 
 
-@contextlib.contextmanager
-def launch_shapes(seen: dict):
-    """Within the block, record each distinct K1 (``"fwd"``) and K2
-    (``"bwd"``) launch signature ``(kind, B, H, Tq, Tk, D, dtype, causal,
-    has lengths)`` in ``seen``, mapped to the key lengths of its first
-    launch (cloned on the device and read afterwards, so the hooks add no
-    host sync). The launches themselves and their counts are unchanged."""
-    from avsl_tpu_torch.kernels import attention
-
-    fwd, bwd = attention.flash_attention_fwd_cuda, attention.flash_attention_bwd_cuda
-
-    def note(kind, q, k, lengths, causal):
-        b, tq, h, d = q.shape
-        key = (kind, b, h, tq, k.shape[1], d, q.dtype, bool(causal), lengths is not None)
-        if key not in seen:
-            seen[key] = None if lengths is None else torch.as_tensor(lengths).clone()
-
-    def fwd_hook(q, k, v, lengths=None, causal=False, stats=False):
-        note("fwd", q, k, lengths, causal)
-        return fwd(q, k, v, lengths, causal, stats=stats)
-
-    def bwd_hook(q, k, v, o, do, m, l, lengths=None, causal=False):
-        note("bwd", q, k, lengths, causal)
-        return bwd(q, k, v, o, do, m, l, lengths, causal)
-
-    attention.flash_attention_fwd_cuda, attention.flash_attention_bwd_cuda = fwd_hook, bwd_hook
-    try:
-        yield seen
-    finally:
-        attention.flash_attention_fwd_cuda, attention.flash_attention_bwd_cuda = fwd, bwd
-
-
-def check_launch_shapes(seen: dict) -> dict:
+def check_launch_shapes(launches: list) -> dict:
     """Hold K1 and K2 against their plain versions at every distinct
-    launch signature in ``seen`` (:func:`launch_shapes`), on seeded inputs
-    of that shape and with the launch's key lengths, within the timed
-    cases' tolerances (the magnitude term where those use it: causal with
-    key lengths, or D = 128). The shapes are the ones a run gave the
-    kernels, every bucket and micro-batch size included. Returns, per
-    kernel, the count of shapes, the worst error, and the batch sizes and
-    query and key lengths they span."""
+    launch signature ``(kind, B, H, Tq, Tk, D, dtype, causal, has
+    lengths)`` among ``launches`` (as ``portbench/launches.py::recorded``
+    writes them), on seeded inputs of that shape and with the key lengths
+    of its first launch, within the timed cases' tolerances (the
+    magnitude term where those use it: causal with key lengths, or D =
+    128). The shapes are the ones a run gave the kernels, every bucket and
+    micro-batch size included. Returns, per kernel, the count of shapes,
+    the worst error, and the batch sizes and query and key lengths they
+    span."""
+    seen = {}
+    for rec in launches:
+        dtype = torch.bfloat16 if rec["itemsize"] == 2 else torch.float32
+        key = (rec["kind"], rec["b"], rec["h"], rec["tq"], rec["tk"], rec["d"], dtype,
+               rec["causal"], rec["lengths"] is not None)
+        seen.setdefault(key, rec["lengths"])
     out = {}
     for kind, check in (("fwd", check_attention_case), ("bwd", check_attention_bwd_case)):
         keys = sorted((k for k in seen if k[0] == kind), key=str)
         worst, shapes = 0.0, []
         for key in keys:
             _, b, h, tq, tk, d, dtype, causal, has_len = key
-            lengths = None if seen[key] is None else seen[key].tolist()
             extra = {"magnitude": (causal and has_len) or d == 128} if kind == "bwd" else {}
             rec = check(f"path_{kind}_{b}x{h}x{tq}x{tk}x{d}", b, h, tq, tk, d, dtype,
-                        causal=causal, lengths=lengths, timed=False, **extra)
+                        causal=causal, lengths=seen[key], timed=False, **extra)
             worst = max(worst, rec["max_abs_err"])
             shapes.append([b, h, tq, tk, d, str(dtype).replace("torch.", ""), causal, has_len])
         out[kind] = {"shapes": len(keys), "max_abs_err": worst,
@@ -972,38 +899,17 @@ def decoded_tokens(results, eot: int, max_new: int) -> int:
                for r in results)
 
 
-def timed_stages():
-    """``(stages, timed)``: ``timed(name, fn)`` runs ``fn`` between two
-    synchronisations and records its host-clock seconds under ``name``."""
-    stages = {}
-
-    def timed(name, fn):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        stages[name] = time.perf_counter() - t
-        return out
-
-    return stages, timed
-
-
 def phase_main_path(card: str):
     from avsl_tpu_torch.data.tokenizer import ByteTokenizer
-    from avsl_tpu_torch.decode.greedy import greedy_decode_scored
     from avsl_tpu_torch.infer.pipeline import StreamingTranscriber
-    from avsl_tpu_torch.kernels.logmel import log_mel_spectrogram
     from avsl_tpu_torch.models import build_whisper_flamingo
 
-    t0 = time.perf_counter()
     model, cfg = build_whisper_flamingo(
         "large-v2", add_gated_x_attn=0, use_av_hubert_encoder=False,
         dtype="bfloat16", device="cuda", seed=0,
     )
-    torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
-    log({"phase": "build_model", "model": cfg.name, "params": n_params,
-         "n_vocab": cfg.n_vocab, "seconds": time.perf_counter() - t0})
+    log({"phase": "build_model", "model": cfg.name, "params": n_params, "n_vocab": cfg.n_vocab})
     batch, n_items, max_new = 8, 16, 64
     tr = StreamingTranscriber(model, ByteTokenizer(), audio_max_length=480000,
                               batch_size=batch, max_new_tokens=max_new)
@@ -1013,52 +919,20 @@ def phase_main_path(card: str):
          "audio": (0.1 * rng.standard_normal(int(rng.integers(320000, 480001)))).astype(np.float32)}
         for i in range(n_items)
     ]
-    tr.transcribe_batch(items[:batch])  # warm-up: cuBLAS/cuDNN handles, allocator
-    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    results, seconds, launches, stats_writes, k2 = run_counted(lambda: tr.transcribe(items))
+    results, launches, stats_writes, k2 = run_counted(lambda: tr.transcribe(items))
     if stats_writes or k2:
         raise AssertionError("the serving path wrote row statistics or ran the backward kernel")
     n_batches = math.ceil(n_items / batch)
     check_served(results, n_items, max_new)
     if launches != cfg.n_audio_layer * n_batches:
         raise AssertionError(f"flash-attention launches {launches} != {cfg.n_audio_layer * n_batches}")
-    n_tokens = decoded_tokens(results, tr.tokenizer.eot, max_new)
     log({"phase": "main_path", "card": card, "items": n_items, "batches": n_batches,
-         "seconds": seconds, "seconds_per_batch": seconds / n_batches,
-         "segments_per_s": n_items / seconds, "decode_tokens": n_tokens,
-         "tokens_per_s_end_to_end": n_tokens / seconds,
+         "decode_tokens": decoded_tokens(results, tr.tokenizer.eot, max_new),
          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
          "flash_attention_launches": launches, "row_statistics_written": stats_writes,
          "avg_logprob_first": results[0].avg_logprob})
-
-    # per-stage breakdown of one batch (host clock, synchronised per stage)
-    audio = tr._prepare_batch(items[:batch]).audio
-    stages, timed = timed_stages()
-    with torch.inference_mode():
-        x = timed("h2d", lambda: torch.from_numpy(audio).cuda())
-        mel = timed("log_mel", lambda: log_mel_spectrogram(x, n_mels=cfg.n_mels))
-        feats, _ = timed("encoder", lambda: model.encode(mel))
-        cache = timed("cache_build", lambda: model.init_decode_cache(
-            feats, None, max_new + tr._prompt.shape[1] + 2))
-        timed("decode", lambda: greedy_decode_scored(
-            lambda tok, c: model.decode(tok, None, None, c), cache, tr._prompt,
-            max_new, tr.tokenizer.eot))
-        # traced run (torch.profiler): device busy time against wall time;
-        # the decode trace covers a quarter of the steps to keep it short
-        traced_steps = max_new // 4
-        traced = {
-            "encoder": traced_run(lambda: model.encode(mel)),
-            "decode": traced_run(lambda: greedy_decode_scored(
-                lambda tok, c: model.decode(tok, None, None, c),
-                model.init_decode_cache(feats, None, traced_steps + tr._prompt.shape[1] + 2),
-                tr._prompt, traced_steps, tr.tokenizer.eot)),
-        }
-    log({"phase": "stage_breakdown", "card": card, "batch": batch, "stage_seconds": stages,
-         "decode_steps": max_new, "decode_tokens_per_s": batch * max_new / stages["decode"]})
-    log({"phase": "traced_stages", "card": card, "batch": batch,
-         "decode_steps_traced": traced_steps, **traced})
     return launches, model
 
 
@@ -1087,13 +961,11 @@ def phase_av_main_path(card: str):
     from avsl_tpu_torch.cli._serving_common import serving_video_frames
     from avsl_tpu_torch.core.config import FlamingoTrainConfig
     from avsl_tpu_torch.data.tokenizer import ByteTokenizer
-    from avsl_tpu_torch.decode.greedy import greedy_decode_scored
     from avsl_tpu_torch.infer.pipeline import StreamingTranscriber
     from avsl_tpu_torch.kernels.logmel import log_mel_spectrogram
     from avsl_tpu_torch.models import build_whisper_flamingo
 
     serve_cfg = FlamingoTrainConfig()  # the JAX CLI's default: the AV model, 10 s windows
-    t0 = time.perf_counter()
     model, cfg = build_whisper_flamingo(
         serve_cfg.model_name, add_gated_x_attn=serve_cfg.add_gated_x_attn,
         use_av_hubert_encoder=serve_cfg.use_av_hubert_encoder,
@@ -1101,13 +973,12 @@ def phase_av_main_path(card: str):
     )
     set_gates(model, GATE)
     av_cfg = model.video_model.cfg
-    torch.cuda.synchronize()
     count = lambda m: sum(p.numel() for p in m.parameters())  # noqa: E731
     log({"phase": "build_av_model", "model": cfg.name, "params": count(model),
          "video_tower_params": count(model.video_model), "n_vocab": cfg.n_vocab,
          "av_hubert": {"hidden": av_cfg.hidden_size, "layers": av_cfg.num_hidden_layers,
                        "heads": av_cfg.num_attention_heads, "ffn": av_cfg.intermediate_size},
-         "gates": GATE, "seconds": time.perf_counter() - t0})
+         "gates": GATE})
     batch, n_items, max_new = 8, 16, 64
     audio_max_length = int(serve_cfg.audio_max_length)
     video_frames = serving_video_frames(audio_max_length)
@@ -1115,11 +986,9 @@ def phase_av_main_path(card: str):
                               video_frames=video_frames, crop=88, batch_size=batch,
                               max_new_tokens=max_new)
     items = av_items(n_items)
-    tr.transcribe_batch(items[:batch])  # warm-up: cuBLAS/cuDNN handles, allocator
-    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    results, seconds, launches, stats_writes, k2 = run_counted(lambda: tr.transcribe(items))
+    results, launches, stats_writes, k2 = run_counted(lambda: tr.transcribe(items))
     if stats_writes or k2:
         raise AssertionError("the AV serving path wrote row statistics or ran the backward kernel")
     n_batches = math.ceil(n_items / batch)
@@ -1130,13 +999,10 @@ def phase_av_main_path(card: str):
     with_video = [r.id for r in results if r.has_video]
     if with_video != [it["id"] for it in items if "lip_feats" in it] or len(with_video) != 12:
         raise AssertionError(f"has_video on {with_video}")
-    n_tokens = decoded_tokens(results, tr.tokenizer.eot, max_new)
     record = {"phase": "av_main_path", "card": card, "items": n_items, "batches": n_batches,
               "items_with_video": len(with_video), "video_frames": video_frames,
               "audio_max_length": audio_max_length,
-              "seconds": seconds, "seconds_per_batch": seconds / n_batches,
-              "segments_per_s": n_items / seconds, "decode_tokens": n_tokens,
-              "tokens_per_s_end_to_end": n_tokens / seconds,
+              "decode_tokens": decoded_tokens(results, tr.tokenizer.eot, max_new),
               "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
               "flash_attention_launches": launches, "row_statistics_written": stats_writes,
               "backward_launches": k2, "avg_logprob_first": results[0].avg_logprob}
@@ -1144,19 +1010,13 @@ def phase_av_main_path(card: str):
     # the mesh transcriber's reference (phase_mesh_serving_main_path), not logged
     record["tokens"] = [list(r.tokens) for r in results]
 
-    # per-stage breakdown of one batch (host clock, synchronised per stage):
-    # the host's preparation, one whole device program, then its parts
-    stages, timed = timed_stages()
-    prep = timed("host_prepare", lambda: tr._prepare_batch(items[:batch]))
-    audio, video, flags = prep.audio, prep.video, prep.flags
-    timed("whole_batch_run", lambda: tr._run(audio, video))
-    prompt = tr._prompt
-
     # the gates carry the video: a batch's first-step logits move when its
     # video is zeroed (rows with video), and only there
+    prep = tr._prepare_batch(items[:batch])
+    prompt = tr._prompt
     with torch.inference_mode():
-        mel = log_mel_spectrogram(torch.from_numpy(audio).cuda(), n_mels=cfg.n_mels)
-        vid = torch.from_numpy(video).cuda()
+        mel = log_mel_spectrogram(torch.from_numpy(prep.audio).cuda(), n_mels=cfg.n_mels)
+        vid = torch.from_numpy(prep.video).cuda()
 
         def first_logits(v):
             feats, xv = model.encode(mel, v)
@@ -1166,40 +1026,11 @@ def phase_av_main_path(card: str):
 
         moved = (first_logits(vid) - first_logits(torch.zeros_like(vid))).abs().amax(dim=-1)
     moved = moved.cpu().tolist()
-    video_rows = [m for m, f in zip(moved, flags) if f]
+    video_rows = [m for m, f in zip(moved, prep.flags) if f]
     log({"phase": "av_gate_check", "first_step_logit_change_by_row": moved,
-         "rows_with_video": flags})
+         "rows_with_video": prep.flags})
     if min(video_rows) < 1e-3:
         raise AssertionError(f"zeroing the video left rows' first-step logits unchanged: {moved}")
-
-    cache_len = max_new + prompt.shape[1] + 2
-    with torch.inference_mode():
-        x, vid = timed("h2d", lambda: (torch.from_numpy(audio).cuda(),
-                                       torch.from_numpy(video).cuda()))
-        mel = timed("log_mel", lambda: log_mel_spectrogram(x, n_mels=cfg.n_mels))
-        feats = timed("whisper_encoder", lambda: model.encoder(mel))
-        v = timed("video_tower", lambda: model.video_model(video=vid))
-        cache = timed("projection_and_cache", lambda: model.init_decode_cache(
-            feats, model.video_projection(v), cache_len))
-
-        def step(tok, c):
-            return model.decode(tok, None, None, c)
-
-        timed("decode", lambda: greedy_decode_scored(step, cache, prompt, max_new,
-                                                     tr.tokenizer.eot))
-        traced_steps = max_new // 4
-        xv = model.video_projection(v)
-        traced = {
-            "video_tower": traced_run(lambda: model.video_model(video=vid)),
-            "whisper_encoder": traced_run(lambda: model.encoder(mel)),
-            "decode": traced_run(lambda: greedy_decode_scored(
-                step, model.init_decode_cache(feats, xv, traced_steps + prompt.shape[1] + 2),
-                prompt, traced_steps, tr.tokenizer.eot)),
-        }
-    log({"phase": "av_stage_breakdown", "card": card, "batch": batch, "stage_seconds": stages,
-         "decode_steps": max_new, "decode_tokens_per_s": batch * max_new / stages["decode"]})
-    log({"phase": "av_traced_stages", "card": card, "batch": batch,
-         "decode_steps_traced": traced_steps, **traced})
     return launches, (model, serve_cfg), record
 
 
@@ -1236,7 +1067,7 @@ def closeup_clips(b: int, t: int, h: int, w: int, seed: int, device) -> torch.Te
 def phase_lip_frontend(card: str, device: str = "cuda", shape=LIP_SHAPE):
     """The staged lip frontend at the JAX transcriber's shape (``shape``: 8
     clips x 250 frames of 288 x 352, ``detect_ds`` 2, window 25) on the card,
-    each stage timed by CUDA events, then the same functions on the CPU:
+    then the same functions on the CPU:
     ok flags and int32 mouth-window offsets equal, trajectories within
     ``LIP_TRAJ_TOL`` px (tracked: ``LIP_TRACK_TOL``), the sampler on the
     same coordinates within ``LIP_SAMPLE_TOL`` grey levels, the sampling
@@ -1257,10 +1088,7 @@ def phase_lip_frontend(card: str, device: str = "cuda", shape=LIP_SHAPE):
 
     b, t, h, w = shape
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
     clips = closeup_clips(b, t, h, w, seed=11, device=device)
-    torch.cuda.synchronize()
-    make_s = time.perf_counter() - t0
     st = make_staged_lip_frontend(t, window=25, detect_ds=2)
 
     def chain(x):
@@ -1273,23 +1101,9 @@ def phase_lip_frontend(card: str, device: str = "cuda", shape=LIP_SHAPE):
                 "window": st["traj_window"](traj[0], h, w, LIP_ROI)}
 
     dev = chain(clips)
-    small = st["subsample"](clips)
-    traj = st["traj"](small)
-    coords = st["coords_from_traj"](traj[0], traj[1])
-    stage_ms = {
-        "subsample": cuda_ms(lambda: st["subsample"](clips), reps=5, warmup=1),
-        "traj": cuda_ms(lambda: st["traj"](small), reps=5, warmup=1),
-        "track_refine_parallel": cuda_ms(lambda: st["track_refine_parallel"](small, *traj),
-                                         reps=3, warmup=1),
-        "coords_from_traj": cuda_ms(lambda: st["coords_from_traj"](traj[0], traj[1]),
-                                    reps=5, warmup=1),
-        "sample": cuda_ms(lambda: st["sample"](clips, *coords), reps=5, warmup=1),
-    }
     peak = torch.cuda.max_memory_allocated()
 
-    t0 = time.perf_counter()
     ref = chain(clips.cpu())
-    cpu_s = time.perf_counter() - t0
     same_coords = st["sample"](clips.cpu(), *[c.cpu() for c in dev["coords"]])
     np_ = lambda x: x.detach().cpu().numpy()  # noqa: E731
     ok_d, ok_c = np_(dev["traj"][2]), np_(ref["traj"][2])
@@ -1307,10 +1121,7 @@ def phase_lip_frontend(card: str, device: str = "cuda", shape=LIP_SHAPE):
     sparse = MotionEnergyDetector()(frames[:, ::2, ::2], window=25)
     sparse = [None if l is None else l * 2 for l in sparse]
     lms = smooth_landmarks(landmarks_interpolate(sparse), 12)
-    t0 = time.perf_counter()
     lip_dev = extract_lip_clip(frames, sparse, device=device)
-    torch.cuda.synchronize()
-    extract_s = time.perf_counter() - t0
     lip_cpu = extract_lip_clip(frames, sparse, device="cpu")
     mf = torch.from_numpy(canonical_mean_face(300))
     win = [_crop_window_coeffs(torch.from_numpy(lms).to(d), mf.to(d), 300, 96, STABLE_IDX)[1:]
@@ -1319,9 +1130,7 @@ def phase_lip_frontend(card: str, device: str = "cuda", shape=LIP_SHAPE):
     extract_err = int(np.abs(lip_dev.astype(int) - lip_cpu.astype(int)).max())
 
     log({"phase": "lip_frontend", "card": card, "shape": {"B": b, "T": t, "H": h, "W": w},
-         "detect_ds": 2, "window": 25, "make_clips_s": make_s, "stage_ms": stage_ms,
-         "frontend_ms": sum(stage_ms[k] for k in ("subsample", "traj", "coords_from_traj", "sample")),
-         "max_memory_allocated_bytes": peak, "cpu_chain_s": cpu_s,
+         "detect_ds": 2, "window": 25, "max_memory_allocated_bytes": peak,
          "ok": ok_d.tolist(), "ok_equal": bool((ok_d == ok_c).all()),
          "window_offsets": [x.tolist() for x in win_d],
          "window_offsets_equal": all(bool((a == c).all()) for a, c in zip(win_d, win_c)),
@@ -1331,7 +1140,7 @@ def phase_lip_frontend(card: str, device: str = "cuda", shape=LIP_SHAPE):
          "tolerance": {"traj_px": LIP_TRAJ_TOL, "tracked_px": LIP_TRACK_TOL,
                        "sample": LIP_SAMPLE_TOL, "coords_px": LIP_COORD_TOL,
                        "crops": LIP_CROP_TOL},
-         "extract_lip_clip": {"seconds": extract_s, "windows_equal": win_equal,
+         "extract_lip_clip": {"windows_equal": win_equal,
                               "max_abs_err_grey": extract_err,
                               "frames_with_landmarks": sum(l is not None for l in sparse)}})
     if not ok_d.all():
@@ -1380,17 +1189,16 @@ def raw_batches(items, batch: int, audio_max_length: int, video_frames: int, hw,
     return out
 
 
-def phase_av_raw_main_path(card: str, model, serve_cfg, av_record: dict) -> int:
+def phase_av_raw_main_path(card: str, model, serve_cfg) -> int:
     """Whisper-Flamingo serving raw closeups at full width (phase 7): the
     model of ``av_main_path`` through a StreamingTranscriber in
     ``raw_lip_mode="device"`` at the JAX CLI's shape (raw_video_hw 288 x 352,
     250 frames, batch 8): 16 items of 7.5-10 s, 12 with raw closeups of
     150-250 frames, 4 audio-only, driven through the transcriber's device
     method ``run_batch`` (the card's machine has no video decoder). K1's
-    launches are read around exactly that run; then the same items with
-    lip features and with closeups are served in turns; the lip frontend's
-    share of a batch is timed; zeroing a batch's raw clips must move its
-    rows' first-step logits."""
+    launches are read around exactly that run; the lip frontend must detect
+    every served closeup of a batch and feed its rows, and zeroing a
+    batch's raw clips must move its rows' first-step logits."""
     from avsl_tpu_torch.cli._serving_common import serving_video_frames
     from avsl_tpu_torch.data.tokenizer import ByteTokenizer
     from avsl_tpu_torch.infer.pipeline import StreamingTranscriber
@@ -1407,35 +1215,18 @@ def phase_av_raw_main_path(card: str, model, serve_cfg, av_record: dict) -> int:
     for item in items:  # the lip features' frame counts become raw closeups'
         if "lip_feats" in item:
             item["raw_frames"] = len(item.pop("lip_feats"))
-    t0 = time.perf_counter()
     prepared = raw_batches(items, batch, audio_max_length, video_frames, tr.raw_video_hw, tr.crop,
                            seed=21, device="cuda")
-    make_s = time.perf_counter() - t0
-    tr.run_batch(prepared[0][1])  # warm-up: cuBLAS/cuDNN handles, allocator
-    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    def serve(batches=prepared):
+    def serve():
         out = []
-        for chunk, prep in batches:
+        for chunk, prep in prepared:
             out += tr._results(chunk, prep.flags, tr.run_batch(prep), len(out))
         return out
 
-    results, seconds, launches, stats_writes, k2 = run_counted(serve)
+    results, launches, stats_writes, k2 = run_counted(serve)
     peak = torch.cuda.max_memory_allocated()
-    # the same 16 items with their lip features instead of closeups, served
-    # in turns with the closeups (features, closeups, closeups, features):
-    # the decode loop is host-bound, and its time drifts within a call
-    lip_items = av_items(n_items, seed=2)
-    lip_prepared = [(lip_items[i:i + batch], tr._prepare_batch(lip_items[i:i + batch]))
-                    for i in range(0, n_items, batch)]
-    turns = {"lip_features": [], "raw_closeups": []}
-    for name in ("lip_features", "raw_closeups", "raw_closeups", "lip_features"):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        serve(lip_prepared if name == "lip_features" else prepared)
-        torch.cuda.synchronize()
-        turns[name].append(time.perf_counter() - t0)
     if stats_writes or k2:
         raise AssertionError("the raw AV serving path wrote row statistics or ran the backward kernel")
     n_batches = math.ceil(n_items / batch)
@@ -1447,16 +1238,13 @@ def phase_av_raw_main_path(card: str, model, serve_cfg, av_record: dict) -> int:
     if with_video != [it["id"] for it in items if "raw_frames" in it] or len(with_video) != 12:
         raise AssertionError(f"has_video on {with_video}")
 
-    # one batch broken down: the raw clips' upload, the lip frontend, the
-    # whole device half; its detections; the lip rows it feeds the model
+    # one batch: its detections; the lip rows it feeds the model
     _, prep = prepared[0]
-    stages, timed = timed_stages()
     st = tr._lip_stages
     with torch.inference_mode():
-        raw = timed("h2d_raw", lambda: torch.from_numpy(prep.raw).cuda())
+        raw = torch.from_numpy(prep.raw).cuda()
         n_frames = torch.from_numpy(prep.raw_frames).cuda()
-        lip = timed("lip_frontend", lambda: tr._lip_from_raw(raw, n_frames))
-        timed("whole_batch_run", lambda: tr.run_batch(prep))
+        lip = tr._lip_from_raw(raw, n_frames)
         ok = st["traj"](st["subsample"](raw))[2].cpu().tolist()
         rows_with_frames = (lip.flatten(1).abs().amax(dim=1) > 0).cpu().tolist()
         mask = torch.from_numpy(prep.raw_mask).cuda()[:, None, None, None, None]
@@ -1472,23 +1260,14 @@ def phase_av_raw_main_path(card: str, model, serve_cfg, av_record: dict) -> int:
 
         moved = (first_logits(raw) - first_logits(torch.zeros_like(raw))).abs().amax(dim=-1)
     moved = moved.cpu().tolist()
-    n_tokens = decoded_tokens(results, tr.tokenizer.eot, max_new)
     log({"phase": "av_raw_main_path", "card": card, "items": n_items, "batches": n_batches,
          "items_with_video": len(with_video), "raw_video_hw": list(tr.raw_video_hw),
-         "video_frames": video_frames, "raw_lip_mode": tr.raw_lip_mode, "make_clips_s": make_s,
-         "seconds": seconds, "seconds_per_batch": seconds / n_batches,
-         "segments_per_s": n_items / seconds, "decode_tokens": n_tokens,
-         "tokens_per_s_end_to_end": n_tokens / seconds,
+         "video_frames": video_frames, "raw_lip_mode": tr.raw_lip_mode,
+         "decode_tokens": decoded_tokens(results, tr.tokenizer.eot, max_new),
          "max_memory_allocated_bytes": peak, "flash_attention_launches": launches,
          "row_statistics_written": stats_writes, "backward_launches": k2,
-         "stage_seconds": stages,
-         "lip_frontend_share_of_batch": stages["lip_frontend"] / (seconds / n_batches),
          "detections_ok_batch0": ok, "lip_rows_with_frames_batch0": rows_with_frames,
-         "first_step_logit_change_by_row": moved, "rows_with_video": prep.flags,
-         "beside_lip_features": {k: av_record[k] for k in (
-             "segments_per_s", "seconds_per_batch", "max_memory_allocated_bytes")},
-         "turns_seconds": turns,
-         "turns_segments_per_s": {k: n_items / statistics.median(v) for k, v in turns.items()}})
+         "first_step_logit_change_by_row": moved, "rows_with_video": prep.flags})
     if not all(o for o, m in zip(ok, prep.raw_mask) if m):
         raise AssertionError(f"the lip frontend missed a served closeup: ok {ok}, "
                              f"closeups {prep.raw_mask}")
@@ -1606,20 +1385,15 @@ def prepare_train_path(steps: int):
     return cfg, tokenizer, batches, max(b["labels"].shape[1] for b in batches)
 
 
-def timed_train_steps(runner, reshaped, after_first):
-    """Each batch through the runner's train step, timed on the host clock
-    around a synchronised step: ``(records, after_first())``, the latter
-    called once step 1 has run."""
+def train_steps(runner, reshaped, after_first):
+    """Each batch through the runner's train step: ``(records,
+    after_first())``, the latter called once step 1 has run."""
     opt, records, first = runner.state.optimizer, [], None
     for i, batch in enumerate(reshaped):
         lr = opt.learning_rate()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
         runner.state, metrics = runner.train_step(runner.state, batch)
-        loss, grad_norm = float(metrics["loss"]), float(metrics["grad_norm"])
-        torch.cuda.synchronize()
-        records.append({"step": i + 1, "seconds": time.perf_counter() - t, "lr": lr,
-                        "loss": loss, "grad_norm": grad_norm,
+        records.append({"step": i + 1, "lr": lr, "loss": float(metrics["loss"]),
+                        "grad_norm": float(metrics["grad_norm"]),
                         "label_tokens": int((batch["labels"] >= 0).sum()),
                         "label_len": int(batch["labels"].shape[-1])})
         if i == 0:
@@ -1629,39 +1403,15 @@ def timed_train_steps(runner, reshaped, after_first):
     return records, first
 
 
-def step_rates(records, items_per_step: int) -> dict:
-    """Seconds a step (median of steps 2 on, step 1 carrying first-use
-    costs), segments and label tokens a second."""
-    timed = records[1:] if len(records) > 1 else records
-    sec = statistics.median(r["seconds"] for r in timed)
-    return {"seconds_per_step_median_2_3": sec, "segments_per_s": items_per_step / sec,
-            "label_tokens_per_s": statistics.median(r["label_tokens"] for r in timed) / sec}
-
-
-def staged_step(model, opt, loss_fn, batch, gen, accum: int, stages: dict, check_grads):
-    """One more train step stage by stage (host clock, synchronised per
-    stage): each micro-step's forward and backward, ``check_grads()`` on
-    the accumulated gradients, then the optimizer, added into ``stages``."""
-    stages.update(forward=0.0, backward=0.0)
+def check_step_grads(model, loss_fn, batch, gen, accum: int, check_grads) -> None:
+    """One more step's micro-steps, forward and backward, then
+    ``check_grads()`` on the accumulated gradients, which are then
+    dropped."""
     for i in range(accum):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
         loss, _ = loss_fn({k: v[i] for k, v in batch.items()}, gen)
-        torch.cuda.synchronize()
-        stages["forward"] += time.perf_counter() - t
-        t = time.perf_counter()
         loss.backward()
-        torch.cuda.synchronize()
-        stages["backward"] += time.perf_counter() - t
     check_grads()
-    t = time.perf_counter()
-    grads = [p.grad for p in opt.params]
-    torch._foreach_div_(grads, float(accum))
-    opt.step(grads)
     model.zero_grad(set_to_none=True)
-    torch.cuda.synchronize()
-    stages["optimizer"] = time.perf_counter() - t
-    return stages
 
 
 def phase_train_main_path(card: str, cfg, tokenizer, batches, out_dir: str):
@@ -1670,35 +1420,30 @@ def phase_train_main_path(card: str, cfg, tokenizer, batches, out_dir: str):
     (flamingo_loss_fn with dropout and no SpecAugment, whisper_optimizer,
     TrainerRunner's step): 3 optimizer steps of batch 1 x accumulation
     16, with the kernels' launches read around exactly those steps; then
-    one step broken into forward, backward and optimizer (and checked for
-    a nonzero gradient on every trained tensor) and one traced step.
-    The runner's logs would go to ``out_dir``."""
+    one more step's gradients checked for a nonzero gradient on every
+    trained tensor. The runner's logs would go to ``out_dir``."""
     from avsl_tpu_torch.cli import whisper_ft
     from avsl_tpu_torch.kernels.attention import fused_attention, fused_attention_bwd
     from avsl_tpu_torch.train.loop import batch_to_device
     from avsl_tpu_torch.train.objectives import flamingo_loss_fn
 
-    t0 = time.perf_counter()
     model, w_cfg = whisper_ft.build_model(cfg, tokenizer, "cuda", vocab_size=LARGE_V2_VOCAB)
-    torch.cuda.synchronize()
     params = [p for p in model.parameters()]
     log({"phase": "build_train_model", "model": w_cfg.name, "n_vocab": w_cfg.n_vocab,
          "params": sum(p.numel() for p in params), "dtype": w_cfg.dtype,
          "param_dtype": w_cfg.param_dtype, "dropout": w_cfg.dropout_rate,
          "spec_augment": None, "learning_rate": cfg.learning_rate,
          "warmup_steps": cfg.warmup_steps, "batch_size": cfg.batch_size,
-         "accumulation": cfg.gradient_accumulation_steps,
-         "seconds": time.perf_counter() - t0})
+         "accumulation": cfg.gradient_accumulation_steps})
     runner = whisper_ft.make_runner(cfg, model, tokenizer, out_dir)
     opt, accum = runner.state.optimizer, runner.accum
     reshaped = [runner.reshape_accum(b) for b in batches]
     n_steps = len(reshaped)
-    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
     before = [p.detach().clone() for p in params]
     fused_attention.launches = fused_attention_bwd.launches = 0
-    records, unchanged_after_first = timed_train_steps(
+    records, unchanged_after_first = train_steps(
         runner, reshaped, lambda: all(torch.equal(a, p) for a, p in zip(before, params)))
     k1, k2 = fused_attention.launches, fused_attention_bwd.launches
     peak = torch.cuda.max_memory_allocated()
@@ -1709,9 +1454,8 @@ def phase_train_main_path(card: str, cfg, tokenizer, batches, out_dir: str):
     micro_steps = n_steps * accum
     per_micro = 3 * w_cfg.n_audio_layer  # encoder self, decoder self, cross
     log({"phase": "train_main_path", "card": card, "steps": records,
-         **step_rates(records, accum * cfg.batch_size), "max_memory_allocated_bytes": peak,
-         "k1_launches": k1, "k2_launches": k2, "micro_steps": micro_steps,
-         "expected_launches": per_micro * micro_steps,
+         "max_memory_allocated_bytes": peak, "k1_launches": k1, "k2_launches": k2,
+         "micro_steps": micro_steps, "expected_launches": per_micro * micro_steps,
          "params_unchanged_after_step_1": unchanged_after_first,
          "param_elements_changed_share": changed / n_elems})
     if k1 != per_micro * micro_steps or k2 != per_micro * micro_steps:
@@ -1721,7 +1465,7 @@ def phase_train_main_path(card: str, cfg, tokenizer, batches, out_dir: str):
     if changed / n_elems < 0.5:
         raise AssertionError(f"only {changed / n_elems:.3f} of the parameters changed in 3 steps")
 
-    # one more step, stage by stage (host clock, synchronised per stage)
+    # one more step's gradients
     loss_fn = flamingo_loss_fn(model, train=True)  # as whisper_ft: no SpecAugment
     batch = batch_to_device(reshaped[-1], model.device)
 
@@ -1730,16 +1474,9 @@ def phase_train_main_path(card: str, cfg, tokenizer, batches, out_dir: str):
         if zero:
             raise AssertionError(f"{len(zero)} trained tensors got no gradient, e.g. {zero[:4]}")
 
-    stages = staged_step(model, opt, loss_fn, batch, runner.state.generator, accum, {},
-                         check_grads)
-    log({"phase": "train_stage_breakdown", "card": card, "micro_steps": accum,
-         "stage_seconds": stages, "trained_tensors_with_gradient": len(opt.params)})
-
-    def one_step():
-        runner.state, metrics = runner.train_step(runner.state, reshaped[0])
-        float(metrics["loss"])
-
-    log({"phase": "train_traced_step", "card": card, **traced_run(one_step)})
+    check_step_grads(model, loss_fn, batch, runner.state.generator, accum, check_grads)
+    log({"phase": "train_grads_checked", "card": card, "micro_steps": accum,
+         "trained_tensors_with_gradient": len(opt.params)})
     return {"k1": k1, "k2": k2}
 
 
@@ -1912,8 +1649,8 @@ def phase_flamingo_train_main_path(card: str, cfg, tokenizer, batches, out_dir: 
     BatchNorm freeze is turned on, which engages the frozen-tower hoist;
     else BatchNorm trains on batch statistics, towers in the loop. 3
     optimizer steps with the kernels' launches and the tower's forwards
-    counted around exactly those steps; then one step broken into
-    (precompute,) forward, backward and optimizer, and one traced step."""
+    counted around exactly those steps; then one more step's gradients
+    checked: on every trained tensor and on no frozen one."""
     import copy
     import os
 
@@ -1925,12 +1662,10 @@ def phase_flamingo_train_main_path(card: str, cfg, tokenizer, batches, out_dir: 
     name = "flamingo_train_hoisted" if hoisted else "flamingo_train"
     cfg = copy.copy(cfg)
     cfg.freeze_video_batch_norm_stats = hoisted
-    t0 = time.perf_counter()
     model, w_cfg = finetune.build_model(cfg, tokenizer, "cuda", vocab_size=LARGE_V2_VOCAB)
     set_gates(model, GATE)
     runner = finetune.make_runner(cfg, model, tokenizer, log_dir=os.path.join(out_dir, name),
                                   ckpt_dir=os.path.join(out_dir, name, "ckpt"))
-    torch.cuda.synchronize()
     if runner.hoisted != hoisted:
         raise AssertionError(f"the hoist gate said {runner.hoisted}, expected {hoisted}")
     opt, accum = runner.state.optimizer, runner.accum
@@ -1950,7 +1685,7 @@ def phase_flamingo_train_main_path(card: str, cfg, tokenizer, batches, out_dir: 
          "spec_augment": cfg.spec_augment, "prob_use_av": cfg.prob_use_av,
          "prob_use_a": cfg.prob_use_a, "learning_rate": cfg.learning_rate,
          "warmup_steps": cfg.warmup_steps, "batch_size": cfg.batch_size, "accumulation": accum,
-         "video_frames": VIDEO_FRAMES, "gates": GATE, "seconds": time.perf_counter() - t0})
+         "video_frames": VIDEO_FRAMES, "gates": GATE})
     if not all(("x_attn" in n or "x_mlp" in n or "video_projection" in n) for n in trained):
         raise AssertionError(f"the Flamingo regime trains {sorted(trained)[:4]}...")
     reshaped = [runner.reshape_accum(b) for b in batches]
@@ -1959,11 +1694,10 @@ def phase_flamingo_train_main_path(card: str, cfg, tokenizer, batches, out_dir: 
     stats0 = _bn_stats(model)
     tower_calls = []
     hook = model.video_model.register_forward_hook(lambda *args: tower_calls.append(1))
-    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
     fused_attention.launches = fused_attention_bwd.launches = 0
-    records, unchanged_after_first = timed_train_steps(
+    records, unchanged_after_first = train_steps(
         runner, reshaped,
         lambda: all(torch.equal(named[n].detach().cpu(), before[n]) for n in trained))
     k1, k2, n_tower = fused_attention.launches, fused_attention_bwd.launches, len(tower_calls)
@@ -1988,7 +1722,7 @@ def phase_flamingo_train_main_path(card: str, cfg, tokenizer, batches, out_dir: 
     want_k2 = dec * micro_steps
     want_tower = n_steps if hoisted else micro_steps
     log({"phase": name, "card": card, "steps": records,
-         **step_rates(records, accum * cfg.batch_size), "max_memory_allocated_bytes": peak, "k1_launches": k1, "k2_launches": k2,
+         "max_memory_allocated_bytes": peak, "k1_launches": k1, "k2_launches": k2,
          "expected_k1": want_k1, "expected_k2": want_k2, "micro_steps": micro_steps,
          "tower_forwards": n_tower, "expected_tower_forwards": want_tower,
          "params_unchanged_after_step_1": unchanged_after_first,
@@ -2011,20 +1745,14 @@ def phase_flamingo_train_main_path(card: str, cfg, tokenizer, batches, out_dir: 
     if not hoisted and stats_moved < 1e-6:
         raise AssertionError(f"{name}: BatchNorm statistics did not move")
 
-    # one more step, stage by stage (host clock, synchronised per stage)
+    # one more step's gradients
     mixing = dict(spec_augment=cfg.spec_augment, prob_av=float(cfg.prob_use_av),
                   prob_a=float(cfg.prob_use_a))
     loss_fn = flamingo_loss_fn(model, train=True, freeze_video_bn_stats=hoisted, **mixing)
     gen = runner.state.generator
     batch = batch_to_device(reshaped[-1], model.device)
-    stages = {}
     if hoisted:
-        pre = flamingo_tower_precompute(model, train=True, **mixing)
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        batch = {**batch, **pre(batch, gen)}
-        torch.cuda.synchronize()
-        stages["precompute"] = time.perf_counter() - t
+        batch = {**batch, **flamingo_tower_precompute(model, train=True, **mixing)(batch, gen)}
 
     def check_grads():
         zero = [n for n in opt.names if named[n].grad is None or not bool(named[n].grad.any())]
@@ -2033,45 +1761,10 @@ def phase_flamingo_train_main_path(card: str, cfg, tokenizer, batches, out_dir: 
             raise AssertionError(f"{name}: {len(zero)} trained tensors got no gradient "
                                  f"({zero[:4]}), {len(with_grad)} frozen ones got one")
 
-    staged_step(model, opt, loss_fn, batch, gen, accum, stages, check_grads)
-    log({"phase": f"{name}_stage_breakdown", "card": card, "micro_steps": accum,
-         "stage_seconds": stages, "trained_tensors_with_gradient": len(opt.names)})
-
-    def one_step():
-        runner.state, metrics = runner.train_step(runner.state, reshaped[0])
-        float(metrics["loss"])
-
-    log({"phase": f"{name}_traced_step", "card": card, **traced_run(one_step)})
+    check_step_grads(model, loss_fn, batch, gen, accum, check_grads)
+    log({"phase": f"{name}_grads_checked", "card": card, "micro_steps": accum,
+         "trained_tensors_with_gradient": len(opt.names)})
     return {"k1": k1, "k2": k2}
-
-
-def flamingo_kernel_excess(fwd_cases, bwd_cases, accum: int, layers: int = 32) -> dict:
-    """launches × (device time − bound) a Flamingo training step, in ms,
-    from the kernel cases at its shapes: K1 in the Whisper encoder once a
-    micro-step (case f) or once a step over every item (hoisted, case q),
-    and in the decoder's self, cross and x_attn (cases o, p, n) a
-    micro-step; K2 in the same three (cases j, k, i). A sum over a case
-    whose device time the trace missed is "not measured"."""
-    by_name = {("k1", c["case"]): c for c in fwd_cases}
-    by_name.update({("k2", c["case"]): c for c in bwd_cases})
-
-    def excess(kernel, *terms):
-        total = 0.0
-        for weight, name in terms:
-            c = by_name[(kernel, name)]
-            if not isinstance(c["kernel_device_ms"], float):
-                return "not measured"
-            total += weight * (c["kernel_device_ms"] - c["bound_ms"])
-        return total
-
-    per_step = layers * accum
-    k1_dec = [(per_step, n) for n in ("n_flamingo_x_attn", "o_flamingo_decoder_self_causal",
-                                      "p_flamingo_cross")]
-    k2_dec = [(per_step, n) for n in ("i_flamingo_x_attn", "j_flamingo_decoder_self_causal",
-                                      "k_flamingo_cross")]
-    return {"k1_in_scan_ms": excess("k1", (per_step, "f_train_encoder_bf16"), *k1_dec),
-            "k1_hoisted_ms": excess("k1", (layers, "q_hoisted_whisper_encoder"), *k1_dec),
-            "k2_ms": excess("k2", *k2_dec)}
 
 
 # the dataset path: 8 x 10 s clips at each native rate resampled to 16 kHz,
@@ -2103,22 +1796,10 @@ def resample_golden(x, up: int, down: int, taps):
     return upfirdn(h, x.astype(np.float64), up, down, axis=-1)[..., start:start + out_len]
 
 
-def host_ms(fn, reps: int = 5) -> float:
-    """Median host time of ``fn`` in ms."""
-    times = []
-    for _ in range(reps):
-        t = time.perf_counter()
-        fn()
-        times.append((time.perf_counter() - t) * 1e3)
-    return statistics.median(times)
-
-
 def phase_resample(card: str):
     """``resample_poly`` on 8 x 10 s at 44.1, 48 and 8 kHz to 16 kHz: the
     card against the CPU and against :func:`resample_golden`, each within
-    RESAMPLE_TOL, with the card's time (CUDA events) and the CPU's (host
-    clock) for the batch; then one 10 s item at 44.1 kHz on the CPU, the
-    cost the dataset pays per item."""
+    RESAMPLE_TOL."""
     from avsl_tpu_torch.kernels.resample import _design_filter, resample_poly
 
     rng = np.random.default_rng(12)
@@ -2127,19 +1808,13 @@ def phase_resample(card: str):
         g = math.gcd(sr, 16000)
         up, down = 16000 // g, sr // g
         x = (0.3 * rng.standard_normal((RESAMPLE_ITEMS, RESAMPLE_SECONDS * sr))).astype(np.float32)
-        xc = torch.from_numpy(x).cuda()
-        got = resample_poly(xc, sr, 16000)
+        got = resample_poly(torch.from_numpy(x).cuda(), sr, 16000)
         cpu = resample_poly(x, sr, 16000)
         gold = resample_golden(x, up, down, _design_filter(up, down))
         cases.append({"rate": sr, "up": up, "down": down, "shape": list(got.shape),
                       "card_vs_cpu_max_abs_err": (got.cpu() - cpu).abs().max().item(),
-                      "card_vs_golden_max_abs_err": float(np.abs(got.cpu().numpy() - gold).max()),
-                      "card_ms": cuda_ms(lambda: resample_poly(xc, sr, 16000), reps=10),
-                      "cpu_ms": host_ms(lambda: resample_poly(x, sr, 16000), reps=3)})
-    item = (0.3 * rng.standard_normal(RESAMPLE_SECONDS * 44100)).astype(np.float32)
-    log({"phase": "resample", "card": card, "cases": cases, "tolerance": RESAMPLE_TOL,
-         "cpu_threads": torch.get_num_threads(),
-         "cpu_ms_one_10s_item_44k1": host_ms(lambda: resample_poly(item, 44100, 16000))})
+                      "card_vs_golden_max_abs_err": float(np.abs(got.cpu().numpy() - gold).max())})
+    log({"phase": "resample", "card": card, "cases": cases, "tolerance": RESAMPLE_TOL})
     bad = [c for c in cases if max(c["card_vs_cpu_max_abs_err"],
                                    c["card_vs_golden_max_abs_err"]) > RESAMPLE_TOL]
     if bad:
@@ -2240,22 +1915,18 @@ def dataset_rows(n: int, seed: int):
 
 
 def observe_steps(runner, records: list):
-    """Wrap ``runner.train_step``: each micro-step synchronised and timed
-    on the host clock, its peak device memory, the batch's items, padded
-    video frames and label tokens, the loss, whether the optimizer
-    updated, and on the other micro-steps whether the trained tensors
-    stayed bit-identical (against a device copy taken at each update).
-    Returns the unwrapped step."""
+    """Wrap ``runner.train_step``: each micro-step's peak device memory,
+    the batch's items, padded video frames and label tokens, the loss,
+    whether the optimizer updated, and on the other micro-steps whether
+    the trained tensors stayed bit-identical (against a device copy taken
+    at each update). Returns the unwrapped step."""
     opt, plain = runner.state.optimizer, runner.train_step
     snapshot = [p.detach().clone() for p in opt.params]
 
     def step(state, batch):
-        torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        t = time.perf_counter()
         state, metrics = plain(state, batch)
         loss = float(metrics["loss"])
-        end = time.perf_counter()
         updated = opt.mini_step == 0
         if updated:
             torch._foreach_copy_(snapshot, [p.detach() for p in opt.params])
@@ -2266,29 +1937,24 @@ def observe_steps(runner, records: list):
             "grad_norm": float(metrics["grad_norm"]), "updated": updated,
             "unchanged": None if updated else all(
                 torch.equal(a, p) for a, p in zip(snapshot, opt.params)),
-            "seconds": end - t, "end": end, "peak_bytes": torch.cuda.max_memory_allocated()})
+            "peak_bytes": torch.cuda.max_memory_allocated()})
         return state, metrics
 
     runner.train_step = step
     return plain
 
 
-def optimizer_steps(records: list, t_start: float) -> list:
-    """Per optimizer update: wall seconds since the previous update ended
-    (data preparation included), the micro-steps' own seconds, items,
-    label tokens and the mean micro-batch loss."""
-    out, prev, cur = [], t_start, []
+def optimizer_steps(records: list) -> list:
+    """Per optimizer update: its micro-batches, items, label tokens and
+    the mean micro-batch loss."""
+    out, cur = [], []
     for r in records:
         cur.append(r)
         if r["updated"]:
-            wall = r["end"] - prev
-            items = sum(c["items"] for c in cur)
-            tokens = sum(c["label_tokens"] for c in cur)
-            out.append({"seconds": wall, "step_seconds": sum(c["seconds"] for c in cur),
-                        "micro_batches": len(cur), "items": items, "label_tokens": tokens,
-                        "segments_per_s": items / wall, "label_tokens_per_s": tokens / wall,
+            out.append({"micro_batches": len(cur), "items": sum(c["items"] for c in cur),
+                        "label_tokens": sum(c["label_tokens"] for c in cur),
                         "loss": statistics.mean(c["loss"] for c in cur)})
-            prev, cur = r["end"], []
+            cur = []
     return out
 
 
@@ -2304,10 +1970,9 @@ def phase_flamingo_dataset_train(card: str, out_dir: str):
     count per micro-step and per eval batch, frozen tensors bit-identical,
     trained tensors unchanged on the micro-steps that do not update,
     exactly DATASET_STEPS updates, and K1 and K2 against their plain versions at every
-    distinct shape the run launched them at. Then one more optimizer step
-    traced. Returns the job (for the prefetch phase) and the launches."""
+    distinct shape the run launched them at. Returns the job (for the
+    prefetch phase) and the launches."""
     import collections
-    import itertools
     import os
     import shutil
 
@@ -2325,10 +1990,8 @@ def phase_flamingo_dataset_train(card: str, out_dir: str):
     cfg.log_output_dir = os.path.join(out_dir, "dataset_logs")
     cfg.check_output_dir = os.path.join(out_dir, "dataset_ckpt")  # emptied after each run
     rows = [dataset_rows(n, seed) for n, seed in zip(DATASET_ROWS, (20, 21, 22))]
-    t0 = time.perf_counter()
     job = finetune.make_job(cfg, *rows, "cuda", vocab_size=LARGE_V2_VOCAB)
     set_gates(job.model, GATE)
-    torch.cuda.synchronize()
     runner, model = job.runner, job.model
     opt = runner.state.optimizer
     if not isinstance(opt, MultiSteps) or runner.accum != 1 or runner.hoisted:
@@ -2348,7 +2011,7 @@ def phase_flamingo_dataset_train(card: str, out_dir: str):
          "rows": list(DATASET_ROWS), "native_rates": dict(rates),
          "batch_bins": (int(cfg.audio_max_length) // 160) * int(cfg.batch_size),
          "accumulation": accum, "optimizer_steps": DATASET_STEPS,
-         "remat": model.encoder.remat, "seconds": time.perf_counter() - t0})
+         "remat": model.encoder.remat})
     frozen_before = {n: p.detach().to("cpu", copy=True) for n, p in named.items()
                      if n not in trained}
     records, eval_calls = [], []
@@ -2360,14 +2023,12 @@ def phase_flamingo_dataset_train(card: str, out_dir: str):
         return plain_eval(state, batch)
 
     runner.eval_logits_fn = counted_eval
-    seen: dict = {}
-    with launch_shapes(seen):
+    seen: list = []
+    with recorded(True, seen):
         fused_attention.launches = fused_attention_bwd.launches = 0
-        t_run = time.perf_counter()
         result = finetune.run(job)
-        run_seconds = time.perf_counter() - t_run
         k1, k2 = fused_attention.launches, fused_attention_bwd.launches
-    steps = optimizer_steps(records, t_run)
+    steps = optimizer_steps(records)
     frozen_changed = [n for n, v in frozen_before.items() if not torch.equal(named[n].cpu(), v)]
     del frozen_before
     moved_early = [i for i, r in enumerate(records) if not r["updated"] and not r["unchanged"]]
@@ -2385,19 +2046,13 @@ def phase_flamingo_dataset_train(card: str, out_dir: str):
     want_k1 = (enc + dec) * micro + (enc + tower + dec) * len(eval_calls)
     want_k2 = dec * micro
     log({"phase": "flamingo_dataset_train", "card": card, "optimizer_steps": steps,
-         "seconds_per_optimizer_step_median_2_3": statistics.median(
-             s["seconds"] for s in steps[1:]),
-         "segments_per_s_median_2_3": statistics.median(s["segments_per_s"] for s in steps[1:]),
-         "label_tokens_per_s_median_2_3": statistics.median(
-             s["label_tokens_per_s"] for s in steps[1:]),
-         "loss_per_optimizer_step": [s["loss"] for s in steps],
          "micro_batch_items": dict(sorted(collections.Counter(r["items"] for r in records).items())),
          "micro_batch_padded_frames": dict(sorted(collections.Counter(
              4 * r["video_frames"] for r in records).items())),
          "peak_bytes_by_items": dict(sorted(by_size.items())),
          "max_memory_allocated_bytes": max(r["peak_bytes"] for r in records),
          "trained_snapshot_bytes": sum(p.numel() * p.element_size() for p in opt.params),
-         "run_seconds": run_seconds, "micro_steps": micro, "eval_batches": eval_calls,
+         "micro_steps": micro, "eval_batches": eval_calls,
          "k1_launches": k1, "k2_launches": k2, "expected_k1": want_k1, "expected_k2": want_k2,
          "k1_per_micro_step": enc + dec, "k2_per_micro_step": dec,
          "k1_per_eval_batch": enc + tower + dec, "updates": opt.count,
@@ -2419,31 +2074,18 @@ def phase_flamingo_dataset_train(card: str, out_dir: str):
     log({"phase": "flamingo_dataset_launch_shapes", "card": card,
          "tolerance": {"bf16": BF16_TOL, "fp32": FP32_TOL, "bwd_fp32": BWD_FP32_TOL},
          **check_launch_shapes(seen)})
-
-    # one more optimizer step (its micro-batches prepared first), traced
-    micro_batches = list(itertools.islice(
-        job.batches(job.train_ds, int(cfg.batch_size), True, 1), accum))
-
-    def one_step():
-        for b in micro_batches:
-            runner.state, metrics = plain_step(runner.state, b)
-        float(metrics["loss"])
-
-    log({"phase": "flamingo_dataset_traced_step", "card": card,
-         "items": sum(int(b["labels"].shape[0]) for b in micro_batches), **traced_run(one_step)})
     runner.train_step, runner.eval_logits_fn = plain_step, plain_eval
     return job, {"k1": k1, "k2": k2}
 
 
 def phase_prefetch(card: str, job):
     """Bucketed batches through ``prefetch_to_device`` arrive on the card
-    equal to the host batches; then 2 optimizer steps (32 micro-batches)
-    of the dataset path through the runner's train step, fed by
-    ``cli.finetune.train_batches`` (what ``run`` feeds ``fit``) with
-    ``prefetch_batches`` 0 and then 2, each timed per optimizer step (no
-    gate on speed). ``fit`` itself is not called here: it closes with a
-    17.5 GB checkpoint of the state, which the dataset phase has already
-    written once, and the script keeps its disk writes small."""
+    equal to the host batches; then 2 optimizer steps of the dataset path
+    through the runner's train step, fed by ``cli.finetune.train_batches``
+    (what ``run`` feeds ``fit``) with ``prefetch_batches`` 2. ``fit``
+    itself is not called here: it closes with a 17.5 GB checkpoint of the
+    state, which the dataset phase has already written once, and the
+    script keeps its disk writes small."""
     import itertools
 
     from avsl_tpu_torch.cli import finetune
@@ -2458,26 +2100,17 @@ def phase_prefetch(card: str, job):
             for k in h)
         for a, h in zip(arrived, host))
     del arrived
-    n_micro = 2 * int(cfg.gradient_accumulation_steps)
-    runs = {}
-    for n_prefetch in (0, 2):
-        cfg.prefetch_batches = n_prefetch
-        records = []
-        plain = observe_steps(runner, records)
-        it = finetune.train_batches(job, 3)
-        t = time.perf_counter()
-        for batch in itertools.islice(it, n_micro):
-            runner.state, _ = runner.train_step(runner.state, batch)
-        it.close()
-        runner.train_step = plain
-        steps = optimizer_steps(records, t)
-        runs[n_prefetch] = {"optimizer_steps": steps,
-                            "seconds_per_optimizer_step": [s["seconds"] for s in steps],
-                            "segments_per_s": sum(s["items"] for s in steps)
-                            / sum(s["seconds"] for s in steps)}
+    cfg.prefetch_batches = 2
+    records = []
+    plain = observe_steps(runner, records)
+    it = finetune.train_batches(job, 3)
+    for batch in itertools.islice(it, 2 * int(cfg.gradient_accumulation_steps)):
+        runner.state, _ = runner.train_step(runner.state, batch)
+    it.close()
+    runner.train_step = plain
     cfg.prefetch_batches = 0
     log({"phase": "prefetch", "card": card, "batches_equal_on_card": equal,
-         "batches_checked": len(host), "runs": runs})
+         "batches_checked": len(host), "optimizer_steps_prefetched": optimizer_steps(records)})
     if not equal:
         raise AssertionError("prefetch_to_device changed or misplaced a batch")
 
@@ -2529,7 +2162,7 @@ def _tiny_avhubert_train(model, head: str, batches):
                 grads.update({n: mu.detach().float().cpu() / (1.0 - opt.b1)
                               for n, mu in zip(opt.names, opt.mu)})
 
-    _, _, k1, _, k2 = run_counted(run)
+    _, k1, _, k2 = run_counted(run)
     return losses, grads, _bn_stats(model), (k1, k2)
 
 
@@ -2557,7 +2190,7 @@ def phase_small_avhubert_reference(device: str = "cuda"):
             if head == "seq2seq":
                 kw["decoder_input_ids"] = b["dec_input_ids"]
             with torch.inference_mode():
-                out, _, k1, _, _ = run_counted(lambda: model.eval()(**kw))
+                out, k1, _, _ = run_counted(lambda: model.eval()(**kw))
             logits.append((out["logits"] if head == "seq2seq" else out).float().cpu())
             k1_eval.append(k1)
         err = (logits[0] - logits[1]).abs()
@@ -2611,13 +2244,13 @@ def phase_avhubert_cli(card: str, device: str = "cuda") -> dict:
     cfg = AVHuBERTConfig.from_yaml(AVHUBERT_CONFIG)
     out = {}
     for head in ("seq2seq", "ctc"):
-        result, seconds, k1, stats_writes, k2 = run_counted(lambda: avhubert_ft.main(
+        result, k1, stats_writes, k2 = run_counted(lambda: avhubert_ft.main(
             ["--config", AVHUBERT_CONFIG, "--steps", "3", "--head", head, "--device", device]))
         dec = cfg.decoder_layers if head == "seq2seq" else 0
         want = (3 * dec + cfg.num_hidden_layers + dec, 3 * dec)
-        log({"phase": "avhubert_cli", "head": head, "card": card, "seconds": seconds,
-             "cli_json": result, "k1_launches": k1, "k2_launches": k2,
-             "row_statistics_written": stats_writes, "expected_k1_k2": list(want)})
+        log({"phase": "avhubert_cli", "head": head, "card": card, "cli_json": result,
+             "k1_launches": k1, "k2_launches": k2, "row_statistics_written": stats_writes,
+             "expected_k1_k2": list(want)})
         losses = [result[k] for k in ("first_loss", "last_loss", "eval_loss")]
         if not all(math.isfinite(x) for x in losses) or result["steps"] != 3:
             raise AssertionError(f"cli.avhubert_ft {head}: {result}")
@@ -2630,11 +2263,11 @@ def phase_avhubert_cli(card: str, device: str = "cuda") -> dict:
     return out
 
 
-def prepare_avhubert_batch(cfg, timed, device):
+def prepare_avhubert_batch(cfg, device):
     """An AMI segment batch as the AV-HuBERT path composes it: 8 items of
     10 s of seeded 16 kHz PCM turned into 250 frames of 104-dim features by
-    the port's ``avhubert_audio_features`` on the card (``timed`` as
-    "audio_features"), 250 seeded 88 x 88 lip frames, and labels of 20-63
+    the port's ``avhubert_audio_features`` on the card, 250 seeded 88 x 88
+    lip frames, and labels of 20-63
     tokens drawn as ``make_synthetic_av_batchset`` draws them, collated by
     ``collate_av`` with labels cut to 64."""
     from avsl_tpu_torch.cli.avhubert_ft import collate_av
@@ -2643,7 +2276,7 @@ def prepare_avhubert_batch(cfg, timed, device):
     rng = np.random.default_rng(11)
     pcm = torch.from_numpy((0.1 * rng.standard_normal((AVH_BATCH, AVH_SAMPLES))).astype(np.float32))
     pcm = pcm.to(device)
-    feats = timed("audio_features", lambda: avhubert_audio_features(pcm)).cpu().numpy()
+    feats = avhubert_audio_features(pcm).cpu().numpy()
     rows = []
     for i in range(AVH_BATCH):
         n_labels = int(rng.integers(AVH_LABELS[0], AVH_LABELS[1] + 1))
@@ -2661,10 +2294,9 @@ def phase_avhubert_train_main_path(card: str, device: str = "cuda") -> dict:
     optimizer) on an AMI segment batch (:func:`prepare_avhubert_batch`): 3
     steps with the kernels' launches read around exactly those steps (9 K1
     and 9 K2 a step: the decoder's self-attention, D = 128, causal with key
-    lengths), one step broken into forward, backward and optimizer, one
-    traced step; the eval forward (24 K1 in the encoder at D = 64 with key
-    lengths, 9 in the decoder); then the CTC head: a train step (no
-    kernel) and its eval forward (24 K1)."""
+    lengths), one more step's gradients checked; the eval forward (24 K1
+    in the encoder at D = 64 with key lengths, 9 in the decoder); then the
+    CTC head: a train step (no kernel) and its eval forward (24 K1)."""
     from avsl_tpu_torch.cli.avhubert_ft import ctc_batch, make_optimizer
     from avsl_tpu_torch.core.config import AVHuBERTConfig
     from avsl_tpu_torch.models import build_avhubert
@@ -2673,11 +2305,8 @@ def phase_avhubert_train_main_path(card: str, device: str = "cuda") -> dict:
     from avsl_tpu_torch.train.objectives import avhubert_ctc_loss_fn, avhubert_seq2seq_loss_fn
 
     cfg = AVHuBERTConfig.from_yaml(AVHUBERT_CONFIG)
-    prep, timed = timed_stages()
-    batch = prepare_avhubert_batch(cfg, timed, device)
-    t0 = time.perf_counter()
+    batch = prepare_avhubert_batch(cfg, device)
     model = build_avhubert(cfg, "seq2seq", device=device, seed=0)
-    torch.cuda.synchronize()
     count = lambda ps: sum(p.numel() for p in ps)  # noqa: E731
     log({"phase": "build_avhubert_model", "params": count(model.parameters()),
          "decoder_params": count(model.decoder.parameters()), "dtype": cfg.dtype,
@@ -2686,31 +2315,25 @@ def phase_avhubert_train_main_path(card: str, device: str = "cuda") -> dict:
          "decoder": [cfg.decoder_layers, cfg.decoder_hidden_size, cfg.decoder_attention_heads],
          "fusion": cfg.modality_fuse, "fused_width": cfg.encoder_hidden_size,
          "batch": {k: list(v.shape) for k, v in batch.items()},
-         "decoder_lengths": (batch["dec_input_ids"] != cfg.pad_token_id).sum(1).tolist(),
-         "prepare_seconds": prep, "seconds": time.perf_counter() - t0})
+         "decoder_lengths": (batch["dec_input_ids"] != cfg.pad_token_id).sum(1).tolist()})
     loss_fn = avhubert_seq2seq_loss_fn(model, train=True)
     opt = make_optimizer(model, 1e-3, 100)
     state, step = TrainState.create(model, opt, seed=0), make_train_step(loss_fn)
-    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     records = []
 
     def steps():
         for i in range(TRAIN_STEPS):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
             _, metrics = step(state, batch)
-            loss, grad_norm = float(metrics["loss"]), float(metrics["grad_norm"])
-            records.append({"step": i + 1, "seconds": time.perf_counter() - t, "loss": loss,
-                            "grad_norm": grad_norm,
+            records.append({"step": i + 1, "loss": float(metrics["loss"]),
+                            "grad_norm": float(metrics["grad_norm"]),
                             "label_tokens": int((batch["labels"] >= 0).sum()),
                             "label_len": int(batch["labels"].shape[-1])})
 
-    _, seconds, k1, stats_writes, k2 = run_counted(steps)
+    _, k1, stats_writes, k2 = run_counted(steps)
     peak = torch.cuda.max_memory_allocated()
     want = TRAIN_STEPS * cfg.decoder_layers
-    rates = step_rates(records, AVH_BATCH)
-    log({"phase": "avhubert_train", "card": card, "steps": records, **rates,
+    log({"phase": "avhubert_train", "card": card, "steps": records,
          "max_memory_allocated_bytes": peak, "k1_launches": k1, "k2_launches": k2,
          "row_statistics_written": stats_writes, "expected_launches": want})
     if not all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in records):
@@ -2719,11 +2342,9 @@ def phase_avhubert_train_main_path(card: str, device: str = "cuda") -> dict:
         raise AssertionError(f"avhubert_train: K1 {k1} / K2 {k2} / row statistics "
                              f"{stats_writes} != {want}")
 
-    # one more step, stage by stage (host clock, synchronised per stage)
-    stages, timed = timed_stages()
-    dev_batch = timed("h2d", lambda: batch_to_device(batch, torch.device(device)))
-    loss, _ = timed("forward", lambda: loss_fn(dev_batch, state.generator))
-    timed("backward", loss.backward)
+    # one more step's gradients
+    loss, _ = loss_fn(batch_to_device(batch, torch.device(device)), state.generator)
+    loss.backward()
     # every tensor but mask_emb (no feature mask in fine-tuning) gets a
     # gradient, zero only across a whole layer that LayerDrop dropped or
     # the whole frontend of a stream that modality dropout dropped
@@ -2741,29 +2362,24 @@ def phase_avhubert_train_main_path(card: str, device: str = "cuda") -> dict:
                                  for g in zero):
         raise AssertionError(f"avhubert_train: {len(missing)} tensors got no gradient "
                              f"({missing[:4]}); zero gradients in {zero}, in part of {partial}")
-    grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in opt.params]
-    timed("optimizer", lambda: opt.step(grads))
     model.zero_grad(set_to_none=True)
-    log({"phase": "avhubert_train_stage_breakdown", "card": card, "stage_seconds": stages,
-         "dropped_this_step": zero})
-    log({"phase": "avhubert_train_traced_step", "card": card,
-         **traced_run(lambda: float(step(state, batch)[1]["loss"]))})
+    log({"phase": "avhubert_train_grads_checked", "card": card, "dropped_this_step": zero})
 
     eval_batch = batch_to_device(batch, torch.device(device))
     model.eval()
     with torch.inference_mode():
-        out, seconds, e1, e_stats, e2 = run_counted(lambda: model(
+        out, e1, e_stats, e2 = run_counted(lambda: model(
             audio=eval_batch["audio"], video=eval_batch["video"],
             decoder_input_ids=eval_batch["dec_input_ids"],
             padding_mask=eval_batch["padding_mask"]))
     want_eval = cfg.num_hidden_layers + cfg.decoder_layers
-    log({"phase": "avhubert_eval_forward", "card": card, "seconds": seconds, "k1_launches": e1,
+    log({"phase": "avhubert_eval_forward", "card": card, "k1_launches": e1,
          "k2_launches": e2, "row_statistics_written": e_stats, "expected_k1": want_eval,
          "logits_shape": list(out["logits"].shape)})
     if (e1, e2, e_stats) != (want_eval, 0, 0) or not bool(torch.isfinite(out["logits"]).all()):
         raise AssertionError(f"avhubert eval: K1 {e1} / K2 {e2} / statistics {e_stats}, "
                              f"expected {want_eval} / 0 / 0, or non-finite logits")
-    del model, state, opt, loss, grads, out
+    del model, state, opt, loss, out
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2771,16 +2387,15 @@ def phase_avhubert_train_main_path(card: str, device: str = "cuda") -> dict:
     cbatch = ctc_batch(batch, cfg.pad_token_id)
     cstate = TrainState.create(ctc, make_optimizer(ctc, 1e-3, 100), seed=0)
     cstep = make_train_step(avhubert_ctc_loss_fn(ctc, train=True))
-    cstep(cstate, cbatch)  # first use: cuBLAS handles, allocator
-    (_, metrics), ctc_seconds, c1, _, c2 = run_counted(lambda: cstep(cstate, cbatch))
+    (_, metrics), c1, _, c2 = run_counted(lambda: cstep(cstate, cbatch))
     ctc.eval()
     with torch.inference_mode():
-        clogits, ctc_eval_seconds, ce1, _, ce2 = run_counted(lambda: ctc(
+        clogits, ce1, _, ce2 = run_counted(lambda: ctc(
             audio=eval_batch["audio"], video=eval_batch["video"],
             padding_mask=eval_batch["padding_mask"]))
-    log({"phase": "avhubert_ctc", "card": card, "train_step_seconds": ctc_seconds,
-         "loss": float(metrics["loss"]), "train_k1_k2": [c1, c2], "eval_seconds": ctc_eval_seconds,
-         "eval_k1_k2": [ce1, ce2], "expected_eval_k1": cfg.num_hidden_layers})
+    log({"phase": "avhubert_ctc", "card": card, "loss": float(metrics["loss"]),
+         "train_k1_k2": [c1, c2], "eval_k1_k2": [ce1, ce2],
+         "expected_eval_k1": cfg.num_hidden_layers})
     if (c1, c2, ce1, ce2) != (0, 0, cfg.num_hidden_layers, 0) or not math.isfinite(
             float(metrics["loss"])) or not bool(torch.isfinite(clogits).all()):
         raise AssertionError(f"avhubert_ctc: train K1/K2 {c1}/{c2}, eval {ce1}/{ce2}")
@@ -2856,7 +2471,7 @@ def phase_pretrain_small_reference(card: str, device: str = "cuda") -> tuple:
     cpu_model = build_avhubert(cfg, "pretrain", device="cpu", num_classes=(8,))
     cpu_model.load_state_dict(card_model.state_dict())
     batch = _small_pretrain_batch()
-    (l_card, loss_card, m_card, g_card), seconds, k1, stats_writes, k2 = run_counted(
+    (l_card, loss_card, m_card, g_card), k1, stats_writes, k2 = run_counted(
         lambda: _pretrain_grads(card_model, batch))
     l_cpu, loss_cpu, m_cpu, g_cpu = _pretrain_grads(cpu_model, batch)
     # the logits are cosines over logit_temp (0.1): held like the gradients,
@@ -2902,7 +2517,7 @@ def phase_pretrain_small_reference(card: str, device: str = "cuda") -> tuple:
         return (y.detach().float().cpu(), float(aux), xin.grad.float().cpu(),
                 {n: p.grad.float().cpu() for n, p in blk.named_parameters()})
 
-    (y_card, aux_card, gx_card, gb_card), _, mk1, _, mk2 = run_counted(lambda: moe_run(card_blk))
+    (y_card, aux_card, gx_card, gb_card), mk1, _, mk2 = run_counted(lambda: moe_run(card_blk))
     y_cpu, aux_cpu, gx_cpu, gb_cpu = moe_run(cpu_blk)
     moe_err = float((y_card - y_cpu).abs().max())
     moe_ok = bool(torch.allclose(y_card, y_cpu, **BF16_TOL))
@@ -2921,9 +2536,7 @@ def phase_pretrain_small_reference(card: str, device: str = "cuda") -> tuple:
     centers = rng.normal(size=(8, 16)).astype(np.float32) * 10
     pts = (centers[rng.integers(0, 8, 4000)]
            + rng.normal(size=(4000, 16)).astype(np.float32))
-    t0 = time.perf_counter()
     c_card, i_card = kmeans_fit(pts, 8, n_iters=PRETRAIN_KMEANS_ITERS, seed=0, device=device)
-    kmeans_seconds = time.perf_counter() - t0
     c_cpu, i_cpu = kmeans_fit(pts, 8, n_iters=PRETRAIN_KMEANS_ITERS, seed=0, device="cpu")
     labels_equal = bool((kmeans_assign(pts, c_card, device=device)
                          == kmeans_assign(pts, c_cpu, device="cpu")).all())
@@ -2940,8 +2553,7 @@ def phase_pretrain_small_reference(card: str, device: str = "cuda") -> tuple:
                        "aux": {"card": aux_card, "cpu": aux_cpu},
                        "grad_rel_norm_err": moe_grads, "k1_k2": [mk1, mk2]},
          "kmeans": {"labels_equal": labels_equal, "centroid_max_abs_err": c_err,
-                    "inertia": {"card": i_card, "cpu": i_cpu}, "card_seconds": kmeans_seconds,
-                    "tolerance": KMEANS_TOL}})
+                    "inertia": {"card": i_card, "cpu": i_cpu}, "tolerance": KMEANS_TOL}})
     if max(logits_err, grad_err) > tol["grad_rel_norm"] or loss_err > tol["loss_rtol"]:
         raise AssertionError(f"tiny pretraining card-vs-cpu: logits {logits_err:.3e}, "
                              f"loss {loss_err:.3e}, grads {grad_err:.3e}")
@@ -2958,10 +2570,9 @@ def phase_pretrain_small_reference(card: str, device: str = "cuda") -> tuple:
 
 
 def _train_pretrain(model, batch, steps: int, name: str) -> tuple:
-    """``steps`` (at least 2) train steps of ``avhubert_pretrain_loss_fn``
-    with the CLI's optimizer, launches counted around exactly those steps,
-    then a traced step: (records, rates, K1/K2/statistics, peak bytes,
-    traced, last metrics)."""
+    """``steps`` train steps of ``avhubert_pretrain_loss_fn`` with the
+    CLI's optimizer, launches counted around exactly those steps:
+    (records, K1/K2/statistics, peak bytes, last metrics)."""
     from avsl_tpu_torch.cli.avhubert_ft import make_optimizer
     from avsl_tpu_torch.train import TrainState, make_train_step
     from avsl_tpu_torch.train.objectives import avhubert_pretrain_loss_fn
@@ -2969,35 +2580,29 @@ def _train_pretrain(model, batch, steps: int, name: str) -> tuple:
     opt = make_optimizer(model, PRETRAIN_LR, 100)
     state = TrainState.create(model, opt, seed=0)
     step = make_train_step(avhubert_pretrain_loss_fn(model, train=True))
-    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     records, last = [], {}
 
     def run():
         for i in range(steps):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
             _, metrics = step(state, batch)
             vals = {k: float(v) for k, v in metrics.items()}
-            records.append({"step": i + 1, "seconds": time.perf_counter() - t, **vals})
+            records.append({"step": i + 1, **vals})
             last.update(vals)
 
-    _, _, k1, stats_writes, k2 = run_counted(run)
+    _, k1, stats_writes, k2 = run_counted(run)
     peak = torch.cuda.max_memory_allocated()
-    sec = statistics.median(r["seconds"] for r in records[1:])  # step 1 carries first use
-    rates = {"seconds_per_step_median_2_3": sec, "segments_per_s": AVH_BATCH / sec}
-    traced = traced_run(lambda: float(step(state, batch)[1]["loss"]))
     if not all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in records):
         raise AssertionError(f"{name}: non-finite loss or grad_norm {records}")
     del state, opt
-    return records, rates, (k1, k2, stats_writes), peak, traced, last
+    return records, (k1, k2, stats_writes), peak, last
 
 
-def _pretrain_eval_and_relabel(model, batch, seen: dict, device: str) -> dict:
+def _pretrain_eval_and_relabel(model, batch, seen: list, device: str) -> dict:
     """The eval loss (the mask drawn from a generator seeded 42) and the
     relabel tap at the middle layer, each with K1 counted and every launch
-    shape recorded: {"eval": (loss, metrics, K1, K2, stats, s), "relabel":
-    (features, K1, K2, stats, s)}."""
+    shape recorded: {"eval": (loss, metrics, K1, K2, stats), "relabel":
+    (features, K1, K2, stats)}."""
     from avsl_tpu_torch.models.pretrain import extract_layer_features
     from avsl_tpu_torch.train.loop import batch_to_device
     from avsl_tpu_torch.train.objectives import avhubert_pretrain_loss_fn
@@ -3005,15 +2610,15 @@ def _pretrain_eval_and_relabel(model, batch, seen: dict, device: str) -> dict:
     dev = batch_to_device(batch, torch.device(device))
     gen = torch.Generator(device=device).manual_seed(42)
     layer = max(1, model.cfg.num_hidden_layers // 2)
-    with launch_shapes(seen):
+    with recorded(True, seen):
         with torch.no_grad():
-            (loss, metrics), e_s, e1, e_st, e2 = run_counted(
+            (loss, metrics), e1, e_st, e2 = run_counted(
                 lambda: avhubert_pretrain_loss_fn(model, train=False)(dev, gen))
-        feats, r_s, r1, r_st, r2 = run_counted(lambda: extract_layer_features(
+        feats, r1, r_st, r2 = run_counted(lambda: extract_layer_features(
             model, layer, audio=dev["audio"], video=dev["video"],
             padding_mask=dev["padding_mask"]))
-    return {"eval": (float(loss), {k: float(v) for k, v in metrics.items()}, e1, e2, e_st, e_s),
-            "relabel": (feats, r1, r2, r_st, r_s), "layer": layer}
+    return {"eval": (float(loss), {k: float(v) for k, v in metrics.items()}, e1, e2, e_st),
+            "relabel": (feats, r1, r2, r_st), "layer": layer}
 
 
 def phase_pretrain_main_path(card: str, device: str = "cuda") -> tuple:
@@ -3024,63 +2629,52 @@ def phase_pretrain_main_path(card: str, device: str = "cuda") -> tuple:
     x 10 s): k-means targets (PRETRAIN_CLUSTERS clusters, 15 Lloyd
     iterations on the card over the batch's 2,000 frames of features), 3
     steps of ``avhubert_pretrain_loss_fn`` with the CLI's optimizer (K1 0,
-    K2 0), a traced step; then the eval loss (K1 one a layer), the relabel
-    tap at layer 12 (K1 12), every K1 launch shape against the plain
-    version, and k-means of PRETRAIN_RELABEL_CLUSTERS clusters over the
-    tapped features. Returns (counts by path, the batch, s/step)."""
+    K2 0); then the eval loss (K1 one a layer), the relabel tap at layer
+    12 (K1 12), every K1 launch shape against the plain version, and
+    k-means of PRETRAIN_RELABEL_CLUSTERS clusters over the tapped features.
+    Returns (counts by path, the batch)."""
     from avsl_tpu_torch.core.config import AVHuBERTConfig
     from avsl_tpu_torch.data.clustering import kmeans_assign, kmeans_fit
     from avsl_tpu_torch.models import build_avhubert
 
     cfg = AVHuBERTConfig.from_yaml(AVHUBERT_CONFIG)
-    prep, timed = timed_stages()
-    batch = prepare_avhubert_batch(cfg, timed, device)
+    batch = prepare_avhubert_batch(cfg, device)
     frames = torch.from_numpy(batch["audio"]).to(device)[torch.from_numpy(
         batch["padding_mask"]).to(device)]  # [2000, 104], the valid frames
-    centroids, inertia = timed("kmeans_targets", lambda: kmeans_fit(
-        frames, PRETRAIN_CLUSTERS, n_iters=PRETRAIN_KMEANS_ITERS, seed=0, device=device))
-    batch["targets"] = timed("kmeans_assign", lambda: kmeans_assign(
-        batch["audio"], centroids, device=device))
+    centroids, inertia = kmeans_fit(frames, PRETRAIN_CLUSTERS, n_iters=PRETRAIN_KMEANS_ITERS,
+                                    seed=0, device=device)
+    batch["targets"] = kmeans_assign(batch["audio"], centroids, device=device)
     batch = {k: v for k, v in batch.items() if k in ("audio", "video", "padding_mask",
                                                       "targets")}
-    t0 = time.perf_counter()
     model = build_avhubert(cfg, "pretrain", device=device, seed=0,
                            num_classes=(PRETRAIN_CLUSTERS,))
-    torch.cuda.synchronize()
-    prep["build_model"] = time.perf_counter() - t0
     n_params = sum(p.numel() for p in model.parameters())
-    records, rates, (k1, k2, st), peak, traced, last = _train_pretrain(
+    records, (k1, k2, st), peak, last = _train_pretrain(
         model, batch, TRAIN_STEPS, "pretrain_main_path")
-    seen: dict = {}
+    seen: list = []
     ev = _pretrain_eval_and_relabel(model, batch, seen, device)
-    feats, r1, r2, r_st, r_s = ev["relabel"]
-    t0 = time.perf_counter()
+    feats, r1, r2, r_st = ev["relabel"]
     valid = torch.from_numpy(batch["padding_mask"]).to(device)
     relabel_c, relabel_inertia = kmeans_fit(feats.float()[valid], PRETRAIN_RELABEL_CLUSTERS,
                                             n_iters=PRETRAIN_KMEANS_ITERS, seed=1, device=device)
-    relabel_seconds = time.perf_counter() - t0
     del model, feats
     shapes = check_launch_shapes(seen)
-    e_loss, e_metrics, e1, e2, e_st, e_s = ev["eval"]
+    e_loss, e_metrics, e1, e2, e_st = ev["eval"]
     layers = cfg.num_hidden_layers
     rec = {"phase": "pretrain_main_path", "card": card, "config": AVHUBERT_CONFIG,
            "params": n_params, "dtype": cfg.dtype, "param_dtype": cfg.param_dtype,
            "batch": {k: list(v.shape) for k, v in batch.items()},
-           "clusters": PRETRAIN_CLUSTERS, "kmeans_inertia": inertia,
-           "prepare_seconds": prep, "steps": records, **rates,
-           "frames_per_s": (float(batch["padding_mask"].sum())
-                            / rates["seconds_per_step_median_2_3"]),
+           "clusters": PRETRAIN_CLUSTERS, "kmeans_inertia": inertia, "steps": records,
            "max_memory_allocated_bytes": peak, "train_k1_k2": [k1, k2],
            "last_step": {k: last[k] for k in ("loss", "loss_m", "loss_u", "acc_m", "acc_u",
                                               "features_pen")},
-           "traced_step": traced,
-           "eval": {"loss": e_loss, "metrics": e_metrics, "seconds": e_s, "k1_k2": [e1, e2],
+           "eval": {"loss": e_loss, "metrics": e_metrics, "k1_k2": [e1, e2],
                     "expected_k1": layers},
-           "relabel": {"layer": ev["layer"], "seconds": r_s, "k1_k2": [r1, r2],
+           "relabel": {"layer": ev["layer"], "k1_k2": [r1, r2],
                        "expected_k1": ev["layer"], "kmeans_clusters": PRETRAIN_RELABEL_CLUSTERS,
-                       "kmeans_seconds": relabel_seconds, "kmeans_inertia": relabel_inertia,
+                       "kmeans_inertia": relabel_inertia,
                        "centroids_shape": list(relabel_c.shape)},
-           "launch_shapes": shapes}
+           "shapes_checked": shapes}
     log(rec)
     if (k1, k2, st) != (0, 0, 0):
         raise AssertionError(f"pretrain_main_path: train K1 {k1} / K2 {k2}, expected 0 / 0 "
@@ -3092,17 +2686,16 @@ def phase_pretrain_main_path(card: str, device: str = "cuda") -> tuple:
             or not np.isfinite(relabel_c).all():
         raise AssertionError(f"pretrain_main_path: eval loss {e_loss}, shapes {shapes}")
     out = {"train": (k1, k2), "eval": (e1, e2), "relabel": (r1, r2)}
-    return out, batch, rates["seconds_per_step_median_2_3"]
+    return out, batch
 
 
-def phase_pretrain_moe(card: str, batch, dense_seconds: float, device: str = "cuda") -> dict:
+def phase_pretrain_moe(card: str, batch, device: str = "cuda") -> dict:
     """The pretraining model of :func:`phase_pretrain_main_path` with
     MOE_EXPERTS experts of top MOE_TOP_K at capacity MOE_CAPACITY in every
     encoder block (Mixtral's 8 x top-2 over AV-HuBERT large's FFN widths),
     on the same batch: the parameter count, 3 steps (K1 0, K2 0) with the
-    balance loss in range, a traced step, peak memory, s/step against the
-    dense path's in this call; then the eval loss and the relabel tap with
-    their K1 counts."""
+    balance loss in range, peak memory; then the eval loss and the relabel
+    tap with their K1 counts."""
     import dataclasses
 
     from avsl_tpu_torch.core.config import AVHuBERTConfig
@@ -3110,36 +2703,29 @@ def phase_pretrain_moe(card: str, batch, dense_seconds: float, device: str = "cu
 
     cfg = dataclasses.replace(AVHuBERTConfig.from_yaml(AVHUBERT_CONFIG), n_experts=MOE_EXPERTS,
                               moe_top_k=MOE_TOP_K, moe_capacity_factor=MOE_CAPACITY)
-    t0 = time.perf_counter()
     model = build_avhubert(cfg, "pretrain", device=device, seed=0,
                            num_classes=(PRETRAIN_CLUSTERS,))
-    torch.cuda.synchronize()
-    build_seconds = time.perf_counter() - t0
     n_params = sum(p.numel() for p in model.parameters())
     n_expert = sum(p.numel() for n, p in model.named_parameters()
                    if n.rsplit(".", 1)[-1] in ("w_in", "b_in", "w_out", "b_out"))
     n_tokens = int(np.prod(batch["padding_mask"].shape))
     capacity = model.encoder.layers[0].mlp.capacity(n_tokens)
-    records, rates, (k1, k2, st), peak, traced, last = _train_pretrain(
-        model, batch, TRAIN_STEPS, "pretrain_moe")
-    seen: dict = {}
+    records, (k1, k2, st), peak, last = _train_pretrain(model, batch, TRAIN_STEPS, "pretrain_moe")
+    seen: list = []
     ev = _pretrain_eval_and_relabel(model, batch, seen, device)
-    _, r1, r2, r_st, r_s = ev["relabel"]
-    e_loss, e_metrics, e1, e2, e_st, e_s = ev["eval"]
+    _, r1, r2, r_st = ev["relabel"]
+    e_loss, e_metrics, e1, e2, e_st = ev["eval"]
     del model
     layers = cfg.num_hidden_layers
     auxes = [r["moe_aux"] for r in records]
     rec = {"phase": "pretrain_moe", "card": card, "experts": MOE_EXPERTS, "top_k": MOE_TOP_K,
            "capacity_factor": MOE_CAPACITY, "capacity": capacity,
            "dispatch_shape": [n_tokens, MOE_EXPERTS, capacity], "params": n_params,
-           "expert_params": n_expert, "build_seconds": build_seconds, "steps": records,
-           **rates, "over_dense_seconds_per_step": rates["seconds_per_step_median_2_3"]
-           / dense_seconds, "max_memory_allocated_bytes": peak, "train_k1_k2": [k1, k2],
-           "moe_aux": auxes, "last_step": last, "traced_step": traced,
-           "eval": {"loss": e_loss, "moe_aux": e_metrics.get("moe_aux"), "seconds": e_s,
-                    "k1_k2": [e1, e2]},
-           "relabel": {"layer": ev["layer"], "seconds": r_s, "k1_k2": [r1, r2]},
-           "launch_shapes": check_launch_shapes(seen)}
+           "expert_params": n_expert, "steps": records, "max_memory_allocated_bytes": peak,
+           "train_k1_k2": [k1, k2], "moe_aux": auxes, "last_step": last,
+           "eval": {"loss": e_loss, "moe_aux": e_metrics.get("moe_aux"), "k1_k2": [e1, e2]},
+           "relabel": {"layer": ev["layer"], "k1_k2": [r1, r2]},
+           "shapes_checked": check_launch_shapes(seen)}
     log(rec)
     if (k1, k2, st) != (0, 0, 0) or (e1, e2, e_st) != (layers, 0, 0) \
             or (r1, r2, r_st) != (ev["layer"], 0, 0):
@@ -3173,8 +2759,8 @@ def phase_pretrain_cli_smoke(card: str, device: str = "cuda") -> dict:
     }
     out, on = {}, ([] if device == "cuda" else ["--device", device])
     for name, (argv, want) in runs.items():
-        result, seconds, k1, stats_writes, k2 = run_counted(lambda: pretrain.main(argv + on))
-        log({"phase": name, "card": card, "seconds": seconds, "cli_json": result,
+        result, k1, stats_writes, k2 = run_counted(lambda: pretrain.main(argv + on))
+        log({"phase": name, "card": card, "cli_json": result,
              "k1_launches": k1, "k2_launches": k2, "expected_k1_k2": list(want)})
         if (k1, k2, stats_writes) != (*want, 0) or not all(
                 math.isfinite(it[k]) for it in result["iterations"] for k in it):
@@ -3183,11 +2769,11 @@ def phase_pretrain_cli_smoke(card: str, device: str = "cuda") -> dict:
         out[name] = (k1, k2)
     for head in ("seq2seq", "ctc"):
         name = f"avhubert_cli_smoke_moe_{head}"
-        result, seconds, k1, stats_writes, k2 = run_counted(lambda: avhubert_ft.main(
+        result, k1, stats_writes, k2 = run_counted(lambda: avhubert_ft.main(
             ["--smoke", "--n_experts", "4", "--head", head, *on]))
         steps = result["steps"]
         want = ((steps * dec + enc + dec, steps * dec) if head == "seq2seq" else (enc, 0))
-        log({"phase": name, "card": card, "seconds": seconds, "cli_json": result,
+        log({"phase": name, "card": card, "cli_json": result,
              "k1_launches": k1, "k2_launches": k2, "expected_k1_k2": list(want)})
         losses = [result[k] for k in ("first_loss", "last_loss", "eval_loss")]
         if (k1, k2) != want or result.get("n_experts") != 4 or not all(
@@ -3313,38 +2899,6 @@ def phase_small_serving_reference():
                              f"weights {weight_err:.3e}")
 
 
-@contextlib.contextmanager
-def timed_calls(owner, *names):
-    """Within the block, each call of ``owner.<name>`` is bracketed by two
-    CUDA events on the current stream, with no host synchronisation, so
-    the decode loop keeps its asynchrony. On leaving the block, the
-    yielded list gets each call's seconds on the device's timeline: the
-    work the call enqueued, and the time the card waited for the host to
-    enqueue it."""
-    spans, spent = [], []
-    originals = {name: getattr(owner, name) for name in names}
-
-    def wrap(fn):
-        def timed(*args, **kw):
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = fn(*args, **kw)
-            end.record()
-            spans.append((start, end))
-            return out
-        return timed
-
-    for name, fn in originals.items():
-        setattr(owner, name, wrap(fn))
-    try:
-        yield spent
-    finally:
-        for name, fn in originals.items():
-            setattr(owner, name, fn)
-        torch.cuda.synchronize()
-        spent.extend(start.elapsed_time(end) / 1e3 for start, end in spans)
-
-
 # the daemon's live stream (30 s before the AV-HuBERT tools' phases: cut
 # to make room for them)
 STREAM_SECONDS = 10.0
@@ -3408,8 +2962,8 @@ def phase_serving_daemon(card: str, model, serve_cfg):
     batch size the scheduler formed, the alignment pass's causal decoder
     self-attention and gated x_attn, language ID). Returns the parts' K1
     launches."""
-    seen = {}
-    with launch_shapes(seen):
+    seen = []
+    with recorded(True, seen):
         launches = serving_daemon_parts(card, model, serve_cfg)
     log({"phase": "serving_daemon_launch_shapes", "card": card,
          "tolerance": {"bf16": BF16_TOL, "fp32": FP32_TOL}, **check_launch_shapes(seen)})
@@ -3452,7 +3006,6 @@ def serving_daemon_parts(card: str, model, serve_cfg):
     items = daemon_items(16, 8, seed=3)
     # (a) fires DAEMON_REQUESTS of them, half with lip features
     burst = items[8 - DAEMON_REQUESTS // 2:8 + DAEMON_REQUESTS // 2]
-    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     server = TranscriptionServer(tr, host="127.0.0.1", port=0, max_wait_ms=SERVE_WAIT_MS).start()
     k1 = {}
@@ -3488,7 +3041,7 @@ def serving_daemon_parts(card: str, model, serve_cfg):
                 p.done.wait(600)
 
         before = server.stats.snapshot()
-        _, seconds, launches, _, _ = run_counted(fire_all)
+        _, launches, _, _ = run_counted(fire_all)
         snap = server.stats.snapshot()
         batches = snap["n_batches"] - before["n_batches"]
         gate("concurrent", launches, batches)
@@ -3502,16 +3055,13 @@ def serving_daemon_parts(card: str, model, serve_cfg):
             raise AssertionError(f"serving_daemon: replies carry other requests' ids {wrong_id}")
         served = {i: (r["text"], r["avg_logprob"]) for i, (_, r) in replies.items()}
         served.update({i: (p.result.text, p.result.avg_logprob) for i, p in pendings.items()})
-        direct, direct_s, direct_launches, _, _ = run_counted(lambda: tr.transcribe(burst))
+        direct, direct_launches, _, _ = run_counted(lambda: tr.transcribe(burst))
         gate("direct", direct_launches, -(-len(burst) // SERVE_BATCH))
         same_text = sum(served[r.id][0] == r.text for r in direct)
         logprob_err = max(abs(served[r.id][1] - r.avg_logprob) for r in direct)
         rec["concurrent"] = {
-            "requests": len(burst), "with_video": len(pendings), "seconds": seconds,
-            "segments_per_s": len(burst) / seconds,
-            "batches": batches, "latency_ms": snap.get("latency_ms"),
+            "requests": len(burst), "with_video": len(pendings), "batches": batches,
             "batch_occupancy": snap.get("batch_occupancy"),
-            "direct_seconds": direct_s, "direct_segments_per_s": len(burst) / direct_s,
             "same_text_as_direct": same_text, "avg_logprob_max_abs_err": logprob_err,
             "has_video": sum(p.result.has_video for p in pendings.values())}
         if same_text != len(burst) or logprob_err > SERVE_LOGPROB_TOL:
@@ -3522,7 +3072,7 @@ def serving_daemon_parts(card: str, model, serve_cfg):
         # bursts of 1-1.5 s: every 2 s search region of the splitter holds a pause
         long_pcm, pauses = bursts_with_pauses(60.0, (1.0, 1.5), 0.5, seed=4)
         before = server.stats.snapshot()
-        (status, out), seconds, launches, _, _ = run_counted(lambda: post_json(
+        (status, out), launches, _, _ = run_counted(lambda: post_json(
             server.address, {"id": "long", "long": True,
                              "audio_pcm_b64": base64.b64encode(long_pcm.tobytes()).decode()}))
         if status != 200:
@@ -3536,8 +3086,7 @@ def serving_daemon_parts(card: str, model, serve_cfg):
                         for e in ends[:-1])
         longest = max(s["end_s"] - s["start_s"] for s in segs)
         rec["long"] = {"seconds_of_audio": len(long_pcm) / 16000, "windows": len(segs),
-                       "seconds": seconds, "tiled": tiled, "cuts_in_pauses": at_pauses,
-                       "longest_window_s": longest, "latency_ms": out["latency_ms"]}
+                       "tiled": tiled, "cuts_in_pauses": at_pauses, "longest_window_s": longest}
         if not (tiled and at_pauses and longest <= audio_max_length / 16000 + 1e-3):
             raise AssertionError(f"serving_daemon long segments: {rec['long']}")
 
@@ -3552,16 +3101,13 @@ def serving_daemon_parts(card: str, model, serve_cfg):
 
         stream_pcm, _ = bursts_with_pauses(STREAM_SECONDS, (5.0, 7.0), 0.6, seed=5)
         sess = StreamingSession(tr, stream_id="live", transcribe_fn=via_server)
-        t0 = time.perf_counter()
         stream_segs, chunk = [], 5120  # 0.32 s
         for i in range(0, len(stream_pcm), chunk):
             stream_segs += sess.feed(stream_pcm[i:i + chunk])
         stream_segs += sess.flush()
-        stream_s = time.perf_counter() - t0
         ordered = all(a.end_s <= b.start_s + 1e-6 for a, b in zip(stream_segs, stream_segs[1:]))
         rec["streaming"] = {"seconds_of_audio": STREAM_SECONDS, "chunk_s": 0.32,
-                            "utterances": len(stream_segs), "seconds": stream_s,
-                            "ordered": ordered,
+                            "utterances": len(stream_segs), "ordered": ordered,
                             "spans": [[s.start_s, s.end_s] for s in stream_segs]}
         if not stream_segs or not ordered:
             raise AssertionError(f"serving_daemon streaming: {rec['streaming']}")
@@ -3573,17 +3119,10 @@ def serving_daemon_parts(card: str, model, serve_cfg):
         raise AssertionError(f"serving_daemon: {final['n_errors']} errors, "
                              f"{final['n_rejected']} rejected")
 
-    # (d)-(f): the serving options on one batch each, beside the plain
-    # batch, each with its own work timed inside the batch on the device's
-    # timeline (the sampled re-decodes, the alignment pass, the boost's
-    # gathers) and the batch's seconds over the plain batch's
-    from avsl_tpu_torch.decode import greedy
-    from avsl_tpu_torch.infer import pipeline
-
+    # (d)-(f): the serving options on one batch each, beside the plain batch
     batch_items = items[:SERVE_BATCH]
-    _, plain_s, launches, _, _ = run_counted(lambda: tr.transcribe_batch(batch_items))
+    plain, launches, _, _ = run_counted(lambda: tr.transcribe_batch(batch_items))
     gate("plain_batch", launches, 1)
-    plain = tr.transcribe_batch(batch_items)
     eot = ByteTokenizer().eot
     rec["plain_batch_decoded_tokens"] = decoded_tokens(plain, eot, SERVE_MAX_NEW)
     options = {
@@ -3592,21 +3131,11 @@ def serving_daemon_parts(card: str, model, serve_cfg):
         "word_timestamps": dict(word_timestamps=True, boost_phrases=list(BOOST_PHRASES)),
         "boost": dict(boost_phrases=list(BOOST_PHRASES)),
     }
-    # (the module each is called through)
-    timed_parts = {"fallback": (pipeline, "sampled_decode_scored"),
-                   "word_timestamps": (pipeline, "align_words"),
-                   "boost": (greedy, "bias_adjust", "bias_advance")}
     for name, opts in options.items():
         otr = StreamingTranscriber(model, ByteTokenizer(), **kw, **opts)
-        with timed_calls(*timed_parts[name]) as spent:
-            results, seconds, launches, _, _ = run_counted(
-                lambda: otr.transcribe_batch(batch_items))
+        results, launches, _, _ = run_counted(lambda: otr.transcribe_batch(batch_items))
         check_served(results, SERVE_BATCH, SERVE_MAX_NEW)
-        sub = {"seconds": seconds, "plain_batch_seconds": plain_s,
-               "seconds_over_plain": seconds - plain_s,
-               "decoded_tokens": decoded_tokens(results, eot, SERVE_MAX_NEW),
-               "own_seconds": sum(spent), "own_calls": len(spent),
-               "own_share_of_batch": sum(spent) / seconds,
+        sub = {"decoded_tokens": decoded_tokens(results, eot, SERVE_MAX_NEW),
                "tokens_differ_from_plain": sum(r.tokens != p.tokens for r, p in zip(results, plain))}
         if name == "fallback":
             gate(name, launches, 1)
@@ -3636,11 +3165,10 @@ def serving_daemon_parts(card: str, model, serve_cfg):
 
     # (g) language ID on 8 clips
     clips = np.stack([it["audio"][:audio_max_length] for it in batch_items])
-    dets, seconds, launches, _, _ = run_counted(
-        lambda: detect_language(model, ByteTokenizer(), clips))
+    dets, launches, _, _ = run_counted(lambda: detect_language(model, ByteTokenizer(), clips))
     gate("language", launches, 0, extra=cfg.n_audio_layer)
     sums = [sum(table.values()) for _, table in dets]
-    rec["language"] = {"clips": len(dets), "seconds": seconds, "best": [b for b, _ in dets],
+    rec["language"] = {"clips": len(dets), "best": [b for b, _ in dets],
                        "max_sum_err": max(abs(s - 1.0) for s in sums)}
     if rec["language"]["max_sum_err"] > 1e-4:
         raise AssertionError(f"language posteriors do not sum to 1: {sums}")
@@ -3665,70 +3193,20 @@ NEAR_TIE = BF16_TOL["atol"]
 EXPORT_LOGPROB_TOL = 1e-3
 
 
-def static_cache_bytes(cache) -> int:
-    """Bytes of a decode cache's static entries (cross-attention and "xv"
-    K/V, int8 rows counted with their scales)."""
-    total = 0
-    for entry in cache:
-        for name, sub in entry.items():
-            if name != "self":
-                for x in (sub["k"], sub["v"]):
-                    for t in (x if isinstance(x, tuple) else (x,)):
-                        total += t.numel() * t.element_size()
-    return total
-
-
-def extras_breakdown(tr, prep, batch_seconds: float, traced_steps: int = 16) -> dict:
-    """The upload, encoders and cache build of one batch of ``tr`` (host
-    clock, synchronised per stage), the decode loop's share of a batch
-    that took ``batch_seconds`` (what those stages leave), the static
-    cache's bytes, and a traced decode of ``traced_steps`` steps on a
-    cache built before the trace: device launches a step and the idle
-    share."""
-    from avsl_tpu_torch.decode.greedy import greedy_decode_scored
-
-    stages, timed = timed_stages()
-    model, prompt, eot = tr.model, tr._prompt, tr.tokenizer.eot
-
-    def step(tok, c):
-        return model.decode(tok, None, None, c)
-
-    with torch.inference_mode(), tr.serving_mode():
-        x = timed("h2d", lambda: torch.from_numpy(prep.audio).cuda())
-        feats, xv = timed("encode", lambda: tr.encode(x, prep.video))
-        cache = timed("cache_build", lambda: tr.decode_cache(feats, xv, tr.cache_len()))
-        short = tr.decode_cache(feats, xv, traced_steps + prompt.shape[1] + 2)
-        traced = traced_run(lambda: greedy_decode_scored(step, short, prompt, traced_steps, eot))
-    launches = traced.get("device_launches")
-    return {"stage_seconds": stages, "decode_share": 1 - sum(stages.values()) / batch_seconds,
-            "static_cache_bytes": static_cache_bytes(cache),
-            "decode_launches_per_step": None if launches is None else launches / traced_steps,
-            "traced_decode": traced}
-
-
-def timed_in_turns(runs: dict, k1: dict, rounds: int = 2) -> dict:
-    """Each of ``runs`` (name -> a function that runs one batch) timed
-    ``rounds`` times, in the order given and then reversed (A B C C B A),
-    so that a drift of the host is shared; each run's K1 launches gated to
-    ``k1``'s count for its name, with no row statistics and no K2. Returns
-    per name the seconds of each run, their mean, the K1 launches of each
-    run and of the last, the peak device memory of its runs and the last
-    run's output."""
-    order = [name for r in range(rounds) for name in (list(runs) if r % 2 == 0
-                                                       else list(reversed(runs)))]
-    out = {name: {"seconds": [], "k1_per_run": [], "peak_bytes": 0} for name in runs}
-    for name in order:
+def run_each(runs: dict, k1: dict) -> dict:
+    """Each of ``runs`` (name -> a function that runs one batch) once, its
+    K1 launches gated to ``k1``'s count for its name, with no row
+    statistics and no K2. Returns per name the K1 launches, the run's
+    peak device memory and its output."""
+    out = {}
+    for name, fn in runs.items():
         torch.cuda.reset_peak_memory_stats()
-        result, seconds, launches, stats_writes, k2 = run_counted(runs[name])
-        out[name]["peak_bytes"] = max(out[name]["peak_bytes"], torch.cuda.max_memory_allocated())
+        result, launches, stats_writes, k2 = run_counted(fn)
         if stats_writes or k2 or launches != k1[name]:
             raise AssertionError(f"{name}: {launches} K1 launches ({stats_writes} with "
                                  f"statistics, {k2} K2) != {k1[name]}")
-        out[name]["seconds"].append(seconds)
-        out[name]["k1_per_run"].append(launches)
-        out[name].update(k1=launches, result=result)
-    for rec in out.values():
-        rec["seconds_per_batch"] = statistics.mean(rec["seconds"])
+        out[name] = {"k1": launches, "peak_bytes": torch.cuda.max_memory_allocated(),
+                     "result": result}
     return out
 
 
@@ -3795,12 +3273,10 @@ def phase_serving_extras_int8(card: str, holder: list) -> dict:
     (``holder`` = [model, serve config], emptied here): the int8 copy,
     gated bit-equal to the CPU's quantization of the same weights; then
     one batch of 8 items of 10 s (6 with lip features), INT8_MAX_NEW (32)
-    new tokens,
-    greedy, in bf16, ``kv_int8``, ``quantize="int8"`` and both, each run
-    once in turn (twice before the mesh phases), exactly 56 K1 a batch, with the breakdown of each
-    (decode share, launches a decode step, static cache bytes); then the
-    float model freed, the resident bytes read, and the int8 model's peak
-    over one more batch without it. Returns K1 launches by variant."""
+    new tokens, greedy, in bf16, ``kv_int8``, ``quantize="int8"`` and
+    both, exactly 56 K1 a batch; then the float model freed, the resident
+    bytes read, and the int8 model's peak over one more batch without it.
+    Returns K1 launches by variant."""
     from avsl_tpu_torch.cli._serving_common import serving_video_frames
     from avsl_tpu_torch.data.tokenizer import ByteTokenizer
     from avsl_tpu_torch.infer.pipeline import StreamingTranscriber
@@ -3814,10 +3290,7 @@ def phase_serving_extras_int8(card: str, holder: list) -> dict:
               video_frames=serving_video_frames(audio_max_length), crop=88,
               batch_size=EXTRAS_BATCH, max_new_tokens=INT8_MAX_NEW)
     per_batch = model.cfg.n_audio_layer + model.video_model.cfg.num_hidden_layers
-    t0 = time.perf_counter()
     int8 = StreamingTranscriber(model, ByteTokenizer(), quantize="int8", **kw)
-    torch.cuda.synchronize()
-    rec["quantize_seconds"] = time.perf_counter() - t0
     rec["quantization_report"] = quantization_report(model, int8.model)
     rec["bit_equal_to_cpu"] = check_int8_against_cpu(model, int8.model)
     rec["float_model_bytes"] = tree_bytes(model)
@@ -3827,21 +3300,12 @@ def phase_serving_extras_int8(card: str, holder: list) -> dict:
            "kv_int8": StreamingTranscriber(model, ByteTokenizer(), kv_int8=True, **kw),
            "int8": int8, "int8_kv_int8": int8_kv}
     prep = trs["bf16"]._prepare_batch(av_items(EXTRAS_BATCH, seed=3))
-    for name in ("bf16", "int8"):  # warm-up: cuBLAS handles, allocator
-        trs[name].run_batch(prep)
-    # one round (bf16, kv_int8, int8, int8_kv_int8; two before the mesh phases)
-    runs = timed_in_turns({name: (lambda tr=tr: tr.run_batch(prep)) for name, tr in trs.items()},
-                          dict.fromkeys(trs, per_batch), rounds=1)
+    runs = run_each({name: (lambda tr=tr: tr.run_batch(prep)) for name, tr in trs.items()},
+                    dict.fromkeys(trs, per_batch))
     base = runs["bf16"]["result"].tokens
-    variants = {}
-    for name, tr in trs.items():
-        r = runs[name]
-        variants[name] = {"seconds": r["seconds"], "seconds_per_batch": r["seconds_per_batch"],
-                          "segments_per_s": EXTRAS_BATCH / r["seconds_per_batch"],
-                          "k1_per_batch": r["k1"],
-                          "tokens_equal_to_bf16": float((r["result"].tokens == base).mean()),
-                          **extras_breakdown(tr, prep, r["seconds_per_batch"])}
-    runs_k1 = {name: r["k1_per_run"] for name, r in runs.items()}
+    variants = {name: {"k1_per_batch": r["k1"],
+                       "tokens_equal_to_bf16": float((r["result"].tokens == base).mean())}
+                for name, r in runs.items()}
     # the float model and the int8 copy are both resident through the runs
     rec["peak_bytes_both_models"] = max(r["peak_bytes"] for r in runs.values())
     del trs, runs, model
@@ -3853,7 +3317,7 @@ def phase_serving_extras_int8(card: str, holder: list) -> dict:
     rec["peak_bytes_int8_kv_int8_float_freed"] = torch.cuda.max_memory_allocated()
     rec["variants"] = variants
     log(rec)
-    return {name: sum(runs_k1[name]) for name in variants}
+    return {name: v["k1_per_batch"] for name, v in variants.items()}
 
 
 @contextlib.contextmanager
@@ -3977,33 +3441,27 @@ def phase_serving_extras_spec(card: str, model) -> dict:
     k1 = {"plain": n_layer, "tiny_draft": n_layer + tiny.cfg.n_audio_layer,
           "self_draft": 2 * n_layer}
     prep = trs["plain"]._prepare_batch(items)
-    ref_tokens, ref_gaps = greedy_with_gaps(trs["plain"], prep)  # also plain's warm-up
-    for name in ("tiny_draft", "self_draft"):
-        trs[name]._run(prep.audio, prep.video)  # warm-up
-    seen = {}
-    with launch_shapes(seen):
-        runs = timed_in_turns({name: (lambda tr=tr: tr._run(prep.audio, prep.video))
-                               for name, tr in trs.items()}, k1)
+    ref_tokens, ref_gaps = greedy_with_gaps(trs["plain"], prep)
+    seen = []
+    with recorded(True, seen):
+        runs = run_each({name: (lambda tr=tr: tr._run(prep.audio, prep.video))
+                         for name, tr in trs.items()}, k1)
     if not (runs["plain"]["result"].tokens == ref_tokens).all():
         raise AssertionError("plain greedy's tokens are off the reference decode")
-    plain_s = runs["plain"]["seconds_per_batch"]
     rec = {"phase": "serving_extras_speculative", "card": card, "spec_k": SPEC_K,
-           "near_tie": NEAR_TIE, "plain_seconds": runs["plain"]["seconds"],
-           "plain_seconds_per_batch": plain_s, "plain_min_top2_gap": float(ref_gaps.min()),
+           "near_tie": NEAR_TIE, "plain_min_top2_gap": float(ref_gaps.min()),
            "draft_tiny": {"widths": [tiny.cfg.n_audio_state, tiny.cfg.n_audio_head,
                                      tiny.cfg.n_audio_layer],
                           "params": sum(p.numel() for p in tiny.parameters())}}
     for name in ("tiny_draft", "self_draft"):
         tr, r = trs[name], runs[name]
-        stats = tr.spec_stats()  # the warm-up and the two timed batches, the same inputs
+        stats = tr.spec_stats()
         with spec_probe(SPEC_K) as probe:
             probed = tr._run(prep.audio, prep.video)
         tokens = r["result"].tokens
         if not (probed.tokens == tokens).all():
-            raise AssertionError(f"{name}: the probed run's tokens differ from the timed run's")
-        v = {"seconds": r["seconds"], "seconds_per_batch": r["seconds_per_batch"],
-             "over_plain": r["seconds_per_batch"] / plain_s, "k1_per_batch": r["k1"],
-             "spec_stats": stats, "rounds": stats["mean_verify_rounds"],
+            raise AssertionError(f"{name}: the probed run's tokens differ from the counted run's")
+        v = {"k1_per_batch": r["k1"], "spec_stats": stats, "rounds": stats["mean_verify_rounds"],
              "accept_rate": stats["mean_accept_rate"],
              "draft_forwards": probe["draft_forwards"],
              "target_forwards": probe["target_forwards"],
@@ -4020,8 +3478,8 @@ def phase_serving_extras_spec(card: str, model) -> dict:
                 raise AssertionError(f"self draft: accept {v['accept_rate']}, rounds "
                                      f"{v['rounds']} without a near-tie rejection")
         rec[name] = v
-    launches = {name: sum(runs[name]["k1_per_run"]) for name in ("tiny_draft", "self_draft")}
-    rec["launch_shapes"] = check_launch_shapes(seen)
+    launches = {name: runs[name]["k1"] for name in ("tiny_draft", "self_draft")}
+    rec["shapes_checked"] = check_launch_shapes(seen)
     log(rec)
     return launches
 
@@ -4087,42 +3545,32 @@ def phase_serving_extras_export(card: str) -> int:
         with open(f"{d}/serve.yaml", "w") as f:
             yaml.safe_dump(fields, f)
         save_checkpoint(f"{d}/ckpt", TrainState.create(model, None), 1)
-        t0 = time.perf_counter()
         manifest = export_program.main(["--config", f"{d}/serve.yaml", "--ckpt_dir", f"{d}/ckpt",
                                         "--output", f"{d}/program", "--platforms", "cuda",
                                         "--batch_size", str(EXTRAS_BATCH),
                                         "--max_new_tokens", str(EXTRAS_MAX_NEW)])
-        rec["export_seconds"] = time.perf_counter() - t0
         rec["artifact_bytes"] = manifest["bytes"]
         gc.collect()
         torch.cuda.empty_cache()
-        t0 = time.perf_counter()
         call, _ = load_exported(f"{d}/program")
-        rec["load_seconds"] = time.perf_counter() - t0
     vocab.cleanup()
     audio = torch.from_numpy(prep.audio).cuda()
     video = torch.from_numpy(prep.video).cuda()
-    live._run(prep.audio, prep.video)  # warm-up; the replay's is its traced call
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         call(audio, video, live._prompt)
         torch.cuda.synchronize()
     layers = w_cfg.n_audio_layer
-    # one round (live, replay; two before the AV-HuBERT tools' phases)
-    runs = timed_in_turns({"live": lambda: live._run(prep.audio, prep.video),
-                           "replay": lambda: call(audio, video, live._prompt)},
-                          {"live": layers, "replay": layers}, rounds=1)
+    runs = run_each({"live": lambda: live._run(prep.audio, prep.video),
+                     "replay": lambda: call(audio, video, live._prompt)},
+                    {"live": layers, "replay": layers})
     want, got = runs["live"]["result"], runs["replay"]["result"]
-    live_s, replay_s = runs["live"]["seconds_per_batch"], runs["replay"]["seconds_per_batch"]
     traced_k1 = sum(1 for e in prof.profiler.kineto_results.events()
                     if e.device_type() == torch.autograd.DeviceType.CUDA
                     and "flash_fwd" in e.name())
     tokens, scores = got[0].cpu().numpy(), got[1].cpu().numpy()
     err = float(np.abs(scores - want.scores).max())
-    rec.update(live_seconds=runs["live"]["seconds"], replay_seconds=runs["replay"]["seconds"],
-               live_seconds_per_batch=live_s, replay_seconds_per_batch=replay_s,
-               replay_over_live=replay_s / live_s, replay_k1=runs["replay"]["k1"],
-               replay_k1_per_run=runs["replay"]["k1_per_run"],
-               profiler_k1=traced_k1, tokens_equal=bool((tokens == want.tokens).all()),
+    rec.update(replay_k1=runs["replay"]["k1"], profiler_k1=traced_k1,
+               tokens_equal=bool((tokens == want.tokens).all()),
                avg_logprob_max_abs_err=err, manifest={k: manifest[k] for k in (
                    "format", "platforms", "inputs", "quantize", "kv_int8", "speculative")})
     log(rec)
@@ -4130,7 +3578,7 @@ def phase_serving_extras_export(card: str) -> int:
         raise AssertionError(f"replay: {traced_k1} K1 kernels traced != {layers}")
     if not rec["tokens_equal"] or err > EXPORT_LOGPROB_TOL:
         raise AssertionError(f"replay differs from the live run: avg_logprob by {err:.3e}")
-    return sum(runs["replay"]["k1_per_run"])
+    return runs["replay"]["k1"]
 
 
 # the training extras (LoRA, EMA, remat, distillation)
@@ -4217,7 +3665,6 @@ def phase_flamingo_lora_train(card: str, out_dir: str):
     K2 against the plain version at every distinct launch shape. Returns
     the job (for ``remat_ab``) and the launches."""
     import collections
-    import itertools
     import os
     import shutil
 
@@ -4243,12 +3690,10 @@ def phase_flamingo_lora_train(card: str, out_dir: str):
     cfg = FlamingoTrainConfig.from_yaml(cfg_path)
     accum = int(cfg.gradient_accumulation_steps)
     rows = [dataset_rows(n, seed) for n, seed in zip(DATASET_ROWS, (20, 21, 22))]
-    t0 = time.perf_counter()
     job = finetune.make_job(cfg, *rows, "cuda")
     job.train_ds, job.val_ds, job.test_ds = (SeededLipFrames(ds, seed) for ds, seed in zip(
         (job.train_ds, job.val_ds, job.test_ds), (30, 31, 32)))
     set_gates(job.model, GATE)
-    torch.cuda.synchronize()
     runner, base = job.runner, job.model
     lora, opt = runner.state.model, runner.state.optimizer
     if not isinstance(lora, LoraModel) or not isinstance(opt, MultiSteps) or runner.hoisted \
@@ -4263,8 +3708,7 @@ def phase_flamingo_lora_train(card: str, out_dir: str):
          "adapters_by_part": dict(by_part), "trainable_params": summary["lora_params"],
          "trainable_fraction": summary["trainable_fraction"], "rank": LORA_RANK,
          "alpha": LORA_ALPHA, "ema_decay": LORA_EMA, "remat_policy": base.encoder.remat_policy,
-         "accumulation": accum, "optimizer_steps": LORA_STEPS,
-         "seconds": time.perf_counter() - t0})
+         "accumulation": accum, "optimizer_steps": LORA_STEPS})
     base_before = {n: p.detach().to("cpu", copy=True) for n, p in base.named_parameters()}
     records, eval_calls = [], []
     plain_step = observe_steps(runner, records)
@@ -4275,15 +3719,13 @@ def phase_flamingo_lora_train(card: str, out_dir: str):
         return plain_eval(state, batch)
 
     runner.eval_logits_fn = counted_eval
-    seen: dict = {}
-    with launch_shapes(seen):
+    seen: list = []
+    with recorded(True, seen):
         fused_attention.launches = fused_attention_bwd.launches = 0
-        t_run = time.perf_counter()
         result = finetune.run(job)
-        run_seconds = time.perf_counter() - t_run
         k1, k2 = fused_attention.launches, fused_attention_bwd.launches
     runner.train_step, runner.eval_logits_fn = plain_step, plain_eval
-    steps = optimizer_steps(records, t_run)
+    steps = optimizer_steps(records)
     base_changed = [n for n, v in base_before.items()
                     if not torch.equal(dict(base.named_parameters())[n].cpu(), v)]
     del base_before
@@ -4301,14 +3743,10 @@ def phase_flamingo_lora_train(card: str, out_dir: str):
     want_k1 = (2 * enc + dec) * micro + (enc + tower + dec) * len(eval_calls)
     want_k2 = (enc + dec) * micro
     rec = {"phase": "flamingo_lora_train", "card": card, "optimizer_steps": steps,
-           "seconds_per_optimizer_step_median_2_3": statistics.median(
-               s["seconds"] for s in steps[1:]),
-           "segments_per_s_median_2_3": statistics.median(s["segments_per_s"] for s in steps[1:]),
-           "loss_per_optimizer_step": [s["loss"] for s in steps],
            "micro_batch_items": dict(sorted(collections.Counter(
                r["items"] for r in records).items())),
            "max_memory_allocated_bytes": max(r["peak_bytes"] for r in records),
-           "run_seconds": run_seconds, "micro_steps": micro, "eval_batches": eval_calls,
+           "micro_steps": micro, "eval_batches": eval_calls,
            "k1_launches": k1, "k2_launches": k2, "expected_k1": want_k1, "expected_k2": want_k2,
            "k1_per_micro_step": 2 * enc + dec, "k2_per_micro_step": enc + dec,
            "k1_per_eval_batch": enc + tower + dec, "updates": opt.count,
@@ -4338,10 +3776,8 @@ def phase_flamingo_lora_train(card: str, out_dir: str):
     # served batch
     base_dir, merged_dir = os.path.join(out_dir, "lora_base"), os.path.join(out_dir, "lora_merged")
     save_checkpoint(base_dir, TrainState.create(base, None), 0)
-    t0 = time.perf_counter()
     export_lora.main(["--config", cfg_path, "--adapter_ckpt", ckpt_dir, "--base_ckpt", base_dir,
                       "--output", merged_dir, "--device", "cuda"])
-    rec["export_seconds"] = time.perf_counter() - t0
     shutil.rmtree(base_dir, ignore_errors=True)
     rec["merged_checkpoint_bytes"] = os.path.getsize(_path(merged_dir, latest_step(merged_dir)))
     gc.collect()
@@ -4363,26 +3799,12 @@ def phase_flamingo_lora_train(card: str, out_dir: str):
     for i in range(EXTRAS_BATCH):
         write_wav(os.path.join(wav_dir, f"lora{i}.wav"),
                   (0.1 * rng.standard_normal(int(rng.integers(80000, 160001)))).astype(np.float32))
-    t0 = time.perf_counter()
     results = transcribe.main(["--input", wav_dir, "--config", cfg_path, "--ckpt_dir", merged_dir,
                                "--batch_size", str(EXTRAS_BATCH), "--max_new_tokens", "16",
                                "--device", "cuda"])
     rec.update(merged_logits_max_abs_err=err, merged_logits_within_bf16_tol=ok,
-               transcribe_seconds=time.perf_counter() - t0, served_items=len(results),
-               launch_shapes=check_launch_shapes(seen))
+               served_items=len(results), shapes_checked=check_launch_shapes(seen))
     shutil.rmtree(merged_dir, ignore_errors=True)
-
-    # one more pair of micro-steps, traced (after the export: a training
-    # step moves the tower's BatchNorm statistics)
-    micro_batches = list(itertools.islice(
-        job.batches(job.train_ds, int(cfg.batch_size), True, 4), 2))
-
-    def two_micro_steps():
-        for b in micro_batches:
-            runner.state, metrics = plain_step(runner.state, b)
-        float(metrics["loss"])
-
-    rec["traced_micro_steps"] = traced_run(two_micro_steps)
     log(rec)
     if not ok:
         raise AssertionError(f"merged model's logits off the LoRA model's by {err}")
@@ -4403,9 +3825,9 @@ def phase_remat_ab(card: str, job) -> dict:
     optimizer steps of REMAT_AB_ACCUM micro-batches each (the same
     micro-batches every time),
     with remat off, on with the ``block`` policy and on with ``dots``, in
-    that order: s/step and peak device memory each, K1 and K2 launches
-    gated to (32 + 96) or (32 x 2 + 96) and (32 + 96) a micro-step.
-    Returns the launches without remat."""
+    that order: peak device memory each, K1 and K2 launches gated to (32 +
+    96) or (32 x 2 + 96) and (32 + 96) a micro-step. Returns the launches
+    without remat."""
     import itertools
 
     from avsl_tpu_torch.kernels.attention import fused_attention, fused_attention_bwd
@@ -4422,22 +3844,16 @@ def phase_remat_ab(card: str, job) -> dict:
         set_remat(base, on, policy)
         runner.state.optimizer = MultiSteps(opt.inner, REMAT_AB_ACCUM)
         gc.collect()
-        torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         fused_attention.launches = fused_attention_bwd.launches = 0
-        seconds = []
         for b in micro_batches:
-            t = time.perf_counter()
             runner.state, metrics = runner.train_step(runner.state, b)
             float(metrics["loss"])
-            seconds.append(time.perf_counter() - t)
         k1, k2 = fused_attention.launches, fused_attention_bwd.launches
         micro = len(micro_batches)
         want = ((2 * enc if on else enc) + dec) * micro, (enc + dec) * micro
-        runs[name] = {"seconds_per_optimizer_step": [
-            sum(seconds[i:i + REMAT_AB_ACCUM]) for i in range(0, micro, REMAT_AB_ACCUM)],
-            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
-            "k1": k1, "k2": k2, "expected": list(want)}
+        runs[name] = {"max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+                      "k1": k1, "k2": k2, "expected": list(want)}
         launches[name] = (k1, k2)
         if (k1, k2) != want:
             raise AssertionError(f"remat_ab {name}: K1 {k1} / K2 {k2} != {want}")
@@ -4461,8 +3877,8 @@ def phase_distill(card: str, out_dir: str):
     held against the plain version. Then speculative decoding on that
     target (30 s windows, batch 8, 64 new tokens, spec_k 4) with the
     distilled draft loaded through the serving CLIs' ``--draft_ckpt`` path,
-    against plain greedy in turns: greedy's tokens but at near-ties, K1
-    32 + 4 a batch. Returns the launches."""
+    against plain greedy: greedy's tokens but at near-ties, K1 32 + 4 a
+    batch. Returns the launches."""
     import argparse
     import os
 
@@ -4488,7 +3904,6 @@ def phase_distill(card: str, out_dir: str):
         yaml.safe_dump(fields, f)
     cfg = FlamingoTrainConfig(**fields)
     tokenizer = get_tokenizer(vocab_dir, cfg.lang)
-    t0 = time.perf_counter()
     target, w_cfg = build_target_model(cfg, tokenizer, False, None, device="cuda", seed=7)
     target_dir, draft_dir = os.path.join(out_dir, "distill_target"), os.path.join(
         out_dir, "distill_draft")
@@ -4498,7 +3913,6 @@ def phase_distill(card: str, out_dir: str):
     for i in range(DISTILL_CLIPS):
         write_wav(os.path.join(wav_dir, f"clip{i:02d}.wav"),
                   (0.1 * rng.standard_normal(int(rng.integers(160000, 480001)))).astype(np.float32))
-    prepare_seconds = time.perf_counter() - t0
 
     counts = {"labels": [0, 0, 0], "steps": [0, 0, 0]}  # calls, K1, K2
     real_label, real_step = distill.make_greedy_label_fn, distill.make_online_distill_step
@@ -4516,17 +3930,15 @@ def phase_distill(card: str, out_dir: str):
 
     distill.make_greedy_label_fn = lambda *a, **kw: counting("labels", real_label(*a, **kw))
     distill.make_online_distill_step = lambda *a, **kw: counting("steps", real_step(*a, **kw))
-    seen: dict = {}
+    seen: list = []
     try:
-        with launch_shapes(seen):
+        with recorded(True, seen):
             fused_attention.launches = fused_attention_bwd.launches = 0
-            t0 = time.perf_counter()
             summary = distill_cli.main([
                 "--input", wav_dir, "--config", cfg_path, "--ckpt_dir", target_dir,
                 "--draft_model", "tiny", "--output", draft_dir, "--steps", str(DISTILL_STEPS),
                 "--batch_size", "8", "--max_new_tokens", "64", "--lr", str(DISTILL_LR),
                 "--log_every", "10", "--device", "cuda"])
-            cli_seconds = time.perf_counter() - t0
     finally:
         distill.make_greedy_label_fn, distill.make_online_distill_step = real_label, real_step
     gc.collect()
@@ -4544,13 +3956,10 @@ def phase_distill(card: str, out_dir: str):
     rec = {"phase": "distill", "card": card, "target": w_cfg.name, "n_vocab": w_cfg.n_vocab,
            "draft": [draft.cfg.n_audio_state, draft.cfg.n_audio_head, draft.cfg.n_audio_layer],
            "clips": DISTILL_CLIPS, "steps": DISTILL_STEPS, "lr": DISTILL_LR,
-           "prepare_seconds": prepare_seconds, "cli_seconds": cli_seconds,
-           "label_seconds": summary["label_seconds"],
-           "seconds_per_step": summary["train_seconds"] / DISTILL_STEPS,
            "agree_history": [(h["step"], h["agree"]) for h in summary["history"]],
            "loss_history": [(h["step"], h["loss"]) for h in summary["history"]],
            "final": summary["final"], "launches": counts, "expected_launches": want,
-           "launch_shapes": check_launch_shapes(seen)}
+           "shapes_checked": check_launch_shapes(seen)}
     if counts != want:
         log(rec)
         raise AssertionError(f"distill launches {counts} != {want}")
@@ -4571,31 +3980,28 @@ def phase_distill(card: str, out_dir: str):
     k1 = {"plain": t_enc, "distilled_draft": t_enc + d_enc}
     prep = trs["plain"]._prepare_batch(items)
     ref_tokens, ref_gaps = greedy_with_gaps(trs["plain"], prep)
-    trs["distilled_draft"]._run(prep.audio, prep.video)  # warm-up
-    seen = {}
-    with launch_shapes(seen):
-        runs = timed_in_turns({name: (lambda tr=tr: tr._run(prep.audio, prep.video))
-                               for name, tr in trs.items()}, k1)
+    seen = []
+    with recorded(True, seen):
+        runs = run_each({name: (lambda tr=tr: tr._run(prep.audio, prep.video))
+                         for name, tr in trs.items()}, k1)
     tr, r = trs["distilled_draft"], runs["distilled_draft"]
     stats = tr.spec_stats()
     with spec_probe(SPEC_K) as probe:
         probed = tr._run(prep.audio, prep.video)
     tokens = r["result"].tokens
     if not (probed.tokens == tokens).all():
-        raise AssertionError("distilled draft: the probed run's tokens differ from the timed run's")
-    plain_s = runs["plain"]["seconds_per_batch"]
+        raise AssertionError("distilled draft: the probed run's tokens differ from the counted "
+                             "run's")
     spec = {"phase": "serving_extras_speculative_distilled", "card": card, "spec_k": SPEC_K,
-            "near_tie": NEAR_TIE, "plain_seconds_per_batch": plain_s,
-            "seconds_per_batch": r["seconds_per_batch"], "over_plain": r["seconds_per_batch"]
-            / plain_s, "k1_per_batch": r["k1"], "rounds": stats["mean_verify_rounds"],
+            "near_tie": NEAR_TIE, "k1_per_batch": r["k1"], "rounds": stats["mean_verify_rounds"],
             "accept_rate": stats["mean_accept_rate"], "spec_stats": stats,
             "draft_forwards": probe["draft_forwards"], "target_forwards": probe["target_forwards"],
             "rejections": len(probe["rejection_gaps"]),
             "near_tie_rows": near_tie_rows(tokens, ref_tokens, ref_gaps),
-            "launch_shapes": check_launch_shapes(seen)}
+            "shapes_checked": check_launch_shapes(seen)}
     log(spec)
     launches = {"labels": counts["labels"][1], "steps": counts["steps"][1],
-                "steps_k2": counts["steps"][2], "speculative": sum(r["k1_per_run"])}
+                "steps_k2": counts["steps"][2], "speculative": r["k1"]}
     del trs, tr, draft, target
     return launches
 
@@ -4682,19 +4088,14 @@ def phase_preprocess_chain(card: str, root: str) -> list:
     from avsl_tpu_torch.data.dataset_process import segment_sources
     from avsl_tpu_torch.data.hf_dataset import av_to_hf_dataset_with_shards, load_sharded_records
 
-    t0 = time.perf_counter()
     sources = write_nite_corpus(os.path.join(root, "corpus"))
-    t_corpus = time.perf_counter()
     written = process_transcripts(os.path.join(root, "corpus"), os.path.join(root, "txt"))
-    t_txt = time.perf_counter()
     out = segment_sources(os.path.join(root, "txt"), sources, os.path.join(root, "ds"),
                           video_sources=None, package_hf=False)
-    t_seg = time.perf_counter()
     records = out["records"]
     manifest = av_to_hf_dataset_with_shards(records, os.path.join(root, "shards"), num_shards=4,
                                             check_videos=False)
     back = load_sharded_records(os.path.join(root, "shards"))
-    t_shards = time.perf_counter()
     n = len(CHAIN_MEETINGS) * len(CHAIN_SPEAKERS) * CHAIN_SEGMENTS
     stats = out["stats"]
     rec = {"phase": "preprocess_chain", "card": card, "transcript_files": len(written),
@@ -4702,9 +4103,7 @@ def phase_preprocess_chain(card: str, root: str) -> list:
            "round_trip_in_order": back == records,
            "durations_s": [min(r["duration"] for r in records),
                            max(r["duration"] for r in records)],
-           "native_media_available": media_native.native_available(),
-           "seconds": {"corpus": t_corpus - t0, "transcripts": t_txt - t_corpus,
-                       "segment_sources": t_seg - t_txt, "shards_round_trip": t_shards - t_seg}}
+           "native_media_available": media_native.native_available()}
     if rec["native_media_available"]:
         paths = [r["audio"] for r in records]
         arena, counts = media_native.decode_audio_batch(paths, 16000, max_samples=10 * 16000 + 16)
@@ -4716,7 +4115,6 @@ def phase_preprocess_chain(card: str, root: str) -> list:
         rec["native_decode_max_abs_err"] = err
         if not err <= CHAIN_AUDIO_TOL:
             raise AssertionError(f"preprocess_chain: native audio decode differs by {err}")
-    rec["seconds"]["total"] = time.perf_counter() - t0
     log(rec)
     if (stats["segments"], stats["audio_ok"], stats["alignment_issues"]) != (n, n, 0) \
             or len(records) != n or not rec["round_trip_in_order"]:
@@ -4733,11 +4131,10 @@ def phase_evaluate_main_path(card: str, model, serve_cfg, records) -> dict:
     encoder 32, tower 24, decoder 96), then with beam 4 and 64 new tokens
     (that run's teacher-forced pass again, then 56 a batch: the encoder
     and the tower; the cached steps run the einsum path); K2 never; every
-    distinct K1 launch shape against the plain version; one beam batch
-    traced. Returns the K1 launches by mode."""
+    distinct K1 launch shape against the plain version. Returns the K1
+    launches by mode."""
     from avsl_tpu_torch.cli import evaluate as cli_evaluate
     from avsl_tpu_torch.core.config import FlamingoTrainConfig
-    from avsl_tpu_torch.data.runtime import AmiVideoDataset, WhisperVideoCollator
     from avsl_tpu_torch.data.tokenizer import ByteTokenizer
 
     cfg = FlamingoTrainConfig.from_yaml(TRAIN_CONFIG)
@@ -4750,38 +4147,25 @@ def phase_evaluate_main_path(card: str, model, serve_cfg, records) -> dict:
     per_tf = model.cfg.n_audio_layer + model.video_model.cfg.num_hidden_layers \
         + 3 * model.cfg.n_text_layer
     per_beam = model.cfg.n_audio_layer + model.video_model.cfg.num_hidden_layers
-    seen = {}
+    seen = []
     torch.cuda.reset_peak_memory_stats()
-    with launch_shapes(seen):
-        tf, tf_s, tf_k1, tf_stats, tf_k2 = run_counted(
+    with recorded(True, seen):
+        tf, tf_k1, tf_stats, tf_k2 = run_counted(
             lambda: cli_evaluate.evaluate(cfg, model, tokenizer, records, wrap_dataset=wrap))
-        both, both_s, both_k1, both_stats, both_k2 = run_counted(
+        both, both_k1, both_stats, both_k2 = run_counted(
             lambda: cli_evaluate.evaluate(cfg, model, tokenizer, records, beam=EVAL_BEAM,
                                           max_new_tokens=EVAL_NEW, wrap_dataset=wrap))
     peak = torch.cuda.max_memory_allocated()
-    beam_k1, beam_s = both_k1 - tf_k1, both_s - tf_s
-    ds = wrap(AmiVideoDataset(records, tokenizer, audio_max_length=int(cfg.audio_max_length),
-                              n_mels=model.cfg.n_mels, lang=cfg.lang, load_video=True))
-    batch = next(cli_evaluate.eval_batches(
-        ds, WhisperVideoCollator(eot_id=tokenizer.eot, max_label_len=model.cfg.n_text_ctx),
-        EVAL_BATCH))
-    prompt = np.tile(np.asarray(tokenizer.sot_sequence(cfg.lang))[None], (EVAL_BATCH, 1))
-    model.eval()
-    traced = traced_run(lambda: cli_evaluate.beam_decode_batch(
-        model, batch, prompt, EVAL_BEAM, EVAL_NEW, tokenizer.eot))
+    beam_k1 = both_k1 - tf_k1
     shapes = check_launch_shapes(seen)
     rec = {"phase": "evaluate_main_path", "card": card, "config": TRAIN_CONFIG,
            "model": model.cfg.name, "items": len(records), "batches": n_batches,
            "eval_batch_size": EVAL_BATCH, "beam": EVAL_BEAM, "max_new_tokens": EVAL_NEW,
-           "teacher_forced": {"metrics": tf, "seconds": tf_s, "seconds_per_batch": tf_s / n_batches,
-                              "segments_per_s": len(records) / tf_s, "k1": tf_k1},
-           "beam_search": {"metrics": both, "seconds": beam_s,
-                           "seconds_per_batch": beam_s / n_batches,
-                           "segments_per_s": len(records) / beam_s, "k1": beam_k1},
+           "teacher_forced": {"metrics": tf, "k1": tf_k1},
+           "beam_search": {"metrics": both, "k1": beam_k1},
            "expected_k1": {"teacher_forced": per_tf * n_batches, "beam": per_beam * n_batches},
            "k2": tf_k2 + both_k2, "row_statistics_written": tf_stats + both_stats,
-           "max_memory_allocated_bytes": peak, "traced_beam_batch": traced,
-           "launch_shapes": shapes}
+           "max_memory_allocated_bytes": peak, "shapes_checked": shapes}
     log(rec)
     if (tf_k1, beam_k1) != (per_tf * n_batches, per_beam * n_batches) or tf_k2 or both_k2 \
             or tf_stats or both_stats:
@@ -4806,10 +4190,10 @@ def phase_evaluate_cli_smoke(card: str) -> tuple:
     from avsl_tpu_torch.core.config import AVHuBERTConfig, WhisperConfig
 
     w, av = WhisperConfig.tiny_test(), AVHuBERTConfig.tiny_test()
-    result, seconds, k1, stats_writes, k2 = run_counted(lambda: cli_evaluate.main(
+    result, k1, stats_writes, k2 = run_counted(lambda: cli_evaluate.main(
         ["--smoke", "--beam", "2", "--max_new_tokens", "6"]))
     want = 2 * (w.n_audio_layer + av.num_hidden_layers) + 3 * w.n_text_layer
-    log({"phase": "evaluate_cli_smoke", "card": card, "seconds": seconds, "cli_json": result,
+    log({"phase": "evaluate_cli_smoke", "card": card, "cli_json": result,
          "k1_launches": k1, "k2_launches": k2, "expected_k1_k2": [want, 0],
          "tower_head_dim": av.hidden_size // av.num_attention_heads})
     if (k1, k2, stats_writes) != (want, 0, 0) or not math.isfinite(result["test/loss"]) \
@@ -4829,10 +4213,10 @@ def phase_avhubert_cli_smoke(card: str) -> tuple:
     from avsl_tpu_torch.core.config import AVHuBERTConfig
 
     cfg = AVHuBERTConfig.tiny_test()
-    result, seconds, k1, stats_writes, k2 = run_counted(lambda: avhubert_ft.main(["--smoke"]))
+    result, k1, stats_writes, k2 = run_counted(lambda: avhubert_ft.main(["--smoke"]))
     steps, dec = result["steps"], cfg.decoder_layers
     want = (steps * dec + cfg.num_hidden_layers + dec, steps * dec)
-    log({"phase": "avhubert_cli_smoke", "card": card, "seconds": seconds, "cli_json": result,
+    log({"phase": "avhubert_cli_smoke", "card": card, "cli_json": result,
          "k1_launches": k1, "k2_launches": k2, "expected_k1_k2": list(want),
          "head_dims": [cfg.hidden_size // cfg.num_attention_heads,
                        cfg.decoder_hidden_size // cfg.decoder_attention_heads]})
@@ -4880,46 +4264,18 @@ def avh_tool_rows(d: str, n: int, seed: int):
     return table, rows
 
 
-@contextlib.contextmanager
-def row_starts(stamps: list):
-    """Within the block, the host clock at the start of each row the
-    AV-HuBERT tools load (``cli/_avh_common.load_row_features``) is
-    appended to ``stamps``; the rows themselves are unchanged."""
-    from avsl_tpu_torch.cli import _avh_common
-
-    plain = _avh_common.load_row_features
-
-    def stamped(*args, **kw):
-        stamps.append(time.perf_counter())
-        return plain(*args, **kw)
-
-    _avh_common.load_row_features = stamped
-    try:
-        yield stamps
-    finally:
-        _avh_common.load_row_features = plain
-
-
 def run_tool(main, argv: list, per_row_k1: int, n_rows: int) -> tuple:
     """``main(argv)``, a CLI of the AV-HuBERT tools over ``n_rows`` rows,
-    with K1 and K2 counted, its standard output kept, each row's start
-    stamped (the first row's time includes building the model) and the
-    peak device memory read. Returns (result, record); raises unless K1
-    launched ``per_row_k1`` times a row, with no row statistics and no
-    K2."""
+    with K1 and K2 counted, its standard output kept and the peak device
+    memory read. Returns (result, record); raises unless K1 launched
+    ``per_row_k1`` times a row, with no row statistics and no K2."""
     import io
 
-    stamps, out = [], io.StringIO()
+    out = io.StringIO()
     torch.cuda.reset_peak_memory_stats()
-    with row_starts(stamps), contextlib.redirect_stdout(out):
-        result, seconds, k1, stats_writes, k2 = run_counted(lambda: main(argv))
-    end = time.perf_counter()
-    after_first = (end - stamps[1]) / (n_rows - 1)
-    rec = {"rows": n_rows, "seconds": seconds, "segments_per_s": n_rows / seconds,
-           "first_row_seconds": stamps[1] - stamps[0],
-           "seconds_per_row_after_first": after_first,
-           "segments_per_s_after_first": 1.0 / after_first,
-           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+    with contextlib.redirect_stdout(out):
+        result, k1, stats_writes, k2 = run_counted(lambda: main(argv))
+    rec = {"rows": n_rows, "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
            "k1": k1, "expected_k1": per_row_k1 * n_rows, "k2": k2,
            "stdout_first_line": out.getvalue().splitlines()[0]}
     if (k1, k2, stats_writes) != (per_row_k1 * n_rows, 0, 0):
@@ -4953,12 +4309,12 @@ def phase_avh_tools_main_path(card: str) -> dict:
     tap = layers // 2  # --layer 12 of the large card's 24
     rec = {"phase": "avh_tools_main_path", "card": card, "config": AVHUBERT_CONFIG,
            "rows": AVH_TOOLS_ROWS}
-    seen: dict = {}
+    seen: list = []
     bad = []
     with tempfile.TemporaryDirectory() as d:
         table, rows = avh_tool_rows(d, AVH_TOOLS_ROWS, seed=40)
         base = ["--csv", table, "--config", AVHUBERT_CONFIG]
-        with launch_shapes(seen):
+        with recorded(True, seen):
             feats, rec["extract"] = run_tool(
                 extract.main, base + ["--output", os.path.join(d, "feats")], layers, len(rows))
             tapped, rec["extract_layer12"] = run_tool(
@@ -4985,7 +4341,7 @@ def phase_avh_tools_main_path(card: str) -> dict:
     rec.update(frames=frames, buckets=sorted({-(-t // 32) * 32 for t in frames if t}),
                tap_max_abs_difference=tap_gap, align_scores=[r.get("score") for r in aligned],
                words=sum(len(r.get("words") or []) for r in aligned),
-               launch_shapes=check_launch_shapes(seen))
+               shapes_checked=check_launch_shapes(seen))
     log(rec)
     if bad or len(feats) != len(rows) or len(tapped) != len(rows) or not tap_gap > 0:
         raise AssertionError(f"AV-HuBERT tools: {bad[:3]}, {len(feats)}/{len(tapped)} feature "
@@ -5050,9 +4406,9 @@ def phase_avh_tools_card_vs_cpu(card: str) -> int:
                                     "--ckpt_dir", os.path.join(d, "ctc"), *common]))
 
             with contextlib.redirect_stdout(io.StringIO()):
-                (feats, aligned), seconds, k1, stats_writes, k2 = run_counted(both)
+                (feats, aligned), k1, stats_writes, k2 = run_counted(both)
             runs[dev] = {"feats": [np.load(r["path"]) for r in feats], "aligned": aligned,
-                         "seconds": seconds, "k1": k1, "k2": k2, "stats": stats_writes}
+                         "k1": k1, "k2": k2, "stats": stats_writes}
     card_run, cpu_run = runs["cuda"], runs["cpu"]
     errs = [float(np.abs(a - b).max()) for a, b in zip(card_run["feats"], cpu_run["feats"])]
     within = len(errs) == 2 and all(
@@ -5064,8 +4420,8 @@ def phase_avh_tools_card_vs_cpu(card: str) -> int:
     log({"phase": "avh_tools_card_vs_cpu", "card": card, "tolerance": SMALL_TRAIN_TOL,
          "feature_shapes": [list(a.shape) for a in card_run["feats"]],
          "features_max_abs_err": errs, "words_card": words[0], "words_equal": words[0] == words[1],
-         "align_score": scores, "seconds": {dev: r["seconds"] for dev, r in runs.items()},
-         "k1": {dev: r["k1"] for dev, r in runs.items()}, "expected_card_k1": want_k1})
+         "align_score": scores, "k1": {dev: r["k1"] for dev, r in runs.items()},
+         "expected_card_k1": want_k1})
     counts = [(r["k1"], r["k2"], r["stats"]) for r in (card_run, cpu_run)]
     if not within or not words[0] or words[0] != words[1] or None in scores \
             or abs(scores[0] - scores[1]) > 1e-3 or counts != [(want_k1, 0, 0), (0, 0, 0)]:
@@ -5103,15 +4459,12 @@ def phase_landmark_cnn(card: str) -> dict:
     truth = {"mouth_px": float(errors[:, 48:68].mean()), "all_px": float(errors.mean()),
              "worst_face_mouth_px": float(errors[:, 48:68].mean(axis=1).max())}
     rec = {"phase": "landmark_cnn", "card": card, "faces": len(imgs),
-           "card_vs_cpu_max_abs_px": err, "tolerance_px": LANDMARK_PX_TOL, "held_out": truth,
-           "detector_ms_48_faces": cuda_ms(lambda: det(imgs), reps=5, warmup=1)}
+           "card_vs_cpu_max_abs_px": err, "tolerance_px": LANDMARK_PX_TOL, "held_out": truth}
     with tempfile.TemporaryDirectory() as d:
         path = os.path.join(d, "landmark_cnn.npz")
         out = io.StringIO()
-        t0 = time.perf_counter()
         with contextlib.redirect_stdout(out):
             result = train_landmarks.main(LANDMARK_TRAIN_ARGS + ["--out", path])
-        seconds = time.perf_counter() - t0
         with np.load(path) as z:
             keys = sorted(z.files)
         state = load_cnn_params(path)
@@ -5122,8 +4475,7 @@ def phase_landmark_cnn(card: str) -> dict:
                        for layer in [f"Conv_{i}" for i in range(5)] + ["Dense_0", "Dense_1"]
                        for leaf in ("kernel", "bias"))
     rec["train"] = {
-        "args": LANDMARK_TRAIN_ARGS, "batch_size": 64, "seconds": seconds,
-        "loop_seconds": result["seconds"], "seconds_per_step": result["seconds"] / steps,
+        "args": LANDMARK_TRAIN_ARGS, "batch_size": 64,
         "loss_history": [[i, losses[i]] for i in range(0, len(losses), 25)]
         + [[len(losses) - 1, losses[-1]]],
         "val_px_error": result["val_px_error"], "val_mouth_px_error": result["val_mouth_px_error"],
@@ -5154,12 +4506,12 @@ def phase_doctor(card: str) -> int:
     for argv in ([], ["--config", AVHUBERT_CONFIG]):
         out = io.StringIO()
         with contextlib.redirect_stdout(out):
-            rc, seconds, k1, stats_writes, k2 = run_counted(lambda: doctor.main(argv))
+            rc, k1, stats_writes, k2 = run_counted(lambda: doctor.main(argv))
         checks = [line for line in out.getvalue().splitlines() if line.startswith("[")]
         warns = [line for line in checks if line.startswith("[WARN]")]
         fails = [line for line in checks if line.startswith("[FAIL]")]
-        runs[" ".join(argv) or "(no arguments)"] = {"rc": rc, "seconds": seconds, "k1": k1,
-                                                     "checks": checks, "warns": warns}
+        runs[" ".join(argv) or "(no arguments)"] = {"rc": rc, "k1": k1, "checks": checks,
+                                                     "warns": warns}
         unexpected = [w for w in warns if not w[len("[WARN] "):].startswith(DOCTOR_WARNS_ALLOWED)]
         if rc != 0 or fails or unexpected or (k1, k2, stats_writes) != (1, 0, 0):
             log({"phase": "doctor", "card": card, "runs": runs})
@@ -5189,40 +4541,6 @@ def sass_counts() -> dict:
     if not sum(counts["flash_attn_bwd"].values()):
         raise AssertionError(f"flash_attn_bwd has no HGMMA or HMMA instruction: {counts}")
     return counts
-
-
-def traced_run(fn) -> dict:
-    """Wall time of ``fn`` under torch.profiler, the summed duration of the
-    device activity it traced, the idle share, and the five device
-    kernels that took longest in total ("not measured" when the trace
-    holds no device activity). Only device activity is recorded: host
-    events would slow the host-bound loops they measure and take longer
-    to collect than the run itself."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-    t_collect = time.perf_counter()
-    per_name: dict = {}
-    # the raw kineto events: building prof.events() takes tens of seconds
-    # for the 140k kernels of a train step
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type() == torch.autograd.DeviceType.CUDA:
-            tot, n = per_name.get(e.name(), (0.0, 0))
-            per_name[e.name()] = (tot + e.duration_ns() / 1e3, n + 1)
-    collect = time.perf_counter() - t_collect
-    if not per_name:
-        return {"wall_s": wall, "device_busy_s": "not measured"}
-    busy = sum(tot for tot, _ in per_name.values()) / 1e6
-    top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:5]
-    return {"wall_s": wall, "device_busy_s": busy, "idle_share": max(0.0, 1 - busy / wall),
-            "trace_collect_s": collect,
-            "device_launches": sum(n for _, n in per_name.values()),
-            "top_kernels": [{"name": k[:90], "ms": v[0] / 1e3, "count": v[1]} for k, v in top]}
 
 
 # the mesh phases: the flagship model at world size 1 over NCCL, four
@@ -5276,8 +4594,8 @@ def phase_mesh_train_main_path(card: str, cfg, tokenizer, batches, out_dir: str)
     to the no-mesh runner's, its K1 and K2 counts equal; the FSDP checkpoint
     restores through ``restore_sharded`` into a replicated runner and back
     into the FSDP runner, bit-equal; FSDP's per-rank state bytes within
-    MESH_BYTES_MARGIN of ``state_shardings(fsdp=True)``. Logs seconds a
-    step, peak memory per variant and one traced FSDP step."""
+    MESH_BYTES_MARGIN of ``state_shardings(fsdp=True)``. Logs peak memory
+    per variant."""
     import copy
     import os
     import shutil
@@ -5328,10 +4646,9 @@ def phase_mesh_train_main_path(card: str, cfg, tokenizer, batches, out_dir: str)
             free_cuda()
             model, runner = build(variant)
             reshaped = [runner.reshape_accum(b) for b in steps]
-            torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             fused_attention.launches = fused_attention_bwd.launches = 0
-            records, _ = timed_train_steps(runner, reshaped, lambda: None)
+            records, _ = train_steps(runner, reshaped, lambda: None)
             k1, k2 = fused_attention.launches, fused_attention_bwd.launches
             named = dict(model.named_parameters())
             opt = runner.state.optimizer
@@ -5339,8 +4656,7 @@ def phase_mesh_train_main_path(card: str, cfg, tokenizer, batches, out_dir: str)
             # stay there
             trained = {n: whole(runner, n, named[n]).clone() for n in opt.names}
             stats = {n: b.detach().clone() for n, b in model.named_buffers() if "running_" in n}
-            rec = {"seconds_per_step": [r["seconds"] for r in records],
-                   "loss": [r["loss"] for r in records],
+            rec = {"loss": [r["loss"] for r in records],
                    "grad_norm": [r["grad_norm"] for r in records],
                    "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
                    "memory_stats_gb": get_memory_stats(), "state_bytes": state_bytes(runner),
@@ -5393,23 +4709,12 @@ def phase_mesh_train_main_path(card: str, cfg, tokenizer, batches, out_dir: str)
             raise AssertionError(f"mesh fsdp: {variants['fsdp']['state_bytes']} state bytes a "
                                  f"rank against {implied_bytes} implied")
 
-        def one_step():
-            fsdp_runner.state, metrics = fsdp_runner.train_step(
-                fsdp_runner.state, fsdp_runner.reshape_accum(steps[0]))
-            float(metrics["loss"])
-
-        traced = traced_run(one_step)
-
         # the FSDP checkpoint into a replicated runner and back
         ckpt = os.path.join(root, "fsdp_ckpt")
-        t = time.perf_counter()
-        save_checkpoint(ckpt, fsdp_runner.state, MESH_STEPS + 1)
-        save_s = time.perf_counter() - t
-        ckpt_bytes = os.path.getsize(os.path.join(ckpt, f"step_{MESH_STEPS + 1}.pt"))
+        save_checkpoint(ckpt, fsdp_runner.state, MESH_STEPS)
+        ckpt_bytes = os.path.getsize(os.path.join(ckpt, f"step_{MESH_STEPS}.pt"))
         rep_model, rep_runner = build("replicated")
-        t = time.perf_counter()
         restore_sharded(ckpt, rep_runner.state, mesh)
-        restore_s = time.perf_counter() - t
         fsdp_named, rep_named = dict(fsdp_model.named_parameters()), dict(rep_model.named_parameters())
         fsdp_layout = fsdp_runner.state.layout
 
@@ -5438,8 +4743,7 @@ def phase_mesh_train_main_path(card: str, cfg, tokenizer, batches, out_dir: str)
              "backend": dist.get_backend(), "mesh": mesh.shape, "accumulation": MESH_ACCUM,
              "optimizer_steps": MESH_STEPS, "variants": variants,
              "fsdp_state_bytes_over_implied": share, "fsdp_implied_bytes": implied_bytes,
-             "fsdp_traced_step": traced, "checkpoint_bytes": ckpt_bytes,
-             "checkpoint_save_s": save_s, "restore_sharded_s": restore_s,
+             "checkpoint_bytes": ckpt_bytes,
              "restore_mismatches": {"into_replicated": into_replicated[:5],
                                     "back_into_fsdp": back_into_fsdp[:5]}})
         if into_replicated or back_into_fsdp:
@@ -5489,8 +4793,8 @@ def phase_mesh_serving_main_path(card: str, model, serve_cfg, av_record: dict) -
     items at its serving shape. Gates: greedy tokens bit-equal to the AV
     main path's no-mesh run in this call, beam tokens bit-equal to a
     no-mesh beam run here, exactly 56 K1 a batch (32 encoder + 24 tower).
-    Logs segments/s and peak memory per run beside the no-mesh run's.
-    Returns the mesh runs' K1 launches."""
+    Logs peak memory per run beside the no-mesh run's. Returns the mesh
+    runs' K1 launches."""
     import argparse
     import os
 
@@ -5521,24 +4825,18 @@ def phase_mesh_serving_main_path(card: str, model, serve_cfg, av_record: dict) -
                 if tr.mesh is None or tr.mesh.shape != {"data": 1, "model": 1}:
                     raise AssertionError(f"mesh_serving: the transcriber's mesh is {tr.mesh}")
                 if beam == 1:  # the AV main path's no-mesh run in this call
-                    want, plain_s = av_record["tokens"], av_record["seconds"]
+                    want = av_record["tokens"]
                     plain_peak = av_record["max_memory_allocated_bytes"]
                 else:  # a no-mesh run here, just before the mesh one
                     plain = StreamingTranscriber(
                         model, tr.tokenizer, audio_max_length=tr.audio_max_length,
                         video_frames=tr.video_frames, batch_size=batch,
                         max_new_tokens=max_new, beam_size=beam)
-                    torch.cuda.synchronize()
                     torch.cuda.reset_peak_memory_stats()
-                    t0 = time.perf_counter()
                     want = [list(r.tokens) for r in plain.transcribe(items)]
-                    torch.cuda.synchronize()
-                    plain_s = time.perf_counter() - t0
                     plain_peak = torch.cuda.max_memory_allocated()
-                torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
-                results, seconds, k1, stats_writes, k2 = run_counted(
-                    lambda: tr.transcribe(items))
+                results, k1, stats_writes, k2 = run_counted(lambda: tr.transcribe(items))
                 check_served(results, len(items), max_new)
                 got = [list(r.tokens) for r in results]
                 if k1 != per_batch * n_batches or k2 or stats_writes:
@@ -5550,18 +4848,16 @@ def phase_mesh_serving_main_path(card: str, model, serve_cfg, av_record: dict) -
                                          f"no-mesh transcriber's on {bad}")
                 launches += k1
                 out["greedy" if beam == 1 else f"beam{beam}"] = {
-                    "seconds": seconds, "segments_per_s": len(items) / seconds,
                     "k1_per_batch": k1 / n_batches, "tokens_bit_equal": True,
                     "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
-                    "no_mesh_seconds": plain_s, "no_mesh_max_memory_allocated_bytes": plain_peak,
-                    "seconds_over_no_mesh": seconds / plain_s}
+                    "no_mesh_max_memory_allocated_bytes": plain_peak}
         finally:
             _serving_common.build_target_with_weights = builder
             _serving_common.serving_mesh = mesher
             dist.destroy_process_group()
     log({"phase": "mesh_serving_main_path", "card": card, "mesh": {"data": 1, "model": 1},
          "items": len(items), "batches": n_batches, "batch": batch, "max_new_tokens": max_new,
-         "no_mesh_greedy_segments_per_s": av_record["segments_per_s"], "runs": out})
+         "runs": out})
     return launches
 
 
@@ -5581,7 +4877,7 @@ def phase_ep_avhubert_main_path(card: str) -> dict:
     the eval loss and every trained tensor bit-equal to the no-mesh run
     (at world size 1 the mesh splits nothing and the routing is one
     device's); K1 and K2 launched in every step, the same counts in both
-    runs. Logs seconds a step, peak memory, ``moe_aux``, K1/K2 a step and
+    runs. Logs peak memory, ``moe_aux``, K1/K2 a step and
     ``sharded_params``. Every tensor trains here, the ResNet stem's
     convolutions too, whose cuDNN weight gradients are not deterministic by
     default: the phase runs with ``torch.use_deterministic_algorithms`` (and
@@ -5600,27 +4896,23 @@ def phase_ep_avhubert_main_path(card: str) -> dict:
     build = train_pkg.make_train_step
     steps: list = []
 
-    def timed_make_train_step(*a, **kw):  # each step's seconds and K1/K2 launches
+    def counted_make_train_step(*a, **kw):  # each step's K1/K2 launches
         step = build(*a, **kw)
 
-        def timed(state, batch):
+        def counted(state, batch):
             k1, k2 = attention.fused_attention.launches, attention.fused_attention_bwd.launches
-            torch.cuda.synchronize()
-            t = time.perf_counter()
             out = step(state, batch)
-            torch.cuda.synchronize()
-            steps.append({"seconds": time.perf_counter() - t,
-                          "k1": attention.fused_attention.launches - k1,
+            steps.append({"k1": attention.fused_attention.launches - k1,
                           "k2": attention.fused_attention_bwd.launches - k2})
             return out
 
-        return timed
+        return counted
 
     runs, kept = {}, None
     with tempfile.TemporaryDirectory() as tmp:
         dist.init_process_group("nccl", init_method="file://" + os.path.join(tmp, "rendezvous"),
                                 rank=0, world_size=1)
-        train_pkg.make_train_step = timed_make_train_step
+        train_pkg.make_train_step = counted_make_train_step
         cudnn_deterministic = torch.backends.cudnn.deterministic
         torch.backends.cudnn.deterministic = True
         torch.use_deterministic_algorithms(True, warn_only=True)
@@ -5629,13 +4921,13 @@ def phase_ep_avhubert_main_path(card: str) -> dict:
                 mesh = None if name == "no_mesh" else make_ep_mesh(1, experts_parallel=1)
                 steps.clear()
                 torch.cuda.reset_peak_memory_stats()
-                (result, state, history), seconds, k1, _, k2 = run_counted(
+                (result, state, history), k1, _, k2 = run_counted(
                     lambda: avhubert_ft.train(avhubert_ft.parse_args(args), mesh))
                 named = dict(state.model.named_parameters())
                 trained = {n: (p.detach() if state.layout is None
                                else state.layout.full(n, p)) for n, p in named.items()}
                 runs[name] = {
-                    "result": result, "seconds": seconds, "k1": k1, "k2": k2,
+                    "result": result, "k1": k1, "k2": k2,
                     "steps": [dict(st, loss=float(m["loss"]), moe_aux=float(m["moe_aux"]),
                                    grad_norm=float(m["grad_norm"]))
                               for st, m in zip(list(steps), history)],
@@ -5657,9 +4949,6 @@ def phase_ep_avhubert_main_path(card: str) -> dict:
     del kept
     free_cuda()
     base, ep = runs["no_mesh"], runs["ep_1x1"]
-    for run in runs.values():
-        run["seconds_per_step"] = [st["seconds"] for st in run["steps"]]
-        run["seconds_per_step_median_2_3"] = statistics.median(run["seconds_per_step"][1:])
     log({"phase": "ep_avhubert_main_path", "card": card, "experts": EP_EXPERTS,
          "top_k": EP_TOP_K, "steps": EP_STEPS, "runs": runs,
          "sharded_params": ep["result"]["sharded_params"], "mesh": ep["result"]["mesh"],
@@ -5780,9 +5069,8 @@ def phase_pp_whisper_main_path(card: str) -> dict:
     32 K1 and 32 K2 a microbatch (the schedule keeps each microbatch's
     graph, so the backward recomputes nothing). (3) ``save_checkpoint`` of
     the pp state read back into the unpipelined model: the same tensors.
-    Every launch shape is held against the plain version. Logs seconds a
-    step (median of steps 2-3, both variants), peak memory and a traced
-    step's idle share."""
+    Every launch shape is held against the plain version. Logs peak
+    memory."""
     import copy
     import os
 
@@ -5796,7 +5084,6 @@ def phase_pp_whisper_main_path(card: str) -> dict:
     from avsl_tpu_torch.train.checkpoints import save_checkpoint
     from avsl_tpu_torch.train.optim import ClippedAdamW
 
-    t0 = time.perf_counter()
     model, cfg = build_whisper_flamingo("large-v2", add_gated_x_attn=0,
                                         use_av_hubert_encoder=False, dtype="bfloat16",
                                         param_dtype="float32", device="cuda", seed=7)
@@ -5809,7 +5096,6 @@ def phase_pp_whisper_main_path(card: str) -> dict:
     pp = EncoderClassifier(cfg, enc, head, pp=True)
     del enc, head
     free_cuda()
-    build_s = time.perf_counter() - t0
     layers = cfg.n_audio_layer
     mel = torch.randn(PP_BATCH, cfg.n_mels, 2 * cfg.n_audio_ctx, device="cuda", generator=gen)
     labels = torch.randint(0, LARGE_V2_VOCAB, (PP_STEPS, PP_TRAIN_BATCH), device="cuda",
@@ -5818,9 +5104,8 @@ def phase_pp_whisper_main_path(card: str) -> dict:
                             device="cuda", generator=gen)
     rec = {"phase": "pp_whisper_main_path", "card": card, "layers": layers,
            "width": cfg.n_audio_state, "heads": cfg.n_audio_head,
-           "frames": cfg.n_audio_ctx, "build_seconds": build_s,
-           "params": sum(p.numel() for p in pp.parameters())}
-    seen: dict = {}
+           "frames": cfg.n_audio_ctx, "params": sum(p.numel() for p in pp.parameters())}
+    seen: list = []
     cudnn_deterministic = torch.backends.cudnn.deterministic
     with tempfile.TemporaryDirectory() as tmp:
         dist.init_process_group("nccl", init_method="file://" + os.path.join(tmp, "rendezvous"),
@@ -5831,14 +5116,13 @@ def phase_pp_whisper_main_path(card: str) -> dict:
             mesh = make_pp_mesh(1, stages=1)
             rec["mesh"] = dict(mesh.shape)
             with torch.no_grad():
-                with launch_shapes(seen):
-                    pp_out, fwd_s, fwd_k1, _, fwd_k2 = run_counted(
+                with recorded(True, seen):
+                    pp_out, fwd_k1, _, fwd_k2 = run_counted(
                         lambda: pp.features(mel, mesh, PP_MICRO))
                 chunked = chunked_encoder(base.encoder, mel, PP_MICRO)
                 whole = base.encoder(mel)
-            torch.cuda.synchronize()
             rec["forward"] = {
-                "batch": PP_BATCH, "microbatches": PP_MICRO, "seconds": fwd_s, "k1": fwd_k1,
+                "batch": PP_BATCH, "microbatches": PP_MICRO, "k1": fwd_k1,
                 "k2": fwd_k2, "bit_equal_to_chunked": bool(torch.equal(pp_out, chunked)),
                 "max_abs_diff_chunked": float((pp_out.float() - chunked.float()).abs().max()),
                 "max_abs_err_whole": float((pp_out.float() - whole.float()).abs().max()),
@@ -5877,25 +5161,21 @@ def phase_pp_whisper_main_path(card: str) -> dict:
                     batch = {"mel": train_mel[i], "labels": labels[i]}
                     k1 = attention.fused_attention.launches
                     k2 = attention.fused_attention_bwd.launches
-                    torch.cuda.synchronize()
-                    t = time.perf_counter()
-                    with launch_shapes(seen) if name == "pp" else contextlib.nullcontext():
+                    launches = []
+                    with recorded(name == "pp", launches):
                         state, metrics = step(state, batch)
                         loss, norm = float(metrics["loss"]), float(metrics["grad_norm"])
-                    torch.cuda.synchronize()
-                    steps.append({"seconds": time.perf_counter() - t, "loss": loss,
-                                  "grad_norm": norm,
+                    seen += launches
+                    steps.append({"loss": loss, "grad_norm": norm,
                                   "k1": attention.fused_attention.launches - k1,
                                   "k2": attention.fused_attention_bwd.launches - k2})
                 opt.step = inner
                 totals = (attention.fused_attention.launches,
                           attention.fused_attention_bwd.launches)
-                variants[name] = {"k1": totals[0], "k2": totals[1],
-                    "steps": steps, "seconds_per_step_median_2_3": statistics.median(
-                        [s["seconds"] for s in steps[1:]]),
-                    "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+                variants[name] = {"k1": totals[0], "k2": totals[1], "steps": steps,
+                                  "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
                 if name == "pp":
-                    pp_state, pp_step = state, step
+                    pp_state = state
             rec["train"] = variants
             pp_steps, base_steps = variants["pp"]["steps"], variants["unpipelined"]["steps"]
             loss_rel = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
@@ -5917,17 +5197,8 @@ def phase_pp_whisper_main_path(card: str) -> dict:
                 raise AssertionError(f"pp_whisper_main_path train: losses {loss_rel}, gradient "
                                      f"{worst} {grad_rel[worst]}, K1/K2 a step {per_step}")
 
-            def one_step():
-                nonlocal pp_state
-                pp_state, metrics = pp_step(pp_state, {"mel": train_mel[0], "labels": labels[0]})
-                float(metrics["loss"])
-
-            rec["traced_step"] = traced_run(one_step)
-
             ckpt = os.path.join(tmp, "ckpt")
-            t = time.perf_counter()
             path = save_checkpoint(ckpt, pp_state, pp_state.step)
-            rec["checkpoint_save_s"] = time.perf_counter() - t
             rec["checkpoint_bytes"] = os.path.getsize(path)
             saved = torch.load(path, map_location="cuda", weights_only=True)["model"]
             os.remove(path)
@@ -5947,7 +5218,7 @@ def phase_pp_whisper_main_path(card: str) -> dict:
             torch.use_deterministic_algorithms(False)
             torch.backends.cudnn.deterministic = cudnn_deterministic
             dist.destroy_process_group()
-    rec["launch_shapes"] = check_launch_shapes(seen)
+    rec["shapes_checked"] = check_launch_shapes(seen)
     log(rec)
     return {"forward": fwd_k1, "train_k1": variants["pp"]["k1"],
             "train_k2": variants["pp"]["k2"]}
@@ -6173,7 +5444,6 @@ def phase_mesh_cpu_ranks(card: str) -> dict:
     from avsl_tpu_torch.data.tokenizer import ByteTokenizer
     from avsl_tpu_torch.models import build_avhubert, build_whisper_flamingo
 
-    t0 = time.perf_counter()
     w_cfg = WhisperConfig.tiny_test()
     rng = np.random.default_rng(11)
     labels = rng.integers(0, w_cfg.n_vocab, size=(2, 4, 6))
@@ -6271,7 +5541,6 @@ def phase_mesh_cpu_ranks(card: str) -> dict:
             ranks = dict(queue.get(timeout=300) for _ in procs)
             for p in procs:
                 p.join(timeout=30)
-            spawn_s = time.perf_counter() - t0
             stdout, stderr = cli.communicate(timeout=300)
             tr_stdout, tr_stderr = tr_cli.communicate(timeout=300)
             pre_stdout, pre_stderr = pre_cli.communicate(timeout=300)
@@ -6280,7 +5549,6 @@ def phase_mesh_cpu_ranks(card: str) -> dict:
                 if proc.poll() is None:
                     proc.kill()
                     proc.wait()
-        cli_s = time.perf_counter() - t0
         if tr_cli.returncode != 0 or not os.path.exists(served):
             raise AssertionError(f"mesh_cpu_ranks: cli.transcribe rc {tr_cli.returncode}:\n"
                                  f"{tr_stdout[-2000:]}\n{tr_stderr[-2000:]}")
@@ -6372,10 +5640,10 @@ def phase_mesh_cpu_ranks(card: str) -> dict:
     log({"phase": "mesh_cpu_ranks", "card": card, "ranks": 2, "backend": "gloo",
          "variants": list(MESH_CPU_VARIANTS), "loss_single": single["loss"],
          "eval_loss_single": single["eval_loss"], "sequence_splits": splits,
-         "trained_max_abs_diff": worst, "tolerance": MESH_CPU_TOL, "spawn_s": spawn_s,
+         "trained_max_abs_diff": worst, "tolerance": MESH_CPU_TOL,
          "transcriber": {"variants": list(MESH_CPU_SERVE), "items": len(items),
                          "tokens_equal": True},
-         "cli": {"seconds_from_start": cli_s, "done_lines": done, "checkpoints": ckpts,
+         "cli": {"done_lines": done, "checkpoints": ckpts,
                  "metrics_lines": len(lines)},
          "transcribe_cli": {"rows": len(transcripts), "printed": len(printed)},
          "moe": {"variants": list(MESH_CPU_MOE), "capacity_factor": MESH_CPU_MOE_CF,
@@ -6408,11 +5676,10 @@ def main() -> int:
 
     from avsl_tpu_torch.kernels import _build
 
-    t0 = time.perf_counter()
     with ThreadPoolExecutor(len(SOURCES)) as pool:  # one nvcc per source, together
         for future in [pool.submit(_build.load_library, name) for name in SOURCES]:
             future.result()
-    log({"phase": "build", "sources": list(SOURCES), "seconds": time.perf_counter() - t0})
+    log({"phase": "build", "sources": list(SOURCES)})
     for name, text in _build.BUILD_LOGS.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
@@ -6420,128 +5687,95 @@ def main() -> int:
     sass = sass_counts()
     log({"phase": "sass", "tensor_core_instructions": sass})
 
-    # each phase's seconds on the host clock, logged before the kernel list
-    phase_seconds: dict = {}
-
-    def timed(name, fn, *args):
-        t = time.perf_counter()
-        try:
-            return fn(*args)
-        finally:
-            phase_seconds[name] = round(time.perf_counter() - t, 3)
-
-    cfg, tokenizer, train_batches, label_len = timed("prepare_train_path", prepare_train_path,
-                                                     TRAIN_STEPS)
-    fl_cfg, fl_tokenizer, fl_batches, fl_len = timed("prepare_flamingo_path",
-                                                     prepare_flamingo_path, TRAIN_STEPS)
+    cfg, tokenizer, train_batches, label_len = prepare_train_path(TRAIN_STEPS)
+    fl_cfg, fl_tokenizer, fl_batches, fl_len = prepare_flamingo_path(TRAIN_STEPS)
     log({"phase": "prepare_train_paths", "label_len": label_len, "flamingo_label_len": fl_len})
-    fwd_cases = timed("kernels", phase_kernels, label_len, fl_len)
-    timed("kernel_stats", phase_kernel_stats, fl_len)
-    bwd_cases = timed("kernels_bwd", phase_kernels_bwd, label_len, fl_len)
-    timed("small_reference", phase_small_reference)
-    timed("small_av_reference", phase_small_av_reference)
-    timed("cached_attention", phase_cached_attention)
-    timed("small_train_reference", phase_small_train_reference)
-    timed("small_flamingo_train_reference", phase_small_flamingo_train_reference)
-    timed("small_avhubert_reference", phase_small_avhubert_reference)
-    pre_small = timed("pretrain_small_reference", phase_pretrain_small_reference, smi)
-    timed("small_serving_reference", phase_small_serving_reference)
-    timed("resample", phase_resample, smi)
+    fwd_cases = phase_kernels(label_len, fl_len)
+    phase_kernel_stats(fl_len)
+    bwd_cases = phase_kernels_bwd(label_len, fl_len)
+    phase_small_reference()
+    phase_small_av_reference()
+    phase_cached_attention()
+    phase_small_train_reference()
+    phase_small_flamingo_train_reference()
+    phase_small_avhubert_reference()
+    pre_small = phase_pretrain_small_reference(smi)
+    phase_small_serving_reference()
+    phase_resample(smi)
 
-    def free():
-        gc.collect()
-        torch.cuda.empty_cache()
-
-    timed("lip_frontend", phase_lip_frontend, smi)
-    free()
-    serving_launches, main_model = timed("main_path", phase_main_path, smi)
-    spec_launches = timed("serving_extras_speculative", phase_serving_extras_spec, smi,
-                          main_model)
+    phase_lip_frontend(smi)
+    free_cuda()
+    serving_launches, main_model = phase_main_path(smi)
+    spec_launches = phase_serving_extras_spec(smi, main_model)
     del main_model
-    free()
-    export_launches = timed("serving_extras_export", phase_serving_extras_export, smi)
-    free()
+    free_cuda()
+    export_launches = phase_serving_extras_export(smi)
+    free_cuda()
     with tempfile.TemporaryDirectory() as out_dir:
-        distill_launches = timed("distill", phase_distill, smi, out_dir)
-    free()
-    av_serving_launches, av_model, av_record = timed("av_main_path", phase_av_main_path, smi)
-    av_raw_launches = timed("av_raw_main_path", phase_av_raw_main_path, smi, *av_model,
-                            av_record)
-    daemon_launches = timed("serving_daemon", phase_serving_daemon, smi, *av_model)
-    mesh_serving_launches = timed("mesh_serving_main_path", phase_mesh_serving_main_path, smi,
-                                  *av_model, av_record)
+        distill_launches = phase_distill(smi, out_dir)
+    free_cuda()
+    av_serving_launches, av_model, av_record = phase_av_main_path(smi)
+    av_raw_launches = phase_av_raw_main_path(smi, *av_model)
+    daemon_launches = phase_serving_daemon(smi, *av_model)
+    mesh_serving_launches = phase_mesh_serving_main_path(smi, *av_model, av_record)
     with tempfile.TemporaryDirectory() as chain_dir:
-        chain_records = timed("preprocess_chain", phase_preprocess_chain, smi, chain_dir)
-        eval_launches = timed("evaluate_main_path", phase_evaluate_main_path, smi, *av_model,
-                              chain_records)
+        chain_records = phase_preprocess_chain(smi, chain_dir)
+        eval_launches = phase_evaluate_main_path(smi, *av_model, chain_records)
     av_model = list(av_model)
-    int8_launches = timed("serving_extras_int8", phase_serving_extras_int8, smi, av_model)
-    free()
+    int8_launches = phase_serving_extras_int8(smi, av_model)
+    free_cuda()
     with tempfile.TemporaryDirectory() as out_dir:
-        train_launches = timed("train_main_path", phase_train_main_path, smi, cfg, tokenizer,
-                               train_batches, out_dir)
-        free()
+        train_launches = phase_train_main_path(smi, cfg, tokenizer, train_batches, out_dir)
+        free_cuda()
         flamingo = {}
         for hoisted in (False, True):
-            flamingo[hoisted] = timed(
-                "flamingo_train_hoisted" if hoisted else "flamingo_train",
-                phase_flamingo_train_main_path, smi, fl_cfg, fl_tokenizer, fl_batches, out_dir,
-                hoisted)
-            free()
-        mesh_launches = timed("mesh_train_main_path", phase_mesh_train_main_path, smi, fl_cfg,
-                              fl_tokenizer, fl_batches, out_dir)
-        free()
-        pp_launches = timed("pp_whisper_main_path", phase_pp_whisper_main_path, smi)
-        free()
-        timed("mesh_cpu_ranks", phase_mesh_cpu_ranks, smi)
-        timed("multisteps_small", phase_multisteps_small, out_dir)
-        job, dataset_launches = timed("flamingo_dataset_train", phase_flamingo_dataset_train,
-                                      smi, out_dir)
-        timed("prefetch", phase_prefetch, smi, job)
+            flamingo[hoisted] = phase_flamingo_train_main_path(smi, fl_cfg, fl_tokenizer,
+                                                               fl_batches, out_dir, hoisted)
+            free_cuda()
+        mesh_launches = phase_mesh_train_main_path(smi, fl_cfg, fl_tokenizer, fl_batches, out_dir)
+        free_cuda()
+        pp_launches = phase_pp_whisper_main_path(smi)
+        free_cuda()
+        phase_mesh_cpu_ranks(smi)
+        phase_multisteps_small(out_dir)
+        job, dataset_launches = phase_flamingo_dataset_train(smi, out_dir)
+        phase_prefetch(smi, job)
         del job
-        free()
-        job, lora_launches = timed("flamingo_lora_train", phase_flamingo_lora_train, smi,
-                                   out_dir)
-        no_remat_launches = timed("remat_ab", phase_remat_ab, smi, job)
+        free_cuda()
+        job, lora_launches = phase_flamingo_lora_train(smi, out_dir)
+        no_remat_launches = phase_remat_ab(smi, job)
         del job
-        free()
-    log({"phase": "flamingo_kernel_excess", "card": smi,
-         **flamingo_kernel_excess(fwd_cases, bwd_cases, int(fl_cfg.gradient_accumulation_steps))})
-    avh_cli = timed("avhubert_cli", phase_avhubert_cli, smi)
-    avh = timed("avhubert_train", phase_avhubert_train_main_path, smi)
-    free()
-    pre, pre_batch, dense_step = timed("pretrain_main_path", phase_pretrain_main_path, smi)
-    free()
-    pre_moe = timed("pretrain_moe", phase_pretrain_moe, smi, pre_batch, dense_step)
+        free_cuda()
+    avh_cli = phase_avhubert_cli(smi)
+    avh = phase_avhubert_train_main_path(smi)
+    free_cuda()
+    pre, pre_batch = phase_pretrain_main_path(smi)
+    free_cuda()
+    pre_moe = phase_pretrain_moe(smi, pre_batch)
     del pre_batch
-    free()
-    ep_launches = timed("ep_avhubert_main_path", phase_ep_avhubert_main_path, smi)
-    free()
-    eval_smoke = timed("evaluate_cli_smoke", phase_evaluate_cli_smoke, smi)
-    avh_smoke = timed("avhubert_cli_smoke", phase_avhubert_cli_smoke, smi)
-    pre_smoke = timed("pretrain_cli_smoke", phase_pretrain_cli_smoke, smi)
-    free()
-    avh_tools = timed("avh_tools_main_path", phase_avh_tools_main_path, smi)
-    free()
-    avh_tiny = timed("avh_tools_card_vs_cpu", phase_avh_tools_card_vs_cpu, smi)
-    timed("landmark_cnn", phase_landmark_cnn, smi)
-    doctor_launches = timed("doctor", phase_doctor, smi)
-    free()
-    log({"phase": "phase_seconds", "card": smi, "seconds": phase_seconds,
-         "sum_s": round(sum(phase_seconds.values()), 3),
-         "script_s": round(time.perf_counter() - T_START, 3)})
+    free_cuda()
+    ep_launches = phase_ep_avhubert_main_path(smi)
+    free_cuda()
+    eval_smoke = phase_evaluate_cli_smoke(smi)
+    avh_smoke = phase_avhubert_cli_smoke(smi)
+    pre_smoke = phase_pretrain_cli_smoke(smi)
+    free_cuda()
+    avh_tools = phase_avh_tools_main_path(smi)
+    free_cuda()
+    avh_tiny = phase_avh_tools_card_vs_cpu(smi)
+    phase_landmark_cnn(smi)
+    doctor_launches = phase_doctor(smi)
+    free_cuda()
 
     def entry(name, lib, source, replaces, cases, launches):
         case = cases[0]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": sum(launches.values()), "launches_by_path": launches,
-                "max_abs_err": case["max_abs_err"], "ms": case["kernel_ms"],
-                "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
-                "bound_by": case["bound_by"], "library_ms": case["library_ms"],
-                "shape": case["shape"], "dtype": case["dtype"], "sass": sass[lib],
-                "device_ms": case["kernel_device_ms"],
-                "library_device_ms": case["library_device_ms"],
-                "ms_by_case": {c["case"]: c["kernel_ms"] for c in cases},
+                "max_abs_err": case["max_abs_err"], "device_ms": case["kernel_device_ms"],
+                "plain_device_ms": case["plain_device_ms"],
+                "library_device_ms": case["library_device_ms"], "bound_ms": case["bound_ms"],
+                "bound_by": case["bound_by"], "shape": case["shape"], "dtype": case["dtype"],
+                "sass": sass[lib],
                 "device_ms_by_case": {c["case"]: c["kernel_device_ms"] for c in cases}}
 
     log({"kernels": [

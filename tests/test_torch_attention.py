@@ -142,9 +142,10 @@ NEW_BODIES = {
 def test_torch_attention_new_bodies_accepted_and_match_jax(body):
     """The wrapper's shape check takes these head dims, and its CPU plain
     path matches ``avsl_tpu.kernels.attention`` there (fp32 1e-5; bf16
-    within chip_smoke.py's BF16_TOL, both sides rounding the weights to
-    bf16 before the PV product)."""
-    from chip_smoke import BF16_TOL, D16_LENGTHS
+    within BF16_TOL, both sides rounding the weights to bf16 before the PV
+    product)."""
+    from avsl_tpu_torch.kernels.attention import BF16_TOL
+    from torch_attention_cases import D16_LENGTHS
 
     dtype, d = NEW_BODIES[body]
     b, tq, h = 4, 37, 2

@@ -2,7 +2,8 @@
 
 The bf16 bodies of ``csrc/flash_attn_fwd.cu`` (K1) and
 ``csrc/flash_attn_bwd.cu`` (K2) round at other points than the plain
-versions that ``chip_smoke.py`` holds them to on the card:
+versions that the card gate at the repository root holds them to on
+the card:
 
 - K1 runs an online softmax over 64-key tiles in log2 units (the scale
   times log2(e), exp2), rounds the *unnormalised* exp2(x - m) to bf16 as
@@ -17,10 +18,11 @@ The plain versions round the *normalised* P (forward) or nothing (backward).
 These tests emulate the kernels' arithmetic in plain torch and hold it to
 ``reference_attention`` / ``reference_attention_bwd`` within the card's
 ``BF16_TOL``, and the emulated m and l to ``reference_attention_stats``
-within ``STATS_TOL`` (both from ``chip_smoke.py``), on ``chip_smoke.py``'s
-bf16 cases at H = 2 (B = 2 for the 1500-frame encoder, to bound memory),
-the AV-HuBERT decoder's D = 128, the tiny_test head dim 16 and the
-causal-with-lengths cases among them; those hold K2 to the limit with ``chip_smoke.py``'s magnitude term.
+within ``STATS_TOL`` (both from ``kernels/attention.py``), on
+the card gate's bf16 cases at H = 2 (B = 2 for the 1500-frame encoder,
+to bound memory), the AV-HuBERT decoder's D = 128, the tiny_test head dim
+16 and the causal-with-lengths cases among them; those hold K2 to the limit
+with the magnitude term ``BF16_MAGNITUDE``.
 So the tolerances are known to hold at the new rounding points before the
 card checks the kernels themselves.
 """
@@ -32,19 +34,14 @@ import pytest
 import torch
 
 from avsl_tpu_torch.kernels.attention import (
+    BF16_MAGNITUDE,
+    BF16_TOL,
+    STATS_TOL,
     reference_attention,
     reference_attention_bwd,
     reference_attention_stats,
 )
-from chip_smoke import (
-    AMI_DEC_LENGTHS,
-    BF16_MAGNITUDE,
-    BF16_TOL,
-    D16_LENGTHS,
-    D64_CAUSAL_LENGTHS,
-    STATS_TOL,
-    bwd_magnitudes,
-)
+from torch_attention_cases import AMI_DEC_LENGTHS, D16_LENGTHS, D64_CAUSAL_LENGTHS, bwd_magnitudes
 
 LOG2E = np.float32(1.4426950408889634)
 LN2 = np.float32(0.6931471805599453)
@@ -53,7 +50,7 @@ MASKED2 = float(MASKED * LOG2E)  # the kernels' masked logit in log2 units
 TILE = 64
 
 CASES = {
-    # name: (b, h, tq, tk, d, causal, lengths), chip_smoke.py's bf16 cases at H = 2
+    # name: (b, h, tq, tk, d, causal, lengths), the card gate's bf16 cases at H = 2
     "encoder": (2, 2, 1500, 1500, 64, False, None),
     "decoder_self_causal": (8, 2, 448, 448, 64, True, None),
     "cross": (8, 2, 70, 1500, 64, False, None),
@@ -66,7 +63,7 @@ CASES = {
     "head_dim_16_causal_lengths": (4, 2, 100, 100, 16, True, D16_LENGTHS),
 }
 # the cases whose K2 limit adds BF16_MAGNITUDE times each element's
-# magnitude sum, as chip_smoke.py's do
+# magnitude sum, as the card gate's do
 MAGNITUDE_CASES = {"avhubert_decoder_self_ami", "head_dim_128", "causal_lengths_d64",
                    "head_dim_16_causal_lengths"}
 

@@ -2,9 +2,11 @@
 (``tests/test_doctor.py``) with ``--device cpu``, where the attention
 kernels' half of the compile probe is a WARN naming the card they need;
 without a card and without ``--device cpu``, a FAIL and exit code 1; and
-the kernel probe's comparison, run here on the plain version with the
-build stubbed (``nvcc`` builds it on a card)."""
+the kernel probe's comparison against ``kernels.attention.BF16_TOL``, run
+here on the plain version with the build stubbed (``nvcc`` builds it on a
+card)."""
 
+import pytest
 import yaml
 
 from avsl_tpu_torch.cli import doctor
@@ -55,13 +57,22 @@ def test_torch_doctor_fails_without_a_card(capsys, monkeypatch):
     assert "0 fail" not in out
 
 
-def test_torch_doctor_kernel_probe_builds_both_and_compares(monkeypatch):
+@pytest.mark.parametrize("tol", [None, dict(atol=-1.0, rtol=0.0)],
+                         ids=["bf16_tol", "limit_below_any_error"])
+def test_torch_doctor_kernel_probe_builds_both_and_compares(monkeypatch, tol):
+    """The probe holds the launch to ``kernels.attention.BF16_TOL``: a
+    limit put there below any error fails it."""
     import torch
 
-    from avsl_tpu_torch.kernels import _build
+    from avsl_tpu_torch.kernels import _build, attention
 
     built = []
     monkeypatch.setattr(_build, "load_library", built.append)
-    detail = doctor.kernel_probe(torch.device("cpu"))
+    if tol is None:
+        detail = doctor.kernel_probe(torch.device("cpu"))
+        assert detail.startswith("kernels built; attention launch within")
+    else:
+        monkeypatch.setattr(attention, "BF16_TOL", tol)
+        with pytest.raises(RuntimeError, match="differs from the plain version"):
+            doctor.kernel_probe(torch.device("cpu"))
     assert built == ["flash_attn_fwd", "flash_attn_bwd"]
-    assert detail.startswith("kernels built; attention launch within")

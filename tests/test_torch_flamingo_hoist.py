@@ -5,13 +5,12 @@ Flamingo regime's towers are frozen and forward-only, so the train step
 may run them once a step over the stacked batch (``precompute_fn``)
 instead of once a micro-step. Three accumulated steps (2 micro-batches of
 2) of the JAX hoisted step (``split_precompute=True``, as its runner
-builds it) are held against the port's hoisted step split into ``(step,
-pre)`` and fused, and against the port's in-scan step with the same
-frozen BatchNorm: loss and grad_norm per step rtol 2e-5, trained
+builds it) are held against the port's hoisted step, which runs the
+precompute inside the step, and against the port's in-scan step with the
+same frozen BatchNorm: loss and grad_norm per step rtol 2e-5, trained
 parameters after 3 steps atol 1e-5, frozen parameters and the running
 statistics bit-identical to where they started. The hoisted step runs the
-video tower once a step, the in-scan step once a micro-step; split and
-fused draw the same numbers from the state's generator.
+video tower once a step, the in-scan step once a micro-step.
 """
 
 import copy
@@ -57,23 +56,18 @@ def jax_run():
 
 
 def _port_step(port, mode):
-    """The port's step over ``port`` in ``mode``: "split", "fused" or
-    "in_scan" (towers in the loop), BatchNorm frozen in all three."""
+    """The port's step over ``port`` in ``mode``: "fused" (the towers
+    hoisted) or "in_scan" (towers in the loop), BatchNorm frozen in both."""
     opt, labels = select_optimizer(port, FlamingoTrainConfig(**TRAIN_CFG), 20)
     loss = flamingo_loss_fn(port, train=True, freeze_video_bn_stats=True, **MIXING)
     kw = dict(grad_accum_steps=2, param_labels=labels)
     if mode != "in_scan":
         kw["precompute_fn"] = flamingo_tower_precompute(port, train=True,
                                                         freeze_video_bn_stats=True, **MIXING)
-    if mode == "split":
-        step, pre = make_train_step(loss, split_precompute=True, **kw)
-        run = lambda s, b: step(s, b, pre(s, b))  # noqa: E731
-    else:
-        run = make_train_step(loss, **kw)
-    return TrainState.create(port, opt), run, labels
+    return TrainState.create(port, opt), make_train_step(loss, **kw), labels
 
 
-@pytest.mark.parametrize("mode", ["split", "fused", "in_scan"])
+@pytest.mark.parametrize("mode", ["fused", "in_scan"])
 def test_torch_hoisted_step_matches_jax(jax_run, mode):
     want, jstate, base, batches = jax_run
     port = copy.deepcopy(base)
@@ -91,26 +85,3 @@ def test_torch_hoisted_step_matches_jax(jax_run, mode):
     assert_params_close(port, labels, jstate.params, frozen0)
     assert all(torch.equal(v, stats0[k]) for k, v in port_batch_stats(port).items())
 
-
-def test_torch_split_and_fused_hoist_draw_alike(jax_run):
-    """With SpecAugment and the AV-mode draw on, split and fused consume
-    the state's generator alike and give the same step."""
-    _, _, base, batches = jax_run
-    out = []
-    for mode in ("split", "fused"):
-        port = copy.deepcopy(base)
-        state, _, labels = _port_step(port, mode)
-        state.generator.manual_seed(3)
-        draws = dict(freeze_video_bn_stats=True, spec_augment="ls-double", prob_av=0.5,
-                     prob_a=0.3)
-        loss = flamingo_loss_fn(port, train=True, **draws)
-        pre = flamingo_tower_precompute(port, train=True, **draws)
-        kw = dict(grad_accum_steps=2, param_labels=labels, precompute_fn=pre)
-        if mode == "split":
-            step, pre_fn = make_train_step(loss, split_precompute=True, **kw)
-            _, m = step(state, batches[0], pre_fn(state, batches[0]))
-        else:
-            _, m = make_train_step(loss, **kw)(state, batches[0])
-        out.append((float(m["loss"]), float(m["grad_norm"]), state.generator.get_state()))
-    assert out[0][:2] == out[1][:2]
-    assert torch.equal(out[0][2], out[1][2])

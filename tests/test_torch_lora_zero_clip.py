@@ -3,8 +3,9 @@
 freshly initialised tower every LayerNorm then sees zero variance, a
 gradient gain of 1/sqrt(eps) = 316 each. LoRA's backward overflows
 through 12 pre-norm blocks in JAX and in the port alike, and stays finite
-through 2 (the AV-HuBERT large tower has 24). ``chip_smoke.py`` gives the
-LoRA phase's rows seeded lip frames for that reason.
+through 2 (the AV-HuBERT large tower has 24). The card gate at the
+repository root gives its LoRA phase's rows seeded lip frames for that
+reason.
 """
 
 import numpy as np

@@ -8,7 +8,7 @@ block's wiring; padding invariance through ``valid`` and through the
 block's ``kv_lengths``. Then JAX against the port on carried parameters:
 ``MoEFFN``'s output, its balance loss and the gradients of
 ``sum(y^2) + 0.01 aux`` in fp32 (atol 1e-5 + rtol 1e-4) and in bf16
-compute (chip_smoke.py's BF16_TOL); flax's initialisation; the aux of
+compute (the kernels' BF16_TOL); flax's initialisation; the aux of
 every layer LayerDrop drops; remat counting the first forward's aux once
 with the same gradients; and the parallel entry points on one rank,
 refusing what JAX refuses on one device. The losses with an MoE trunk are
@@ -27,10 +27,10 @@ import jax.numpy as jnp
 
 from avsl_tpu.models.moe import MoEFFN as JaxMoE
 from avsl_tpu.models.moe import moe_aux_loss as jax_moe_aux_loss
+from avsl_tpu_torch.kernels.attention import BF16_TOL
 from avsl_tpu_torch.models.intermediates import collect_intermediates
 from avsl_tpu_torch.models.layers import TransformerBlock
 from avsl_tpu_torch.models.moe import MoEFFN, make_ep_mesh, moe_aux_loss
-from chip_smoke import BF16_TOL
 from test_torch_avhubert_models import TOL, av_inputs, close, t
 from test_torch_flamingo_common import one_torch_thread  # noqa: F401 (fixture)
 

@@ -2,8 +2,8 @@
 ``tests/test_prefetch.py`` holds the JAX one: order kept, tensors on the
 requested device, a source error re-raised at the consumer, an abandoned
 consumer's producer ends, a mesh hands each rank its rows. The CUDA
-stream path runs in
-``chip_smoke.py``'s ``prefetch`` phase."""
+stream path runs in the ``prefetch`` phase of the card gate at the
+repository root."""
 
 import threading
 import time
